@@ -1,0 +1,94 @@
+"""Causal GQA flash attention (forward): the CUDA kernel's wrapper.
+
+Port of ``repro.kernels.flash_attention.flash_attention_fwd``; the kernel is
+``csrc/flash_attention.cu``. On a CUDA tensor the wrapper launches the kernel
+(or raises); on a CPU tensor it computes the plain version
+``ref.flash_attention``. ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+launches = 0
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 256
+
+_fn = None
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = _build.load("flash_attention").flash_attention_fwd
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def check_attention_inputs(q, k, v, *, query_len=None):
+    """Raise on anything the CUDA kernels do not take."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor) or t.dim() != 4:
+            raise ValueError(f"{name} must be a 4-d tensor")
+        if t.dtype not in DTYPE_CODES:
+            raise TypeError(f"{name} has dtype {t.dtype}; supported: float32, bfloat16")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"devices differ: {q.device}, {k.device}, {v.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    b, s, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if query_len is not None and s != query_len:
+        raise ValueError(f"q has {s} positions, expected {query_len}")
+    hkv = k.shape[2]
+    if h % hkv != 0:
+        raise ValueError(f"{h} query heads do not group onto {hkv} kv heads")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}")
+    if q.device.type == "cuda" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("CUDA inputs must start on a 16-byte boundary")
+
+
+def _window(window) -> int:
+    w = int(window or 0)
+    if w < 0:
+        raise ValueError(f"window must be >= 0, got {w}")
+    return w
+
+
+def flash_attention_fwd(q, k, v, *, window=None, logit_cap: float = 0.0,
+                        scale: float) -> torch.Tensor:
+    """q: (B,S,H,D); k,v: (B,S,Hkv,D) -> (B,S,H,D). ``window`` 0/None = full
+    causal. Any S: the kernel masks the ragged edge itself.
+
+    bf16 with head_dim 64/128/256 runs on the tensor cores, anything else on
+    the fp32 CUDA cores."""
+    global launches
+    check_attention_inputs(q, k, v)
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"q has {q.shape[1]} positions, k has {k.shape[1]}")
+    w = _window(window)
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, window=w, logit_cap=logit_cap, scale=scale)
+    b, s, h, d = q.shape
+    out = torch.empty_like(q)
+    fn = _kernel()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, s, h, k.shape[2], d, w, float(scale), float(logit_cap or 0.0),
+                 DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
+    launches += 1
+    return out

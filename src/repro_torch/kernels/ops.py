@@ -1,0 +1,45 @@
+"""Dispatch for the attention kernels.
+
+``use_kernel=True`` goes through the kernel wrappers, which launch the CUDA
+kernel for a CUDA tensor and compute the plain version for a CPU tensor;
+``use_kernel=False`` computes the plain version (``ref``) on any device. There
+is no fallback for awkward shapes: the kernels mask a ragged S themselves.
+Port of ``repro.kernels.ops`` (flash and decode attention; the RMSNorm kernel
+is not ported yet).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import ref
+
+
+def flash_attention(q, k, v, *, window=None, logit_cap: float = 0.0,
+                    scale: float, use_kernel: bool = True):
+    """Causal GQA attention. q: (B,S,H,D); k,v: (B,S,Hkv,D)."""
+    if use_kernel:
+        return _flash.flash_attention_fwd(q, k, v, window=window, logit_cap=logit_cap,
+                                          scale=scale)
+    return ref.flash_attention(q, k, v, window=window, logit_cap=logit_cap, scale=scale)
+
+
+def decode_attention(q, k_cache, v_cache, pos: int, *, window=None,
+                     logit_cap: float = 0.0, scale: float, use_kernel: bool = True):
+    """One-token decode against a KV cache. q: (B,1,H,D)."""
+    if use_kernel:
+        return _decode.decode_attention_fwd(q, k_cache, v_cache, pos, window=window,
+                                            logit_cap=logit_cap, scale=scale)
+    return ref.decode_attention(q, k_cache, v_cache, pos, window=window,
+                                logit_cap=logit_cap, scale=scale)
+
+
+def launch_counts() -> Dict[str, int]:
+    """CUDA kernel launches since the last reset, by kernel."""
+    return {"flash_attention": _flash.launches, "decode_attention": _decode.launches}
+
+
+def reset_launch_counts() -> None:
+    _flash.launches = 0
+    _decode.launches = 0
