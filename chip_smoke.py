@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py            # everything; needs one CUDA card
-    python3 chip_smoke.py --quick    # build + kernel parity only, no timing, no serve
+    python3 chip_smoke.py                  # needs one CUDA card
+    python3 chip_smoke.py --profile DIR    # also profile the served model
 
 Phases, each fatal on failure:
  1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
     the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
  2. kernels: each kernel against its plain PyTorch version on the card, at
-    gemma2-2b's shapes, with the tolerance stated; kernel, plain and library
-    times from CUDA events;
+    gemma2-2b's shapes: the largest error of a query row over that row's norm
+    must be within ``ref.ROW_REL_TOL``, and planted faults (the plain version
+    of a kernel that ignores the window, drops the last 128 keys or ignores
+    the cap) must read above it. Kernel, plain and library times from CUDA
+    events;
  3. serve: gemma2-2b at full width (random bf16 weights from a seeded
     ``torch.Generator``), batch 2, a 4352-token prompt and 32 greedy decode
     steps through ``repro_torch.launch.serve.serve``. The timed part must make
@@ -36,7 +39,6 @@ sys.path.insert(0, str(ROOT / "src"))
 # fp32 CUDA cores, HBM3 bandwidth.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
-TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # atol = rtol, as tests/test_kernels.py
 ITERS = 20                                   # timed launches per measurement
 
 # gemma2-2b serving shapes of this smoke run
@@ -77,51 +79,78 @@ def bound(flops: float, nbytes: float, dtype: str):
     return max(t_ops, t_mem) * 1e3, ("operations" if t_ops >= t_mem else "bytes")
 
 
-def compare(name: str, got, want, dtype: str) -> float:
+def compare(name: str, got, want, faults=()):
+    """Hold a kernel's output against its plain version: the largest error of
+    a query row over the norm of that row must be within ``ref.ROW_REL_TOL``.
+    ``faults`` are (label, plain output of a wrongly written kernel); each must
+    read above the limit, or the check could not tell it from a sound kernel.
+    Returns (max_abs_err, max_row_rel_err)."""
     import torch
-    tol = TOL[dtype]
-    g, w = got.float(), want.float()
-    err = (g - w).abs().max().item()
-    ok = bool(torch.isfinite(g).all()) and torch.allclose(g, w, atol=tol, rtol=tol)
-    print(f"  parity {name}: max_abs_err={err:.3e} tol(atol=rtol)={tol:g} "
+    from repro_torch.kernels import ref
+    tol = ref.ROW_REL_TOL[got.dtype]
+    err = (got.float() - want.float()).abs().max().item()
+    rel = ref.max_row_rel_err(got, want)
+    ok = bool(torch.isfinite(got).all()) and rel <= tol
+    print(f"  parity {name}: max_row_rel_err={rel:.3e} limit={tol:g} max_abs_err={err:.3e} "
           f"{'ok' if ok else 'MISMATCH'}", flush=True)
     if not ok:
         fail(f"{name}: kernel disagrees with its plain version")
-    return err
+    for label, wrong in faults:
+        r = ref.max_row_rel_err(wrong, want)
+        print(f"    planted fault, {label}: max_row_rel_err={r:.3e}", flush=True)
+        if not r > tol:
+            fail(f"{name}: the planted fault '{label}' reads within the limit")
+    return err, rel
 
 
-def randn(shape, dtype, gen):
+def randn(shape, dtype, gen, std: float = 1.0):
     import torch
-    return torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32).to(dtype)
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float32)
+    return (x * std).to(dtype)
 
 
-def flash_phase(quick: bool, iters: int):
+def flash_phase(iters: int):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    cases = [  # (b, s, h, hkv, d), window, cap, dtype, timed
-        ((B, PROMPT, H, HKV, D), WINDOW, CAP, "bfloat16", True),
-        ((B, PROMPT, H, HKV, D), 0, CAP, "bfloat16", True),
-        ((2, 1000, 9, 3, 64), 300, 0.0, "float32", False),
-        ((1, 777, 6, 2, 128), 0, 30.0, "float32", False),
-        ((2, 1000, 9, 3, 64), 300, 50.0, "bfloat16", False),
-        ((1, 777, 6, 2, 128), 0, 30.0, "bfloat16", False),
+    # q_std 8 spreads the scores (std 8) so that the cap of 50 bends the largest
+    cases = [  # (b, s, h, hkv, d), window, cap, dtype, q_std, timed
+        ((B, PROMPT, H, HKV, D), WINDOW, CAP, "bfloat16", 1.0, True),
+        ((B, PROMPT, H, HKV, D), 0, CAP, "bfloat16", 1.0, True),
+        ((B, PROMPT, H, HKV, D), WINDOW, CAP, "bfloat16", 8.0, False),
+        ((2, 1000, 9, 3, 64), 300, 0.0, "float32", 1.0, False),
+        ((1, 777, 6, 2, 128), 0, 30.0, "float32", 1.0, False),
+        ((2, 1000, 9, 3, 64), 300, 50.0, "bfloat16", 1.0, False),
+        ((1, 777, 6, 2, 128), 0, 30.0, "bfloat16", 1.0, False),
+        ((2, 300, 4, 2, 16), 16, 50.0, "bfloat16", 1.0, False),   # bf16 on the CUDA cores
     ]
     errs, rows = [], []
-    for (b, s, h, hkv, d), w, cap, dt, timed in cases:
+    for (b, s, h, hkv, d), w, cap, dt, q_std, timed in cases:
         dtype = getattr(torch, dt)
-        q = randn((b, s, h, d), dtype, gen)
+        q = randn((b, s, h, d), dtype, gen, q_std)
         k = randn((b, s, hkv, d), dtype, gen)
         v = randn((b, s, hkv, d), dtype, gen)
         kw = dict(window=w, logit_cap=cap, scale=d ** -0.5)
-        name = f"flash {dt} (b,s,h,hkv,d)={(b, s, h, hkv, d)} window={w} cap={cap:g}"
-        err = compare(name, flash_attention_fwd(q, k, v, **kw), ref.flash_attention(q, k, v, **kw), dt)
-        if timed:
+        name = (f"flash {dt} (b,s,h,hkv,d)={(b, s, h, hkv, d)} window={w} cap={cap:g} "
+                f"q_std={q_std:g}")
+        faults = []
+        if s == PROMPT:  # the main path's shape
+            if q_std == 1.0:
+                wrong_w = 0 if w else WINDOW
+                faults.append((f"window {wrong_w} instead of {w}",
+                               ref.flash_attention(q, k, v, **{**kw, "window": wrong_w})))
+            else:
+                faults.append(("cap ignored",
+                               ref.flash_attention(q, k, v, **{**kw, "logit_cap": 0.0})))
+        got = flash_attention_fwd(q, k, v, **kw)
+        err = compare(name, got, ref.flash_attention(q, k, v, **kw), faults)
+        del faults, got
+        if s == PROMPT:
             errs.append(err)
-        if quick or not timed:
+        if not timed:
             continue
         n_keys = sum(min(i + 1, w) if w else i + 1 for i in range(s))
         flops = 4.0 * b * h * n_keys * d
@@ -139,10 +168,10 @@ def flash_phase(quick: bool, iters: int):
               f"bound_ms={b_ms:.4f} ({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) "
               f"bound/kernel={b_ms / ms:.4f}", flush=True)
         rows.append((ms, plain, lib, b_ms, b_by))
-    return max(errs), rows
+    return tuple(max(e[i] for e in errs) for i in range(2)), rows
 
 
-def decode_phase(quick: bool, iters: int):
+def decode_phase(iters: int):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -153,45 +182,64 @@ def decode_phase(quick: bool, iters: int):
     # 4 cache sets (4 x 36 MB) cycled while timing, so that the 50 MB L2 does
     # not hold the cache a launch reads, as it does not in the serve loop
     sets = [(randn((B, 1, H, D), dtype, gen), randn((B, CACHE, HKV, D), dtype, gen),
-             randn((B, CACHE, HKV, D), dtype, gen)) for _ in range(1 if quick else 4)]
+             randn((B, CACHE, HKV, D), dtype, gen)) for _ in range(4)]
+    q8 = randn((B, 1, H, D), dtype, gen, 8.0)   # scores of std 8: the cap bends them
+    cases = [(pos, w, sets[0][0]) for pos in (0, PROMPT - 1, CACHE - 1) for w in (WINDOW, 0)]
+    cases.append((CACHE - 1, WINDOW, q8))
     errs, rows = [], []
-    for pos in (0, PROMPT - 1, CACHE - 1):
-        for w in (WINDOW, 0):
-            q, kc, vc = sets[0]
-            kw = dict(window=w, logit_cap=CAP, scale=D ** -0.5)
-            name = f"decode {dt} B={B} cache={CACHE} H={H} Hkv={HKV} D={D} pos={pos} window={w} cap={CAP:g}"
-            errs.append(compare(name, decode_attention_fwd(q, kc, vc, pos, **kw),
-                                ref.decode_attention(q, kc, vc, pos, **kw), dt))
-            if quick or pos != CACHE - 1:
-                continue
-            lo = max(0, pos - w + 1) if w else 0
-            n = pos - lo + 1
-            flops = 4.0 * B * H * n * D
-            nbytes = (2.0 * B * n * HKV * D + 2.0 * q.numel()) * q.element_size()
-            b_ms, b_by = bound(flops, nbytes, dt)
-            it = iter(range(1 << 30))
+    for pos, w, q in cases:
+        _, kc, vc = sets[0]
+        kw = dict(window=w, logit_cap=CAP, scale=D ** -0.5)
+        plain_q = q is not q8
+        name = (f"decode {dt} B={B} cache={CACHE} H={H} Hkv={HKV} D={D} pos={pos} window={w} "
+                f"cap={CAP:g} q_std={1 if plain_q else 8}")
+        faults = []
+        if plain_q and pos >= 128:
+            wrong_w = 0 if w else WINDOW
+            faults = [(f"window {wrong_w} instead of {w}",
+                       ref.decode_attention(q, kc, vc, pos, **{**kw, "window": wrong_w})),
+                      ("last 128 keys dropped",
+                       ref.decode_attention(q, kc, vc, pos - 128,
+                                            **{**kw, "window": max(w - 128, 0)}))]
+        elif not plain_q:
+            faults = [("cap ignored",
+                       ref.decode_attention(q, kc, vc, pos, **{**kw, "logit_cap": 0.0}))]
+        errs.append(compare(name, decode_attention_fwd(q, kc, vc, pos, **kw),
+                            ref.decode_attention(q, kc, vc, pos, **kw), faults))
+        if not plain_q or pos != CACHE - 1:
+            continue
+        lo = max(0, pos - w + 1) if w else 0
+        n = pos - lo + 1
+        flops = 4.0 * B * H * n * D
+        nbytes = (2.0 * B * n * HKV * D + 2.0 * q.numel()) * q.element_size()
+        b_ms, b_by = bound(flops, nbytes, dt)
+        it = iter(range(1 << 30))
 
-            def run_kernel():
-                qq, kk, vv = sets[next(it) % len(sets)]
-                decode_attention_fwd(qq, kk, vv, pos, **kw)
+        def run_kernel():
+            qq, kk, vv = sets[next(it) % len(sets)]
+            decode_attention_fwd(qq, kk, vv, pos, **kw)
 
-            ms = time_ms(run_kernel, iters * 4)
-            plain = time_ms(lambda: ref.decode_attention(q, kc, vc, pos, **kw), iters)
-            libs = [(qq.transpose(1, 2).contiguous(),
-                     kk[:, lo:pos + 1].repeat_interleave(H // HKV, dim=2).transpose(1, 2).contiguous(),
-                     vv[:, lo:pos + 1].repeat_interleave(H // HKV, dim=2).transpose(1, 2).contiguous())
-                    for qq, kk, vv in sets]
+        def run_plain():
+            qq, kk, vv = sets[next(it) % len(sets)]
+            ref.decode_attention(qq, kk, vv, pos, **kw)
 
-            def run_lib():  # yardstick only: SDPA over the keys in range, no cap
-                qq, kk, vv = libs[next(it) % len(libs)]
-                F.scaled_dot_product_attention(qq, kk, vv, scale=D ** -0.5)
+        ms = time_ms(run_kernel, iters * 4)
+        plain = time_ms(run_plain, iters)
+        libs = [(qq.transpose(1, 2).contiguous(),
+                 kk[:, lo:pos + 1].repeat_interleave(H // HKV, dim=2).transpose(1, 2).contiguous(),
+                 vv[:, lo:pos + 1].repeat_interleave(H // HKV, dim=2).transpose(1, 2).contiguous())
+                for qq, kk, vv in sets]
 
-            lib = time_ms(run_lib, iters * 4)
-            print(f"  time {name}: kernel_ms={ms:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
-                  f"bound_ms={b_ms:.5f} ({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) "
-                  f"bound/kernel={b_ms / ms:.4f}", flush=True)
-            rows.append((ms, plain, lib, b_ms, b_by))
-    return max(errs), rows
+        def run_lib():  # yardstick only: SDPA over the keys in range, no cap
+            qq, kk, vv = libs[next(it) % len(libs)]
+            F.scaled_dot_product_attention(qq, kk, vv, scale=D ** -0.5)
+
+        lib = time_ms(run_lib, iters * 4)
+        print(f"  time {name}: kernel_ms={ms:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
+              f"bound_ms={b_ms:.5f} ({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) "
+              f"bound/kernel={b_ms / ms:.4f}", flush=True)
+        rows.append((ms, plain, lib, b_ms, b_by))
+    return tuple(max(e[i] for e in errs) for i in range(2)), rows
 
 
 def serve_phase():
@@ -292,8 +340,6 @@ def profile_phase(out_dir: Path) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--quick", action="store_true",
-                    help="build and hold each kernel against its plain version only")
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
                     help="also profile the served model; tables go to DIR")
     args = ap.parse_args(argv)
@@ -321,14 +367,9 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     print("[kernels]", flush=True)
-    flash_err, flash_rows = flash_phase(args.quick, ITERS)
-    decode_err, decode_rows = decode_phase(args.quick, ITERS)
+    flash_err, flash_rows = flash_phase(ITERS)
+    decode_err, decode_rows = decode_phase(ITERS)
     print(f"[kernels] done in {time.perf_counter() - t0:.1f} s", flush=True)
-    if args.quick:
-        print(card, flush=True)
-        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                                 "count": count}}), flush=True)
-        return 0
 
     t0 = time.perf_counter()
     print("[serve]", flush=True)
@@ -342,9 +383,9 @@ def main(argv=None) -> int:
         # one local-window and one global launch of the main path, averaged
         mean = [sum(r[i] for r in rows) / len(rows) for i in range(4)]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": counts[name], "max_abs_err": err, "ms": mean[0],
-                "plain_ms": mean[1], "bound_ms": mean[3], "bound_by": rows[0][4],
-                "library_ms": mean[2]}
+                "launches": counts[name], "max_abs_err": err[0], "max_row_rel_err": err[1],
+                "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
+                "bound_by": rows[0][4], "library_ms": mean[2]}
 
     print(card, flush=True)
     print(json.dumps({"kernels": [

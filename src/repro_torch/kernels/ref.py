@@ -2,7 +2,8 @@
 
 Port of ``repro.kernels.ref``: dense O(S^2) formulations in float32, with the
 same finite ``NEG_INF`` mask value. They are the CPU path of ``kernels.ops``
-and the versions each CUDA kernel is held against on the card.
+and the versions each CUDA kernel is held against on the card, by
+``max_row_rel_err`` within ``ROW_REL_TOL``.
 """
 from __future__ import annotations
 
@@ -10,12 +11,32 @@ import torch
 
 NEG_INF = -2.3819763e38
 
+# On-card limit of a kernel against its plain version, per query row: the
+# error's norm over the plain row's norm. An element-wise limit would not do:
+# a row that averages n keys has elements of about sqrt(e / n), 0.025 at 4k
+# keys, so an atol of 2e-2 is the size of the output itself. Both sides round
+# to the working type at the end, so bf16 rows differ by a few 1-ulp flips
+# (up to 2.5e-3 on an H100); the planted faults chip_smoke.py reads at
+# gemma2-2b's shapes (window ignored, last 128 keys dropped, cap ignored)
+# read 0.2 and more, and must stay above the limit.
+ROW_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
 
-def _causal_window_mask(q_pos, k_pos, window):
-    m = k_pos[None, :] <= q_pos[:, None]
+
+def max_row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over rows of the last axis of ||got - want|| / ||want||, in fp32."""
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    num = torch.linalg.vector_norm(g - w, dim=-1)
+    den = torch.linalg.vector_norm(w, dim=-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return (num / den).max().item()
+
+
+def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window) -> torch.Tensor:
+    """(Q, K) bool mask. ``window`` 0/None = full causal."""
+    mask = k_pos[None, :] <= q_pos[:, None]
     if window and window > 0:
-        m = m & (k_pos[None, :] > q_pos[:, None] - window)
-    return m
+        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+    return mask
 
 
 def flash_attention(q, k, v, *, window=None, logit_cap: float = 0.0, scale: float):
@@ -30,7 +51,7 @@ def flash_attention(q, k, v, *, window=None, logit_cap: float = 0.0, scale: floa
     if logit_cap:
         scores = torch.tanh(scores / logit_cap) * logit_cap
     pos = torch.arange(max(s, sk), device=q.device)
-    mask = _causal_window_mask(pos[:s], pos[:sk], window)
+    mask = causal_window_mask(pos[:s], pos[:sk], window)
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
@@ -58,7 +79,8 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window=None,
     return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
 
 
-def rmsnorm(x, scale, eps: float = 1e-6):
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Gemma-style RMSNorm, ``(1 + scale)``, computed in float32."""
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)

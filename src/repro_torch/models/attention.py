@@ -16,22 +16,13 @@ from torch import nn
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import NEG_INF, causal_window_mask
 from repro_torch.models.layers import apply_rope, softcap, truncated_normal
 
-NEG_INF = -2.3819763e38
-
 
 # ---------------------------------------------------------------------------
-# Masking and the plain chunked attention
+# The plain chunked attention
 # ---------------------------------------------------------------------------
-
-def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window) -> torch.Tensor:
-    """(Q, K) bool mask. ``window`` 0/None = full causal."""
-    mask = k_pos[None, :] <= q_pos[:, None]
-    if window and window > 0:
-        mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
-    return mask
-
 
 def _softmax_attend(q, k, v, mask, logit_cap: float, scale: float):
     """q:(B,Q,H,D) k:(B,K,Hkv,D) v:(B,K,Hkv,Dv) mask:(Q,K) -> (B,Q,H,Dv)."""

@@ -9,24 +9,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ref import rmsnorm  # noqa: F401  (the model's norm)
+
 
 def truncated_normal(shape, std: float, dtype, device, generator: torch.Generator):
     """Normal truncated at +-2 standard deviations, drawn in float32."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (t * std).to(dtype)
-
-
-# ---------------------------------------------------------------------------
-# Norms
-# ---------------------------------------------------------------------------
-
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Gemma-style RMSNorm, ``(1 + scale)``, computed in float32."""
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.float())).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ The same numpy inputs go to ``repro.kernels.ref`` (jnp) and to the port's
 wrappers, which compute their plain PyTorch version for CPU tensors. The
 cases are those of tests/test_kernels.py plus ragged lengths and a group of
 3; the tolerances are that suite's: fp32 2e-5, bf16 2e-2 (atol = rtol). The
-CUDA kernels themselves run only on the card (``-m gpu``, and chip_smoke.py).
+CUDA kernels themselves run only on the card (``-m gpu``, and chip_smoke.py),
+held to their plain versions by the per-row limit ``ref.ROW_REL_TOL``.
 """
 import numpy as np
 import pytest
@@ -125,6 +126,29 @@ def test_chunked_causal_attention_matches_jax(dtype):
     _close(torch_chunked(qt, kt, vt, **kw), jax_chunked(qj, kj, vj, **kw), dtype)
 
 
+@pytest.mark.parametrize("fault", ["window ignored", "last 128 keys dropped", "cap ignored"])
+def test_row_rel_limit_sees_planted_faults(fault):
+    """The on-card limit tells a wrongly written decode kernel from a sound one:
+    its plain version at a long cache reads above ROW_REL_TOL, while the same
+    output rounded to bf16 reads within it."""
+    rng = np.random.default_rng(5)
+    s, pos, window, cap = 2200, 2199, 2048, 50.0
+    q, kc, vc = (torch.from_numpy(a).bfloat16() for a in _qkv(rng, 2, 1, 8, 4, 64, sk=s))
+    if fault == "cap ignored":
+        q = (q.float() * 8).bfloat16()   # scores of std 8: the cap bends them
+    kw = dict(window=window, logit_cap=cap, scale=64 ** -0.5)
+    want = tref.decode_attention(q, kc, vc, pos, **kw)
+    wrong = {"window ignored": dict(pos=pos, window=0),
+             "last 128 keys dropped": dict(pos=pos - 128, window=window - 128),
+             "cap ignored": dict(pos=pos, logit_cap=0.0)}[fault]
+    bad = tref.decode_attention(q, kc, vc, **{**kw, **wrong})
+    tol = tref.ROW_REL_TOL[torch.bfloat16]
+    assert tref.max_row_rel_err(bad, want) > tol
+    exact = tref.decode_attention(q.float(), kc.float(), vc.float(), pos, **kw)
+    assert tref.max_row_rel_err(exact.bfloat16(), exact) <= tol
+    assert tref.max_row_rel_err(want, want) == 0.0
+
+
 def _bad_inputs():
     q = torch.zeros(1, 8, 4, 16)
     kv = torch.zeros(1, 8, 2, 16)
@@ -190,6 +214,8 @@ GPU_CASES = [  # bf16 flash with head_dim 64/128/256 takes the tensor-core kerne
     ("flash", (1, 777, 6, 2, 128), 0, 30.0, "bfloat16"),
     ("flash", (1, 1, 8, 1, 64), 0, 0.0, "bfloat16"),          # S = 1, group 8
     ("flash", (3, 17, 4, 4, 128), 5, 0.0, "bfloat16"),        # S below one tile
+    ("flash", (2, 300, 4, 2, 16), 16, 50.0, "bfloat16"),      # bf16 on the CUDA cores:
+    ("flash", (1, 200, 3, 3, 24), 16, 0.0, "bfloat16"),       # the smoke configs' head_dims
     ("decode", (2, 4384, 8, 4, 256), 4096, 50.0, "bfloat16"),
     ("decode", (1, 100, 6, 2, 24), 0, 0.0, "float32"),
     ("decode", (2, 300, 6, 2, 256), 0, 30.0, "float32"),      # two 16-byte loads a lane
@@ -215,5 +241,5 @@ def test_cuda_kernel_matches_plain_version(cuda, kind, dims, window, cap, dtype)
         got = decode_attention_fwd(q, k, v, s - 1, **kw)
         want = tref.decode_attention(q, k, v, s - 1, **kw)
     torch.cuda.synchronize()
-    tol = TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.isfinite(got).all()
+    assert tref.max_row_rel_err(got, want) <= tref.ROW_REL_TOL[TORCH[dtype]]
