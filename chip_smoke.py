@@ -2,23 +2,32 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py                  # needs one CUDA card
-    python3 chip_smoke.py --profile DIR    # also profile the served model
+    python3 chip_smoke.py --profile DIR    # also profile serving and one train step
 
 Phases, each fatal on failure:
  1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
     the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
  2. kernels: each kernel against its plain PyTorch version on the card, at
-    gemma2-2b's shapes: the largest error of a query row over that row's norm
-    must be within ``ref.ROW_REL_TOL``, and planted faults (the plain version
-    of a kernel that ignores the window, drops the last 128 keys or ignores
-    the cap) must read above it. Kernel, plain and library times from CUDA
-    events;
+    gemma2-2b's shapes: the largest error of a row over that row's norm must
+    be within ``ref.ROW_REL_TOL``, and planted faults (the plain version of a
+    kernel that ignores the window, drops the last 128 keys or ignores the
+    cap; of an RMSNorm that applies scale instead of 1 + scale, subtracts the
+    row mean or leaves 4 features out of the mean) must read above it; the
+    RMSNorm gradient against autograd of the plain version. Kernel, plain and
+    library times from CUDA events, and the kernel's device time from
+    torch.profiler;
  3. serve: gemma2-2b at full width (random bf16 weights from a seeded
     ``torch.Generator``), batch 2, a 4352-token prompt and 32 greedy decode
     steps through ``repro_torch.launch.serve.serve``. The timed part must make
-    26 flash and 26 x 32 decode launches (plus 26 of each in serve's untimed
-    warm-up step), and the prefill logits must match
-    the same model served through the plain attention.
+    26 flash, 26 x 32 decode and 105 x 33 RMSNorm launches (plus 26, 26 and
+    210 in serve's untimed warm-up step), and the prefill logits must match
+    the same model served through the plain attention and norms;
+ 4. train: gemma2-2b at full width, seq 4096, global batch 2 (the config's
+    256 cut to one card), 2 microbatches, remat full, AdamW, through
+    ``repro_torch.train.trainer.Trainer`` for 3 steps. Loss and grad norm of
+    the first batch must match the plain norms; each step must make 2 x (105
+    + 104) RMSNorm launches; losses must be finite; the step-0 checkpoint
+    restored from disk must equal the initial weights bit for bit.
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -26,9 +35,14 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -45,6 +59,9 @@ ITERS = 20                                   # timed launches per measurement
 B, PROMPT, STEPS = 2, 4352, 32
 H, HKV, D, WINDOW, CAP = 8, 4, 256, 4096, 50.0
 CACHE = PROMPT + STEPS
+# gemma2-2b training of this smoke run: the config's seq 4096, batch cut to 2
+TRAIN_BATCH, TRAIN_STEPS = 2, 3
+D_MODEL = 2304
 
 
 def fail(msg: str) -> None:
@@ -71,6 +88,23 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Device time of the kernels ``fn`` launches, per call (torch.profiler):
+    for a call shorter than its wrapper's host work, the CUDA-event time of
+    back-to-back calls is the host's, and this is the kernel's own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / iters / 1e3
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -157,6 +191,7 @@ def flash_phase(iters: int):
         nbytes = 2.0 * (q.numel() + k.numel()) * q.element_size()
         b_ms, b_by = bound(flops, nbytes, dt)
         ms = time_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters)
+        dev = device_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters)
         plain = time_ms(lambda: ref.flash_attention(q, k, v, **kw), max(2, iters // 4))
         # yardstick only, never called by the port: causal SDPA, no window, no cap
         qt = q.transpose(1, 2).contiguous()
@@ -164,10 +199,10 @@ def flash_phase(iters: int):
         vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, scale=d ** -0.5), iters)
-        print(f"  time {name}: kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) "
-              f"bound/kernel={b_ms / ms:.4f}", flush=True)
-        rows.append((ms, plain, lib, b_ms, b_by))
+        print(f"  time {name}: kernel_ms={ms:.4f} device_ms={dev:.4f} plain_ms={plain:.4f} "
+              f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}; {flops:.4e} FLOP, "
+              f"{nbytes:.4e} B) bound/kernel={b_ms / ms:.4f}", flush=True)
+        rows.append((ms, plain, lib, b_ms, b_by, dev))
     return tuple(max(e[i] for e in errs) for i in range(2)), rows
 
 
@@ -224,6 +259,7 @@ def decode_phase(iters: int):
             ref.decode_attention(qq, kk, vv, pos, **kw)
 
         ms = time_ms(run_kernel, iters * 4)
+        dev = device_ms(run_kernel, iters * 4)
         plain = time_ms(run_plain, iters)
         libs = [(qq.transpose(1, 2).contiguous(),
                  kk[:, lo:pos + 1].repeat_interleave(H // HKV, dim=2).transpose(1, 2).contiguous(),
@@ -235,11 +271,108 @@ def decode_phase(iters: int):
             F.scaled_dot_product_attention(qq, kk, vv, scale=D ** -0.5)
 
         lib = time_ms(run_lib, iters * 4)
-        print(f"  time {name}: kernel_ms={ms:.5f} plain_ms={plain:.5f} library_ms={lib:.5f} "
-              f"bound_ms={b_ms:.5f} ({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) "
-              f"bound/kernel={b_ms / ms:.4f}", flush=True)
-        rows.append((ms, plain, lib, b_ms, b_by))
+        print(f"  time {name}: kernel_ms={ms:.5f} device_ms={dev:.5f} plain_ms={plain:.5f} "
+              f"library_ms={lib:.5f} bound_ms={b_ms:.5f} ({b_by}; {flops:.4e} FLOP, "
+              f"{nbytes:.4e} B) bound/kernel={b_ms / ms:.4f}", flush=True)
+        rows.append((ms, plain, lib, b_ms, b_by, dev))
     return tuple(max(e[i] for e in errs) for i in range(2)), rows
+
+
+def rmsnorm_phase(iters: int):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    eps = 1e-6
+    path = [(1, 4096, D_MODEL), (B, PROMPT, D_MODEL), (B, 1, D_MODEL)]   # train, prefill, decode
+    cases = [(shape, "bfloat16") for shape in path] + [
+        ((4, 37, 96), "float32"), ((512, 1024), "bfloat16"), ((2, 3, 5, 256), "float32"),
+        ((3, 37, 100), "float32")]                # the JAX suite's shapes and a ragged width
+    errs, rows = [], []
+    for shape, dt in cases:
+        dtype = getattr(torch, dt)
+        x, scale = randn(shape, dtype, gen), randn(shape[-1:], dtype, gen, 0.1)
+        name = f"rmsnorm {dt} x={shape}"
+        faults = []
+        if shape == path[0]:
+            faults = [(ref.RMSNORM_FAULTS["scale"], ref.rmsnorm_fault(x, scale, eps, "scale"))]
+        elif shape == (3, 37, 100):
+            faults = [(ref.RMSNORM_FAULTS["tail4"], ref.rmsnorm_fault(x, scale, eps, "tail4"))]
+        err = compare(name, rmsnorm_fwd(x, scale, eps), ref.rmsnorm(x, scale, eps), faults)
+        if shape in path:
+            errs.append(err)
+        if shape == path[0]:
+            # a layer norm differs from an RMSNorm only on rows whose mean is far from 0
+            x1 = x + 1.0
+            compare(name + " row mean 1", rmsnorm_fwd(x1, scale, eps), ref.rmsnorm(x1, scale, eps),
+                    [(ref.RMSNORM_FAULTS["layernorm"],
+                      ref.rmsnorm_fault(x1, scale, eps, "layernorm"))])
+            grad_check(x, scale, eps, gen)
+    for shape in path:
+        dtype = torch.bfloat16
+        # 4 input sets cycled, so that the 50 MB L2 does not hold the rows a
+        # launch reads (the larger two shapes are 19 and 40 MB an input)
+        sets = [(randn(shape, dtype, gen), randn(shape[-1:], dtype, gen, 0.1)) for _ in range(4)]
+        weights = [(1.0 + s.float()).to(dtype) for _, s in sets]
+        it = iter(range(1 << 30))
+
+        def cycled(fn):
+            def run():
+                i = next(it) % len(sets)
+                fn(sets[i][0], sets[i][1], weights[i])
+            return run
+
+        ms = time_ms(cycled(lambda x, s, w: rmsnorm_fwd(x, s, eps)), iters * 4)
+        dev = device_ms(cycled(lambda x, s, w: rmsnorm_fwd(x, s, eps)), iters * 4)
+        plain = time_ms(cycled(lambda x, s, w: ref.rmsnorm(x, s, eps)), iters * 4)
+        # yardstick only, never called by the port: weight 1 + scale precomputed
+        lib = time_ms(cycled(lambda x, s, w: F.rms_norm(x, (shape[-1],), w, eps)), iters * 4)
+        n = sets[0][0].numel()
+        nbytes = (2.0 * n + shape[-1]) * 2
+        b_ms, b_by = bound(4.0 * n, nbytes, "float32")
+        print(f"  time rmsnorm bfloat16 x={shape}: kernel_ms={ms:.5f} device_ms={dev:.5f} "
+              f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={b_ms:.5f} ({b_by}; "
+              f"{nbytes:.4e} B) bound/kernel={b_ms / ms:.4f} bound/device={b_ms / dev:.4f}",
+              flush=True)
+        rows.append((ms, plain, lib, b_ms, b_by, dev))
+    return tuple(max(e[i] for e in errs) for i in range(2)), rows
+
+
+def grad_check(x, scale, eps, gen) -> None:
+    """RMSNormFn's gradients (kernel forward, plain backward) against autograd
+    of the plain version: dx per row within ROW_REL_TOL, dscale by the
+    relative norm of the difference within GRAD_SCALE_TOL."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import RMSNormFn
+
+    dy = randn(x.shape, x.dtype, gen)
+    grads = []
+    for fn in (lambda a, b: RMSNormFn.apply(a, b, eps), lambda a, b: ref.rmsnorm(a, b, eps)):
+        xx, ss = x.clone().requires_grad_(), scale.clone().requires_grad_()
+        fn(xx, ss).backward(dy)
+        grads.append((xx.grad, ss.grad))
+    (dx, ds), (want_dx, want_ds) = grads
+    rel_dx = ref.max_row_rel_err(dx, want_dx)
+    rel_ds = ref.max_row_rel_err(ds[None], want_ds[None])
+    tol = ref.ROW_REL_TOL[x.dtype]
+    print(f"  grad rmsnorm {str(x.dtype)[6:]} x={tuple(x.shape)}: dx max_row_rel_err={rel_dx:.3e} "
+          f"limit={tol:g}; dscale rel_norm_err={rel_ds:.3e} limit={GRAD_SCALE_TOL:g}", flush=True)
+    if not (rel_dx <= tol and rel_ds <= GRAD_SCALE_TOL and torch.isfinite(dx).all()):
+        fail("RMSNormFn's gradient disagrees with autograd of the plain version")
+
+
+# dscale sums dy * x_hat over 4096 rows in fp32 on both sides and rounds to
+# bf16 once: they differ by about one bf16 ulp (2^-9 = 2e-3) of a few entries
+GRAD_SCALE_TOL = 1e-2
+
+
+def norms_per_forward(cfg) -> int:
+    """RMSNorm launches of one forward: 2 a block (4 with sandwich norms) and
+    the final norm."""
+    return (4 if cfg.post_block_norm else 2) * cfg.n_layers + 1
 
 
 def serve_phase():
@@ -250,6 +383,7 @@ def serve_phase():
 
     run = get_config("gemma2-2b")
     n_layers = run.model.n_layers
+    n_norms = norms_per_forward(run.model)
     ops.reset_launch_counts()
     res = serve(run, batch=B, prompt_len=PROMPT, decode_steps=STEPS, device="cuda", seed=0)
     counts = ops.launch_counts()
@@ -260,8 +394,10 @@ def serve_phase():
     print(f"  serve tokens[1]={res['tokens'][1].tolist()}", flush=True)
     # timed part: one prefill and STEPS decode steps; serve() also runs one
     # untimed warm-up prefill and decode step before it
-    want = {"flash_attention": n_layers, "decode_attention": n_layers * STEPS}
-    want_all = {k: v + n_layers for k, v in want.items()}
+    want = {"flash_attention": n_layers, "decode_attention": n_layers * STEPS,
+            "rmsnorm": n_norms * (1 + STEPS)}
+    want_all = {"flash_attention": 2 * n_layers, "decode_attention": n_layers * (STEPS + 1),
+                "rmsnorm": n_norms * (3 + STEPS)}
     if res["kernel_launches"] != want or counts != want_all:
         fail(f"launch counts {res['kernel_launches']} timed, {counts} in all; "
              f"expected {want} and {want_all}")
@@ -275,29 +411,174 @@ def serve_phase():
                   use_kernel=False)
     if any(plain["kernel_launches"].values()):
         fail("the plain path launched a kernel")
-    # Both paths keep attention in fp32 and round its output to bf16; they differ
-    # only where an fp32 sum in another order flips a bf16 rounding, which then
+    # The plain path rounds the attention probabilities to bf16 before PV (as
+    # the JAX CPU lowering does; the flash kernel keeps ~16 bits of them) and
+    # sums the norms in another order. Both round every op's output to bf16,
+    # so they differ where such a difference flips a bf16 rounding, which then
     # travels through 26 bf16 layers. Tolerance: 2e-2 of the largest |logit|
     # (about five bf16 ulps at that magnitude).
     err = (logits - plain["prefill_logits"]).abs().max().item()
     scale = plain["prefill_logits"].abs().max().item()
     agree = float((toks == plain["tokens"]).mean())
-    print(f"  serve prefill logits vs plain attention: max_abs_err={err:.4e} "
+    print(f"  serve prefill logits vs the plain path: max_abs_err={err:.4e} "
           f"max|logit|={scale:.4e} rel={err / scale:.4e} tol_rel=2e-2; "
           f"greedy tokens equal to the plain path's: {agree:.4f} "
           f"(plain prefill_s={plain['prefill_s']:.4f}, "
           f"decode_tok_per_s={plain['decode_tok_per_s']:.2f})", flush=True)
     if not err <= 2e-2 * scale:
-        fail("served prefill logits disagree with the plain attention path")
+        fail("served prefill logits disagree with the plain path")
     return counts
 
 
-def profile_phase(out_dir: Path) -> None:
-    """torch.profiler over one prefill and 8 decode steps of the served model:
-    device time by kernel and the device's busy share of the wall time."""
+def train_phase(profile_dir=None):
+    """gemma2-2b through the Trainer; returns the kernels' launch counts of
+    the 3 train steps."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.checkpoint import manager as ckpt_mod
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_grad_fn
+    from repro_torch.train.trainer import Trainer
+
+    run = get_config("gemma2-2b")
+    run = run.replace(train=dataclasses.replace(run.train, global_batch=TRAIN_BATCH))
+    cfg, pcfg = run.model, run.parallel
+    shape = ShapeSpec("train", run.train.seq_len, TRAIN_BATCH, "train")
+    # per microbatch: every norm of the forward, and the block norms again in
+    # the backward's recompute (remat full; the final norm is outside the
+    # block checkpoints)
+    if pcfg.remat != "full":
+        fail(f"the launch count below is derived for remat 'full', not {pcfg.remat!r}")
+    n_norms = norms_per_forward(cfg)
+    per_step = pcfg.microbatches * (2 * n_norms - 1)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    sha = ckpt_mod._sha
+    try:
+        t0 = time.perf_counter()
+        trainer = Trainer(run, shape, workdir, device="cuda", use_kernel=True)
+        print(f"  train {cfg.name}: {trainer.model.num_params():,} params, seq "
+              f"{shape.seq_len}, global batch {shape.global_batch} (config: "
+              f"{get_config('gemma2-2b').train.global_batch}), microbatches "
+              f"{pcfg.microbatches}, remat {pcfg.remat}, {trainer.opt_cfg.kind}; built in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        # kernel against plain norms, same weights, first batch, no update
+        grad_fn = make_grad_fn(trainer.model, run)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in trainer.pipeline.batch(0).items()}
+        got = {}
+        for use_kernel in (True, False):
+            trainer.model.use_kernel = use_kernel
+            ops.reset_launch_counts()
+            loss, _, grads = grad_fn(trainer.params, batch)
+            got[use_kernel] = (loss.item(), adamw.global_norm(grads).item(), ops.launch_counts())
+            del grads
+        trainer.model.use_kernel = True
+        (lk, gk, ck), (lp, gp, cp) = got[True], got[False]
+        rel_l, rel_g = abs(lk - lp) / abs(lp), abs(gk - gp) / gp
+        print(f"  train kernel vs plain norms, batch 0: loss {lk:.6f} vs {lp:.6f} rel={rel_l:.3e} "
+              f"(limit 2e-3); grad_norm {gk:.6f} vs {gp:.6f} rel={rel_g:.3e} (limit 2e-2); "
+              f"rmsnorm launches {ck['rmsnorm']} vs {cp['rmsnorm']}", flush=True)
+        if not (rel_l <= 2e-3 and rel_g <= 2e-2):
+            fail("training loss or grad norm with the RMSNorm kernel disagrees with the "
+                 "plain norms")
+        if ck["rmsnorm"] != per_step or any(cp.values()):
+            fail(f"gradient launches {ck} (kernel) and {cp} (plain); expected {per_step} "
+                 "rmsnorm launches and none")
+
+        # the checkpoint's seconds, split into the host copy, np.savez and sha256
+        spent = {"save": [], "write": [], "sha": []}
+
+        def timed(fn, key):
+            def wrapped(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                spent[key].append(time.perf_counter() - t)
+                return out
+            return wrapped
+        trainer.ckpt.save = timed(trainer.ckpt.save, "save")
+        trainer.ckpt._write = timed(trainer.ckpt._write, "write")
+        ckpt_mod._sha = timed(sha, "sha")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        report = trainer.train(TRAIN_STEPS)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for i, m in enumerate(report.metrics):
+            print(f"  train step {i}: loss={m['loss']:.6f} grad_norm={m['grad_norm']:.6f} "
+                  f"lr={m['lr']:.4e} step_s={trainer.monitor.durations[i]:.4f}", flush=True)
+        stats = trainer.monitor.summary()
+        tok_s = shape.global_batch * shape.seq_len / stats["median_s"]
+        ckpt_bytes = sum(t.numel() * t.element_size() for t in trainer.ckpt.memory[0].values())
+        npz = os.path.join(workdir, "ckpt_00000000.npz")
+        print(f"  train {TRAIN_STEPS} steps in {wall:.2f} s: median_step_s={stats['median_s']:.4f} "
+              f"tokens_per_s={tok_s:.1f} max_memory_allocated={peak / 1e9:.2f} GB", flush=True)
+        save_s, write_s, sha_s = spent["save"][0], spent["write"][0], sum(spent["sha"])
+        print(f"  train step-0 checkpoint (blocking): {save_s:.2f} s = host copy "
+              f"{save_s - write_s:.2f} + np.savez {write_s - sha_s:.2f} + sha256 {sha_s:.2f}; "
+              f"{ckpt_bytes / 1e9:.3f} GB in host RAM, {os.path.getsize(npz) / 1e9:.3f} GB "
+              "on disk", flush=True)
+        if not all(map(lambda v: v == v and abs(v) < float("inf"), report.losses)):
+            fail(f"non-finite training losses {report.losses}")
+        want = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": TRAIN_STEPS * per_step}
+        if counts != want:
+            fail(f"train launch counts {counts}; expected {want}")
+
+        # the step-0 checkpoint from disk (a manager with no memory replica,
+        # as after a restart), against an independent init of the weights
+        spent["sha"].clear()
+        t0 = time.perf_counter()
+        step, flat = CheckpointManager(workdir, keep=run.train.keep_checkpoints,
+                                       async_disk=False).restore_flat(0)
+        t_restore = time.perf_counter() - t0
+        sha_s = sum(spent["sha"])
+        fresh = build_model(run, device="cuda")
+        fresh.init_weights(torch.Generator("cuda").manual_seed(run.train.seed))
+        bad = [n for n, p in fresh.named_parameters()
+               if not _bit_equal(flat[f"params/{n}"], p.detach().cpu())]
+        bad += [k for k, t in flat.items() if k.startswith("opt/") and bool(t.any())]
+        bad += [k for k, t in flat.items() if not _bit_equal(t, trainer.ckpt.memory[0][k])]
+        del fresh
+        print(f"  train restore of step {step} from disk: {t_restore:.2f} s = read "
+              f"{t_restore - sha_s:.2f} + sha256 {sha_s:.2f}, {len(flat)} leaves; params "
+              "bit-equal to a fresh init from the seed, moments zero, all leaves equal to "
+              f"the in-memory replica: {not bad}", flush=True)
+        if step != 0 or bad:
+            fail(f"the step-0 checkpoint restored from disk differs in {bad[:5]}")
+        del flat
+        if profile_dir is not None:
+            batch = {k: torch.from_numpy(v).cuda() for k, v in trainer.pipeline.batch(3).items()}
+
+            def one_step():
+                _, trainer.opt_state, metrics = trainer._step_fn(
+                    trainer.params, trainer.opt_state, batch)
+                metrics["loss"].item()
+            profile_one("train_step", one_step, profile_dir)
+        trainer.ckpt.close()
+        return counts
+    finally:
+        ckpt_mod._sha = sha
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        a, b = a.view(bits[a.element_size()]), b.view(bits[b.element_size()])
+    return torch.equal(a, b)
+
+
+def profile_phase(out_dir: Path) -> None:
+    """torch.profiler over one prefill and 8 decode steps of the served model."""
+    import torch
     from repro_torch.common.config import ShapeSpec
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model, synthetic_batch
@@ -318,24 +599,35 @@ def profile_phase(out_dir: Path) -> None:
             decode({"tokens": tok}, cache, PROMPT + i)
 
     decode8()
-    out_dir.mkdir(parents=True, exist_ok=True)
     for label, fn in (("prefill", lambda: prefill(prompt, cache)), ("decode_x8", decode8)):
+        profile_one(label, fn, out_dir)
+
+
+def profile_one(label: str, fn, out_dir: Path) -> None:
+    """torch.profiler over one call of ``fn``: device time by kernel and the
+    device's busy share of the profiled wall time; the table goes to
+    ``out_dir/profile_<label>.txt``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        # device-side events only: the CPU ops also carry their kernels' time
-        dev = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA), reverse=True)
-        busy = sum(d[0] for d in dev)
-        print(f"  profile {label}: wall_ms={wall_us / 1e3:.3f} (profiled) "
-              f"device_busy_ms={busy / 1e3:.3f} busy_share={busy / wall_us:.4f}", flush=True)
-        for us, n, key in dev[:8]:
-            print(f"    {us / 1e3:10.3f} ms {us / busy:7.2%} x{n:<5d} {key[:90]}", flush=True)
-        (out_dir / f"profile_{label}.txt").write_text(
-            prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side events only: the CPU ops also carry their kernels' time
+    dev = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(d[0] for d in dev)
+    print(f"  profile {label}: wall_ms={wall_us / 1e3:.3f} (profiled) "
+          f"device_busy_ms={busy / 1e3:.3f} busy_share={busy / wall_us:.4f}", flush=True)
+    for us, n, key in dev[:10]:
+        print(f"    {us / 1e3:10.3f} ms {us / busy:7.2%} x{n:<5d} {key[:90]}", flush=True)
+    (out_dir / f"profile_{label}.txt").write_text(
+        prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
 
 
 def main(argv=None) -> int:
@@ -361,30 +653,42 @@ def main(argv=None) -> int:
     print(f"[build] {len(_build.KERNELS)} kernels in {secs:.2f} s "
           f"into {_build.BUILD_DIR.relative_to(ROOT)}", flush=True)
     for name in _build.KERNELS:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"  {name}: {line.strip()}", flush=True)
+        log = _build.build_log(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", log))
+        print(f"  {name}: {len(regs)} kernel instances, {min(regs, default=0)}-"
+              f"{max(regs, default=0)} registers a thread, {spills} bytes of spill stores "
+              "in all (ptxas)", flush=True)
 
     t0 = time.perf_counter()
     print("[kernels]", flush=True)
     flash_err, flash_rows = flash_phase(ITERS)
     decode_err, decode_rows = decode_phase(ITERS)
+    norm_err, norm_rows = rmsnorm_phase(ITERS)
     print(f"[kernels] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     print("[serve]", flush=True)
-    counts = serve_phase()
+    serve_counts = serve_phase()
     print(f"[serve] done in {time.perf_counter() - t0:.1f} s", flush=True)
     if args.profile is not None:
         print("[profile]", flush=True)
         profile_phase(args.profile)
 
+    t0 = time.perf_counter()
+    print("[train]", flush=True)
+    train_counts = train_phase(args.profile)
+    print(f"[train] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    counts = {k: serve_counts[k] + train_counts[k] for k in serve_counts}
+    print(f"launches on the main paths: serve {serve_counts}, train {train_counts}", flush=True)
+
     def entry(name, source, replaces, err, rows):
-        # one local-window and one global launch of the main path, averaged
-        mean = [sum(r[i] for r in rows) / len(rows) for i in range(4)]
+        # attention: one local-window and one global launch of the main path,
+        # averaged; rmsnorm: the training microbatch (1, 4096, 2304)
+        mean = [sum(r[i] for r in rows) / len(rows) for i in range(6) if i != 4]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": counts[name], "max_abs_err": err[0], "max_row_rel_err": err[1],
-                "ms": mean[0], "plain_ms": mean[1], "bound_ms": mean[3],
+                "ms": mean[0], "device_ms": mean[4], "plain_ms": mean[1], "bound_ms": mean[3],
                 "bound_by": rows[0][4], "library_ms": mean[2]}
 
     print(card, flush=True)
@@ -393,6 +697,8 @@ def main(argv=None) -> int:
               "src/repro/kernels/flash_attention.py:88", flash_err, flash_rows),
         entry("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
               "src/repro/kernels/decode_attention.py:70", decode_err, decode_rows),
+        entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+              "src/repro/kernels/rmsnorm.py:27", norm_err, norm_rows[:1]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

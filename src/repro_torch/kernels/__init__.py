@@ -1,2 +1,3 @@
-"""Attention kernels of the port: CUDA C++ sources in ``csrc/``, their ctypes
-wrappers, the plain PyTorch versions (``ref``) and the dispatch (``ops``)."""
+"""Kernels of the port (flash and decode attention, RMSNorm): CUDA C++ sources
+in ``csrc/``, their ctypes wrappers, the plain PyTorch versions (``ref``) and
+the dispatch (``ops``)."""

@@ -1,11 +1,12 @@
-"""Dispatch for the attention kernels.
+"""Dispatch for the kernels: flash attention, decode attention, RMSNorm.
 
 ``use_kernel=True`` goes through the kernel wrappers, which launch the CUDA
 kernel for a CUDA tensor and compute the plain version for a CPU tensor;
-``use_kernel=False`` computes the plain version (``ref``) on any device. There
-is no fallback for awkward shapes: the kernels mask a ragged S themselves.
-Port of ``repro.kernels.ops`` (flash and decode attention; the RMSNorm kernel
-is not ported yet).
+``use_kernel=False`` computes the plain version on any device: the
+query-chunked attention (as the JAX package's CPU lowering does), the dense
+``ref.decode_attention`` and ``ref.rmsnorm``. There is no fallback for
+awkward shapes: the kernels mask a ragged S themselves. Port of
+``repro.kernels.ops``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Dict
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rmsnorm
 
 
 def flash_attention(q, k, v, *, window=None, logit_cap: float = 0.0,
@@ -22,7 +24,9 @@ def flash_attention(q, k, v, *, window=None, logit_cap: float = 0.0,
     if use_kernel:
         return _flash.flash_attention_fwd(q, k, v, window=window, logit_cap=logit_cap,
                                           scale=scale)
-    return ref.flash_attention(q, k, v, window=window, logit_cap=logit_cap, scale=scale)
+    from repro_torch.models.attention import chunked_causal_attention
+    return chunked_causal_attention(q, k, v, window=window, logit_cap=logit_cap,
+                                    scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *, window=None,
@@ -35,11 +39,20 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window=None,
                                 logit_cap=logit_cap, scale=scale)
 
 
+def rmsnorm(x, scale, eps: float = 1e-6, use_kernel: bool = True):
+    """Gemma-style RMSNorm over the last axis; differentiable either way."""
+    if use_kernel:
+        return _rmsnorm.RMSNormFn.apply(x, scale, eps)
+    return ref.rmsnorm(x, scale, eps)
+
+
 def launch_counts() -> Dict[str, int]:
     """CUDA kernel launches since the last reset, by kernel."""
-    return {"flash_attention": _flash.launches, "decode_attention": _decode.launches}
+    return {"flash_attention": _flash.launches, "decode_attention": _decode.launches,
+            "rmsnorm": _rmsnorm.launches}
 
 
 def reset_launch_counts() -> None:
     _flash.launches = 0
     _decode.launches = 0
+    _rmsnorm.launches = 0

@@ -84,3 +84,27 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+RMSNORM_FAULTS = {
+    "scale": "scale applied instead of 1 + scale",
+    "layernorm": "row mean subtracted (a layer norm)",
+    "tail4": "last 4 features left out of the mean",
+}
+
+
+def rmsnorm_fault(x: torch.Tensor, scale: torch.Tensor, eps: float, fault: str) -> torch.Tensor:
+    """The plain version of a wrongly written RMSNorm kernel (``fault`` a key
+    of ``RMSNORM_FAULTS``), which the parity limit must tell from a sound
+    one. The layer-norm fault shows only on rows whose mean is far from 0."""
+    xf = x.float()
+    gain = 1.0 + scale.float()
+    if fault == "scale":
+        gain = scale.float()
+    elif fault == "layernorm":
+        xf = xf - xf.mean(dim=-1, keepdim=True)
+    elif fault != "tail4":
+        raise ValueError(fault)
+    part = xf[..., :-4] if fault == "tail4" else xf
+    var = part.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * gain).to(x.dtype)

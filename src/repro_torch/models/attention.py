@@ -2,7 +2,14 @@
 
 Port of the GQA part of ``repro.models.attention``: ``KVCache``,
 ``layer_window``, ``chunked_causal_attention`` and the GQA block in its
-``prefill`` and ``decode`` modes. MLA and cross attention are not ported yet.
+``train``, ``prefill`` and ``decode`` modes. MLA and cross attention are not
+ported yet.
+
+``use_kernel`` means "the hand-written kernel wherever this mode has one":
+prefill goes through the flash kernel and decode through the decode kernel.
+Training has no attention kernel (the flash kernel is forward only, in both
+packages), so train mode always runs the plain ``chunked_causal_attention``,
+as the JAX Trainer does.
 
 The KV cache is updated in place (``cache.k[:, pos] = k``, a slice write at
 prefill); the JAX package builds new arrays with ``dynamic_update_slice``.
@@ -13,6 +20,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops as kops
@@ -44,15 +52,24 @@ def chunked_causal_attention(q, k, v, *, window=0, logit_cap: float = 0.0,
 
     q: (B, S, H, D); k/v: (B, Sk, Hkv, D*). ``q_offset`` is the absolute
     position of q[0]. Like the JAX version, it casts the probabilities to
-    ``v.dtype`` before the PV product."""
+    ``v.dtype`` before the PV product. When there is more than one chunk and
+    autograd records, each chunk runs under a checkpoint, as the JAX scan
+    body does: its (B, H, q_chunk, Sk) scores are recomputed in the backward
+    pass instead of being kept."""
     s, sk = q.shape[1], k.shape[1]
     k_pos = torch.arange(sk, device=q.device)
+    remat = s > q_chunk and torch.is_grad_enabled()
+
+    def chunk(qc, k, v, start: int):
+        q_pos = q_offset + start + torch.arange(qc.shape[1], device=qc.device)
+        return _softmax_attend(qc, k, v, causal_window_mask(q_pos, k_pos, window),
+                               logit_cap, scale)
+
     outs = []
     for start in range(0, s, q_chunk):
         qc = q[:, start:start + q_chunk]
-        q_pos = q_offset + start + torch.arange(qc.shape[1], device=q.device)
-        outs.append(_softmax_attend(qc, k, v, causal_window_mask(q_pos, k_pos, window),
-                                    logit_cap, scale))
+        outs.append(checkpoint(chunk, qc, k, v, start, use_reentrant=False) if remat
+                    else chunk(qc, k, v, start))
     return torch.cat(outs, dim=1)
 
 
@@ -82,10 +99,10 @@ class GQAttention(nn.Module):
         self.cfg = cfg
         d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         kw = dict(dtype=dtype, device=device)
-        self.wq = nn.Parameter(torch.empty(d, h * hd, **kw), requires_grad=False)
-        self.wk = nn.Parameter(torch.empty(d, hkv * hd, **kw), requires_grad=False)
-        self.wv = nn.Parameter(torch.empty(d, hkv * hd, **kw), requires_grad=False)
-        self.wo = nn.Parameter(torch.empty(h * hd, d, **kw), requires_grad=False)
+        self.wq = nn.Parameter(torch.empty(d, h * hd, **kw))
+        self.wk = nn.Parameter(torch.empty(d, hkv * hd, **kw))
+        self.wv = nn.Parameter(torch.empty(d, hkv * hd, **kw))
+        self.wo = nn.Parameter(torch.empty(h * hd, d, **kw))
 
     def init_weights(self, generator: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
@@ -101,6 +118,17 @@ class GQAttention(nn.Module):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
+
+    def forward_train(self, x, *, window: int):
+        """Full-sequence causal attention without a cache (JAX ``gqa_train``),
+        through the plain chunked attention. (``train`` is taken by
+        ``nn.Module``.)"""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x, torch.arange(s, device=x.device)[None, :])
+        out = chunked_causal_attention(q, k, v, window=window,
+                                       logit_cap=self.cfg.attn_logit_softcap,
+                                       scale=self.cfg.resolved_head_dim ** -0.5)
+        return out.reshape(b, s, -1) @ self.wo.to(x.dtype)
 
     def prefill(self, x, cache: KVCache, *, window: int, use_kernel: bool = True):
         """Attend causally and write k/v into ``cache[:, :S]`` in place."""

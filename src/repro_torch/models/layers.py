@@ -9,7 +9,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ref import rmsnorm  # noqa: F401  (the model's norm)
+from repro_torch.kernels.ref import rmsnorm  # noqa: F401  (JAX apply_rmsnorm; the model's
+#                                                    norms go through kernels.ops.rmsnorm)
 
 
 def truncated_normal(shape, std: float, dtype, device, generator: torch.Generator):

@@ -1,8 +1,9 @@
-"""Model facade: build the LM, and the shapes and values of its inputs.
+"""Model facade: build the LM, the loss, and the shapes and values of its inputs.
 
-Port of the serving part of ``repro.models.model``. ``synthetic_batch`` draws
-token ids with numpy's ``default_rng`` exactly as the JAX package does, so a
-seed gives both packages the same ids.
+Port of ``repro.models.model`` (dense token models; the parameter accounting
+is ``LM.num_params``). ``synthetic_batch`` draws token ids with numpy's
+``default_rng`` exactly as the JAX package does, so a seed gives both packages
+the same ids.
 """
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.common.config import ModelConfig, RunConfig, ShapeSpec
@@ -22,7 +25,56 @@ def build_model(run: RunConfig, device=None, use_kernel: bool = True) -> LM:
     """An ``LM`` with uninitialised weights: call ``init_weights`` or load a
     state dict (``repro_torch.convert``)."""
     return LM(run.model, param_dtype=DTYPES[run.parallel.param_dtype], device=device,
-              use_kernel=use_kernel)
+              use_kernel=use_kernel, remat=run.parallel.remat)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+CE_CHUNK = 512
+
+
+def _chunked_ce(model: LM, hidden, labels, chunk: int = CE_CHUNK):
+    """Mean next-token cross entropy, computed in sequence chunks so that the
+    (B, S, vocab) fp32 logits never exist at once (256k vocab x 4096 tokens
+    is 4 GB a sequence). Each chunk's read-out and log-softmax run under a
+    checkpoint, recomputed in the backward pass; the sequence is padded to a
+    whole number of chunks and the padded positions are masked."""
+    b, s, _ = hidden.shape
+    c = min(chunk, s)
+    n = -(-s // c)
+    pad = n * c - s
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+    remat = torch.is_grad_enabled()
+
+    def nll_sum(h, lab, start: int):
+        logp = torch.log_softmax(model.logits_fn(h), dim=-1)       # (B, c, V) fp32
+        nll = -torch.gather(logp, -1, lab[..., None].long())[..., 0]
+        posn = start + torch.arange(c, device=h.device)
+        return torch.where(posn[None, :] < s, nll, 0.0).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        args = (hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c], i * c)
+        total = total + (checkpoint(nll_sum, *args, use_reentrant=False) if remat
+                         else nll_sum(*args))
+    return total / (b * s)
+
+
+def lm_loss(model: LM, batch: Dict[str, torch.Tensor]):
+    """Next-token cross entropy; labels are the shifted tokens unless the
+    batch has ``labels``. Returns (loss, metrics)."""
+    tokens = batch["tokens"]
+    hidden, _ = model(tokens, mode="train", head="none")
+    if "labels" in batch:
+        hidden_s, labels_s = hidden, batch["labels"]
+    else:
+        hidden_s, labels_s = hidden[:, :-1], tokens[:, 1:]
+    loss = _chunked_ce(model, hidden_s, labels_s)
+    return loss, {"ce_loss": loss, "loss": loss}
 
 
 def batch_shapes(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:

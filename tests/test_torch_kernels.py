@@ -3,22 +3,29 @@
 The same numpy inputs go to ``repro.kernels.ref`` (jnp) and to the port's
 wrappers, which compute their plain PyTorch version for CPU tensors. The
 cases are those of tests/test_kernels.py plus ragged lengths and a group of
-3; the tolerances are that suite's: fp32 2e-5, bf16 2e-2 (atol = rtol). The
-CUDA kernels themselves run only on the card (``-m gpu``, and chip_smoke.py),
-held to their plain versions by the per-row limit ``ref.ROW_REL_TOL``.
+3; the tolerances are that suite's: fp32 2e-5, bf16 2e-2 (atol = rtol), and
+1e-5 for RMSNorm in fp32, forward and backward (``rmsnorm_bwd`` against
+``jax.vjp`` of the JAX oracle). The Pallas ``rmsnorm_fwd`` cannot be imported
+on this jax (it needs ``jax_compat``), so the oracle is the one the JAX suite
+holds it to. The CUDA kernels themselves run only on the card (``-m gpu``,
+and chip_smoke.py), held to their plain versions by the per-row limit
+``ref.ROW_REL_TOL``.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax
 import jax.numpy as jnp
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_causal_attention as jax_chunked
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.rmsnorm import RMSNormFn, rmsnorm_bwd, rmsnorm_fwd
 from repro_torch.models.attention import chunked_causal_attention as torch_chunked
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -106,6 +113,78 @@ def test_rmsnorm_ref_matches_jax_oracle(shape, dtype):
                                np.asarray(jref.rmsnorm(xj, sj), np.float32), atol=tol, rtol=tol)
 
 
+RMSNORM_CASES = [((4, 37, 96), "float32"), ((512, 1024), "bfloat16"),
+                 ((2, 3, 5, 256), "float32")]      # tests/test_kernels.py
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+@pytest.mark.parametrize("shape,dtype", RMSNORM_CASES)
+def test_ops_rmsnorm_matches_jax_oracle(shape, dtype, use_kernel):
+    rng = np.random.default_rng(2)
+    xj, xt = _pair(rng.normal(0, 1, shape).astype(np.float32), dtype)
+    sj, st = _pair(rng.normal(0, 0.1, shape[-1:]).astype(np.float32), dtype)
+    tol = 1e-5 if dtype == "float32" else TOL[dtype]
+    got = ops.rmsnorm(xt, st, 1e-6, use_kernel=use_kernel)
+    assert got.dtype == TORCH[dtype] and got.shape == shape
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(jref.rmsnorm(xj, sj), np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [(4, 37, 96), (2, 3, 5, 256), (3, 37, 100)])
+def test_rmsnorm_bwd_matches_jax_vjp(shape):
+    rng = np.random.default_rng(6)
+    x, dy = (rng.normal(0, 1, shape).astype(np.float32) for _ in range(2))
+    scale = rng.normal(0, 0.3, shape[-1:]).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: jref.rmsnorm(a, b, 1e-6), jnp.asarray(x), jnp.asarray(scale))
+    want_dx, want_ds = vjp(jnp.asarray(dy))
+    dx, ds = rmsnorm_bwd(*(torch.from_numpy(a) for a in (x, scale, dy)), eps=1e-6)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(ds.numpy(), np.asarray(want_ds), atol=1e-5, rtol=1e-5)
+
+
+def test_rmsnorm_fn_gradients_equal_autograd_of_plain_version():
+    rng = np.random.default_rng(7)
+    x0 = torch.from_numpy(rng.normal(0, 1, (3, 5, 64)).astype(np.float32))
+    s0 = torch.from_numpy(rng.normal(0, 0.3, (64,)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(0, 1, (3, 5, 64)).astype(np.float32))
+    grads = []
+    for fn in (lambda x, s: RMSNormFn.apply(x, s, 1e-6), lambda x, s: tref.rmsnorm(x, s, 1e-6)):
+        x, s = x0.clone().requires_grad_(), s0.clone().requires_grad_()
+        fn(x, s).backward(dy)
+        grads.append((x.grad, s.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("fault", sorted(tref.RMSNORM_FAULTS))
+def test_row_rel_limit_sees_planted_rmsnorm_faults(fault):
+    """Each planted RMSNorm fault reads above ROW_REL_TOL at the path's width
+    in bf16 (the tail fault on a ragged fp32 width: in bf16 at D=2304 a
+    dropped tail reads under the limit), while rounding the exact output to
+    bf16 reads within it."""
+    rng = np.random.default_rng(8)
+    shape, dtype = ((3, 37, 100), torch.float32) if fault == "tail4" else \
+        ((4, 64, 2304), torch.bfloat16)
+    x = torch.from_numpy(rng.normal(1.0 if fault == "layernorm" else 0.0, 1, shape)
+                         .astype(np.float32)).to(dtype)
+    scale = torch.from_numpy(rng.normal(0, 0.1, shape[-1:]).astype(np.float32)).to(dtype)
+    want = tref.rmsnorm(x, scale)
+    tol = tref.ROW_REL_TOL[dtype]
+    assert tref.max_row_rel_err(tref.rmsnorm_fault(x, scale, 1e-6, fault), want) > tol
+    exact = tref.rmsnorm(x.float(), scale.float())
+    assert tref.max_row_rel_err(exact.to(dtype), exact) <= tol
+
+
+def test_ops_plain_flash_attention_is_the_jax_cpu_lowering():
+    """``use_kernel=False`` is the query-chunked attention, as in the JAX ops
+    (bf16 probabilities before PV), over several chunks."""
+    rng = np.random.default_rng(9)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "bfloat16") for a in _qkv(rng, 1, 1100, 2, 1, 32))
+    kw = dict(window=100, logit_cap=50.0, scale=32 ** -0.5)     # 1100 > the chunk of 1024
+    _close(ops.flash_attention(qt, kt, vt, use_kernel=False, **kw),
+           jops.flash_attention(qj, kj, vj, use_kernel=False, **kw), "bfloat16")
+
+
 @pytest.mark.parametrize("window,cap", [(None, 0.0), (100, 30.0)])
 def test_ops_cpu_matches_jax_chunked_attention(window, cap):
     """ops on CPU tensors against the JAX CPU lowering, with q_chunk < S."""
@@ -186,8 +265,26 @@ def test_cpu_tensors_launch_nothing_and_build_nothing():
     q, k, v = (torch.zeros(1, 8, h, 16) for h in (4, 2, 2))
     ops.flash_attention(q, k, v, scale=0.25)
     ops.decode_attention(q[:, :1], k, v, 5, scale=0.25)
-    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0}
+    ops.rmsnorm(q, torch.zeros(16))
+    assert ops.launch_counts() == {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0}
     assert _build._LIBS == {}
+
+
+def _bad_norm_inputs():
+    x, s = torch.zeros(2, 3, 16), torch.zeros(16)
+    return {
+        "int dtype": (x.int(), s),
+        "int scale": (x, s.int()),
+        "non-contiguous": (x.transpose(0, 1), s),
+        "scale not (D,)": (x, torch.zeros(8)),
+        "2-d scale": (x, torch.zeros(1, 16)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_norm_inputs()))
+def test_rmsnorm_rejects_what_the_kernel_does_not_take(case):
+    with pytest.raises((ValueError, TypeError)):
+        rmsnorm_fwd(*_bad_norm_inputs()[case])
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -221,6 +318,41 @@ GPU_CASES = [  # bf16 flash with head_dim 64/128/256 takes the tensor-core kerne
     ("decode", (2, 300, 6, 2, 256), 0, 30.0, "float32"),      # two 16-byte loads a lane
     ("decode", (1, 1, 8, 1, 64), 0, 0.0, "bfloat16"),         # a one-entry cache
 ]
+
+
+GPU_NORM_CASES = [  # the path's shapes, the JAX suite's, ragged, narrow, wide, mixed dtypes
+    ((1, 4096, 2304), "bfloat16", "bfloat16"),
+    ((2, 1, 2304), "bfloat16", "bfloat16"),
+    ((4, 37, 96), "float32", "float32"),
+    ((512, 1024), "bfloat16", "bfloat16"),
+    ((3, 37, 100), "float32", "float32"),
+    ((5, 101), "bfloat16", "bfloat16"),       # 101 bf16: not whole 16-byte pieces
+    ((7, 64), "bfloat16", "float32"),
+    ((3, 8192), "float32", "bfloat16"),
+    ((2, 8191), "float32", "float32"),        # the widest row of element pieces
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,scale_dtype", GPU_NORM_CASES)
+def test_cuda_rmsnorm_matches_plain_version(cuda, shape, dtype, scale_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(shape, generator=gen, device=cuda).to(TORCH[dtype])
+    s = (0.1 * torch.randn(shape[-1:], generator=gen, device=cuda)).to(TORCH[scale_dtype])
+    dy = torch.randn(shape, generator=gen, device=cuda).to(TORCH[dtype])
+    got = rmsnorm_fwd(x, s)
+    torch.cuda.synchronize()
+    tol = tref.ROW_REL_TOL[TORCH[dtype]]
+    assert got.dtype == x.dtype and torch.isfinite(got).all()
+    assert tref.max_row_rel_err(got, tref.rmsnorm(x, s)) <= tol
+    grads = []
+    for fn in (lambda a, b: RMSNormFn.apply(a, b, 1e-6), tref.rmsnorm):
+        xx, ss = x.clone().requires_grad_(), s.clone().requires_grad_()
+        fn(xx, ss).backward(dy)
+        grads.append((xx.grad, ss.grad))
+    (dx, ds), (want_dx, want_ds) = grads
+    assert tref.max_row_rel_err(dx, want_dx) <= tol
+    assert tref.max_row_rel_err(ds.float()[None], want_ds.float()[None]) <= 1e-2
 
 
 @pytest.mark.gpu

@@ -28,8 +28,9 @@ TOL = 1e-5
 
 
 def _close(got, want, tol=TOL):
-    np.testing.assert_allclose(got.float().numpy() if isinstance(got, torch.Tensor) else got,
-                               np.asarray(want, np.float32), atol=tol, rtol=tol)
+    np.testing.assert_allclose(
+        got.detach().float().numpy() if isinstance(got, torch.Tensor) else got,
+        np.asarray(want, np.float32), atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("arch", torch_configs.ARCHS)
@@ -150,6 +151,17 @@ def test_dense_block_matches_jax(arch, layer, mode):
     _close(tcache.v, jcache.v)
 
 
+@pytest.mark.parametrize("arch,layer", [("gemma2-2b", 0), ("gemma2-2b", 1), ("smollm-135m", 0)])
+def test_dense_block_train_mode_matches_jax(arch, layer):
+    """Train mode: no cache, plain chunked attention, the norms through
+    ``kernels.ops.rmsnorm`` (its CPU path)."""
+    jcfg, jp, blk = _block_pair(arch, layer)
+    x = _arr(2, 24, jcfg.d_model)            # 24 > the smoke window of 16
+    jy, _, _ = jax_transformer.apply_block(jp, jcfg, "dense", jnp.asarray(x), mode="train",
+                                           layer_idx=layer, use_kernel=False)
+    _close(blk(torch.from_numpy(x), mode="train"), jy)
+
+
 # --- parameters ---------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", torch_configs.ARCHS)
@@ -161,6 +173,6 @@ def test_converted_params_load_and_count_as_in_jax(arch, monkeypatch):
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), model.cfg))
     assert model.num_params() == count_params_analytic(jcfg)
     np.testing.assert_array_equal(
-        model.blocks[1].attn.wq.numpy(),
+        model.blocks[1].attn.wq.detach().numpy(),
         np.asarray(params["segments"][0]["unit"]["0"]["attn"]["wq"][1]))
 

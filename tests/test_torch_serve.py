@@ -109,7 +109,7 @@ def test_serve_cli_on_cpu_prints_the_jax_keys(capsys):
     assert {"arch", "prefill_s", "decode_s", "decode_tok_per_s",
             "sampled_tokens_head"} <= set(out)
     assert out["device"] == "cpu"
-    assert out["kernel_launches"] == {"flash_attention": 0, "decode_attention": 0}
+    assert out["kernel_launches"] == {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0}
     assert np.asarray(out["sampled_tokens_head"]).shape == (2, 5)
 
 
