@@ -10,12 +10,13 @@ Phases, each fatal on failure:
  2. kernels: each kernel against its plain PyTorch version on the card, at
     gemma2-2b's shapes: the largest error of a row over that row's norm must
     be within ``ref.ROW_REL_TOL``, and planted faults (the plain version of a
-    kernel that ignores the window, drops the last 128 keys or ignores the
-    cap; of an RMSNorm that applies scale instead of 1 + scale, subtracts the
-    row mean or leaves 4 features out of the mean) must read above it; the
-    RMSNorm gradient against autograd of the plain version. Kernel, plain and
-    library times from CUDA events, and the kernel's device time from
-    torch.profiler;
+    kernel that ignores the window, drops the window's first 64 keys or the
+    last 128 keys, or ignores the cap; of an RMSNorm that applies scale
+    instead of 1 + scale, subtracts the row mean or leaves 4 features out of
+    the mean) must read above it; the RMSNorm gradient against autograd of
+    the plain version. Kernel, plain and library times from CUDA events, the
+    kernel's and the library call's device time from torch.profiler, and the
+    flash kernel's achieved TFLOP/s;
  3. serve: gemma2-2b at full width (random bf16 weights from a seeded
     ``torch.Generator``), batch 2, a 4352-token prompt and 32 greedy decode
     steps through ``repro_torch.launch.serve.serve``. The timed part must make
@@ -176,6 +177,9 @@ def flash_phase(iters: int):
                 wrong_w = 0 if w else WINDOW
                 faults.append((f"window {wrong_w} instead of {w}",
                                ref.flash_attention(q, k, v, **{**kw, "window": wrong_w})))
+                if w:  # what a k_begin one key tile too late would read
+                    faults.append(("the window's first 64 keys dropped",
+                                   ref.flash_attention(q, k, v, **{**kw, "window": w - 64})))
             else:
                 faults.append(("cap ignored",
                                ref.flash_attention(q, k, v, **{**kw, "logit_cap": 0.0})))
@@ -197,12 +201,15 @@ def flash_phase(iters: int):
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=d ** -0.5), iters)
+        def run_lib():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=d ** -0.5)
+
+        lib, lib_dev = time_ms(run_lib, iters), device_ms(run_lib, iters)
         print(f"  time {name}: kernel_ms={ms:.4f} device_ms={dev:.4f} plain_ms={plain:.4f} "
-              f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}; {flops:.4e} FLOP, "
-              f"{nbytes:.4e} B) bound/kernel={b_ms / ms:.4f}", flush=True)
-        rows.append((ms, plain, lib, b_ms, b_by, dev))
+              f"library_ms={lib:.4f} library_device_ms={lib_dev:.4f} bound_ms={b_ms:.4f} "
+              f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/device={b_ms / dev:.4f} "
+              f"achieved {flops / dev / 1e9:.1f} TFLOP/s (device time)", flush=True)
+        rows.append((ms, plain, lib, b_ms, b_by, dev, lib_dev))
     return tuple(max(e[i] for e in errs) for i in range(2)), rows
 
 
@@ -270,11 +277,12 @@ def decode_phase(iters: int):
             qq, kk, vv = libs[next(it) % len(libs)]
             F.scaled_dot_product_attention(qq, kk, vv, scale=D ** -0.5)
 
-        lib = time_ms(run_lib, iters * 4)
+        lib, lib_dev = time_ms(run_lib, iters * 4), device_ms(run_lib, iters * 4)
         print(f"  time {name}: kernel_ms={ms:.5f} device_ms={dev:.5f} plain_ms={plain:.5f} "
-              f"library_ms={lib:.5f} bound_ms={b_ms:.5f} ({b_by}; {flops:.4e} FLOP, "
-              f"{nbytes:.4e} B) bound/kernel={b_ms / ms:.4f}", flush=True)
-        rows.append((ms, plain, lib, b_ms, b_by, dev))
+              f"library_ms={lib:.5f} library_device_ms={lib_dev:.5f} bound_ms={b_ms:.5f} "
+              f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/kernel={b_ms / ms:.4f}",
+              flush=True)
+        rows.append((ms, plain, lib, b_ms, b_by, dev, lib_dev))
     return tuple(max(e[i] for e in errs) for i in range(2)), rows
 
 
@@ -328,15 +336,16 @@ def rmsnorm_phase(iters: int):
         dev = device_ms(cycled(lambda x, s, w: rmsnorm_fwd(x, s, eps)), iters * 4)
         plain = time_ms(cycled(lambda x, s, w: ref.rmsnorm(x, s, eps)), iters * 4)
         # yardstick only, never called by the port: weight 1 + scale precomputed
-        lib = time_ms(cycled(lambda x, s, w: F.rms_norm(x, (shape[-1],), w, eps)), iters * 4)
+        run_lib = cycled(lambda x, s, w: F.rms_norm(x, (shape[-1],), w, eps))
+        lib, lib_dev = time_ms(run_lib, iters * 4), device_ms(run_lib, iters * 4)
         n = sets[0][0].numel()
         nbytes = (2.0 * n + shape[-1]) * 2
         b_ms, b_by = bound(4.0 * n, nbytes, "float32")
         print(f"  time rmsnorm bfloat16 x={shape}: kernel_ms={ms:.5f} device_ms={dev:.5f} "
-              f"plain_ms={plain:.5f} library_ms={lib:.5f} bound_ms={b_ms:.5f} ({b_by}; "
-              f"{nbytes:.4e} B) bound/kernel={b_ms / ms:.4f} bound/device={b_ms / dev:.4f}",
-              flush=True)
-        rows.append((ms, plain, lib, b_ms, b_by, dev))
+              f"plain_ms={plain:.5f} library_ms={lib:.5f} library_device_ms={lib_dev:.5f} "
+              f"bound_ms={b_ms:.5f} ({b_by}; {nbytes:.4e} B) bound/kernel={b_ms / ms:.4f} "
+              f"bound/device={b_ms / dev:.4f}", flush=True)
+        rows.append((ms, plain, lib, b_ms, b_by, dev, lib_dev))
     return tuple(max(e[i] for e in errs) for i in range(2)), rows
 
 
@@ -411,12 +420,13 @@ def serve_phase():
                   use_kernel=False)
     if any(plain["kernel_launches"].values()):
         fail("the plain path launched a kernel")
-    # The plain path rounds the attention probabilities to bf16 before PV (as
-    # the JAX CPU lowering does; the flash kernel keeps ~16 bits of them) and
-    # sums the norms in another order. Both round every op's output to bf16,
-    # so they differ where such a difference flips a bf16 rounding, which then
-    # travels through 26 bf16 layers. Tolerance: 2e-2 of the largest |logit|
-    # (about five bf16 ulps at that magnitude).
+    # Both paths round the attention probabilities to bf16 before PV (the
+    # plain path as the JAX CPU lowering does; the flash kernel before its PV
+    # wgmma, unnormalised, dividing by the fp32 row sum at the end) and sum
+    # the scores and norms in other orders. Both round every op's output to
+    # bf16, so they differ where such a difference flips a bf16 rounding,
+    # which then travels through 26 bf16 layers. Tolerance: 2e-2 of the
+    # largest |logit| (about five bf16 ulps at that magnitude).
     err = (logits - plain["prefill_logits"]).abs().max().item()
     scale = plain["prefill_logits"].abs().max().item()
     agree = float((toks == plain["tokens"]).mean())
@@ -659,6 +669,15 @@ def main(argv=None) -> int:
         print(f"  {name}: {len(regs)} kernel instances, {min(regs, default=0)}-"
               f"{max(regs, default=0)} registers a thread, {spills} bytes of spill stores "
               "in all (ptxas)", flush=True)
+    # each instance of the wgmma flash kernel: registers at launch (the
+    # consumers then take 240 by setmaxnreg) and spills
+    log = _build.build_log("flash_attention")
+    for d, cap, body in re.findall(r"flash_wgmma_kernelILi(\d+)ELb(\d)EE\S*\n(.*?)Compile time",
+                                   log, re.S):
+        spill = re.search(r"(\d+) bytes spill stores", body)
+        reg = re.search(r"Used (\d+) registers", body)
+        print(f"    flash_wgmma_kernel<D={d}, cap={cap}>: {reg.group(1) if reg else '?'} "
+              f"registers, {spill.group(1) if spill else '?'} bytes of spill stores", flush=True)
 
     t0 = time.perf_counter()
     print("[kernels]", flush=True)
@@ -685,11 +704,11 @@ def main(argv=None) -> int:
     def entry(name, source, replaces, err, rows):
         # attention: one local-window and one global launch of the main path,
         # averaged; rmsnorm: the training microbatch (1, 4096, 2304)
-        mean = [sum(r[i] for r in rows) / len(rows) for i in range(6) if i != 4]
+        mean = [sum(r[i] for r in rows) / len(rows) if i != 4 else None for i in range(7)]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": counts[name], "max_abs_err": err[0], "max_row_rel_err": err[1],
-                "ms": mean[0], "device_ms": mean[4], "plain_ms": mean[1], "bound_ms": mean[3],
-                "bound_by": rows[0][4], "library_ms": mean[2]}
+                "ms": mean[0], "device_ms": mean[5], "plain_ms": mean[1], "bound_ms": mean[3],
+                "bound_by": rows[0][4], "library_ms": mean[2], "library_device_ms": mean[6]}
 
     print(card, flush=True)
     print(json.dumps({"kernels": [

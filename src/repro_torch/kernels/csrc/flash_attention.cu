@@ -9,7 +9,8 @@
 // What bounds it on the H100: the two products (QK^T and PV) are compute; at
 // gemma2-2b's prefill (B=2, S=4352, H=8, D=256) one launch is ~1.55e11 FLOPs,
 // 0.16 ms at the 989 TFLOP/s bf16 tensor-core peak, against ~107 MB of q, k, v
-// and o (32 us at 3.35 TB/s). So the products belong on the tensor cores.
+// and o (32 us at 3.35 TB/s). So the products belong on the tensor cores, and
+// on Hopper only wgmma reaches their full rate.
 //
 // Both paths share the work split: a block owns consecutive "flat rows" of one
 // (batch, kv head), where a flat row is (query position, head within the
@@ -17,20 +18,39 @@
 // TPU kernel, and a group that is not a power of two (3 for smollm) needs no
 // special case.
 //
-// bf16 with head_dim 64, 128 or 256 (gemma2-2b's path): flash_mma_kernel.
-//  * 4 warps x 16 flat rows; K/V tiles of 32 keys, double-buffered: cp.async
-//    fetches the next tile while the tensor cores work on this one. QK^T and
-//    PV run as mma.sync.m16n8k16 (bf16 in, fp32 accumulate: the scores are
-//    exact fp32 sums of exact products). Q and K fragments are 32-bit loads
-//    from shared memory; V's come from ldmatrix.trans of the row-major tile.
-//    Row strides are padded by 8 elements so that the lanes of a fragment load
-//    or of an ldmatrix hit distinct banks.
-//  * The TPU kernel keeps p in fp32 for PV. A bf16 mma cannot take fp32, so p
-//    is split as p = hi + lo with hi = bf16(p), lo = bf16(p - hi) and PV is two
-//    mma's: p is then carried to ~16 bits instead of bf16's 8, and PV costs
-//    twice the mma work of QK^T.
-//  * The fp32 output accumulator of a warp's 16 rows lives in registers (128 a
-//    thread at D=256); shared memory is ~101 KB at D=256.
+// bf16 with head_dim 64, 128 or 256 (gemma2-2b's path): flash_wgmma_kernel,
+// built for Hopper's tensor-core pipeline.
+//  * A CTA owns 128 flat rows (128 / group positions x group heads; 126 rows
+//    for a group of 3) and has three warpgroups: two consumers of 64 rows each
+//    and one producer. setmaxnreg gives the consumers 240 registers a thread
+//    (the fp32 O accumulator alone is 128 at D=256) and the producer 24.
+//  * The producer's one thread loads Q once and then keeps rings of 2 K and
+//    2 V tiles of 64 keys in flight with TMA, each stage under a full and an
+//    empty mbarrier. The tensor maps cover q (B,S,H,D) and k/v (B,S,Hkv,D) in
+//    place; a box is 64 columns (128 bytes, the widest a 128-byte swizzle
+//    takes), so a 256-wide row is four boxes. Q's box is {64, group heads,
+//    128 / group positions}, which lands the flat rows in order. Keys and
+//    positions past S arrive as zeros.
+//  * S = Q K^T is wgmma.m64n64k16 with both operands read from shared memory
+//    (K-major descriptors). The softmax stays in registers: scale, tanh cap
+//    (tanh.approx), the mask only on tiles that cross the diagonal or the
+//    window's lower edge, the running max over a quad, exp2 with log2(e)
+//    folded into the scale. O += P V is wgmma.m64n{D}k16 with P rounded to
+//    bf16 in registers as the A operand (S's accumulator layout is the A
+//    fragment of the next product) and V read as an MN-major B: one PV
+//    product per tile, P rounded where the JAX and port plain paths round it.
+//  * Overlap: a consumer issues S of tile i and PV of tile i-1 together and
+//    runs tile i's softmax while PV is in flight; K is released as soon as S
+//    is done, V after PV. The two consumers take turns to issue (two named
+//    barriers), so one's softmax runs under the other's products.
+//  * q tiles launch last positions first, so the heaviest causal CTAs are
+//    not left for the tail. The epilogue divides by l, stages each
+//    warpgroup's bf16 O tile in its own Q rows (free after its last S) and
+//    stores whole rows in 16-byte pieces. Rows past S (and past the Q box)
+//    are computed and not stored.
+//  * The wrapper raises on what TMA cannot take (a base pointer off a 16-byte
+//    boundary; the row strides of contiguous bf16 rows of these head_dims are
+//    multiples of 16 bytes) and on a group above 8.
 //
 // Any other case (fp32, or another head_dim): flash_fwd_kernel, on the fp32
 // CUDA cores, which keeps the fp32 inputs exact.
@@ -54,8 +74,10 @@
 //    skipping a tile that lies wholly outside gives the same result as masking
 //    it. Keys past S (ragged S) are loaded as zeros and masked; rows past S are
 //    computed and not stored. Any S is taken, no block has to divide it.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -229,247 +251,514 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path
+// bf16 tensor-core path: wgmma fed by TMA, warp-specialised
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
-constexpr int MROWS = WARPS * 16;            // flat query rows per block
-constexpr int MBK = 32;                      // keys per tile
+constexpr int WG = 128;                      // threads of a warpgroup
+constexpr int TROWS = 128;                   // flat query rows of a CTA: 2 consumers x 64
+constexpr int TBK = 64;                      // keys of a K/V tile
+constexpr int STAGES = 2;                    // K/V tiles in flight
+constexpr int CHUNK = 64;                    // head-dim columns of one 128-byte swizzled box
+constexpr int TC_THREADS = 3 * WG;           // consumer, consumer, producer warpgroups
+constexpr int MAX_GROUP = 8;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ unsigned ld32(const bf16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&t);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-// four 8x8 bf16 tiles, transposed: thread i names row i % 8 of tile i / 8
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r, const bf16* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(row)));
-}
-
-// d (16x8, f32) += a (16x16, bf16, row) * b (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): with g = lane / 4 and t = lane % 4,
-// A holds rows {g, g+8} x cols {2t, 2t+1, 2t+8, 2t+9}; B holds k {2t, 2t+1,
-// 2t+8, 2t+9} x col g; C holds rows {g, g+8} x cols {2t, 2t+1}. A transposed
-// ldmatrix of an 8x8 tile of row-major V (rows = keys) hands thread (g, t)
-// keys {2t, 2t+1} of column g: one half of a B fragment of PV.
+// Shared memory of one CTA, in bytes from a 1024-aligned base (the 128-byte
+// swizzle repeats every 8 rows of 128 bytes). Each tile is stored as D / 64
+// column chunks; a chunk is its rows of 128 bytes, as one TMA box writes it.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H, int Hkv,
-                 int window, float scale, float cap) {
-  constexpr int STR = D + 8;                 // row stride of every tile
-  constexpr int NTD = D / 8;                 // 8-wide output column tiles
-  constexpr int KSD = D / 16;                // 16-deep steps over the head dim
-  constexpr int CH = D / 8;                  // 16-byte chunks in a row
-  extern __shared__ uint4 smem_u4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_u4);   // MROWS x STR
-  bf16* Ks = Qs + MROWS * STR;                    // 2 stages x MBK x STR
-  bf16* Vs = Ks + 2 * MBK * STR;                  // 2 stages x MBK x STR
+struct Smem {
+  static constexpr int NCH = D / CHUNK;
+  static constexpr int Q_CHUNK = TROWS * 128;
+  static constexpr int KV_CHUNK = TBK * 128;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + NCH * Q_CHUNK;
+  static constexpr int V = K + STAGES * NCH * KV_CHUNK;
+  static constexpr int BAR = V + STAGES * NCH * KV_CHUNK;   // q; full, empty of K; of V
+  static constexpr int BYTES = BAR + 8 * (1 + 4 * STAGES) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// MUFU.TANH, one instruction; tanhf is a dozen and bounded the softmax
+// (kernels/ablate_flash.py times both). Its error of ~2^-11 reads as tanhf
+// does per row in chip_smoke.py's capped q_std 8 prefill case (PERF.md).
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// MUFU.EX2 without exp2f's range handling; -inf and large negatives give 0
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// wait until the barrier has completed the phase of this parity
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// one box of a 4-d tensor map into shared memory; completion counted in bytes on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+                  "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving reads or writes of accumulators across a wgmma
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// S (64 x 64 keys, f32) (+)= Q (64 x 16, smem, K-major) * K^T (smem, K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// O (64 x N, f32) += P (64 x 16 keys, bf16 in registers) * V (16 x N, smem, MN-major)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127},"
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
+        "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// named barriers 1 and 2 (0 is __syncthreads) order the two consumers' issue;
+// 3 and 4 close each consumer's staging of O
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// S accumulator layout (m64nN, f32; PTX ISA, wgmma register fragments): warp
+// w of the warpgroup holds rows 16w + g and 16w + g + 8 (g = lane / 4, t =
+// lane % 4); d[4j + 0..1] are row g, columns 8j + 2t + 0..1, and d[4j + 2..3]
+// row g + 8, the same columns. The bf16 A fragment of a k16 step from
+// registers takes rows {g, g+8} x columns {2t, 2t+1, 2t+8, 2t+9}: for keys
+// 16kk..16kk+15 that is exactly S's d[8kk .. 8kk + 7], packed in pairs.
+//
+// The online softmax of one tile's scores, in registers: s in, p out (f32),
+// m and l updated, corr the factor for O
+template <bool CAP>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], const int (&qpos)[2], int t0,
+                                             int t, bool masked, int window, float pre,
+                                             float post) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = CAP ? tanh_approx(s[e] * pre) * post : s[e] * pre;
+  if (masked) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int qp = qpos[(e >> 1) & 1];
+      const int key = t0 + 8 * (e >> 2) + 2 * t + (e & 1);
+      if (key > qp || (window > 0 && key <= qp - window)) s[e] = NEG_INF;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+    corr[r] = ex2_approx(m[r] - mx[r]);
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    s[e] = ex2_approx(s[e] - m[(e >> 1) & 1]);
+    sum[(e >> 1) & 1] += s[e];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];   // this thread's share
+}
+
+template <int D, bool CAP>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int S,
+                   int H, int Hkv, int n_bh, int P, int n_qtiles, int window, float scale,
+                   float cap) {
+  using L = Smem<D>;
+  constexpr int NCH = L::NCH;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  // barriers: q; then full and empty of each K stage and of each V stage
+  const uint32_t q_bar = base + L::BAR;
+  const uint32_t k_full = q_bar + 8, k_empty = k_full + 8 * STAGES;
+  const uint32_t v_full = k_empty + 8 * STAGES, v_empty = v_full + 8 * STAGES;
 
   const int group = H / Hkv;
-  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
-  const long long n_rows = (long long)S * group;
-  const long long row0 = (long long)blockIdx.x * MROWS;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int rows = P * group;                         // flat rows of this CTA (<= TROWS)
+  const int bh = blockIdx.x % n_bh;
+  const int b = bh / Hkv, kvh = bh % Hkv;
+  // the last positions first: the heaviest causal tiles start in the first wave
+  const int q0 = (n_qtiles - 1 - (int)(blockIdx.x / n_bh)) * P;
+  const int qmax = min(q0 + P - 1, S - 1);
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = k_begin / TBK * TBK;
+  const int n_tiles = (qmax + 1 - t_begin + TBK - 1) / TBK;
 
-  const int qpos_min = (int)(row0 / group);
-  const int qpos_max = (int)min((row0 + MROWS - 1) / group, (long long)S - 1);
-  const int k_begin = window > 0 ? max(0, qpos_min - window + 1) : 0;
-  const int k_end = qpos_max + 1;
-  const bf16* kvbase_k = k + ((long long)b * S * Hkv + kvh) * D;
-  const bf16* kvbase_v = v + ((long long)b * S * Hkv + kvh) * D;
-
-  // K and V tiles of keys t0..t0+MBK-1 into stage st; keys past S become zeros
-  auto load_tile = [&](int t0, int st) {
-    for (int idx = tid; idx < MBK * CH; idx += THREADS) {
-      const int kk = idx / CH, c = idx % CH;
-      const int key = t0 + kk;
-      const long long off = (long long)min(key, S - 1) * Hkv * D + c * 8;
-      const int bytes = key < S ? 16 : 0;
-      cp_async16(Ks + (st * MBK + kk) * STR + c * 8, kvbase_k + off, bytes);
-      cp_async16(Vs + (st * MBK + kk) * STR + c * 8, kvbase_v + off, bytes);
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(k_empty + 8 * st, 8);                 // one arrival per consumer warp
+      mbar_init(v_empty + 8 * st, 8);
     }
-    cp_async_commit();
-  };
-
-  int t0 = (k_begin / MBK) * MBK;
-  load_tile(t0, 0);
-
-  for (int idx = tid; idx < MROWS * CH; idx += THREADS) {
-    const int r = idx / CH, c = idx % CH;
-    const long long fr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (fr < n_rows) {
-      const long long qp = fr / group;
-      const int h = kvh * group + (int)(fr % group);
-      val = *reinterpret_cast<const uint4*>(q + ((b * (long long)S + qp) * H + h) * D + c * 8);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * STR + c * 8) = val;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  // this thread's two rows: warp * 16 + g and + 8
-  int qpos[2];
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[NTD][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) qpos[i] = (int)((row0 + warp * 16 + g + 8 * i) / group);
-#pragma unroll
-  for (int n = 0; n < NTD; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const bf16* qa = Qs + (warp * 16 + g) * STR + 2 * t;
-
-  for (int st = 0; t0 < k_end; t0 += MBK, st ^= 1) {
-    // prefetch the next tile into the other stage, then wait for this one
-    if (t0 + MBK < k_end) load_tile(t0 + MBK, st ^ 1);
-    else cp_async_commit();                  // an empty group keeps the count
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16* Kt = Ks + st * MBK * STR;
-    const bf16* Vt = Vs + st * MBK * STR;
-
-    float s[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSD; ++ks) {
-      const unsigned a[4] = {ld32(qa + ks * 16), ld32(qa + 8 * STR + ks * 16),
-                             ld32(qa + ks * 16 + 8), ld32(qa + 8 * STR + ks * 16 + 8)};
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const bf16* kb = Kt + (n * 8 + g) * STR + ks * 16 + 2 * t;
-        const unsigned bb[2] = {ld32(kb), ld32(kb + 8)};
-        mma_bf16(s[n], a, bb);
+  const int wg = threadIdx.x / WG;
+  if (wg == 2) {
+    // producer: one thread issues every TMA load; the rest of the warpgroup
+    // only hands its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 2 * WG) {
+      // Q once: box {64 columns, group heads, P positions} = flat rows in order
+      mbar_expect_tx(q_bar, NCH * rows * 128);
+      for (int c = 0; c < NCH; ++c)
+        tma_load(base + L::Q + c * L::Q_CHUNK, &qmap, q_bar, c * CHUNK, kvh * group, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % STAGES, phase = ((i / STAGES) & 1) ^ 1;
+        const int t0 = t_begin + i * TBK;             // keys past S arrive as zeros
+        mbar_wait(k_empty + 8 * st, phase);
+        mbar_expect_tx(k_full + 8 * st, NCH * L::KV_CHUNK);
+        for (int c = 0; c < NCH; ++c)
+          tma_load(base + L::K + (st * NCH + c) * L::KV_CHUNK, &kmap, k_full + 8 * st,
+                   c * CHUNK, kvh, t0, b);
+        mbar_wait(v_empty + 8 * st, phase);
+        mbar_expect_tx(v_full + 8 * st, NCH * L::KV_CHUNK);
+        for (int c = 0; c < NCH; ++c)
+          tma_load(base + L::V + (st * NCH + c) * L::KV_CHUNK, &vmap, v_full + 8 * st,
+                   c * CHUNK, kvh, t0, b);
       }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = wg * 64 + warp * 16 + g;           // this thread's rows: r0, r0 + 8
+    const int qpos[2] = {q0 + r0 / group, q0 + (r0 + 8) / group};
+    const int wq_min = q0 + wg * 64 / group, wq_max = q0 + (wg * 64 + 63) / group;
+    // scores in log2 units: exp2(x log2e - m log2e) = exp(x - m)
+    const float pre = CAP ? scale / cap : scale * LOG2E;
+    const float post = CAP ? cap * LOG2E : 1.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
+    float acc[D / 2], s[32];
+    uint32_t pa[4][4];                                // P of the previous tile, bf16
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const uint32_t q_rows = base + L::Q + wg * 64 * 128;
+    const int my_turn = 1 + wg, their_turn = 2 - wg;
 
-    // online softmax over this tile; a row's 32 scores sit in the 4 threads of a quad
-    float mx[2] = {NEG_INF, NEG_INF};
+    // S = Q K^T over D in k16 steps: +32 bytes inside a 128-byte swizzled
+    // row, the next column chunk past 4 steps
+    auto issue_s = [&](int st) {
+      const uint32_t k_tile = base + L::K + st * NCH * L::KV_CHUNK;
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
+      for (int ks = 0; ks < D / 16; ++ks)
+        wgmma_ss_n64(s, sdesc(q_rows + (ks / 4) * L::Q_CHUNK + (ks % 4) * 32, 16, 1024),
+                     sdesc(k_tile + (ks / 4) * L::KV_CHUNK + (ks % 4) * 32, 16, 1024), ks > 0);
+      wg_commit();
+    };
+    // O += P V: V's k16 step is 16 keys = 2048 bytes; its column chunks lie
+    // KV_CHUNK apart
+    auto issue_pv = [&](int st) {
+      const uint32_t v_tile = base + L::V + st * NCH * L::KV_CHUNK;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int key = t0 + n * 8 + 2 * t + (e & 1);
-        float x = s[n][e] * scale;
-        if (cap > 0.f) x = tanhf(x / cap) * cap;
-        const bool ok = key < S && key <= qpos[i] && (window <= 0 || key > qpos[i] - window);
-        s[n][e] = ok ? x : NEG_INF;
-        mx[i] = fmaxf(mx[i], s[n][e]);
-      }
-    }
-    float corr[2], sum[2] = {0.f, 0.f};
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D>(acc, pa[kk], sdesc(v_tile + kk * 16 * 128, L::KV_CHUNK, 1024));
+      wg_commit();
+    };
+    // the mask only where a tile crosses the diagonal or the window's lower
+    // edge of this warpgroup's rows (keys past S lie past the diagonal)
+    auto masked = [&](int t0) {
+      return t0 + TBK - 1 > wq_min || (window > 0 && t0 <= wq_max - window);
+    };
+    // P rounded to bf16 once, as the plain paths round it before PV
+    auto pack_p = [&]() {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = expf(m[i] - m_new);
-      m[i] = m_new;
-    }
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        sum[e >> 1] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(FULL, sum[i], 1);
-      sum[i] += __shfl_xor_sync(FULL, sum[i], 2);
-      l[i] = l[i] * corr[i] + sum[i];
-    }
-#pragma unroll
-    for (int n = 0; n < NTD; ++n) {
-      acc[n][0] *= corr[0]; acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1]; acc[n][3] *= corr[1];
-    }
+        for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    };
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
 
-    // PV: the score accumulators of key tiles 2j, 2j+1 are the A fragment of step j
+    mbar_wait(q_bar, 0);
+    mbar_wait(k_full, 0);
+    wg_fence();
+    issue_s(0);
+    wg_wait<0>();
+    reg_fence(s);
+    release(k_empty);
+    softmax_tile<CAP>(s, m, l, corr, qpos, t_begin, t, masked(t_begin), window, pre, post);
+    pack_p();
+    // ping-pong: the consumers take turns to issue their products, so that
+    // one warpgroup's softmax runs under the other's wgmma; warpgroup 0 first
+    if (wg == 1 && n_tiles > 1) named_arrive(their_turn);
+    for (int i = 1; i < n_tiles; ++i) {
+      const int st = i % STAGES, prev = (i - 1) % STAGES;
+      const int t0 = t_begin + i * TBK;
+      mbar_wait(k_full + 8 * st, (i / STAGES) & 1);
+      mbar_wait(v_full + 8 * prev, ((i - 1) / STAGES) & 1);
+      named_sync(my_turn);
+      reg_fence(s);
+      reg_fence(acc);
+      wg_fence();
+      issue_s(st);                                    // S of this tile
+      issue_pv(prev);                                 // under it, PV of the previous one
+      if (wg == 0 || i < n_tiles - 1) named_arrive(their_turn);
+      wg_wait<1>();
+      reg_fence(s);
+      release(k_empty + 8 * st);
+      softmax_tile<CAP>(s, m, l, corr, qpos, t0, t, masked(t0), window, pre, post);
+      wg_wait<0>();
+      reg_fence(acc);
+      release(v_empty + 8 * prev);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const float* p0 = s[2 * j];
-      const float* p1 = s[2 * j + 1];
-      unsigned hi[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
-                        pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
-      unsigned lo[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float* p = r < 2 ? p0 : p1;
-        const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&hi[r]);
-        const int e = 2 * (r & 1);
-        lo[r] = pack_bf16(p[e] - __low2float(h2), p[e + 1] - __high2float(h2));
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n] *= corr[0]; acc[4 * n + 1] *= corr[0];
+        acc[4 * n + 2] *= corr[1]; acc[4 * n + 3] *= corr[1];
       }
-      // thread i names row i % 8 of tile i / 8: tiles (keys +0, cols n), (keys +8,
-      // cols n), (keys +0, cols n+1), (keys +8, cols n+1)
-      const bf16* vrow = Vt + (j * 16 + (lane & 8) + (lane & 7)) * STR + (lane >> 4) * 8;
-#pragma unroll
-      for (int n = 0; n < NTD; n += 2) {
-        unsigned bb[4];
-        ldmatrix_x4_trans(bb, vrow + n * 8);
-        mma_bf16(acc[n], hi, bb);
-        mma_bf16(acc[n], lo, bb);
-        mma_bf16(acc[n + 1], hi, bb + 2);
-        mma_bf16(acc[n + 1], lo, bb + 2);
-      }
+      pack_p();
     }
-    __syncthreads();                         // stage st is refilled next iteration
-  }
+    const int last = (n_tiles - 1) % STAGES;
+    mbar_wait(v_full + 8 * last, ((n_tiles - 1) / STAGES) & 1);
+    reg_fence(acc);
+    wg_fence();
+    issue_pv(last);
+    wg_wait<0>();
+    reg_fence(acc);
+    release(v_empty + 8 * last);
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long fr = row0 + warp * 16 + g + 8 * i;
-    if (fr >= n_rows) continue;
-    const int h = kvh * group + (int)(fr % group);
-    bf16* orow = o + ((b * (long long)S + qpos[i]) * H + h) * D + 2 * t;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(FULL, l[r], 1);
+      l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    }
+    // stage O in this warpgroup's Q rows (free once its last S is done), in
+    // the same 128-byte swizzle, then store whole rows in 16-byte pieces
+    uint8_t* rows_smem = smem_raw + (base - smem_u32(smem_raw)) + L::Q + wg * 64 * 128;
 #pragma unroll
-    for (int n = 0; n < NTD; ++n)
-      *reinterpret_cast<unsigned*>(orow + n * 8) =
-          pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    for (int r = 0; r < 2; ++r) {
+      const int rr = warp * 16 + g + 8 * r;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(rows_smem + (n / 8) * L::Q_CHUNK + rr * 128 +
+                                     ((n % 8) ^ (rr % 8)) * 16 + 4 * t) =
+            pack_bf16(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
+    }
+    asm volatile("bar.sync %0, 128;\n" :: "r"(3 + wg) : "memory");
+    for (int idx = tid; idx < 64 * (D / 8); idx += WG) {
+      const int rr = idx / (D / 8), j = idx % (D / 8);
+      const int row = wg * 64 + rr, qp = q0 + row / group;
+      if (row >= rows || qp >= S) continue;           // past this CTA's box, or past S
+      const int h = kvh * group + row % group;
+      *reinterpret_cast<uint4*>(o + (((long long)b * S + qp) * H + h) * D + j * 8) =
+          *reinterpret_cast<const uint4*>(rows_smem + (j / 8) * L::Q_CHUNK + rr * 128 +
+                                          ((j % 8) ^ (rr % 8)) * 16);
+    }
   }
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver API call: fetched through the runtime,
+// so that the library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a contiguous (B, S, heads, D) bf16 tensor as a TMA map, dims innermost
+// first, no copy; box {64 columns, box_heads, box_pos, 1}, 128-byte swizzle,
+// zeros past the edges
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S, int heads,
+              int D, int box_heads, int box_pos) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {CHUNK, (cuuint32_t)box_heads, (cuuint32_t)box_pos, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
 template <int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int S,
-                       int H, int Hkv, int window, float scale, float cap,
-                       cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (size_t)(MROWS + 4 * MBK) * (D + 8);
-  auto kern = flash_mma_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S,
+                         int H, int Hkv, int window, float scale, float cap,
+                         cudaStream_t stream) {
+  const int group = H / Hkv;
+  if (group > MAX_GROUP) return cudaErrorInvalidValue;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const int P = TROWS / group;                        // query positions of a CTA
+  CUtensorMap qm, km, vm;
+  if (!make_map(enc, &qm, q, B, S, H, D, group, P) ||
+      !make_map(enc, &km, k, B, S, Hkv, D, 1, TBK) || !make_map(enc, &vm, v, B, S, Hkv, D, 1, TBK))
+    return cudaErrorInvalidValue;
+  auto kern = cap > 0.f ? flash_wgmma_kernel<D, true> : flash_wgmma_kernel<D, false>;
+  const int smem = Smem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const long long n_rows = (long long)S * (H / Hkv);
-  const dim3 grid((unsigned)((n_rows + MROWS - 1) / MROWS), (unsigned)(B * Hkv));
-  kern<<<grid, THREADS, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                                        static_cast<const bf16*>(v), static_cast<bf16*>(o), S, H,
-                                        Hkv, window, scale, cap);
+  const int n_qtiles = (S + P - 1) / P;
+  const long long grid = (long long)n_qtiles * B * Hkv;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kern<<<(unsigned)grid, TC_THREADS, smem, stream>>>(qm, km, vm, static_cast<bf16*>(o), S, H,
+                                                    Hkv, B * Hkv, P, n_qtiles, window, scale,
+                                                    cap);
   return cudaGetLastError();
 }
 
@@ -505,9 +794,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool wide = D > 128;
   if (dtype == 1) {
-    if (D == 256) return (int)launch_mma<256>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
-    if (D == 128) return (int)launch_mma<128>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
-    if (D == 64) return (int)launch_mma<64>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
+    if (D == 256) return (int)launch_wgmma<256>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
+    if (D == 128) return (int)launch_wgmma<128>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
+    if (D == 64) return (int)launch_wgmma<64>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
   }
   if (dtype == 1)
     return (int)(wide ? launch<__nv_bfloat16, 2>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st)

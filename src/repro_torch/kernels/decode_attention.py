@@ -17,7 +17,6 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import DTYPE_CODES, _window, check_attention_inputs
 
 launches = 0
-MAX_GROUP = 8
 
 _fn = None
 _chunk = 0
@@ -47,8 +46,6 @@ def decode_attention_fwd(q, k_cache, v_cache, pos: int, *, window=None,
     pos = int(pos)
     if not 0 <= pos < s:
         raise ValueError(f"pos {pos} outside the cache of length {s}")
-    if h // hkv > MAX_GROUP:
-        raise ValueError(f"group {h // hkv} above {MAX_GROUP}")
     w = _window(window)
     if q.device.type == "cpu":
         return ref.decode_attention(q, k_cache, v_cache, pos, window=w,

@@ -16,6 +16,9 @@ from repro_torch.kernels import _build, ref
 launches = 0
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+# query heads per kv head: the bf16 kernel's Q box holds 128 // group
+# positions of the whole group; the decode kernel keeps a group in a block
+MAX_GROUP = 8
 
 _fn = None
 
@@ -54,8 +57,13 @@ def check_attention_inputs(q, k, v, *, query_len=None):
     hkv = k.shape[2]
     if h % hkv != 0:
         raise ValueError(f"{h} query heads do not group onto {hkv} kv heads")
+    if h // hkv > MAX_GROUP:
+        raise ValueError(f"group {h // hkv} above {MAX_GROUP}")
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}")
+    # TMA takes a global base address on a 16-byte boundary and row strides
+    # in multiples of 16 bytes; contiguous bf16 rows of head_dim 64/128/256
+    # (H*D*2 and Hkv*D*2 bytes) always are, so the base is what can fail
     if q.device.type == "cuda" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("CUDA inputs must start on a 16-byte boundary")
 
@@ -72,8 +80,8 @@ def flash_attention_fwd(q, k, v, *, window=None, logit_cap: float = 0.0,
     """q: (B,S,H,D); k,v: (B,S,Hkv,D) -> (B,S,H,D). ``window`` 0/None = full
     causal. Any S: the kernel masks the ragged edge itself.
 
-    bf16 with head_dim 64/128/256 runs on the tensor cores, anything else on
-    the fp32 CUDA cores."""
+    bf16 with head_dim 64/128/256 runs on the tensor cores (wgmma fed by
+    TMA), anything else on the fp32 CUDA cores."""
     global launches
     check_attention_inputs(q, k, v)
     if k.shape[1] != q.shape[1]:

@@ -21,7 +21,7 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_causal_attention as jax_chunked
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, ablate_flash, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -205,6 +205,23 @@ def test_chunked_causal_attention_matches_jax(dtype):
     _close(torch_chunked(qt, kt, vt, **kw), jax_chunked(qj, kj, vj, **kw), dtype)
 
 
+@pytest.mark.parametrize("q_std", [1.0, 8.0])
+def test_bf16_probabilities_stay_within_the_row_limit(q_std):
+    """The bf16 flash kernel rounds p to bf16 before PV, as the plain chunked
+    attention does. That rounding, at gemma2's head_dim, group, window and
+    cap, must read within ROW_REL_TOL per row of the fp32-p plain version,
+    with half the limit to spare (it reads ~5e-3), so that the on-card limit
+    accepts the kernel's rounding and still sees the planted faults."""
+    rng = np.random.default_rng(10)
+    q, k, v = _qkv(rng, 1, 1024, 8, 4, 256)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in (q * q_std, k, v))
+    kw = dict(window=512, logit_cap=50.0, scale=256 ** -0.5)
+    want = tref.flash_attention(q, k, v, **kw)
+    got = torch_chunked(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16
+    assert tref.max_row_rel_err(got, want) <= 0.75 * tref.ROW_REL_TOL[torch.bfloat16]
+
+
 @pytest.mark.parametrize("fault", ["window ignored", "last 128 keys dropped", "cap ignored"])
 def test_row_rel_limit_sees_planted_faults(fault):
     """The on-card limit tells a wrongly written decode kernel from a sound one:
@@ -240,6 +257,8 @@ def _bad_inputs():
                                    v=torch.zeros(1, 8, 2, 320)),
         "3-d input": dict(q=q[0], k=kv, v=kv),
         "negative window": dict(q=q, k=kv, v=kv, window=-1),
+        # the bf16 kernel's Q box holds 128 // group positions of a whole group
+        "group above 8": dict(q=torch.zeros(1, 8, 18, 16), k=kv, v=kv),
     }
 
 
@@ -287,6 +306,15 @@ def test_rmsnorm_rejects_what_the_kernel_does_not_take(case):
         rmsnorm_fwd(*_bad_norm_inputs()[case])
 
 
+@pytest.mark.parametrize("name", sorted(ablate_flash.ABLATIONS))
+def test_flash_ablations_edit_the_kernel_source(name):
+    """Each design choice ablate_flash.py undoes is found in the kernel
+    source and changed, so that an edit of the kernel cannot leave an
+    ablation timing the kernel as it is."""
+    src = ablate_flash.SOURCE.read_text()
+    assert ablate_flash.ABLATIONS[name][1](src) != src
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -304,13 +332,20 @@ def cuda():
     return torch.device("cuda")
 
 
-GPU_CASES = [  # bf16 flash with head_dim 64/128/256 takes the tensor-core kernel
+GPU_CASES = [  # bf16 flash with head_dim 64/128/256 takes the wgmma kernel
     ("flash", (2, 300, 9, 3, 64), 100, 50.0, "float32"),
     ("flash", (1, 520, 8, 4, 256), 128, 50.0, "bfloat16"),
     ("flash", (2, 1000, 9, 3, 64), 300, 50.0, "bfloat16"),
     ("flash", (1, 777, 6, 2, 128), 0, 30.0, "bfloat16"),
     ("flash", (1, 1, 8, 1, 64), 0, 0.0, "bfloat16"),          # S = 1, group 8
     ("flash", (3, 17, 4, 4, 128), 5, 0.0, "bfloat16"),        # S below one tile
+    ("flash", (1, 600, 8, 4, 256), 64, 50.0, "bfloat16"),     # window of one key tile
+    ("flash", (2, 333, 4, 2, 128), 1, 0.0, "bfloat16"),       # window 1: the diagonal only
+    ("flash", (2, 1000, 8, 4, 256), 0, 50.0, "bfloat16"),     # S ragged against 64-position
+    ("flash", (1, 4333, 8, 4, 256), 4096, 50.0, "bfloat16"),  # q tiles and 64-key tiles
+    ("flash", (1, 900, 8, 1, 128), 200, 30.0, "bfloat16"),    # group 8 at D=128
+    ("flash", (1, 1500, 3, 1, 64), 300, 50.0, "bfloat16"),    # group 3: 126-row CTAs
+    ("flash", (1, 4352, 8, 4, 256), 4096, 50.0, "bfloat16"),  # the prefill shape, batch 1
     ("flash", (2, 300, 4, 2, 16), 16, 50.0, "bfloat16"),      # bf16 on the CUDA cores:
     ("flash", (1, 200, 3, 3, 24), 16, 0.0, "bfloat16"),       # the smoke configs' head_dims
     ("decode", (2, 4384, 8, 4, 256), 4096, 50.0, "bfloat16"),
