@@ -11,10 +11,13 @@ Phases, each fatal on failure:
     gemma2-2b's shapes: the largest error of a row over that row's norm must
     be within ``ref.ROW_REL_TOL``, and planted faults (the plain version of a
     kernel that ignores the window, drops the window's first 64 keys or the
-    last 128 keys, or ignores the cap; of an RMSNorm that applies scale
+    last 128 keys, or ignores the cap; of a split decode kernel that loses
+    one split or counts a 64-key tile twice; of an RMSNorm that applies scale
     instead of 1 + scale, subtracts the row mean or leaves 4 features out of
     the mean) must read above it; the RMSNorm gradient against autograd of
-    the plain version. Kernel, plain and library times from CUDA events, the
+    the plain version; two decode calls on the same inputs bit-equal, and
+    decode parity again on another cache set after its timed launches.
+    Kernel, plain and library times from CUDA events, the
     kernel's and the library call's device time from torch.profiler, and the
     flash kernel's achieved TFLOP/s;
  3. serve: gemma2-2b at full width (random bf16 weights from a seeded
@@ -228,29 +231,42 @@ def decode_phase(iters: int):
     q8 = randn((B, 1, H, D), dtype, gen, 8.0)   # scores of std 8: the cap bends them
     cases = [(pos, w, sets[0][0]) for pos in (0, PROMPT - 1, CACHE - 1) for w in (WINDOW, 0)]
     cases.append((CACHE - 1, WINDOW, q8))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     errs, rows = [], []
     for pos, w, q in cases:
         _, kc, vc = sets[0]
         kw = dict(window=w, logit_cap=CAP, scale=D ** -0.5)
         plain_q = q is not q8
+        lo = max(0, pos - w + 1) if w else 0
         name = (f"decode {dt} B={B} cache={CACHE} H={H} Hkv={HKV} D={D} pos={pos} window={w} "
                 f"cap={CAP:g} q_std={1 if plain_q else 8}")
         faults = []
         if plain_q and pos >= 128:
             wrong_w = 0 if w else WINDOW
+            # the split kernel's own faults, on its plan for this card: a
+            # split lost in the merge, a tile loaded twice
+            ranges = ref.plan_splits(lo, pos, n_sm, B, HKV)
+            mid = len(ranges) // 2
             faults = [(f"window {wrong_w} instead of {w}",
                        ref.decode_attention(q, kc, vc, pos, **{**kw, "window": wrong_w})),
                       ("last 128 keys dropped",
                        ref.decode_attention(q, kc, vc, pos - 128,
-                                            **{**kw, "window": max(w - 128, 0)}))]
+                                            **{**kw, "window": max(w - 128, 0)})),
+                      (f"one split's keys dropped (split {mid} of {len(ranges)})",
+                       ref.decode_attention_split(q, kc, vc, pos, ranges=ranges[:mid] +
+                                                  ranges[mid + 1:], **kw)),
+                      ("one 64-key tile counted twice",
+                       ref.decode_attention_split(q, kc, vc, pos, ranges=ranges + [
+                           (ranges[mid][0], ranges[mid][0] + 63)], **kw))]
         elif not plain_q:
             faults = [("cap ignored",
                        ref.decode_attention(q, kc, vc, pos, **{**kw, "logit_cap": 0.0}))]
-        errs.append(compare(name, decode_attention_fwd(q, kc, vc, pos, **kw),
-                            ref.decode_attention(q, kc, vc, pos, **kw), faults))
+        got = decode_attention_fwd(q, kc, vc, pos, **kw)
+        errs.append(compare(name, got, ref.decode_attention(q, kc, vc, pos, **kw), faults))
+        if not _bit_equal(decode_attention_fwd(q, kc, vc, pos, **kw), got):
+            fail(f"{name}: two calls on the same inputs differ")
         if not plain_q or pos != CACHE - 1:
             continue
-        lo = max(0, pos - w + 1) if w else 0
         n = pos - lo + 1
         flops = 4.0 * B * H * n * D
         nbytes = (2.0 * B * n * HKV * D + 2.0 * q.numel()) * q.element_size()
@@ -280,9 +296,15 @@ def decode_phase(iters: int):
         lib, lib_dev = time_ms(run_lib, iters * 4), device_ms(run_lib, iters * 4)
         print(f"  time {name}: kernel_ms={ms:.5f} device_ms={dev:.5f} plain_ms={plain:.5f} "
               f"library_ms={lib:.5f} library_device_ms={lib_dev:.5f} bound_ms={b_ms:.5f} "
-              f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/kernel={b_ms / ms:.4f}",
-              flush=True)
+              f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/kernel={b_ms / ms:.4f} "
+              f"bound/device={b_ms / dev:.4f} splits={len(ref.plan_splits(lo, pos, n_sm, B, HKV))}"
+              f" on {n_sm} SMs", flush=True)
         rows.append((ms, plain, lib, b_ms, b_by, dev, lib_dev))
+        # after the timed launches, on another cache set: a stale partial or
+        # a counter left non-zero would show here
+        qq, kk, vv = sets[2]
+        errs.append(compare(name + " again, cache set 2", decode_attention_fwd(qq, kk, vv, pos, **kw),
+                            ref.decode_attention(qq, kk, vv, pos, **kw)))
     return tuple(max(e[i] for e in errs) for i in range(2)), rows
 
 
@@ -669,6 +691,14 @@ def main(argv=None) -> int:
         print(f"  {name}: {len(regs)} kernel instances, {min(regs, default=0)}-"
               f"{max(regs, default=0)} registers a thread, {spills} bytes of spill stores "
               "in all (ptxas)", flush=True)
+    # each instance of the split decode kernel (D, query heads a warp keeps)
+    log = _build.build_log("decode_attention")
+    for d, g, body in re.findall(r"decode_tma_kernelILi(\d+)ELi(\d+)EE\S*\n(.*?)Compile time",
+                                 log, re.S):
+        spill = re.search(r"(\d+) bytes spill stores", body)
+        reg = re.search(r"Used (\d+) registers", body)
+        print(f"    decode_tma_kernel<D={d}, G={g}>: {reg.group(1) if reg else '?'} registers, "
+              f"{spill.group(1) if spill else '?'} bytes of spill stores", flush=True)
     # each instance of the wgmma flash kernel: registers at launch (the
     # consumers then take 240 by setmaxnreg) and spills
     log = _build.build_log("flash_attention")

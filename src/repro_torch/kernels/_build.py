@@ -2,15 +2,18 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/<name>-<hash>.so`` next to this file (the directory is git-ignored).
-The hash covers the source and the flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is. ``build_all`` starts one ``nvcc`` per
-source, all at once, and waits for them. Nothing is built at import time.
+The hash covers the source, the headers of ``csrc/`` it includes (``#include
+"..."``, followed into headers that include others) and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it is.
+``build_all`` starts one ``nvcc`` per source, all at once, and waits for
+them. Nothing is built at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,10 +40,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _local_includes(path: Path, seen=None) -> list:
+    """The headers of ``csrc/`` that ``path`` includes, directly or not, in
+    the order first met."""
+    seen = [] if seen is None else seen
+    for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M):
+        header = CSRC / inc
+        if header.exists() and header not in seen:
+            seen.append(header)
+            _local_includes(header, seen)
+    return seen
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for header in _local_includes(src):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def nvcc_command(source: Path, out: Path) -> list:
+    """nvcc with this module's flags; ``csrc/`` on the include path, so that a
+    copy of a source elsewhere (an ablation) finds its headers."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(source)]
 
 
 def build_log(name: str) -> str:
@@ -60,9 +85,9 @@ def build_all(names: Iterable[str] = KERNELS) -> float:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            nvcc_command(CSRC / f"{name}.cu", tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()

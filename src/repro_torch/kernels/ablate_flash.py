@@ -43,7 +43,7 @@ _DIRECT = """#pragma unroll
 
 def _direct_epilogue(src: str) -> str:
     a = src.index(_STAGED)
-    b = src.index("  }\n}\n\ntypedef CUresult", a)
+    b = src.index("  }\n}\n\ntemplate <int D>\ncudaError_t launch_wgmma", a)
     return src[:a] + _DIRECT + src[b:]
 
 
@@ -79,7 +79,7 @@ def build(names):
         cu.write_text(src if name == "kernel" else ABLATIONS[name][1](src))
         so = OUT / f"{name}.so"
         procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            _build.nvcc_command(cu, so),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():

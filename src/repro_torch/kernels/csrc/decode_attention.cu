@@ -9,30 +9,70 @@
 // What bounds it on the H100: bytes. Every key in range is read once from K and
 // once from V and used for a handful of FLOPs per byte. At gemma2-2b's decode
 // (B=2, Hkv=4, D=256, ~4.4k keys, bf16) that is ~36 MB a launch (18 MB each of
-// K and V): ~11 us at 3.35 TB/s.
+// K and V): 10.4 us at 3.35 TB/s. What matters is keeping enough bytes in
+// flight on every SM (Little's law: ~25 KB an SM at ~1 us of latency) and
+// spending nothing around them. The TPU kernel walks the kv axis inside one
+// grid cell per (batch, kv head): 8 cells for 132 SMs here.
 //
-// Design: the TPU kernel walks the kv axis sequentially inside one grid cell
-// per (batch, kv head); on the H100 that is 8 blocks for 132 SMs. Here the kv
-// axis is split instead (split-K), so that enough loads are in flight:
-//  * pass 1 (decode_partial_kernel): grid (128-key chunks that meet [lo, pos],
-//    batch * kv heads). Each of a block's 4 warps takes 32 keys, one per lane.
-//    Score step: a lane reads its key's K row with 16-byte loads and dots it
-//    with the group's query rows, which sit in shared memory (fp32, read as
-//    broadcasts). Softmax across the warp with __shfl_xor_sync. PV step: lanes
-//    split the head dim (16 bytes of a V row each, so a row is one coalesced
-//    512-byte read at D=256 bf16) and each key's weight is broadcast with
-//    __shfl_sync. The 4 warps merge through shared memory and the block writes
-//    an fp32 partial (max, sum, unnormalised output) for every query head of
-//    its group. Warps whose 32 keys lie wholly outside [lo, pos] skip them,
-//    which gives the same result as masking them.
-//  * pass 2 (decode_combine_kernel): one block per (batch, head) rescales and
-//    sums the partials of the chunks that ran.
+// bf16 with head_dim 64, 128 or 256 and a group of up to 8 query heads a kv
+// head (gemma2-2b: D=256, group 2; smollm-135m: D=64, group 3):
+// decode_tma_kernel, one launch.
+//  * A grid sized to the card. The key range [lo, pos] of each (batch, kv
+//    head) is cut into nsplit runs of whole 64-key tiles, nsplit = min(tiles,
+//    ceil(SPLITS_PER_SM * n_SM / (B * Hkv))); split i takes tiles
+//    [i * n / nsplit, (i + 1) * n / nsplit), never none. At the serve shape
+//    that is 8 x 33 CTAs of 1-3 tiles, two CTAs an SM, one wave. n_SM is read
+//    once with cudaDeviceGetAttribute. kernels/ref.py::plan_splits mirrors
+//    the plan, and the CPU tests hold its merge to the plain version.
+//  * A TMA-fed ring. One producer thread keeps a ring of K and V tiles (64
+//    keys x D, 32 KB at D=256; 64 KB of ring: 2 slots at D=256, 4 at 128, 8
+//    at 64) in flight under full and empty mbarriers. The tensor maps cover the caches in
+//    place, (D, Hkv, S, B), so rows past S arrive as zeros and never cross
+//    into the next batch. Boxes of 64 columns land in the 128-byte swizzle, so
+//    both read patterns below are free of bank conflicts. Two CTAs share an
+//    SM: ~128 KB in flight an SM, five times what Little's law asks. A ring
+//    of 96 KB (3 slots at D=256) measured slower (kernels/ablate_decode.py).
+//  * Consumers: 8 warps, each owning 8 keys of every tile and its own fp32
+//    online softmax (max, sum, output) for every query head of the group,
+//    so no warp waits on another inside the loop. All 8 take the tiles in
+//    ring order: an mbarrier phase is only waited for by a warp that has
+//    seen the phase before it. (Two warpgroups taking tiles in turn would
+//    wait out of order, up to two phases ahead of a slot, where the parity
+//    wait no longer tells phases apart.) Scores: four lanes a key, each
+//    dotting a quarter of the K row, in 16-byte units rotated so that a
+//    quarter-warp hits 8 bank groups, with the group's query rows, held in
+//    shared memory as fp32 (each quarter shifted by 4 floats, for the same
+//    reason). PV: a lane owns a 16-byte unit of the V row and the keys'
+//    weights come by __shfl_sync; CUDA cores suffice at ~2 FLOP a byte. The
+//    loads of the next tiles are in flight under the work on this one, and
+//    an SM's two CTAs overlap each other's scores and PV. Only the ragged
+//    tiles at lo and pos are masked.
+//  * The combine in the same launch. A CTA merges its 8 warps' states in
+//    shared memory and writes its partial (max, sum, unnormalised output of
+//    each query head) to scratch, then __threadfence and an atomicAdd on the
+//    (batch, kv head)'s counter. The CTA that arrives last merges all splits
+//    in split order (the maxima and sums staged in shared memory in one
+//    round of loads, the outputs as float4 columns with the splits cut
+//    into parts whose loads are issued together), writes O in bf16
+//    and resets the counter to 0. The merge order is fixed, so two calls on
+//    the same inputs are bit-equal. With one split the CTA writes O itself.
+//    The wrapper keeps the scratch and counters per (device, stream).
+//  * Exact tanhf for the cap and exp2f in log2 units: a tile has 64 scores
+//    a query head, so neither is on the critical path of a bytes-bound kernel.
+//
+// Any other case (fp32, another head dim): decode_partial_kernel, split-K over
+// 128-key chunks on the CUDA cores (a lane a key in the score step, lanes
+// across the head dim in the PV step), then decode_combine_kernel: two
+// launches. Any cache length is taken; the ragged last chunk is masked. The
+// head dim must be a multiple of 16 bytes' worth of elements (8 bf16, 4 fp32).
+//
 // Masked scores take the finite NEG_INF of the TPU kernel, not -inf, so that
 // exp(NEG_INF - NEG_INF) = 1 and a later exp(NEG_INF - m) = 0 stay finite.
-// Any cache length is taken; the ragged last chunk is masked here. The head
-// dim must be a multiple of 16 bytes' worth of elements (8 bf16, 4 fp32).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tma.cuh"  // tensor maps, TMA loads and mbarriers
 
 namespace {
 
@@ -221,6 +261,377 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_m,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16, head_dim 64/128/256: TMA ring, split sized to the card, fused combine
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+constexpr int TK = 64;                        // keys of a tile
+constexpr int SPLITS_PER_SM = 2;              // CTAs of each (batch, kv head) per SM / (B * Hkv)
+constexpr int RING_BYTES = 64 * 1024;         // K and V tiles in flight, a CTA
+constexpr bool FUSED_COMBINE = true;          // the last CTA of a (batch, kv head) merges
+constexpr int CWARPS = 8;                     // consumer warps, each on every tile
+constexpr int CTHREADS = CWARPS * 32;
+constexpr int TMA_THREADS = CTHREADS + 32;    // and a producer warp
+
+// Shared memory of one CTA, in bytes from a 1024-aligned base. A tile slot is
+// D / 64 boxes of 64 rows x 128 bytes. After the last tile the ring holds the
+// warps' outputs for the CTA's merge, then the last CTA's merge of the splits.
+template <int D, int G>
+struct DSmem {
+  static constexpr int TILE = TK * D * 2;
+  static constexpr int NS = RING_BYTES / TILE < 8 ? RING_BYTES / TILE : 8;  // ring slots
+  static constexpr int QSTR = D + 16;         // floats of a query row
+  static constexpr int Q = NS * TILE;
+  static constexpr int WM = Q + G * QSTR * 4; // each warp's max of each head, then its factor
+  static constexpr int WL = WM + CWARPS * G * 4;
+  static constexpr int CM = WL + CWARPS * G * 4;   // the CTA's max and sum of each head
+  static constexpr int CL = CM + G * 4;
+  static constexpr int FLAG = CL + G * 4;
+  static constexpr int BAR = (FLAG + 4 + 7) / 8 * 8;  // full, then empty, of each slot
+  static constexpr int BYTES = BAR + 16 * NS + 1024;
+  static_assert(CWARPS * G * D * 4 <= NS * TILE, "the warps' outputs must fit in the ring");
+};
+
+// the 256 consumer threads only (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(CTHREADS) : "memory");
+}
+
+// 8 bf16 (16 bytes) as floats: a bf16 is the high half of its float
+__device__ __forceinline__ void unpack8(const uint4 u, float (&x)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Shared memory merge_splits needs: the splits' (max, sum) pairs, a factor
+// a split and a sum a head, and the parts' output sums
+__host__ __device__ constexpr int merge_red_offset(int n) { return (8 * n + 4 * MAXG + 15) / 16 * 16; }
+__host__ __device__ constexpr int merge_smem_bytes(int nsplit, int group, int D) {
+  return merge_red_offset(nsplit * group) + (group * D / 4 > CTHREADS ? 0 : 16 * CTHREADS);
+}
+
+// Merge the partials of every split of (batch, kv head) bkv in split order,
+// by the 256 threads of a block. The splits' (max, sum) pairs go to shared
+// memory in one round of loads; a warp a head then takes the largest max,
+// each split's factor and the sum of the head, lane by split and in a fixed
+// butterfly. The outputs are read as float4 columns, the splits cut into as
+// many parts as the threads allow, each part's loads issued together, and
+// the parts summed in order. Every step runs in one order whatever CTA
+// merges, so repeats are bit-equal. Partials are read through L2 (__ldcg):
+// other CTAs wrote them in this launch.
+template <int D>
+__device__ void merge_splits(const float* __restrict__ part_acc,
+                             const float* __restrict__ part_ml, bf16* __restrict__ o,
+                             uint8_t* smem, int bkv, int nsplit, int group, int H, int Hkv,
+                             int tid) {
+  const int n = nsplit * group;                     // partial rows: split-major
+  float2* sml = reinterpret_cast<float2*>(smem);    // (max, sum), then (factor, sum)
+  float* sl = reinterpret_cast<float*>(smem + 8 * n);
+  float4* red = reinterpret_cast<float4*>(smem + merge_red_offset(n));
+  const float2* ml = reinterpret_cast<const float2*>(part_ml) + (long long)bkv * n;
+  for (int i = tid; i < n; i += CTHREADS) sml[i] = __ldcg(ml + i);
+  consumer_sync();
+  const int warp = tid / 32, lane = tid % 32;
+  if (warp < group) {
+    float mx = NEG_INF;
+    for (int s = lane; s < nsplit; s += 32) mx = fmaxf(mx, sml[s * group + warp].x);
+    mx = warp_max(mx);
+    float l = 0.f;
+    for (int s = lane; s < nsplit; s += 32) {
+      float2& e = sml[s * group + warp];
+      e.x = exp2f(e.x - mx);
+      l += e.y * e.x;
+    }
+    l = warp_sum(l);
+    if (lane == 0) sl[warp] = l;
+  }
+  consumer_sync();
+  const int cols = group * D / 4;                   // float4 columns of the output rows
+  const int parts = cols >= CTHREADS ? 1 : CTHREADS / cols;
+  const float4* pa = reinterpret_cast<const float4*>(part_acc + (long long)bkv * n * D);
+  bf16* ob = o + ((long long)(bkv / Hkv) * H + (bkv % Hkv) * group) * D;
+  const int part = tid / cols;
+  for (int col = tid % cols; part < parts && col < cols; col += CTHREADS) {
+    const int g = col * 4 / D;
+    const int s0 = part * nsplit / parts, s1 = (part + 1) * nsplit / parts;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int s = s0; s < s1; ++s) {
+      const float4 x = __ldcg(pa + (long long)s * cols + col);
+      const float f = sml[s * group + g].x;
+      a.x += x.x * f; a.y += x.y * f; a.z += x.z * f; a.w += x.w * f;
+    }
+    if (parts == 1) {
+      const float inv = 1.f / sl[g];
+      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(ob + col * 4);
+      dst[0] = __floats2bfloat162_rn(a.x * inv, a.y * inv);
+      dst[1] = __floats2bfloat162_rn(a.z * inv, a.w * inv);
+    } else {
+      red[part * cols + col] = a;
+    }
+  }
+  if (parts == 1) return;
+  consumer_sync();
+  for (int col = tid; col < cols; col += CTHREADS) {
+    float4 a = red[col];
+    for (int p = 1; p < parts; ++p) {
+      const float4 x = red[p * cols + col];
+      a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
+    }
+    const float inv = 1.f / sl[col * 4 / D];
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(ob + col * 4);
+    dst[0] = __floats2bfloat162_rn(a.x * inv, a.y * inv);
+    dst[1] = __floats2bfloat162_rn(a.z * inv, a.w * inv);
+  }
+}
+
+// G: query heads a warp keeps state for (2, or 8 for a group of 3 to 8)
+template <int D, int G>
+__global__ void __launch_bounds__(TMA_THREADS, G <= 2 ? 2 : 1)
+decode_tma_kernel(const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ q,
+                  bf16* __restrict__ o, float* __restrict__ part_acc,
+                  float* __restrict__ part_ml, int* __restrict__ counters, int H, int Hkv,
+                  int pos, int lo, int t_begin, int n_tiles, int nsplit, float pre,
+                  float post, int capped) {
+  using L = DSmem<D, G>;
+  constexpr int NS = L::NS;
+  constexpr int NCH = D / TMA_BOX_COLS;      // boxes of a row
+  constexpr int BOX = TK * 128;              // bytes of a box
+  constexpr int UPR = D / 8;                 // 16-byte units of a row
+  constexpr int QU = UPR / 4;                // of a quarter of a row
+  constexpr int KPI = 32 / UPR;              // rows a warp reads at once in PV
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) - smem_u32(smem_raw));
+  const uint32_t base = smem_u32(sm);
+  const uint32_t full = base + L::BAR, empty = full + 8 * NS;
+  float* qs = reinterpret_cast<float*>(sm + L::Q);
+  float* wm = reinterpret_cast<float*>(sm + L::WM);
+  float* wl = reinterpret_cast<float*>(sm + L::WL);
+  float* cm = reinterpret_cast<float*>(sm + L::CM);
+  float* cl = reinterpret_cast<float*>(sm + L::CL);
+  int* flag = reinterpret_cast<int*>(sm + L::FLAG);
+
+  const int group = H / Hkv;
+  const int bkv = blockIdx.y, b = bkv / Hkv, kvh = bkv % Hkv;
+  const int split = blockIdx.x;
+  const int i0 = (int)((long long)split * n_tiles / nsplit);   // this split's tiles
+  const int n_local = (int)((long long)(split + 1) * n_tiles / nsplit) - i0;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == CTHREADS) {   // the producer: fetch both tensor maps early
+    asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&kmap)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&vmap)) : "memory");
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, CWARPS);      // every consumer warp reads every tile
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CWARPS) {
+    // producer: K and V of each tile in turn; ring item n is tile n / 2
+    if (lane == 0) {
+      for (int n = 0; n < 2 * n_local; ++n) {
+        const int slot = n % NS;
+        mbar_wait(empty + 8 * slot, ((n / NS) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * slot, L::TILE);
+        const CUtensorMap* map = (n & 1) ? &vmap : &kmap;
+        const int t0 = (t_begin + i0 + n / 2) * TK;   // keys past S arrive as zeros
+        for (int c = 0; c < NCH; ++c)
+          tma_load(base + slot * L::TILE + c * BOX, map, full + 8 * slot, c * TMA_BOX_COLS,
+                   kvh, t0, b);
+      }
+    }
+    return;
+  }
+
+  // the group's query rows in fp32; each quarter of a row 4 floats after
+  // the one before, so that the 4 quarters a quarter-warp reads lie in
+  // other banks
+  const int tid = threadIdx.x;
+  const bf16* qg = q + ((long long)b * H + kvh * group) * D;
+  for (int idx = tid; idx < G * D; idx += CTHREADS) {
+    const int g = idx / D, d = idx % D;
+    qs[g * L::QSTR + d + 4 * (d / (D / 4))] = g < group ? __bfloat162float(qg[g * D + d]) : 0.f;
+  }
+  consumer_sync();
+
+  // scores: 4 lanes a key, each a quarter of the row, rotated so that a
+  // quarter-warp (2 keys x 4 quarters) reads 8 distinct 16-byte bank groups
+  // of K and of q; PV: a lane a 16-byte unit of the V row
+  const int r = warp * 8 + lane / 4, qq = lane & 3;
+  const int unit = lane % UPR, sub = lane / UPR;
+  const int rot = 2 * (qq / (8 / QU));
+  float m[G], l[G], acc[G][8];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+  }
+
+  for (int j = 0; j < n_local; ++j) {
+    const int t0 = (t_begin + i0 + j) * TK;
+    const int sk = (2 * j) % NS, sv = (2 * j + 1) % NS;
+    mbar_wait(full + 8 * sk, ((2 * j) / NS) & 1);
+    const uint8_t* kt = sm + sk * L::TILE + r * 128;
+    float s[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) s[g] = 0.f;
+#pragma unroll
+    for (int u = 0; u < QU; ++u) {
+      const int jj = qq * QU + (u + rot) % QU;              // unit of the row
+      float kx[8];
+      unpack8(*reinterpret_cast<const uint4*>(kt + (jj / 8) * BOX + ((jj % 8) ^ (r % 8)) * 16), kx);
+      const float* qrow = qs + jj * 8 + 4 * qq;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g < group) {
+          const float4 a = *reinterpret_cast<const float4*>(qrow + g * L::QSTR);
+          const float4 c = *reinterpret_cast<const float4*>(qrow + g * L::QSTR + 4);
+          s[g] += a.x * kx[0] + a.y * kx[1] + a.z * kx[2] + a.w * kx[3] +
+                  c.x * kx[4] + c.y * kx[5] + c.z * kx[6] + c.w * kx[7];
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * sk);
+
+    // online softmax over the warp's 8 keys, in log2 units; lanes 4k..4k+3
+    // hold key k, so the reductions over keys skip xor 1 and 2
+    const int key = t0 + r;
+    const bool edge = t0 < lo || t0 + TK - 1 > pos;
+    float p[G], corr[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      p[g] = 0.f;
+      corr[g] = 1.f;
+      if (g < group) {
+        float x = s[g] + __shfl_xor_sync(FULL, s[g], 1);
+        x += __shfl_xor_sync(FULL, x, 2);
+        x = capped ? tanhf(x * pre) * post : x * pre;
+        if (edge && (key < lo || key > pos)) x = NEG_INF;
+        float mx = x;
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+        const float m_new = fmaxf(m[g], mx);
+        corr[g] = exp2f(m[g] - m_new);
+        p[g] = exp2f(x - m_new);
+        float sum = p[g];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) sum += __shfl_xor_sync(FULL, sum, off);
+        l[g] = l[g] * corr[g] + sum;
+        m[g] = m_new;
+      }
+    }
+
+    mbar_wait(full + 8 * sv, ((2 * j + 1) / NS) & 1);
+    const uint8_t* vt = sm + sv * L::TILE + (unit / 8) * BOX;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[g][e] *= corr[g];
+#pragma unroll
+    for (int kk = 0; kk < 8 / KPI; ++kk) {
+      const int rl = kk * KPI + sub, rr = warp * 8 + rl;
+      float vx[8];
+      unpack8(*reinterpret_cast<const uint4*>(vt + rr * 128 + ((unit % 8) ^ (rr % 8)) * 16), vx);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g < group) {
+          const float pk = __shfl_sync(FULL, p[g], 4 * rl);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][e] += pk * vx[e];
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * sv);
+  }
+
+  // merge the 8 warps: lanes sharing a unit first, then through shared
+  // memory over the idle ring (every load issued has been waited for)
+#pragma unroll
+  for (int off = UPR; off < 32; off <<= 1)
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], off);
+  float* macc = reinterpret_cast<float*>(sm);              // [warp][G][D]
+  consumer_sync();
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (g >= group) break;
+    if (sub == 0) {
+      float4* dst = reinterpret_cast<float4*>(macc + (warp * G + g) * D + unit * 8);
+      dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+      dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
+    }
+    if (lane == 0) {
+      wm[warp * G + g] = m[g];
+      wl[warp * G + g] = l[g];
+    }
+  }
+  consumer_sync();
+  if (tid < group) {
+    float mx = NEG_INF, sum = 0.f;
+    for (int w = 0; w < CWARPS; ++w) mx = fmaxf(mx, wm[w * G + tid]);
+    for (int w = 0; w < CWARPS; ++w) {
+      const float f = exp2f(wm[w * G + tid] - mx);
+      wm[w * G + tid] = f;
+      sum += wl[w * G + tid] * f;
+    }
+    cm[tid] = mx;
+    cl[tid] = sum;
+  }
+  consumer_sync();
+  const long long row0 = ((long long)bkv * nsplit + split) * group;   // this partial's rows
+  for (int idx = tid; idx < group * D; idx += CTHREADS) {
+    const int g = idx / D, d = idx % D;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < CWARPS; ++w) a += macc[(w * G + g) * D + d] * wm[w * G + g];
+    if (nsplit == 1)
+      o[((long long)b * H + kvh * group) * D + idx] = __float2bfloat16(a / cl[g]);
+    else
+      part_acc[row0 * D + idx] = a;
+  }
+  if (nsplit == 1) return;
+  if (tid < group) {
+    part_ml[(row0 + tid) * 2] = cm[tid];
+    part_ml[(row0 + tid) * 2 + 1] = cl[tid];
+  }
+  if (!FUSED_COMBINE) return;
+  __threadfence();                                          // partial visible, then count it
+  consumer_sync();
+  if (tid == 0) *flag = atomicAdd(counters + bkv, 1) == nsplit - 1;
+  consumer_sync();
+  if (!*flag) return;
+  __threadfence();
+  merge_splits<D>(part_acc, part_ml, o, sm, bkv, nsplit, group, H, Hkv, tid);   // over the ring
+  if (tid == 0) counters[bkv] = 0;                          // ready for the next launch
+}
+
+// the combine as a second launch (FUSED_COMBINE false; kernels/ablate_decode.py)
+template <int D>
+__global__ void __launch_bounds__(CTHREADS)
+decode_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                    bf16* __restrict__ o, int nsplit, int H, int Hkv) {
+  extern __shared__ uint8_t msm[];
+  merge_splits<D>(part_acc, part_ml, o, msm, blockIdx.x, nsplit, H / Hkv, H, Hkv, threadIdx.x);
+}
+
 template <typename T, int NV>
 cudaError_t launch(const void* q, const void* kc, const void* vc, void* o, float* pm,
                    float* pl, float* pa, int B, int S, int H, int Hkv, int D, int pos,
@@ -238,27 +649,119 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* o, float
   return cudaGetLastError();
 }
 
+// SMs of the current device, read once per device
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    counts[dev] = 0;
+  return counts[dev];
+}
+
+// splits of each (batch, kv head) over n_tiles 64-key tiles (ref.plan_splits)
+int plan_nsplit(int n_tiles, int B, int Hkv, int n_sm) {
+  const int want = (SPLITS_PER_SM * n_sm + B * Hkv - 1) / (B * Hkv);
+  return max(1, min(n_tiles, want));
+}
+
+bool tma_path(int dtype, int D, int group) {
+  return dtype == 1 && (D == 64 || D == 128 || D == 256) && group <= MAXG;
+}
+
+template <int D, int G>
+cudaError_t launch_tma(const void* q, const void* kc, const void* vc, void* o, float* scratch,
+                       int* counters, int B, int S, int H, int Hkv, int pos, int window,
+                       float scale, float cap, cudaStream_t stream) {
+  using L = DSmem<D, G>;
+  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
+  const int t_begin = lo / TK, n_tiles = pos / TK - t_begin + 1;
+  const int n_sm = sm_count();
+  if (n_sm <= 0) return cudaErrorNoDevice;
+  const int nsplit = plan_nsplit(n_tiles, B, Hkv, n_sm);
+  const int merge_bytes = merge_smem_bytes(nsplit, H / Hkv, D);
+  if (merge_bytes > L::NS * L::TILE) return cudaErrorInvalidValue;   // the last CTA's, in the ring
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  CUtensorMap km, vm;
+  if (!make_map(enc, &km, kc, B, S, Hkv, D, 1, TK) || !make_map(enc, &vm, vc, B, S, Hkv, D, 1, TK))
+    return cudaErrorInvalidValue;
+  auto kern = decode_tma_kernel<D, G>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         L::BYTES);
+  if (err == cudaSuccess)   // all of L1 that can be shared memory: two CTAs an SM
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+  if (err != cudaSuccess) return err;
+  float* part_acc = scratch;
+  float* part_ml = scratch + (long long)B * H * nsplit * D;
+  const bool capped = cap > 0.f;
+  const float LOG2E = 1.4426950408889634f;
+  kern<<<dim3(nsplit, B * Hkv), TMA_THREADS, L::BYTES, stream>>>(
+      km, vm, static_cast<const bf16*>(q), static_cast<bf16*>(o), part_acc, part_ml, counters, H,
+      Hkv, pos, lo, t_begin, n_tiles, nsplit, capped ? scale / cap : scale * LOG2E,
+      capped ? cap * LOG2E : 1.f, capped ? 1 : 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || FUSED_COMBINE || nsplit == 1) return err;
+  decode_merge_kernel<D><<<B * Hkv, CTHREADS, merge_bytes, stream>>>(
+      part_acc, part_ml, static_cast<bf16*>(o), nsplit, H, Hkv);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tma_g(const void* q, const void* kc, const void* vc, void* o, float* scratch,
+                         int* counters, int B, int S, int H, int Hkv, int pos, int window,
+                         float scale, float cap, cudaStream_t stream) {
+  return H / Hkv <= 2 ? launch_tma<D, 2>(q, kc, vc, o, scratch, counters, B, S, H, Hkv, pos,
+                                         window, scale, cap, stream)
+                      : launch_tma<D, MAXG>(q, kc, vc, o, scratch, counters, B, S, H, Hkv, pos,
+                                            window, scale, cap, stream);
+}
+
 }  // namespace
 
-extern "C" int decode_attention_chunk() { return CHUNK; }
+// float32 scratch that decode_attention_fwd needs for these shapes: the
+// partials of the largest split either kernel may make
+extern "C" long long decode_attention_scratch_floats(int B, int S, int H, int Hkv, int D,
+                                                     int dtype) {
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0) return -1;
+  long long nsplit = (S + CHUNK - 1) / CHUNK;
+  if (tma_path(dtype, D, H / Hkv)) {
+    const int n_sm = sm_count();
+    if (n_sm <= 0) return -1;
+    nsplit = plan_nsplit((S - 1) / TK + 1, B, Hkv, n_sm);
+  }
+  return (long long)B * H * nsplit * (D + 2);
+}
 
 // q: (B,1,H,D); k_cache, v_cache: (B,S,Hkv,D); o: (B,1,H,D); one dtype (0 =
 // float32, 1 = bfloat16), contiguous, D a multiple of 8 (bf16) or 4 (fp32).
-// part_m, part_l: float32 (B*H, nsplit_max); part_acc: float32 (B*H,
-// nsplit_max, D), nsplit_max = ceil(S / CHUNK). 0 <= pos < S; window <= 0 = no
-// window; cap <= 0 = no cap. Returns the CUDA error code of the launches.
+// scratch: float32, decode_attention_scratch_floats(...) of them; counters:
+// int32 (B*Hkv), zero before the first call and left zero by every call.
+// 0 <= pos < S; window <= 0 = no window; cap <= 0 = no cap. Returns the CUDA
+// error code of the launches.
 extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* vc, void* o,
-                                    void* part_m, void* part_l, void* part_acc, int B, int S,
-                                    int H, int Hkv, int D, int pos, int window, float scale,
-                                    float cap, int dtype, void* stream) {
+                                    void* scratch, void* counters, int B, int S, int H, int Hkv,
+                                    int D, int pos, int window, float scale, float cap,
+                                    int dtype, void* stream) {
   const int vec = dtype == 1 ? 8 : 4;
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG || D <= 0 || D > MAXD ||
       D % vec != 0 || pos < 0 || pos >= S || B * Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  float* pa = static_cast<float*>(part_acc);
+  float* sc = static_cast<float*>(scratch);
+  int* cnt = static_cast<int*>(counters);
+  if (tma_path(dtype, D, H / Hkv)) {
+    if (D == 256)
+      return (int)launch_tma_g<256>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
+    if (D == 128)
+      return (int)launch_tma_g<128>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
+    return (int)launch_tma_g<64>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
+  }
+  const long long rows = (long long)B * H * ((S + CHUNK - 1) / CHUNK);
+  float* pm = sc;
+  float* pl = pm + rows;
+  float* pa = pl + rows;
   if (dtype == 1)
     return (int)launch<__nv_bfloat16, 1>(q, kc, vc, o, pm, pl, pa, B, S, H, Hkv, D, pos,
                                          window, scale, cap, st);

@@ -74,10 +74,11 @@
 //    skipping a tile that lies wholly outside gives the same result as masking
 //    it. Keys past S (ragged S) are loaded as zeros and masked; rows past S are
 //    computed and not stored. Any S is taken, no block has to divide it.
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma.cuh"  // tensor maps, TMA loads and mbarriers
 
 namespace {
 
@@ -259,7 +260,7 @@ constexpr int WG = 128;                      // threads of a warpgroup
 constexpr int TROWS = 128;                   // flat query rows of a CTA: 2 consumers x 64
 constexpr int TBK = 64;                      // keys of a K/V tile
 constexpr int STAGES = 2;                    // K/V tiles in flight
-constexpr int CHUNK = 64;                    // head-dim columns of one 128-byte swizzled box
+constexpr int CHUNK = TMA_BOX_COLS;          // head-dim columns of one 128-byte swizzled box
 constexpr int TC_THREADS = 3 * WG;           // consumer, consumer, producer warpgroups
 constexpr int MAX_GROUP = 8;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -279,10 +280,6 @@ struct Smem {
   static constexpr int BYTES = BAR + 8 * (1 + 4 * STAGES) + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // MUFU.TANH, one instruction; tanhf is a dozen and bounded the softmax
 // (kernels/ablate_flash.py times both). Its error of ~2^-11 reads as tanhf
 // does per row in chip_smoke.py's capped q_std 8 prefill case (PERF.md).
@@ -301,33 +298,6 @@ __device__ __forceinline__ float ex2_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&t);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-// wait until the barrier has completed the phase of this parity
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-}
-
-// one box of a 4-d tensor map into shared memory; completion counted in bytes on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-                  "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
 }
 
 // wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
@@ -699,41 +669,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                                           ((j % 8) ^ (rr % 8)) * 16);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver API call: fetched through the runtime,
-// so that the library needs no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a contiguous (B, S, heads, D) bf16 tensor as a TMA map, dims innermost
-// first, no copy; box {64 columns, box_heads, box_pos, 1}, 128-byte swizzle,
-// zeros past the edges
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S, int heads,
-              int D, int box_heads, int box_pos) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {CHUNK, (cuuint32_t)box_heads, (cuuint32_t)box_pos, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
 }
 
 template <int D>

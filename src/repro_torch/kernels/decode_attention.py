@@ -1,15 +1,22 @@
 """One-token decode attention against a KV cache: the CUDA kernel's wrapper.
 
 Port of ``repro.kernels.decode_attention.decode_attention_fwd``; the kernel is
-``csrc/decode_attention.cu`` (split over the kv axis, then combined). On a
-CUDA tensor the wrapper launches the kernel (or raises); on a CPU tensor it
-computes the plain version ``ref.decode_attention``. ``pos`` and ``window`` are
-host ints: the serve loop knows them, so no device-to-host sync is needed.
-``launches`` counts kernel launches (one per call, both passes together).
+``csrc/decode_attention.cu``: for bf16 with head_dim 64/128/256 one launch
+(the key range split across the card, the splits merged by the last CTA of
+each (batch, kv head)), otherwise split-K and a combine pass. On a CUDA tensor
+the wrapper launches the kernel (or raises); on a CPU tensor it computes the
+plain version ``ref.decode_attention``. ``pos`` and ``window`` are host ints:
+the serve loop knows them, so no device-to-host sync is needed. The split
+partials and the per-(batch, kv head) counters are scratch kept per (device,
+stream), grown when a larger shape arrives; the counters are zeroed once when
+allocated and every launch leaves them zero. A call allocates only its
+output. ``launches`` counts calls that launched (one per call, whatever the
+kernel's launch count).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -18,21 +25,34 @@ from repro_torch.kernels.flash_attention import DTYPE_CODES, _window, check_atte
 
 launches = 0
 
-_fn = None
-_chunk = 0
+_lib = None
+# (device index, stream) -> (float32 partials, int32 counters)
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _kernel():
-    global _fn, _chunk
-    if _fn is None:
+    global _lib
+    if _lib is None:
         lib = _build.load("decode_attention")
-        fn = lib.decode_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        lib.decode_attention_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _chunk = lib.decode_attention_chunk()
-        _fn = fn
-    return _fn
+        lib.decode_attention_fwd.restype = ctypes.c_int
+        lib.decode_attention_scratch_floats.argtypes = [ctypes.c_int] * 6
+        lib.decode_attention_scratch_floats.restype = ctypes.c_longlong
+        _lib = lib
+    return _lib
+
+
+def _scratch_for(device: torch.device, stream: int, floats: int, counters: int):
+    key = (device.index, stream)
+    part, cnt = _scratch.get(key, (None, None))
+    if part is None or part.numel() < floats or cnt.numel() < counters:
+        part = torch.empty(max(floats, 0 if part is None else part.numel()),
+                           dtype=torch.float32, device=device)
+        cnt = torch.zeros(max(counters, 0 if cnt is None else cnt.numel()),
+                          dtype=torch.int32, device=device)
+        _scratch[key] = (part, cnt)
+    return part, cnt
 
 
 def decode_attention_fwd(q, k_cache, v_cache, pos: int, *, window=None,
@@ -52,17 +72,19 @@ def decode_attention_fwd(q, k_cache, v_cache, pos: int, *, window=None,
                                     logit_cap=logit_cap, scale=scale)
     if d % (16 // q.element_size()):
         raise ValueError(f"head_dim {d}: the CUDA kernel reads rows in 16-byte pieces")
-    fn = _kernel()
-    nsplit = -(-s // _chunk)
+    lib = _kernel()
+    dtype = DTYPE_CODES[q.dtype]
     out = torch.empty_like(q)
-    part_m = torch.empty((b * h, nsplit), dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b * h, nsplit, d), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-                 part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-                 b, s, h, hkv, d, pos, w, float(scale), float(logit_cap or 0.0),
-                 DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        floats = lib.decode_attention_scratch_floats(b, s, h, hkv, d, dtype)
+        if floats < 0:
+            raise RuntimeError("decode_attention_fwd: no CUDA device to size the scratch for")
+        part, cnt = _scratch_for(q.device, stream, floats, b * hkv)
+        err = lib.decode_attention_fwd(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+            part.data_ptr(), cnt.data_ptr(), b, s, h, hkv, d, pos, w, float(scale),
+            float(logit_cap or 0.0), dtype, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_fwd launch failed: CUDA error {err}")
     launches += 1

@@ -79,6 +79,67 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window=None,
     return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
 
 
+# The bf16 decode kernel's split of the key range (csrc/decode_attention.cu:
+# TK, SPLITS_PER_SM, plan_nsplit): whole 64-key tiles, about SPLITS_PER_SM CTAs
+# an SM over all (batch, kv head) pairs.
+DECODE_TILE = 64
+DECODE_SPLITS_PER_SM = 2
+
+
+def split_ranges(lo: int, pos: int, nsplit: int):
+    """Inclusive key ranges of ``nsplit`` runs of whole 64-key tiles over
+    [lo, pos], as the kernel cuts them: split i takes tiles [i n / nsplit,
+    (i + 1) n / nsplit) of the n tiles that meet the range; the first and last
+    range are cut at lo and pos. ``nsplit`` is clamped to [1, n]."""
+    t_begin = lo // DECODE_TILE
+    n = pos // DECODE_TILE - t_begin + 1
+    nsplit = max(1, min(n, nsplit))
+    out = []
+    for i in range(nsplit):
+        t0, t1 = t_begin + i * n // nsplit, t_begin + (i + 1) * n // nsplit
+        out.append((max(lo, t0 * DECODE_TILE), min(pos, t1 * DECODE_TILE - 1)))
+    return out
+
+
+def plan_splits(lo: int, pos: int, n_sm: int, batch: int, n_kv_heads: int):
+    """The kernel's key ranges for one (batch, kv head) on a card of ``n_sm``
+    SMs: nsplit = min(tiles, ceil(DECODE_SPLITS_PER_SM * n_sm / (B * Hkv)))."""
+    pairs = batch * n_kv_heads
+    return split_ranges(lo, pos, -(-DECODE_SPLITS_PER_SM * n_sm // pairs))
+
+
+def decode_attention_split(q, k_cache, v_cache, pos: int, *, window=None,
+                           logit_cap: float = 0.0, scale: float, ranges):
+    """``decode_attention`` as the split kernel computes it: each inclusive key
+    range of ``ranges`` gives a partial (max, sum, unnormalised output) of
+    its keys with the window and causal mask applied, and the partials are
+    merged in order. A range may hold only masked keys (its partial is then
+    wiped by the merge), but the ranges together must hold a valid key."""
+    b, _, h, d = q.shape
+    hkv = k_cache.shape[2]
+    group = h // hkv
+    qg = q.reshape(b, hkv, group, d).float()
+    lo = max(0, pos - window + 1) if window and window > 0 else 0
+    parts = []
+    for k0, k1 in ranges:
+        ks, vs = k_cache[:, k0:k1 + 1].float(), v_cache[:, k0:k1 + 1].float()
+        s = torch.einsum("bhgd,bkhd->bhgk", qg, ks) * scale
+        if logit_cap:
+            s = torch.tanh(s / logit_cap) * logit_cap
+        keys = torch.arange(k0, k1 + 1, device=q.device)
+        s = torch.where((keys >= lo) & (keys <= pos), s, NEG_INF)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        parts.append((m, p.sum(dim=-1, keepdim=True), torch.einsum("bhgk,bkhd->bhgd", p, vs)))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    num = torch.zeros_like(parts[0][2])
+    den = torch.zeros_like(parts[0][1])
+    for m, l, acc in parts:
+        f = torch.exp(m - m_all)
+        num, den = num + acc * f, den + l * f
+    return (num / den).reshape(b, 1, h, d).to(q.dtype)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Gemma-style RMSNorm, ``(1 + scale)``, computed in float32."""
     xf = x.float()

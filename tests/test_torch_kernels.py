@@ -11,6 +11,8 @@ holds it to. The CUDA kernels themselves run only on the card (``-m gpu``,
 and chip_smoke.py), held to their plain versions by the per-row limit
 ``ref.ROW_REL_TOL``.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -21,7 +23,7 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_causal_attention as jax_chunked
-from repro_torch.kernels import _build, ablate_flash, ops
+from repro_torch.kernels import _build, ablate_decode, ablate_flash, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -100,6 +102,73 @@ def test_decode_attention_matches_jax_oracle(dims, pos, window, cap, dtype):
     want = jref.decode_attention(qj, kj, vj, pos, window=window, logit_cap=cap, scale=scale)
     assert got.dtype == TORCH[dtype] and got.shape == (b, 1, h, d)
     _close(got, want, dtype)
+
+
+def _window_lo(pos, window):
+    return max(0, pos - window + 1) if window else 0
+
+
+@pytest.mark.parametrize("lo,pos,b,hkv", [
+    (0, 0, 2, 4), (0, 63, 2, 4), (0, 64, 2, 4), (288, 4383, 2, 4), (0, 4383, 2, 4),
+    (4383, 4383, 1, 1), (100, 4383, 1, 1), (0, 4383, 8, 8), (5, 70, 1, 3), (63, 64, 1, 1)])
+def test_plan_splits_cover_the_key_range_once(lo, pos, b, hkv):
+    """The kernel's split plan: every key of [lo, pos] in exactly one split, in
+    order, no split empty, whole 64-key tiles cut only at lo and pos, and
+    min(tiles, ceil(2 * 132 / (B * Hkv))) splits on a 132-SM card."""
+    ranges = tref.plan_splits(lo, pos, 132, b, hkv)
+    keys = [k for k0, k1 in ranges for k in range(k0, k1 + 1)]
+    assert keys == list(range(lo, pos + 1))
+    assert all(k0 <= k1 for k0, k1 in ranges)
+    assert all(k0 % 64 == 0 for k0, _ in ranges[1:]) and all(k1 % 64 == 63 for _, k1 in ranges[:-1])
+    n_tiles = pos // 64 - lo // 64 + 1
+    assert len(ranges) == min(n_tiles, -(-2 * 132 // (b * hkv)))
+
+
+def test_split_plan_constants_match_the_kernel_source():
+    """ref's mirror of the plan uses the kernel's tile and splits per SM."""
+    src = (_build.CSRC / "decode_attention.cu").read_text()
+    assert int(re.search(r"constexpr int TK = (\d+);", src).group(1)) == tref.DECODE_TILE
+    assert int(re.search(r"constexpr int SPLITS_PER_SM = (\d+);", src).group(1)) == \
+        tref.DECODE_SPLITS_PER_SM
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 7, "max"])
+@pytest.mark.parametrize("dims,pos,window,cap,dtype", DECODE_CASES)
+def test_decode_split_mirror_matches_jax_oracle(dims, pos, window, cap, dtype, nsplit):
+    """The split kernel's algorithm (per-split partials merged in split
+    order) against the JAX oracle and the port's plain version."""
+    b, s, h, hkv, d = dims
+    rng = np.random.default_rng(1)
+    q, kc, vc = _qkv(rng, b, 1, h, hkv, d, sk=s)
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, dtype) for a in (q, kc, vc))
+    scale = d ** -0.5
+    ranges = tref.split_ranges(_window_lo(pos, window), pos, 1 << 20 if nsplit == "max" else nsplit)
+    got = tref.decode_attention_split(qt, kt, vt, pos, window=window, logit_cap=cap, scale=scale,
+                                      ranges=ranges)
+    assert got.dtype == TORCH[dtype] and got.shape == (b, 1, h, d)
+    _close(got, jref.decode_attention(qj, kj, vj, pos, window=window, logit_cap=cap, scale=scale),
+           dtype)
+    _close(got, tref.decode_attention(qt, kt, vt, pos, window=window, logit_cap=cap, scale=scale)
+           .float().numpy(), dtype)
+
+
+@pytest.mark.parametrize("case", ["pos 0", "window 1", "window 64", "all-masked split"])
+def test_decode_split_mirror_edges(case):
+    """pos 0 and window 1 (one key), a window of one tile at a ragged lo,
+    and a split whose keys all lie below a ragged lo: its partial (max
+    NEG_INF, every weight exp(0) = 1) must be wiped by the merge."""
+    rng = np.random.default_rng(11)
+    q, kc, vc = (torch.from_numpy(a) for a in _qkv(rng, 2, 1, 6, 2, 64, sk=300))
+    pos, window = {"pos 0": (0, None), "window 1": (250, 1), "window 64": (250, 64),
+                   "all-masked split": (250, 100)}[case]
+    kw = dict(window=window, logit_cap=30.0, scale=0.125)
+    lo = _window_lo(pos, window)
+    ranges = tref.split_ranges(lo, pos, 1 << 20)
+    if case == "all-masked split":
+        ranges = [(0, lo - 1)] + ranges     # keys 0..150, all outside the window
+    got = tref.decode_attention_split(q, kc, vc, pos, ranges=ranges, **kw)
+    want = tref.decode_attention(q, kc, vc, pos, **kw)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("shape,dtype", [
@@ -222,11 +291,21 @@ def test_bf16_probabilities_stay_within_the_row_limit(q_std):
     assert tref.max_row_rel_err(got, want) <= 0.75 * tref.ROW_REL_TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("fault", ["window ignored", "last 128 keys dropped", "cap ignored"])
+SPLIT_FAULTS = ["one split's keys dropped", "one 64-key tile counted twice"]
+
+
+@pytest.mark.parametrize("fault", ["window ignored", "last 128 keys dropped", "cap ignored",
+                                   *SPLIT_FAULTS])
 def test_row_rel_limit_sees_planted_faults(fault):
     """The on-card limit tells a wrongly written decode kernel from a sound one:
     its plain version at a long cache reads above ROW_REL_TOL, while the same
-    output rounded to bf16 reads within it."""
+    output rounded to bf16 reads within it. The split kernel's faults (a
+    split lost in the merge, a tile loaded twice) are planted at the serve
+    shape, B=2, cache 4384, 8 heads on 4, D=256, window 4096, on the plan of
+    a 132-SM card."""
+    if fault in SPLIT_FAULTS:
+        _split_fault_reads_above_the_limit(fault)
+        return
     rng = np.random.default_rng(5)
     s, pos, window, cap = 2200, 2199, 2048, 50.0
     q, kc, vc = (torch.from_numpy(a).bfloat16() for a in _qkv(rng, 2, 1, 8, 4, 64, sk=s))
@@ -243,6 +322,26 @@ def test_row_rel_limit_sees_planted_faults(fault):
     exact = tref.decode_attention(q.float(), kc.float(), vc.float(), pos, **kw)
     assert tref.max_row_rel_err(exact.bfloat16(), exact) <= tol
     assert tref.max_row_rel_err(want, want) == 0.0
+
+
+def _split_fault_reads_above_the_limit(fault):
+    rng = np.random.default_rng(12)
+    s, pos, window, cap = 4384, 4383, 4096, 50.0
+    q, kc, vc = (torch.from_numpy(a).bfloat16() for a in _qkv(rng, 2, 1, 8, 4, 256, sk=s))
+    kw = dict(window=window, logit_cap=cap, scale=256 ** -0.5)
+    ranges = tref.plan_splits(_window_lo(pos, window), pos, 132, 2, 4)
+    mid = len(ranges) // 2
+    if fault == SPLIT_FAULTS[0]:
+        wrong = ranges[:mid] + ranges[mid + 1:]
+    else:
+        t0 = ranges[mid][0]
+        wrong = ranges + [(t0, t0 + 63)]
+    want = tref.decode_attention(q, kc, vc, pos, **kw)
+    sound = tref.decode_attention_split(q, kc, vc, pos, ranges=ranges, **kw)
+    bad = tref.decode_attention_split(q, kc, vc, pos, ranges=wrong, **kw)
+    tol = tref.ROW_REL_TOL[torch.bfloat16]
+    assert tref.max_row_rel_err(bad, want) > tol
+    assert tref.max_row_rel_err(sound, want) <= tol
 
 
 def _bad_inputs():
@@ -315,6 +414,39 @@ def test_flash_ablations_edit_the_kernel_source(name):
     assert ablate_flash.ABLATIONS[name][1](src) != src
 
 
+@pytest.mark.parametrize("name", sorted(ablate_decode.ABLATIONS))
+def test_decode_ablations_edit_the_kernel_source(name):
+    """As for flash: each choice ablate_decode.py undoes is in the source."""
+    src = ablate_decode.SOURCE.read_text()
+    assert ablate_decode.ABLATIONS[name][1](src) != src
+
+
+def test_an_edited_header_changes_the_build_target(monkeypatch, tmp_path):
+    """A kernel is rebuilt when a csrc/ header it includes, directly or
+    through another header, changes; a header it does not include does not
+    matter."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint k;\n')
+    (csrc / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (csrc / "b.cuh").write_text("int b = 1;\n")
+    (csrc / "other.cuh").write_text("int c = 1;\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    before = _build._target("k")
+    (csrc / "other.cuh").write_text("int c = 2;\n")
+    assert _build._target("k") == before
+    (csrc / "b.cuh").write_text("int b = 2;\n")
+    after = _build._target("k")
+    assert after != before and after.parent == before.parent
+    assert [p.name for p in _build._local_includes(csrc / "k.cu")] == ["a.cuh", "b.cuh"]
+
+
+def test_flash_and_decode_share_the_tma_header():
+    for name in ("flash_attention", "decode_attention"):
+        assert _build.CSRC / "tma.cuh" in _build._local_includes(_build.CSRC / f"{name}.cu")
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -352,6 +484,22 @@ GPU_CASES = [  # bf16 flash with head_dim 64/128/256 takes the wgmma kernel
     ("decode", (1, 100, 6, 2, 24), 0, 0.0, "float32"),
     ("decode", (2, 300, 6, 2, 256), 0, 30.0, "float32"),      # two 16-byte loads a lane
     ("decode", (1, 1, 8, 1, 64), 0, 0.0, "bfloat16"),         # a one-entry cache
+]
+# the bf16 split kernel (head_dim 64/128/256): (b, s, h, hkv, d), pos, window, cap.
+# pos at and around a tile edge, windows of one key and one tile, B * Hkv = 1
+# (the most splits) and 64 (one split each), group 8 and 3, each head_dim
+GPU_DECODE_CASES = [
+    ((2, 4384, 8, 4, 256), 0, 4096, 50.0),
+    ((2, 4384, 8, 4, 256), 63, 4096, 50.0),
+    ((2, 4384, 8, 4, 256), 64, 0, 50.0),
+    ((2, 4384, 8, 4, 256), 4383, 0, 50.0),
+    ((2, 4384, 8, 4, 256), 4383, 1, 50.0),
+    ((2, 4384, 8, 4, 256), 4000, 64, 0.0),
+    ((1, 5000, 2, 1, 256), 4999, 0, 50.0),
+    ((8, 700, 64, 8, 128), 650, 0, 0.0),
+    ((1, 3000, 8, 1, 128), 2999, 1000, 30.0),
+    ((2, 2000, 9, 3, 64), 1999, 0, 0.0),
+    ((1, 4500, 4, 2, 64), 4321, 4096, 50.0),
 ]
 
 
@@ -410,3 +558,30 @@ def test_cuda_kernel_matches_plain_version(cuda, kind, dims, window, cap, dtype)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert tref.max_row_rel_err(got, want) <= tref.ROW_REL_TOL[TORCH[dtype]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims,pos,window,cap", GPU_DECODE_CASES)
+def test_cuda_decode_split_kernel_matches_plain_version(cuda, dims, pos, window, cap):
+    """Within ROW_REL_TOL of the plain version, twice on the same inputs with
+    bit-equal results (the splits merge in a fixed order), and again on a
+    second cache after a launch of another shape (the counters were left 0)."""
+    b, s, h, hkv, d = dims
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).bfloat16()
+
+    kw = dict(window=window, logit_cap=cap, scale=d ** -0.5)
+    tol = tref.ROW_REL_TOL[torch.bfloat16]
+    q, k, v = rand(b, 1, h, d), rand(b, s, hkv, d), rand(b, s, hkv, d)
+    got = decode_attention_fwd(q, k, v, pos, **kw)
+    again = decode_attention_fwd(q, k, v, pos, **kw)
+    decode_attention_fwd(rand(1, 1, 2, 64), rand(1, 77, 1, 64), rand(1, 77, 1, 64), 76,
+                         scale=0.125)
+    k2, v2 = rand(b, s, hkv, d), rand(b, s, hkv, d)
+    got2 = decode_attention_fwd(q, k2, v2, pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got.view(torch.int16), again.view(torch.int16))
+    assert tref.max_row_rel_err(got, tref.decode_attention(q, k, v, pos, **kw)) <= tol
+    assert tref.max_row_rel_err(got2, tref.decode_attention(q, k2, v2, pos, **kw)) <= tol
