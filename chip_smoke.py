@@ -31,7 +31,22 @@ Phases, each fatal on failure:
     ``repro_torch.train.trainer.Trainer`` for 3 steps. Loss and grad norm of
     the first batch must match the plain norms; each step must make 2 x (105
     + 104) RMSNorm launches; losses must be finite; the step-0 checkpoint
-    restored from disk must equal the initial weights bit for bit.
+    restored from disk must equal the initial weights bit for bit;
+ 5. detect: the C4D detection loop (``repro_torch.core``) at 100,000 ranks
+    (``RingJobTelemetry``, seed 3: 3M transports in 300k pair groups, 1M
+    heartbeats). Each detection kernel (``window_score``, its prefilter
+    ``row_select`` entry, ``slow_fold``) must be bit-equal to its plain
+    version on the card, and planted faults (a median by the lower middle,
+    a row max started at 0, a hang median one order statistic off) must
+    read unequal; device times against the bytes bound and ``torch.sort``.
+    At 1,024 ranks the card's verdicts on the ten golden windows, a
+    12-window stream (with and without an operating point, baseline
+    arrays included) and ``ingest_batch`` must equal the port's NumPy
+    composite. ``analyze`` wall times at 1,024, 16,384 and 100,000 ranks,
+    split into phases. The main path: a streaming ``C4DMaster`` on the card
+    ingests three 100,000-rank windows (a slow source twice, then a hang)
+    and must isolate both nodes, through 3 ``window_score``, 6
+    ``row_select`` and 2 ``slow_fold`` launches.
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -598,6 +613,517 @@ def train_phase(profile_dir=None):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# --- [detect]: the C4D detection loop at 100,000 ranks ------------------------
+
+DEV = "cuda"
+DETECT_RANKS = 100_000                  # the JAX package's largest detection scale
+ANALYZE_RANKS = (1024, 16384, DETECT_RANKS)
+PARITY_RANKS = 1024
+STREAM_WINDOWS, BATCH_WINDOWS = 12, 8
+DETECT_ITERS = 10
+
+
+DETECT_KERNELS = [
+    ("window_score", "src/repro_torch/kernels/csrc/window_score.cu",
+     "src/repro/core/jaxsim/kernels.py:235"),
+    ("row_select", "src/repro_torch/kernels/csrc/window_score.cu",
+     "src/repro/core/jaxsim/kernels.py:112"),
+    ("slow_fold", "src/repro_torch/kernels/csrc/slow_fold.cu",
+     "src/repro/core/jaxsim/kernels.py:175"),
+]
+
+
+def golden_faults():
+    """The ten golden windows of tests/test_c4d_vectorized.py (a copy: this
+    script imports neither the tests nor the JAX package)."""
+    from repro_torch.core.faults import Fault
+    return [[], [Fault("slow_src", rank=5)], [Fault("slow_dst", rank=7)],
+            [Fault("slow_link", link=(3, 4))], [Fault("straggler", rank=9, severity=20)],
+            [Fault("comm_hang", rank=11)], [Fault("noncomm_hang", rank=2)],
+            [Fault("crash", rank=30)], [Fault("comm_hang", rank=1), Fault("slow_src", rank=6)],
+            [Fault("slow_src", rank=3), Fault("slow_link", link=(10, 11)),
+             Fault("straggler", rank=20, severity=25)]]
+
+
+def kernel_device_ms(fn, iters: int, names, by_name=None) -> float:
+    """Device time per call of the CUDA kernels whose names contain one of
+    ``names`` (torch.profiler): the wrapper's own checks are left out. Each
+    of those kernels launches at most once a call, so a call's time is the
+    sum of their mean times a launch; that holds even where the profiler
+    records fewer launches than were made, which it then prints.
+    ``by_name``, a dict, receives each of those kernels' ms per call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        hit = [k for k in names if k in e.key]
+        if e.device_type == DeviceType.CUDA and hit:
+            if e.count != iters:
+                print(f"    profiler: {e.count} launches of {hit[0]} recorded in {iters} calls",
+                      flush=True)
+            ms = e.self_device_time_total / e.count / 1e3
+            total += ms
+            if by_name is not None:
+                by_name[hit[0]] = by_name.get(hit[0], 0.0) + ms
+    return total
+
+
+WS_KERNELS = ("rank_init", "hb_fold", "group_src", "row_select_warp", "row_select_cta",
+              "rank_stats", "hang_median", "rank_deficit")
+RS_KERNELS = ("row_select_warp", "row_select_cta")
+FOLD_KERNELS = ("fold_init", "fold_groups", "fold_ranks", "fold_points")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _max_abs(got: dict, want: dict) -> float:
+    import torch
+    err = 0.0
+    for k, w in want.items():
+        g, w = got[k].cpu(), w.cpu()
+        if g.dtype.is_floating_point:
+            fin = torch.isfinite(w)
+            if bool(fin.any()):
+                err = max(err, (g[fin] - w[fin]).abs().max().item())
+    return err
+
+
+def bit_check(name: str, got: dict, want: dict, faults=()) -> float:
+    """Every output of a kernel bit-equal to its plain version's; each
+    planted fault (label, key, output of a wrongly written plain version)
+    must differ from the kernel's. Returns the largest |difference|."""
+    bad = [k for k in want if not _bit_equal(got[k].cpu(), want[k].cpu())]
+    err = _max_abs(got, want)
+    print(f"  parity {name}: {len(want)} outputs bit-equal to the plain version: "
+          f"{'yes' if not bad else 'NO ' + str(bad)} (max_abs_err={err:.3e})", flush=True)
+    if bad:
+        fail(f"{name}: the kernel differs from its plain version in {bad}")
+    import torch
+    for label, key, wrong in faults:
+        # only where the kernel's value is finite: an empty group's +inf
+        # against the fault's NaN would count as a difference of no meaning
+        g = got[key].reshape(-1)
+        fin = torch.isfinite(g)
+        differ = int((g[fin] != wrong.reshape(-1).to(g.device)[fin]).sum())
+        print(f"    planted fault, {label}: {differ} of {int(fin.sum())} finite values of {key} "
+              "differ", flush=True)
+        if differ == 0:
+            fail(f"{name}: the planted fault '{label}' reads equal to the kernel")
+    return err
+
+
+def lower_middle(values, order, starts, counts):
+    """Planted fault: per-group medians by torch's convention (the lower of
+    the two middles; NaN padding ignored). (V, B, G)."""
+    import torch
+    from repro_torch.core.torchsim.kernels import padded_rows
+    rows = padded_rows(values, order, starts, counts, float("nan"))
+    return torch.nanmedian(rows, dim=-1).values.transpose(0, 1).contiguous()
+
+
+def window_inputs(w, n: int, hb_seq=None):
+    """A window packed as the scorer packs it, its tensors on the card:
+    (values, order, starts, counts, gkey, hb_rank, hb_seq, offsets, grace)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.torchsim import detectors as tdet
+    pw = tdet._PackedWindow(w, n, None)
+    lay = pw.layout
+    lt = lay.device_tensors(torch.device(DEV))
+    up = [torch.from_numpy(np.ascontiguousarray(a)).to(DEV)[None]
+          for a in (pw.values, pw.hb_rank, pw.hb_seq if hb_seq is None else hb_seq,
+                    pw.offsets)]
+    args = (up[0], lt["order"], lt["starts"], lt["counts"], lt["gkey"], *up[1:], 3.0)
+    return lay, lt, args, dict(n=n)
+
+
+def detect_kernels(iters: int):
+    """Kernel parity, planted faults, and device times at 100,000 ranks."""
+    import numpy as np
+    import torch
+    from repro_torch.core.c4d.detector import DetectorConfig
+    from repro_torch.core.c4d.telemetry import grouped_median
+    from repro_torch.core.faults import Fault, RingJobTelemetry
+    from repro_torch.core.torchsim import detectors as tdet
+    from repro_torch.core.torchsim import kernels as tk
+    from repro_torch.kernels import slow_fold as sf
+    from repro_torch.kernels import window_score as ws
+
+    n = DETECT_RANKS
+    cfg = DetectorConfig()
+    tel = RingJobTelemetry(n_ranks=n, seed=3)
+    t0 = time.perf_counter()
+    wins = {"clean": tel.window_arrays(0, []),
+            "slow_src 5 + comm_hang 11": tel.window_arrays(
+                1, [Fault("slow_src", rank=5), Fault("comm_hang", rank=11)]),
+            "slow_src 5": tel.window_arrays(2, [Fault("slow_src", rank=5)])}
+    w0 = wins["clean"]
+    print(f"  {n} ranks: {w0.tr_src.size:,} transports, {w0.hb_rank.size:,} heartbeats a "
+          f"window ({time.perf_counter() - t0:.2f} s to make 3 windows)", flush=True)
+    errs = {"window_score": 0.0, "row_select": 0.0, "slow_fold": 0.0}
+    for label, w in wins.items():
+        lay, lt, args, kw = window_inputs(w, n)
+        kk = dict(kw, large=lt["large"], max_count=lay.max_count)
+        got = ws.window_score(*args, **kk)
+        want = tk.fused_window_kernel(*args, **kw)
+        faults = []
+        if label == "clean":
+            low = lower_middle(args[0], *args[1:4])
+            faults = [("median by the lower middle (torch.median)", "dmed", low[0])]
+            print(f"    window: {lay.g:,} groups of up to {lay.max_count}, "
+                  f"{args[5].shape[1]:,} heartbeats, {n:,} ranks (no padding)", flush=True)
+        errs["window_score"] = max(errs["window_score"],
+                                   bit_check(f"window_score, {label}", got, want, faults))
+        hung = got["hung"][0].nonzero().flatten().tolist()
+        print(f"    hung ranks {hung}", flush=True)
+        if ("comm_hang" in label) != (hung == [11]):
+            fail(f"window_score: hung ranks {hung} in the window '{label}'")
+        if label != "slow_src 5":
+            continue
+        # the fold, on the hang-free faulted window, centers/scales from NumPy
+        dmed, wmed = got["dmed"][0].cpu().numpy(), got["wmed"][0].cpu().numpy()
+        cs = [*tdet._mixed_center_scale(dmed, lay.gkey, n, None, "delay"),
+              *tdet._mixed_center_scale(wmed, lay.gkey, n, None, "wait")]
+        fargs = (lt["gkey"], got["dmed"], got["wmed"],
+                 *(torch.from_numpy(a).to(DEV)[None] for a in cs),
+                 cfg.mad_threshold, cfg.row_col_fraction, cfg.min_observations)
+        fgot = sf.slow_fold(*fargs, n=n)
+        fwant = tk.slow_fold_kernel(*fargs, n=n)
+        zero_init = torch.zeros((1, n), dtype=torch.float64, device=DEV).scatter_reduce(
+            1, lt["gkey"] // n, fwant["zd"], "amax", include_self=True)
+        errs["slow_fold"] = bit_check(
+            "slow_fold, slow_src 5", fgot, fwant,
+            [("row max started at 0, not -inf", "row_score", zero_init)])
+        rows = fgot["row_sel"][0].nonzero().flatten().tolist()
+        print(f"    row_sel ranks {rows[:8]}{' ...' if len(rows) > 8 else ''} "
+              f"({len(rows)}); points {int(fgot['point'].sum())}", flush=True)
+        if 5 not in rows:
+            fail("slow_fold: the slow source rank 5 is not selected")
+        fold_case = (fargs, lay)
+
+    # the hang median on distinct seqs (the telemetry's are all equal but one)
+    rng = np.random.default_rng(7)
+    lay, lt, args, kw = window_inputs(w0, n, rng.permutation(1 << 21)[:w0.hb_rank.size])
+    kk = dict(kw, large=lt["large"], max_count=lay.max_count)
+    got = ws.window_score(*args, **kk)
+    want = tk.fused_window_kernel(*args, **kw)
+    seqs_f = want["seqs"].double()
+    s = torch.sort(torch.where(want["present"], seqs_f, float("inf")), dim=1).values
+    c = int(want["present"].sum())
+    off_by_one = 0.5 * (s[0, (c - 1) // 2 + 1] + s[0, c // 2 + 1])
+    errs["window_score"] = max(errs["window_score"], bit_check(
+        "window_score, distinct seqs", got, want,
+        [("hang median one order statistic off", "med", off_by_one.reshape(1))]))
+
+    # the prefilter's row select: edge waits (10 a group, a warp each) and
+    # per-node absolute deviations (320 a group, a CTA each)
+    transfer, wait = w0.tr_transfer(), w0.tr_wait()
+    node = w0.tr_src // 8
+    _, node_med, _, idx = grouped_median(node, transfer, return_groups=True)
+    absdev = np.abs(transfer - node_med[idx])
+    edge = w0.tr_src * n + w0.tr_dst
+    rs_cases = {}
+    for label, keys, vals in (("edge wait", edge, wait),
+                              ("node |transfer - median|", node, absdev)):
+        uk, med = grouped_median(keys, vals, backend="torch", device=DEV)
+        gk, pmed, _, valid = tk.grouped_median_kernel(torch.from_numpy(keys).to(DEV),
+                                                      torch.from_numpy(vals).to(DEV))
+        lay = tdet._layout_for(keys)
+        lt = lay.device_tensors(torch.device(DEV))
+        v = torch.from_numpy(vals).to(DEV).view(1, 1, -1)
+        low = lower_middle(v, lt["order"], lt["starts"], lt["counts"])[0, 0, :lay.g]
+        got = {"gkey": torch.from_numpy(uk), "median": torch.from_numpy(med).to(DEV)}
+        want = {"gkey": gk[valid].cpu(), "median": pmed[valid]}
+        errs["row_select"] = max(errs["row_select"], bit_check(
+            f"row_select (prefilter), {label}: {lay.g:,} groups of {lay.max_count}", got, want,
+            [("median by the lower middle (torch.median)", "median", low)]))
+        rs_cases[label] = (v, lt, lay)
+
+    rows = {}
+    # window_score: the clean window, layout cached, inputs on the card. The
+    # bound counts each input and output once at the window's own sizes
+    lay, lt, args, kw = window_inputs(w0, n)
+    kk = dict(kw, large=lt["large"], max_count=lay.max_count)
+    run = lambda: ws.window_score(*args, **kk)               # noqa: E731
+    plain = lambda: tk.fused_window_kernel(*args, **kw)      # noqa: E731
+    reads = _nbytes(*args[:8], lt["large"])
+    out = run()
+    writes = _nbytes(*out.values())
+    vmat = tk.padded_rows(args[0], *args[1:4], float("inf"))[0]     # (2, g, max_count)
+    lo_i = torch.clamp((lt["counts"][0] - 1) // 2, min=0)[None, :, None].expand(2, -1, 1)
+
+    def library():   # yardstick only: sort the rows, gather the two middles
+        srt = torch.sort(vmat.view(torch.int64), dim=-1).values
+        return torch.take_along_dim(srt, lo_i, dim=-1)
+
+    rows["window_score"] = timed("window_score", run, plain, library, reads + writes,
+                                 WS_KERNELS, iters,
+                                 f"(2, {vmat.shape[1]:,}, {vmat.shape[2]}) torch.sort + gather")
+    v, lt, lay = rs_cases["edge wait"]
+    kk = dict(large=lt["large"], max_count=lay.max_count)
+    run = lambda: ws.row_select(v, lt["order"], lt["starts"], lt["counts"], **kk)  # noqa: E731
+    plain = lambda: tk.row_median(v, lt["order"], lt["starts"], lt["counts"])      # noqa: E731
+    vm = tk.padded_rows(v, lt["order"], lt["starts"], lt["counts"], float("inf"))[0]
+    lo_1 = torch.clamp((lt["counts"][0] - 1) // 2, min=0)[None, :, None]
+
+    def library_rs():
+        return torch.take_along_dim(torch.sort(vm.view(torch.int64), dim=-1).values, lo_1, -1)
+
+    nb = _nbytes(v, lt["order"], lt["starts"], lt["counts"], lt["large"]) + 8 * lay.g
+    rows["row_select"] = timed("row_select (prefilter edge wait)", run, plain, library_rs, nb,
+                               RS_KERNELS, iters,
+                               f"(1, {vm.shape[1]:,}, {vm.shape[2]}) torch.sort + gather")
+    v, lt, lay = rs_cases["node |transfer - median|"]
+    run_node = lambda: ws.row_select(v, lt["order"], lt["starts"], lt["counts"],  # noqa: E731
+                                     large=lt["large"], max_count=lay.max_count)
+    print(f"  time row_select (prefilter node groups, {lay.g:,} of {lay.max_count}): "
+          f"device_ms={kernel_device_ms(run_node, iters, RS_KERNELS):.5f}", flush=True)
+    fargs, lay = fold_case
+    run = lambda: sf.slow_fold(*fargs, n=n)             # noqa: E731
+    plain = lambda: tk.slow_fold_kernel(*fargs, n=n)    # noqa: E731
+    out = run()
+    nb = _nbytes(*fargs[:7]) + _nbytes(*out.values())
+    rows["slow_fold"] = timed("slow_fold", run, plain, None, nb, FOLD_KERNELS, iters, None)
+    return errs, rows
+
+
+def timed(name, run, plain, library, nbytes, names, iters, lib_label):
+    """Event and device times of a kernel, its plain version and the
+    library yardstick, and its bytes bound (each input read once, each
+    output written once, at 3.35 TB/s)."""
+    ms = time_ms(run, iters)
+    split = {}
+    dev = kernel_device_ms(run, iters, names, split)
+    plain_ms = time_ms(plain, max(2, iters // 4))
+    lib = lib_dev = None
+    if library is not None:
+        lib, lib_dev = time_ms(library, iters), device_ms(library, iters)
+    b_ms, b_by = bound(0.0, nbytes, "float32")
+    print(f"  time {name} at {DETECT_RANKS} ranks: kernel_ms={ms:.5f} device_ms={dev:.5f} "
+          f"plain_ms={plain_ms:.5f} library_ms={'null' if lib is None else f'{lib:.5f}'} "
+          f"library_device_ms={'null' if lib_dev is None else f'{lib_dev:.5f}'} "
+          f"bound_ms={b_ms:.5f} ({b_by}; {nbytes:.4e} B) bound/device={b_ms / dev:.4f}"
+          f"{'' if lib_label is None else '; library: ' + lib_label}", flush=True)
+    print("    device ms by kernel: " + ", ".join(f"{k} {v:.5f}" for k, v in split.items()),
+          flush=True)
+    return (ms, plain_ms, lib, b_ms, b_by, dev, lib_dev)
+
+
+def _vkey(verdicts):
+    """Verdicts field for field, scores as their exact hex."""
+    return [(v.syndrome, v.rank, v.link, float(v.score).hex(), v.detail) for v in verdicts]
+
+
+def _akey(a):
+    return (a.node_id, a.action, _vkey(a.verdicts))
+
+
+def detect_parity():
+    """The card's verdicts and streaming actions against the port's NumPy
+    composite at 1,024 ranks."""
+    from repro_torch.core.c4d.detector import C4DDetector
+    from repro_torch.core.c4d.master import C4DMaster, OperatingPoint
+    from repro_torch.core.faults import RingJobTelemetry
+
+    n = PARITY_RANKS
+    golden = golden_faults()
+    n_verdicts = 0
+    for faults in golden:
+        w = RingJobTelemetry(n_ranks=n, seed=9).window_arrays(0, faults)
+        want = C4DDetector(backend="numpy").analyze(w, n)
+        got = C4DDetector(backend="torch", device=DEV).analyze(w, n)
+        if _vkey(got) != _vkey(want):
+            fail(f"card verdicts differ from the NumPy composite on {faults}: "
+                 f"{_vkey(got)[:3]} vs {_vkey(want)[:3]}")
+        n_verdicts += len(want)
+    print(f"  verdicts at {n} ranks, 10 golden windows: equal to the NumPy composite field for "
+          f"field, scores bit-equal ({n_verdicts} verdicts)", flush=True)
+    seq = [golden[1 + (i // 2) % (len(golden) - 1)] for i in range(STREAM_WINDOWS)]
+    for op in (None, OperatingPoint(mad_threshold=5.0, confirm_streak=2)):
+        tel_a, tel_b = RingJobTelemetry(n_ranks=n, seed=5), RingJobTelemetry(n_ranks=n, seed=5)
+        if op is None:
+            ma, mb = (C4DMaster(n_ranks=n, backend="numpy"),
+                      C4DMaster(n_ranks=n, backend="torch", device=DEV))
+        else:
+            ma = C4DMaster.from_operating_point(op, n_ranks=n, backend="numpy")
+            mb = C4DMaster.from_operating_point(op, n_ranks=n, backend="torch", device=DEV)
+        acted = 0
+        for i, faults in enumerate(seq):
+            ra = ma.ingest(tel_a.window_arrays(i, faults))
+            rb = mb.ingest(tel_b.window_arrays(i, faults))
+            if [_akey(a) for a in ra] != [_akey(a) for a in rb]:
+                fail(f"streaming actions differ at window {i} (op {op})")
+            acted += len(ra)
+        same_base = True
+        if op is not None:
+            same_base = all(getattr(ma.baseline, a)[k].tobytes() == getattr(mb.baseline, a)[k]
+                            .tobytes() for a in ("_mean", "_dev", "_count")
+                            for k in ("delay", "wait", "hb"))
+            if not same_base:
+                fail("the card master's adaptive baseline differs from the NumPy master's")
+        print(f"  stream of {STREAM_WINDOWS} windows at {n} ranks, operating point "
+              f"{'none' if op is None else op.label()}: actions equal ({acted} actions), "
+              f"baseline arrays bit-equal: {same_base if op else 'no baseline'}", flush=True)
+    tels = [RingJobTelemetry(n_ranks=n, seed=13) for _ in range(3)]
+    bseq = [golden[i % len(golden)] for i in range(BATCH_WINDOWS)]
+    wins = [[t.window_arrays(i, f) for i, f in enumerate(bseq)] for t in tels]
+    ref = C4DMaster(n_ranks=n, backend="numpy")
+    one, many = (C4DMaster(n_ranks=n, backend="torch", device=DEV) for _ in range(2))
+    want = [[_akey(a) for a in ref.ingest(w)] for w in wins[0]]
+    got_seq = [[_akey(a) for a in one.ingest(w)] for w in wins[1]]
+    got_bat = [[_akey(a) for a in acts] for acts in many.ingest_batch(wins[2])]
+    if not got_bat == got_seq == want:
+        fail("ingest_batch differs from sequential ingests")
+    print(f"  ingest_batch of {BATCH_WINDOWS} windows at {n} ranks equals {BATCH_WINDOWS} "
+          "ingests and the NumPy master", flush=True)
+
+
+def detect_analyze_times():
+    """analyze wall time on clean windows, warm (layouts cached): the
+    unsynchronised median of 3, then one call split into phases."""
+    from repro_torch.core.c4d.detector import C4DDetector
+    from repro_torch.core.faults import RingJobTelemetry
+    from repro_torch.core.torchsim import detectors as tdet
+
+    out = {}
+    for n in ANALYZE_RANKS:
+        w = RingJobTelemetry(n_ranks=n, seed=3).window_arrays(0, [])
+        det = C4DDetector(backend="torch", device=DEV)
+        det.analyze(w, n)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            det.analyze(w, n)
+            walls.append(time.perf_counter() - t0)
+        tdet.phase_seconds = {}
+        try:
+            det.analyze(w, n)
+            phases = dict(tdet.phase_seconds)
+        finally:
+            tdet.phase_seconds = None
+        wall = sorted(walls)[1]
+        line = " ".join(f"{k}={v * 1e3:.3f}" for k, v in phases.items())
+        extra = ""
+        if n == PARITY_RANKS:
+            ref = C4DDetector(backend="numpy")
+            ref.analyze(w, n)
+            t0 = time.perf_counter()
+            ref.analyze(w, n)
+            extra = f"; NumPy composite on this host {(time.perf_counter() - t0) * 1e3:.3f} ms"
+        print(f"  analyze {n} ranks ({w.tr_src.size:,} transports): wall_ms={wall * 1e3:.3f} "
+              f"(median of 3); phases (synchronised) ms: {line}{extra}", flush=True)
+        out[n] = (wall, phases)
+    return out
+
+
+CROSSOVER_RANKS = (64, 128, 256, 512, 1024, 2048, 4096)
+CROSSOVER_ELEMENTS = (1 << 12, 1 << 14, 1 << 16, 1 << 17, 1 << 18, 1 << 20)
+
+
+def _wall_ms(fn, reps: int = 3) -> float:
+    """Median of ``reps`` host walls of ``fn`` after one warm-up call."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return sorted(walls)[reps // 2] * 1e3
+
+
+def detect_crossover():
+    """Where backend="auto" switches from NumPy to the card: the NumPy
+    composite's analyze against the card's on clean windows, and the NumPy
+    grouped median against the card's on groups of 10 (the prefilter's
+    edges), both warm (layouts cached, as in a steady stream). Prints each
+    wall beside the faster backend and the one auto picks."""
+    import numpy as np
+    from repro_torch.core import torchsim
+    from repro_torch.core.c4d.detector import C4DDetector
+    from repro_torch.core.c4d.telemetry import grouped_median
+    from repro_torch.core.faults import RingJobTelemetry
+
+    def line(what, np_ms, card_ms, auto):
+        faster = "torch" if card_ms < np_ms else "numpy"
+        print(f"  crossover {what}: numpy_ms={np_ms:.4f} torch_ms={card_ms:.4f} "
+              f"faster={faster} auto={auto}", flush=True)
+
+    for n in CROSSOVER_RANKS:
+        w = RingJobTelemetry(n_ranks=n, seed=3).window_arrays(0, [])
+        ref, det = C4DDetector(backend="numpy"), C4DDetector(backend="torch", device=DEV)
+        line(f"analyze {n} ranks", _wall_ms(lambda: ref.analyze(w, n)),
+             _wall_ms(lambda: det.analyze(w, n)), torchsim.effective_backend("auto", ranks=n))
+    rng = np.random.default_rng(5)
+    for size in CROSSOVER_ELEMENTS:
+        keys = rng.integers(0, size // 10, size)
+        vals = rng.uniform(0.0, 1.0, size)
+        line(f"grouped_median {size} elements",
+             _wall_ms(lambda: grouped_median(keys, vals, backend="numpy")),
+             _wall_ms(lambda: grouped_median(keys, vals, backend="torch", device=DEV)),
+             torchsim.effective_backend("auto", elements=size))
+
+
+def detect_main_path():
+    """The main path: a streaming C4DMaster on the card ingesting 100,000-rank
+    windows (a slow source twice, then a hang). Returns the launches."""
+    from repro_torch.core.c4d.detector import COMM_HANG, COMM_SLOW_SRC
+    from repro_torch.core.c4d.master import C4DMaster
+    from repro_torch.core.faults import Fault, RingJobTelemetry
+    from repro_torch.core.torchsim import detectors as tdet
+
+    n = DETECT_RANKS
+    tel = RingJobTelemetry(n_ranks=n, seed=4)
+    master = C4DMaster(n_ranks=n, backend="torch", device=DEV)
+    plan = [[Fault("slow_src", rank=5)]] * 2 + [[Fault("comm_hang", rank=11)]]
+    wins = [tel.window_arrays(i, f) for i, f in enumerate(plan)]
+    tdet.reset_launch_counts()
+    acts = []
+    for i, w in enumerate(wins):
+        t0 = time.perf_counter()
+        merged = master._merge(w)
+        t1 = time.perf_counter()
+        verdicts = master.detector.analyze(merged, n_ranks=n, baseline=master.baseline)
+        t2 = time.perf_counter()
+        actions = master._act(w, merged, verdicts)
+        t3 = time.perf_counter()
+        acts.append(actions)
+        print(f"  ingest {i} at {n} ranks ({w.tr_src.size:,} transports -> "
+              f"{merged.tr_src.size:,} after the prefilter): prefilter_s={t1 - t0:.4f} "
+              f"detect_s={t2 - t1:.4f} act_s={t3 - t2:.4f}; {len(verdicts)} verdicts, actions "
+              f"{[(a.node_id, a.action) for a in actions][:6]}"
+              f"{' ...' if len(actions) > 6 else ''}", flush=True)
+    counts = tdet.launch_counts()
+    slow = [a for a in acts[1] if a.node_id == 0]
+    if not (slow and any(v.syndrome == COMM_SLOW_SRC and v.rank == 5 for v in slow[0].verdicts)):
+        fail("the slow source rank 5 was not isolated at its second window")
+    if [(a.node_id, [(v.syndrome, v.rank) for v in a.verdicts]) for a in acts[2]] != \
+            [(1, [(COMM_HANG, 11)])]:
+        fail(f"the hang window's actions are {acts[2]}")
+    want = {"window_score": 3, "row_select": 6, "slow_fold": 2}
+    if counts != want:
+        fail(f"detection launches {counts} on the main path; expected {want}")
+    print(f"  launches on the detection main path: {counts}", flush=True)
+    return counts
+
+
+def detect_phase(iters: int):
+    errs, rows = detect_kernels(iters)
+    detect_parity()
+    detect_analyze_times()
+    detect_crossover()
+    counts = detect_main_path()
+    return errs, rows, counts
+
+
 def _bit_equal(a, b) -> bool:
     import torch
     bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -731,6 +1257,11 @@ def main(argv=None) -> int:
     counts = {k: serve_counts[k] + train_counts[k] for k in serve_counts}
     print(f"launches on the main paths: serve {serve_counts}, train {train_counts}", flush=True)
 
+    t0 = time.perf_counter()
+    print("[detect]", flush=True)
+    det_err, det_rows, det_counts = detect_phase(DETECT_ITERS)
+    print(f"[detect] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
     def entry(name, source, replaces, err, rows):
         # attention: one local-window and one global launch of the main path,
         # averaged; rmsnorm: the training microbatch (1, 4096, 2304)
@@ -740,6 +1271,14 @@ def main(argv=None) -> int:
                 "ms": mean[0], "device_ms": mean[5], "plain_ms": mean[1], "bound_ms": mean[3],
                 "bound_by": rows[0][4], "library_ms": mean[2], "library_device_ms": mean[6]}
 
+    def detect_entry(name, source, replaces, launches, err, row):
+        # one window at 100,000 ranks; launches on the detection main path
+        ms, plain, lib, b_ms, b_by, dev, lib_dev = row
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": dev,
+                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                "library_device_ms": lib_dev}
+
     print(card, flush=True)
     print(json.dumps({"kernels": [
         entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -748,6 +1287,8 @@ def main(argv=None) -> int:
               "src/repro/kernels/decode_attention.py:70", decode_err, decode_rows),
         entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
               "src/repro/kernels/rmsnorm.py:27", norm_err, norm_rows[:1]),
+        *(detect_entry(name, src, rep, det_counts[name], det_err[name], det_rows[name])
+          for name, src, rep in DETECT_KERNELS),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

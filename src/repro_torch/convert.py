@@ -7,6 +7,11 @@ a leading units axis (``params["segments"][0]["unit"]["0"]``); here that axis
 is unstacked into ``blocks.<layer>``. Weights keep the JAX ``(in, out)``
 orientation: the port computes ``x @ w`` as the JAX package does, so nothing is
 transposed.
+
+``baseline_from_reference(state)`` carries a detector's state across: it takes
+the arrays of a reference ``AdaptiveBaseline`` as numpy and returns the port's
+``AdaptiveBaseline`` holding copies of them, so that a port master can take
+over a stream mid-way.
 """
 from __future__ import annotations
 
@@ -39,3 +44,23 @@ def params_from_jax(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch
         for layer in range(cfg.n_layers):
             state[f"blocks.{layer}.{name}"] = stacked[layer]
     return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
+
+
+def baseline_from_reference(state: Dict[str, Any]):
+    """``state``: ``n_ranks``, ``half_life``, ``warm_windows``, ``clip_sigma``
+    and the ``mean``, ``dev`` and ``count`` dicts (by kind: ``delay``,
+    ``wait``, ``hb``) of a reference ``AdaptiveBaseline``, as numpy arrays.
+    Returns the port's ``AdaptiveBaseline`` with copies of those arrays."""
+    from repro_torch.core.c4d.baseline import AdaptiveBaseline
+    base = AdaptiveBaseline(int(state["n_ranks"]), half_life=float(state["half_life"]),
+                            warm_windows=int(state["warm_windows"]),
+                            clip_sigma=float(state["clip_sigma"]))
+    for attr, dtype in (("mean", np.float64), ("dev", np.float64), ("count", np.int64)):
+        ours = getattr(base, f"_{attr}")
+        for kind, arr in state[attr].items():
+            arr = np.asarray(arr)
+            if kind not in ours or arr.shape != ours[kind].shape:
+                raise ValueError(f"{attr}[{kind!r}]: shape {arr.shape}, expected "
+                                 f"{ours[kind].shape if kind in ours else 'no such kind'}")
+            ours[kind] = arr.astype(dtype, copy=True)
+    return base

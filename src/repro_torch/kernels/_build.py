@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
 ``build/<name>-<hash>.so`` next to this file (the directory is git-ignored).
 The hash covers the source, the headers of ``csrc/`` it includes (``#include
-"..."``, followed into headers that include others) and the flags, so an
+"..."``, followed into headers that include others) and the flags (those of
+``NVCC_FLAGS`` and the kernel's own in ``EXTRA_FLAGS``), so an
 edited source or header is rebuilt and an unchanged one is loaded as it is.
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits for
 them. Nothing is built at import time.
@@ -18,13 +19,17 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("flash_attention", "decode_attention", "rmsnorm")
+KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "window_score", "slow_fold")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: flags added for one kernel. The detection kernels are held bit-equal to
+#: NumPy, so nvcc may not contract a*b + c into an FMA in them.
+EXTRA_FLAGS: Dict[str, List[str]] = {"window_score": ["--fmad=false"],
+                                     "slow_fold": ["--fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -58,14 +63,19 @@ def _target(name: str) -> Path:
     for header in _local_includes(src):
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def nvcc_command(source: Path, out: Path) -> list:
-    """nvcc with this module's flags; ``csrc/`` on the include path, so that a
-    copy of a source elsewhere (an ablation) finds its headers."""
-    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(source)]
+def flags(name: str) -> list:
+    """nvcc's flags for kernel ``name``."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
+def nvcc_command(source: Path, out: Path, name: str = "") -> list:
+    """nvcc with the flags of kernel ``name``; ``csrc/`` on the include path,
+    so that a copy of a source elsewhere (an ablation) finds its headers."""
+    return [_nvcc(), *flags(name), "-I", str(CSRC), "-o", str(out), str(source)]
 
 
 def build_log(name: str) -> str:
@@ -86,7 +96,7 @@ def build_all(names: Iterable[str] = KERNELS) -> float:
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         procs.append((name, out, tmp, subprocess.Popen(
-            nvcc_command(CSRC / f"{name}.cu", tmp), stdout=subprocess.PIPE,
+            nvcc_command(CSRC / f"{name}.cu", tmp, name), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
     failed = []
     for name, out, tmp, proc in procs:

@@ -1,0 +1,174 @@
+"""Plain PyTorch versions of the detection kernels, in float64 and int64.
+
+Counterparts of the XLA jit kernels of ``repro.core.jaxsim.kernels``:
+
+  * ``row_median`` and ``fused_window_kernel`` — what
+    ``csrc/window_score.cu`` computes (per-group medians through a cached
+    layout, then the heartbeat fold);
+  * ``slow_fold_kernel`` — what ``csrc/slow_fold.cu`` computes;
+  * ``grouped_median_kernel`` — the per-key median from raw keys (sort
+    included), the reference's own formulation, kept as an oracle.
+
+They are the CPU path of the kernel wrappers (``window_score.py``,
+``slow_fold.py``), the oracles the tests and ``chip_smoke.py`` hold the CUDA
+kernels to, and they run on any device. Every function takes a leading batch
+dimension B (the reference's ``vmap``); layout arrays of batch size 1 are
+shared by all windows. Shapes are the window's own: G groups, H heartbeats
+and n ranks, with no padding (the reference padded to power-of-two buckets
+for its jit cache; a runtime-shaped kernel has none).
+
+The exact-path rules of the reference carry over: float64 throughout, no
+``a*b + c`` (the MAD centers and scales come from NumPy on the host), values
+ordered by their int64 bit patterns (they are non-negative), medians as
+``0.5 * (lo + hi)`` — never ``torch.median``, which takes the lower middle —
+and every max started at its identity (-inf, int64-min).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+#: sentinel pair key for padding slots; int64-max sorts after any real
+#: ``src * n + dst`` key.
+PAD_KEY = int(np.iinfo(np.int64).max)
+
+_I64_MIN = int(np.iinfo(np.int64).min)
+
+
+def padded_rows(values: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
+                counts: torch.Tensor, fill: float) -> torch.Tensor:
+    """Each group's samples as one row, padded with ``fill`` to the largest
+    group: (B, V, G, M). ``values`` (B, V, T) float64 in the windows' own
+    order; ``order`` (B|1, T) the layout's sort of the keys; ``starts`` and
+    ``counts`` (B|1, G) each group's run in that order."""
+    b, v, t = values.shape
+    g = starts.shape[-1]
+    order, starts, counts = (x.expand(b, x.shape[-1]) for x in (order, starts, counts))
+    m = max(int(counts.max()) if counts.numel() else 0, 1)
+    pad = torch.full((b, v, 1), fill, dtype=torch.float64, device=values.device)
+    srt = torch.cat([values.gather(2, order[:, None, :].expand(b, v, t)), pad], dim=2)
+    col = torch.arange(m, device=values.device)
+    idx = torch.where(col < counts[:, :, None], starts[:, :, None] + col,
+                      torch.full((b, g, m), t, dtype=torch.int64, device=values.device))
+    return srt.gather(2, idx.reshape(b, 1, g * m).expand(b, v, g * m)).reshape(b, v, g, m)
+
+
+def row_median(values: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
+               counts: torch.Tensor) -> torch.Tensor:
+    """Per-group medians, layout as for ``padded_rows``. Returns (V, B, G):
+    the lo = max((c-1)//2, 0) and hi = min(c//2, M-1) order statistics of
+    each group's row, +inf padded to M, averaged; an empty group reads +inf."""
+    rows = padded_rows(values, order, starts, counts, float("inf"))
+    b, v, g, m = rows.shape
+    rows = torch.sort(rows.view(torch.int64), dim=-1).values.view(torch.float64)
+    counts = counts.expand(b, g)
+    lo_i = torch.clamp((counts - 1) // 2, min=0)
+    hi_i = torch.clamp(counts // 2, max=m - 1)
+    lo = rows.gather(3, lo_i[:, None, :, None].expand(b, v, g, 1))[..., 0]
+    hi = rows.gather(3, hi_i[:, None, :, None].expand(b, v, g, 1))[..., 0]
+    return (0.5 * (lo + hi)).transpose(0, 1).contiguous()
+
+
+def _masked_median(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Median over ``x[b][valid[b]]`` per row b (``np.median`` on the
+    compacted row): sort with invalids as +inf, average the two middles."""
+    s = torch.sort(torch.where(valid, x, torch.full_like(x, float("inf"))), dim=1).values
+    c = valid.sum(dim=1, keepdim=True)
+    lo = s.gather(1, torch.clamp((c - 1) // 2, min=0))
+    hi = s.gather(1, torch.clamp(c // 2, max=x.shape[1] - 1))
+    return (0.5 * (lo + hi))[:, 0]
+
+
+def fused_window_kernel(values, order, starts, counts, gkey, hb_rank, hb_seq, offsets,
+                        hang_grace: float, *, n: int) -> Dict[str, torch.Tensor]:
+    """Window -> (pair medians, hang scoring). ``values`` (B, 2, T): delay
+    and wait; layout as for ``row_median``, with ``gkey`` int64 (B|1, G);
+    heartbeats (B, H); ``offsets`` (B, n) float64. Returns dmed, wmed
+    (B, G); present, seqs, deficit, hung, is_src (B, n); med (B,)."""
+    b = values.shape[0]
+    dev = values.device
+    med = row_median(values, order, starts, counts)
+    seqs = torch.full((b, n), _I64_MIN, dtype=torch.int64, device=dev).scatter_reduce(
+        1, hb_rank, hb_seq, "amax", include_self=True)
+    ones = torch.ones_like(hb_rank)
+    present = torch.zeros((b, n), dtype=torch.int64, device=dev).scatter_add(
+        1, hb_rank, ones) > 0
+    seqs_f = seqs.to(torch.float64)
+    hmed = _masked_median(seqs_f, present)
+    deficit = hmed[:, None] - seqs_f
+    hung = present & ((deficit - offsets) >= hang_grace)
+    gsrc = gkey.expand(b, gkey.shape[-1]) // n
+    is_src = torch.zeros((b, n), dtype=torch.int64, device=dev).scatter_add(
+        1, gsrc, torch.ones_like(gsrc)) > 0
+    return dict(dmed=med[0], wmed=med[1], present=present, seqs=seqs, med=hmed,
+                deficit=deficit, hung=hung, is_src=is_src)
+
+
+def slow_fold_kernel(gkey, dmed, wmed, center_d, scale_d, center_w, scale_w,
+                     mad_threshold: float, row_col_fraction: float, min_observations: int,
+                     *, n: int) -> Dict[str, torch.Tensor]:
+    """Delay-matrix and ring-wait folds over the grouped medians. ``gkey``
+    (B|1, G); the medians and the host-made centers/scales (B, G) float64.
+    Returns per-group zd, zw, point and per-rank (B, n) row/col sel, score,
+    hot, obs and wait sel, score."""
+    b = dmed.shape[0]
+    dev = dmed.device
+    gkey = gkey.expand(b, gkey.shape[-1])
+    zd = (dmed - center_d) / scale_d
+    zw = (wmed - center_w) / scale_w
+    gsrc, gdst = gkey // n, gkey % n
+    hot = zd > mad_threshold
+    neg = torch.full_like(zd, float("-inf"))
+    neg_ranks = torch.full((b, n), float("-inf"), dtype=torch.float64, device=dev)
+    zeros = torch.zeros((b, n), dtype=torch.int64, device=dev)
+
+    def fold(seg):
+        hot_n = zeros.scatter_add(1, seg, hot.to(torch.int64))
+        obs_n = zeros.scatter_add(1, seg, torch.ones_like(seg))
+        sel = ((obs_n >= min_observations)
+               & (hot_n >= torch.clamp_min(row_col_fraction * obs_n.to(torch.float64), 1.0))
+               & (hot_n >= 2))
+        score = neg_ranks.scatter_reduce(1, seg, zd, "amax", include_self=True)
+        return sel, score, hot_n, obs_n
+
+    row_sel, row_score, row_hot, row_obs = fold(gsrc)
+    col_sel, col_score, col_hot, col_obs = fold(gdst)
+    point = hot & ~row_sel.gather(1, gsrc) & ~col_sel.gather(1, gdst)
+    # ring-wait (paper Case 2): hot receiver wait over a healthy transfer
+    wmask = (zw > mad_threshold) & ~hot
+    wait_score = neg_ranks.scatter_reduce(1, gsrc, torch.where(wmask, zw, neg), "amax",
+                                          include_self=True)
+    wait_sel = zeros.scatter_add(1, gsrc, wmask.to(torch.int64)) > 0
+    return dict(zd=zd, zw=zw, row_sel=row_sel, row_score=row_score, row_hot=row_hot,
+                row_obs=row_obs, col_sel=col_sel, col_score=col_score, col_hot=col_hot,
+                col_obs=col_obs, point=point, wait_sel=wait_sel, wait_score=wait_score)
+
+
+def grouped_median_kernel(keys: torch.Tensor, values: torch.Tensor):
+    """Per-distinct-key median from raw keys (T,), the reference's
+    formulation: sort by (key, value), group extents, mean of the middles.
+    Returns (group_key, group_median, group_count, valid) of length T; group
+    ``g`` occupies slot ``g`` in ascending key order, trailing slots have
+    count 0; valid groups have count > 0 and a key other than PAD_KEY."""
+    t = keys.shape[0]
+    dev = keys.device
+    if t == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=dev)
+        return empty, torch.zeros(0, dtype=torch.float64, device=dev), empty, empty > 0
+    by_value = torch.sort(values, stable=True).indices
+    order = by_value[torch.sort(keys[by_value], stable=True).indices]
+    k, v = keys[order], values[order]
+    is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), k[1:] != k[:-1]])
+    gid = torch.cumsum(is_start.to(torch.int64), 0) - 1
+    idx = torch.arange(t, device=dev)
+    starts = torch.full((t,), t, dtype=torch.int64, device=dev).scatter_reduce(
+        0, gid, idx, "amin", include_self=True)
+    counts = torch.zeros(t, dtype=torch.int64, device=dev).scatter_add(
+        0, gid, torch.ones(t, dtype=torch.int64, device=dev))
+    safe = torch.where(counts > 0, starts, 0)
+    lo = v[safe + torch.clamp(counts - 1, min=0) // 2]
+    hi = v[torch.clamp(safe + counts // 2, max=t - 1)]
+    gkey = k[safe]
+    return gkey, 0.5 * (lo + hi), counts, (counts > 0) & (gkey != PAD_KEY)
