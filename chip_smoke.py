@@ -18,8 +18,12 @@ Phases, each fatal on failure:
     the plain version; two decode calls on the same inputs bit-equal, and
     decode parity again on another cache set after its timed launches.
     Kernel, plain and library times from CUDA events, the
-    kernel's and the library call's device time from torch.profiler, and the
-    flash kernel's achieved TFLOP/s;
+    kernel's and the library call's device time from torch.profiler (each
+    kernel's mean a launch times the launches of one call; a launched kernel
+    missing from the wrapper's name list fails the run; a profiled window
+    of which the profiler recorded nothing is profiled again, up to 8
+    times, and the time then reads "not measured"), and the flash
+    kernel's achieved TFLOP/s;
  3. serve: gemma2-2b at full width (random bf16 weights from a seeded
     ``torch.Generator``), batch 2, a 4352-token prompt and 32 greedy decode
     steps through ``repro_torch.launch.serve.serve``. The timed part must make
@@ -38,7 +42,13 @@ Phases, each fatal on failure:
     ``row_select`` entry, ``slow_fold``) must be bit-equal to its plain
     version on the card, and planted faults (a median by the lower middle,
     a row max started at 0, a hang median one order statistic off) must
-    read unequal; device times against the bytes bound and ``torch.sort``.
+    read unequal; the row select also at every tier (groups of 10 to
+    20,000, and 70,000 windows in one call) on signed, zero, NaN and
+    infinite samples, where a median by the raw int64 bit pattern must read
+    unequal; device times (4 copies of the inputs cycled, so that the L2
+    holds none) against the bytes bound and ``torch.sort``, for the
+    prefilter's edge-wait and node groups too, and for the batched kernels
+    as ``ingest_batch`` launches them (1,024 ranks x 8 windows).
     At 1,024 ranks the card's verdicts on the ten golden windows, a
     12-window stream (with and without an operating point, baseline
     arrays included) and ``ingest_batch`` must equal the port's NumPy
@@ -47,6 +57,9 @@ Phases, each fatal on failure:
     ingests three 100,000-rank windows (a slow source twice, then a hang)
     and must isolate both nodes, through 3 ``window_score``, 6
     ``row_select`` and 2 ``slow_fold`` launches.
+They run in the order 1, 2, 5, 3, 4: late in the process (after the train
+phase) torch.profiler dropped the records of short profiled windows, so the
+detection kernels are timed first.
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -73,6 +86,13 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 ITERS = 20                                   # timed launches per measurement
+PROFILE_ATTEMPTS = 8                         # profiled windows before "not measured"
+
+# the __global__ functions each wrapper may launch (parts of their names)
+FLASH_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel")
+DECODE_KERNELS = ("decode_tma_kernel", "decode_partial_kernel", "decode_combine_kernel",
+                  "decode_merge_kernel")
+RMSNORM_KERNELS = ("rmsnorm_kernel",)
 
 # gemma2-2b serving shapes of this smoke run
 B, PROMPT, STEPS = 2, 4352, 32
@@ -109,21 +129,94 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
-    """Device time of the kernels ``fn`` launches, per call (torch.profiler):
-    for a call shorter than its wrapper's host work, the CUDA-event time of
-    back-to-back calls is the host's, and this is the kernel's own."""
+def _profiled(fn, calls: int):
+    """torch.profiler over ``calls`` calls of ``fn``: {kernel name: (launches
+    recorded, device us)} of the device-side events. The profiler at times
+    records no event of a whole window (on the H100 machines, more often
+    after minutes of load, whether or not the window is padded with idle
+    time); such a window is profiled again, up to ``PROFILE_ATTEMPTS``
+    times, and {} is returned when none recorded a kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / iters / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        got = {e.key: (e.count, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count > 0}
+        if any(not _is_copy(k) for k in got):
+            if attempt > 1:
+                print(f"    profiler: a window of {calls} call(s) recorded at attempt {attempt}",
+                      flush=True)
+            return got
+    print(f"    profiler: no kernel recorded in {PROFILE_ATTEMPTS} windows of {calls} call(s)",
+          flush=True)
+    return {}
+
+
+def _is_copy(key: str) -> bool:
+    return key.startswith(("Memcpy", "Memset"))
+
+
+def device_ms(fn, iters: int, names=None, by_name=None) -> float | None:
+    """Device time of one call of ``fn`` (torch.profiler): each kernel's mean
+    time a launch over ``iters`` profiled calls, times the launches one call
+    makes, summed over the call's kernels. The launches a call makes are
+    counted in a profiled call of its own (a library call launches several
+    kernels); where the profiler recorded fewer launches than were made, the
+    shortfall is printed, and the mean a launch stands. ``names``: the
+    kernels ``fn`` launches (parts of their names; copies and memsets aside),
+    or None for a library call: a launched kernel that matches none fails
+    the run, so that a renamed or added ``__global__`` cannot drop out of
+    the sum. ``by_name``, a dict, receives each name's ms per call. None
+    (printed "not measured") when no window of ``iters`` calls recorded a
+    kernel; a single call that recorded none counts its launches from those
+    ``iters`` calls."""
+    fn()
+    one, many = _profiled(fn, 1), _profiled(fn, iters)
+    if not many:
+        print("    device time not measured: the profiler recorded no window", flush=True)
+        return None
+    total, by_calls = 0.0, 0.0
+    for key in sorted(set(one) | set(many)):
+        hit = [k for k in names if k in key] if names is not None else [key[:60]]
+        if not hit:
+            if _is_copy(key):
+                continue
+            fail(f"kernel {key[:120]} was launched but is not in the name list {names}")
+        per_call = one.get(key, (0, 0.0))[0]
+        count, us = many.get(key, (0, 0.0))
+        if count > per_call * iters:  # the single call's count was short
+            print(f"    profiler: {per_call} launches of {hit[0]} in one call but {count} in "
+                  f"{iters}; taking {-(-count // iters)} a call", flush=True)
+            per_call = -(-count // iters)
+        elif count < per_call * iters:
+            print(f"    profiler: {count} of {per_call * iters} launches of {hit[0]} recorded "
+                  f"in {iters} calls", flush=True)
+        if count == 0:  # none recorded in the timed calls: the single call's
+            count, us = one[key]
+        ms = us / count / 1e3 * per_call
+        total += ms
+        by_calls += us / iters / 1e3 if key in many else 0.0
+        if by_name is not None:
+            by_name[hit[0]] = by_name.get(hit[0], 0.0) + ms
+    if abs(by_calls - total) > 0.01 * total:
+        print(f"    device time by the calls made (the earlier rule) would read {by_calls:.5f} ms "
+              f"for {total:.5f}", flush=True)
+    return total
+
+
+def _ms(x, digits: int = 5) -> str:
+    """A time for a printed line; None (no window recorded) reads so."""
+    return "not measured" if x is None else f"{x:.{digits}f}"
+
+
+def _share(b_ms: float, dev) -> str:
+    """bound/device for a printed line."""
+    return "not measured" if dev is None else f"{b_ms / dev:.4f}"
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -213,7 +306,7 @@ def flash_phase(iters: int):
         nbytes = 2.0 * (q.numel() + k.numel()) * q.element_size()
         b_ms, b_by = bound(flops, nbytes, dt)
         ms = time_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters)
-        dev = device_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters)
+        dev = device_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters, FLASH_KERNELS)
         plain = time_ms(lambda: ref.flash_attention(q, k, v, **kw), max(2, iters // 4))
         # yardstick only, never called by the port: causal SDPA, no window, no cap
         qt = q.transpose(1, 2).contiguous()
@@ -223,10 +316,11 @@ def flash_phase(iters: int):
             F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=d ** -0.5)
 
         lib, lib_dev = time_ms(run_lib, iters), device_ms(run_lib, iters)
-        print(f"  time {name}: kernel_ms={ms:.4f} device_ms={dev:.4f} plain_ms={plain:.4f} "
-              f"library_ms={lib:.4f} library_device_ms={lib_dev:.4f} bound_ms={b_ms:.4f} "
-              f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/device={b_ms / dev:.4f} "
-              f"achieved {flops / dev / 1e9:.1f} TFLOP/s (device time)", flush=True)
+        print(f"  time {name}: kernel_ms={ms:.4f} device_ms={_ms(dev, 4)} plain_ms={plain:.4f} "
+              f"library_ms={lib:.4f} library_device_ms={_ms(lib_dev, 4)} bound_ms={b_ms:.4f} "
+              f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/device={_share(b_ms, dev)} "
+              f"achieved {_ms(None if dev is None else flops / dev / 1e9, 1)} TFLOP/s "
+              "(device time)", flush=True)
         rows.append((ms, plain, lib, b_ms, b_by, dev, lib_dev))
     return tuple(max(e[i] for e in errs) for i in range(2)), rows
 
@@ -297,7 +391,7 @@ def decode_phase(iters: int):
             ref.decode_attention(qq, kk, vv, pos, **kw)
 
         ms = time_ms(run_kernel, iters * 4)
-        dev = device_ms(run_kernel, iters * 4)
+        dev = device_ms(run_kernel, iters * 4, DECODE_KERNELS)
         plain = time_ms(run_plain, iters)
         libs = [(qq.transpose(1, 2).contiguous(),
                  kk[:, lo:pos + 1].repeat_interleave(H // HKV, dim=2).transpose(1, 2).contiguous(),
@@ -309,10 +403,10 @@ def decode_phase(iters: int):
             F.scaled_dot_product_attention(qq, kk, vv, scale=D ** -0.5)
 
         lib, lib_dev = time_ms(run_lib, iters * 4), device_ms(run_lib, iters * 4)
-        print(f"  time {name}: kernel_ms={ms:.5f} device_ms={dev:.5f} plain_ms={plain:.5f} "
-              f"library_ms={lib:.5f} library_device_ms={lib_dev:.5f} bound_ms={b_ms:.5f} "
+        print(f"  time {name}: kernel_ms={ms:.5f} device_ms={_ms(dev)} plain_ms={plain:.5f} "
+              f"library_ms={lib:.5f} library_device_ms={_ms(lib_dev)} bound_ms={b_ms:.5f} "
               f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/kernel={b_ms / ms:.4f} "
-              f"bound/device={b_ms / dev:.4f} splits={len(ref.plan_splits(lo, pos, n_sm, B, HKV))}"
+              f"bound/device={_share(b_ms, dev)} splits={len(ref.plan_splits(lo, pos, n_sm, B, HKV))}"
               f" on {n_sm} SMs", flush=True)
         rows.append((ms, plain, lib, b_ms, b_by, dev, lib_dev))
         # after the timed launches, on another cache set: a stale partial or
@@ -370,7 +464,8 @@ def rmsnorm_phase(iters: int):
             return run
 
         ms = time_ms(cycled(lambda x, s, w: rmsnorm_fwd(x, s, eps)), iters * 4)
-        dev = device_ms(cycled(lambda x, s, w: rmsnorm_fwd(x, s, eps)), iters * 4)
+        dev = device_ms(cycled(lambda x, s, w: rmsnorm_fwd(x, s, eps)), iters * 4,
+                        RMSNORM_KERNELS)
         plain = time_ms(cycled(lambda x, s, w: ref.rmsnorm(x, s, eps)), iters * 4)
         # yardstick only, never called by the port: weight 1 + scale precomputed
         run_lib = cycled(lambda x, s, w: F.rms_norm(x, (shape[-1],), w, eps))
@@ -378,10 +473,10 @@ def rmsnorm_phase(iters: int):
         n = sets[0][0].numel()
         nbytes = (2.0 * n + shape[-1]) * 2
         b_ms, b_by = bound(4.0 * n, nbytes, "float32")
-        print(f"  time rmsnorm bfloat16 x={shape}: kernel_ms={ms:.5f} device_ms={dev:.5f} "
-              f"plain_ms={plain:.5f} library_ms={lib:.5f} library_device_ms={lib_dev:.5f} "
+        print(f"  time rmsnorm bfloat16 x={shape}: kernel_ms={ms:.5f} device_ms={_ms(dev)} "
+              f"plain_ms={plain:.5f} library_ms={lib:.5f} library_device_ms={_ms(lib_dev)} "
               f"bound_ms={b_ms:.5f} ({b_by}; {nbytes:.4e} B) bound/kernel={b_ms / ms:.4f} "
-              f"bound/device={b_ms / dev:.4f}", flush=True)
+              f"bound/device={_share(b_ms, dev)}", flush=True)
         rows.append((ms, plain, lib, b_ms, b_by, dev, lib_dev))
     return tuple(max(e[i] for e in errs) for i in range(2)), rows
 
@@ -645,39 +740,9 @@ def golden_faults():
              Fault("straggler", rank=20, severity=25)]]
 
 
-def kernel_device_ms(fn, iters: int, names, by_name=None) -> float:
-    """Device time per call of the CUDA kernels whose names contain one of
-    ``names`` (torch.profiler): the wrapper's own checks are left out. Each
-    of those kernels launches at most once a call, so a call's time is the
-    sum of their mean times a launch; that holds even where the profiler
-    records fewer launches than were made, which it then prints.
-    ``by_name``, a dict, receives each of those kernels' ms per call."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        hit = [k for k in names if k in e.key]
-        if e.device_type == DeviceType.CUDA and hit:
-            if e.count != iters:
-                print(f"    profiler: {e.count} launches of {hit[0]} recorded in {iters} calls",
-                      flush=True)
-            ms = e.self_device_time_total / e.count / 1e3
-            total += ms
-            if by_name is not None:
-                by_name[hit[0]] = by_name.get(hit[0], 0.0) + ms
-    return total
-
-
-WS_KERNELS = ("rank_init", "hb_fold", "group_src", "row_select_warp", "row_select_cta",
-              "rank_stats", "hang_median", "rank_deficit")
-RS_KERNELS = ("row_select_warp", "row_select_cta")
+RS_KERNELS = ("row_select_small", "row_select_warp", "row_select_radix")
+WS_KERNELS = ("rank_init", "hb_fold", "group_src", *RS_KERNELS, "rank_stats", "hang_median",
+              "rank_deficit")
 FOLD_KERNELS = ("fold_init", "fold_groups", "fold_ranks", "fold_points")
 
 
@@ -824,8 +889,8 @@ def detect_kernels(iters: int):
         "window_score, distinct seqs", got, want,
         [("hang median one order statistic off", "med", off_by_one.reshape(1))]))
 
-    # the prefilter's row select: edge waits (10 a group, a warp each) and
-    # per-node absolute deviations (320 a group, a CTA each)
+    # the prefilter's row select: edge waits (10 a group, a thread each) and
+    # per-node absolute deviations (240 a group, a warp each)
     transfer, wait = w0.tr_transfer(), w0.tr_wait()
     node = w0.tr_src // 8
     _, node_med, _, idx = grouped_median(node, transfer, return_groups=True)
@@ -847,71 +912,204 @@ def detect_kernels(iters: int):
             f"row_select (prefilter), {label}: {lay.g:,} groups of {lay.max_count}", got, want,
             [("median by the lower middle (torch.median)", "median", low)]))
         rs_cases[label] = (v, lt, lay)
+    errs["row_select"] = max(errs["row_select"], signed_tiers())
 
     rows = {}
     # window_score: the clean window, layout cached, inputs on the card. The
     # bound counts each input and output once at the window's own sizes
     lay, lt, args, kw = window_inputs(w0, n)
-    kk = dict(kw, large=lt["large"], max_count=lay.max_count)
-    run = lambda: ws.window_score(*args, **kk)               # noqa: E731
-    plain = lambda: tk.fused_window_kernel(*args, **kw)      # noqa: E731
-    reads = _nbytes(*args[:8], lt["large"])
-    out = run()
-    writes = _nbytes(*out.values())
-    vmat = tk.padded_rows(args[0], *args[1:4], float("inf"))[0]     # (2, g, max_count)
-    lo_i = torch.clamp((lt["counts"][0] - 1) // 2, min=0)[None, :, None].expand(2, -1, 1)
-
-    def library():   # yardstick only: sort the rows, gather the two middles
-        srt = torch.sort(vmat.view(torch.int64), dim=-1).values
-        return torch.take_along_dim(srt, lo_i, dim=-1)
-
-    rows["window_score"] = timed("window_score", run, plain, library, reads + writes,
-                                 WS_KERNELS, iters,
-                                 f"(2, {vmat.shape[1]:,}, {vmat.shape[2]}) torch.sort + gather")
-    v, lt, lay = rs_cases["edge wait"]
-    kk = dict(large=lt["large"], max_count=lay.max_count)
-    run = lambda: ws.row_select(v, lt["order"], lt["starts"], lt["counts"], **kk)  # noqa: E731
-    plain = lambda: tk.row_median(v, lt["order"], lt["starts"], lt["counts"])      # noqa: E731
-    vm = tk.padded_rows(v, lt["order"], lt["starts"], lt["counts"], float("inf"))[0]
-    lo_1 = torch.clamp((lt["counts"][0] - 1) // 2, min=0)[None, :, None]
-
-    def library_rs():
-        return torch.take_along_dim(torch.sort(vm.view(torch.int64), dim=-1).values, lo_1, -1)
-
-    nb = _nbytes(v, lt["order"], lt["starts"], lt["counts"], lt["large"]) + 8 * lay.g
-    rows["row_select"] = timed("row_select (prefilter edge wait)", run, plain, library_rs, nb,
-                               RS_KERNELS, iters,
-                               f"(1, {vm.shape[1]:,}, {vm.shape[2]}) torch.sort + gather")
-    v, lt, lay = rs_cases["node |transfer - median|"]
-    run_node = lambda: ws.row_select(v, lt["order"], lt["starts"], lt["counts"],  # noqa: E731
-                                     large=lt["large"], max_count=lay.max_count)
-    print(f"  time row_select (prefilter node groups, {lay.g:,} of {lay.max_count}): "
-          f"device_ms={kernel_device_ms(run_node, iters, RS_KERNELS):.5f}", flush=True)
+    rows["window_score"] = window_row("window_score", args,
+                                      dict(kw, large=lt["large"], max_count=lay.max_count), iters)
+    for key, case, label in (("row_select", "edge wait", "edge wait"),
+                             ("row_select_node", "node |transfer - median|", "node groups")):
+        v, lt, lay = rs_cases[case]
+        rows[key] = row_select_row(f"row_select (prefilter {label}, {lay.g:,} groups of up to "
+                                   f"{lay.max_count})", v, lt, lay, iters)
     fargs, lay = fold_case
-    run = lambda: sf.slow_fold(*fargs, n=n)             # noqa: E731
-    plain = lambda: tk.slow_fold_kernel(*fargs, n=n)    # noqa: E731
-    out = run()
-    nb = _nbytes(*fargs[:7]) + _nbytes(*out.values())
-    rows["slow_fold"] = timed("slow_fold", run, plain, None, nb, FOLD_KERNELS, iters, None)
+    rows["slow_fold"] = fold_row("slow_fold", fargs, n, iters)
     return errs, rows
 
 
-def timed(name, run, plain, library, nbytes, names, iters, lib_label):
+# input sets a timed detection call cycles through, so that the 50 MB L2
+# does not hold the inputs a launch reads (they are 3-100 MB), as it does
+# not on the main path, which scores a window every few seconds
+SETS = 4
+
+
+def cycling(fn, *tensors):
+    """A call of ``fn`` on one of ``SETS`` copies of ``tensors`` in turn
+    (non-tensors are shared)."""
+    import itertools
+    import torch
+    sets = [tensors] + [tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in tensors)
+                        for _ in range(SETS - 1)]
+    turn = itertools.count()
+    return lambda: fn(*sets[next(turn) % SETS])
+
+
+def window_row(name, args, kk, iters, where=None):
+    """The timed row of ``window_score`` on packed inputs ``args`` and its
+    keywords ``kk`` (n, large, max_count); library: sort the padded rows and
+    gather the middles."""
+    import torch
+    from repro_torch.core.torchsim import kernels as tk
+    from repro_torch.kernels import window_score as ws
+    run = cycling(lambda *a: ws.window_score(*a, **kk), *args)
+    plain = lambda: tk.fused_window_kernel(*args, n=kk["n"])       # noqa: E731
+    reads = _nbytes(*args[:8], kk["large"])
+    writes = _nbytes(*run().values())
+    vmat = tk.padded_rows(args[0], *args[1:4], float("inf"))       # (B, 2, g, max_count)
+    lo_i = torch.clamp((args[3] - 1) // 2, min=0)[:, None, :, None].expand(
+        vmat.shape[0], 2, -1, 1)
+    # yardstick only: sort the rows, gather the two middles
+    library = cycling(lambda m: torch.take_along_dim(
+        torch.sort(m.view(torch.int64), dim=-1).values, lo_i, dim=-1), vmat)
+    return timed(name, run, plain, library, reads + writes, WS_KERNELS, iters,
+                 f"{tuple(vmat.shape)} torch.sort + gather", where)
+
+
+def row_select_row(name, v, lt, lay, iters):
+    """The timed row of the prefilter's row select on values ``v`` (1, 1, T)."""
+    import torch
+    from repro_torch.core.torchsim import kernels as tk
+    from repro_torch.kernels import window_score as ws
+    layout = (lt["order"], lt["starts"], lt["counts"])
+    run = cycling(lambda *a: ws.row_select(*a, large=lt["large"], max_count=lay.max_count),
+                  v, *layout)
+    plain = lambda: tk.row_median(v, *layout)      # noqa: E731
+    vm = tk.padded_rows(v, *layout, float("inf"))[0]
+    lo_1 = torch.clamp((lt["counts"][0] - 1) // 2, min=0)[None, :, None]
+    # yardstick only: sort the rows, gather the lower middle
+    library = cycling(lambda m: torch.take_along_dim(
+        torch.sort(m.view(torch.int64), dim=-1).values, lo_1, -1), vm)
+    nb = _nbytes(v, *layout, lt["large"]) + 8 * lay.g
+    return timed(name, run, plain, library, nb, RS_KERNELS, iters,
+                 f"{tuple(vm.shape)} torch.sort + gather")
+
+
+def fold_row(name, fargs, n, iters, where=None):
+    """The timed row of ``slow_fold`` on ``fargs`` (no one library call)."""
+    from repro_torch.core.torchsim import kernels as tk
+    from repro_torch.kernels import slow_fold as sf
+    run = cycling(lambda *a: sf.slow_fold(*a, n=n), *fargs)
+    plain = lambda: tk.slow_fold_kernel(*fargs, n=n)    # noqa: E731
+    nb = _nbytes(*fargs[:7]) + _nbytes(*run().values())
+    return timed(name, run, plain, None, nb, FOLD_KERNELS, iters, None, where)
+
+
+# groups of these sizes reach every tier of the row select and its edges: a
+# thread (up to 16), a warp (up to 512), a CTA in device memory (above)
+TIER_SIZES = (10, 16, 17, 240, 512, 513, 20000)
+
+
+def signed_groups(size: int, seed: int):
+    """Five groups of ``size`` samples: mixed signs over 400 decades, all
+    negative, signed zeros in both orders, NaN of both signs, +-inf among
+    finite values; keys shuffled. Returns (keys, values) as NumPy arrays."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    neg_nan = np.array([0xFFF8000000000001], np.uint64).view(np.float64)[0]
+    mixed = rng.normal(size=size) * 10.0 ** rng.integers(-200, 200, size)
+    neg = -np.abs(rng.normal(size=size)) - 1e-12
+    zeros = np.where(rng.random(size) < 0.5, -0.0, 0.0)
+    zeros[::5] = rng.normal(size=zeros[::5].size)
+    nans = rng.normal(size=size)
+    nans[rng.random(size) < 0.4] = np.nan
+    nans[rng.random(size) < 0.2] = neg_nan
+    infs = rng.normal(size=size)
+    infs[rng.random(size) < 0.3] = np.inf
+    infs[rng.random(size) < 0.3] = -np.inf
+    keys = np.repeat(np.arange(5, dtype=np.int64) * 1000 - 7, size)
+    vals = np.concatenate([mixed, neg, zeros, nans, infs])
+    perm = rng.permutation(keys.size)
+    return keys[perm], vals[perm]
+
+
+def raw_bits_median(values, order, starts, counts):
+    """Planted fault: per-group medians ordered by the raw int64 bit pattern
+    (the row select's order before it took any float64). (V, B, G)."""
+    import torch
+    from repro_torch.core.torchsim.kernels import padded_rows
+    rows = padded_rows(values, order, starts, counts, float("inf"))
+    b, v, g, m = rows.shape
+    srt = torch.sort(rows.view(torch.int64), dim=-1).values.view(torch.float64)
+    c = counts.expand(b, g)
+    lo = srt.gather(3, torch.clamp((c - 1) // 2, min=0)[:, None, :, None].expand(b, v, g, 1))
+    hi = srt.gather(3, torch.clamp(c // 2, max=m - 1)[:, None, :, None].expand(b, v, g, 1))
+    return (0.5 * (lo + hi))[..., 0].transpose(0, 1).contiguous()
+
+
+def _same_bits(a, b) -> bool:
+    """Bit for bit, any NaN equal to any NaN."""
+    import torch
+    a, b = a.cpu(), b.cpu()
+    nan = torch.isnan(a)
+    return a.shape == b.shape and bool(torch.equal(nan, torch.isnan(b))) and \
+        torch.equal(a[~nan].view(torch.int64), b[~nan].view(torch.int64))
+
+
+def signed_tiers() -> float:
+    """The row select at every tier on signed, zero, NaN and infinite
+    samples (one window; and 70,000 windows of groups of 1 to 33), against
+    its plain version on the card, bit for bit with NaN equal to NaN; a
+    median by the raw int64 bit pattern must read unequal."""
+    import numpy as np
+    import torch
+    from repro_torch.core.torchsim import detectors as tdet
+    from repro_torch.core.torchsim import kernels as tk
+    from repro_torch.kernels import window_score as ws
+    cases = [(f"groups of {s}", 1, *signed_groups(s, s)) for s in TIER_SIZES]
+    rng = np.random.default_rng(70)
+    keys = np.repeat(np.arange(5, dtype=np.int64), [1, 2, 10, 17, 33])[rng.permutation(63)]
+    vals = rng.normal(size=(70_000, 63))
+    vals[rng.random(vals.shape) < 0.05] = np.nan
+    vals[rng.random(vals.shape) < 0.05] = -0.0
+    cases.append(("70,000 windows of groups of 1, 2, 10, 17, 33", 70_000, keys, vals.ravel()))
+    err = 0.0
+    for label, b, keys, vals in cases:
+        lay = tdet._WindowLayout(keys)
+        lt = lay.device_tensors(torch.device(DEV))
+        v = torch.from_numpy(vals).to(DEV).view(b, 1, -1)
+        args = (v, lt["order"], lt["starts"], lt["counts"])
+        got = ws.row_select(*args, large=lt["large"], max_count=lay.max_count)
+        want = tk.row_median(*args)
+        wrong = raw_bits_median(*args)
+        ok = _same_bits(got, want)
+        fin = torch.isfinite(want)
+        if fin.any():
+            err = max(err, (got[fin] - want[fin]).abs().max().item())
+        same = (got.view(torch.int64) == wrong.view(torch.int64)) | \
+            (torch.isnan(got) & torch.isnan(wrong))
+        differ = int((~same).sum())
+        print(f"  parity row_select, signed tiers, {label} (B={b}): bit-equal to the plain "
+              f"version (NaN = NaN): {'yes' if ok else 'NO'}; {int(torch.isnan(want).sum())} NaN "
+              f"medians", flush=True)
+        print(f"    planted fault, median by the raw int64 bit pattern: {differ} of "
+              f"{got.numel()} medians differ", flush=True)
+        if not ok:
+            fail(f"row_select, {label}: the kernel differs from its plain version")
+        if differ == 0:
+            fail(f"row_select, {label}: the raw-bit-pattern fault reads equal to the kernel")
+    return err
+
+
+def timed(name, run, plain, library, nbytes, names, iters, lib_label, where=None):
     """Event and device times of a kernel, its plain version and the
     library yardstick, and its bytes bound (each input read once, each
     output written once, at 3.35 TB/s)."""
     ms = time_ms(run, iters)
     split = {}
-    dev = kernel_device_ms(run, iters, names, split)
+    dev = device_ms(run, iters, names, split)
     plain_ms = time_ms(plain, max(2, iters // 4))
     lib = lib_dev = None
     if library is not None:
         lib, lib_dev = time_ms(library, iters), device_ms(library, iters)
     b_ms, b_by = bound(0.0, nbytes, "float32")
-    print(f"  time {name} at {DETECT_RANKS} ranks: kernel_ms={ms:.5f} device_ms={dev:.5f} "
+    print(f"  time {name} at {where or f'{DETECT_RANKS} ranks'}: kernel_ms={ms:.5f} "
+          f"device_ms={_ms(dev)} "
           f"plain_ms={plain_ms:.5f} library_ms={'null' if lib is None else f'{lib:.5f}'} "
-          f"library_device_ms={'null' if lib_dev is None else f'{lib_dev:.5f}'} "
-          f"bound_ms={b_ms:.5f} ({b_by}; {nbytes:.4e} B) bound/device={b_ms / dev:.4f}"
+          f"library_device_ms={'null' if library is None else _ms(lib_dev)} "
+          f"bound_ms={b_ms:.5f} ({b_by}; {nbytes:.4e} B) bound/device={_share(b_ms, dev)}"
           f"{'' if lib_label is None else '; library: ' + lib_label}", flush=True)
     print("    device ms by kernel: " + ", ".join(f"{k} {v:.5f}" for k, v in split.items()),
           flush=True)
@@ -1115,8 +1313,58 @@ def detect_main_path():
     return counts
 
 
+def detect_batched(iters: int):
+    """``window_score`` and ``slow_fold`` as ``ingest_batch`` launches them at
+    the JAX package's batched shape (``benchmarks/bench_jaxsim.py``: 1,024
+    ranks, 8 windows of ``RingJobTelemetry(seed=7)``, a slow source on rank
+    5 in the odd ones): the launches of one call, then each kernel timed on
+    the inputs that call gave it. Returns (launches, rows)."""
+    from repro_torch.core.c4d.master import C4DMaster
+    from repro_torch.core.faults import Fault, RingJobTelemetry
+    from repro_torch.core.torchsim import detectors as tdet
+    from repro_torch.kernels import slow_fold as sf
+    from repro_torch.kernels import window_score as ws
+
+    n, b = 1024, 8
+    tel = RingJobTelemetry(n_ranks=n, seed=7)
+    wins = [tel.window_arrays(i, [Fault("slow_src", rank=5)] if i % 2 else [])
+            for i in range(b)]
+    seen, calls = {}, {"window_score": 0, "slow_fold": 0}
+    real = {"window_score": (ws, ws.window_score), "slow_fold": (sf, sf.slow_fold)}
+
+    def recording(name):
+        def call(*a, **kw):
+            seen.setdefault(name, (a, kw))
+            calls[name] += 1
+            return real[name][1](*a, **kw)
+        return call
+
+    try:
+        for name, (mod, _) in real.items():
+            setattr(mod, name, recording(name))
+        master = C4DMaster(n_ranks=n, backend="torch", device=DEV)
+        tdet.reset_launch_counts()
+        acts = master.ingest_batch(wins)
+        counts = tdet.launch_counts()
+    finally:
+        for name, (mod, fn) in real.items():
+            setattr(mod, name, fn)
+    print(f"  ingest_batch of {b} windows at {n} ranks: launches {counts}, "
+          f"{sum(map(len, acts))} actions", flush=True)
+    if calls != {"window_score": 1, "slow_fold": 1}:
+        fail(f"ingest_batch did not batch its windows: calls {calls}")
+    where = f"{n} ranks x {b} windows (ingest_batch)"
+    a, kw = seen["window_score"]
+    rows = {"window_score": window_row("window_score, batched", a, kw, iters, where)}
+    a, kw = seen["slow_fold"]
+    rows["slow_fold"] = fold_row(f"slow_fold, batched ({a[1].shape[0]} hang-free windows)",
+                                 a, kw["n"], iters, where)
+    return counts, rows
+
+
 def detect_phase(iters: int):
     errs, rows = detect_kernels(iters)
+    rows["batched"] = detect_batched(iters)
     detect_parity()
     detect_analyze_times()
     detect_crossover()
@@ -1242,6 +1490,13 @@ def main(argv=None) -> int:
     norm_err, norm_rows = rmsnorm_phase(ITERS)
     print(f"[kernels] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # [detect] before [serve] and [train]: after the train phase the profiler
+    # dropped the records of short profiled windows
+    t0 = time.perf_counter()
+    print("[detect]", flush=True)
+    det_err, det_rows, det_counts = detect_phase(DETECT_ITERS)
+    print(f"[detect] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
     t0 = time.perf_counter()
     print("[serve]", flush=True)
     serve_counts = serve_phase()
@@ -1257,27 +1512,34 @@ def main(argv=None) -> int:
     counts = {k: serve_counts[k] + train_counts[k] for k in serve_counts}
     print(f"launches on the main paths: serve {serve_counts}, train {train_counts}", flush=True)
 
-    t0 = time.perf_counter()
-    print("[detect]", flush=True)
-    det_err, det_rows, det_counts = detect_phase(DETECT_ITERS)
-    print(f"[detect] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     def entry(name, source, replaces, err, rows):
         # attention: one local-window and one global launch of the main path,
         # averaged; rmsnorm: the training microbatch (1, 4096, 2304)
-        mean = [sum(r[i] for r in rows) / len(rows) if i != 4 else None for i in range(7)]
+        col = [[r[i] for r in rows] for i in range(7)]
+        mean = [None if i == 4 or None in c else sum(c) / len(c) for i, c in enumerate(col)]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": counts[name], "max_abs_err": err[0], "max_row_rel_err": err[1],
                 "ms": mean[0], "device_ms": mean[5], "plain_ms": mean[1], "bound_ms": mean[3],
                 "bound_by": rows[0][4], "library_ms": mean[2], "library_device_ms": mean[6]}
 
-    def detect_entry(name, source, replaces, launches, err, row):
-        # one window at 100,000 ranks; launches on the detection main path
+    def times(row):
         ms, plain, lib, b_ms, b_by, dev, lib_dev = row
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms, "device_ms": dev,
-                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-                "library_device_ms": lib_dev}
+        return {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": lib, "library_device_ms": lib_dev}
+
+    batch_counts, batch_rows = det_rows["batched"]
+
+    def detect_entry(name, source, replaces, launches, err, row):
+        # one window at 100,000 ranks; launches on the detection main path.
+        # Besides: the prefilter's node groups, and ingest_batch at 1,024 x 8
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": launches, "max_abs_err": err, **times(row)}
+        if name == "row_select":
+            entry["node_groups"] = times(det_rows["row_select_node"])
+        if name in batch_rows:
+            entry["batched"] = dict(times(batch_rows[name]), launches=batch_counts[name])
+        return entry
 
     print(card, flush=True)
     print(json.dumps({"kernels": [

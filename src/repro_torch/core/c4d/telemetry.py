@@ -275,7 +275,8 @@ def grouped_median(keys: np.ndarray, values: np.ndarray,
     the keys on the host (a layout cached across calls with equal keys) and
     selects each group's middle order statistics on ``device`` (``None``:
     the card) with the row-select entry of ``kernels/csrc/window_score.cu``
-    — same keys, bit-equal medians; values must be non-negative.  The
+    — same keys, bit-equal medians, for any float64 values (negative,
+    signed zeros, infinities, NaN) and any group size.  The
     group-structure variant stays NumPy: its consumers are host-side
     prefilters.
     """

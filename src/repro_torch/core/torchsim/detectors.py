@@ -106,7 +106,7 @@ class _WindowLayout:
         self.starts = starts.astype(np.int64)
         self.counts = counts.astype(np.int64)
         self.gkey = sk[starts].astype(np.int64)
-        self.large = np.flatnonzero(self.counts > _ws.WARP_GROUP).astype(np.int64)
+        self.large = np.flatnonzero(self.counts > _ws.SMALL_GROUP).astype(np.int64)
         self._dev: Dict[str, Dict[str, torch.Tensor]] = {}
 
     def device_tensors(self, dev: torch.device) -> Dict[str, torch.Tensor]:
@@ -162,7 +162,8 @@ def layout_cache_info() -> dict:
 
 def grouped_median_torch(keys: np.ndarray, values: np.ndarray, device=None):
     """``telemetry.grouped_median``'s torch branch: (sorted unique keys,
-    medians), bit-equal to the NumPy fold; values must be non-negative."""
+    medians), bit-equal to the NumPy fold for any float64 values and group
+    sizes."""
     keys = np.asarray(keys).astype(np.int64, copy=False)
     values = np.asarray(values, np.float64)
     if keys.size == 0:

@@ -19,9 +19,10 @@ for its jit cache; a runtime-shaped kernel has none).
 
 The exact-path rules of the reference carry over: float64 throughout, no
 ``a*b + c`` (the MAD centers and scales come from NumPy on the host), values
-ordered by their int64 bit patterns (they are non-negative), medians as
-``0.5 * (lo + hi)`` — never ``torch.median``, which takes the lower middle —
-and every max started at its identity (-inf, int64-min).
+in the order of NumPy's stable sort (``order_key``, ties by position),
+medians as ``0.5 * (lo + hi)`` of the two middle samples' own bits — never
+``torch.median``, which takes the lower middle — and every max started at
+its identity (-inf, int64-min).
 """
 from __future__ import annotations
 
@@ -30,11 +31,25 @@ from typing import Dict
 import numpy as np
 import torch
 
-#: sentinel pair key for padding slots; int64-max sorts after any real
-#: ``src * n + dst`` key.
+#: sentinel key for padding slots; int64-max sorts after any real
+#: ``src * n + dst`` key and after every value's ``order_key``.
 PAD_KEY = int(np.iinfo(np.int64).max)
 
 _I64_MIN = int(np.iinfo(np.int64).min)
+_FLIP = int(np.iinfo(np.int64).max)
+#: every NaN's sort key: above +inf's (its bits), below PAD_KEY
+NAN_KEY = 0x7FF8000000000000
+
+
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int64 keys in the order of NumPy's sort: -0.0 as +0.0,
+    every NaN (any sign or payload) as NAN_KEY above +inf, negatives below
+    by flipping all bits but the sign (``csrc/window_score.cu``'s
+    ``order_key``). Equal keys keep their positions in a stable sort."""
+    b = x.view(torch.int64)
+    k = torch.where(b < 0, b ^ _FLIP, b)
+    k = torch.where(x == 0, torch.zeros_like(k), k)
+    return torch.where(torch.isnan(x), torch.full_like(k, NAN_KEY), k)
 
 
 def padded_rows(values: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
@@ -59,15 +74,20 @@ def row_median(values: torch.Tensor, order: torch.Tensor, starts: torch.Tensor,
                counts: torch.Tensor) -> torch.Tensor:
     """Per-group medians, layout as for ``padded_rows``. Returns (V, B, G):
     the lo = max((c-1)//2, 0) and hi = min(c//2, M-1) order statistics of
-    each group's row, +inf padded to M, averaged; an empty group reads +inf."""
+    each group's row by (``order_key``, position), averaged; the row is
+    padded to M with PAD_KEY, above every sample's key (NaN's too), and
+    +inf values, so an empty group reads +inf."""
     rows = padded_rows(values, order, starts, counts, float("inf"))
     b, v, g, m = rows.shape
-    rows = torch.sort(rows.view(torch.int64), dim=-1).values.view(torch.float64)
     counts = counts.expand(b, g)
-    lo_i = torch.clamp((counts - 1) // 2, min=0)
-    hi_i = torch.clamp(counts // 2, max=m - 1)
-    lo = rows.gather(3, lo_i[:, None, :, None].expand(b, v, g, 1))[..., 0]
-    hi = rows.gather(3, hi_i[:, None, :, None].expand(b, v, g, 1))[..., 0]
+    pad = torch.arange(m, device=values.device) >= counts[:, :, None]
+    keys = torch.where(pad[:, None], torch.full_like(rows, PAD_KEY, dtype=torch.int64),
+                       order_key(rows))
+    perm = torch.sort(keys, dim=-1, stable=True).indices
+    lo_i = torch.clamp((counts - 1) // 2, min=0)[:, None, :, None].expand(b, v, g, 1)
+    hi_i = torch.clamp(counts // 2, max=m - 1)[:, None, :, None].expand(b, v, g, 1)
+    lo = rows.gather(3, perm.gather(3, lo_i))[..., 0]
+    hi = rows.gather(3, perm.gather(3, hi_i))[..., 0]
     return (0.5 * (lo + hi)).transpose(0, 1).contiguous()
 
 

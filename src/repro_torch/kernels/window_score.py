@@ -9,9 +9,11 @@ raises, never falling back); on CPU tensors it computes the plain version
 The layout (``order``, ``starts``, ``counts``, and for a window ``gkey``) is
 the host-made grouping of the transport keys
 (``core.torchsim.detectors._WindowLayout``): a batch of size 1 is shared by
-every window. ``large`` lists the groups of more than ``WARP_GROUP`` samples
-and ``max_count`` is the largest group; both come from the layout on the
-host, so the wrapper needs no device reduction for them.
+every window. ``large`` lists the groups of more than ``SMALL_GROUP`` samples
+and ``max_count`` is the largest group (or any bound above it: it picks the
+kernel's tiers); both come from the layout on the host, so the wrapper needs no
+device reduction for them. Values are any float64 (negative, signed zeros,
+infinities, NaN), groups of any size, and a call any number of windows.
 """
 from __future__ import annotations
 
@@ -25,14 +27,14 @@ from repro_torch.kernels import detect_ref as plain
 from repro_torch.kernels.checks import require, stream_of
 
 launches = {"window_score": 0, "row_select": 0}
-MAX_GROUP = 4096     # csrc/window_score.cu: ws_max_group(), a group in one CTA's shared memory
-WARP_GROUP = 32      # csrc/window_score.cu: ws_warp_group(), groups a warp takes
+SMALL_GROUP = 16     # csrc/window_score.cu: ws_small_group(), groups a thread takes
+WARP_GROUP = 512     # csrc/window_score.cu: ws_warp_group(), groups a warp takes; larger: a CTA
 
 _fns: Dict[str, object] = {}
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _ARGTYPES = {
-    "ws_row_select": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P],
-    "ws_window": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P, _I, _P, _P, _I, _P, _D, _I,
+    "ws_row_select": [_P, _I, _I, _I, _P, _I, _P, _P, _I, _I, _P, _I, _I, _P, _P],
+    "ws_window": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _D, _I,
                   _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
@@ -47,7 +49,7 @@ def _kernel(name: str):
     return fn
 
 
-def _check_layout(values, order, starts, counts, large, max_count: int) -> None:
+def _check_layout(values, order, starts, counts, large) -> None:
     if not isinstance(values, torch.Tensor) or values.dtype != torch.float64 \
             or values.dim() != 3:
         raise TypeError("values must be a float64 tensor (B, V, T)")
@@ -65,16 +67,6 @@ def _check_layout(values, order, starts, counts, large, max_count: int) -> None:
         raise ValueError(f"layout shapes order {tuple(order.shape)}, starts "
                          f"{tuple(starts.shape)}, counts {tuple(counts.shape)} for T={t}")
     require("large", large, torch.int64, 1, dev)
-    if b > 65535:
-        raise ValueError(f"{b} windows in one call; the kernel takes at most 65535")
-    if max_count > MAX_GROUP:
-        raise ValueError(f"a group of {max_count} samples; the kernel takes at most "
-                         f"{MAX_GROUP} a group")
-    # the kernel orders values by their int64 bit patterns: only right for
-    # non-negative floats (NaN fails this test too)
-    if values.numel() and not bool((values >= 0).all()):
-        raise ValueError("values must be non-negative: the kernel orders them by their "
-                         "int64 bit patterns")
 
 
 def _bstride(x: torch.Tensor) -> int:
@@ -82,9 +74,10 @@ def _bstride(x: torch.Tensor) -> int:
 
 
 def row_select(values, order, starts, counts, *, large, max_count: int) -> torch.Tensor:
-    """Per-group medians of each of V value arrays: values (B, V, T) float64,
-    non-negative -> (V, B, G) float64 (+inf for an empty group)."""
-    _check_layout(values, order, starts, counts, large, max_count)
+    """Per-group medians of each of V value arrays: values (B, V, T) float64
+    -> (V, B, G) float64 (+inf for an empty group), bit-equal to NumPy's
+    stable lexsort fold."""
+    _check_layout(values, order, starts, counts, large)
     if values.device.type == "cpu":
         return plain.row_median(values, order, starts, counts)
     b, v, t = values.shape
@@ -95,7 +88,7 @@ def row_select(values, order, starts, counts, *, large, max_count: int) -> torch
     with torch.cuda.device(values.device):
         err = _kernel("ws_row_select")(
             values.data_ptr(), b, v, t, order.data_ptr(), _bstride(order), starts.data_ptr(),
-            counts.data_ptr(), _bstride(starts), g, large.data_ptr(), large.numel(),
+            counts.data_ptr(), _bstride(starts), g, large.data_ptr(), large.numel(), max_count,
             out.data_ptr(), stream_of(values))
     if err != 0:
         raise RuntimeError(f"window_score row select launch failed: CUDA error {err}")
@@ -108,7 +101,7 @@ def window_score(values, order, starts, counts, gkey, hb_rank, hb_seq, offsets,
     """A batch of windows: values (B, 2, T) delay and wait; heartbeats (B, H);
     offsets (B, n). Returns dmed, wmed (B, G); present, seqs, deficit, hung,
     is_src (B, n); med (B,)."""
-    _check_layout(values, order, starts, counts, large, max_count)
+    _check_layout(values, order, starts, counts, large)
     b, v, t = values.shape
     dev = values.device
     if v != 2:
@@ -139,7 +132,7 @@ def window_score(values, order, starts, counts, gkey, hb_rank, hb_seq, offsets,
         err = _kernel("ws_window")(
             values.data_ptr(), b, t, order.data_ptr(), _bstride(order), starts.data_ptr(),
             counts.data_ptr(), gkey.data_ptr(), _bstride(starts), g, large.data_ptr(),
-            large.numel(), hb_rank.data_ptr(), hb_seq.data_ptr(), hb_rank.shape[1],
+            large.numel(), max_count, hb_rank.data_ptr(), hb_seq.data_ptr(), hb_rank.shape[1],
             offsets.data_ptr(), float(hang_grace), n, medians.data_ptr(), present.data_ptr(),
             seqs.data_ptr(), med.data_ptr(), deficit.data_ptr(), hung.data_ptr(),
             is_src.data_ptr(), stats.data_ptr(), stream_of(values))

@@ -357,8 +357,8 @@ def test_plain_slow_fold_equals_numpy():
 
 
 def test_row_select_reads_large_groups_and_batches():
-    """Groups above a warp's 32 samples (the prefilter's per-node groups) and
-    a batch of two windows over one shared layout."""
+    """Groups above a thread's 16 samples (the prefilter's per-node groups)
+    and a batch of two windows over one shared layout."""
     rng = np.random.default_rng(2)
     keys = np.repeat(np.arange(5, dtype=np.int64), [1, 33, 320, 64, 2])
     rng.shuffle(keys)
@@ -374,28 +374,155 @@ def test_row_select_reads_large_groups_and_batches():
             assert out[v, b].numpy().tobytes() == want.tobytes()
 
 
-def test_wrappers_refuse_negative_values_and_oversize_groups():
-    keys = np.repeat(np.arange(2, dtype=np.int64), [3, window_score.MAX_GROUP + 1])
+#: a NaN with the sign bit and a payload: NumPy sorts it last like any NaN
+NEG_NAN = np.array([0xFFF8000000000001], np.uint64).view(np.float64)[0]
+#: a group of n samples: key ``g`` repeated n times for each n
+_SIZES = lambda *ns: np.repeat(np.arange(len(ns), dtype=np.int64), ns)   # noqa: E731
+
+
+def _value_case(name):
+    """(keys, values) of one parity case; keys in any order, values any float64."""
+    rng = np.random.default_rng(len(name))
+    if name == "mixed signs":
+        keys = rng.integers(0, 60, 4000) * 7919 - 11
+        return keys, rng.normal(size=4000) * 10.0 ** rng.integers(-300, 300, 4000)
+    if name == "all negative":
+        keys = rng.integers(0, 40, 3000)
+        return keys, -np.abs(rng.normal(size=3000)) - 1e-9
+    if name == "signed zeros, both orders":
+        # each group holds -0.0 and +0.0 in both orders; the odd groups'
+        # middles are -0.0, the even groups' differ in sign or tie
+        vals = [-0.0, 0.0, -0.0,   0.0, -0.0, -0.0,   -0.0, -0.0, 0.0,   0.0, -0.0,
+                -0.0, 0.0,   1.0, -0.0, 0.0, -1.0,   0.0, -0.0, 2.0, -0.0, -2.0]
+        return _SIZES(3, 3, 3, 2, 2, 4, 5), np.array(vals)
+    if name == "NaN of both signs, even and odd groups":
+        vals = [np.nan, 1.0, NEG_NAN,   2.0, np.nan, -np.nan, 3.0,   NEG_NAN,
+                NEG_NAN, 1.0, 2.0, -np.nan,   5.0, 6.0, np.nan, -1.0, 0.0, 7.0,
+                np.nan,   NEG_NAN, -4.0]
+        return _SIZES(3, 4, 5, 6, 1, 2), np.array(vals)
+    if name == "+-inf":
+        vals = [np.inf, -np.inf, 1.0,   -np.inf, -np.inf, np.inf, 0.0,   np.inf, np.inf,
+                -np.inf, 2.0, 3.0,   np.inf, np.nan, -np.inf, 0.0, -0.0, 1.0]
+        return _SIZES(3, 4, 5, 6), np.array(vals)
+    if name == "padding: [1, NaN] beside a group of 3":
+        return np.array([0, 1, 0, 1, 1]), np.array([1.0, 3.0, np.nan, 1.0, 2.0])
+    if name == "one group of 5,000":
+        return np.full(5000, 42), rng.normal(size=5000)
+    if name == "one group of 20,000":
+        vals = rng.normal(size=20000)
+        vals[::97] = -0.0
+        vals[1::89] = 0.0
+        return np.full(20000, 7), vals
+    raise KeyError(name)
+
+
+VALUE_CASES = ["mixed signs", "all negative", "signed zeros, both orders",
+               "NaN of both signs, even and odd groups", "+-inf",
+               "padding: [1, NaN] beside a group of 3", "one group of 5,000",
+               "one group of 20,000"]
+
+
+def _same(a, b):
+    """float64 arrays bit for bit, any NaN equal to any NaN."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return False
+    nan = np.isnan(a)
+    return bool((nan == np.isnan(b)).all() and
+                (a[~nan].view(np.int64) == b[~nan].view(np.int64)).all())
+
+
+@pytest.mark.parametrize("case", VALUE_CASES)
+def test_row_select_takes_any_float64_and_group_size(case):
+    """The torch backend's grouped median and the row select's CPU path,
+    bit-equal to the reference NumPy fold (a stable lexsort: -0.0 ties +0.0
+    in input order, every NaN last in input order)."""
+    keys, vals = _value_case(case)
+    uk0, m0 = ref_tel.grouped_median(keys, vals, backend="numpy")
+    uk1, m1 = tel.grouped_median(keys, vals, backend="torch", device=CPU)
+    assert uk0.tobytes() == uk1.tobytes() and _same(m0, m1)
     lay, lt = _layout(keys)
-    vals = torch.ones((1, 1, keys.size), dtype=torch.float64)
-    with pytest.raises(ValueError, match=f"{window_score.MAX_GROUP + 1} samples"):
-        window_score.row_select(vals, lt["order"], lt["starts"], lt["counts"],
-                                large=lt["large"], max_count=lay.max_count)
+    out = window_score.row_select(torch.from_numpy(vals).view(1, 1, -1), lt["order"],
+                                  lt["starts"], lt["counts"], large=lt["large"],
+                                  max_count=lay.max_count)
+    assert _same(out[0, 0].numpy(), m0)
+    # the reference's own formulation from raw keys agrees too
+    gk, med, _, valid = tk.grouped_median_kernel(torch.from_numpy(keys.astype(np.int64)),
+                                                 torch.from_numpy(vals))
+    assert gk[valid].numpy().tobytes() == uk0.tobytes() and _same(med[valid].numpy(), m0)
+    if case == "signed zeros, both orders":
+        assert np.signbit(m0).any() and (~np.signbit(m0)).any()
+
+
+def test_row_select_takes_a_batch_of_70000_windows():
+    """70,000 one-sample windows over one shared layout in one call (the
+    kernel once took at most 65,535): each reads its own sample."""
+    rng = np.random.default_rng(70)
+    vals = rng.normal(size=70_000) * 1e3
+    vals[::7] = -0.0
+    vals[3::11] = np.nan
+    lay, lt = _layout(np.array([5], np.int64))
+    out = window_score.row_select(torch.from_numpy(vals).view(-1, 1, 1), lt["order"],
+                                  lt["starts"], lt["counts"], large=lt["large"],
+                                  max_count=lay.max_count)
+    _, want = ref_tel.grouped_median(np.arange(vals.size), vals, backend="numpy")
+    assert out.shape == (1, 70_000, 1) and _same(out[0, :, 0].numpy(), want)
+
+
+def test_smoke_signed_tier_checks_run_on_cpu(monkeypatch):
+    """``chip_smoke.py``'s row-select checks at every tier (signed, zero, NaN
+    and infinite samples; 70,000 windows), rehearsed on the CPU: there the
+    wrapper is its plain version, and the planted fault (a median by the raw
+    int64 bit pattern) must still read unequal at each size."""
+    spec = importlib.util.spec_from_file_location(
+        "_torch_detect_chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setattr(smoke, "DEV", CPU)
+    assert smoke.signed_tiers() >= 0.0
+
+
+def test_wrappers_refuse_wrong_dtypes():
     lay, lt = _layout(np.arange(4, dtype=np.int64))
-    for bad in (-1.0, float("nan")):
-        vals = torch.tensor([[[1.0, bad, 2.0, 3.0]]], dtype=torch.float64)
-        with pytest.raises(ValueError, match="non-negative"):
-            window_score.row_select(vals, lt["order"], lt["starts"], lt["counts"],
-                                    large=lt["large"], max_count=lay.max_count)
-    with pytest.raises(ValueError, match="non-negative"):
-        tel.grouped_median(np.arange(3), np.array([1.0, -2.0, 3.0]), backend="torch",
-                           device=CPU)
+    vals = torch.tensor([[[1.0, -2.0, 2.0, 3.0]]], dtype=torch.float64)
     with pytest.raises(TypeError, match="float64"):
         window_score.row_select(vals.float(), lt["order"], lt["starts"], lt["counts"],
                                 large=lt["large"], max_count=lay.max_count)
     z = torch.zeros((1, 16), dtype=torch.float64)
     with pytest.raises(TypeError, match="gkey"):
         slow_fold.slow_fold(z, z, z, z, z, z, z, 5.0, 0.6, 1, n=4)
+
+
+def _negative_waits(window):
+    """``window`` with two transports in three started before they were
+    posted (wait ``t_start - t_post`` below 0, so most medians are too),
+    transfers unchanged."""
+    neg = np.arange(window.tr_start.size) % 3 != 0
+    wait = window.tr_start - window.tr_post
+    start = np.where(neg, window.tr_post - wait - 1e-4, window.tr_start)
+    end = window.tr_end - window.tr_start + start
+    return dataclasses.replace(window, tr_start=start, tr_end=end)
+
+
+@pytest.mark.parametrize("faults", [[], [RefFault("slow_src", rank=5)]])
+def test_negative_waits_through_prefilter_and_analyze(faults):
+    """A window with negative waits (``reports_to_window`` input is not held
+    to the telemetry's signs) through the prefilter and the composite: equal
+    to the reference NumPy path."""
+    from repro.core.c4d.agent import prefilter_arrays as ref_prefilter
+    from repro_torch.core.c4d.agent import prefilter_arrays
+    (r,), (p,) = _windows(N, 17, [faults])
+    r, p = _negative_waits(r), _negative_waits(p)
+    assert (p.tr_wait() < 0).any()
+    want = ref_prefilter(r, 8, n_ranks=N)
+    got = prefilter_arrays(p, 8, n_ranks=N, backend="torch", device=CPU)
+    for f in ("tr_src", "tr_dst", "tr_bytes", "tr_post", "tr_start", "tr_end"):
+        assert getattr(want, f).tobytes() == getattr(got, f).tobytes(), f
+    assert (got.tr_wait() < 0).any()
+    for rw, pw in ((r, p), (want, got)):
+        ref_v = RefDetector(backend="numpy").analyze(rw, N)
+        assert [_vkey(v) for v in C4DDetector(backend="torch", device=CPU).analyze(pw, N)] \
+            == [_vkey(v) for v in ref_v]
 
 
 def test_layout_cache_bounds(monkeypatch):
@@ -452,7 +579,7 @@ def test_build_flags_hold_the_detection_kernels_exact():
         assert str(_build._target(name)) != str(_build._target("rmsnorm"))
     assert "--fmad=false" not in _build.flags("rmsnorm")
     src = (_build.CSRC / "window_score.cu").read_text()
-    assert f"MAX_GROUP = {window_score.MAX_GROUP};" in src
+    assert f"SMALL_GROUP = {window_score.SMALL_GROUP};" in src
     assert f"WARP_GROUP = {window_score.WARP_GROUP};" in src
 
 
@@ -528,3 +655,66 @@ def test_card_verdicts_equal_numpy_composite(cuda):
         want = C4DDetector(backend="numpy").analyze(w, 1024)
         assert [_vkey(v) for v in C4DDetector(backend="torch").analyze(w, 1024)] == \
             [_vkey(v) for v in want]
+
+
+CARD_GROUP_SIZES = [1, 2, 10, 16, 17, 32, 33, 240, 512, 513, 4096, 4097, 20000]
+
+
+def _signed_groups(size, rng):
+    """Five groups of ``size`` samples, one for each kind of input: mixed
+    signs, all negative, signed zeros in both orders, NaN of both signs,
+    +-inf among finite values; keys shuffled."""
+    mixed = rng.normal(size=size) * 10.0 ** rng.integers(-200, 200, size)
+    neg = -np.abs(rng.normal(size=size)) - 1e-12
+    zeros = np.where(rng.random(size) < 0.5, -0.0, 0.0)
+    zeros[::5] = rng.normal(size=zeros[::5].size)
+    nans = rng.normal(size=size)
+    nans[rng.random(size) < 0.4] = np.nan
+    nans[rng.random(size) < 0.2] = NEG_NAN
+    infs = rng.normal(size=size)
+    infs[rng.random(size) < 0.3] = np.inf
+    infs[rng.random(size) < 0.3] = -np.inf
+    keys = np.repeat(np.arange(5, dtype=np.int64) * 1000 - 7, size)
+    vals = np.concatenate([mixed, neg, zeros, nans, infs])
+    perm = rng.permutation(keys.size)
+    return keys[perm], vals[perm]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", CARD_GROUP_SIZES)
+def test_row_select_tiers_on_card(cuda, size):
+    """Every tier of the row select (a thread up to 16 samples, a warp up to
+    512, a CTA above) on signed, zero, NaN and infinite samples: equal to its
+    plain version and to NumPy, bit for bit (NaN equal to NaN)."""
+    keys, vals = _signed_groups(size, np.random.default_rng(size))
+    lay = tdet._WindowLayout(keys)
+    got = []
+    for dev in (cuda, torch.device(CPU)):
+        lt = lay.device_tensors(dev)
+        v = torch.from_numpy(vals).to(dev).view(1, 1, -1)
+        got.append(window_score.row_select(v, lt["order"], lt["starts"], lt["counts"],
+                                           large=lt["large"], max_count=lay.max_count))
+    card, plain = (g[0, 0].cpu().numpy() for g in got)
+    _, want = ref_tel.grouped_median(keys, vals, backend="numpy")
+    assert _same(card, plain) and _same(card, want)
+    uk, med = tel.grouped_median(keys, vals, backend="torch", device=cuda)
+    assert uk.tobytes() == lay.gkey.tobytes() and _same(med, want)
+
+
+@pytest.mark.gpu
+def test_row_select_batch_of_70000_on_card(cuda):
+    """70,000 windows in one call over a shared layout of groups of 1, 2, 10,
+    17 and 33 samples (thread and warp tiers), signed and NaN samples: equal
+    to the plain version on the card."""
+    rng = np.random.default_rng(7)
+    keys = np.repeat(np.arange(5, dtype=np.int64), [1, 2, 10, 17, 33])
+    lay = tdet._WindowLayout(keys[rng.permutation(keys.size)])
+    lt = lay.device_tensors(cuda)
+    vals = rng.normal(size=(70_000, 1, keys.size))
+    vals[rng.random(vals.shape) < 0.05] = np.nan
+    vals[rng.random(vals.shape) < 0.05] = -0.0
+    v = torch.from_numpy(vals).to(cuda)
+    out = window_score.row_select(v, lt["order"], lt["starts"], lt["counts"],
+                                  large=lt["large"], max_count=lay.max_count)
+    want = tk.row_median(v, lt["order"], lt["starts"], lt["counts"])
+    assert out.shape == (1, 70_000, 5) and _same(out.cpu().numpy(), want.cpu().numpy())

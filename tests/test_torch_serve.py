@@ -149,6 +149,47 @@ def test_chip_smoke_fails_without_gpu_or_repo(no_cuda, where, tmp_path):
     assert '"ok"' not in res.stdout
 
 
+def _smoke_module():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("_torch_serve_chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+# (profiled windows: one call, then 10 calls; device ms of one call, None, or
+# SystemExit where the run must fail)
+DEVICE_MS_CASES = {
+    "every window recorded": ([{"k_a": (2, 4.0), "Memset": (1, 1.0)}, {"k_a": (20, 40.0)}],
+                              0.004),
+    "a launch dropped": ([{"k_a": (2, 4.0)}, {"k_a": (18, 36.0)}], 0.004),
+    "the single call dropped": ([{}, {"k_a": (20, 40.0), "k_b": (10, 30.0)}], 0.007),
+    "every window dropped": ([{}, {}], None),
+    "a kernel missing from the name list": ([{"k_a": (1, 2.0), "k_new": (1, 1.0)},
+                                             {"k_a": (10, 20.0), "k_new": (10, 10.0)}],
+                                            SystemExit),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEVICE_MS_CASES))
+def test_chip_smoke_device_time_per_launch(case, monkeypatch):
+    """``device_ms``: each kernel's mean a launch times the launches of one
+    call; windows the profiler dropped read as such, not as time; a launched
+    kernel that is in no name list fails the run."""
+    smoke = _smoke_module()
+    windows, want = DEVICE_MS_CASES[case]
+    windows = list(windows)
+    monkeypatch.setattr(smoke, "_profiled", lambda fn, calls: windows.pop(0))
+    if want is SystemExit:
+        with pytest.raises(SystemExit):
+            smoke.device_ms(lambda: None, 10, ("k_a", "k_b"))
+        return
+    got = smoke.device_ms(lambda: None, 10, ("k_a", "k_b"))
+    assert got == pytest.approx(want) if want is not None else got is None
+    assert not windows
+
+
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
 
