@@ -14,9 +14,13 @@ Phases, each fatal on failure:
     last 128 keys, or ignores the cap; of a split decode kernel that loses
     one split or counts a 64-key tile twice; of an RMSNorm that applies scale
     instead of 1 + scale, subtracts the row mean or leaves 4 features out of
-    the mean) must read above it; the RMSNorm gradient against autograd of
-    the plain version; two decode calls on the same inputs bit-equal, and
-    decode parity again on another cache set after its timed launches.
+    the mean) must read above it; RMSNorm also from 1 to 8704 rows, at
+    mixed dtypes, on one-element pieces and up to width 8192; the RMSNorm
+    gradient against autograd of the plain version; two decode calls on the
+    same inputs bit-equal, and decode parity again on another cache set
+    after its timed launches. At RMSNorm's decode shape, an empty kernel's
+    device time (the floor of a launch) and the host path by events: the
+    wrapper, the model's entry under no_grad, and F.rms_norm.
     Kernel, plain and library times from CUDA events, the
     kernel's and the library call's device time from torch.profiler (each
     kernel's mean a launch times the launches of one call; a launched kernel
@@ -45,7 +49,10 @@ Phases, each fatal on failure:
     read unequal; the row select also at every tier (groups of 10 to
     20,000, and 70,000 windows in one call) on signed, zero, NaN and
     infinite samples, where a median by the raw int64 bit pattern must read
-    unequal; device times (4 copies of the inputs cycled, so that the L2
+    unequal; ``slow_fold`` also on shuffled keys, a run of 100 groups
+    across warps, NaN of both signs and +-0.0, ranks with no row or column
+    groups, and batches on shared and on own keys, where a NaN with the sign
+    bit ranked lowest (the first design's key) must read unequal; device times (4 copies of the inputs cycled, so that the L2
     holds none) against the bytes bound and ``torch.sort``, for the
     prefilter's edge-wait and node groups too, and for the batched kernels
     as ``ingest_batch`` launches them (1,024 ranks x 8 windows).
@@ -92,7 +99,7 @@ PROFILE_ATTEMPTS = 8                         # profiled windows before "not meas
 FLASH_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel")
 DECODE_KERNELS = ("decode_tma_kernel", "decode_partial_kernel", "decode_combine_kernel",
                   "decode_merge_kernel")
-RMSNORM_KERNELS = ("rmsnorm_kernel",)
+RMSNORM_KERNELS = ("rmsnorm_block_kernel",)
 
 # gemma2-2b serving shapes of this smoke run
 B, PROMPT, STEPS = 2, 4352, 32
@@ -418,37 +425,46 @@ def decode_phase(iters: int):
 
 
 def rmsnorm_phase(iters: int):
+    import ctypes
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 
     gen = torch.Generator(device="cuda").manual_seed(13)
     eps = 1e-6
     path = [(1, 4096, D_MODEL), (B, PROMPT, D_MODEL), (B, 1, D_MODEL)]   # train, prefill, decode
-    cases = [(shape, "bfloat16") for shape in path] + [
-        ((4, 37, 96), "float32"), ((512, 1024), "bfloat16"), ((2, 3, 5, 256), "float32"),
-        ((3, 37, 100), "float32")]                # the JAX suite's shapes and a ragged width
+    bf, f32 = "bfloat16", "float32"
+    # the JAX suite's shapes; one-element pieces (101 fp32; 100 fp32 is 16-byte
+    # pieces); 1 to 8704 rows; mixed dtypes; one piece a thread up to 1024
+    # pieces, then two (fp32 4096 and 4100); width 8192
+    cases = [(shape, bf, bf) for shape in path] + [
+        ((4, 37, 96), f32, f32), ((512, 1024), bf, bf), ((2, 3, 5, 256), f32, f32),
+        ((3, 37, 100), f32, f32), ((3, 37, 101), f32, f32),
+        *(((rows, D_MODEL), bf, bf) for rows in (1, 2, 4096, 8704)),
+        ((B, 1, D_MODEL), bf, f32), ((1, 4096, D_MODEL), bf, f32),
+        ((3, 4096), f32, f32), ((3, 4100), f32, f32), ((4, 8192), bf, bf), ((4, 8192), f32, f32)]
     errs, rows = [], []
-    for shape, dt in cases:
-        dtype = getattr(torch, dt)
-        x, scale = randn(shape, dtype, gen), randn(shape[-1:], dtype, gen, 0.1)
-        name = f"rmsnorm {dt} x={shape}"
+    for shape, dt, sdt in cases:
+        x = randn(shape, getattr(torch, dt), gen)
+        scale = randn(shape[-1:], getattr(torch, sdt), gen, 0.1)
+        name = f"rmsnorm {dt} x={shape}" + ("" if sdt == dt else f" scale {sdt}")
         faults = []
-        if shape == path[0]:
+        if shape == path[0] and sdt == dt:
             faults = [(ref.RMSNORM_FAULTS["scale"], ref.rmsnorm_fault(x, scale, eps, "scale"))]
         elif shape == (3, 37, 100):
             faults = [(ref.RMSNORM_FAULTS["tail4"], ref.rmsnorm_fault(x, scale, eps, "tail4"))]
         err = compare(name, rmsnorm_fwd(x, scale, eps), ref.rmsnorm(x, scale, eps), faults)
         if shape in path:
             errs.append(err)
-        if shape == path[0]:
+        if shape == path[0] and sdt == dt:
             # a layer norm differs from an RMSNorm only on rows whose mean is far from 0
             x1 = x + 1.0
             compare(name + " row mean 1", rmsnorm_fwd(x1, scale, eps), ref.rmsnorm(x1, scale, eps),
                     [(ref.RMSNORM_FAULTS["layernorm"],
                       ref.rmsnorm_fault(x1, scale, eps, "layernorm"))])
             grad_check(x, scale, eps, gen)
+    extra = {}
     for shape in path:
         dtype = torch.bfloat16
         # 4 input sets cycled, so that the 50 MB L2 does not hold the rows a
@@ -478,7 +494,25 @@ def rmsnorm_phase(iters: int):
               f"bound_ms={b_ms:.5f} ({b_by}; {nbytes:.4e} B) bound/kernel={b_ms / ms:.4f} "
               f"bound/device={_share(b_ms, dev)}", flush=True)
         rows.append((ms, plain, lib, b_ms, b_by, dev, lib_dev))
-    return tuple(max(e[i] for e in errs) for i in range(2)), rows
+        if shape != path[2]:
+            continue
+        # the decode shape is bound by the launch: an empty kernel's device
+        # time is its floor. And the host path: the wrapper, the model's
+        # entry under no_grad, and F.rms_norm, by events, back to back
+        lib_so = _build.load("rmsnorm")
+        lib_so.rmsnorm_empty.argtypes = [ctypes.c_void_p]
+        stream = torch.cuda.current_stream().cuda_stream
+        floor = device_ms(lambda: lib_so.rmsnorm_empty(stream), iters * 4,
+                          ("rmsnorm_empty_kernel",))
+        print(f"    launch floor: empty kernel device_ms={_ms(floor)}; decode shape "
+              f"device_ms={_ms(dev)}", flush=True)
+        with torch.no_grad():
+            ops_ms = time_ms(cycled(lambda x, s, w: ops.rmsnorm(x, s, eps)), iters * 4)
+        print(f"    host path at the decode shape (CUDA events, back to back): rmsnorm_fwd "
+              f"{ms:.5f} ms, ops.rmsnorm under no_grad {ops_ms:.5f} ms, F.rms_norm {lib:.5f} ms",
+              flush=True)
+        extra = {"empty_kernel_device_ms": floor, "decode_ops_no_grad_ms": ops_ms}
+    return tuple(max(e[i] for e in errs) for i in range(2)), rows, extra
 
 
 def grad_check(x, scale, eps, gen) -> None:
@@ -743,7 +777,7 @@ def golden_faults():
 RS_KERNELS = ("row_select_small", "row_select_warp", "row_select_radix")
 WS_KERNELS = ("rank_init", "hb_fold", "group_src", *RS_KERNELS, "rank_stats", "hang_median",
               "rank_deficit")
-FOLD_KERNELS = ("fold_init", "fold_groups", "fold_ranks", "fold_points")
+FOLD_KERNELS = ("fold_kernel",)
 
 
 def _nbytes(*tensors) -> int:
@@ -764,8 +798,9 @@ def _max_abs(got: dict, want: dict) -> float:
 
 def bit_check(name: str, got: dict, want: dict, faults=()) -> float:
     """Every output of a kernel bit-equal to its plain version's; each
-    planted fault (label, key, output of a wrongly written plain version)
-    must differ from the kernel's. Returns the largest |difference|."""
+    planted fault (label, key, output of a wrongly written plain version,
+    and "bits" to compare every value by its bits, not only the finite
+    ones) must differ from the kernel's. Returns the largest |difference|."""
     bad = [k for k in want if not _bit_equal(got[k].cpu(), want[k].cpu())]
     err = _max_abs(got, want)
     print(f"  parity {name}: {len(want)} outputs bit-equal to the plain version: "
@@ -773,14 +808,20 @@ def bit_check(name: str, got: dict, want: dict, faults=()) -> float:
     if bad:
         fail(f"{name}: the kernel differs from its plain version in {bad}")
     import torch
-    for label, key, wrong in faults:
-        # only where the kernel's value is finite: an empty group's +inf
-        # against the fault's NaN would count as a difference of no meaning
+    for label, key, wrong, *bits in faults:
         g = got[key].reshape(-1)
-        fin = torch.isfinite(g)
-        differ = int((g[fin] != wrong.reshape(-1).to(g.device)[fin]).sum())
-        print(f"    planted fault, {label}: {differ} of {int(fin.sum())} finite values of {key} "
-              "differ", flush=True)
+        w = wrong.reshape(-1).to(g.device)
+        if bits:  # every value, by its bits (a fault of NaN handling)
+            differ = int((g.view(torch.int64) != w.view(torch.int64)).sum())
+            print(f"    planted fault, {label}: {differ} of {g.numel()} values of {key} differ "
+                  "in their bits", flush=True)
+        else:
+            # only where the kernel's value is finite: an empty group's +inf
+            # against the fault's NaN would count as a difference of no meaning
+            fin = torch.isfinite(g)
+            differ = int((g[fin] != w[fin]).sum())
+            print(f"    planted fault, {label}: {differ} of {int(fin.sum())} finite values of "
+                  f"{key} differ", flush=True)
         if differ == 0:
             fail(f"{name}: the planted fault '{label}' reads equal to the kernel")
     return err
@@ -913,6 +954,7 @@ def detect_kernels(iters: int):
             [("median by the lower middle (torch.median)", "median", low)]))
         rs_cases[label] = (v, lt, lay)
     errs["row_select"] = max(errs["row_select"], signed_tiers())
+    errs["slow_fold"] = max(errs["slow_fold"], fold_edge_cases())
 
     rows = {}
     # window_score: the clean window, layout cached, inputs on the card. The
@@ -928,6 +970,52 @@ def detect_kernels(iters: int):
     fargs, lay = fold_case
     rows["slow_fold"] = fold_row("slow_fold", fargs, n, iters)
     return errs, rows
+
+
+def fold_edge_cases() -> float:
+    """``slow_fold`` bit-equal to its plain version on the inputs of
+    ``detect_ref.fold_cases``: keys shuffled, a run of 100 groups across
+    warps, NaN of both signs and +-0.0 among the medians, ranks with no row
+    or no column groups, batches on shared and on own keys. Planted faults:
+    a row max started at 0, and where the card's arithmetic leaves a NaN
+    with the sign bit in zd, the first design's signed order key, which
+    ranks such a NaN lowest. Returns the largest |difference|."""
+    import torch
+    from repro_torch.kernels import detect_ref
+    from repro_torch.kernels import slow_fold as sf
+
+    err = 0.0
+    for case in detect_ref.FOLD_CASES:
+        gkey, *vals, n = detect_ref.fold_cases(case)
+        args = [torch.from_numpy(a).to(DEV) for a in (gkey, *vals)]
+        got = sf.slow_fold(*args, 1.5, 0.6, 1, n=n)
+        want = detect_ref.slow_fold_kernel(*args, 1.5, 0.6, 1, n=n)
+        seg = args[0].expand(args[1].shape) // n
+        zero_init = torch.zeros_like(want["row_score"]).scatter_reduce(
+            1, seg, want["zd"], "amax", include_self=True)
+        faults = [("row max started at 0, not -inf", "row_score", zero_init)]
+        neg_nan = int((torch.isnan(want["zd"]) & torch.signbit(want["zd"])).sum())
+        if case == "NaN and signed zeros":
+            print(f"    {neg_nan} zd values are NaN with the sign bit on this card", flush=True)
+            if neg_nan:
+                faults.append(("a NaN with the sign bit ranked lowest (the first design's key)",
+                               "row_score", signed_key_max(seg, want["zd"], n), "bits"))
+        err = max(err, bit_check(f"slow_fold, {case}", got, want, faults))
+    return err
+
+
+def signed_key_max(seg, zd, n):
+    """Planted fault: the row max on the first design's signed order key
+    (negatives' bits but the sign flipped), under which a NaN with the sign
+    bit falls below -inf and drops out."""
+    import torch
+    flip = 0x7FFFFFFFFFFFFFFF
+    bits = zd.view(torch.int64)
+    key = torch.where(bits < 0, bits ^ flip, bits)
+    neg_inf = torch.tensor([float("-inf")], dtype=torch.float64).view(torch.int64).item() ^ flip
+    start = torch.full((zd.shape[0], n), neg_inf, dtype=torch.int64, device=zd.device)
+    m = start.scatter_reduce(1, seg, key, "amax", include_self=True)
+    return torch.where(m < 0, m ^ flip, m).view(torch.float64)
 
 
 # input sets a timed detection call cycles through, so that the 50 MB L2
@@ -1487,7 +1575,7 @@ def main(argv=None) -> int:
     print("[kernels]", flush=True)
     flash_err, flash_rows = flash_phase(ITERS)
     decode_err, decode_rows = decode_phase(ITERS)
-    norm_err, norm_rows = rmsnorm_phase(ITERS)
+    norm_err, norm_rows, norm_extra = rmsnorm_phase(ITERS)
     print(f"[kernels] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # [detect] before [serve] and [train]: after the train phase the profiler
@@ -1547,8 +1635,9 @@ def main(argv=None) -> int:
               "src/repro/kernels/flash_attention.py:88", flash_err, flash_rows),
         entry("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
               "src/repro/kernels/decode_attention.py:70", decode_err, decode_rows),
-        entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
-              "src/repro/kernels/rmsnorm.py:27", norm_err, norm_rows[:1]),
+        dict(entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                   "src/repro/kernels/rmsnorm.py:27", norm_err, norm_rows[:1]),
+             prefill=times(norm_rows[1]), decode=dict(times(norm_rows[2]), **norm_extra)),
         *(detect_entry(name, src, rep, det_counts[name], det_err[name], det_rows[name])
           for name, src, rep in DETECT_KERNELS),
     ]}), flush=True)

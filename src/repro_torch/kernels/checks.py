@@ -1,5 +1,5 @@
-"""Argument checks and the launch stream shared by the detection kernels'
-wrappers (``window_score.py``, ``slow_fold.py``)."""
+"""Argument checks, the launch stream and the launch device shared by the
+kernels' wrappers."""
 from __future__ import annotations
 
 import torch
@@ -18,5 +18,16 @@ def require(name: str, t, dtype: torch.dtype, dim: int, device: torch.device) ->
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The handle of the current CUDA stream of ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current CUDA stream of ``t``'s device, read
+    without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def launch_on(t: torch.Tensor, fn, *args) -> int:
+    """``fn(*args)`` with ``t``'s CUDA device current; the device context is
+    entered only when another device is current."""
+    index = t.device.index
+    if torch.cuda.current_device() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)

@@ -1,0 +1,182 @@
+// The first design of csrc/rmsnorm.cu, kept unchanged so that
+// kernels/ablate_rmsnorm.py can time it against the current source on one
+// card: a CTA a row, scale read element by element after the reduction.
+// Not built by _build and not used by the port.
+// Row RMSNorm, gemma-style (1 + scale), for sm_90a (H100).
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/rmsnorm.py::rmsnorm_fwd
+// (body _rmsnorm_kernel). Same function, per row of x (..., D): the fp32 mean
+// of x^2, then (x * rsqrt(mean + eps)) * (1 + scale) in fp32, rounded to
+// x's dtype. x and out are bf16 or fp32; scale (D,) is bf16 or fp32 on its
+// own, read as it is, so the caller needs no conversion launch.
+//
+// What bounds it on the H100: bytes. A row is read once and written once, for
+// ~4 flops an element. At gemma2-2b's training microbatch (4096 rows of 2304
+// bf16) that is 37.7 MB: ~11.3 us at 3.35 TB/s.
+//
+// Design: the TPU kernel tiles 256 rows into VMEM per grid step and pads the
+// row count to the tile; here each row is one block, so any number of rows
+// is taken and nothing is padded. The block's threads hold the row in
+// registers (NP pieces a thread, 16 bytes a piece when D and the pointers
+// allow it, one element otherwise), so the row leaves device memory once:
+// sum of squares per thread, warp shuffles, then one float per warp through
+// shared memory, and the scaled row is written from the same registers. The
+// block has as many warps as the row needs, 1 for a narrow row up to 32 for
+// a wide one; a row of up to 8192 elements always fits (8 pieces of one
+// element for each of 1024 threads).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_THREADS = 1024;
+constexpr int MAX_NP = 8;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// VEC elements at p as floats: one element, or 16 bytes (4 fp32, 8 bf16)
+template <typename T, int VEC>
+__device__ __forceinline__ void load_piece(const T* p, float* out) {
+  if constexpr (VEC == 1) {
+    out[0] = to_f32(*p);
+  } else if constexpr (sizeof(T) == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_piece(T* p, const float* v) {
+  if constexpr (VEC == 1) {
+    store1(p, v[0]);
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+  return x;
+}
+
+// One block per row; blockDim.x a multiple of 32. Piece j of thread t is
+// piece j * blockDim.x + t of the row.
+template <typename TX, typename TS, int VEC, int NP>
+__global__ void rmsnorm_kernel(const TX* __restrict__ x, const TS* __restrict__ scale,
+                               TX* __restrict__ out, int D, float eps) {
+  __shared__ float warp_sums[MAX_THREADS / 32];
+  __shared__ float row_sum;
+  const long long base = (long long)blockIdx.x * D;
+  const int npieces = D / VEC;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  float v[NP][VEC];
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const int piece = j * blockDim.x + tid;
+    if (piece < npieces) {
+      load_piece<TX, VEC>(x + base + (long long)piece * VEC, v[j]);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) ss += v[j][e] * v[j][e];
+    }
+  }
+  ss = warp_sum(ss);
+  if (lane == 0) warp_sums[warp] = ss;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0.f;
+    t = warp_sum(t);
+    if (lane == 0) row_sum = t;
+  }
+  __syncthreads();
+  const float r = rsqrtf(row_sum / (float)D + eps);
+
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const int piece = j * blockDim.x + tid;
+    if (piece < npieces) {
+      float y[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        y[e] = (v[j][e] * r) * (1.f + to_f32(scale[piece * VEC + e]));
+      store_piece<TX, VEC>(out + base + (long long)piece * VEC, y);
+    }
+  }
+}
+
+template <typename TX, typename TS, int VEC>
+cudaError_t launch(const void* x, const void* scale, void* out, int rows, int D, float eps,
+                   cudaStream_t stream) {
+  const int npieces = D / VEC;
+  int np = 1;
+  while (np < MAX_NP && npieces > np * MAX_THREADS) np *= 2;
+  if (npieces > np * MAX_THREADS) return cudaErrorInvalidValue;
+  int threads = (npieces + np - 1) / np;
+  threads = ((threads + 31) / 32) * 32;
+  const TX* xp = static_cast<const TX*>(x);
+  const TS* sp = static_cast<const TS*>(scale);
+  TX* op = static_cast<TX*>(out);
+  switch (np) {
+    case 1: rmsnorm_kernel<TX, TS, VEC, 1><<<rows, threads, 0, stream>>>(xp, sp, op, D, eps); break;
+    case 2: rmsnorm_kernel<TX, TS, VEC, 2><<<rows, threads, 0, stream>>>(xp, sp, op, D, eps); break;
+    case 4: rmsnorm_kernel<TX, TS, VEC, 4><<<rows, threads, 0, stream>>>(xp, sp, op, D, eps); break;
+    default: rmsnorm_kernel<TX, TS, VEC, 8><<<rows, threads, 0, stream>>>(xp, sp, op, D, eps);
+  }
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TS>
+cudaError_t dispatch(const void* x, const void* scale, void* out, int rows, int D, float eps,
+                     cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(TX);
+  const bool aligned = reinterpret_cast<std::uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
+  if (aligned && D % VEC == 0) return launch<TX, TS, VEC>(x, scale, out, rows, D, eps, stream);
+  return launch<TX, TS, 1>(x, scale, out, rows, D, eps, stream);
+}
+
+}  // namespace
+
+extern "C" int rmsnorm_max_width() { return MAX_NP * MAX_THREADS; }
+
+// x, out: (rows, D) contiguous, one dtype; scale: (D,) contiguous. Dtype
+// codes 0 = float32, 1 = bfloat16. rows >= 1 (at most 2^31 - 1, one block
+// each), 1 <= D <= rmsnorm_max_width() always (wider rows are taken when
+// they load in 16-byte pieces). Returns the CUDA error code of the launch.
+extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out, int rows, int D,
+                           float eps, int x_dtype, int scale_dtype, void* stream) {
+  if (rows <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 1 && scale_dtype == 1)
+    return (int)dispatch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, D, eps, st);
+  if (x_dtype == 1 && scale_dtype == 0)
+    return (int)dispatch<__nv_bfloat16, float>(x, scale, out, rows, D, eps, st);
+  if (x_dtype == 0 && scale_dtype == 1)
+    return (int)dispatch<float, __nv_bfloat16>(x, scale, out, rows, D, eps, st);
+  if (x_dtype == 0 && scale_dtype == 0)
+    return (int)dispatch<float, float>(x, scale, out, rows, D, eps, st);
+  return (int)cudaErrorInvalidValue;
+}

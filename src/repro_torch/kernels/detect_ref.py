@@ -22,7 +22,9 @@ The exact-path rules of the reference carry over: float64 throughout, no
 in the order of NumPy's stable sort (``order_key``, ties by position),
 medians as ``0.5 * (lo + hi)`` of the two middle samples' own bits — never
 ``torch.median``, which takes the lower middle — and every max started at
-its identity (-inf, int64-min).
+its identity (-inf, int64-min); the z fold's float maxima are taken on
+integer keys (``fold_key``), so that they do not depend on the order of a
+scatter.
 """
 from __future__ import annotations
 
@@ -126,13 +128,44 @@ def fused_window_kernel(values, order, starts, counts, gkey, hb_rank, hb_seq, of
                 deficit=deficit, hung=hung, is_src=is_src)
 
 
+#: fold_key's shift: the signed-order key of -inf less int64-min
+_FOLD_SHIFT = 0x000FFFFFFFFFFFFF
+_FOLD_TOP = _FLIP - _FOLD_SHIFT + 1          # the first key of a NaN with the sign bit
+
+
+def fold_key(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int64 keys in the order the z fold takes its maxima
+    (``csrc/slow_fold.cu``'s ``fold_key``, less 2^63): -inf is int64-min,
+    the max's identity; numbers in order, -0.0 below +0.0; NaNs above +inf,
+    those with the sign bit highest. A bijection (``from_fold_key``), so a
+    max of keys gives back the bits of the value that won."""
+    s = x.view(torch.int64)
+    k = torch.where(s < 0, s ^ _FLIP, s)        # NaNs of the sign bit below -inf's key
+    neg_nan = k < _I64_MIN + _FOLD_SHIFT
+    low = torch.where(neg_nan, _I64_MIN + _FOLD_SHIFT, k) - _FOLD_SHIFT
+    top = torch.where(neg_nan, k ^ _I64_MIN, 0) + _FOLD_TOP
+    return torch.where(neg_nan, top, low)
+
+
+def from_fold_key(k: torch.Tensor) -> torch.Tensor:
+    """The float64 of each ``fold_key``."""
+    top = k >= _FOLD_TOP
+    s = torch.where(top, (torch.where(top, k, _FOLD_TOP) - _FOLD_TOP) ^ _I64_MIN,
+                    torch.where(top, _I64_MIN, k) + _FOLD_SHIFT)
+    return torch.where(s < 0, s ^ _FLIP, s).view(torch.float64)
+
+
 def slow_fold_kernel(gkey, dmed, wmed, center_d, scale_d, center_w, scale_w,
                      mad_threshold: float, row_col_fraction: float, min_observations: int,
                      *, n: int) -> Dict[str, torch.Tensor]:
     """Delay-matrix and ring-wait folds over the grouped medians. ``gkey``
     (B|1, G); the medians and the host-made centers/scales (B, G) float64.
     Returns per-group zd, zw, point and per-rank (B, n) row/col sel, score,
-    hot, obs and wait sel, score."""
+    hot, obs and wait sel, score. The maxima are taken on ``fold_key``: the
+    reference's max wherever it is defined, and where it depends on the
+    order of the scatter (+0.0 against -0.0, two NaNs), the larger key. So
+    there the scores may differ from the JAX package's in the sign of a
+    zero or the bits of a NaN, whose answer there follows its scatter's order."""
     b = dmed.shape[0]
     dev = dmed.device
     gkey = gkey.expand(b, gkey.shape[-1])
@@ -140,8 +173,8 @@ def slow_fold_kernel(gkey, dmed, wmed, center_d, scale_d, center_w, scale_w,
     zw = (wmed - center_w) / scale_w
     gsrc, gdst = gkey // n, gkey % n
     hot = zd > mad_threshold
-    neg = torch.full_like(zd, float("-inf"))
-    neg_ranks = torch.full((b, n), float("-inf"), dtype=torch.float64, device=dev)
+    kd = fold_key(zd)
+    neg_ranks = torch.full((b, n), _I64_MIN, dtype=torch.int64, device=dev)
     zeros = torch.zeros((b, n), dtype=torch.int64, device=dev)
 
     def fold(seg):
@@ -150,7 +183,7 @@ def slow_fold_kernel(gkey, dmed, wmed, center_d, scale_d, center_w, scale_w,
         sel = ((obs_n >= min_observations)
                & (hot_n >= torch.clamp_min(row_col_fraction * obs_n.to(torch.float64), 1.0))
                & (hot_n >= 2))
-        score = neg_ranks.scatter_reduce(1, seg, zd, "amax", include_self=True)
+        score = from_fold_key(neg_ranks.scatter_reduce(1, seg, kd, "amax", include_self=True))
         return sel, score, hot_n, obs_n
 
     row_sel, row_score, row_hot, row_obs = fold(gsrc)
@@ -158,12 +191,75 @@ def slow_fold_kernel(gkey, dmed, wmed, center_d, scale_d, center_w, scale_w,
     point = hot & ~row_sel.gather(1, gsrc) & ~col_sel.gather(1, gdst)
     # ring-wait (paper Case 2): hot receiver wait over a healthy transfer
     wmask = (zw > mad_threshold) & ~hot
-    wait_score = neg_ranks.scatter_reduce(1, gsrc, torch.where(wmask, zw, neg), "amax",
-                                          include_self=True)
+    wait_score = from_fold_key(neg_ranks.scatter_reduce(
+        1, gsrc, torch.where(wmask, fold_key(zw), _I64_MIN), "amax", include_self=True))
     wait_sel = zeros.scatter_add(1, gsrc, wmask.to(torch.int64)) > 0
     return dict(zd=zd, zw=zw, row_sel=row_sel, row_score=row_score, row_hot=row_hot,
                 row_obs=row_obs, col_sel=col_sel, col_score=col_score, col_hot=col_hot,
                 col_obs=col_obs, point=point, wait_sel=wait_sel, wait_score=wait_score)
+
+
+#: a NaN with its sign bit set (``fold_key`` ranks it above every other value)
+NEG_NAN = float(np.array([0xFFF8000000000001], np.uint64).view(np.float64)[0])
+#: the inputs of ``fold_cases``, each reaching an edge of the z fold
+FOLD_CASES = ("sorted", "shuffled keys", "runs longer than a warp", "NaN and signed zeros",
+              "batch, shared keys", "batch, own keys")
+
+
+def fold_cases(case: str, seed: int = 1):
+    """NumPy inputs of the z fold that reach its edges, for holding the
+    kernel to this plain version and this plain version to NumPy: returns
+    (gkey (B|1, G) int64, dmed, wmed, center_d, scale_d, center_w, scale_w
+    (B, G) float64, n). In every case some ranks source no group and some
+    receive none, so their folds read the identities (-inf, 0); rank 2's
+    row is hot. ``case``, one of ``FOLD_CASES``: keys ascending as a window
+    has them; the same keys shuffled; source 3 with 100 destinations, a run
+    that crosses warps; NaN of both signs, -inf and +-0.0 among the
+    medians (a rank whose largest zd is a tie of +0.0 and -0.0); three
+    windows on one key array; three windows with keys of their own."""
+    if case not in FOLD_CASES:
+        raise ValueError(case)
+    rng = np.random.default_rng(seed)
+    n, g = 160, 400
+    b = 3 if case.startswith("batch") else 1
+
+    def keys():
+        # sources 0..119 (120..159 source nothing), destinations 40..159
+        # (0..39 receive nothing)
+        run = 3 * n + 40 + np.arange(100 if case == "runs longer than a warp" else 0)
+        other = rng.integers(0, 120, g) * n + rng.integers(40, n, g)
+        k = np.unique(np.r_[run, other[other // n != 3]])
+        while k.size < g:
+            extra = rng.integers(0, 120) * n + rng.integers(40, n)
+            if extra // n != 3:
+                k = np.unique(np.r_[k, extra])
+        return np.sort(np.r_[run, np.setdiff1d(k, run)[:g - run.size]])
+
+    gkey = np.stack([keys() for _ in range(b if case == "batch, own keys" else 1)])
+    if case == "shuffled keys":
+        gkey = gkey[:, rng.permutation(g)]
+    dmed, wmed = rng.normal(size=(2, b, g)) * 4
+    cd, cw = rng.normal(size=(2, b, g))
+    sd, sw = rng.uniform(0.5, 2, size=(2, b, g))
+    src = np.broadcast_to(gkey // n, (b, g))
+    dmed[src == 2] += 100.0                               # a hot row and its columns
+    if case == "NaN and signed zeros":
+        for x in (dmed, wmed):
+            pick = rng.choice(g, 40, replace=False)
+            x[0, pick[:10]] = np.nan
+            x[0, pick[10:20]] = NEG_NAN
+            x[0, pick[20:30]] = 0.0
+            x[0, pick[30:]] = -0.0
+        cd[0, dmed[0] == 0] = 0.0                       # zd = +-0.0
+        cw[0, wmed[0] == 0] = 0.0
+        # rank 7: zd of -0.0, +0.0 and below, in that order; rank 8: -inf alone
+        at = np.flatnonzero(src[0] == 7)
+        if at.size >= 3:
+            dmed[0, at] = -5.0
+            dmed[0, at[0]], dmed[0, at[1]] = -0.0, 0.0
+            cd[0, at[:2]] = 0.0
+        dmed[0, src[0] == 8] = -np.inf
+    return gkey, dmed, wmed, cd, sd, cw, sw, n
 
 
 def grouped_median_kernel(keys: torch.Tensor, values: torch.Tensor):

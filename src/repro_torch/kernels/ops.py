@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
@@ -40,10 +42,15 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window=None,
 
 
 def rmsnorm(x, scale, eps: float = 1e-6, use_kernel: bool = True):
-    """Gemma-style RMSNorm over the last axis; differentiable either way."""
-    if use_kernel:
+    """Gemma-style RMSNorm over the last axis; differentiable either way.
+    The kernel goes through ``RMSNormFn`` only when a backward can be taken
+    (grad enabled and an input that requires it); otherwise, as in serving,
+    ``rmsnorm_fwd`` is called directly, without the autograd node."""
+    if not use_kernel:
+        return ref.rmsnorm(x, scale, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _rmsnorm.RMSNormFn.apply(x, scale, eps)
-    return ref.rmsnorm(x, scale, eps)
+    return _rmsnorm.rmsnorm_fwd(x, scale, eps)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -4,7 +4,10 @@ its gradient.
 Port of ``repro.kernels.rmsnorm.rmsnorm_fwd``; the kernel is
 ``csrc/rmsnorm.cu``. On a CUDA tensor ``rmsnorm_fwd`` launches the kernel (or
 raises); on a CPU tensor it computes the plain version ``ref.rmsnorm``.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches. The launch path is kept short, since a
+decode step makes 105 of these calls on rows of a few KB: cheap checks, no
+device context unless ``x`` lies on another device than the current one, the
+stream's raw handle.
 
 ``RMSNormFn`` is the autograd function the model's norms go through: its
 forward is ``rmsnorm_fwd``, its backward ``rmsnorm_bwd`` in plain PyTorch (the
@@ -17,6 +20,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.checks import launch_on, stream_of
 from repro_torch.kernels.flash_attention import DTYPE_CODES
 
 launches = 0
@@ -36,30 +40,33 @@ def _kernel():
     return _fn
 
 
-def _check(x, scale) -> None:
-    for name, t in (("x", x), ("scale", scale)):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor")
-        if t.dtype not in DTYPE_CODES:
-            raise TypeError(f"{name} has dtype {t.dtype}; supported: float32, bfloat16")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+def _check(x, scale):
+    """The inputs' rules, checked by cheap reads in order (a message is
+    built only for a failure); returns the dtype codes and D."""
+    if not isinstance(x, torch.Tensor) or not isinstance(scale, torch.Tensor):
+        raise TypeError("x and scale must be tensors")
+    cx, cs = DTYPE_CODES.get(x.dtype), DTYPE_CODES.get(scale.dtype)
+    if cx is None or cs is None:
+        raise TypeError(f"dtypes x {x.dtype}, scale {scale.dtype}; supported: float32, bfloat16")
+    if not (x.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("x and scale must be contiguous")
     if x.dim() < 1 or scale.dim() != 1 or scale.shape[0] != x.shape[-1]:
         raise ValueError(f"shapes x {tuple(x.shape)}, scale {tuple(scale.shape)}: "
                          "scale must be (D,) for x (..., D)")
     if x.device != scale.device:
         raise ValueError(f"devices differ: {x.device}, {scale.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}")
+    return cx, cs, x.shape[-1]
 
 
 def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D); scale: (D,) -> (..., D) in x's dtype. Any number of rows."""
     global launches
-    _check(x, scale)
-    if x.device.type == "cpu":
-        return ref.rmsnorm(x, scale, eps)
-    d = x.shape[-1]
+    cx, cs, d = _check(x, scale)
+    dev = x.device
+    if dev.type != "cuda":
+        if dev.type == "cpu":
+            return ref.rmsnorm(x, scale, eps)
+        raise ValueError(f"unsupported device {dev}")
     rows = x.numel() // d if d else 0
     if not 0 < d <= MAX_WIDTH:
         raise ValueError(f"row width {d} outside 1..{MAX_WIDTH}")
@@ -68,11 +75,8 @@ def rmsnorm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torc
     out = torch.empty_like(x)
     if rows == 0:
         return out
-    fn = _kernel()
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d, float(eps),
-                 DTYPE_CODES[x.dtype], DTYPE_CODES[scale.dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    err = launch_on(x, _fn or _kernel(), x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows,
+                    d, eps, cx, cs, stream_of(x))
     if err != 0:
         raise RuntimeError(f"rmsnorm_fwd launch failed: CUDA error {err}")
     launches += 1

@@ -37,7 +37,7 @@ from repro_torch.core.c4d.master import C4DMaster, NodeAction, OperatingPoint
 from repro_torch.core.faults import Fault, RingJobTelemetry
 from repro_torch.core.torchsim import detectors as tdet
 from repro_torch.core.torchsim import kernels as tk
-from repro_torch.kernels import _build, slow_fold, window_score
+from repro_torch.kernels import _build, detect_ref, slow_fold, window_score
 
 
 def _sibling(name):
@@ -316,44 +316,86 @@ def test_plain_window_kernel_without_heartbeats_reads_inf():
     assert empty[0, 0].tolist() == [1.5, 3.0, float("inf")]
 
 
-def test_plain_slow_fold_equals_numpy():
+def _numpy_fold_max(seg, vals, n):
+    """np.maximum.at from -inf, and where its answer depends on the order of
+    the groups, the fold's rule: +0.0 over -0.0, and a NaN with the sign bit
+    over one without (each case has one NaN of each sign)."""
+    out = np.full(n, -np.inf)
+    with np.errstate(invalid="ignore"):
+        np.maximum.at(out, seg, vals)
+    for r in np.unique(seg):
+        v = vals[seg == r]
+        nans = v[np.isnan(v)]
+        if nans.size:
+            neg = nans[np.signbit(nans)]
+            out[r] = (neg if neg.size else nans)[0]
+        elif out[r] == 0:
+            out[r] = 0.0 if (~np.signbit(v[v == 0])).any() else -0.0
+    return out
+
+
+@pytest.mark.parametrize("case", detect_ref.FOLD_CASES)
+def test_plain_slow_fold_equals_numpy(case):
     """``slow_fold_kernel``'s plain version against a NumPy computation with
-    np.add.at / np.maximum.at; ranks 30-39 source no group, so their row
-    folds read the identities (-inf, 0)."""
-    rng = np.random.default_rng(1)
-    n, g = 40, 300
-    gkey = np.unique(rng.integers(0, 30 * n, 4 * g))[:g]
-    dmed, wmed = rng.normal(size=(2, g)) * 4
-    dmed[gkey // n == 2] += 100.0                        # a hot row and its columns
-    cd, cw = rng.normal(size=(2, g))
-    sd, sw = rng.uniform(0.5, 2, size=(2, g))
+    np.add.at / np.maximum.at on inputs that reach the fold's edges
+    (``detect_ref.fold_cases``): keys sorted or shuffled, a source's run of
+    100 groups, NaN of both signs and +-0.0, batches of windows on shared or
+    own keys. Ranks 120-159 source no group and ranks 0-39 receive none, so
+    their folds read the identities (-inf, 0)."""
+    gkey, dmed, wmed, cd, sd, cw, sw, n = detect_ref.fold_cases(case)
     thr, rcf, min_obs = 1.5, 0.6, 1
-    t = [torch.from_numpy(a)[None] for a in (gkey, dmed, wmed, cd, sd, cw, sw)]
-    res = {k: v[0].numpy() for k, v in tk.slow_fold_kernel(*t, thr, rcf, min_obs,
-                                                             n=n).items()}
-    zd, zw = (dmed - cd) / sd, (wmed - cw) / sw
-    src, dst = gkey // n, gkey % n
-    hot = zd > thr
-    for name, seg in (("row", src), ("col", dst)):
-        hot_n, obs_n = np.zeros(n, np.int64), np.zeros(n, np.int64)
-        np.add.at(hot_n, seg, hot)
-        np.add.at(obs_n, seg, 1)
-        score = np.full(n, -np.inf)
-        np.maximum.at(score, seg, zd)
-        sel = (obs_n >= min_obs) & (hot_n >= np.maximum(1.0, rcf * obs_n)) & (hot_n >= 2)
-        assert res[f"{name}_hot"].tobytes() == hot_n.tobytes()
-        assert res[f"{name}_obs"].tobytes() == obs_n.tobytes()
-        assert res[f"{name}_score"].tobytes() == score.tobytes()
-        assert (res[f"{name}_sel"] == sel).all()
-    wmask = (zw > thr) & ~hot
-    wscore = np.full(n, -np.inf)
-    np.maximum.at(wscore, src[wmask], zw[wmask])
-    assert res["wait_score"].tobytes() == wscore.tobytes()
-    assert (res["wait_sel"] == (np.bincount(src[wmask], minlength=n) > 0)).all()
-    point = hot & ~res["row_sel"][src] & ~res["col_sel"][dst]
-    assert (res["point"] == point).all() and res["zd"].tobytes() == zd.tobytes()
-    assert np.isneginf(res["row_score"][30:]).all() and not res["row_obs"][30:].any()
-    assert res["row_sel"].any()
+    t = [torch.from_numpy(a) for a in (gkey, dmed, wmed, cd, sd, cw, sw)]
+    res = {k: v.numpy() for k, v in tk.slow_fold_kernel(*t, thr, rcf, min_obs, n=n).items()}
+    for w in range(dmed.shape[0]):
+        key = gkey[min(w, gkey.shape[0] - 1)]
+        zd = (dmed[w] - cd[w]) / sd[w]
+        zw = (wmed[w] - cw[w]) / sw[w]
+        src, dst = key // n, key % n
+        hot = zd > thr
+        for name, seg in (("row", src), ("col", dst)):
+            hot_n, obs_n = np.zeros(n, np.int64), np.zeros(n, np.int64)
+            np.add.at(hot_n, seg, hot)
+            np.add.at(obs_n, seg, 1)
+            sel = (obs_n >= min_obs) & (hot_n >= np.maximum(1.0, rcf * obs_n)) & (hot_n >= 2)
+            assert res[f"{name}_hot"][w].tobytes() == hot_n.tobytes()
+            assert res[f"{name}_obs"][w].tobytes() == obs_n.tobytes()
+            assert res[f"{name}_score"][w].tobytes() == _numpy_fold_max(seg, zd, n).tobytes()
+            assert (res[f"{name}_sel"][w] == sel).all()
+        wmask = (zw > thr) & ~hot
+        wscore = np.full(n, -np.inf)
+        np.maximum.at(wscore, src[wmask], zw[wmask])
+        assert res["wait_score"][w].tobytes() == wscore.tobytes()
+        assert (res["wait_sel"][w] == (np.bincount(src[wmask], minlength=n) > 0)).all()
+        point = hot & ~res["row_sel"][w][src] & ~res["col_sel"][w][dst]
+        assert (res["point"][w] == point).all() and res["zd"][w].tobytes() == zd.tobytes()
+        assert np.isneginf(res["row_score"][w][120:]).all() and not res["row_obs"][w][120:].any()
+        assert np.isneginf(res["col_score"][w][:40]).all() and not res["col_obs"][w][:40].any()
+        assert res["row_sel"][w][2]
+    if case == "NaN and signed zeros":
+        row = res["row_score"][0]
+        assert np.signbit(row[np.isnan(row)]).any()      # a sign-bit NaN won a max
+        assert row[7] == 0 and not np.signbit(row[7])    # +0.0 over -0.0
+        assert np.isneginf(row[8]) and res["row_obs"][0][8] > 0
+
+
+def test_fold_key_orders_every_float64_and_inverts():
+    """``fold_key`` is a bijection onto int64 that orders -inf lowest, the
+    numbers as floats (-0.0 below +0.0) and every NaN above +inf."""
+    rng = np.random.default_rng(3)
+    bits = np.r_[rng.integers(-2**63, 2**63 - 1, 20000, dtype=np.int64),
+                 np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 5e-324, -5e-324]).view(np.int64),
+                 np.array([0xFFF8000000000001, 0x7FF0000000000001, 0xFFFFFFFFFFFFFFFF],
+                          np.uint64).view(np.int64)]
+    x = torch.from_numpy(bits).view(torch.float64)
+    k = detect_ref.fold_key(x)
+    assert torch.equal(detect_ref.from_fold_key(k).view(torch.int64), x.view(torch.int64))
+    v = x.numpy()
+    fin = ~np.isnan(v)
+    assert (np.diff(v[fin][np.argsort(k.numpy()[fin])]) >= 0).all()
+    assert k.numpy()[~fin].min() > k.numpy()[v == np.inf].max()
+    assert int(detect_ref.fold_key(torch.tensor([-np.inf], dtype=torch.float64))) == -2**63
+    zeros = detect_ref.fold_key(torch.tensor([-0.0, 0.0], dtype=torch.float64))
+    assert zeros[0] < zeros[1]
 
 
 def test_row_select_reads_large_groups_and_batches():
@@ -491,6 +533,31 @@ def test_wrappers_refuse_wrong_dtypes():
     z = torch.zeros((1, 16), dtype=torch.float64)
     with pytest.raises(TypeError, match="gkey"):
         slow_fold.slow_fold(z, z, z, z, z, z, z, 5.0, 0.6, 1, n=4)
+
+
+def _bad_fold_inputs():
+    z, k = torch.zeros((2, 6), dtype=torch.float64), torch.zeros((1, 6), dtype=torch.int64)
+    return {
+        "float32 medians": ((k, z.float(), z, z, z, z, z), 4, TypeError, "dmed"),
+        "wmed not 2-d": ((k, z, z[0], z, z, z, z), 4, TypeError, "wmed"),
+        "scale_d of another shape": ((k, z, z, z, z[:, :5], z, z), 4, ValueError, "scale_d"),
+        "center_w non-contiguous": ((k, z, z, z, z, z.t().contiguous().t(), z), 4, ValueError,
+                                    "center_w"),
+        "scale_w on another device": ((k, z, z, z, z, z, z.to("meta")), 4, ValueError,
+                                      "scale_w"),
+        "gkey of another width": ((k[:, :5], z, z, z, z, z, z), 4, ValueError, "gkey"),
+        "gkey of 3 windows for 2": ((torch.zeros((3, 6), dtype=torch.int64), z, z, z, z, z, z),
+                                    4, ValueError, "gkey"),
+        "no ranks": ((k, z, z, z, z, z, z), 0, ValueError, "n=0"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_fold_inputs()))
+def test_slow_fold_names_what_it_rejects(case):
+    """Each rejected input raises the error that names the input and rule."""
+    args, n, kind, words = _bad_fold_inputs()[case]
+    with pytest.raises(kind, match=words):
+        slow_fold.slow_fold(*args, 5.0, 0.6, 1, n=n)
 
 
 def _negative_waits(window):
@@ -635,6 +702,23 @@ def test_kernels_bit_equal_to_plain_on_card(cuda, n):
     uk0, m0 = tel.grouped_median(keys, absdev, backend="numpy")
     uk1, m1 = tel.grouped_median(keys, absdev, backend="torch", device=cuda)
     assert uk0.tobytes() == uk1.tobytes() and m0.tobytes() == m1.tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", detect_ref.FOLD_CASES)
+def test_slow_fold_cases_bit_equal_on_card(cuda, case):
+    """The fold kernel on the inputs of ``detect_ref.fold_cases`` (shuffled
+    keys, runs across warps, NaN and +-0.0, batches), bit-equal to its plain
+    version on the card, and one launch a call."""
+    gkey, *vals, n = detect_ref.fold_cases(case)
+    args = [torch.from_numpy(a).to(cuda) for a in (gkey, *vals)]
+    before = slow_fold.launches
+    got = slow_fold.slow_fold(*args, 1.5, 0.6, 1, n=n)
+    want = tk.slow_fold_kernel(*args, 1.5, 0.6, 1, n=n)
+    assert slow_fold.launches == before + 1
+    for k in want:
+        assert _bit_equal(got[k], want[k]), k
+    assert got["row_sel"][:, 2].all()
 
 
 @pytest.mark.gpu

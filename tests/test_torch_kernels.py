@@ -11,6 +11,7 @@ holds it to. The CUDA kernels themselves run only on the card (``-m gpu``,
 and chip_smoke.py), held to their plain versions by the per-row limit
 ``ref.ROW_REL_TOL``.
 """
+import ctypes
 import re
 
 import numpy as np
@@ -23,7 +24,9 @@ import jax.numpy as jnp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_causal_attention as jax_chunked
-from repro_torch.kernels import _build, ablate_decode, ablate_flash, ops
+from repro_torch.kernels import _build, ablate_decode, ablate_flash, ablate_rmsnorm, ops
+from repro_torch.kernels import ablate_slow_fold
+from repro_torch.kernels import rmsnorm as rmsnorm_mod
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention_fwd
 from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -225,6 +228,50 @@ def test_rmsnorm_fn_gradients_equal_autograd_of_plain_version():
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("how", ["no_grad", "no input requires grad"])
+def test_ops_rmsnorm_without_a_backward_skips_the_autograd_node(how):
+    """Where no backward can be taken, ``ops.rmsnorm`` calls ``rmsnorm_fwd``
+    directly: the plain version's output, with no ``grad_fn``."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.normal(0, 1, (3, 5, 64)).astype(np.float32))
+    s = torch.from_numpy(rng.normal(0, 0.3, (64,)).astype(np.float32))
+    if how == "no_grad":
+        x.requires_grad_()
+        with torch.no_grad():
+            got = ops.rmsnorm(x, s, 1e-6)
+    else:
+        got = ops.rmsnorm(x, s, 1e-6)
+    assert got.grad_fn is None and not got.requires_grad
+    assert torch.equal(got, tref.rmsnorm(x.detach(), s, 1e-6))
+
+
+def test_ops_rmsnorm_with_grad_takes_rmsnorm_fn():
+    """With grad enabled and an input that requires it, ``ops.rmsnorm`` goes
+    through ``RMSNormFn`` and gives its gradients."""
+    rng = np.random.default_rng(9)
+    x0 = torch.from_numpy(rng.normal(0, 1, (3, 5, 64)).astype(np.float32))
+    s0 = torch.from_numpy(rng.normal(0, 0.3, (64,)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(0, 1, (3, 5, 64)).astype(np.float32))
+    grads = []
+    for fn in (lambda x, s: ops.rmsnorm(x, s, 1e-6), lambda x, s: RMSNormFn.apply(x, s, 1e-6)):
+        x, s = x0.clone().requires_grad_(), s0.clone().requires_grad_()
+        out = fn(x, s)
+        assert type(out.grad_fn).__name__ == "RMSNormFnBackward"
+        out.backward(dy)
+        grads.append((x.grad, s.grad))
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+
+
+def test_rmsnorm_max_width_matches_the_kernel_source():
+    """The wrapper's MAX_WIDTH is the widest row of the source's CTA: MAX_NP
+    pieces for each of MAX_THREADS threads."""
+    src = (_build.CSRC / "rmsnorm.cu").read_text()
+    np_ = int(re.search(r"constexpr int MAX_NP = (\d+);", src).group(1))
+    threads = int(re.search(r"constexpr int MAX_THREADS = (\d+);", src).group(1))
+    assert rmsnorm_mod.MAX_WIDTH == np_ * threads
+
+
 @pytest.mark.parametrize("fault", sorted(tref.RMSNORM_FAULTS))
 def test_row_rel_limit_sees_planted_rmsnorm_faults(fault):
     """Each planted RMSNorm fault reads above ROW_REL_TOL at the path's width
@@ -396,12 +443,25 @@ def _bad_norm_inputs():
         "non-contiguous": (x.transpose(0, 1), s),
         "scale not (D,)": (x, torch.zeros(8)),
         "2-d scale": (x, torch.zeros(1, 16)),
+        "0-d x": (torch.zeros(()), s),
+        "not a tensor": (x.numpy(), s),
+        "devices differ": (x.to("meta"), s),
     }
+
+
+# the error each rejected input raises, and words of its message naming the rule
+_NORM_REJECTIONS = {
+    "int dtype": (TypeError, "dtypes"), "int scale": (TypeError, "dtypes"),
+    "non-contiguous": (ValueError, "contiguous"), "scale not (D,)": (ValueError, "shapes"),
+    "2-d scale": (ValueError, "shapes"), "0-d x": (ValueError, "shapes"),
+    "not a tensor": (TypeError, "tensors"), "devices differ": (ValueError, "devices differ"),
+}
 
 
 @pytest.mark.parametrize("case", sorted(_bad_norm_inputs()))
 def test_rmsnorm_rejects_what_the_kernel_does_not_take(case):
-    with pytest.raises((ValueError, TypeError)):
+    kind, words = _NORM_REJECTIONS[case]
+    with pytest.raises(kind, match=words):
         rmsnorm_fwd(*_bad_norm_inputs()[case])
 
 
@@ -419,6 +479,16 @@ def test_decode_ablations_edit_the_kernel_source(name):
     """As for flash: each choice ablate_decode.py undoes is in the source."""
     src = ablate_decode.SOURCE.read_text()
     assert ablate_decode.ABLATIONS[name][1](src) != src
+
+
+@pytest.mark.parametrize("module,name", [(m, n) for m in (ablate_rmsnorm, ablate_slow_fold)
+                                         for n in sorted(m.ABLATIONS)])
+def test_rmsnorm_and_slow_fold_ablations_edit_the_kernel_source(module, name):
+    """Each design choice the two ablations undo is found in the source (the
+    first designs replace it whole, from ``csrc/earlier``)."""
+    src = module.SOURCE.read_text()
+    edited = module.ABLATIONS[name][1](src)
+    assert edited != src and "__global__" in edited
 
 
 def test_an_edited_header_changes_the_build_target(monkeypatch, tmp_path):
@@ -513,7 +583,25 @@ GPU_NORM_CASES = [  # the path's shapes, the JAX suite's, ragged, narrow, wide, 
     ((7, 64), "bfloat16", "float32"),
     ((3, 8192), "float32", "bfloat16"),
     ((2, 8191), "float32", "float32"),        # the widest row of element pieces
+    ((3, 37, 101), "float32", "float32"),     # 101 fp32: one element a piece
+    ((1, 2304), "bfloat16", "bfloat16"),      # 1 row; the prefill's 8704 rows
+    ((8704, 2304), "bfloat16", "bfloat16"),
+    ((2, 2304), "bfloat16", "float32"),       # 32 bytes of scale beside a piece
+    ((4096, 2304), "bfloat16", "float32"),
+    ((3, 4096), "float32", "float32"),        # 1024 pieces: one a thread; then two
+    ((3, 4100), "float32", "float32"),
+    ((5, 8192), "bfloat16", "bfloat16"),      # 1024 threads of one piece
 ]
+
+
+@pytest.mark.gpu
+def test_cuda_ops_rmsnorm_without_grad_launches_once(cuda):
+    x = torch.randn((2, 1, 2304), device=cuda).bfloat16().requires_grad_()
+    s = torch.zeros(2304, device=cuda).bfloat16()
+    before = rmsnorm_mod.launches
+    with torch.no_grad():
+        got = ops.rmsnorm(x, s)
+    assert rmsnorm_mod.launches == before + 1 and got.grad_fn is None
 
 
 @pytest.mark.gpu
