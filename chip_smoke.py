@@ -64,7 +64,16 @@ Phases, each fatal on failure:
     ingests three 100,000-rank windows (a slow source twice, then a hang)
     and must isolate both nodes, through 3 ``window_score``, 6
     ``row_select`` and 2 ``slow_fold`` launches.
-They run in the order 1, 2, 5, 3, 4: late in the process (after the train
+ 6. drills: the 11 shipped C4 fault drills (32 ranks) through
+    ``repro_torch.scenarios.engine.run_scenario`` at ``backend="torch"`` on
+    the card and at ``backend="numpy"``, then ``straggler_gpu`` at fleet_day's
+    anchor scale (10,240 ranks, 1,288 nodes, a 900 s tick). Each card report
+    must equal the NumPy one and hash to the JAX package's (pinned here);
+    every ingest on the card, the streaming master's and each per-fault
+    master's, must launch ``window_score`` once and ``row_select`` at least
+    twice, ``slow_fold`` must launch, and the NumPy runs launch nothing. Wall
+    seconds and seconds a streaming window at both backends.
+They run in the order 1, 2, 5, 6, 3, 4: late in the process (after the train
 phase) torch.profiler dropped the records of short profiled windows, so the
 detection kernels are timed first.
 The line before the last is a JSON ``kernels`` record; the last line is
@@ -75,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -1470,6 +1480,135 @@ def _bit_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
+# --- [drills]: the C4 fault drills through the port's scenario engine ---------
+
+#: sha256 of each shipped drill's report (``report_hash``), as the JAX
+#: package's ``run_scenario`` gives it at its NumPy default: the
+#: ``DRILL_GOLDENS`` of tests/test_fleet.py (copied: this script imports
+#: neither the tests nor the JAX package).
+DRILL_GOLDENS = {
+    "cascading_spine_flaps": "1af9d45487eec2f40b705cd91ebf2baaae86a7f779c5aa1015c93f064fb61ffa",
+    "degraded_pcie_attribution":
+        "4ae9937198c92e2e33292623341fd9c5d928ce9e5875e4f7e4dfdd443364c344",
+    "ecmp_vs_c4p_ab": "7f1404e5c68a60f24dfe100e85269c963f7908a1f7b742a30aa2cb4fefc72582",
+    "fault_during_restart": "354e8766d92d1f4b0ae69782ea12ac743113235fad72dc4c34753a18f4929ce1",
+    "loss_spike_cascade": "3c71db2f9197fa33c7438afe53b131b373555b2c3388c82340cbbe8a5936366a",
+    "multijob_contention": "538ee2ea99487331bcd78b6d7c2ce3ae5aad68409b86fbdb0bfb4c740e14ea88",
+    "nccl_timeout_storm": "48d0537d7ba0ada05d63ed22d54ace328a20d102bbf8a7e5a28762ee8dca2e31",
+    "silent_data_corruption": "a3b8f49edc5074eb6cf9229f9874f0de7783ca5995cdc28cb715dbc844ba345f",
+    "silent_pcie_degradation": "bf568cceb0b66c950f8f545b971201a9fe85801fe3f6176c47a3868cc6440051",
+    "single_nic_down": "44e8911aec6330aacda625f034276e5d38b3b5e638cc51ea24dbc4d89e746dd2",
+    "straggler_gpu": "7bcf2a16cf445bdf607297ad9d4e961b304cca47f62716a709924904c2235493",
+}
+#: straggler_gpu at the scale of fleet_day's anchor (10,240 ranks on 1,280
+#: nodes plus backups, a 900 s streaming tick). Reduced: the horizon is the
+#: drill's 2 h, the cadence fleet_day's 15 min.
+FLEET_DRILL = ("straggler_gpu", {"telemetry_ranks": 10240, "n_nodes": 1288,
+                                 "streaming_tick_s": 900.0})
+#: report_hash of the JAX package's report on that spec, taken on the CPU
+#: from ``repro.scenarios.engine.run_scenario(dataclasses.replace(
+#: repro.scenarios.library.get("straggler_gpu"), telemetry_ranks=10240,
+#: n_nodes=1288, streaming_tick_s=900.0, backend="numpy"))``.
+FLEET_GOLDEN = "28d504183d789040f01fb2ba1da1dce0a25376372078a58efcd11847f4ba0767"
+DRILL_KERNELS = ("window_score", "row_select", "slow_fold")
+
+
+def report_hash(rep: dict) -> str:
+    """sha256 of a report's canonical JSON, as tests/test_fleet.py hashes it."""
+    return hashlib.sha256(json.dumps(rep, sort_keys=True, default=str).encode()).hexdigest()
+
+
+def drill_run(spec, backend: str):
+    """One drill through ``repro_torch.scenarios.engine.run_scenario``.
+    Returns (report, wall s, streaming windows, s a window, launches, the
+    launches of each ``C4DMaster.ingest``). The streaming windows are timed
+    around ``C4DService.on_tick``; neither wrapper changes the run."""
+    from repro_torch.core.c4d.master import C4DMaster
+    from repro_torch.core.torchsim import detectors as tdet
+    from repro_torch.scenarios.engine import run_scenario
+    from repro_torch.scenarios.services.c4d_service import C4DService
+
+    real_tick, real_ingest = C4DService.on_tick, C4DMaster.ingest
+    ticks, per_ingest = [], []
+
+    def on_tick(self, t):
+        t0 = time.perf_counter()
+        real_tick(self, t)
+        ticks.append(time.perf_counter() - t0)
+
+    def ingest(self, window):
+        before = tdet.launch_counts()
+        out = real_ingest(self, window)
+        after = tdet.launch_counts()
+        per_ingest.append({k: after[k] - before[k] for k in after})
+        return out
+
+    C4DService.on_tick, C4DMaster.ingest = on_tick, ingest
+    try:
+        tdet.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = run_scenario(dataclasses.replace(spec, backend=backend),
+                           device=DEV if backend == "torch" else None)
+        wall = time.perf_counter() - t0
+        counts = tdet.launch_counts()
+    finally:
+        C4DService.on_tick, C4DMaster.ingest = real_tick, real_ingest
+    return rep, wall, len(ticks), sum(ticks) / max(len(ticks), 1), counts, per_ingest
+
+
+def drill_pair(label: str, spec, golden: str) -> dict:
+    """A drill at ``torch`` on the card, then at ``numpy``: the reports must
+    be equal and hash to ``golden``; every ingest of the torch run (the
+    streaming master's and each per-fault master's) must launch
+    ``window_score`` once and ``row_select`` at least twice, and the NumPy run
+    none. Returns the torch run's launches and times."""
+    rep, wall, windows, per_win, counts, ingests = drill_run(spec, "torch")
+    rep_np, wall_np, windows_np, per_win_np, counts_np, ingests_np = drill_run(spec, "numpy")
+    if rep != rep_np:
+        bad = [k for k in rep if rep[k] != rep_np.get(k)]
+        fail(f"drill {label}: the card's report differs from NumPy's in {bad}")
+    got = report_hash(rep)
+    if got != golden:
+        fail(f"drill {label}: report sha256 {got}, reference {golden}")
+    if not rep["passed"]:
+        fail(f"drill {label}: assertions failed: {[c for c in rep['checks'] if not c['ok']]}")
+    short = [i for i, c in enumerate(ingests)
+             if c["window_score"] != 1 or c["row_select"] < 2]
+    if not ingests or short:
+        fail(f"drill {label}: {len(short)} of {len(ingests)} ingests on the card did not "
+             f"launch window_score once and row_select twice: {ingests[short[0]] if short else {}}")
+    if any(counts[k] <= 0 for k in DRILL_KERNELS) or any(counts_np.values()):
+        fail(f"drill {label}: launches torch {counts}, numpy {counts_np}")
+    print(f"  drill {label}: torch_s={wall:.4f} numpy_s={wall_np:.4f}; {windows} streaming "
+          f"windows, s a window torch {per_win:.6f} numpy {per_win_np:.6f}; {len(ingests)} "
+          f"ingests; launches {counts}; equal to NumPy, sha256 {got[:12]} = reference",
+          flush=True)
+    return {"torch_s": wall, "numpy_s": wall_np, "windows": windows, "ingests": len(ingests),
+            "window_s": per_win, "window_numpy_s": per_win_np, "launches": counts}
+
+
+def drills_phase() -> dict:
+    """The 11 shipped drills, then straggler_gpu at 10,240 ranks. Returns the
+    launches of the detection kernels in each part."""
+    from repro_torch.scenarios import library
+
+    if sorted(library.names()) != sorted(DRILL_GOLDENS):
+        fail(f"drill library {library.names()} differs from the goldens' names")
+    runs = [drill_pair(name, library.get(name), DRILL_GOLDENS[name])
+            for name in sorted(DRILL_GOLDENS)]
+    lib = {k: sum(r["launches"][k] for r in runs) for k in DRILL_KERNELS}
+    tot = {k: sum(r[k] for r in runs) for k in ("torch_s", "numpy_s", "windows", "ingests")}
+    print(f"  {len(runs)} drills at 32 ranks: torch_s={tot['torch_s']:.4f} "
+          f"numpy_s={tot['numpy_s']:.4f}; {tot['windows']} streaming windows, s a window "
+          f"torch {sum(r['window_s'] * r['windows'] for r in runs) / tot['windows']:.6f} numpy "
+          f"{sum(r['window_numpy_s'] * r['windows'] for r in runs) / tot['windows']:.6f}; "
+          f"{tot['ingests']} ingests; launches {lib}", flush=True)
+    name, scale = FLEET_DRILL
+    fleet = drill_pair(f"{name} at {scale['telemetry_ranks']} ranks",
+                       dataclasses.replace(library.get(name), **scale), FLEET_GOLDEN)
+    return {"library": lib, "fleet": fleet["launches"]}
+
+
 def profile_phase(out_dir: Path) -> None:
     """torch.profiler over one prefill and 8 decode steps of the served model."""
     import torch
@@ -1586,6 +1725,11 @@ def main(argv=None) -> int:
     print(f"[detect] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
+    print("[drills]", flush=True)
+    drill_counts = drills_phase()
+    print(f"[drills] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
     print("[serve]", flush=True)
     serve_counts = serve_phase()
     print(f"[serve] done in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1620,9 +1764,12 @@ def main(argv=None) -> int:
 
     def detect_entry(name, source, replaces, launches, err, row):
         # one window at 100,000 ranks; launches on the detection main path.
-        # Besides: the prefilter's node groups, and ingest_batch at 1,024 x 8
+        # Besides: the prefilter's node groups, ingest_batch at 1,024 x 8, and
+        # the launches of the 11 drills' torch runs and of the 10,240-rank drill
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": launches, "max_abs_err": err, **times(row)}
+                 "launches": launches, "max_abs_err": err, **times(row),
+                 "drills": drill_counts["library"][name],
+                 "fleet_drill": drill_counts["fleet"][name]}
         if name == "row_select":
             entry["node_groups"] = times(det_rows["row_select_node"])
         if name in batch_rows:

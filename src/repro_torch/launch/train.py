@@ -6,8 +6,8 @@
 Port of ``repro.launch.train``: the same flags and JSON keys, plus
 ``--device`` (default ``cuda``; ``cpu`` only when asked). ``--smoke`` uses
 the reduced same-family config. One device, no mesh: ``--data`` and
-``--model`` must be 1. ``--inject-fault`` is refused until the C4D detection
-slice of the port lands (ROADMAP.md, Queue 1).
+``--model`` must be 1. ``--inject-fault`` is refused until the Trainer's
+DETECT/ISOLATE branch is ported (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ def main(argv=None):
     ap.add_argument("--shape", default=None,
                     help="shape grid name; default = config's train shape")
     ap.add_argument("--inject-fault", default=None, metavar="KIND:STEP",
-                    help="not ported yet: needs the C4D detection slice")
+                    help="not ported yet: needs the Trainer's DETECT/ISOLATE branch")
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--device", default=None,
@@ -41,8 +41,9 @@ def main(argv=None):
     if args.data != 1 or args.model != 1:
         ap.error("the port trains on one device: --data and --model must be 1")
     if args.inject_fault:
-        ap.error("--inject-fault needs the C4D detection slice of the port, "
-                 "which is not ported yet (ROADMAP.md, Queue 1)")
+        ap.error("--inject-fault needs the Trainer's DETECT/ISOLATE branch, which is "
+                 "not ported yet (ROADMAP.md, Queue 1, \"The Trainer's DETECT/ISOLATE "
+                 "branch, then the live driver\")")
 
     logging.basicConfig(level=logging.INFO)
     run = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

@@ -15,7 +15,7 @@ the serve steps (``train/steps.py``) run under ``torch.no_grad``.
 Remat follows the JAX package: ``full`` recomputes each block in the backward
 pass (a non-reentrant ``torch.utils.checkpoint`` around it, as
 ``jax.checkpoint`` with ``nothing_saveable``), ``none`` keeps every
-activation. ``dots`` is not ported (ROADMAP.md, Queue 1 item 8).
+activation. ``dots`` is not ported (ROADMAP.md, Queue 1, "models/: the rest").
 """
 from __future__ import annotations
 
@@ -184,7 +184,8 @@ class LM(nn.Module):
                              "'prefill' and 'decode' need one")
         if mode == "train" and self.remat == "dots":
             raise NotImplementedError(
-                "remat 'dots' is not ported (ROADMAP.md, Queue 1 item 8); use 'full' or 'none'")
+                "remat 'dots' is not ported (ROADMAP.md, Queue 1, \"models/: the rest\"); "
+                "use 'full' or 'none'")
         remat = mode == "train" and self.remat == "full" and torch.is_grad_enabled()
         x = embed(self.embed.table, tokens, scale_by_sqrt_dim=cfg.embed_scale)
         x = x.to(self.param_dtype)

@@ -78,7 +78,7 @@ def make_train_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig):
     if pcfg.grad_compression == "int8":
         raise NotImplementedError(
             "int8 gradient compression is not ported: it belongs to parallel/compression.py "
-            "(ROADMAP.md, Queue 1 item 11)")
+            "(ROADMAP.md, Queue 1, \"parallel/ and launch/mesh.py on torch.distributed\")")
     if pcfg.grad_compression != "none":
         raise ValueError(f"grad_compression {pcfg.grad_compression!r}")
     accumulate = make_grad_fn(model, run)

@@ -7,8 +7,8 @@ frequent checkpoints (in-memory replica + async disk flush), a
 valid checkpoint; the data pipeline is a pure function of (seed, step), so a
 restored job consumes exactly the stream it would have. The DETECT/ISOLATE
 branch (fault injector, simulated cluster, steering, the C4D master and its
-telemetry) waits for the detection slice of the port (ROADMAP.md, Queue 1):
-``train`` refuses a fault schedule.
+telemetry) is not ported yet (ROADMAP.md, Queue 1, "The Trainer's
+DETECT/ISOLATE branch"): ``train`` refuses a fault schedule.
 """
 from __future__ import annotations
 
@@ -87,8 +87,9 @@ class Trainer:
     def train(self, n_steps: int, injector=None) -> TrainerReport:
         if injector is not None and getattr(injector, "schedule", None):
             raise NotImplementedError(
-                "fault injection needs the C4D detection slice of the port "
-                "(ROADMAP.md, Queue 1 items 2-4)")
+                "fault injection needs the Trainer's DETECT/ISOLATE branch, the rest of "
+                "the detection slice of the port (ROADMAP.md, Queue 1, \"The Trainer's "
+                "DETECT/ISOLATE branch, then the live driver\")")
         run = self.run
         self._save_checkpoint(blocking=True)  # step-0 baseline
         target = self.step + n_steps
