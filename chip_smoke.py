@@ -36,10 +36,21 @@ Phases, each fatal on failure:
     the same model served through the plain attention and norms;
  4. train: gemma2-2b at full width, seq 4096, global batch 2 (the config's
     256 cut to one card), 2 microbatches, remat full, AdamW, through
-    ``repro_torch.train.trainer.Trainer`` for 3 steps. Loss and grad norm of
-    the first batch must match the plain norms; each step must make 2 x (105
-    + 104) RMSNorm launches; losses must be finite; the step-0 checkpoint
-    restored from disk must equal the initial weights bit for bit;
+    ``repro_torch.train.trainer.Trainer`` for 3 steps with a crash of rank 9
+    (of 4 simulated nodes, 32 ranks) before step 2: DETECT -> ISOLATE ->
+    RESTORE, then steps 0-2 again (5 steps run). Loss and grad norm of the
+    first batch must match the plain norms; each step run must make 2 x (105
+    + 104) RMSNorm launches; losses must be finite; one restart from step 0,
+    the detection record (verdicts, isolated and backup node, windows) equal
+    to the port's NumPy master's on the same telemetry, node 1 out of the
+    active set, each ingest of the handler one ``window_score`` launch on the
+    card, and the replayed steps' losses bit-equal to the first pass's; the
+    handler's seconds split into detection, steering and the restore from
+    the in-memory replica. The step-0 checkpoint restored from disk must
+    equal the initial weights and the replica bit for bit (after the
+    restore and the replay, so a step that wrote into the replica fails);
+    a fault-free run of the 3 steps from the replica through the Trainer's
+    step must end with losses and parameters bit-equal to the fault run's;
  5. detect: the C4D detection loop (``repro_torch.core``) at 100,000 ranks
     (``RingJobTelemetry``, seed 3: 3M transports in 300k pair groups, 1M
     heartbeats). Each detection kernel (``window_score``, its prefilter
@@ -73,9 +84,22 @@ Phases, each fatal on failure:
     master's, must launch ``window_score`` once and ``row_select`` at least
     twice, ``slow_fold`` must launch, and the NumPy runs launch nothing. Wall
     seconds and seconds a streaming window at both backends.
-They run in the order 1, 2, 5, 6, 3, 4: late in the process (after the train
-phase) torch.profiler dropped the records of short profiled windows, so the
-detection kernels are timed first.
+ 7. live: ``repro_torch.scenarios.live.drive`` replays ``single_nic_down``'s
+    fault script on a Trainer on the card (the smollm-135m smoke config, 12
+    steps, 4 simulated nodes): one restart for a crash, the isolated node on
+    the shared cluster, a finite final loss, each ingest one ``window_score``
+    launch on the card, RMSNorm launches;
+ 8. campaigns: ``fleet_smoke`` and ``fleet_mixed`` at 2 trials through
+    ``repro_torch.scenarios.montecarlo.run_campaign`` at ``torch`` on the card
+    with 1 and 2 (spawned) workers and at ``numpy``: every report must hash to
+    the JAX package's (pinned here); ``fleet_hour`` (``fleet.run_fleet``) and
+    the ``roc_smoke`` sweep (``precision.run_sweep``) at ``torch`` on the card
+    and at ``numpy``: reports (and the selected operating point) equal. Each
+    card run in this process must launch ``window_score`` and ``slow_fold``.
+    Wall seconds at both backends.
+They run in the order 1, 2, 5, 6, 8, 3, 4, 7: late in the process (after the
+train phase) torch.profiler dropped the records of short profiled windows, so
+the detection kernels are timed first.
 The line before the last is a JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -83,6 +107,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -115,8 +140,10 @@ RMSNORM_KERNELS = ("rmsnorm_block_kernel",)
 B, PROMPT, STEPS = 2, 4352, 32
 H, HKV, D, WINDOW, CAP = 8, 4, 256, 4096, 50.0
 CACHE = PROMPT + STEPS
-# gemma2-2b training of this smoke run: the config's seq 4096, batch cut to 2
+# gemma2-2b training of this smoke run: the config's seq 4096, batch cut to 2;
+# a crash of rank 9 (node 1 of SIM_NODES) before step FAULT_STEP
 TRAIN_BATCH, TRAIN_STEPS = 2, 3
+FAULT_KIND, FAULT_RANK, FAULT_STEP, SIM_NODES = "crash", 9, 2, 4
 D_MODEL = 2304
 
 
@@ -616,19 +643,71 @@ def serve_phase():
     return counts
 
 
+def numpy_fault_replay(kind: str, rank: int, seed: int, sim_nodes: int, at_step: int):
+    """The Trainer's ``_handle_fault`` detection and isolation on fresh
+    control-plane copies with the port's NumPy master: (verdicts, isolated
+    pairs, windows, active nodes after it)."""
+    from repro_torch.core.c4d.master import C4DMaster
+    from repro_torch.core.cluster import SimCluster, SteeringService
+    from repro_torch.core.faults import Fault, RingJobTelemetry
+
+    cluster = SimCluster(n_active=sim_nodes, n_backup=max(1, sim_nodes // 4))
+    steering = SteeringService(cluster)
+    telemetry = RingJobTelemetry(n_ranks=sim_nodes * 8, seed=seed)
+    c4d = C4DMaster(n_ranks=telemetry.n, ranks_per_node=8, backend="numpy")
+    fault, actions, windows = Fault(kind, rank=rank), [], 0
+    while not actions and windows < 4:
+        actions = c4d.ingest(telemetry.window(window_id=windows, faults=[fault]))
+        windows += 1
+    replaced = [(a.node_id, steering.execute(a.node_id, t=at_step,
+                                             reason=a.verdicts[0].syndrome)[0])
+                for a in actions]
+    return ([v.syndrome for a in actions for v in a.verdicts], replaced, windows,
+            cluster.active_nodes)
+
+
+@contextlib.contextmanager
+def ingest_launches():
+    """Within the block, record the detection launches and the seconds of
+    each ``C4DMaster.ingest`` call in the list it yields; the wrapper does
+    not change the call."""
+    from repro_torch.core.c4d.master import C4DMaster
+    from repro_torch.core.torchsim import detectors as tdet
+
+    real, per_ingest = C4DMaster.ingest, []
+
+    def ingest(self, window):
+        before, t0 = tdet.launch_counts(), time.perf_counter()
+        out = real(self, window)
+        after = tdet.launch_counts()
+        per_ingest.append(dict({k: after[k] - before[k] for k in after},
+                               s=time.perf_counter() - t0))
+        return out
+
+    C4DMaster.ingest = ingest
+    try:
+        yield per_ingest
+    finally:
+        C4DMaster.ingest = real
+
+
 def train_phase(profile_dir=None):
-    """gemma2-2b through the Trainer; returns the kernels' launch counts of
-    the 3 train steps."""
+    """gemma2-2b through the Trainer with a crash of rank 9 before step
+    FAULT_STEP: DETECT -> ISOLATE -> RESTORE, then the replay. Returns the
+    launch counts of the run (RMSNorm's, and the detection kernels' under
+    ``detect``)."""
     import torch
     from repro_torch.checkpoint import manager as ckpt_mod
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.common.config import ShapeSpec
     from repro_torch.configs import get_config
+    from repro_torch.core.faults import Fault
+    from repro_torch.core.torchsim import detectors as tdet
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
     from repro_torch.train.steps import make_grad_fn
-    from repro_torch.train.trainer import Trainer
+    from repro_torch.train.trainer import FaultInjector, Trainer
 
     run = get_config("gemma2-2b")
     run = run.replace(train=dataclasses.replace(run.train, global_batch=TRAIN_BATCH))
@@ -645,7 +724,8 @@ def train_phase(profile_dir=None):
     sha = ckpt_mod._sha
     try:
         t0 = time.perf_counter()
-        trainer = Trainer(run, shape, workdir, device="cuda", use_kernel=True)
+        trainer = Trainer(run, shape, workdir, device="cuda", use_kernel=True,
+                          sim_nodes=SIM_NODES)
         print(f"  train {cfg.name}: {trainer.model.num_params():,} params, seq "
               f"{shape.seq_len}, global batch {shape.global_batch} (config: "
               f"{get_config('gemma2-2b').train.global_batch}), microbatches "
@@ -676,7 +756,7 @@ def train_phase(profile_dir=None):
                  "rmsnorm launches and none")
 
         # the checkpoint's seconds, split into the host copy, np.savez and sha256
-        spent = {"save": [], "write": [], "sha": []}
+        spent = {"save": [], "write": [], "sha": [], "steer": [], "restore": []}
 
         def timed(fn, key):
             def wrapped(*a, **kw):
@@ -688,22 +768,33 @@ def train_phase(profile_dir=None):
         trainer.ckpt.save = timed(trainer.ckpt.save, "save")
         trainer.ckpt._write = timed(trainer.ckpt._write, "write")
         ckpt_mod._sha = timed(sha, "sha")
+        # the fault handler's seconds: detection (the ingests), steering, the
+        # restore; the first replayed step is the monitor's step FAULT_STEP
+        trainer.steering.execute = timed(trainer.steering.execute, "steer")
+        trainer.restore = timed(trainer.restore, "restore")
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
+        tdet.reset_launch_counts()
         t0 = time.perf_counter()
-        report = trainer.train(TRAIN_STEPS)
+        with ingest_launches() as per_ingest:
+            report = trainer.train(TRAIN_STEPS, injector=FaultInjector(
+                {FAULT_STEP: Fault(FAULT_KIND, rank=FAULT_RANK)}))
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        det_counts = tdet.launch_counts()
         peak = torch.cuda.max_memory_allocated()
         for i, m in enumerate(report.metrics):
-            print(f"  train step {i}: loss={m['loss']:.6f} grad_norm={m['grad_norm']:.6f} "
-                  f"lr={m['lr']:.4e} step_s={trainer.monitor.durations[i]:.4f}", flush=True)
+            print(f"  train step {i} (step {trainer.monitor.stats[i].step}): loss={m['loss']:.6f} "
+                  f"grad_norm={m['grad_norm']:.6f} lr={m['lr']:.4e} "
+                  f"step_s={trainer.monitor.durations[i]:.4f}", flush=True)
         stats = trainer.monitor.summary()
         tok_s = shape.global_batch * shape.seq_len / stats["median_s"]
         ckpt_bytes = sum(t.numel() * t.element_size() for t in trainer.ckpt.memory[0].values())
         npz = os.path.join(workdir, "ckpt_00000000.npz")
-        print(f"  train {TRAIN_STEPS} steps in {wall:.2f} s: median_step_s={stats['median_s']:.4f} "
-              f"tokens_per_s={tok_s:.1f} max_memory_allocated={peak / 1e9:.2f} GB", flush=True)
+        print(f"  train {TRAIN_STEPS} steps and a fault in {wall:.2f} s ({report.steps_run} "
+              f"steps run): median_step_s={stats['median_s']:.4f} tokens_per_s={tok_s:.1f} "
+              f"max_memory_allocated={peak / 1e9:.2f} GB", flush=True)
+        fault_check(trainer, report, per_ingest, spent, det_counts, ckpt_bytes)
         save_s, write_s, sha_s = spent["save"][0], spent["write"][0], sum(spent["sha"])
         print(f"  train step-0 checkpoint (blocking): {save_s:.2f} s = host copy "
               f"{save_s - write_s:.2f} + np.savez {write_s - sha_s:.2f} + sha256 {sha_s:.2f}; "
@@ -711,9 +802,11 @@ def train_phase(profile_dir=None):
               "on disk", flush=True)
         if not all(map(lambda v: v == v and abs(v) < float("inf"), report.losses)):
             fail(f"non-finite training losses {report.losses}")
-        want = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": TRAIN_STEPS * per_step}
-        if counts != want:
-            fail(f"train launch counts {counts}; expected {want}")
+        want = {"flash_attention": 0, "decode_attention": 0,
+                "rmsnorm": report.steps_run * per_step}
+        if report.steps_run != TRAIN_STEPS + FAULT_STEP or counts != want:
+            fail(f"train launch counts {counts} in {report.steps_run} steps; expected {want} "
+                 f"in {TRAIN_STEPS + FAULT_STEP}")
 
         # the step-0 checkpoint from disk (a manager with no memory replica,
         # as after a restart), against an independent init of the weights
@@ -737,6 +830,7 @@ def train_phase(profile_dir=None):
         if step != 0 or bad:
             fail(f"the step-0 checkpoint restored from disk differs in {bad[:5]}")
         del flat
+        fault_free_check(trainer, report)
         if profile_dir is not None:
             batch = {k: torch.from_numpy(v).cuda() for k, v in trainer.pipeline.batch(3).items()}
 
@@ -746,10 +840,76 @@ def train_phase(profile_dir=None):
                 metrics["loss"].item()
             profile_one("train_step", one_step, profile_dir)
         trainer.ckpt.close()
-        return counts
+        return dict(counts, detect=det_counts)
     finally:
         ckpt_mod._sha = sha
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def fault_check(trainer, report, per_ingest, spent, det_counts, ckpt_bytes) -> None:
+    """The fault of ``[train]``: one restart from step 0, the detection
+    record equal to the port's NumPy master's on the same windows, the
+    isolated node out of the active set, every ingest through the detection
+    kernels on the card, and the replayed steps' losses bit-equal to the
+    first pass's."""
+    if report.restarts != 1 or len(report.detections) != 1:
+        fail(f"train fault: {report.restarts} restarts, {len(report.detections)} detections")
+    det = report.detections[0]
+    verdicts, isolated, windows, active = numpy_fault_replay(
+        FAULT_KIND, FAULT_RANK, trainer.run.train.seed, SIM_NODES, FAULT_STEP)
+    got = (det["verdicts"], [tuple(p) for p in det["isolated"]], det["detection_windows"])
+    if got != (verdicts, isolated, windows) or trainer.cluster.active_nodes != active:
+        fail(f"train fault: detection {got}, active {trainer.cluster.active_nodes}; the NumPy "
+             f"master gives {(verdicts, isolated, windows)}, active {active}")
+    if det["restored_step"] != 0 or report.steps_run != TRAIN_STEPS + FAULT_STEP:
+        fail(f"train fault: restored step {det['restored_step']}, {report.steps_run} steps run")
+    out_node = isolated[0][0] if isolated else None
+    if out_node is None or out_node in trainer.cluster.active_nodes:
+        fail(f"train fault: node {out_node} still active: {trainer.cluster.active_nodes}")
+    short = [c for c in per_ingest if c["window_score"] != 1]
+    if len(per_ingest) != windows or short or det_counts["window_score"] != windows:
+        fail(f"train fault: {len(per_ingest)} ingests for {windows} windows, launches "
+             f"{per_ingest}, in all {det_counts}")
+    first, replay = report.losses[:FAULT_STEP], report.losses[FAULT_STEP:2 * FAULT_STEP]
+    if replay != first:
+        fail(f"train fault: replayed losses {replay} differ from the first pass's {first}")
+    detect_s = sum(c["s"] for c in per_ingest)
+    steer_s, restore_s = sum(spent["steer"]), sum(spent["restore"])
+    replay_s = trainer.monitor.durations[FAULT_STEP]
+    print(f"  train fault {FAULT_KIND} rank {FAULT_RANK} at step {FAULT_STEP} ({SIM_NODES * 8} "
+          f"ranks): verdicts {det['verdicts']} after {windows} window(s), isolated "
+          f"{det['isolated']} = the NumPy master's; restored step {det['restored_step']}; "
+          f"handler {det['wall_s']:.4f} s = detection {detect_s:.4f} + steering {steer_s:.6f} "
+          f"+ restore from memory {restore_s:.4f} ({ckpt_bytes / 1e9:.3f} GB) + rest "
+          f"{det['wall_s'] - detect_s - steer_s - restore_s:.4f}; first replayed step "
+          f"{replay_s:.4f} s; launches a window "
+          f"{[{k: c[k] for k in DRILL_KERNELS} for c in per_ingest]}; replayed losses "
+          "bit-equal to the first pass's", flush=True)
+
+
+def fault_free_check(trainer, report) -> None:
+    """A fault-free run of the same TRAIN_STEPS steps from the step-0 replica
+    (equal to a fresh init, checked above), through the Trainer's own step:
+    its losses and final parameters must be bit-equal to the fault run's."""
+    import torch
+    t0 = time.perf_counter()
+    final = {n: p.detach().to("cpu", copy=True) for n, p in trainer.params.items()}
+    trainer.restore(0)
+    losses = []
+    for s in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(trainer.device)
+                 for k, v in trainer.pipeline.batch(s).items()}
+        trainer.params, trainer.opt_state, metrics = trainer._step_fn(
+            trainer.params, trainer.opt_state, batch)
+        losses.append(float(metrics["loss"]))
+    want = report.losses[:FAULT_STEP] + report.losses[2 * FAULT_STEP:]
+    bad = [n for n, p in trainer.params.items() if not _bit_equal(p.detach().cpu(), final[n])]
+    print(f"  train fault-free run of {TRAIN_STEPS} steps from the step-0 replica in "
+          f"{time.perf_counter() - t0:.2f} s: losses {losses}; final parameters bit-equal to "
+          f"the fault run's: {not bad}", flush=True)
+    if losses != want or bad:
+        fail(f"train: the fault-free run differs from the fault run: losses {losses} against "
+             f"{want}; parameters {bad[:5]}")
 
 
 # --- [detect]: the C4D detection loop at 100,000 ranks ------------------------
@@ -1523,36 +1683,29 @@ def drill_run(spec, backend: str):
     Returns (report, wall s, streaming windows, s a window, launches, the
     launches of each ``C4DMaster.ingest``). The streaming windows are timed
     around ``C4DService.on_tick``; neither wrapper changes the run."""
-    from repro_torch.core.c4d.master import C4DMaster
     from repro_torch.core.torchsim import detectors as tdet
     from repro_torch.scenarios.engine import run_scenario
     from repro_torch.scenarios.services.c4d_service import C4DService
 
-    real_tick, real_ingest = C4DService.on_tick, C4DMaster.ingest
-    ticks, per_ingest = [], []
+    real_tick = C4DService.on_tick
+    ticks = []
 
     def on_tick(self, t):
         t0 = time.perf_counter()
         real_tick(self, t)
         ticks.append(time.perf_counter() - t0)
 
-    def ingest(self, window):
-        before = tdet.launch_counts()
-        out = real_ingest(self, window)
-        after = tdet.launch_counts()
-        per_ingest.append({k: after[k] - before[k] for k in after})
-        return out
-
-    C4DService.on_tick, C4DMaster.ingest = on_tick, ingest
+    C4DService.on_tick = on_tick
     try:
         tdet.reset_launch_counts()
         t0 = time.perf_counter()
-        rep = run_scenario(dataclasses.replace(spec, backend=backend),
-                           device=DEV if backend == "torch" else None)
+        with ingest_launches() as per_ingest:
+            rep = run_scenario(dataclasses.replace(spec, backend=backend),
+                               device=DEV if backend == "torch" else None)
         wall = time.perf_counter() - t0
         counts = tdet.launch_counts()
     finally:
-        C4DService.on_tick, C4DMaster.ingest = real_tick, real_ingest
+        C4DService.on_tick = real_tick
     return rep, wall, len(ticks), sum(ticks) / max(len(ticks), 1), counts, per_ingest
 
 
@@ -1607,6 +1760,136 @@ def drills_phase() -> dict:
     fleet = drill_pair(f"{name} at {scale['telemetry_ranks']} ranks",
                        dataclasses.replace(library.get(name), **scale), FLEET_GOLDEN)
     return {"library": lib, "fleet": fleet["launches"]}
+
+
+# --- [live]: the drill's fault script replayed on the real Trainer -------------
+
+LIVE_DRILL, LIVE_STEPS = "single_nic_down", 12
+
+
+def live_phase() -> dict:
+    """``repro_torch.scenarios.live.drive`` on the card: the reference's live
+    test (the smollm-135m smoke config, 4 simulated nodes). Returns the
+    launch counts of the replay."""
+    from repro_torch.core.torchsim import detectors as tdet
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import library, live
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_live_")
+    try:
+        ops.reset_launch_counts()
+        tdet.reset_launch_counts()
+        t0 = time.perf_counter()
+        with ingest_launches() as per_ingest:
+            rep = live.drive(library.get(LIVE_DRILL), workdir, n_steps=LIVE_STEPS,
+                             sim_nodes=4, device=DEV)
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launch_counts(), **tdet.launch_counts())
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    dets = rep["detections"]
+    windows = sum(d["detection_windows"] for d in dets)
+    print(f"  live {LIVE_DRILL}: {wall:.2f} s, {rep['steps_run']} steps, scheduled "
+          f"{rep['scheduled_faults']}, restarts {rep['restarts']}, detections "
+          f"{[(d['fault'], d['verdicts'], d['isolated'], d['detection_windows']) for d in dets]}, "
+          f"isolated nodes {rep['isolated_nodes']}, final loss {rep['final_loss']}; "
+          f"launches {counts}", flush=True)
+    if rep["restarts"] != 1 or not dets or dets[0]["fault"] != "crash":
+        fail(f"live: restarts {rep['restarts']}, detections {dets}")
+    if not dets[0]["isolated"] or not rep["isolated_nodes"]:
+        fail(f"live: no isolation on the shared cluster: {rep['isolated_nodes']}")
+    if rep["final_loss"] is None or not rep["final_loss"] == rep["final_loss"]:
+        fail(f"live: final loss {rep['final_loss']}")
+    if len(per_ingest) != windows or any(c["window_score"] != 1 for c in per_ingest) \
+            or counts["rmsnorm"] <= 0:
+        fail(f"live: {len(per_ingest)} ingests for {windows} windows, launches {per_ingest}; "
+             f"in all {counts}")
+    return counts
+
+
+# --- [campaigns]: Monte Carlo campaigns, the fleet and the ROC sweep ----------
+
+#: sha256 (``report_hash``) of the 2-trial campaign reports: the
+#: ``CAMPAIGN_GOLDENS`` of tests/test_fleet.py (copied, as the drills' are).
+CAMPAIGN_GOLDENS = {
+    "fleet_smoke": "48cda1db6f506cf5840581c2b6b10fe166fc8f48b567e87d2a0ac1ea8223c09c",
+    "fleet_mixed": "af4288a9d17ab5401299575ed14f71c6851032aa52558c5379054ecd49c57185",
+}
+CAMPAIGN_TRIALS, FLEET, SWEEP = 2, "fleet_hour", "roc_smoke"
+
+
+def _at(backend: str, fn):
+    """``fn(device)`` under ``use_backend(backend)``, with its wall seconds
+    and the detection launches it made in this process."""
+    from repro_torch.core.torchsim import detectors as tdet
+    from repro_torch.core.torchsim import use_backend
+
+    tdet.reset_launch_counts()
+    t0 = time.perf_counter()
+    with use_backend(backend):
+        out = fn(DEV if backend == "torch" else None)
+    return out, time.perf_counter() - t0, tdet.launch_counts()
+
+
+def campaigns_phase() -> dict:
+    """fleet_smoke and fleet_mixed (2 trials) at torch on the card with 1
+    and 2 workers and at numpy: each report must hash to the golden; then
+    fleet_hour and the roc_smoke sweep at torch on the card and at numpy: the
+    reports must be equal. Returns the detection launches of the card runs
+    in this process."""
+    from repro_torch.scenarios import fleet, montecarlo, precision
+
+    total = dict.fromkeys(DRILL_KERNELS, 0)
+
+    def card_run(label, counts):
+        if any(counts[k] <= 0 for k in ("window_score", "slow_fold")):
+            fail(f"campaigns {label}: the card run launched {counts}")
+        for k in DRILL_KERNELS:
+            total[k] += counts[k]
+
+    for name in sorted(CAMPAIGN_GOLDENS):
+        spec = montecarlo.get(name, n_trials=CAMPAIGN_TRIALS)
+        times = {}
+        for backend, workers in (("torch", 1), ("torch", 2), ("numpy", 1)):
+            rep, wall, counts = _at(backend, lambda dev: montecarlo.run_campaign(
+                spec, workers=workers, device=dev))
+            got = report_hash(rep.to_json())
+            if got != CAMPAIGN_GOLDENS[name]:
+                fail(f"campaign {name} at {backend}, {workers} worker(s): sha256 {got}, "
+                     f"reference {CAMPAIGN_GOLDENS[name]}")
+            if backend == "torch" and workers == 1:
+                card_run(name, counts)
+            elif any(counts.values()):
+                fail(f"campaign {name} at {backend}, {workers} workers: launches in this "
+                     f"process {counts}")
+            times[f"{backend}_w{workers}_s"] = wall
+        print(f"  campaign {name} ({CAMPAIGN_TRIALS} trials x {spec.gpus} GPUs): "
+              + " ".join(f"{k}={v:.4f}" for k, v in times.items())
+              + f"; sha256 {CAMPAIGN_GOLDENS[name][:12]} = reference at each", flush=True)
+
+    fspec = fleet.get(FLEET)
+    card, wall, counts = _at("torch", lambda dev: fleet.run_fleet(fspec, device=dev).to_json())
+    ref, wall_np, _ = _at("numpy", lambda dev: fleet.run_fleet(fspec, device=dev).to_json())
+    if card != ref:
+        fail(f"fleet {FLEET}: the card's report differs from NumPy's in "
+             f"{[k for k in card if card[k] != ref.get(k)]}")
+    card_run(FLEET, counts)
+    print(f"  fleet {FLEET} ({fspec.gpus} GPUs, {fspec.duration_s / 3600:.0f} h): torch_s="
+          f"{wall:.4f} numpy_s={wall_np:.4f}; {card['n_segments']} segments; equal to NumPy, "
+          f"sha256 {report_hash(card)[:12]}; launches {counts}", flush=True)
+
+    sspec = precision.get(SWEEP)
+    card, wall, counts = _at("torch", lambda dev: precision.run_sweep(sspec, device=dev))
+    ref, wall_np, _ = _at("numpy", lambda dev: precision.run_sweep(sspec, device=dev))
+    if card.to_json() != ref.to_json() or card.selected != ref.selected:
+        fail(f"sweep {SWEEP}: the card's report or selected point differs from NumPy's")
+    card_run(SWEEP, counts)
+    print(f"  sweep {SWEEP} ({sspec.n_trials} trials x {len(card.points) + 1} points): "
+          f"torch_s={wall:.4f} numpy_s={wall_np:.4f}; selected {card.selected['label']} "
+          f"(targets met: {card.meets_targets}); equal to NumPy; launches {counts}",
+          flush=True)
+    print(f"  campaigns on the card, this process: launches {total}", flush=True)
+    return total
 
 
 def profile_phase(out_dir: Path) -> None:
@@ -1730,6 +2013,11 @@ def main(argv=None) -> int:
     print(f"[drills] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
+    print("[campaigns]", flush=True)
+    campaign_counts = campaigns_phase()
+    print(f"[campaigns] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
     print("[serve]", flush=True)
     serve_counts = serve_phase()
     print(f"[serve] done in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1740,9 +2028,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     print("[train]", flush=True)
     train_counts = train_phase(args.profile)
+    train_fault_counts = train_counts.pop("detect")
     print(f"[train] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    print("[live]", flush=True)
+    live_counts = live_phase()
+    print(f"[live] done in {time.perf_counter() - t0:.1f} s", flush=True)
     counts = {k: serve_counts[k] + train_counts[k] for k in serve_counts}
-    print(f"launches on the main paths: serve {serve_counts}, train {train_counts}", flush=True)
+    print(f"launches on the main paths: serve {serve_counts}, train {train_counts}, "
+          f"train fault {train_fault_counts}, live {live_counts}, campaigns "
+          f"{campaign_counts}", flush=True)
 
 
     def entry(name, source, replaces, err, rows):
@@ -1765,11 +2061,15 @@ def main(argv=None) -> int:
     def detect_entry(name, source, replaces, launches, err, row):
         # one window at 100,000 ranks; launches on the detection main path.
         # Besides: the prefilter's node groups, ingest_batch at 1,024 x 8, and
-        # the launches of the 11 drills' torch runs and of the 10,240-rank drill
+        # the launches of the 11 drills' torch runs, of the 10,240-rank drill,
+        # of the Trainer's fault handler, of the live replay and of the
+        # campaigns, the fleet and the sweep on the card (this process)
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": launches, "max_abs_err": err, **times(row),
                  "drills": drill_counts["library"][name],
-                 "fleet_drill": drill_counts["fleet"][name]}
+                 "fleet_drill": drill_counts["fleet"][name],
+                 "train_fault": train_fault_counts[name], "live": live_counts[name],
+                 "campaigns": campaign_counts[name]}
         if name == "row_select":
             entry["node_groups"] = times(det_rows["row_select_node"])
         if name in batch_rows:
@@ -1784,7 +2084,8 @@ def main(argv=None) -> int:
               "src/repro/kernels/decode_attention.py:70", decode_err, decode_rows),
         dict(entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                    "src/repro/kernels/rmsnorm.py:27", norm_err, norm_rows[:1]),
-             prefill=times(norm_rows[1]), decode=dict(times(norm_rows[2]), **norm_extra)),
+             prefill=times(norm_rows[1]), decode=dict(times(norm_rows[2]), **norm_extra),
+             live=live_counts["rmsnorm"]),
         *(detect_entry(name, src, rep, det_counts[name], det_err[name], det_rows[name])
           for name, src, rep in DETECT_KERNELS),
     ]}), flush=True)

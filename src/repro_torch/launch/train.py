@@ -6,8 +6,8 @@
 Port of ``repro.launch.train``: the same flags and JSON keys, plus
 ``--device`` (default ``cuda``; ``cpu`` only when asked). ``--smoke`` uses
 the reduced same-family config. One device, no mesh: ``--data`` and
-``--model`` must be 1. ``--inject-fault`` is refused until the Trainer's
-DETECT/ISOLATE branch is ported (ROADMAP.md, Queue 1).
+``--model`` must be 1. ``--inject-fault KIND:STEP`` runs the C4D detect ->
+isolate -> restore loop mid-training, its detection on the same device.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ import tempfile
 
 from repro_torch.common.config import SHAPES, ShapeSpec
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
-from repro_torch.train.trainer import Trainer
+from repro_torch.core.faults import Fault
+from repro_torch.train.trainer import FaultInjector, Trainer
 
 
 def main(argv=None):
@@ -32,7 +33,7 @@ def main(argv=None):
     ap.add_argument("--shape", default=None,
                     help="shape grid name; default = config's train shape")
     ap.add_argument("--inject-fault", default=None, metavar="KIND:STEP",
-                    help="not ported yet: needs the Trainer's DETECT/ISOLATE branch")
+                    help="e.g. slow_src:7 or crash:5")
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
     ap.add_argument("--device", default=None,
@@ -40,10 +41,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.data != 1 or args.model != 1:
         ap.error("the port trains on one device: --data and --model must be 1")
-    if args.inject_fault:
-        ap.error("--inject-fault needs the Trainer's DETECT/ISOLATE branch, which is "
-                 "not ported yet (ROADMAP.md, Queue 1, \"The Trainer's DETECT/ISOLATE "
-                 "branch, then the live driver\")")
 
     logging.basicConfig(level=logging.INFO)
     run = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -52,7 +49,13 @@ def main(argv=None):
     else:
         shape = ShapeSpec("train", run.train.seq_len, run.train.global_batch, "train")
     trainer = Trainer(run, shape, workdir=args.workdir, device=args.device)
-    report = trainer.train(args.steps)
+
+    injector = None
+    if args.inject_fault:
+        kind, step = args.inject_fault.split(":")
+        injector = FaultInjector({int(step): Fault(kind, rank=3)})
+
+    report = trainer.train(args.steps, injector=injector)
     out = {
         "arch": run.model.name,
         "steps_run": report.steps_run,

@@ -15,9 +15,17 @@ Entry points:
 
   * ``repro_torch.scenarios.library.get(name)``  — a shipped ``ScenarioSpec``
   * ``repro_torch.scenarios.engine.run_scenario(spec, device=None)`` — one drill
+  * ``repro_torch.scenarios.montecarlo.run_campaign(spec, device=None)`` — a
+    Monte Carlo fleet campaign (docs/campaigns.md); ``precision.run_sweep``
+    an ROC sweep; ``fleet.run_fleet`` a continuous fleet (docs/fleet.md)
+  * ``repro_torch.scenarios.live.drive(spec, workdir, device=None)`` — the
+    drill's fault script replayed on the real Trainer
   * ``python -m repro_torch.scenarios.run --list``  — the CLI
 
-Campaigns, fleets and the live-trainer replay are not ported yet.
+(``montecarlo`` / ``stats`` / ``report`` are imported as modules, not
+re-exported here: ``core/downtime.py`` sits both upstream of the campaign
+statistics and downstream of ``scenarios.detection``, so the package
+``__init__`` stays light to keep that import graph acyclic.)
 """
 from repro_torch.scenarios.engine import CampaignEngine, run_scenario
 from repro_torch.scenarios.spec import (Assertions, FailLink, InjectFault, JobSpec,

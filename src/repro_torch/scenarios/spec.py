@@ -185,7 +185,7 @@ class FleetSpec:
     same clock, one persistent global C4P master doing admission +
     placement, per-tenant SLO accounting, and rolling campaign reports
     emitted every ``report_period_s`` while the fleet runs
-    (the reference's ``scenarios/fleet.py``, not ported yet).
+    (``repro_torch.scenarios.fleet``).
     """
     name: str
     description: str = ""

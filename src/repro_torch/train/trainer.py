@@ -1,18 +1,26 @@
-"""Trainer: the RUN and RESTORE half of the paper's RUN -> DETECT -> ISOLATE ->
-RESTORE loop, on one device.
+"""Fault-tolerant Trainer: the paper's RUN -> DETECT -> ISOLATE -> RESTORE
+loop, on one device.
 
-Port of ``repro.train.trainer``: the BSP train step (``train/steps.py``),
-frequent checkpoints (in-memory replica + async disk flush), a
-``StepMonitor`` anchored at the step boundary, and a restore from the newest
-valid checkpoint; the data pipeline is a pure function of (seed, step), so a
-restored job consumes exactly the stream it would have. The DETECT/ISOLATE
-branch (fault injector, simulated cluster, steering, the C4D master and its
-telemetry) is not ported yet (ROADMAP.md, Queue 1, "The Trainer's
-DETECT/ISOLATE branch"): ``train`` refuses a fault schedule.
+Port of ``repro.train.trainer``:
+  * the BSP train step (``train/steps.py``), rebuilt after a restart,
+  * frequent checkpoints (in-memory replica + async disk flush),
+  * C4D integration: a ``StepMonitor`` anchored at the step boundary; a
+    ``FaultInjector`` produces enhanced-CCL telemetry faults and the C4D
+    master (``core/c4d/master.py``, on the Trainer's device) issues verdicts,
+  * elastic restart: the implicated node is isolated, a backup takes its
+    place (``SimCluster``), and the job restores from the newest valid
+    checkpoint, memory first; the data pipeline is a pure function of
+    (seed, step), so the restored job consumes exactly the stream it would
+    have.
+
+The control-plane pieces (cluster, steering, C4D master, telemetry) are
+injectable, so the live driver (``repro_torch.scenarios.live``) can replay a
+drill's fault script on this loop against shared state.
 """
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -22,6 +30,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.common.config import RunConfig, ShapeSpec
+from repro_torch.core.c4d.master import C4DMaster
+from repro_torch.core.cluster import SimCluster, SteeringService
+from repro_torch.core.faults import Fault, RingJobTelemetry
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
 from repro_torch.models.model import build_model
 from repro_torch.optim import adamw
@@ -29,6 +40,22 @@ from repro_torch.train.hooks import StepMonitor
 from repro_torch.train.steps import make_train_step
 
 log = logging.getLogger("repro_torch.trainer")
+
+
+class SimulatedFault(RuntimeError):
+    def __init__(self, fault: Fault, step: int):
+        super().__init__(f"injected {fault.kind} at step {step}")
+        self.fault = fault
+        self.step = step
+
+
+@dataclass
+class FaultInjector:
+    """Schedule telemetry-level faults at given steps (tests/examples)."""
+    schedule: Dict[int, Fault] = field(default_factory=dict)
+
+    def check(self, step: int) -> Optional[Fault]:
+        return self.schedule.get(step)
 
 
 @dataclass
@@ -43,10 +70,16 @@ class TrainerReport:
 
 class Trainer:
     """Weights from ``model.init_weights`` with a ``torch.Generator`` seeded
-    ``run.train.seed``; ``device=None`` means ``cuda``."""
+    ``run.train.seed``; ``device=None`` means ``cuda``. The default C4D
+    master runs its detection on the same device."""
 
     def __init__(self, run: RunConfig, shape: ShapeSpec, workdir: str, device=None,
-                 use_kernel: bool = True, checkpoint_async: bool = True):
+                 sim_nodes: int = 4, use_kernel: bool = True,
+                 checkpoint_async: bool = True,
+                 cluster: Optional[SimCluster] = None,
+                 steering: Optional[SteeringService] = None,
+                 c4d: Optional[C4DMaster] = None,
+                 telemetry: Optional[RingJobTelemetry] = None):
         self.run = run
         self.shape = shape
         self.device = resolve_device(device)
@@ -60,6 +93,16 @@ class Trainer:
                                       async_disk=checkpoint_async)
         self.pipeline = TokenPipeline(run.model, shape, PipelineConfig(seed=run.train.seed))
         self.monitor = StepMonitor()
+        # simulated production cluster + C4D control plane; each piece can be
+        # injected by an outer composition layer (the live driver shares one
+        # cluster and telemetry stream across the drill)
+        self.cluster = cluster or SimCluster(n_active=sim_nodes,
+                                             n_backup=max(1, sim_nodes // 4))
+        self.steering = steering or SteeringService(self.cluster)
+        self.telemetry = telemetry or RingJobTelemetry(n_ranks=sim_nodes * 8,
+                                                       seed=run.train.seed)
+        self.c4d = c4d or C4DMaster(n_ranks=self.telemetry.n, ranks_per_node=8,
+                                    device=self.device)
         self.report = TrainerReport()
         self._step_fn = make_train_step(self.model, run, self.opt_cfg)
         self.step = 0
@@ -84,16 +127,54 @@ class Trainer:
         return s
 
     # ------------------------------------------------------------------
-    def train(self, n_steps: int, injector=None) -> TrainerReport:
-        if injector is not None and getattr(injector, "schedule", None):
-            raise NotImplementedError(
-                "fault injection needs the Trainer's DETECT/ISOLATE branch, the rest of "
-                "the detection slice of the port (ROADMAP.md, Queue 1, \"The Trainer's "
-                "DETECT/ISOLATE branch, then the live driver\")")
+    def _handle_fault(self, fault: Fault, at_step: int):
+        """The C4D pipeline: telemetry -> verdict -> isolate -> restore."""
+        t0 = time.perf_counter()
+        actions = []
+        windows = 0
+        while not actions and windows < 4:
+            win = self.telemetry.window(window_id=windows, faults=[fault])
+            actions = self.c4d.ingest(win)
+            windows += 1
+        detection_s = windows * self.c4d.window_period_s
+        replaced = []
+        for a in actions:
+            repl, _ = self.steering.execute(a.node_id, t=at_step,
+                                            reason=a.verdicts[0].syndrome)
+            replaced.append((a.node_id, repl))
+        # elastic restart over the (same-sized) healthy host set: on real
+        # hardware the device list changes and the step is rebuilt over it
+        self._build_after_restart()
+        restored = self.restore()
+        self.report.restarts += 1
+        self.report.detections.append({
+            "fault": fault.kind, "at_step": at_step,
+            "verdicts": [v.syndrome for a in actions for v in a.verdicts],
+            "isolated": replaced, "detection_windows": windows,
+            "detection_s_model": detection_s,
+            "restored_step": restored,
+            "wall_s": time.perf_counter() - t0,
+        })
+        self.report.downtime_steps += max(at_step - restored, 0)
+        log.warning("fault %s handled: restored step %d, swapped %s",
+                    fault.kind, restored, replaced)
+
+    def _build_after_restart(self):
+        self._step_fn = make_train_step(self.model, self.run, self.opt_cfg)
+
+    # ------------------------------------------------------------------
+    def train(self, n_steps: int,
+              injector: Optional[FaultInjector] = None) -> TrainerReport:
         run = self.run
         self._save_checkpoint(blocking=True)  # step-0 baseline
         target = self.step + n_steps
         while self.step < target:
+            fault = injector.check(self.step) if injector else None
+            if fault is not None:
+                # remove from schedule so the retried step does not re-fault
+                injector.schedule.pop(self.step, None)
+                self._handle_fault(fault, self.step)
+                continue
             batch = {k: torch.from_numpy(v).to(self.device)
                      for k, v in self.pipeline.batch(self.step).items()}
             self.monitor.start()

@@ -411,15 +411,6 @@ def test_trainer_restart_repeats_the_losses(tmp_path):
         assert torch.equal(p, first.params[n]), n
 
 
-def test_trainer_refuses_a_fault_schedule(tmp_path):
-    class Injector:
-        schedule = {1: "crash"}
-    run = _trainer_run()
-    trainer = Trainer(run, ShapeSpec("t", 16, 2, "train"), str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="detection slice"):
-        trainer.train(2, injector=Injector())
-
-
 def test_train_cli_on_cpu_prints_the_jax_keys(tmp_path, capsys):
     train_cli.main(["--arch", "smollm-135m", "--smoke", "--device", "cpu", "--steps", "2",
                     "--workdir", str(tmp_path)])
@@ -430,8 +421,7 @@ def test_train_cli_on_cpu_prints_the_jax_keys(tmp_path, capsys):
     assert np.isfinite(out["last_loss"])
 
 
-@pytest.mark.parametrize("argv,message", [(["--inject-fault", "crash:1"], "not ported yet"),
-                                          (["--data", "2"], "must be 1")])
+@pytest.mark.parametrize("argv,message", [(["--data", "2"], "must be 1")])
 def test_train_cli_refuses_what_is_not_ported(argv, message, tmp_path, capsys):
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
