@@ -75,29 +75,48 @@ Phases, each fatal on failure:
     ingests three 100,000-rank windows (a slow source twice, then a hang)
     and must isolate both nodes, through 3 ``window_score``, 6
     ``row_select`` and 2 ``slow_fold`` launches.
- 6. drills: the 11 shipped C4 fault drills (32 ranks) through
+ 6. fabric: C4P's water-filling (``FlowSet.max_min`` at ``torch`` on the card,
+    ``csrc/waterfill.cu``) bit-equal to the NumPy loop, and both kernel
+    variants (one CTA, a cooperative grid) bit-equal to the plain version,
+    on 40 random fabrics (links failed in the odd ones), the Fig. 2 fabric
+    (2,048 flows) with and without CNP jitter and a 10,240-GPU fabric
+    (20,480 flows); planted faults (a link's sums in reverse pair order, no
+    clamp at 0, earlier-frozen flows frozen again) must read unequal. The
+    main path: C4P (``FabricState``, dynamic LB) at the Fig. 2 fabric's
+    width on the card, equal to NumPy, one launch per ``max_min`` call.
+    Times at the main path's call, Fig. 2 and 10,240 GPUs: both variants'
+    event and device ms, their barriers alone, the plain version's and
+    NumPy's ms, the bytes bound; the card-against-NumPy crossover from 256
+    to 20,480 flows (``AUTO_WATERFILL_FLOWS``). The EWMA scan
+    (``csrc/ewma_scan.cu``) at 64 windows x 16,384 cells within 1e-9 of its
+    plain version and of ``AdaptiveBaseline.update``, planted faults (NaN
+    kept in the median's pool, the seed deviation over all cells), its
+    times; ``analyze_arrays_reference`` on the card equal to NumPy on the
+    ten golden windows at 1,024 ranks;
+ 7. drills: the 11 shipped C4 fault drills (32 ranks) through
     ``repro_torch.scenarios.engine.run_scenario`` at ``backend="torch"`` on
     the card and at ``backend="numpy"``, then ``straggler_gpu`` at fleet_day's
     anchor scale (10,240 ranks, 1,288 nodes, a 900 s tick). Each card report
     must equal the NumPy one and hash to the JAX package's (pinned here);
     every ingest on the card, the streaming master's and each per-fault
     master's, must launch ``window_score`` once and ``row_select`` at least
-    twice, ``slow_fold`` must launch, and the NumPy runs launch nothing. Wall
-    seconds and seconds a streaming window at both backends.
- 7. live: ``repro_torch.scenarios.live.drive`` replays ``single_nic_down``'s
+    twice, ``slow_fold`` and ``waterfill`` must launch (172 water-fills in
+    the 11 drills), and the NumPy runs launch nothing. Wall seconds and
+    seconds a streaming window at both backends.
+ 8. live: ``repro_torch.scenarios.live.drive`` replays ``single_nic_down``'s
     fault script on a Trainer on the card (the smollm-135m smoke config, 12
     steps, 4 simulated nodes): one restart for a crash, the isolated node on
     the shared cluster, a finite final loss, each ingest one ``window_score``
     launch on the card, RMSNorm launches;
- 8. campaigns: ``fleet_smoke`` and ``fleet_mixed`` at 2 trials through
+ 9. campaigns: ``fleet_smoke`` and ``fleet_mixed`` at 2 trials through
     ``repro_torch.scenarios.montecarlo.run_campaign`` at ``torch`` on the card
     with 1 and 2 (spawned) workers and at ``numpy``: every report must hash to
     the JAX package's (pinned here); ``fleet_hour`` (``fleet.run_fleet``) and
     the ``roc_smoke`` sweep (``precision.run_sweep``) at ``torch`` on the card
     and at ``numpy``: reports (and the selected operating point) equal. Each
-    card run in this process must launch ``window_score`` and ``slow_fold``.
-    Wall seconds at both backends.
-They run in the order 1, 2, 5, 6, 8, 3, 4, 7: late in the process (after the
+    card run in this process must launch ``window_score``, ``slow_fold`` and
+    ``waterfill``. Wall seconds at both backends.
+They run in the order 1, 2, 5, 6, 7, 9, 3, 4, 8: late in the process (after the
 train phase) torch.profiler dropped the records of short profiled windows, so
 the detection kernels are timed first.
 The line before the last is a JSON ``kernels`` record; the last line is
@@ -1640,6 +1659,498 @@ def _bit_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
+# --- [fabric]: C4P's water-filling, the EWMA scan and the reference path ------
+
+WATERFILL_KERNELS = ("waterfill_cta_kernel", "waterfill_grid_kernel")
+EWMA_KERNELS = ("ewma_pool_kernel", "ewma_step_kernel")
+FABRIC_RANDOM = 40
+FIG2_HOSTS, BIG_HOSTS = 128, 1280                 # 2,048 and 20,480 flows
+CROSSOVER_HOSTS = (8, 16, 32, 64, 128, 256, 512, 1024, 1280)     # 128 .. 20,480 flows
+EWMA_WINDOWS, EWMA_CELLS, EWMA_TOL = 64, 16384, 1e-9
+FLOW_FIELDS = ("flow_rate", "conn_rate", "link_util", "link_touched", "flow_alive")
+
+
+def random_fabric(rng, fail_links: bool):
+    """A copy of tests/test_netsim_perf.py's ``_random_scenario`` over the
+    port's types (this script imports neither the tests nor the JAX package)."""
+    from repro_torch.core.netsim import Flow
+    from repro_torch.core.topology import ClosTopology
+    topo = ClosTopology(
+        n_hosts=int(rng.integers(4, 33)), nics_per_host=int(rng.choice([2, 4, 8])),
+        n_leaf_pairs=int(rng.choice([2, 4])), n_spines=int(rng.choice([2, 4, 8])),
+        n_host_groups=int(rng.choice([1, 2])),
+        oversubscription=float(rng.choice([1.0, 1.5, 2.0])))
+    n = int(rng.integers(2, 60))
+    flows = []
+    for fid in range(n):
+        src = int(rng.integers(0, topo.n_hosts))
+        dst = int(rng.integers(0, topo.n_hosts))
+        if dst == src:
+            dst = (src + 1) % topo.n_hosts
+        nic = int(rng.integers(0, topo.nics_per_host))
+        port = int(rng.integers(0, 2))
+        spine = int(rng.integers(0, topo.n_spines))
+        same_leaf = topo.leaf_of(src, nic, port) == topo.leaf_of(dst, nic, port)
+        s = (spine if rng.random() < 0.3 else None) if same_leaf else spine
+        links = topo.path_links(src, dst, nic, port, port, s)
+        flows.append(Flow(fid, 0, ("c", fid % max(1, n // 3)), links,
+                          weight=float(rng.uniform(0.05, 2.0))))
+    if fail_links and rng.random() < 0.7:
+        for _ in range(int(rng.integers(1, 4))):
+            victim = flows[int(rng.integers(0, n))]
+            topo.fail_link(victim.links[int(rng.integers(0, len(victim.links)))])
+    return topo, flows
+
+
+def clos_fabric(n_hosts: int):
+    """tests/test_netsim_perf.py's Fig. 2 scenario on ``n_hosts`` hosts (a
+    ring job on the even hosts, a two-host tenant on each pair of the
+    others, ECMP, 16 flows a host): the Fig. 2 fabric at 128 hosts, the
+    10,240-GPU fabric at 1,280. Returns a FlowSet."""
+    from repro_torch.core.c4p.master import job_ring_requests
+    from repro_torch.core.c4p.pathalloc import ecmp_allocate
+    from repro_torch.core.flowset import FlowSet
+    from repro_torch.core.topology import ClosTopology
+    topo = ClosTopology(n_hosts=n_hosts, n_leaf_pairs=n_hosts // 8, n_spines=8,
+                        n_host_groups=n_hosts // 8)
+    hosts = [(i * 2) % n_hosts for i in range(n_hosts // 2)]
+    free = sorted(set(range(n_hosts)) - set(hosts))
+    flows = ecmp_allocate(topo, job_ring_requests(0, hosts, topo.nics_per_host), seed=0)
+    half = len(free) // 2
+    for b in range(half):
+        flows += ecmp_allocate(topo, job_ring_requests(
+            100 + b, [free[b], free[b + half]], topo.nics_per_host), seed=77 * b)
+    for i, f in enumerate(flows):
+        f.flow_id = i
+    return FlowSet(topo, flows)
+
+
+def wf_inputs(fs, jitter: float = 0.0, seed: int = 0):
+    """The kernel's inputs for one ``max_min`` call, on the card: the
+    incidence by link, floored weights, aliveness, capacity after the jitter
+    draw ``max_min`` makes."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import waterfill as wf
+    ptr, flow = wf.link_csr(fs.pair_flow, fs.pair_link, fs.n_links)
+    cap = fs.base_cap.copy()
+    if jitter:
+        cap *= 1.0 - jitter * np.random.default_rng(seed).uniform(0.0, 1.0, size=fs.n_links)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(DEV) for a in
+            (ptr, flow, np.maximum(fs.weights, 1e-9), fs.alive_mask(), cap)]
+
+
+def faulty_waterfill(link_ptr, link_flow, w, alive, cap, fault: str):
+    """Planted faults: ``waterfill_ref`` written wrongly in one place.
+    "lowest tie": only the tied link with the lowest index freezes in a
+    round; "reverse": a link's sums taken in reverse pair order; "no clamp":
+    remaining capacity not clamped at 0; "refreeze": flows frozen in an
+    earlier round frozen again on a tied link. Returns (rate, remaining,
+    rounds)."""
+    import torch
+    from repro_torch.kernels import waterfill as wf
+    inverse, n, pos = wf.link_columns(link_ptr)
+    pair_link = wf.pair_links(link_ptr)
+
+    def sums(per_pair):
+        vals = per_pair.index_select(1, pos)
+        acc = per_pair.new_zeros(per_pair.shape[0], inverse.shape[0])
+        starts = [sum(n[:j]) for j in range(len(n))]
+        order = range(len(n) - 1, -1, -1) if fault == "reverse" else range(len(n))
+        for j in order:
+            acc[:, :n[j]] += vals[:, starts[j]:starts[j] + n[j]]
+        return acc.index_select(1, inverse)
+
+    f, dev = w.shape[0], w.device
+    pair_w = w[link_flow]
+    unfrozen, rate, remaining = alive.clone(), torch.zeros_like(w), cap.clone()
+    inf = torch.full_like(remaining, float("inf"))
+    rounds = 0
+    while bool(unfrozen.any()):
+        load = sums(torch.where(unfrozen[link_flow], pair_w, 0.0)[None])[0]
+        share = torch.where(load > 0.0, remaining / load, inf)
+        m = share.min()
+        if not bool(torch.isfinite(m)):
+            break
+        tied = share == m
+        if fault == "lowest tie":
+            first = int(torch.nonzero(tied)[0])
+            tied = torch.zeros_like(tied)
+            tied[first] = True
+        sel = tied[pair_link] & (alive if fault == "refreeze" else unfrozen)[link_flow]
+        newly = torch.zeros(f, dtype=torch.bool, device=dev)
+        newly[link_flow[sel]] = True
+        rate = torch.where(newly, m * w, rate)
+        unfrozen &= ~newly
+        dec = sums(torch.where(newly[link_flow], rate[link_flow], 0.0)[None])[0]
+        remaining = remaining - dec
+        if fault != "no clamp":
+            remaining = torch.clamp_min(remaining, 0.0)
+        rounds += 1
+    return rate, remaining, torch.tensor([rounds], device=dev)
+
+
+WF_FAULTS = ("lowest tie", "reverse", "no clamp", "refreeze")
+
+
+def _differ(a, b) -> int:
+    import torch
+    if a.is_floating_point():
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return int((a != b.to(a.device)).sum())
+
+
+def waterfill_parity():
+    """FlowSet.max_min at torch on the card against the NumPy loop, the raw
+    kernel (both variants) against the plain version, and the planted
+    faults, on 40 random fabrics, the Fig. 2 fabric with and without jitter
+    and the 10,240-GPU fabric. Returns (the fabrics by label, rounds)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.flowset import FlowSet
+    from repro_torch.kernels import waterfill as wf
+
+    rng = np.random.default_rng(5)
+    cases = []
+    for i in range(FABRIC_RANDOM):
+        topo, flows = random_fabric(rng, fail_links=bool(i % 2))
+        cases.append((f"random {i}", FlowSet(topo, flows), 0.0, i))
+    fig2, big = clos_fabric(FIG2_HOSTS), clos_fabric(BIG_HOSTS)
+    cases += [("fig2", fig2, 0.0, 3), ("fig2 jitter 0.05", fig2, 0.05, 3),
+              ("10240 GPUs", big, 0.0, 0)]
+    diffs = dict.fromkeys(WF_FAULTS, 0)
+    err = 0.0
+    rounds = {}
+    for label, fs, jitter, seed in cases:
+        want = fs.max_min(backend="numpy", cnp_jitter=jitter, seed=seed)
+        got = fs.max_min(backend="torch", device=DEV, cnp_jitter=jitter, seed=seed)
+        bad = [k for k in FLOW_FIELDS if not _bit_equal(
+            *(torch.from_numpy(getattr(r, k)) for r in (got, want)))]
+        if bad:
+            fail(f"waterfill on {label}: the card's {bad} differ from the NumPy loop's")
+        args = wf_inputs(fs, jitter, seed)
+        plain = wf.waterfill_ref(*args)
+        for grid in (False, True):
+            kern = wf.waterfill(*args, grid=grid)
+            if any(_differ(k, p) for k, p in zip(kern, plain)):
+                fail(f"waterfill ({'grid' if grid else 'one CTA'}) on {label}: differs from "
+                     "its plain version")
+            err = max(err, *((k - p).abs().max().item() for k, p in zip(kern[:2], plain[:2])))
+        for fault in diffs:
+            wrong = faulty_waterfill(*args, fault)
+            diffs[fault] += _differ(kern[0], wrong[0]) + _differ(kern[1], wrong[1])
+        if not label.startswith("random"):
+            rounds[label] = int(plain[2][0])
+            print(f"  waterfill {label}: {fs.n_flows:,} flows, {fs.n_links:,} links, "
+                  f"{fs.pair_flow.size:,} pairs, {rounds[label]} rounds: FlowSet.max_min at torch "
+                  "on the card bit-equal to the NumPy loop (rates, connection rates, link "
+                  "utilisation); both kernel variants bit-equal to the plain version",
+                  flush=True)
+    print(f"  waterfill on {FABRIC_RANDOM} random fabrics (links failed in the odd ones): "
+          "bit-equal, card to NumPy and kernel (both variants) to plain", flush=True)
+    # freezing tied links one at a time reaches the same fixed point, so
+    # "lowest tie" differs only where the later rounds round otherwise (the
+    # 10,240-GPU fabric); "refreeze" is the fault of the freeze step that
+    # every fabric shows
+    for fault in WF_FAULTS:
+        print(f"    planted fault, {fault}: {diffs[fault]} rate or remaining values differ "
+              "from the kernel's", flush=True)
+        if diffs[fault] == 0:
+            fail(f"waterfill: the planted fault '{fault}' reads equal to the kernel")
+    return {"fig2": fig2, "10240": big}, rounds, err
+
+
+def waterfill_times(label, fs, rounds, iters):
+    """One water-fill's times on the card: each variant's event and device
+    ms, the plain version's ms on the card, NumPy's wall ms for the same
+    call, and the bounds. Returns a row for the JSON line."""
+    import torch
+    from repro_torch.kernels import waterfill as wf
+
+    args = wf_inputs(fs)
+    f, l, p = fs.n_flows, fs.n_links, fs.pair_flow.size
+    # each round touches the incidence (L + 1 offsets, P flows), a stamp and
+    # a weight a flow and reads and writes a link's remaining; then cap in,
+    # rates and remaining out
+    nbytes = rounds * (8 * (l + 1) + 8 * p + 12 * f + 16 * l) + 8 * l + f + 8 * (f + l)
+    b_ms, b_by = bound(0.0, nbytes, "float32")
+    row = {"flows": f, "links": l, "pairs": p, "rounds": rounds, "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": nbytes}
+    for grid in (False, True):
+        name = "grid" if grid else "cta"
+        run = lambda: wf.waterfill(*args, grid=grid)      # noqa: E731
+        row[f"{name}_ms"] = time_ms(run, iters)
+        row[f"{name}_device_ms"] = device_ms(run, iters, WATERFILL_KERNELS)
+        probe = lambda: wf.sync_probe(l, rounds, grid, DEV)   # noqa: E731
+        row[f"{name}_sync_floor_ms"] = time_ms(probe, iters)
+    default = "grid" if l >= wf.GRID_LINKS else "cta"
+    row.update(variant=default, ms=row[f"{default}_ms"], device_ms=row[f"{default}_device_ms"],
+               sync_floor_ms=row[f"{default}_sync_floor_ms"])
+    row["plain_ms"] = time_ms(lambda: wf.waterfill_ref(*args), 2)
+    row["numpy_ms"] = _wall_ms(lambda: fs.max_min(backend="numpy"))
+    row["card_call_ms"] = _wall_ms(lambda: fs.max_min(backend="torch", device=DEV))
+    binds = "the barriers" if row["sync_floor_ms"] > b_ms else "bytes"
+    print(f"  time waterfill {label} ({f:,} flows, {rounds} rounds): "
+          + " ".join(f"{v}_ms={_ms(row[f'{v}_ms'])} {v}_device_ms={_ms(row[f'{v}_device_ms'])} "
+                     f"{v}_sync_floor_ms={_ms(row[f'{v}_sync_floor_ms'])}"
+                     for v in ("cta", "grid"))
+          + f"; plain_ms={row['plain_ms']:.5f} numpy_ms={row['numpy_ms']:.5f} "
+          f"card_call_ms={row['card_call_ms']:.5f} (FlowSet.max_min, copies and epilogue "
+          f"included); bound_ms={b_ms:.6f} ({b_by}; {nbytes:.4e} B) against the floor of "
+          f"{rounds} rounds of barriers: {binds} bind; default variant {default}, "
+          f"bound/device={_share(max(b_ms, row['sync_floor_ms']), row['device_ms'])}",
+          flush=True)
+    return row
+
+
+def waterfill_crossover():
+    """FlowSet.max_min at numpy against torch on the card, whole calls, on
+    the Fig. 2 scenario from 8 to 1,280 hosts (128 to 20,480 flows): the
+    smallest size from which the card wins at every larger size sets
+    AUTO_WATERFILL_FLOWS. Beside it, the kernel's two variants by events
+    (``GRID_LINKS``)."""
+    from repro_torch.core import torchsim
+    from repro_torch.kernels import waterfill as wf
+    wins = []
+    for hosts in CROSSOVER_HOSTS:
+        fs = clos_fabric(hosts)
+        np_ms = _wall_ms(lambda: fs.max_min(backend="numpy"))
+        card_ms = _wall_ms(lambda: fs.max_min(backend="torch", device=DEV))
+        args = wf_inputs(fs)
+        cta, grid = (time_ms(lambda: wf.waterfill(*args, grid=g), ITERS) for g in (False, True))
+        wins.append((fs.n_flows, card_ms < np_ms))
+        print(f"  crossover waterfill {fs.n_flows} flows ({fs.n_links} links): numpy_ms="
+              f"{np_ms:.4f} torch_ms={card_ms:.4f} faster={'torch' if card_ms < np_ms else 'numpy'} "
+              f"auto={torchsim.effective_backend('auto', flows=fs.n_flows)}; kernel cta_ms="
+              f"{cta:.5f} grid_ms={grid:.5f} default "
+              f"{'grid' if fs.n_links >= wf.GRID_LINKS else 'cta'}", flush=True)
+    from_here = [f for i, (f, _) in enumerate(wins) if all(w for _, w in wins[i:])]
+    print(f"  crossover waterfill: the card wins from {from_here[0] if from_here else 'none'} "
+          f"flows up (AUTO_WATERFILL_FLOWS = {torchsim.AUTO_WATERFILL_FLOWS})", flush=True)
+
+
+def c4p_main_path():
+    """The main path: C4P on the card at the Fig. 2 fabric's width
+    (``FabricState`` in C4P mode, 2 QPs a port): a 64-host ring job and 8
+    two-host tenants, evaluated with the dynamic load balancer (CNP jitter
+    0.05) and without, a leaf-spine link failed and re-probed, one more job,
+    evaluated again. Every result equal to the same run at numpy, bit for
+    bit; one waterfill launch per FlowSet.max_min call. Returns (launches,
+    the balancer's FlowSet after its last call, that call's rounds)."""
+    from repro_torch.core.flowset import FlowSet
+    from repro_torch.core.topology import ClosTopology
+    from repro_torch.core.torchsim import use_backend
+    from repro_torch.kernels import waterfill as wf
+    from repro_torch.scenarios.fabric import FabricState
+
+    def drive(backend):
+        calls = []
+        real = FlowSet.max_min
+
+        def counted(self, *a, **kw):
+            calls.append(self)
+            return real(self, *a, **kw)
+
+        FlowSet.max_min = counted
+        try:
+            t0 = time.perf_counter()
+            with use_backend(backend):
+                topo = ClosTopology(n_hosts=FIG2_HOSTS, n_leaf_pairs=16, n_spines=8,
+                                    n_host_groups=16)
+                fab = FabricState(topo, mode="c4p", qps_per_port=2,
+                                  device=DEV if backend == "torch" else None)
+                fab.add_job(0, [(i * 2) % FIG2_HOSTS for i in range(64)])
+                for k, b in enumerate(range(1, 17, 2)):
+                    fab.add_job(1 + k, [b, b + 32])
+                out = [fab.evaluate(cnp_jitter=0.05, seed=3), fab.evaluate(dynamic_lb=False,
+                                                                           seed=4)]
+                link = sorted(x for x in topo.path_links(0, 2, 0, 0, 0, 0) if x[0] == "ls")[0]
+                fab.fail_link(link)
+                fab.probe_refresh()
+                fab.add_job(99, [3, 35])
+                out += [fab.evaluate(seed=5), fab.evaluate(dynamic_lb=False, seed=6)]
+                busbw = fab.all_busbw(out[2])
+            return out, busbw, len(calls), time.perf_counter() - t0
+        finally:
+            FlowSet.max_min = real
+
+    def key(res):
+        return [[(k, float(v).hex()) for k, v in d.items()]
+                for d in (res.flow_rate, res.conn_rate, res.link_util)]
+
+    wf.launches = 0
+    card, card_bw, card_calls, card_s = drive("torch")
+    launches = wf.launches
+    ref, ref_bw, ref_calls, ref_s = drive("numpy")
+    if [key(r) for r in card] != [key(r) for r in ref] or card_bw != ref_bw:
+        fail("C4P on the card: rates differ from the NumPy run's")
+    if launches != card_calls or card_calls != ref_calls or launches == 0:
+        fail(f"C4P on the card: {launches} waterfill launches for {card_calls} FlowSet.max_min "
+             f"calls ({ref_calls} at numpy)")
+    print(f"  main path: C4P at the Fig. 2 fabric (64-host job + 9 tenants, 2 QPs a port, "
+          f"dynamic LB, a leaf-spine failure): torch_s={card_s:.4f} numpy_s={ref_s:.4f}; "
+          f"{card_calls} FlowSet.max_min calls, {launches} waterfill launches; flow, "
+          f"connection and link rates and busbw bit-equal to NumPy "
+          f"({sum(len(r.flow_rate) for r in card)} flow rates)", flush=True)
+    # the balancer's last call, timed at the main path's shape
+    topo = ClosTopology(n_hosts=FIG2_HOSTS, n_leaf_pairs=16, n_spines=8, n_host_groups=16)
+    fab = FabricState(topo, mode="c4p", qps_per_port=2, device=DEV)
+    fab.add_job(0, [(i * 2) % FIG2_HOSTS for i in range(64)])
+    for k, b in enumerate(range(1, 17, 2)):
+        fab.add_job(1 + k, [b, b + 32])
+    with use_backend("torch"):
+        fab.evaluate(cnp_jitter=0.05, seed=3)
+    fs = fab.master.flow_set()
+    args = wf_inputs(fs)
+    rounds = int(wf.waterfill(*args)[2][0])
+    return launches, fs, rounds
+
+
+def ewma_faulty(values, mean0, dev0, count0, alpha, clip, fault: str):
+    """Planted faults of the scan: ``ewma_scan_ref`` written wrongly in one
+    place. "NaN in the pool": the window's median taken with its NaNs kept
+    (sorted last, as torch.sort puts them); "seed over all cells": the seed
+    deviation averaged over every cell of the window, NaN ones too."""
+    import torch
+    from repro_torch.kernels.detect_ref import MEANAD_TO_SIGMA
+    mean, dev, count = mean0.clone(), dev0.clone(), count0.clone()
+    for vals in values:
+        finite = torch.isfinite(vals)
+        nf = int(finite.sum())
+        if nf == 0:
+            continue
+        s, c = ((torch.sort(vals).values, vals.numel()) if fault == "NaN in the pool"
+                else (torch.sort(vals[finite]).values, nf))
+        med = 0.5 * (s[(c - 1) // 2] + s[c // 2])
+        fin = vals[finite]
+        seed_dev = torch.abs(fin - med).sum() / (vals.numel() if fault == "seed over all cells"
+                                                 else nf)
+        first, rest = finite & (count == 0), finite & (count > 0)
+        lim = clip * (MEANAD_TO_SIGMA * dev + 1e-12 * torch.clamp_min(torch.abs(mean), 1e-12)
+                      + 1e-30)
+        delta = torch.minimum(torch.maximum(torch.where(rest, vals, mean) - mean, -lim), lim)
+        dev = torch.where(first, seed_dev, torch.where(
+            rest, (1.0 - alpha) * dev + alpha * torch.abs(delta), dev))
+        mean = torch.where(first, vals, torch.where(rest, mean + alpha * delta, mean))
+        count = count + finite.to(count.dtype)
+    return mean, dev, count
+
+
+def ewma_phase(iters):
+    """The scan at bench_jaxsim.py's full size against its plain version
+    (within 1e-9, count equal), against AdaptiveBaseline.update on a
+    10-window stream, planted faults, and its times. Returns (launches of
+    its entry, max abs err, row)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.c4d.baseline import AdaptiveBaseline
+    from repro_torch.core.torchsim import kernels as tk
+    from repro_torch.kernels import detect_ref
+    from repro_torch.kernels import ewma_scan as ew
+
+    def close(got, want):
+        (gm, gd, gc), (wm, wd, wc) = [[x.cpu() for x in t] for t in (got, want)]
+        ok = torch.equal(gc, wc) and torch.allclose(gm, wm, rtol=EWMA_TOL, atol=EWMA_TOL) \
+            and torch.allclose(gd, wd, rtol=EWMA_TOL, atol=EWMA_TOL)
+        return ok, max((gm - wm).abs().max().item(), (gd - wd).abs().max().item())
+
+    rng = np.random.default_rng(0)
+    values = rng.normal(10.0, 1.0, size=(EWMA_WINDOWS, EWMA_CELLS))
+    values[rng.random(values.shape) < 0.1] = np.nan
+    base = AdaptiveBaseline(n_ranks=2)
+    alpha, clip = base.alpha, base.clip_sigma
+    v = torch.from_numpy(values).to(DEV)
+    zeros = torch.zeros(EWMA_CELLS, dtype=torch.float64, device=DEV)
+    count0 = torch.zeros(EWMA_CELLS, dtype=torch.int64, device=DEV)
+    ew.launches = 0
+    got = tk.ewma_scan(values, np.zeros(EWMA_CELLS), np.zeros(EWMA_CELLS),
+                       np.zeros(EWMA_CELLS, np.int64), alpha, clip, device=DEV)
+    launches = ew.launches
+    want = detect_ref.ewma_scan_ref(v, zeros, zeros, count0, alpha, clip)
+    ok, err = close(got, want)
+    print(f"  ewma_scan {EWMA_WINDOWS} windows x {EWMA_CELLS} cells (10 % NaN): within "
+          f"{EWMA_TOL:g} of the plain version, count equal: {'yes' if ok else 'NO'} "
+          f"(max_abs_err={err:.3e}); launches of the entry {launches}", flush=True)
+    if not ok or launches != 1:
+        fail("ewma_scan: the kernel disagrees with its plain version")
+    for fault in ("NaN in the pool", "seed over all cells"):
+        wrong = ewma_faulty(v, zeros, zeros, count0, alpha, clip, fault)
+        bad, ferr = close(got, wrong)
+        print(f"    planted fault, {fault}: max_abs_err={ferr:.3e}", flush=True)
+        if bad:
+            fail(f"ewma_scan: the planted fault '{fault}' reads within {EWMA_TOL:g}")
+    print("    planted fault, a median by the lower middle (not a gate): the seed deviation is "
+          "the mean |x - c|, flat for c between the two middles, so it moves by rounding "
+          "only; 'NaN in the pool' takes its place", flush=True)
+    n = 6
+    srng = np.random.default_rng(2)
+    ours = AdaptiveBaseline(n_ranks=n)
+    stream = []
+    for _ in range(10):
+        m = srng.normal(10.0, 1.0, size=(n, n))
+        m[srng.random((n, n)) < 0.2] = np.nan
+        stream.append(m.ravel())
+        ours.update("delay", m)
+    got_s = tk.ewma_scan(np.stack(stream), np.zeros(n * n), np.zeros(n * n),
+                         np.zeros(n * n, np.int64), ours.alpha, ours.clip_sigma, device=DEV)
+    ok, serr = close(got_s, [torch.from_numpy(ours._mean["delay"].ravel()),
+                             torch.from_numpy(ours._dev["delay"].ravel()),
+                             torch.from_numpy(ours._count["delay"].ravel())])
+    print(f"  ewma_scan on a 10-window stream of a 6 x 6 matrix: within {EWMA_TOL:g} of "
+          f"AdaptiveBaseline.update, count equal: {'yes' if ok else 'NO'} "
+          f"(max_abs_err={serr:.3e})", flush=True)
+    if not ok:
+        fail("ewma_scan differs from AdaptiveBaseline.update")
+    run = lambda: ew.ewma_scan(v, zeros, zeros, count0, alpha, clip)      # noqa: E731
+    ms = time_ms(run, iters)
+    split = {}
+    dev = device_ms(run, iters, EWMA_KERNELS, split)
+    plain_ms = time_ms(lambda: detect_ref.ewma_scan_ref(v, zeros, zeros, count0, alpha, clip), 2)
+    nbytes = _nbytes(v, zeros, zeros, count0) + 3 * 8 * EWMA_CELLS
+    b_ms, b_by = bound(0.0, nbytes, "float32")
+    print(f"  time ewma_scan at {EWMA_WINDOWS} x {EWMA_CELLS}: kernel_ms={ms:.5f} "
+          f"device_ms={_ms(dev)} plain_ms={plain_ms:.5f} library_ms=null bound_ms={b_ms:.5f} "
+          f"({b_by}; {nbytes:.4e} B) bound/device={_share(b_ms, dev)}; device ms by kernel: "
+          + ", ".join(f"{k} {x:.5f}" for k, x in split.items()), flush=True)
+    row = {"ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None, "library_device_ms": None}
+    return launches, err, row
+
+
+def reference_path_phase():
+    """analyze_arrays_reference (plain torch on the card) on the ten golden
+    windows at 1,024 ranks: verdicts equal to the NumPy composite's."""
+    from repro_torch.core.c4d.detector import C4DDetector, DetectorConfig
+    from repro_torch.core.faults import RingJobTelemetry
+    from repro_torch.core.torchsim import detectors as tdet
+    n, count = PARITY_RANKS, 0
+    for faults in golden_faults():
+        w = RingJobTelemetry(n_ranks=n, seed=9).window_arrays(0, faults)
+        want = C4DDetector(backend="numpy").analyze(w, n)
+        got = tdet.analyze_arrays_reference(w, DetectorConfig(), n_ranks=n, device=DEV)
+        if _vkey(got) != _vkey(want):
+            fail(f"analyze_arrays_reference on the card differs from NumPy on {faults}")
+        count += len(want)
+    print(f"  analyze_arrays_reference at {n} ranks on the card, 10 golden windows: verdicts "
+          f"equal to the NumPy composite ({count} verdicts)", flush=True)
+
+
+def fabric_phase(iters):
+    """Water-filling parity and faults, the C4P main path, times and the
+    crossover; the EWMA scan; the reference path. Returns the JSON rows."""
+    fabrics, rounds, err = waterfill_parity()
+    launches, main_fs, main_rounds = c4p_main_path()
+    rows = {"main path": waterfill_times("main path (the balancer's last call)", main_fs,
+                                         main_rounds, iters),
+            "fig2": waterfill_times("fig2", fabrics["fig2"], rounds["fig2"], iters),
+            "10240": waterfill_times("10240 GPUs", fabrics["10240"], rounds["10240 GPUs"],
+                                     iters)}
+    waterfill_crossover()
+    ewma = ewma_phase(iters)
+    reference_path_phase()
+    return launches, err, rows, ewma
+
+
 # --- [drills]: the C4 fault drills through the port's scenario engine ---------
 
 #: sha256 of each shipped drill's report (``report_hash``), as the JAX
@@ -1671,6 +2182,26 @@ FLEET_DRILL = ("straggler_gpu", {"telemetry_ranks": 10240, "n_nodes": 1288,
 #: n_nodes=1288, streaming_tick_s=900.0, backend="numpy"))``.
 FLEET_GOLDEN = "28d504183d789040f01fb2ba1da1dce0a25376372078a58efcd11847f4ba0767"
 DRILL_KERNELS = ("window_score", "row_select", "slow_fold")
+#: the drills' kernels on the card: detection's and C4P's water-filling
+SIM_KERNELS = DRILL_KERNELS + ("waterfill",)
+#: FlowSet.max_min calls of the 11 drills (the JAX package's run at numpy,
+#: counted on the CPU): cascading_spine_flaps 71, multijob_contention 45,
+#: ecmp_vs_c4p_ab 40, each of the other 8 drills 2
+DRILL_WATERFILLS = 172
+
+
+def sim_launches() -> dict:
+    """The detection kernels' launches and water-filling's since the last reset."""
+    from repro_torch.core.torchsim import detectors as tdet
+    from repro_torch.kernels import waterfill as wf
+    return dict(tdet.launch_counts(), waterfill=wf.launches)
+
+
+def reset_sim_launches() -> None:
+    from repro_torch.core.torchsim import detectors as tdet
+    from repro_torch.kernels import waterfill as wf
+    tdet.reset_launch_counts()
+    wf.launches = 0
 
 
 def report_hash(rep: dict) -> str:
@@ -1683,7 +2214,6 @@ def drill_run(spec, backend: str):
     Returns (report, wall s, streaming windows, s a window, launches, the
     launches of each ``C4DMaster.ingest``). The streaming windows are timed
     around ``C4DService.on_tick``; neither wrapper changes the run."""
-    from repro_torch.core.torchsim import detectors as tdet
     from repro_torch.scenarios.engine import run_scenario
     from repro_torch.scenarios.services.c4d_service import C4DService
 
@@ -1697,13 +2227,13 @@ def drill_run(spec, backend: str):
 
     C4DService.on_tick = on_tick
     try:
-        tdet.reset_launch_counts()
+        reset_sim_launches()
         t0 = time.perf_counter()
         with ingest_launches() as per_ingest:
             rep = run_scenario(dataclasses.replace(spec, backend=backend),
                                device=DEV if backend == "torch" else None)
         wall = time.perf_counter() - t0
-        counts = tdet.launch_counts()
+        counts = sim_launches()
     finally:
         C4DService.on_tick = real_tick
     return rep, wall, len(ticks), sum(ticks) / max(len(ticks), 1), counts, per_ingest
@@ -1730,7 +2260,7 @@ def drill_pair(label: str, spec, golden: str) -> dict:
     if not ingests or short:
         fail(f"drill {label}: {len(short)} of {len(ingests)} ingests on the card did not "
              f"launch window_score once and row_select twice: {ingests[short[0]] if short else {}}")
-    if any(counts[k] <= 0 for k in DRILL_KERNELS) or any(counts_np.values()):
+    if any(counts[k] <= 0 for k in SIM_KERNELS) or any(counts_np.values()):
         fail(f"drill {label}: launches torch {counts}, numpy {counts_np}")
     print(f"  drill {label}: torch_s={wall:.4f} numpy_s={wall_np:.4f}; {windows} streaming "
           f"windows, s a window torch {per_win:.6f} numpy {per_win_np:.6f}; {len(ingests)} "
@@ -1749,13 +2279,17 @@ def drills_phase() -> dict:
         fail(f"drill library {library.names()} differs from the goldens' names")
     runs = [drill_pair(name, library.get(name), DRILL_GOLDENS[name])
             for name in sorted(DRILL_GOLDENS)]
-    lib = {k: sum(r["launches"][k] for r in runs) for k in DRILL_KERNELS}
+    lib = {k: sum(r["launches"][k] for r in runs) for k in SIM_KERNELS}
     tot = {k: sum(r[k] for r in runs) for k in ("torch_s", "numpy_s", "windows", "ingests")}
     print(f"  {len(runs)} drills at 32 ranks: torch_s={tot['torch_s']:.4f} "
           f"numpy_s={tot['numpy_s']:.4f}; {tot['windows']} streaming windows, s a window "
           f"torch {sum(r['window_s'] * r['windows'] for r in runs) / tot['windows']:.6f} numpy "
           f"{sum(r['window_numpy_s'] * r['windows'] for r in runs) / tot['windows']:.6f}; "
-          f"{tot['ingests']} ingests; launches {lib}", flush=True)
+          f"{tot['ingests']} ingests; launches {lib} (water-fills predicted from the CPU: "
+          f"{DRILL_WATERFILLS})", flush=True)
+    if lib["waterfill"] != DRILL_WATERFILLS:
+        fail(f"the 11 drills launched waterfill {lib['waterfill']} times, not "
+             f"{DRILL_WATERFILLS}")
     name, scale = FLEET_DRILL
     fleet = drill_pair(f"{name} at {scale['telemetry_ranks']} ranks",
                        dataclasses.replace(library.get(name), **scale), FLEET_GOLDEN)
@@ -1771,20 +2305,19 @@ def live_phase() -> dict:
     """``repro_torch.scenarios.live.drive`` on the card: the reference's live
     test (the smollm-135m smoke config, 4 simulated nodes). Returns the
     launch counts of the replay."""
-    from repro_torch.core.torchsim import detectors as tdet
     from repro_torch.kernels import ops
     from repro_torch.scenarios import library, live
 
     workdir = tempfile.mkdtemp(prefix="chip_smoke_live_")
     try:
         ops.reset_launch_counts()
-        tdet.reset_launch_counts()
+        reset_sim_launches()
         t0 = time.perf_counter()
         with ingest_launches() as per_ingest:
             rep = live.drive(library.get(LIVE_DRILL), workdir, n_steps=LIVE_STEPS,
                              sim_nodes=4, device=DEV)
         wall = time.perf_counter() - t0
-        counts = dict(ops.launch_counts(), **tdet.launch_counts())
+        counts = dict(ops.launch_counts(), **sim_launches())
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     dets = rep["detections"]
@@ -1820,15 +2353,14 @@ CAMPAIGN_TRIALS, FLEET, SWEEP = 2, "fleet_hour", "roc_smoke"
 
 def _at(backend: str, fn):
     """``fn(device)`` under ``use_backend(backend)``, with its wall seconds
-    and the detection launches it made in this process."""
-    from repro_torch.core.torchsim import detectors as tdet
+    and the detection and water-filling launches it made in this process."""
     from repro_torch.core.torchsim import use_backend
 
-    tdet.reset_launch_counts()
+    reset_sim_launches()
     t0 = time.perf_counter()
     with use_backend(backend):
         out = fn(DEV if backend == "torch" else None)
-    return out, time.perf_counter() - t0, tdet.launch_counts()
+    return out, time.perf_counter() - t0, sim_launches()
 
 
 def campaigns_phase() -> dict:
@@ -1839,12 +2371,12 @@ def campaigns_phase() -> dict:
     in this process."""
     from repro_torch.scenarios import fleet, montecarlo, precision
 
-    total = dict.fromkeys(DRILL_KERNELS, 0)
+    total = dict.fromkeys(SIM_KERNELS, 0)
 
-    def card_run(label, counts):
-        if any(counts[k] <= 0 for k in ("window_score", "slow_fold")):
+    def card_run(label, counts, need=("window_score", "slow_fold", "waterfill")):
+        if any(counts[k] <= 0 for k in need):
             fail(f"campaigns {label}: the card run launched {counts}")
-        for k in DRILL_KERNELS:
+        for k in SIM_KERNELS:
             total[k] += counts[k]
 
     for name in sorted(CAMPAIGN_GOLDENS):
@@ -1883,7 +2415,7 @@ def campaigns_phase() -> dict:
     ref, wall_np, _ = _at("numpy", lambda dev: precision.run_sweep(sspec, device=dev))
     if card.to_json() != ref.to_json() or card.selected != ref.selected:
         fail(f"sweep {SWEEP}: the card's report or selected point differs from NumPy's")
-    card_run(SWEEP, counts)
+    card_run(SWEEP, counts, need=("window_score", "slow_fold"))   # no fabric in a sweep
     print(f"  sweep {SWEEP} ({sspec.n_trials} trials x {len(card.points) + 1} points): "
           f"torch_s={wall:.4f} numpy_s={wall_np:.4f}; selected {card.selected['label']} "
           f"(targets met: {card.meets_targets}); equal to NumPy; launches {counts}",
@@ -2008,6 +2540,11 @@ def main(argv=None) -> int:
     print(f"[detect] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
+    print("[fabric]", flush=True)
+    wf_launches, wf_err, wf_rows, (ew_launches, ew_err, ew_row) = fabric_phase(ITERS)
+    print(f"[fabric] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
     print("[drills]", flush=True)
     drill_counts = drills_phase()
     print(f"[drills] done in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2088,6 +2625,25 @@ def main(argv=None) -> int:
              live=live_counts["rmsnorm"]),
         *(detect_entry(name, src, rep, det_counts[name], det_err[name], det_rows[name])
           for name, src, rep in DETECT_KERNELS),
+        # the balancer's last call of the C4P main path; launches there, in the
+        # drills, the 10,240-rank drill, the campaigns and the live replay;
+        # the Fig. 2 and 10,240-GPU fabrics besides
+        {"name": "waterfill", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/waterfill.cu",
+         "replaces": "src/repro/core/jaxsim/kernels.py:360", "launches": wf_launches,
+         "max_abs_err": wf_err,
+         **{k: wf_rows["main path"][k] for k in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "rounds", "variant",
+             "sync_floor_ms", "numpy_ms", "card_call_ms")},
+         "library_ms": None, "drills": drill_counts["library"]["waterfill"],
+         "fleet_drill": drill_counts["fleet"]["waterfill"],
+         "campaigns": campaign_counts["waterfill"], "live": live_counts["waterfill"],
+         "fig2": wf_rows["fig2"], "fabric_10240": wf_rows["10240"]},
+        # its own entry at bench_jaxsim.py's full size (no caller on a main path)
+        dict({"name": "ewma_scan", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/ewma_scan.cu",
+              "replaces": "src/repro/core/jaxsim/kernels.py:320", "launches": ew_launches,
+              "max_abs_err": ew_err}, **ew_row),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -44,13 +44,15 @@ class DynamicLoadBalancer:
     Multiplicative-weights update toward observed per-path rates; dead QPs
     re-route to the healthiest usable spine (blacklist- and health-aware).
     Converges to the per-connection max-min optimum — the near-7/8-ideal
-    recovery after a leaf-spine failure in Fig. 11b."""
+    recovery after a leaf-spine failure in Fig. 11b.  ``device`` is where
+    the torch backend's water-filling runs (``None``: the card)."""
 
     def __init__(self, topo: ClosTopology, health: Optional[LinkHealthMonitor] = None,
-                 cfg: LBConfig = LBConfig()):
+                 cfg: LBConfig = LBConfig(), device=None):
         self.topo = topo
         self.health = health or LinkHealthMonitor(topo)
         self.cfg = cfg
+        self.device = device
 
     def _reroute(self, flow: Flow) -> bool:
         """Move a dead-path QP onto the least-loaded healthy spine of the
@@ -95,7 +97,7 @@ class DynamicLoadBalancer:
         conn_size = np.bincount(cidx, minlength=C)
         multi_conn = conn_size >= 2
 
-        fr = fs.max_min(cnp_jitter=cnp_jitter, seed=seed)
+        fr = fs.max_min(cnp_jitter=cnp_jitter, seed=seed, device=self.device)
         for rnd in range(cfg.rounds):
             rates = fr.flow_rate
             changed = False
@@ -128,7 +130,7 @@ class DynamicLoadBalancer:
             for i, f in enumerate(flows):
                 f.weight = float(new_w[i])
 
-            fr = fs.max_min(cnp_jitter=cnp_jitter, seed=seed + rnd + 1)
+            fr = fs.max_min(cnp_jitter=cnp_jitter, seed=seed + rnd + 1, device=self.device)
             if trace is not None:
                 trace.append(flowset_rate_result(fs, fr))
             if not changed:

@@ -48,15 +48,17 @@ class C4PMaster:
     Fig. 11b/12b).  Composition layers (the scenario campaign engine and
     the fig9/fig11/fig13 benchmarks) drive it through
     ``repro_torch.scenarios.fabric.FabricState`` rather than directly, so ECMP/C4P
-    A/B arms always see identical topology and job mixes."""
+    A/B arms always see identical topology and job mixes.  ``device`` is
+    where the torch backend's water-filling runs (``None``: the card)."""
 
     def __init__(self, topo: ClosTopology, qps_per_port: int = 2,
-                 lb_cfg: LBConfig = LBConfig()):
+                 lb_cfg: LBConfig = LBConfig(), device=None):
         self.topo = topo
+        self.device = device
         self.health = LinkHealthMonitor(topo)
         self.prober = PathProber(topo)
         self.allocator = PathAllocator(topo, self.health)
-        self.balancer = DynamicLoadBalancer(topo, self.health, lb_cfg)
+        self.balancer = DynamicLoadBalancer(topo, self.health, lb_cfg, device=device)
         self.qps_per_port = qps_per_port
         self.jobs: Dict[int, JobState] = {}
         self._flowset: Optional[FlowSet] = None  # factored incidence cache
@@ -108,7 +110,8 @@ class C4PMaster:
             ecmp_failover(self.topo, flows, seed=seed)
         fs = self.flow_set()
         fs.refresh(flows)
-        return flowset_rate_result(fs, fs.max_min(cnp_jitter=cnp_jitter, seed=seed))
+        return flowset_rate_result(fs, fs.max_min(cnp_jitter=cnp_jitter, seed=seed,
+                                                  device=self.device))
 
     def job_busbw(self, res: RateResult, job_id: int) -> float:
         st = self.jobs[job_id]

@@ -26,7 +26,7 @@ one-link-at-a-time reference reaches).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -105,6 +105,7 @@ class FlowSet:
         self.base_cap = np.asarray(caps, dtype=np.float64)
         self.n_links = len(links)
         self._pairs_dirty = False
+        self._by_link = {}       # device -> the incidence by link, on it
 
     def set_links(self, row: int, links: List[LinkId]) -> None:
         """Point flow ``row`` at a new path (e.g. after a re-route)."""
@@ -142,7 +143,8 @@ class FlowSet:
         return hits == 0
 
     # ---- the engine -------------------------------------------------------
-    def max_min(self, cnp_jitter: float = 0.0, seed: int = 0) -> FlowRates:
+    def max_min(self, cnp_jitter: float = 0.0, seed: int = 0,
+                backend: Optional[str] = None, device=None) -> FlowRates:
         """Weighted progressive filling over the incidence matrix.
 
         Each round: per-link unfrozen weight via scatter-add, global
@@ -151,11 +153,14 @@ class FlowSet:
         returned by one more scatter-add.  Exact-tie links freeze together
         (see module docstring for why that matches the scalar reference).
 
-        In the port the filling loop is NumPy only, and takes no
-        ``backend``: it never reads the detection backend's default (the
-        port's is ``torch``, and the scenario engine scopes it), so every
-        caller gets the reference's NumPy rates.  A torch branch is still to
-        be ported.
+        ``backend`` resolves as the detection backend does (``None``: the
+        engine's ``use_backend`` scope, else the port's default ``torch``).
+        At ``torch`` the filling loop runs as ``kernels/waterfill.py`` on
+        ``device`` (``None``: the card, raising without one; ``"cpu"``: its
+        plain version); its rates are the NumPy loop's bit for bit, so the
+        drill and campaign goldens hold at either backend.  Jitter draws and
+        the connection/utilisation epilogue stay in NumPy either way, and a
+        ``numpy`` run never touches a device.
         """
         self._ensure_pairs()
         F, L = self.n_flows, self.n_links
@@ -172,6 +177,11 @@ class FlowSet:
         touched = np.zeros(L, dtype=bool)
         if alive_pairs.any():
             touched[pair_link[alive_pairs]] = True
+
+        from repro_torch.core.torchsim import effective_backend
+        if effective_backend(backend, flows=F) == "torch" and F and L:
+            rate, remaining = self._fill_torch(w, alive, cap, device)
+            return self._finish(rate, remaining, cap, touched, alive)
 
         unfrozen = alive.copy()
         rate = np.zeros(F)
@@ -198,6 +208,30 @@ class FlowSet:
             remaining = np.maximum(remaining - dec, 0.0)
 
         return self._finish(rate, remaining, cap, touched, alive)
+
+    def _fill_torch(self, w: np.ndarray, alive: np.ndarray, cap: np.ndarray,
+                    device) -> Tuple[np.ndarray, np.ndarray]:
+        """The filling loop through ``kernels/waterfill.py`` on ``device``:
+        one copy of the weights and capacities in, one of the rates and
+        remaining capacities out; the incidence by link is kept on each
+        device until the pairs change."""
+        import torch
+
+        from repro_torch import resolve_device
+        from repro_torch.kernels import waterfill
+
+        dev = resolve_device(device)
+        inc = self._by_link.get(dev)
+        if inc is None:
+            ptr, flow = waterfill.link_csr(self.pair_flow, self.pair_link, self.n_links)
+            inc = self._by_link[dev] = (torch.from_numpy(ptr).to(dev),
+                                        torch.from_numpy(flow).to(dev))
+        F = self.n_flows
+        wc = torch.from_numpy(np.concatenate([w, cap])).to(dev)
+        rate, remaining, _ = waterfill.waterfill(*inc, wc[:F], torch.from_numpy(alive).to(dev),
+                                                 wc[F:])
+        out = torch.cat([rate, remaining]).cpu().numpy()
+        return out[:F], out[F:]
 
     def _finish(self, rate: np.ndarray, remaining: np.ndarray,
                 cap: np.ndarray, touched: np.ndarray,

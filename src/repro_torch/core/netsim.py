@@ -55,15 +55,17 @@ def flowset_rate_result(fs: FlowSet, fr: FlowRates) -> RateResult:
 
 
 def max_min_rates(topo: ClosTopology, flows: Sequence[Flow],
-                  cnp_jitter: float = 0.0, seed: int = 0) -> RateResult:
+                  cnp_jitter: float = 0.0, seed: int = 0, device=None) -> RateResult:
     """Weighted progressive filling. Flows through failed links get 0.
 
     Vectorized: factors the flows into a ``FlowSet`` incidence matrix and
     runs array-based filling.  Matches ``max_min_rates_reference`` within
     float tolerance (callers that loop — e.g. the dynamic load balancer —
-    should build the ``FlowSet`` once and call ``FlowSet.max_min``)."""
+    should build the ``FlowSet`` once and call ``FlowSet.max_min``).
+    ``device``: where the torch backend's filling runs (``None``: the card)."""
     fs = FlowSet(topo, flows)
-    return flowset_rate_result(fs, fs.max_min(cnp_jitter=cnp_jitter, seed=seed))
+    return flowset_rate_result(fs, fs.max_min(cnp_jitter=cnp_jitter, seed=seed,
+                                              device=device))
 
 
 def max_min_rates_reference(topo: ClosTopology, flows: Sequence[Flow],

@@ -1,13 +1,15 @@
 """The torch backend of the detection loop, and the backend switch.
 
-Counterpart of ``repro.core.jaxsim``'s registry. The grouped medians and the
-composite detector exist twice:
+Counterpart of ``repro.core.jaxsim``'s registry. The grouped medians, the
+composite detector and the water-filling of ``FlowSet.max_min`` exist twice:
 
-  * the NumPy implementations in ``core/c4d`` (copies of the reference's) —
-    the oracle every parity test is written against;
-  * the torch pipeline in this package (``detectors``) over two CUDA kernels,
-    ``kernels/csrc/window_score.cu`` and ``kernels/csrc/slow_fold.cu``, whose
-    plain float64/int64 versions live in ``kernels`` here.
+  * the NumPy implementations in ``core/c4d`` and ``core/flowset`` (copies
+    of the reference's) — the oracle every parity test is written against;
+  * the torch paths: the detection pipeline in this package (``detectors``)
+    over ``kernels/csrc/window_score.cu`` and ``kernels/csrc/slow_fold.cu``,
+    and the filling loop over ``kernels/csrc/waterfill.cu``; the plain
+    float64/int64 versions are re-exported by ``kernels`` here, beside the
+    EWMA baseline scan (``kernels/csrc/ewma_scan.cu``).
 
 This module resolves which backend a call uses, without importing torch.
 
@@ -94,10 +96,20 @@ AUTO_DETECT_RANKS = 128
 #: grouped-median calls keyed by element count (telemetry prefilter).
 AUTO_MEDIAN_ELEMENTS = 1 << 12
 
+#: water-filling (``FlowSet.max_min``) keyed by flow count: from
+#: ``chip_smoke.py``'s ``[fabric]`` crossover of the card's whole call
+#: (copies and the NumPy epilogue included) against the NumPy loop, on the
+#: Fig. 2 scenario from 128 to 20,480 flows: NumPy won at 128; at 256 and
+#: 512 the two were within the host clock's spread, the card ahead by the
+#: median of four calls; from 1,024 the card won every call, 2.6–4.4x at
+#: 2,048 and 25–30x at 20,480.
+AUTO_WATERFILL_FLOWS = 256
+
 
 def effective_backend(name: Optional[str] = None, *,
                       ranks: Optional[int] = None,
-                      elements: Optional[int] = None) -> str:
+                      elements: Optional[int] = None,
+                      flows: Optional[int] = None) -> str:
     """Resolve ``name`` to a concrete backend (``"numpy"``/``"torch"``).
 
     Non-auto names resolve exactly like ``resolve_backend``. ``"auto"``
@@ -109,5 +121,7 @@ def effective_backend(name: Optional[str] = None, *,
     if ranks is not None and ranks >= AUTO_DETECT_RANKS:
         return "torch"
     if elements is not None and elements >= AUTO_MEDIAN_ELEMENTS:
+        return "torch"
+    if flows is not None and flows >= AUTO_WATERFILL_FLOWS:
         return "torch"
     return "numpy"

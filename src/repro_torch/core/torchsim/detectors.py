@@ -40,6 +40,7 @@ from repro_torch.core.c4d.detector import (COMM_HANG, COMM_SLOW_DST, COMM_SLOW_L
                                            COMM_SLOW_SRC, DetectorConfig, NONCOMM_HANG,
                                            NONCOMM_SLOW, Verdict)
 from repro_torch.core.c4d.telemetry import TelemetryArrays
+from repro_torch.kernels import detect_ref as _ref
 from repro_torch.kernels import slow_fold as _fold
 from repro_torch.kernels import window_score as _ws
 
@@ -456,3 +457,65 @@ def _advance_baseline(window, cfg, n, baseline, gkey, dmed, wmed):
         adj = deficit - baseline.deficit_offset(ranks)
         baseline.update_deficit(ranks, deficit.astype(float),
                                 exclude=adj >= cfg.hang_grace)
+
+
+# ---------------------------------------------------------------------------
+# the per-kernel path, kept as the pipeline's independent reference
+# ---------------------------------------------------------------------------
+
+def analyze_arrays_reference(window: TelemetryArrays, cfg: DetectorConfig,
+                             n_ranks: Optional[int] = None,
+                             baseline: Optional[AdaptiveBaseline] = None,
+                             device=None) -> List[Verdict]:
+    """The reference's per-kernel analysis (``repro.core.jaxsim.detectors``'
+    ``analyze_arrays_reference``): the hang fold, then grouped medians by a
+    global two-key sort, then the z fold, each a plain torch function of
+    ``kernels/detect_ref.py`` on ``device`` (``None``: the card), no CUDA
+    kernel among them. A second path, independent of ``window_score`` and
+    its cached layouts, that the equivalence tests hold equal to
+    ``analyze_arrays`` and to the NumPy composite, baseline included."""
+    n = n_ranks or window.n_ranks()
+    dev = resolve_device(device)
+    verdicts = _hang_verdicts(window, cfg, n, baseline, dev)
+    if verdicts:
+        return verdicts
+    verdicts, gkey, dmed, wmed = _slow_verdicts(window, cfg, n, baseline, dev)
+    if baseline is not None:
+        _advance_baseline(window, cfg, n, baseline, gkey, dmed, wmed)
+    return verdicts
+
+
+def _hang_verdicts(window, cfg, n, baseline, dev):
+    offsets = np.zeros(n)
+    if baseline is not None and n:
+        offsets[:] = baseline.deficit_offset(np.arange(n))
+    res = _ref.hang(*_to(dev, window.hb_rank.astype(np.int64), window.hb_seq.astype(np.int64),
+                         window.tr_src.astype(np.int64), offsets), cfg.hang_grace, n=n)
+    hung = res["hung"].cpu().numpy()
+    if not hung.any():
+        return []
+    return _hang_verdict_list(hung, res["seqs"].cpu().numpy(), float(res["med"]),
+                              res["is_src"].cpu().numpy())
+
+
+def _compact_groups(k, dmed, wmed, rep):
+    """One slot per real group, in ascending key order, from the
+    element-aligned medians: (gkey, dmed, wmed)."""
+    idx = np.flatnonzero(rep)
+    return k[idx], dmed[idx], wmed[idx]
+
+
+def _slow_verdicts(window, cfg, n, baseline, dev):
+    t = int(window.tr_src.size)
+    keys = window.tr_src.astype(np.int64) * n + window.tr_dst
+    dv = window.tr_transfer() / np.maximum(window.tr_bytes, 1) if t else np.zeros(0)
+    wv = window.tr_wait() if t else np.zeros(0)
+    k, dmed_e, wmed_e, _, rep, _ = _ref.pair_median(*_to(dev, keys, dv, wv))
+    gkey, dmed, wmed = _compact_groups(k.cpu().numpy(), dmed_e.cpu().numpy(),
+                                       wmed_e.cpu().numpy(), rep.cpu().numpy())
+    cd, sd = _mixed_center_scale(dmed, gkey, n, baseline, "delay")
+    cw, sw = _mixed_center_scale(wmed, gkey, n, baseline, "wait")
+    res = _ref.slow_fold_kernel(*(a[None] for a in _to(dev, gkey, dmed, wmed, cd, sd, cw, sw)),
+                                cfg.mad_threshold, cfg.row_col_fraction, cfg.min_observations,
+                                n=n)
+    return _fold_verdict_list(_host(res, 0), gkey, n), gkey, dmed, wmed

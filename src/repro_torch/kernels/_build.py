@@ -23,13 +23,16 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "window_score", "slow_fold")
+KERNELS = ("flash_attention", "decode_attention", "rmsnorm", "window_score", "slow_fold",
+           "waterfill", "ewma_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-#: flags added for one kernel. The detection kernels are held bit-equal to
-#: NumPy, so nvcc may not contract a*b + c into an FMA in them.
+#: flags added for one kernel. The detection kernels and water-filling are
+#: held bit-equal to NumPy, so nvcc may not contract a*b + c into an FMA in
+#: them (the EWMA scan is held by a tolerance and may).
 EXTRA_FLAGS: Dict[str, List[str]] = {"window_score": ["--fmad=false"],
-                                     "slow_fold": ["--fmad=false"]}
+                                     "slow_fold": ["--fmad=false"],
+                                     "waterfill": ["--fmad=false"]}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -7,7 +7,13 @@ Counterparts of the XLA jit kernels of ``repro.core.jaxsim.kernels``:
     layout, then the heartbeat fold);
   * ``slow_fold_kernel`` — what ``csrc/slow_fold.cu`` computes;
   * ``grouped_median_kernel`` — the per-key median from raw keys (sort
-    included), the reference's own formulation, kept as an oracle.
+    included), the reference's own formulation, kept as an oracle;
+  * ``ewma_scan_ref`` — what ``csrc/ewma_scan.cu`` computes (the winsorized
+    EWMA baseline update scanned over windows; pinned by a tolerance);
+  * ``pair_median`` and ``hang`` (and ``batched_*``) — the reference's
+    per-kernel twins (a global two-key sort; the heartbeat fold), which
+    ``core.torchsim.detectors.analyze_arrays_reference`` runs as a second,
+    independent path; plain torch only, no kernel.
 
 They are the CPU path of the kernel wrappers (``window_score.py``,
 ``slow_fold.py``), the oracles the tests and ``chip_smoke.py`` hold the CUDA
@@ -288,3 +294,122 @@ def grouped_median_kernel(keys: torch.Tensor, values: torch.Tensor):
     hi = v[torch.clamp(safe + counts // 2, max=t - 1)]
     gkey = k[safe]
     return gkey, 0.5 * (lo + hi), counts, (counts > 0) & (gkey != PAD_KEY)
+
+
+#: mean-absolute-deviation -> sigma (``core/c4d/baseline.py``; copied so
+#: that this module stands on its own)
+MEANAD_TO_SIGMA = 1.2533
+
+
+def ewma_scan_ref(values: torch.Tensor, mean0: torch.Tensor, dev0: torch.Tensor,
+                  count0: torch.Tensor, alpha: float, clip_sigma: float):
+    """The winsorized EWMA baseline update scanned over windows: what
+    ``csrc/ewma_scan.cu`` computes. ``values`` (W, E) float64, NaN where a
+    cell was not seen; ``mean0``, ``dev0`` (E) float64, ``count0`` (E) int64.
+    Per window: the median of its finite values (``0.5 * (lo + hi)``), the
+    mean absolute deviation about it seeding each cell's first observation,
+    then the clipped step of ``AdaptiveBaseline.update``. Returns (mean, dev,
+    count). Pinned by a tolerance (1e-9), as the reference's scan is."""
+    mean, dev, count = mean0.clone(), dev0.clone(), count0.clone()
+    for vals in values:
+        finite = torch.isfinite(vals)
+        nf = int(finite.sum())
+        if nf == 0:
+            continue
+        pool = torch.sort(vals[finite]).values
+        med = 0.5 * (pool[(nf - 1) // 2] + pool[nf // 2])
+        seed_dev = torch.abs(pool - med).sum() / nf
+        first = finite & (count == 0)
+        rest = finite & (count > 0)
+        lim = clip_sigma * (MEANAD_TO_SIGMA * dev
+                            + 1e-12 * torch.clamp_min(torch.abs(mean), 1e-12) + 1e-30)
+        delta = torch.minimum(torch.maximum(torch.where(rest, vals, mean) - mean, -lim), lim)
+        dev = torch.where(first, seed_dev, torch.where(
+            rest, (1.0 - alpha) * dev + alpha * torch.abs(delta), dev))
+        mean = torch.where(first, vals, torch.where(rest, mean + alpha * delta, mean))
+        count = count + finite.to(count.dtype)
+    return mean, dev, count
+
+
+# ---------------------------------------------------------------------------
+# the per-kernel reference twins: a global two-key sort and the hang fold
+# ---------------------------------------------------------------------------
+
+def batched_pair_median(keys: torch.Tensor, dvals: torch.Tensor, wvals: torch.Tensor):
+    """Grouped delay and wait medians by a global two-key sort, per row of a
+    batch: ``keys`` (B, T) int64 (``src * n + dst``; PAD_KEY on padding),
+    values (B, T) float64 (+inf on padding). Returns element-aligned arrays
+    over each row's transports sorted by (key, value): (sorted key, the
+    group's delay median, wait median, count, rep, valid), where ``rep``
+    marks the first element of each real group, in ascending key order, and
+    ``valid`` the elements that are not padding. Counterpart of the
+    reference's ``pair_median_kernel`` vmapped, with no bucket padding of its
+    own; values sort by ``order_key`` (the reference's bit-pattern sort for
+    the non-negative values a window holds)."""
+    b, t = keys.shape
+    dev = keys.device
+    if t == 0:
+        empty = keys.new_zeros((b, 0))
+        none = torch.zeros((b, 0), dtype=torch.float64, device=dev)
+        return empty, none, none.clone(), empty.clone(), empty > 0, empty > 0
+
+    def by_key_then_value(vals):
+        by_value = torch.sort(order_key(vals), dim=1, stable=True).indices
+        perm = by_value.gather(1, torch.sort(keys.gather(1, by_value), dim=1,
+                                             stable=True).indices)
+        return keys.gather(1, perm), vals.gather(1, perm)
+
+    k, d = by_key_then_value(dvals)
+    _, w = by_key_then_value(wvals)
+    idx = torch.arange(t, device=dev).expand(b, t)
+    brk = k[:, 1:] != k[:, :-1]
+    one = torch.ones((b, 1), dtype=torch.bool, device=dev)
+    is_start = torch.cat([one, brk], dim=1)
+    is_end = torch.cat([brk, one], dim=1)
+    start = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
+    end = torch.cummin(torch.where(is_end, idx, t - 1).flip(1), dim=1).values.flip(1)
+    cnt = end - start + 1
+    lo_i, hi_i = start + (cnt - 1) // 2, start + cnt // 2
+    dmed = 0.5 * (d.gather(1, lo_i) + d.gather(1, hi_i))
+    wmed = 0.5 * (w.gather(1, lo_i) + w.gather(1, hi_i))
+    valid = k != PAD_KEY
+    return k, dmed, wmed, cnt, is_start & valid, valid
+
+
+def pair_median(keys: torch.Tensor, dvals: torch.Tensor, wvals: torch.Tensor):
+    """``batched_pair_median`` of one window: (T,) arrays in and out."""
+    return tuple(x[0] for x in batched_pair_median(keys[None], dvals[None], wvals[None]))
+
+
+def batched_hang(hb_rank, hb_seq, hb_valid, src_rank, src_valid, offsets,
+                 hang_grace: float, *, n: int) -> Dict[str, torch.Tensor]:
+    """Heartbeat scoring per row of a batch: ``hb_rank``, ``hb_seq`` (B, H)
+    int64 with ``hb_valid`` (B, H) bool; ``src_rank`` (B, T) int64 with
+    ``src_valid``; ``offsets`` (B, n) float64, the learned deficits. Returns
+    present, seqs (the last seq, int64-min where none), deficit (median -
+    seq), hung (deficit - offset >= hang_grace) and is_src, (B, n), and med
+    (B,): the reference's ``hang_kernel`` vmapped, with the window's own n."""
+    b = hb_rank.shape[0]
+    dev = hb_rank.device
+    seqs = torch.full((b, n), _I64_MIN, dtype=torch.int64, device=dev).scatter_reduce(
+        1, hb_rank, torch.where(hb_valid, hb_seq, _I64_MIN), "amax", include_self=True)
+    zeros = torch.zeros((b, n), dtype=torch.int64, device=dev)
+    present = zeros.scatter_add(1, hb_rank, hb_valid.to(torch.int64)) > 0
+    seqs_f = seqs.to(torch.float64)
+    med = _masked_median(seqs_f, present)
+    deficit = med[:, None] - seqs_f
+    hung = present & ((deficit - offsets) >= hang_grace)
+    is_src = zeros.scatter_add(1, src_rank, src_valid.to(torch.int64)) > 0
+    return dict(present=present, seqs=seqs, med=med, deficit=deficit, hung=hung,
+                is_src=is_src)
+
+
+def hang(hb_rank, hb_seq, src_rank, offsets, hang_grace: float, *,
+         n: int) -> Dict[str, torch.Tensor]:
+    """``batched_hang`` of one window, every heartbeat and source valid:
+    (H,), (T,) and (n,) in; (n,) arrays and med () out."""
+    every = torch.ones_like(hb_rank[None], dtype=torch.bool)
+    res = batched_hang(hb_rank[None], hb_seq[None], every, src_rank[None],
+                       torch.ones_like(src_rank[None], dtype=torch.bool), offsets[None],
+                       hang_grace, n=n)
+    return {k: v[0] for k, v in res.items()}

@@ -53,15 +53,19 @@ class CampaignEngine:
             self.kernel.register(svc)
 
     def run(self) -> dict:
+        """The run, under ``use_backend(spec.backend)``, so that every
+        component that resolves the default — grouped medians, the detector,
+        the water-filling deep inside C4P — takes the spec's backend."""
         spec, kernel = self.spec, self.kernel
-        kernel.start(spec.duration_s)
-        for js in spec.jobs:
-            kernel.publish(JobAdmitted(js))
-        for ev in spec.sorted_events():
-            kernel.schedule(ev.t, ev)
-        kernel.drain()
-        kernel.stop()
-        return self._report()
+        with use_backend(spec.backend):
+            kernel.start(spec.duration_s)
+            for js in spec.jobs:
+                kernel.publish(JobAdmitted(js))
+            for ev in spec.sorted_events():
+                kernel.schedule(ev.t, ev)
+            kernel.drain()
+            kernel.stop()
+            return self._report()
 
     # ------------------------------------------------------------------
     def _timeline(self) -> List[dict]:
@@ -115,15 +119,8 @@ def run_scenario(spec: ScenarioSpec, device=None) -> dict:
     fabrics (identical seed/events) and the primary report carries a
     ``variants`` section plus the A/B goodput comparison.
 
-    ``spec.backend`` scopes the kernel backend for the whole run (both A/B
-    arms), so every component that resolves the default — grouped medians,
-    the detector — flips together (water-filling is NumPy in the port and
-    reads no backend).  ``device`` is where the torch backend runs."""
-    with use_backend(spec.backend):
-        return _run_scenario(spec, device)
-
-
-def _run_scenario(spec: ScenarioSpec, device) -> dict:
+    ``spec.backend`` scopes the kernel backend for each arm's run
+    (``CampaignEngine.run``). ``device`` is where the torch backend runs."""
     if spec.compare_fabrics:
         variants = {mode: CampaignEngine(spec, fabric_mode=mode,
                                          device=device).run()

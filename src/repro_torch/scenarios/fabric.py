@@ -26,24 +26,27 @@ C4P = "c4p"
 
 
 class FabricState:
-    """A live Clos fabric carrying the scenario's job mix."""
+    """A live Clos fabric carrying the scenario's job mix.  ``device`` is
+    where the torch backend's water-filling runs (``None``: the card)."""
 
     def __init__(self, topo: Optional[ClosTopology] = None, mode: str = C4P,
                  qps_per_port: int = 1, seed: int = 0,
-                 oversubscription: float = 1.0):
+                 oversubscription: float = 1.0, device=None):
         if mode not in (ECMP, C4P):
             raise ValueError(f"unknown fabric mode {mode!r}")
         self.topo = topo or paper_testbed(oversubscription)
         self.mode = mode
         self.seed = seed
         self.qps_per_port = qps_per_port
+        self.device = device
         self.job_hosts: Dict[int, List[int]] = {}
         # hosts the streaming detector marked *suspect* (graceful
         # degradation, docs/runtime.md): kept in the job mix but flagged
         # for planning; populated/cleared by FabricService
         self.suspect_hosts: set = set()
         if mode == C4P:
-            self.master = C4PMaster(self.topo, qps_per_port=qps_per_port)
+            self.master = C4PMaster(self.topo, qps_per_port=qps_per_port,
+                                    device=device)
             self.master.startup_probe()
             self._ecmp_flows: Dict[int, List[Flow]] = {}
         else:
@@ -150,7 +153,8 @@ class FabricState:
         if static_failover and self.topo.down_links:
             from repro_torch.core.c4p.pathalloc import ecmp_failover
             ecmp_failover(self.topo, flows, seed=seed)
-        return max_min_rates(self.topo, flows, cnp_jitter=cnp_jitter, seed=seed)
+        return max_min_rates(self.topo, flows, cnp_jitter=cnp_jitter, seed=seed,
+                             device=self.device)
 
     def job_busbw(self, res: RateResult, job_id: int) -> float:
         hosts = self.job_hosts[job_id]

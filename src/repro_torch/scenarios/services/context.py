@@ -64,7 +64,7 @@ class RunContext:
                             oversubscription=spec.oversubscription)
         self.fabric = FabricState(topo, mode=mode,
                                   qps_per_port=spec.qps_per_port,
-                                  seed=spec.seed)
+                                  seed=spec.seed, device=device)
         self.cluster = SimCluster(n_active=spec.n_nodes,
                                   n_backup=max(2, spec.n_nodes // 8))
         self.steering = SteeringService(self.cluster)

@@ -38,7 +38,7 @@ from repro.scenarios import precision as ref_precision
 from repro.scenarios import run as ref_run
 from repro_torch.core import downtime
 from repro_torch.core.torchsim import BACKEND_ENV, detectors, use_backend
-from repro_torch.kernels import slow_fold, window_score
+from repro_torch.kernels import slow_fold, waterfill, window_score
 from repro_torch.scenarios import fleet, montecarlo, precision, run
 
 
@@ -75,6 +75,9 @@ def wrapper_calls(monkeypatch):
     counted(window_score, "window_score", "window_score")
     counted(window_score, "row_select", "row_select")
     counted(slow_fold, "slow_fold", "slow_fold")
+    real = waterfill.waterfill
+    monkeypatch.setattr(waterfill, "waterfill", lambda *a, **kw: calls.update(
+        [("waterfill", a[2].device.type)]) or real(*a, **kw))
     monkeypatch.delenv(BACKEND_ENV, raising=False)
     return calls
 
@@ -95,8 +98,9 @@ def test_campaign_hashes_to_the_golden(name, backend, workers, wrapper_calls):
     assert _hash(rep.to_json()) == CAMPAIGN_GOLDENS[name]
     if backend == "numpy" or workers > 1:      # the workers' calls are not seen here
         assert not wrapper_calls
-    else:
-        assert set(wrapper_calls) == {(k, "cpu") for k in KERNELS}, wrapper_calls
+    else:     # the trials' water-fills too, C4P's and ECMP's
+        assert set(wrapper_calls) == {(k, "cpu") for k in KERNELS + ("waterfill",)}, \
+            wrapper_calls
 
 
 def test_campaign_markdown_and_summary_equal_the_reference():

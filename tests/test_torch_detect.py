@@ -5,9 +5,11 @@ master, torch backend) on ``device="cpu"``, where the CUDA kernels' wrappers
 compute their plain float64/int64 versions, must equal ``repro``'s
 ``C4DDetector(backend="numpy")`` and NumPy ``C4DMaster``: verdict lists field
 for field with scores bit-equal (compared as ``float.hex``), node actions,
-and ``AdaptiveBaseline`` arrays bit-equal. The JAX detection path cannot run
-on this jax (``jaxsim.kernels`` needs ``enable_x64``), and tests/test_jaxsim.py
-pins it bit-identical to the same NumPy composite. The CUDA kernels run only
+and ``AdaptiveBaseline`` arrays bit-equal. The JAX package's detection path
+runs here only with its ``enable_x64`` names pointed at
+``jax.enable_x64(True)`` (jax 0.9 dropped ``jax.experimental.enable_x64``):
+the per-kernel reference path (``analyze_arrays_reference``) is held to the
+JAX package's that way, and to the NumPy composite. The CUDA kernels run only
 on the card (``-m gpu``): each is held bit-equal to its plain version.
 """
 import dataclasses
@@ -19,6 +21,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import repro.core.jaxsim.detectors as jax_detectors
+import repro.core.jaxsim.kernels as jax_kernels
+import repro.core.jaxsim.waterfill as jax_waterfill
 from repro.core.c4d import telemetry as ref_tel
 from repro.core.c4d.baseline import AdaptiveBaseline as RefBaseline
 from repro.core.c4d.detector import C4DDetector as RefDetector
@@ -32,6 +37,7 @@ from repro.core.faults import RingJobTelemetry as RefTelemetry
 from repro_torch import convert, resolve_device
 from repro_torch.core import torchsim
 from repro_torch.core.c4d import telemetry as tel
+from repro_torch.core.c4d.baseline import AdaptiveBaseline
 from repro_torch.core.c4d.detector import C4DDetector, DetectorConfig, Verdict
 from repro_torch.core.c4d.master import C4DMaster, NodeAction, OperatingPoint
 from repro_torch.core.faults import Fault, RingJobTelemetry
@@ -611,6 +617,101 @@ def test_layout_cache_bounds(monkeypatch):
     assert tdet._layout_for(big + 2000).keys[0] == 2000
 
 
+# --- the per-kernel reference path ------------------------------------------------
+
+@pytest.fixture
+def x64(monkeypatch):
+    """The JAX package's jit kernels on this jax: its ``enable_x64`` names
+    call ``jax.enable_x64(True)`` (nothing in ``src/repro`` changes)."""
+    jax = pytest.importorskip("jax")
+    scope = lambda: jax.enable_x64(True)      # noqa: E731
+    for mod in (jax_kernels, jax_waterfill, jax_detectors):
+        monkeypatch.setattr(mod, "enable_x64", scope)
+
+
+@pytest.mark.parametrize("n", PAD_BUCKET_RANKS)
+@pytest.mark.parametrize("faults", GOLDEN_FAULTS)
+def test_reference_path_equals_jax_reference_and_numpy(faults, n, x64):
+    (r,), (p,) = _windows(n, 9, [faults])
+    want = RefDetector(backend="numpy").analyze(r, n)
+    jit = jax_detectors.analyze_arrays_reference(r, RefDetectorConfig(), n_ranks=n)
+    got = tdet.analyze_arrays_reference(p, DetectorConfig(), n_ranks=n, device=CPU)
+    assert [_vkey(v) for v in jit] == [_vkey(v) for v in want]
+    assert [_vkey(v) for v in got] == [_vkey(v) for v in want]
+
+
+def test_reference_path_advances_the_baseline_as_numpy(x64):
+    """A 12-window stream with an adaptive baseline: verdicts and baseline
+    arrays equal to the NumPy composite's and to the JAX reference path's."""
+    faults_seq = [GOLDEN_FAULTS[i % len(GOLDEN_FAULTS)] for i in range(1, 13)]
+    ref_wins, port_wins = _windows(N, 5, faults_seq)
+    cfg = OperatingPoint(**OP).detector_config()
+    ref_cfg = RefOperatingPoint(**OP).detector_config()
+    numpy_base, jit_base, ours = RefBaseline(N), RefBaseline(N), AdaptiveBaseline(N)
+    det = RefDetector(ref_cfg, backend="numpy")
+    for rw, pw in zip(ref_wins, port_wins):
+        want = [_vkey(v) for v in det.analyze(rw, N, baseline=numpy_base)]
+        assert [_vkey(v) for v in jax_detectors.analyze_arrays_reference(
+            rw, ref_cfg, n_ranks=N, baseline=jit_base)] == want
+        assert [_vkey(v) for v in tdet.analyze_arrays_reference(
+            pw, cfg, n_ranks=N, baseline=ours, device=CPU)] == want
+    _assert_baselines_equal(ours, numpy_base)
+    _assert_baselines_equal(jit_base, numpy_base)
+
+
+@pytest.mark.parametrize("transports,heartbeats", EMPTY_CASES)
+def test_reference_path_without_transports_or_heartbeats(transports, heartbeats):
+    (r,), (p,) = _windows(N, 1, [[Fault("slow_src", rank=5)]])
+    want = RefDetector(backend="numpy").analyze(_cut(r, transports, heartbeats), N)
+    got = tdet.analyze_arrays_reference(_cut(p, transports, heartbeats), DetectorConfig(),
+                                        n_ranks=N, device=CPU)
+    assert [_vkey(v) for v in got] == [_vkey(v) for v in want]
+
+
+def _pad(rows, fill, dtype):
+    width = max(len(r) for r in rows)
+    out = np.full((len(rows), width), fill, dtype)
+    for b, r in enumerate(rows):
+        out[b, :len(r)] = r
+    return torch.from_numpy(out)
+
+
+def test_batched_twins_equal_a_loop_over_single_windows():
+    """Windows of three sizes in one batch, padded as the reference pads
+    (PAD_KEY and +inf; heartbeats and sources masked): each row's real part
+    equals the unbatched twin on that window alone."""
+    n = 48
+    wins = [RingJobTelemetry(n_ranks=m, seed=4).window_arrays(
+        0, [Fault("comm_hang", rank=3)] if m == 40 else []) for m in (32, 40, 48)]
+    keys = [w.tr_src.astype(np.int64) * n + w.tr_dst for w in wins]
+    dv = [w.tr_transfer() / np.maximum(w.tr_bytes, 1) for w in wins]
+    wv = [w.tr_wait() for w in wins]
+    got = tk.batched_pair_median(_pad(keys, detect_ref.PAD_KEY, np.int64),
+                                 _pad(dv, np.inf, np.float64), _pad(wv, np.inf, np.float64))
+    for b in range(len(wins)):
+        one = tk.pair_median(*(torch.from_numpy(a[b]) for a in (keys, dv, wv)))
+        t = keys[b].size
+        for g, o in zip(got, one):
+            assert torch.equal(g[b, :t], o)
+        assert not got[5][b, t:].any() and not got[4][b, t:].any()
+    rng = np.random.default_rng(3)
+    offsets = rng.uniform(0, 1, size=(len(wins), n))
+    hb_rank = [w.hb_rank.astype(np.int64) for w in wins]
+    hb_seq = [w.hb_seq.astype(np.int64) for w in wins]
+    src = [w.tr_src.astype(np.int64) for w in wins]
+    valid = [np.ones(len(x), bool) for x in hb_rank]
+    svalid = [np.ones(len(x), bool) for x in src]
+    got = tk.batched_hang(_pad(hb_rank, 0, np.int64), _pad(hb_seq, 0, np.int64),
+                          _pad(valid, False, bool), _pad(src, 0, np.int64),
+                          _pad(svalid, False, bool), torch.from_numpy(offsets), 3.0, n=n)
+    for b in range(len(wins)):
+        one = tk.hang(*(torch.from_numpy(a[b]) for a in (hb_rank, hb_seq, src, offsets)),
+                      3.0, n=n)
+        for k, v in one.items():
+            assert torch.equal(got[k][b], v), k
+    assert got["hung"][1].any() and not got["hung"][0].any()
+
+
 # --- the backend switch and the default device ---------------------------------
 
 def test_backend_registry(monkeypatch):
@@ -729,6 +830,15 @@ def test_card_window_without_transports_or_heartbeats(cuda, transports, heartbea
     want = C4DDetector(backend="numpy").analyze(w, N)
     for got in (C4DDetector(backend="torch").analyze(w, N),
                 tdet.score_windows_batched([w, w], DetectorConfig(), n_ranks=N)[1]):
+        assert [_vkey(v) for v in got] == [_vkey(v) for v in want]
+
+
+@pytest.mark.gpu
+def test_card_reference_path_equals_numpy_composite(cuda):
+    for faults in GOLDEN_FAULTS:
+        w = RingJobTelemetry(n_ranks=1024, seed=9).window_arrays(0, faults)
+        want = C4DDetector(backend="numpy").analyze(w, 1024)
+        got = tdet.analyze_arrays_reference(w, DetectorConfig(), n_ranks=1024, device=cuda)
         assert [_vkey(v) for v in got] == [_vkey(v) for v in want]
 
 

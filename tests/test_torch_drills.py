@@ -6,9 +6,10 @@
 reached through the same wrappers that launch the CUDA kernels on the card).
 Each report must be dict-equal to the JAX package's ``run_scenario`` report
 and hash to ``tests/test_fleet.py``'s ``DRILL_GOLDENS``. The torch runs must
-go through ``window_score``, ``row_select`` and ``slow_fold``; the NumPy runs
-through none of them. On the card (``-m gpu``) the torch runs launch the CUDA
-kernels and give the same hashes.
+go through ``window_score``, ``row_select`` and ``slow_fold``, and every
+water-filling of C4P and ECMP through ``waterfill``; the NumPy runs through
+none of them. On the card (``-m gpu``) the torch runs launch the CUDA kernels
+and give the same hashes.
 """
 import dataclasses
 import importlib.util
@@ -21,10 +22,11 @@ torch = pytest.importorskip("torch")
 
 from repro.scenarios import library as ref_library
 from repro.scenarios import run as ref_run
+from repro.core.flowset import FlowSet as RefFlowSet
 from repro.scenarios.engine import run_scenario as ref_run_scenario
 from repro_torch.core.torchsim import BACKEND_ENV
 from repro_torch.core.torchsim import detectors
-from repro_torch.kernels import slow_fold, window_score
+from repro_torch.kernels import slow_fold, waterfill, window_score
 from repro_torch.scenarios import library, run
 from repro_torch.scenarios.engine import run_scenario
 
@@ -44,6 +46,10 @@ _fleet = _test_fleet()
 DRILL_GOLDENS, _hash = _fleet.DRILL_GOLDENS, _fleet._hash
 DRILLS = sorted(DRILL_GOLDENS)
 KERNELS = ("window_score", "row_select", "slow_fold")
+#: every drill's torch run on the CPU: the detection wrappers and water-filling's
+TORCH_CPU = {(k, "cpu") for k in KERNELS + ("waterfill",)}
+#: the C4P drills, whose water-fills are the dynamic load balancer's rounds
+C4P_DRILLS = ["cascading_spine_flaps", "ecmp_vs_c4p_ab", "multijob_contention"]
 _reference = {}
 
 
@@ -69,6 +75,7 @@ def wrapper_calls(monkeypatch):
     counted(window_score, "window_score", "window_score", 0)
     counted(window_score, "row_select", "row_select", 0)
     counted(slow_fold, "slow_fold", "slow_fold", 0)
+    counted(waterfill, "waterfill", "waterfill", 2)
     monkeypatch.delenv(BACKEND_ENV, raising=False)
     return calls
 
@@ -86,7 +93,22 @@ def test_drill_equals_reference_and_golden(name, backend, wrapper_calls):
     if backend == "numpy":
         assert not wrapper_calls
     else:
-        assert set(wrapper_calls) == {(k, "cpu") for k in KERNELS}, wrapper_calls
+        assert set(wrapper_calls) == TORCH_CPU, wrapper_calls
+
+
+@pytest.mark.parametrize("name", C4P_DRILLS)
+def test_c4p_drill_water_fills_through_the_kernel_path(name, wrapper_calls, monkeypatch):
+    """At torch on the CPU, each of the drill's water-fills goes through the
+    kernel's wrapper: as many as the reference's ``FlowSet.max_min`` calls
+    in its NumPy run, and the report still hashes to the golden."""
+    ref_calls = []
+    real = RefFlowSet.max_min
+    monkeypatch.setattr(RefFlowSet, "max_min",
+                        lambda self, *a, **kw: ref_calls.append(1) or real(self, *a, **kw))
+    ref_run_scenario(ref_library.get(name))
+    rep = run_scenario(dataclasses.replace(library.get(name), backend="torch"), device="cpu")
+    assert _hash(rep) == DRILL_GOLDENS[name]
+    assert wrapper_calls[("waterfill", "cpu")] == len(ref_calls) > 2, wrapper_calls
 
 
 def test_default_backend_is_torch_and_reaches_every_per_fault_master(wrapper_calls):
@@ -96,14 +118,14 @@ def test_default_backend_is_torch_and_reaches_every_per_fault_master(wrapper_cal
     spec = library.get("straggler_gpu")
     assert spec.backend is None
     assert _hash(run_scenario(spec, device="cpu")) == DRILL_GOLDENS["straggler_gpu"]
-    assert set(wrapper_calls) == {(k, "cpu") for k in KERNELS}
+    assert set(wrapper_calls) == TORCH_CPU
     wrapper_calls.clear()
     quiet = dataclasses.replace(spec, streaming_tick_s=0.0)
     rep = run_scenario(quiet, device="cpu")
     assert rep == ref_run_scenario(dataclasses.replace(ref_library.get("straggler_gpu"),
                                                        streaming_tick_s=0.0))
     assert rep["detection"]["n_faults"] > 0
-    assert set(wrapper_calls) == {(k, "cpu") for k in KERNELS}
+    assert set(wrapper_calls) == TORCH_CPU
 
 
 def test_run_scenario_on_the_card_raises_without_one(monkeypatch, wrapper_calls):
@@ -121,7 +143,9 @@ def test_drills_on_the_card_equal_golden():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
     for name in DRILLS:
         detectors.reset_launch_counts()
+        before = waterfill.launches
         rep = run_scenario(dataclasses.replace(library.get(name), backend="torch"))
         counts = detectors.launch_counts()
         assert _hash(rep) == DRILL_GOLDENS[name], name
         assert all(counts[k] > 0 for k in KERNELS), (name, counts)
+        assert waterfill.launches > before, name

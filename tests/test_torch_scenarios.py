@@ -5,9 +5,9 @@
 library, detection, fabric, services, engine, stats, report, montecarlo,
 precision, fleet, the CLI) are copies of
 ``repro``'s NumPy modules. Held here on the CPU: the event bus's trace of a
-scripted run and of whole engine runs, water-filling rates and C4P
-allocations bit-equal, and every shipped spec and copied dataclass
-field-equal. The drills themselves are held to the reference report by
+scripted run and of whole engine runs, water-filling rates (the NumPy loop
+and the torch branch) and C4P allocations bit-equal, and every shipped spec
+and copied dataclass field-equal. The drills themselves are held to the reference report by
 ``tests/test_torch_drills.py``.
 """
 import dataclasses
@@ -28,6 +28,7 @@ from repro.scenarios.engine import CampaignEngine as RefCampaignEngine
 from repro_torch.core import netsim, topology
 from repro_torch.core.c4p.master import C4PMaster
 from repro_torch.core.flowset import FlowSet
+from repro_torch.kernels import waterfill
 from repro_torch.runtime import EventBus, Service
 from repro_torch.scenarios import library, run
 from repro_torch.scenarios.engine import CampaignEngine, run_scenario
@@ -116,8 +117,8 @@ def _same_bits(a: np.ndarray, b: np.ndarray) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
 
 
-def _assert_rates_bit_equal(ref_fs, fs, **kw):
-    want, got = ref_fs.max_min(**kw), fs.max_min(**kw)
+def _assert_rates_bit_equal(ref_fs, fs, port_kw=None, **kw):
+    want, got = ref_fs.max_min(**kw), fs.max_min(**kw, **(port_kw or {}))
     for field in ("flow_rate", "conn_rate", "link_util", "link_touched", "flow_alive"):
         assert _same_bits(getattr(got, field), getattr(want, field)), field
 
@@ -129,12 +130,23 @@ def _scenarios():
 
 
 @pytest.mark.parametrize("jitter", [0.0, 0.05])
-def test_flowset_max_min_bit_equal(jitter):
-    for i, (ref_topo, ref_flows) in enumerate(_scenarios()):
+def test_flowset_max_min_bit_equal(jitter, monkeypatch):
+    """The NumPy loop and the torch branch (the kernel's plain version on
+    the CPU) give the reference's bits; the torch branch goes through the
+    kernel's wrapper, the NumPy one does not."""
+    calls = []
+    real = waterfill.waterfill
+    monkeypatch.setattr(waterfill, "waterfill",
+                        lambda *a, **kw: calls.append(a[2].device.type) or real(*a, **kw))
+    scenarios = _scenarios()
+    for i, (ref_topo, ref_flows) in enumerate(scenarios):
         fs = FlowSet(_port_topology(ref_topo), _port_flows(ref_flows))
-        _assert_rates_bit_equal(RefFlowSet(ref_topo, ref_flows), fs,
+        ref = RefFlowSet(ref_topo, ref_flows)
+        _assert_rates_bit_equal(ref, fs, dict(backend="numpy"), cnp_jitter=jitter, seed=i)
+        assert calls == ["cpu"] * i
+        _assert_rates_bit_equal(ref, fs, dict(backend="torch", device="cpu"),
                                 cnp_jitter=jitter, seed=i)
-    assert "backend" not in FlowSet.max_min.__code__.co_varnames
+    assert calls == ["cpu"] * len(scenarios)
 
 
 def _flow_rows(flows):
@@ -142,10 +154,10 @@ def _flow_rows(flows):
              f.demand_gbps.hex()) for f in flows]
 
 
-def _drive_c4p(master_cls, topo, host_sets, fail):
+def _drive_c4p(master_cls, topo, host_sets, fail, **kw):
     """Allocate ring jobs, evaluate with and without dynamic LB, fail a link,
     re-probe, allocate one more job and evaluate again."""
-    m = master_cls(topo, qps_per_port=2)
+    m = master_cls(topo, qps_per_port=2, **kw)
     m.startup_probe()
     for j, hosts in enumerate(host_sets[:-1]):
         m.register_job(j, hosts)
@@ -182,7 +194,8 @@ def test_c4p_master_allocations_and_rates_bit_equal(case):
                    ref_topo.path_links(hs[0], hs[1], 0, 0, 0, 0) if l[0] == "ls"})
     fail = used[0] if used else ("ls", 0, 0)
     want = _drive_c4p(RefC4PMaster, ref_topo, host_sets, fail)
-    got = _drive_c4p(C4PMaster, port_topo, host_sets, fail)
+    # the port's default backend (torch): its water-filling on the CPU
+    got = _drive_c4p(C4PMaster, port_topo, host_sets, fail, device="cpu")
     for w, g in zip(want, got):
         if hasattr(w, "flow_rate"):
             for field in ("flow_rate", "conn_rate", "link_util"):
