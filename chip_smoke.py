@@ -18,7 +18,11 @@ Phases, each fatal on failure:
     mixed dtypes, on one-element pieces and up to width 8192; the RMSNorm
     gradient against autograd of the plain version; two decode calls on the
     same inputs bit-equal, and decode parity again on another cache set
-    after its timed launches. At RMSNorm's decode shape, an empty kernel's
+    after its timed launches. Flash and decode also at a group above 8 (16
+    and 9: the wrappers' passes of at most 8 query heads a kv head, their
+    launches counted) and a head_dim of 320 (passes of 256 output columns),
+    fp32 and bf16, with a planted fault each (a pass's heads in the wrong
+    columns, V's last 64 columns dropped). At RMSNorm's decode shape, an empty kernel's
     device time (the floor of a launch) and the host path by events: the
     wrapper, the model's entry under no_grad, and F.rms_norm.
     Kernel, plain and library times from CUDA events, the
@@ -76,23 +80,28 @@ Phases, each fatal on failure:
     and must isolate both nodes, through 3 ``window_score``, 6
     ``row_select`` and 2 ``slow_fold`` launches.
  6. fabric: C4P's water-filling (``FlowSet.max_min`` at ``torch`` on the card,
-    ``csrc/waterfill.cu``) bit-equal to the NumPy loop, and both kernel
-    variants (one CTA, a cooperative grid) bit-equal to the plain version,
-    on 40 random fabrics (links failed in the odd ones), the Fig. 2 fabric
-    (2,048 flows) with and without CNP jitter and a 10,240-GPU fabric
+    ``csrc/waterfill.cu``) bit-equal to the NumPy loop, and every kernel
+    variant (the state in one CTA's shared memory where it fits, in device
+    memory on a cooperative grid) bit-equal to the plain
+    version, on 40 random fabrics (links failed in the odd ones), the Fig. 2
+    fabric (2,048 flows) with and without CNP jitter and a 10,240-GPU fabric
     (20,480 flows); planted faults (a link's sums in reverse pair order, no
     clamp at 0, earlier-frozen flows frozen again) must read unequal. The
     main path: C4P (``FabricState``, dynamic LB) at the Fig. 2 fabric's
     width on the card, equal to NumPy, one launch per ``max_min`` call.
-    Times at the main path's call, Fig. 2 and 10,240 GPUs: both variants'
-    event and device ms, their barriers alone, the plain version's and
-    NumPy's ms, the bytes bound; the card-against-NumPy crossover from 256
-    to 20,480 flows (``AUTO_WATERFILL_FLOWS``). The EWMA scan
-    (``csrc/ewma_scan.cu``) at 64 windows x 16,384 cells within 1e-9 of its
-    plain version and of ``AdaptiveBaseline.update``, planted faults (NaN
-    kept in the median's pool, the seed deviation over all cells), its
-    times; ``analyze_arrays_reference`` on the card equal to NumPy on the
-    ten golden windows at 1,024 ranks;
+    Times at the main path's call, Fig. 2 and 10,240 GPUs: each variant's
+    event and device ms and its barriers alone, the first design's device
+    ms (``csrc/earlier/waterfill.cu``, built by ``ablate_waterfill``), the
+    plain version's and NumPy's ms, the bound (the larger of the bytes the
+    work needs once and the default variant's barriers alone); the
+    card-against-NumPy crossover from 128 to 20,480 flows
+    (``AUTO_WATERFILL_FLOWS``). The EWMA scan (``csrc/ewma_scan.cu``) at 64
+    windows x 16,384 cells within 1e-9 of its plain version on both of its
+    paths (shared memory, L2) and of ``AdaptiveBaseline.update``, planted
+    faults (NaN kept in the median's pool, the seed deviation over all
+    cells), both paths' times and the first design's;
+    ``analyze_arrays_reference`` on the card equal to NumPy on the ten
+    golden windows at 1,024 ranks;
  7. drills: the 11 shipped C4 fault drills (32 ranks) through
     ``repro_torch.scenarios.engine.run_scenario`` at ``backend="torch"`` on
     the card and at ``backend="numpy"``, then ``straggler_gpu`` at fleet_day's
@@ -478,6 +487,62 @@ def decode_phase(iters: int):
         errs.append(compare(name + " again, cache set 2", decode_attention_fwd(qq, kk, vv, pos, **kw),
                             ref.decode_attention(qq, kk, vv, pos, **kw)))
     return tuple(max(e[i] for e in errs) for i in range(2)), rows
+
+
+WIDE_CASES = [  # (kind, (b, s, h, hkv, d), window, cap, dtype): the wrappers' lifted limits
+    ("flash", (1, 2048, 32, 2, 128), 1024, CAP, "bfloat16"),    # group 16: 2 passes of 8
+    ("decode", (2, 4384, 32, 2, 128), WINDOW, CAP, "bfloat16"),
+    ("flash", (2, 600, 18, 2, 64), 0, 0.0, "float32"),          # group 9: passes of 5 and 4
+    ("decode", (1, 700, 18, 2, 64), 0, 30.0, "float32"),
+    ("flash", (1, 1024, 8, 4, 320), 512, CAP, "float32"),       # head_dim 320: 2 column passes
+    ("flash", (1, 1024, 8, 4, 320), 512, CAP, "bfloat16"),
+    ("decode", (2, 2048, 8, 4, 320), 1024, CAP, "float32"),
+    ("decode", (2, 2048, 8, 4, 320), 1024, CAP, "bfloat16"),
+]
+
+
+def wide_attention_phase() -> float:
+    """Flash and decode at a group above 8 (the wrappers' passes of at most
+    8 query heads a kv head) and a head_dim above 256 (the CUDA-core
+    kernels' passes of 256 output columns), per row against their plain
+    versions, with a planted fault each (a pass's heads written back into
+    the wrong columns; the last 64 columns of V dropped). Prints the
+    launches each call made. Returns the largest row error."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst = 0.0
+    for kind, (b, s, h, hkv, d), w, cap, dt in WIDE_CASES:
+        dtype = getattr(torch, dt)
+        q = randn((b, s if kind == "flash" else 1, h, d), dtype, gen)
+        k, v = randn((b, s, hkv, d), dtype, gen), randn((b, s, hkv, d), dtype, gen)
+        kw = dict(window=w, logit_cap=cap, scale=d ** -0.5)
+        plain = ((lambda qq, kk, vv: ref.flash_attention(qq, kk, vv, **kw)) if kind == "flash"
+                 else (lambda qq, kk, vv: ref.decode_attention(qq, kk, vv, s - 1, **kw)))
+        mod = fa if kind == "flash" else da
+        before = mod.launches
+        got = (fa.flash_attention_fwd(q, k, v, **kw) if kind == "flash"
+               else da.decode_attention_fwd(q, k, v, s - 1, **kw))
+        torch.cuda.synchronize()
+        passes = mod.launches - before
+        group = h // hkv
+        if passes != -(-group // fa.MAX_GROUP):
+            fail(f"{kind} at group {group}: {passes} launches")
+        if group > fa.MAX_GROUP:   # heads of the second pass written one column block early
+            half = -(-group // -(-group // fa.MAX_GROUP))
+            perm = torch.arange(h).view(hkv, group).roll(-half, dims=1).reshape(h)
+            fault = ("a pass's heads in the wrong columns", plain(q, k, v)[:, :, perm])
+        else:
+            vv = v.clone()
+            vv[..., -64:] = 0
+            fault = ("the last 64 columns of V dropped", plain(q, k, vv))
+        name = (f"{kind} {dt} (b,s,h,hkv,d)={(b, s, h, hkv, d)} group={group} window={w} "
+                f"cap={cap:g}: {passes} launch(es)")
+        worst = max(worst, compare(name, got, plain(q, k, v), [fault])[1])
+    return worst
 
 
 def rmsnorm_phase(iters: int):
@@ -1661,12 +1726,12 @@ def _bit_equal(a, b) -> bool:
 
 # --- [fabric]: C4P's water-filling, the EWMA scan and the reference path ------
 
-WATERFILL_KERNELS = ("waterfill_cta_kernel", "waterfill_grid_kernel")
-EWMA_KERNELS = ("ewma_pool_kernel", "ewma_step_kernel")
+WATERFILL_KERNELS = ("waterfill_smem_kernel", "waterfill_grid_kernel")
+EWMA_KERNELS = ("ewma_pool_kernel", "ewma_pool_l2_kernel", "ewma_step_kernel")
 FABRIC_RANDOM = 40
-FIG2_HOSTS, BIG_HOSTS = 128, 1280                 # 2,048 and 20,480 flows
 CROSSOVER_HOSTS = (8, 16, 32, 64, 128, 256, 512, 1024, 1280)     # 128 .. 20,480 flows
 EWMA_WINDOWS, EWMA_CELLS, EWMA_TOL = 64, 16384, 1e-9
+EWMA_L2_CELLS = 60000                              # 240 KB a CTA of two: above shared memory
 FLOW_FIELDS = ("flow_rate", "conn_rate", "link_util", "link_touched", "flow_alive")
 
 
@@ -1702,42 +1767,20 @@ def random_fabric(rng, fail_links: bool):
     return topo, flows
 
 
-def clos_fabric(n_hosts: int):
-    """tests/test_netsim_perf.py's Fig. 2 scenario on ``n_hosts`` hosts (a
-    ring job on the even hosts, a two-host tenant on each pair of the
-    others, ECMP, 16 flows a host): the Fig. 2 fabric at 128 hosts, the
-    10,240-GPU fabric at 1,280. Returns a FlowSet."""
-    from repro_torch.core.c4p.master import job_ring_requests
-    from repro_torch.core.c4p.pathalloc import ecmp_allocate
-    from repro_torch.core.flowset import FlowSet
-    from repro_torch.core.topology import ClosTopology
-    topo = ClosTopology(n_hosts=n_hosts, n_leaf_pairs=n_hosts // 8, n_spines=8,
-                        n_host_groups=n_hosts // 8)
-    hosts = [(i * 2) % n_hosts for i in range(n_hosts // 2)]
-    free = sorted(set(range(n_hosts)) - set(hosts))
-    flows = ecmp_allocate(topo, job_ring_requests(0, hosts, topo.nics_per_host), seed=0)
-    half = len(free) // 2
-    for b in range(half):
-        flows += ecmp_allocate(topo, job_ring_requests(
-            100 + b, [free[b], free[b + half]], topo.nics_per_host), seed=77 * b)
-    for i, f in enumerate(flows):
-        f.flow_id = i
-    return FlowSet(topo, flows)
-
-
 def wf_inputs(fs, jitter: float = 0.0, seed: int = 0):
-    """The kernel's inputs for one ``max_min`` call, on the card: the
-    incidence by link, floored weights, aliveness, capacity after the jitter
-    draw ``max_min`` makes."""
-    import numpy as np
-    import torch
+    """The kernel's inputs for one ``max_min`` call on the card: (the
+    incidence by link, floored weights, aliveness, capacity after the
+    jitter draw ``max_min`` makes) and the incidence by flow."""
+    from repro_torch.scenarios.c4p_fabrics import waterfill_inputs
+    return waterfill_inputs(fs, DEV, jitter, seed)
+
+
+def wf_variants(fs):
+    """The kernel's variants that hold this fabric: ``smem`` only where its
+    state fits in one CTA's shared memory."""
     from repro_torch.kernels import waterfill as wf
-    ptr, flow = wf.link_csr(fs.pair_flow, fs.pair_link, fs.n_links)
-    cap = fs.base_cap.copy()
-    if jitter:
-        cap *= 1.0 - jitter * np.random.default_rng(seed).uniform(0.0, 1.0, size=fs.n_links)
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(DEV) for a in
-            (ptr, flow, np.maximum(fs.weights, 1e-9), fs.alive_mask(), cap)]
+    fits = wf.pick_variant(fs.n_flows, fs.n_links, fs.pair_flow.size) == "smem"
+    return [v for v in wf.VARIANTS if v != "smem" or fits]
 
 
 def faulty_waterfill(link_ptr, link_flow, w, alive, cap, fault: str):
@@ -1809,6 +1852,7 @@ def waterfill_parity():
     import torch
     from repro_torch.core.flowset import FlowSet
     from repro_torch.kernels import waterfill as wf
+    from repro_torch.scenarios.c4p_fabrics import BIG_HOSTS, FIG2_HOSTS, clos_fabric
 
     rng = np.random.default_rng(5)
     cases = []
@@ -1821,6 +1865,7 @@ def waterfill_parity():
     diffs = dict.fromkeys(WF_FAULTS, 0)
     err = 0.0
     rounds = {}
+    held = dict.fromkeys(wf.VARIANTS, 0)
     for label, fs, jitter, seed in cases:
         want = fs.max_min(backend="numpy", cnp_jitter=jitter, seed=seed)
         got = fs.max_min(backend="torch", device=DEV, cnp_jitter=jitter, seed=seed)
@@ -1828,14 +1873,14 @@ def waterfill_parity():
             *(torch.from_numpy(getattr(r, k)) for r in (got, want)))]
         if bad:
             fail(f"waterfill on {label}: the card's {bad} differ from the NumPy loop's")
-        args = wf_inputs(fs, jitter, seed)
+        args, by_flow = wf_inputs(fs, jitter, seed)
         plain = wf.waterfill_ref(*args)
-        for grid in (False, True):
-            kern = wf.waterfill(*args, grid=grid)
+        for variant in wf_variants(fs):
+            kern = wf.waterfill(*args, flow_csr=by_flow, variant=variant)
             if any(_differ(k, p) for k, p in zip(kern, plain)):
-                fail(f"waterfill ({'grid' if grid else 'one CTA'}) on {label}: differs from "
-                     "its plain version")
+                fail(f"waterfill ({variant}) on {label}: differs from its plain version")
             err = max(err, *((k - p).abs().max().item() for k, p in zip(kern[:2], plain[:2])))
+            held[variant] += 1
         for fault in diffs:
             wrong = faulty_waterfill(*args, fault)
             diffs[fault] += _differ(kern[0], wrong[0]) + _differ(kern[1], wrong[1])
@@ -1844,10 +1889,14 @@ def waterfill_parity():
             print(f"  waterfill {label}: {fs.n_flows:,} flows, {fs.n_links:,} links, "
                   f"{fs.pair_flow.size:,} pairs, {rounds[label]} rounds: FlowSet.max_min at torch "
                   "on the card bit-equal to the NumPy loop (rates, connection rates, link "
-                  "utilisation); both kernel variants bit-equal to the plain version",
+                  f"utilisation); kernel variants {wf_variants(fs)} bit-equal to the plain "
+                  f"version (default {wf.pick_variant(fs.n_flows, fs.n_links, fs.pair_flow.size)})",
                   flush=True)
     print(f"  waterfill on {FABRIC_RANDOM} random fabrics (links failed in the odd ones): "
-          "bit-equal, card to NumPy and kernel (both variants) to plain", flush=True)
+          "bit-equal, card to NumPy and kernel to plain; fabrics held bit-equal by variant: "
+          f"{held}", flush=True)
+    if held["grid"] != len(cases) or held["smem"] < len(cases) - 1:
+        fail(f"waterfill: variants held on {held} of {len(cases)} fabrics")
     # freezing tied links one at a time reaches the same fixed point, so
     # "lowest tie" differs only where the later rounds round otherwise (the
     # 10,240-GPU fabric); "refreeze" is the fault of the freeze step that
@@ -1860,73 +1909,130 @@ def waterfill_parity():
     return {"fig2": fig2, "10240": big}, rounds, err
 
 
+def waterfill_bytes(fs) -> int:
+    """The bytes one water-fill needs once: the incidence by link (L + 1
+    offsets, P flows, int64), weights and capacities (float64) and
+    aliveness (bool) read; rates and remaining capacities (float64)
+    written."""
+    f, l, p = fs.n_flows, fs.n_links, fs.pair_flow.size
+    return 8 * (l + 1) + 8 * p + 8 * f + f + 8 * l + 8 * (f + l)
+
+
+_EARLIER = {}
+
+
+def earlier_waterfill(args, by_flow):
+    """The first design's kernel (csrc/earlier/waterfill.cu, built once by
+    kernels/ablate_waterfill.py) on these inputs: a function variant ->
+    (rate, remaining, rounds), variant "cta" or "grid"."""
+    from repro_torch.kernels import ablate_waterfill
+    if "so" not in _EARLIER:
+        _EARLIER["so"] = ablate_waterfill.build(["first_design"])["first_design"]
+    return ablate_waterfill.caller(_EARLIER["so"], "first_design", args, by_flow)
+
+
+def consistent(dev, events_ms):
+    """A device time the profiler gave, unless it exceeds the CUDA events'
+    time of the same calls (one launch a call, on one stream): then some of
+    the window's records were lost (whole windows of long calls drop at
+    times) and the time reads "not measured"."""
+    if dev is not None and dev > 1.02 * events_ms:
+        print(f"    device time {dev:.5f} ms above the events' {events_ms:.5f} ms: profiler "
+              "records lost, not measured", flush=True)
+        return None
+    return dev
+
+
 def waterfill_times(label, fs, rounds, iters):
     """One water-fill's times on the card: each variant's event and device
-    ms, the plain version's ms on the card, NumPy's wall ms for the same
-    call, and the bounds. Returns a row for the JSON line."""
-    import torch
+    ms and the barriers of its rounds alone, the first design's device ms
+    (both its variants, bit-equal first), the plain version's ms on the
+    card, NumPy's wall ms for the same call, and the bound: the larger of
+    the bytes the work needs once over the card's rate and the default
+    variant's barriers alone. Returns a row for the JSON line."""
     from repro_torch.kernels import waterfill as wf
 
-    args = wf_inputs(fs)
+    args, by_flow = wf_inputs(fs)
     f, l, p = fs.n_flows, fs.n_links, fs.pair_flow.size
-    # each round touches the incidence (L + 1 offsets, P flows), a stamp and
-    # a weight a flow and reads and writes a link's remaining; then cap in,
-    # rates and remaining out
-    nbytes = rounds * (8 * (l + 1) + 8 * p + 12 * f + 16 * l) + 8 * l + f + 8 * (f + l)
-    b_ms, b_by = bound(0.0, nbytes, "float32")
-    row = {"flows": f, "links": l, "pairs": p, "rounds": rounds, "bound_ms": b_ms,
-           "bound_by": b_by, "bytes": nbytes}
-    for grid in (False, True):
-        name = "grid" if grid else "cta"
-        run = lambda: wf.waterfill(*args, grid=grid)      # noqa: E731
-        row[f"{name}_ms"] = time_ms(run, iters)
-        row[f"{name}_device_ms"] = device_ms(run, iters, WATERFILL_KERNELS)
-        probe = lambda: wf.sync_probe(l, rounds, grid, DEV)   # noqa: E731
-        row[f"{name}_sync_floor_ms"] = time_ms(probe, iters)
-    default = "grid" if l >= wf.GRID_LINKS else "cta"
-    row.update(variant=default, ms=row[f"{default}_ms"], device_ms=row[f"{default}_device_ms"],
-               sync_floor_ms=row[f"{default}_sync_floor_ms"])
+    nbytes = waterfill_bytes(fs)
+    bytes_ms, _ = bound(0.0, nbytes, "float32")
+    default = wf.pick_variant(f, l, p)
+    row = {"flows": f, "links": l, "pairs": p, "rounds": rounds, "bytes": nbytes,
+           "bytes_ms": bytes_ms, "variant": default}
+    for v in wf_variants(fs):
+        run = lambda: wf.waterfill(*args, flow_csr=by_flow, variant=v)      # noqa: E731
+        row[f"{v}_ms"] = time_ms(run, iters)
+        row[f"{v}_device_ms"] = consistent(device_ms(run, iters, WATERFILL_KERNELS),
+                                           row[f"{v}_ms"])
+        probe = lambda: wf.sync_probe(l, rounds, v, DEV)                     # noqa: E731
+        row[f"{v}_sync_floor_ms"] = time_ms(probe, iters)
+    plain = wf.waterfill_ref(*args)
+    old = earlier_waterfill(args, by_flow)
+    for v in ("cta", "grid"):
+        if any(_differ(k, w) for k, w in zip(old(v), plain)):
+            fail(f"the first design ({v}) on {label}: differs from the plain version")
+        row[f"earlier_{v}_device_ms"] = consistent(device_ms(lambda: old(v), iters),
+                                                   time_ms(lambda: old(v), iters))
+    # bound_ms: the bytes the work needs once (its operations, a few a pair
+    # a round, take less); floor_ms: the larger of that and the rounds'
+    # dependency floor, the default variant's barriers alone
+    row.update(ms=row[f"{default}_ms"], device_ms=row[f"{default}_device_ms"],
+               sync_floor_ms=row[f"{default}_sync_floor_ms"], bound_ms=bytes_ms,
+               bound_by="bytes")
+    row["floor_ms"] = max(bytes_ms, row["sync_floor_ms"])
+    row["floor_by"] = "bytes" if bytes_ms >= row["sync_floor_ms"] else "the rounds' barriers"
     row["plain_ms"] = time_ms(lambda: wf.waterfill_ref(*args), 2)
     row["numpy_ms"] = _wall_ms(lambda: fs.max_min(backend="numpy"))
     row["card_call_ms"] = _wall_ms(lambda: fs.max_min(backend="torch", device=DEV))
-    binds = "the barriers" if row["sync_floor_ms"] > b_ms else "bytes"
-    print(f"  time waterfill {label} ({f:,} flows, {rounds} rounds): "
+    print(f"  time waterfill {label} ({f:,} flows, {l:,} links, {rounds} rounds): "
           + " ".join(f"{v}_ms={_ms(row[f'{v}_ms'])} {v}_device_ms={_ms(row[f'{v}_device_ms'])} "
                      f"{v}_sync_floor_ms={_ms(row[f'{v}_sync_floor_ms'])}"
-                     for v in ("cta", "grid"))
-          + f"; plain_ms={row['plain_ms']:.5f} numpy_ms={row['numpy_ms']:.5f} "
-          f"card_call_ms={row['card_call_ms']:.5f} (FlowSet.max_min, copies and epilogue "
-          f"included); bound_ms={b_ms:.6f} ({b_by}; {nbytes:.4e} B) against the floor of "
-          f"{rounds} rounds of barriers: {binds} bind; default variant {default}, "
-          f"bound/device={_share(max(b_ms, row['sync_floor_ms']), row['device_ms'])}",
-          flush=True)
+                     for v in wf_variants(fs))
+          + f"; first design (csrc/earlier) device_ms cta={_ms(row['earlier_cta_device_ms'])} "
+          f"grid={_ms(row['earlier_grid_device_ms'])}; plain_ms={row['plain_ms']:.5f} "
+          f"numpy_ms={row['numpy_ms']:.5f} card_call_ms={row['card_call_ms']:.5f} "
+          f"(FlowSet.max_min, copies and epilogue included); bound_ms={bytes_ms:.6f} (bytes "
+          f"once, {nbytes:,} B); floor_ms={row['floor_ms']:.6f} = max(bound_ms, {rounds} "
+          f"rounds of the {default} variant's barriers alone {row['sync_floor_ms']:.6f}): "
+          f"{row['floor_by']} bind; default variant {default}, bound/device="
+          f"{_share(bytes_ms, row['device_ms'])} floor/device="
+          f"{_share(row['floor_ms'], row['device_ms'])}", flush=True)
     return row
+
+
+def _from_here(sizes, wins):
+    """The smallest size from which ``wins`` holds at every larger size."""
+    ok = [n for i, n in enumerate(sizes) if all(wins[i:])]
+    return ok[0] if ok else None
 
 
 def waterfill_crossover():
     """FlowSet.max_min at numpy against torch on the card, whole calls, on
     the Fig. 2 scenario from 8 to 1,280 hosts (128 to 20,480 flows): the
     smallest size from which the card wins at every larger size sets
-    AUTO_WATERFILL_FLOWS. Beside it, the kernel's two variants by events
-    (``GRID_LINKS``)."""
+    AUTO_WATERFILL_FLOWS. Beside it, the kernel's variants by events (the
+    grid alone where the state does not fit in shared memory)."""
     from repro_torch.core import torchsim
     from repro_torch.kernels import waterfill as wf
-    wins = []
+    from repro_torch.scenarios.c4p_fabrics import clos_fabric
+    flows, wins = [], []
     for hosts in CROSSOVER_HOSTS:
         fs = clos_fabric(hosts)
         np_ms = _wall_ms(lambda: fs.max_min(backend="numpy"))
         card_ms = _wall_ms(lambda: fs.max_min(backend="torch", device=DEV))
-        args = wf_inputs(fs)
-        cta, grid = (time_ms(lambda: wf.waterfill(*args, grid=g), ITERS) for g in (False, True))
-        wins.append((fs.n_flows, card_ms < np_ms))
+        args, by_flow = wf_inputs(fs)
+        ms = {v: time_ms(lambda: wf.waterfill(*args, flow_csr=by_flow, variant=v), ITERS)
+              for v in wf_variants(fs)}
+        flows.append(fs.n_flows)
+        wins.append(card_ms < np_ms)
         print(f"  crossover waterfill {fs.n_flows} flows ({fs.n_links} links): numpy_ms="
               f"{np_ms:.4f} torch_ms={card_ms:.4f} faster={'torch' if card_ms < np_ms else 'numpy'} "
-              f"auto={torchsim.effective_backend('auto', flows=fs.n_flows)}; kernel cta_ms="
-              f"{cta:.5f} grid_ms={grid:.5f} default "
-              f"{'grid' if fs.n_links >= wf.GRID_LINKS else 'cta'}", flush=True)
-    from_here = [f for i, (f, _) in enumerate(wins) if all(w for _, w in wins[i:])]
-    print(f"  crossover waterfill: the card wins from {from_here[0] if from_here else 'none'} "
-          f"flows up (AUTO_WATERFILL_FLOWS = {torchsim.AUTO_WATERFILL_FLOWS})", flush=True)
+              f"auto={torchsim.effective_backend('auto', flows=fs.n_flows)}; kernel "
+              + " ".join(f"{v}_ms={t:.5f}" for v, t in ms.items())
+              + f" default {wf.pick_variant(fs.n_flows, fs.n_links, fs.pair_flow.size)}",
+              flush=True)
+    print(f"  crossover waterfill: the card wins from {_from_here(flows, wins)} flows up "
+          f"(AUTO_WATERFILL_FLOWS = {torchsim.AUTO_WATERFILL_FLOWS})", flush=True)
 
 
 def c4p_main_path():
@@ -1938,10 +2044,8 @@ def c4p_main_path():
     bit; one waterfill launch per FlowSet.max_min call. Returns (launches,
     the balancer's FlowSet after its last call, that call's rounds)."""
     from repro_torch.core.flowset import FlowSet
-    from repro_torch.core.topology import ClosTopology
-    from repro_torch.core.torchsim import use_backend
     from repro_torch.kernels import waterfill as wf
-    from repro_torch.scenarios.fabric import FabricState
+    from repro_torch.scenarios.c4p_fabrics import balancer_flowset, run_main_path
 
     def drive(backend):
         calls = []
@@ -1954,22 +2058,7 @@ def c4p_main_path():
         FlowSet.max_min = counted
         try:
             t0 = time.perf_counter()
-            with use_backend(backend):
-                topo = ClosTopology(n_hosts=FIG2_HOSTS, n_leaf_pairs=16, n_spines=8,
-                                    n_host_groups=16)
-                fab = FabricState(topo, mode="c4p", qps_per_port=2,
-                                  device=DEV if backend == "torch" else None)
-                fab.add_job(0, [(i * 2) % FIG2_HOSTS for i in range(64)])
-                for k, b in enumerate(range(1, 17, 2)):
-                    fab.add_job(1 + k, [b, b + 32])
-                out = [fab.evaluate(cnp_jitter=0.05, seed=3), fab.evaluate(dynamic_lb=False,
-                                                                           seed=4)]
-                link = sorted(x for x in topo.path_links(0, 2, 0, 0, 0, 0) if x[0] == "ls")[0]
-                fab.fail_link(link)
-                fab.probe_refresh()
-                fab.add_job(99, [3, 35])
-                out += [fab.evaluate(seed=5), fab.evaluate(dynamic_lb=False, seed=6)]
-                busbw = fab.all_busbw(out[2])
+            out, busbw = run_main_path(backend, DEV)
             return out, busbw, len(calls), time.perf_counter() - t0
         finally:
             FlowSet.max_min = real
@@ -1993,16 +2082,9 @@ def c4p_main_path():
           f"connection and link rates and busbw bit-equal to NumPy "
           f"({sum(len(r.flow_rate) for r in card)} flow rates)", flush=True)
     # the balancer's last call, timed at the main path's shape
-    topo = ClosTopology(n_hosts=FIG2_HOSTS, n_leaf_pairs=16, n_spines=8, n_host_groups=16)
-    fab = FabricState(topo, mode="c4p", qps_per_port=2, device=DEV)
-    fab.add_job(0, [(i * 2) % FIG2_HOSTS for i in range(64)])
-    for k, b in enumerate(range(1, 17, 2)):
-        fab.add_job(1 + k, [b, b + 32])
-    with use_backend("torch"):
-        fab.evaluate(cnp_jitter=0.05, seed=3)
-    fs = fab.master.flow_set()
-    args = wf_inputs(fs)
-    rounds = int(wf.waterfill(*args)[2][0])
+    fs = balancer_flowset(DEV)
+    args, by_flow = wf_inputs(fs)
+    rounds = int(wf.waterfill(*args, flow_csr=by_flow)[2][0])
     return launches, fs, rounds
 
 
@@ -2067,12 +2149,38 @@ def ewma_phase(iters):
                        np.zeros(EWMA_CELLS, np.int64), alpha, clip, device=DEV)
     launches = ew.launches
     want = detect_ref.ewma_scan_ref(v, zeros, zeros, count0, alpha, clip)
+    default = ew.path_for(EWMA_CELLS, v.device)
     ok, err = close(got, want)
-    print(f"  ewma_scan {EWMA_WINDOWS} windows x {EWMA_CELLS} cells (10 % NaN): within "
-          f"{EWMA_TOL:g} of the plain version, count equal: {'yes' if ok else 'NO'} "
-          f"(max_abs_err={err:.3e}); launches of the entry {launches}", flush=True)
+    print(f"  ewma_scan {EWMA_WINDOWS} windows x {EWMA_CELLS} cells (10 % NaN), {default} path "
+          f"(by size): within {EWMA_TOL:g} of the plain version, count equal: "
+          f"{'yes' if ok else 'NO'} (max_abs_err={err:.3e}); launches of the entry {launches}",
+          flush=True)
     if not ok or launches != 1:
         fail("ewma_scan: the kernel disagrees with its plain version")
+    if default != "smem":
+        fail(f"ewma_scan: the {default} path at {EWMA_CELLS} cells, not the shared-memory path")
+    # the L2 path: by size above shared memory, through the wrapper, and at
+    # the bench shape through the ablation's caller, which names the path
+    from repro_torch.kernels import ablate_ewma
+    libs = ablate_ewma.build(["l2_path", "first_design"])
+    l2 = ablate_ewma.caller(libs["l2_path"], "l2_path", (v, zeros, zeros, count0, alpha, clip))
+    big = rng.normal(10.0, 1.0, size=(2, EWMA_L2_CELLS))
+    big[rng.random(big.shape) < 0.1] = np.nan
+    vb = torch.from_numpy(big).to(DEV)
+    zb = torch.zeros(EWMA_L2_CELLS, dtype=torch.float64, device=DEV)
+    cb = torch.zeros(EWMA_L2_CELLS, dtype=torch.int64, device=DEV)
+    for label, run_l2, ref_l2, path in (
+            (f"{EWMA_WINDOWS} x {EWMA_CELLS}, named", l2, want, "l2"),
+            (f"2 x {EWMA_L2_CELLS:,}, by size", lambda: ew.ewma_scan(vb, zb, zb, cb, alpha, clip),
+             detect_ref.ewma_scan_ref(vb, zb, zb, cb, alpha, clip),
+             ew.path_for(EWMA_L2_CELLS, v.device))):
+        ok, perr = close(run_l2(), ref_l2)
+        print(f"  ewma_scan, the {path} path at {label}: within {EWMA_TOL:g} of the plain "
+              f"version, count equal: {'yes' if ok else 'NO'} (max_abs_err={perr:.3e})",
+              flush=True)
+        if not ok or path != "l2":
+            fail(f"ewma_scan ({path} path, {label}): the kernel disagrees with its plain version")
+        err = max(err, perr)
     for fault in ("NaN in the pool", "seed over all cells"):
         wrong = ewma_faulty(v, zeros, zeros, count0, alpha, clip, fault)
         bad, ferr = close(got, wrong)
@@ -2101,19 +2209,35 @@ def ewma_phase(iters):
           f"(max_abs_err={serr:.3e})", flush=True)
     if not ok:
         fail("ewma_scan differs from AdaptiveBaseline.update")
-    run = lambda: ew.ewma_scan(v, zeros, zeros, count0, alpha, clip)      # noqa: E731
-    ms = time_ms(run, iters)
-    split = {}
-    dev = device_ms(run, iters, EWMA_KERNELS, split)
-    plain_ms = time_ms(lambda: detect_ref.ewma_scan_ref(v, zeros, zeros, count0, alpha, clip), 2)
     nbytes = _nbytes(v, zeros, zeros, count0) + 3 * 8 * EWMA_CELLS
     b_ms, b_by = bound(0.0, nbytes, "float32")
-    print(f"  time ewma_scan at {EWMA_WINDOWS} x {EWMA_CELLS}: kernel_ms={ms:.5f} "
-          f"device_ms={_ms(dev)} plain_ms={plain_ms:.5f} library_ms=null bound_ms={b_ms:.5f} "
-          f"({b_by}; {nbytes:.4e} B) bound/device={_share(b_ms, dev)}; device ms by kernel: "
-          + ", ".join(f"{k} {x:.5f}" for k, x in split.items()), flush=True)
-    row = {"ms": ms, "device_ms": dev, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "library_ms": None, "library_device_ms": None}
+    row = {"path": default, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "library_device_ms": None}
+    for path, run in (("smem", lambda: ew.ewma_scan(v, zeros, zeros, count0, alpha, clip)),
+                      ("l2", l2)):
+        split = {}
+        row[f"{path}_ms"] = time_ms(run, iters)
+        row[f"{path}_device_ms"] = device_ms(run, iters, EWMA_KERNELS, split)
+        row[f"{path}_by_kernel"] = split
+    old = ablate_ewma.caller(libs["first_design"], "first_design",
+                             (v, zeros, zeros, count0, alpha, clip))
+    ok, _ = close(old(), want)
+    if not ok:
+        fail("ewma_scan, the first design: outside the tolerance of the plain version")
+    split = {}
+    row["earlier_device_ms"] = device_ms(old, iters, EWMA_KERNELS, split)
+    row["earlier_by_kernel"] = split
+    row.update(ms=row[f"{default}_ms"], device_ms=row[f"{default}_device_ms"])
+    row["plain_ms"] = time_ms(lambda: detect_ref.ewma_scan_ref(v, zeros, zeros, count0, alpha,
+                                                               clip), 2)
+    print(f"  time ewma_scan at {EWMA_WINDOWS} x {EWMA_CELLS}: "
+          + " ".join(f"{p}_ms={row[f'{p}_ms']:.5f} {p}_device_ms={_ms(row[f'{p}_device_ms'])} "
+                     f"({', '.join(f'{k} {x:.5f}' for k, x in row[f'{p}_by_kernel'].items())})"
+                     for p in ew.PATHS)
+          + f"; first design (csrc/earlier) device_ms={_ms(row['earlier_device_ms'])} "
+          f"({', '.join(f'{k} {x:.5f}' for k, x in split.items())}); plain_ms="
+          f"{row['plain_ms']:.5f} library_ms=null bound_ms={b_ms:.5f} ({b_by}; {nbytes:.4e} B) "
+          f"default path {default}, bound/device={_share(b_ms, row['device_ms'])}", flush=True)
     return launches, err, row
 
 
@@ -2529,6 +2653,7 @@ def main(argv=None) -> int:
     print("[kernels]", flush=True)
     flash_err, flash_rows = flash_phase(ITERS)
     decode_err, decode_rows = decode_phase(ITERS)
+    wide_attention_phase()
     norm_err, norm_rows, norm_extra = rmsnorm_phase(ITERS)
     print(f"[kernels] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2631,10 +2756,7 @@ def main(argv=None) -> int:
         {"name": "waterfill", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/waterfill.cu",
          "replaces": "src/repro/core/jaxsim/kernels.py:360", "launches": wf_launches,
-         "max_abs_err": wf_err,
-         **{k: wf_rows["main path"][k] for k in (
-             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "rounds", "variant",
-             "sync_floor_ms", "numpy_ms", "card_call_ms")},
+         "max_abs_err": wf_err, **wf_rows["main path"],
          "library_ms": None, "drills": drill_counts["library"]["waterfill"],
          "fleet_drill": drill_counts["fleet"]["waterfill"],
          "campaigns": campaign_counts["waterfill"], "live": live_counts["waterfill"],

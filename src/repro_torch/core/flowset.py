@@ -105,7 +105,7 @@ class FlowSet:
         self.base_cap = np.asarray(caps, dtype=np.float64)
         self.n_links = len(links)
         self._pairs_dirty = False
-        self._by_link = {}       # device -> the incidence by link, on it
+        self._by_link = {}       # device -> the incidence by link and by flow, on it
 
     def set_links(self, row: int, links: List[LinkId]) -> None:
         """Point flow ``row`` at a new path (e.g. after a re-route)."""
@@ -213,8 +213,8 @@ class FlowSet:
                     device) -> Tuple[np.ndarray, np.ndarray]:
         """The filling loop through ``kernels/waterfill.py`` on ``device``:
         one copy of the weights and capacities in, one of the rates and
-        remaining capacities out; the incidence by link is kept on each
-        device until the pairs change."""
+        remaining capacities out; the incidence by link and by flow is kept
+        on each device until the pairs change."""
         import torch
 
         from repro_torch import resolve_device
@@ -223,13 +223,13 @@ class FlowSet:
         dev = resolve_device(device)
         inc = self._by_link.get(dev)
         if inc is None:
-            ptr, flow = waterfill.link_csr(self.pair_flow, self.pair_link, self.n_links)
-            inc = self._by_link[dev] = (torch.from_numpy(ptr).to(dev),
-                                        torch.from_numpy(flow).to(dev))
+            csr = (*waterfill.link_csr(self.pair_flow, self.pair_link, self.n_links),
+                   *waterfill.flow_csr(self.pair_flow, self.pair_link, self.n_flows))
+            inc = self._by_link[dev] = [torch.from_numpy(a).to(dev) for a in csr]
         F = self.n_flows
         wc = torch.from_numpy(np.concatenate([w, cap])).to(dev)
-        rate, remaining, _ = waterfill.waterfill(*inc, wc[:F], torch.from_numpy(alive).to(dev),
-                                                 wc[F:])
+        rate, remaining, _ = waterfill.waterfill(*inc[:2], wc[:F], torch.from_numpy(alive).to(dev),
+                                                 wc[F:], flow_csr=inc[2:])
         out = torch.cat([rate, remaining]).cpu().numpy()
         return out[:F], out[F:]
 

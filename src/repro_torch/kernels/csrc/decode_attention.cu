@@ -65,6 +65,13 @@
 // across the head dim in the PV step), then decode_combine_kernel: two
 // launches. Any cache length is taken; the ragged last chunk is masked. The
 // head dim must be a multiple of 16 bytes' worth of elements (8 bf16, 4 fp32).
+// Neither registers nor shared memory grow with the head dim: the scores
+// are summed over Q 256 columns at a time (staged in shared memory), and the
+// grid's z axis runs the PV product in passes of 256 output columns, each
+// pass recomputing the scores over the whole head dim in the same order (so
+// every pass finds the same max and sum; the first writes them).
+// A group above 8 query heads a kv head is launched by the wrapper in passes
+// of at most 8 (kernels/flash_attention.py::group_passes).
 //
 // Masked scores take the finite NEG_INF of the TPU kernel, not -inf, so that
 // exp(NEG_INF - NEG_INF) = 1 and a later exp(NEG_INF - m) = 0 stay finite.
@@ -134,12 +141,9 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int group = H / Hkv;
   const int split = split0 + blockIdx.x;
   const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
+  const int c0 = blockIdx.z * MAXD;              // this pass's output columns
+  const int Dv = min(MAXD, D - c0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  // the group's query rows are contiguous in q (B,1,H,D)
-  const T* qg = q + ((long long)b * H + kvh * group) * D;
-  for (int idx = tid; idx < group * D; idx += THREADS) Qs[idx] = to_f32(qg[idx]);
-  __syncthreads();
 
   float m[MAXG], l[MAXG], s[MAXG], acc[MAXG][NV * VEC];
 #pragma unroll
@@ -153,21 +157,30 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   const long long hs = (long long)Hkv * D;   // elements between cache positions
   const T* kbase = kc + ((long long)b * S * Hkv + kvh) * D;
-  const T* vbase = vc + ((long long)b * S * Hkv + kvh) * D;
+  const T* vbase = vc + ((long long)b * S * Hkv + kvh) * D + c0;
   const int t0 = split * CHUNK + warp * 32;
+  const bool active = t0 <= pos && t0 + 31 >= lo;   // the same in the whole warp
+  const int key = t0 + lane;
+  const bool ok = active && key >= lo && key <= pos;   // pos < S: a valid key is in the cache
 
-  if (t0 <= pos && t0 + 31 >= lo) {
-    const int key = t0 + lane;
-    const bool ok = key >= lo && key <= pos;   // pos < S, so a valid key is in the cache
+  // scores over the head dim, Q staged 256 columns at a time (the group's
+  // query rows are contiguous in q (B,1,H,D))
+  const T* qg = q + ((long long)b * H + kvh * group) * D;
+  for (int d0 = 0; d0 < D; d0 += MAXD) {
+    const int dw = min(MAXD, D - d0);
+    if (d0 > 0) __syncthreads();               // the previous columns are consumed
+    for (int idx = tid; idx < group * dw; idx += THREADS)
+      Qs[idx] = to_f32(qg[(idx / dw) * D + d0 + idx % dw]);
+    __syncthreads();
     if (ok) {
-      const T* krow = kbase + key * hs;
-      for (int c = 0; c < D; c += VEC) {
+      const T* krow = kbase + key * hs + d0;
+      for (int c = 0; c < dw; c += VEC) {
         float kx[VEC];
         load16(krow + c, kx);
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
           if (g >= group) break;
-          const float4* qv = reinterpret_cast<const float4*>(Qs + g * D + c);
+          const float4* qv = reinterpret_cast<const float4*>(Qs + g * dw + c);
 #pragma unroll
           for (int e4 = 0; e4 < VEC / 4; ++e4) {
             const float4 qx = qv[e4];
@@ -177,6 +190,9 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         }
       }
     }
+  }
+
+  if (active) {
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
       if (g >= group) break;
@@ -195,7 +211,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         const int c = (j * 32 + lane) * VEC;
-        if (c < D) {
+        if (c < Dv) {
           load16(vrow + c, vx + j * VEC);
         } else {
 #pragma unroll
@@ -218,15 +234,15 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       const int c = (j * 32 + lane) * VEC;
-      if (c < D) {
+      if (c < Dv) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) w_acc[warp][g][c + e] = acc[g][j * VEC + e];
       }
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < group * D; idx += THREADS) {
-    const int g = idx / D, d = idx % D;
+  for (int idx = tid; idx < group * Dv; idx += THREADS) {
+    const int g = idx / Dv, d = idx % Dv;
     float mb = NEG_INF;
     for (int w = 0; w < WARPS; ++w) mb = fmaxf(mb, w_m[w][g]);
     float a = 0.f, lb = 0.f;
@@ -236,8 +252,8 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       lb += w_l[w][g] * f;
     }
     const long long slot = ((long long)b * H + kvh * group + g) * nsplit + (split - split0);
-    part_acc[slot * D + d] = a;
-    if (d == 0) { part_m[slot] = mb; part_l[slot] = lb; }
+    part_acc[slot * D + c0 + d] = a;
+    if (c0 + d == 0) { part_m[slot] = mb; part_l[slot] = lb; }
   }
 }
 
@@ -639,7 +655,8 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* o, float
   const int lo = window > 0 ? max(0, pos - window + 1) : 0;
   const int split0 = lo / CHUNK;
   const int nsplit = pos / CHUNK - split0 + 1;
-  decode_partial_kernel<T, NV><<<dim3(nsplit, B * Hkv), THREADS, 0, stream>>>(
+  const unsigned passes = (unsigned)((D + MAXD - 1) / MAXD);
+  decode_partial_kernel<T, NV><<<dim3(nsplit, B * Hkv, passes), THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc), pm, pl,
       pa, S, H, Hkv, D, pos, lo, split0, nsplit, scale, cap);
   cudaError_t err = cudaGetLastError();
@@ -745,8 +762,8 @@ extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* v
                                     int D, int pos, int window, float scale, float cap,
                                     int dtype, void* stream) {
   const int vec = dtype == 1 ? 8 : 4;
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG || D <= 0 || D > MAXD ||
-      D % vec != 0 || pos < 0 || pos >= S || B * Hkv > 65535)
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG || D <= 0 ||
+      D > MAXD * 65535 || D % vec != 0 || pos < 0 || pos >= S || B * Hkv > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sc = static_cast<float*>(scratch);

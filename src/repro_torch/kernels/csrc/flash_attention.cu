@@ -50,7 +50,8 @@
 //    are computed and not stored.
 //  * The wrapper raises on what TMA cannot take (a base pointer off a 16-byte
 //    boundary; the row strides of contiguous bf16 rows of these head_dims are
-//    multiples of 16 bytes) and on a group above 8.
+//    multiples of 16 bytes). A group above 8 is launched by the wrapper in
+//    passes of at most 8 query heads a kv head (the launcher refuses it).
 //
 // Any other case (fp32, or another head_dim): flash_fwd_kernel, on the fp32
 // CUDA cores, which keeps the fp32 inputs exact.
@@ -62,6 +63,12 @@
 //  * head_dim up to 256: the fp32 accumulator of a row is spread over the
 //    warp's 32 lanes (8 floats a lane at D=256), so 8 rows cost 64 registers.
 //    Shared memory at D=256 is 97 KB.
+//  * head_dim above 256 (WIDE): neither registers nor shared memory grow
+//    with D. The grid's z axis runs the PV product in passes of 256 output
+//    columns; each pass recomputes the scores over the whole head_dim,
+//    loading Q and K 256 columns at a time (Q again for every key tile),
+//    and keeps only its 256 columns of V and of the accumulator. Every pass
+//    sums the scores in the same order, so they share m and l bit for bit.
 //
 // Common to both:
 //  * Above 48 KB of shared memory, the launcher raises the kernel's dynamic
@@ -107,9 +114,31 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+constexpr int WIDE_COLS = 256;               // head-dim columns of a WIDE chunk or pass
+
+// the Q tile's columns d0 .. d0 + Dp - 1 (zero past D): flat row r ->
+// position r / group, head kvh * group + r % group
+template <typename T>
+__device__ __forceinline__ void load_q(float* Qs, const T* __restrict__ q, long long row0,
+                                       long long n_rows, int group, int b, int kvh, int S,
+                                       int H, int D, int d0, int Dp, int tid) {
+  for (int idx = tid; idx < BLOCK_ROWS * Dp; idx += THREADS) {
+    const int r = idx / Dp, d = idx % Dp;
+    const long long fr = row0 + r;
+    float x = 0.f;
+    if (fr < n_rows && d0 + d < D) {
+      const long long qp = fr / group;
+      const int h = kvh * group + (int)(fr % group);
+      x = to_f32(q[((b * (long long)S + qp) * H + h) * D + d0 + d]);
+    }
+    Qs[idx] = x;
+  }
+}
+
 // NCH: 128-column chunks of the head dim a lane covers in the PV step
-// (1 for D <= 128, 2 for D <= 256).
-template <typename T, int NCH>
+// (1 for D <= 128, 2 for D <= 256 and for WIDE). Dp: the columns held in
+// shared memory, D rounded up to 4 (WIDE: 256).
+template <typename T, int NCH, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -125,22 +154,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int group = H / Hkv;
   const int b = blockIdx.y / Hkv;
   const int kvh = blockIdx.y % Hkv;
+  const int c0 = WIDE ? blockIdx.z * WIDE_COLS : 0;   // this pass's output columns
   const long long n_rows = (long long)S * group;
   const long long row0 = (long long)blockIdx.x * BLOCK_ROWS;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  // Q tile: flat row r -> position r / group, head kvh * group + r % group.
-  for (int idx = tid; idx < BLOCK_ROWS * Dp; idx += THREADS) {
-    const int r = idx / Dp, d = idx % Dp;
-    const long long fr = row0 + r;
-    float x = 0.f;
-    if (fr < n_rows && d < D) {
-      const long long qp = fr / group;
-      const int h = kvh * group + (int)(fr % group);
-      x = to_f32(q[((b * (long long)S + qp) * H + h) * D + d]);
-    }
-    Qs[idx] = x;
-  }
+  if (!WIDE) load_q(Qs, q, row0, n_rows, group, b, kvh, S, H, D, 0, Dp, tid);
 
   int qpos[ROWS];
   float m[ROWS], l[ROWS], s[ROWS];
@@ -165,28 +184,42 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kk = idx / Dp, d = idx % Dp;
       const int key = t0 + kk;
       float kx = 0.f, vx = 0.f;
-      if (key < S && d < D) {
-        const long long off = ((b * (long long)S + key) * Hkv + kvh) * D + d;
-        kx = to_f32(k[off]);
+      if (key < S && c0 + d < D) {
+        const long long off = ((b * (long long)S + key) * Hkv + kvh) * D + c0 + d;
+        if (!WIDE) kx = to_f32(k[off]);
         vx = to_f32(v[off]);
       }
-      Ks[kk * kstr + d] = kx;
+      if (!WIDE) Ks[kk * kstr + d] = kx;
       Vs[kk * Dp + d] = vx;
     }
-    __syncthreads();
 
-    // scores: lane owns key t0 + lane
+    // scores: lane owns key t0 + lane; WIDE: over Q and K 256 columns at a time
 #pragma unroll
     for (int i = 0; i < ROWS; ++i) s[i] = 0.f;
     const float* krow = Ks + lane * kstr;
     const float* qrow = Qs + warp * ROWS * Dp;
+    for (int d0 = 0; d0 < (WIDE ? D : 1); d0 += WIDE_COLS) {
+      if (WIDE) {
+        __syncthreads();  // the previous chunk is consumed
+        load_q(Qs, q, row0, n_rows, group, b, kvh, S, H, D, d0, Dp, tid);
+        for (int idx = tid; idx < BK * Dp; idx += THREADS) {
+          const int kk = idx / Dp, d = idx % Dp;
+          const int key = t0 + kk;
+          Ks[kk * kstr + d] = key < S && d0 + d < D
+                                  ? to_f32(k[((b * (long long)S + key) * Hkv + kvh) * D + d0 + d])
+                                  : 0.f;
+        }
+      }
+      __syncthreads();
+      const int dw = WIDE ? min(Dp, (D - d0 + 3) / 4 * 4) : Dp;
 #pragma unroll 2
-    for (int d = 0; d < Dp; d += 4) {
-      const float4 kx = *reinterpret_cast<const float4*>(krow + d);
+      for (int d = 0; d < dw; d += 4) {
+        const float4 kx = *reinterpret_cast<const float4*>(krow + d);
 #pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const float4 qx = *reinterpret_cast<const float4*>(qrow + i * Dp + d);
-        s[i] += qx.x * kx.x + qx.y * kx.y + qx.z * kx.z + qx.w * kx.w;
+        for (int i = 0; i < ROWS; ++i) {
+          const float4 qx = *reinterpret_cast<const float4*>(qrow + i * Dp + d);
+          s[i] += qx.x * kx.x + qx.y * kx.y + qx.z * kx.z + qx.w * kx.w;
+        }
       }
     }
 
@@ -238,7 +271,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long fr = row0 + warp * ROWS + i;
     if (fr >= n_rows) continue;
     const int h = kvh * group + (int)(fr % group);
-    T* orow = o + ((b * (long long)S + qpos[i]) * H + h) * D;
+    T* orow = o + ((b * (long long)S + qpos[i]) * H + h) * D + c0;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
@@ -246,7 +279,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float a[4] = {acc[i][c].x, acc[i][c].y, acc[i][c].z, acc[i][c].w};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (d0 + e < D) store(orow + d0 + e, a[e] * inv);
+        if (c0 + d0 + e < D) store(orow + d0 + e, a[e] * inv);
     }
   }
 }
@@ -697,19 +730,20 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   return cudaGetLastError();
 }
 
-template <typename T, int NCH>
+template <typename T, int NCH, bool WIDE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S,
                    int H, int Hkv, int D, int window, float scale, float cap,
                    cudaStream_t stream) {
-  const int Dp = (D + 3) / 4 * 4;
+  const int Dp = WIDE ? WIDE_COLS : (D + 3) / 4 * 4;
   const size_t smem = sizeof(float) * ((size_t)BLOCK_ROWS * Dp + (size_t)BK * (Dp + 4) +
                                        (size_t)BK * Dp);
-  auto kern = flash_fwd_kernel<T, NCH>;
+  auto kern = flash_fwd_kernel<T, NCH, WIDE>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const long long n_rows = (long long)S * (H / Hkv);
-  const dim3 grid((unsigned)((n_rows + BLOCK_ROWS - 1) / BLOCK_ROWS), (unsigned)(B * Hkv));
+  const dim3 grid((unsigned)((n_rows + BLOCK_ROWS - 1) / BLOCK_ROWS), (unsigned)(B * Hkv),
+                  WIDE ? (unsigned)((D + WIDE_COLS - 1) / WIDE_COLS) : 1u);
   kern<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                         static_cast<const T*>(v), static_cast<T*>(o), S, H,
                                         Hkv, D, Dp, window, scale, cap);
@@ -724,20 +758,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int H, int Hkv, int D, int window,
                                    float scale, float cap, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || D > 256 || B * Hkv > 65535)
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || B * Hkv > 65535 ||
+      D > WIDE_COLS * 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool wide = D > 128;
   if (dtype == 1) {
     if (D == 256) return (int)launch_wgmma<256>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
     if (D == 128) return (int)launch_wgmma<128>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
     if (D == 64) return (int)launch_wgmma<64>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
   }
-  if (dtype == 1)
-    return (int)(wide ? launch<__nv_bfloat16, 2>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st)
-                      : launch<__nv_bfloat16, 1>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st));
-  if (dtype == 0)
-    return (int)(wide ? launch<float, 2>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st)
-                      : launch<float, 1>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st));
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  if (D > WIDE_COLS)
+    return (int)(dtype ? launch<bf, 2, true>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st)
+                       : launch<float, 2, true>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st));
+  if (D > 128)
+    return (int)(dtype ? launch<bf, 2, false>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st)
+                       : launch<float, 2, false>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st));
+  return (int)(dtype ? launch<bf, 1, false>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st)
+                     : launch<float, 1, false>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st));
 }

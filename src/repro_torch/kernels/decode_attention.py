@@ -3,15 +3,17 @@
 Port of ``repro.kernels.decode_attention.decode_attention_fwd``; the kernel is
 ``csrc/decode_attention.cu``: for bf16 with head_dim 64/128/256 one launch
 (the key range split across the card, the splits merged by the last CTA of
-each (batch, kv head)), otherwise split-K and a combine pass. On a CUDA tensor
+each (batch, kv head)), otherwise split-K and a combine pass (a head_dim above
+256 in passes of 256 output columns). A group above ``MAX_GROUP`` query heads
+a kv head is launched in passes (``flash_attention.group_passes``). On a CUDA tensor
 the wrapper launches the kernel (or raises); on a CPU tensor it computes the
 plain version ``ref.decode_attention``. ``pos`` and ``window`` are host ints:
 the serve loop knows them, so no device-to-host sync is needed. The split
 partials and the per-(batch, kv head) counters are scratch kept per (device,
 stream), grown when a larger shape arrives; the counters are zeroed once when
 allocated and every launch leaves them zero. A call allocates only its
-output. ``launches`` counts calls that launched (one per call, whatever the
-kernel's launch count).
+output. ``launches`` counts the kernel calls (one per call or group pass,
+whatever the kernel's launch count).
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_attention import DTYPE_CODES, _window, check_attention_inputs
+from repro_torch.kernels.flash_attention import (DTYPE_CODES, _window, check_attention_inputs,
+                                                 group_passes)
 
 launches = 0
 
@@ -59,10 +62,8 @@ def decode_attention_fwd(q, k_cache, v_cache, pos: int, *, window=None,
                          logit_cap: float = 0.0, scale: float) -> torch.Tensor:
     """q: (B,1,H,D); caches: (B,S,Hkv,D); ``pos`` the current token's index
     (keys past it are masked) -> (B,1,H,D). Any cache length S."""
-    global launches
     check_attention_inputs(q, k_cache, v_cache, query_len=1)
-    b, _, h, d = q.shape
-    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    d, s = q.shape[3], k_cache.shape[1]
     pos = int(pos)
     if not 0 <= pos < s:
         raise ValueError(f"pos {pos} outside the cache of length {s}")
@@ -72,6 +73,14 @@ def decode_attention_fwd(q, k_cache, v_cache, pos: int, *, window=None,
                                     logit_cap=logit_cap, scale=scale)
     if d % (16 // q.element_size()):
         raise ValueError(f"head_dim {d}: the CUDA kernel reads rows in 16-byte pieces")
+    return group_passes(lambda qp, kp, vp: _launch(qp, kp, vp, pos, w, scale, logit_cap),
+                        q, k_cache, v_cache)
+
+
+def _launch(q, k_cache, v_cache, pos: int, w: int, scale: float, logit_cap: float):
+    global launches
+    b, _, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
     lib = _kernel()
     dtype = DTYPE_CODES[q.dtype]
     out = torch.empty_like(q)

@@ -15,9 +15,9 @@ from repro_torch.kernels import _build, ref
 
 launches = 0
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 256
-# query heads per kv head: the bf16 kernel's Q box holds 128 // group
-# positions of the whole group; the decode kernel keeps a group in a block
+# query heads per kv head in one launch: the bf16 kernel's Q box holds
+# 128 // group positions of the whole group; the decode kernel keeps a group
+# in a block. A larger group runs in passes (``group_passes``).
 MAX_GROUP = 8
 
 _fn = None
@@ -57,10 +57,8 @@ def check_attention_inputs(q, k, v, *, query_len=None):
     hkv = k.shape[2]
     if h % hkv != 0:
         raise ValueError(f"{h} query heads do not group onto {hkv} kv heads")
-    if h // hkv > MAX_GROUP:
-        raise ValueError(f"group {h // hkv} above {MAX_GROUP}")
-    if not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} outside 1..{MAX_HEAD_DIM}")
+    if d <= 0:
+        raise ValueError(f"head_dim {d} must be positive")
     # TMA takes a global base address on a 16-byte boundary and row strides
     # in multiples of 16 bytes; contiguous bf16 rows of head_dim 64/128/256
     # (H*D*2 and Hkv*D*2 bytes) always are, so the base is what can fail
@@ -75,20 +73,48 @@ def _window(window) -> int:
     return w
 
 
+def group_passes(run, q, k, v) -> torch.Tensor:
+    """``run(q_pass, k, v)`` over passes of at most ``MAX_GROUP`` query heads
+    of every kv head, the outputs written back into their columns: query
+    head h belongs to kv head h // group, so a pass takes heads c0..c0+gc-1
+    of each group, as q viewed (B, S, Hkv, group, D). One pass when the
+    group fits."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    if group <= MAX_GROUP:
+        return run(q, k, v)
+    passes = -(-group // MAX_GROUP)
+    step = -(-group // passes)
+    qg = q.view(b, s, hkv, group, d)
+    out = q.new_empty(b, s, hkv, group, d)
+    for c0 in range(0, group, step):
+        gc = min(step, group - c0)
+        part = run(qg[:, :, :, c0:c0 + gc].contiguous().view(b, s, hkv * gc, d), k, v)
+        out[:, :, :, c0:c0 + gc] = part.view(b, s, hkv, gc, d)
+    return out.view(b, s, h, d)
+
+
 def flash_attention_fwd(q, k, v, *, window=None, logit_cap: float = 0.0,
                         scale: float) -> torch.Tensor:
     """q: (B,S,H,D); k,v: (B,S,Hkv,D) -> (B,S,H,D). ``window`` 0/None = full
     causal. Any S: the kernel masks the ragged edge itself.
 
     bf16 with head_dim 64/128/256 runs on the tensor cores (wgmma fed by
-    TMA), anything else on the fp32 CUDA cores."""
-    global launches
+    TMA), anything else on the fp32 CUDA cores (a head_dim above 256 in
+    passes of 256 output columns). A group above ``MAX_GROUP`` is launched
+    in passes (``group_passes``); ``launches`` counts each."""
     check_attention_inputs(q, k, v)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"q has {q.shape[1]} positions, k has {k.shape[1]}")
     w = _window(window)
     if q.device.type == "cpu":
         return ref.flash_attention(q, k, v, window=w, logit_cap=logit_cap, scale=scale)
+    return group_passes(lambda qp, kp, vp: _launch(qp, kp, vp, w, scale, logit_cap), q, k, v)
+
+
+def _launch(q, k, v, w: int, scale: float, logit_cap: float) -> torch.Tensor:
+    global launches
     b, s, h, d = q.shape
     out = torch.empty_like(q)
     fn = _kernel()

@@ -9,8 +9,9 @@ loop in ``core/flowset.py``.
 
 The incidence comes by link (``link_csr``): ``link_ptr`` (L + 1) offsets into
 ``link_flow`` (P), the flow of each (flow, link) pair, each link's pairs in
-pair order, so that a link's sums run in ``np.bincount``'s order. Sizes are
-the fabric's own, nothing padded.
+pair order, so that a link's sums run in ``np.bincount``'s order. The kernel
+also takes it by flow (``flow_csr``), so that a frozen flow can mark its
+links for the next round. Sizes are the fabric's own, nothing padded.
 """
 from __future__ import annotations
 
@@ -25,26 +26,27 @@ from repro_torch.kernels.checks import launch_on, require, stream_of
 
 launches = 0
 
-#: the grid variant's CTAs at most (csrc/waterfill.cu: MAX_BLOCKS), part of
-#: the scratch the wrapper allocates
+#: the grid variant's CTAs at most (csrc/waterfill.cu: MAX_BLOCKS)
 MAX_BLOCKS = 1024
-#: links from which ``waterfill(grid=None)`` takes the cooperative grid
-#: rather than one CTA: on an H100 (chip_smoke.py's [fabric] crossover) one
-#: CTA was faster up to 1,029 links and level at 2,055, the grid faster from
-#: 4,094 (the Fig. 2 fabric) to 40,948 links
-GRID_LINKS = 3072
+#: the kernel's variants (csrc/waterfill.cu: Variant): the state in device
+#: memory on a cooperative grid, or in one CTA's shared memory
+VARIANTS = {"grid": 0, "smem": 1}
 
 _fns = {}
 _P, _I = ctypes.c_void_p, ctypes.c_int64
+_ARGTYPES = {"waterfill": [_P] * 7 + [_I] * 3 + [_P] * 4 + [_I, ctypes.c_int, _P],
+             "waterfill_smem_bytes": [_I, _I, _I],
+             "waterfill_scratch_bytes": [_I, _I],
+             "waterfill_sync_probe": [_I, _I, ctypes.c_int, _P, _P]}
 
 
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(_build.load("waterfill"), name)
-        fn.argtypes = ([_P] * 5 + [_I, _I] + [_P] * 4 + [ctypes.c_int, _P]
-                       if name == "waterfill" else [_I, _I, ctypes.c_int, _P, _P])
-        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int if name in ("waterfill", "waterfill_sync_probe") \
+            else ctypes.c_longlong
         _fns[name] = fn
     return fn
 
@@ -57,6 +59,13 @@ def link_csr(pair_flow: np.ndarray, pair_link: np.ndarray,
     ptr = np.zeros(n_links + 1, np.int64)
     np.cumsum(np.bincount(pair_link, minlength=n_links), out=ptr[1:])
     return ptr, pair_flow[order].astype(np.int64)
+
+
+def flow_csr(pair_flow: np.ndarray, pair_link: np.ndarray,
+             n_flows: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(flow_ptr (F + 1), flow_link (P)) int64: the incidence by flow, each
+    flow's links in pair order."""
+    return link_csr(pair_link, pair_flow, n_flows)
 
 
 def _check(link_ptr, link_flow, w, alive, cap):
@@ -74,43 +83,70 @@ def _check(link_ptr, link_flow, w, alive, cap):
     return dev
 
 
-def waterfill(link_ptr, link_flow, w, alive, cap, *, grid=None):
+def pick_variant(n_flows: int, n_links: int, n_pairs: int) -> str:
+    """The variant for a fabric on the current device, by its size alone:
+    ``smem`` where the state fits in one CTA's shared memory, else ``grid``."""
+    fits = _kernel("waterfill_smem_bytes")(n_flows, n_links, n_pairs)
+    if fits < 0:
+        raise RuntimeError(f"waterfill: the card could not be asked (CUDA error {-fits})")
+    return "smem" if fits else "grid"
+
+
+def waterfill(link_ptr, link_flow, w, alive, cap, *, flow_csr=None, variant=None):
     """Weighted progressive filling. ``w`` (F) float64, floored at 1e-9 as
     the NumPy loop floors it; ``alive`` (F) bool; ``cap`` (L) float64 after
     any jitter. Returns (rate (F), remaining (L)) float64 and the number of
-    rounds that froze a flow, an int64 tensor (1,). ``grid``: the kernel's
-    variant (False one CTA, True the cooperative grid, None by
-    ``GRID_LINKS``); the bits do not depend on it."""
+    rounds that froze a flow, an int64 tensor (1,). ``flow_csr``: (flow_ptr,
+    flow_link), the incidence by flow, which the kernel needs (the plain
+    version does not). ``variant``: one of ``VARIANTS`` (None: by size,
+    ``pick_variant``); the bits do not depend on it."""
     global launches
     dev = _check(link_ptr, link_flow, w, alive, cap)
     if dev.type == "cpu":
         return waterfill_ref(link_ptr, link_flow, w, alive, cap)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    f, l = w.shape[0], cap.shape[0]
+    if flow_csr is None:
+        raise ValueError("the CUDA kernel needs the incidence by flow (flow_csr)")
+    flow_ptr, flow_link = flow_csr
+    require("flow_ptr", flow_ptr, torch.int64, 1, dev)
+    require("flow_link", flow_link, torch.int64, 1, dev)
+    f, l, p = w.shape[0], cap.shape[0], link_flow.shape[0]
+    if flow_ptr.shape[0] != f + 1 or flow_link.shape[0] != p:
+        raise ValueError(f"flow_ptr {tuple(flow_ptr.shape)}, flow_link {tuple(flow_link.shape)} "
+                         f"for {f} flows and {p} pairs")
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: one of {sorted(VARIANTS)}")
     out = torch.empty(f + l, dtype=torch.float64, device=dev)
     rounds = torch.empty(1, dtype=torch.int64, device=dev)
-    scratch = torch.empty(l + MAX_BLOCKS + (f + 1) // 2, dtype=torch.float64, device=dev)
-    use_grid = l >= GRID_LINKS if grid is None else bool(grid)
-    err = launch_on(w, _fns.get("waterfill") or _kernel("waterfill"), link_ptr.data_ptr(),
-                    link_flow.data_ptr(), w.data_ptr(), alive.data_ptr(), cap.data_ptr(), f, l,
-                    out.data_ptr(), out.data_ptr() + 8 * f, rounds.data_ptr(),
-                    scratch.data_ptr(), int(use_grid), stream_of(w))
+
+    def launch():
+        name = variant or pick_variant(f, l, p)
+        nbytes = 0 if name == "smem" else _kernel("waterfill_scratch_bytes")(f, l)
+        scratch = torch.empty(-(-nbytes // 8), dtype=torch.float64, device=dev)
+        return _kernel("waterfill")(
+            link_ptr.data_ptr(), link_flow.data_ptr(), flow_ptr.data_ptr(), flow_link.data_ptr(),
+            w.data_ptr(), alive.data_ptr(), cap.data_ptr(), f, l, p, out.data_ptr(),
+            out.data_ptr() + 8 * f, rounds.data_ptr(), scratch.data_ptr(), 8 * scratch.numel(),
+            VARIANTS[name], stream_of(w))
+
+    err = launch_on(w, launch)
     if err != 0:
         raise RuntimeError(f"waterfill launch failed: CUDA error {err}")
     launches += 1
     return out[:f], out[f:], rounds
 
 
-def sync_probe(n_links: int, rounds: int, grid: bool, device) -> torch.Tensor:
-    """Launch the barriers of ``rounds`` rounds of a variant, with no work
-    between them (the floor of a round; chip_smoke.py times it)."""
-    sink = torch.empty(1, dtype=torch.float64, device=device)
-    err = launch_on(sink, _kernel("waterfill_sync_probe"), n_links, rounds, int(grid),
-                    sink.data_ptr(), stream_of(sink))
+def sync_probe(n_links: int, rounds: int, variant: str, device) -> torch.Tensor:
+    """Launch the barriers of ``rounds`` rounds of ``variant``, with no work
+    between them: one CTA's (``smem``), or the cooperative grid's for
+    ``n_links`` links (the floor of a round; chip_smoke.py times it)."""
+    slots = torch.empty(MAX_BLOCKS + 1, dtype=torch.float64, device=device)
+    err = launch_on(slots, _kernel("waterfill_sync_probe"), n_links, rounds, VARIANTS[variant],
+                    slots.data_ptr(), stream_of(slots))
     if err != 0:
         raise RuntimeError(f"waterfill sync probe launch failed: CUDA error {err}")
-    return sink
+    return slots
 
 
 def link_columns(link_ptr: torch.Tensor):

@@ -6,10 +6,14 @@ through the wrapper that launches the kernel on the card). It must be within
 1e-9 of the JAX package's jit kernel (run here with its ``enable_x64`` name
 pointed at ``jax.enable_x64(True)``) and of ``AdaptiveBaseline.update`` (the
 reference's and the port's copy), with ``count`` exactly equal: the
-reference pins this scan by a tolerance, not by bits. On the card (``-m
-gpu``) the kernel is held to the plain version at ``bench_jaxsim.py``'s full
-size.
+reference pins this scan by a tolerance, not by bits. The kernel's median
+(both middle order statistics found in one set of radix passes, over a
+window cut into parts whose histograms are added) is emulated in NumPy and
+held to a sort. On the card (``-m gpu``) the kernel is held to the plain
+version at ``bench_jaxsim.py``'s full size, on both of its paths.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -156,6 +160,103 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         ewma.ewma_scan(v, z[:2], z, c, 0.1, 3.0)
 
 
+SIGN = np.uint64(1 << 63)
+
+
+def order_keys(x: np.ndarray) -> np.ndarray:
+    """csrc/ewma_scan.cu's order_key: float64 bits as uint64 in numeric order."""
+    b = x.view(np.uint64)
+    return np.where(b & SIGN, ~b, b | SIGN)
+
+
+def from_order_key(u: int) -> float:
+    u = np.uint64(u)
+    b = (u ^ SIGN) if u & SIGN else ~u
+    return float(np.array([b], np.uint64).view(np.float64)[0])
+
+
+def cluster_middles(window: np.ndarray, cluster: int = 2):
+    """The shared-memory path's select, step by step: the window cut into
+    ``cluster`` parts (``part_of``), passes of 8-bit digits,
+    each counting the digits of the candidates of both middle statistics
+    (one histogram while their prefixes agree), the parts' counts added,
+    the digit of each statistic found from its rank; once each statistic's
+    bin holds one candidate, one look over the parts finds both. Returns
+    (lower middle, upper middle) of the finite values, and the passes."""
+    per = window.size // cluster
+    cuts = [q * per for q in range(cluster)] + [window.size]
+    parts = [window[cuts[q]:cuts[q + 1]] for q in range(cluster)]
+    keys = [order_keys(part[np.isfinite(part)]).astype(object) for part in parts]
+    total = sum(k.size for k in keys)
+    prefix, mask, k = [0, 0], 0, [(total - 1) // 2, total // 2]
+    for passes, shift in enumerate(range(56, -1, -8), 1):
+        same = prefix[0] == prefix[1]
+        hist = [[0] * 256 for _ in range(1 if same else 2)]
+        for part in keys:
+            for u in part:
+                for s in range(len(hist)):
+                    if u & mask == prefix[s]:
+                        hist[s][(u >> shift) & 255] += 1
+        count = [0, 0]
+        for s in range(2):
+            h = hist[0 if same else s]
+            c = 0
+            for digit, n in enumerate(h):
+                if k[s] < c + n:
+                    break
+                c += n
+            prefix[s] |= digit << shift
+            k[s] -= c
+            count[s] = h[digit]
+        mask |= 0xFF << shift
+        if shift > 0 and count == [1, 1]:
+            found = [0, 0]
+            for part in keys:
+                for u in part:
+                    for s in range(2):
+                        if u & mask == prefix[s]:
+                            found[s] |= u
+            prefix = found
+            break
+    return from_order_key(prefix[0]), from_order_key(prefix[1]), passes
+
+
+@pytest.mark.parametrize("case", ["normal, 10 % NaN", "odd count", "ties and signed zeros",
+                                  "infinities", "one finite value", "three cells"])
+def test_cluster_select_finds_both_middles(case):
+    rng = np.random.default_rng(4)
+    window = rng.normal(10.0, 1.0, size=4096)
+    window[rng.random(window.size) < 0.1] = np.nan
+    if case == "odd count":
+        window = window[np.isfinite(window)][:1001]
+    elif case == "ties and signed zeros":
+        window = rng.choice([-0.0, 0.0, -1.5, 2.0, 2.0, -3e-300], size=999)
+    elif case == "infinities":
+        window[:50] = np.inf
+        window[50:120] = -np.inf
+        window[120:400] = -rng.random(280)
+    elif case == "one finite value":
+        window = np.full(33, np.nan)
+        window[17] = -7.25
+    elif case == "three cells":
+        window = np.array([3.0, np.nan, -1.0])
+    lo, hi, passes = cluster_middles(window)
+    if case == "normal, 10 % NaN":
+        assert passes == 3     # and the look; 4 at the bench input's 16,384 cells
+    fin = np.sort(window[np.isfinite(window)])
+    n = fin.size
+    assert (lo, hi) == (fin[(n - 1) // 2], fin[n // 2])
+    assert np.signbit(lo) == np.signbit(fin[(n - 1) // 2])
+    assert np.signbit(hi) == np.signbit(fin[n // 2])
+
+
+def test_wrapper_paths_match_the_kernel_source():
+    src = (_build.CSRC / "ewma_scan.cu").read_text()
+    assert "1 the shared-memory path, 2 the L2 path" in src
+    assert ewma.PATHS == {"smem": 1, "l2": 2}
+    assert int(re.search(r"constexpr int CLUSTER = (\d+);", src).group(1)) == 2
+
+
 def test_build_keeps_contraction_for_the_tolerance_pinned_scan():
     assert "ewma_scan" in _build.KERNELS and "--fmad=false" not in _build.flags("ewma_scan")
 
@@ -171,6 +272,73 @@ def test_kernel_within_tolerance_on_card(windows, cells):
     got = [x.cpu().numpy() for x in tk.ewma_scan(values, *_zeros(cells), base.alpha,
                                                  base.clip_sigma)]
     assert ewma.launches == before + 1
+    assert ewma.path_for(cells, torch.device("cuda")) == "smem"
     plain = [x.numpy() for x in tk.ewma_scan(values, *_zeros(cells), base.alpha,
                                              base.clip_sigma, device="cpu")]
     _assert_close(got, plain)
+
+
+def _scan_on_path(values, mean0, dev0, count0, alpha, clip_sigma, path):
+    """The wrapper's kernel told to take ``path`` (the wrapper picks by
+    size): its C entry with the path's code, as the ablation calls it."""
+    w, e = values.shape
+    out = torch.empty((2, e), dtype=torch.float64, device=values.device)
+    count = torch.empty(e, dtype=torch.int64, device=values.device)
+    pool = torch.empty(2 * w, dtype=torch.float64, device=values.device)
+    err = ewma._kernel()(values.data_ptr(), w, e, mean0.data_ptr(), dev0.data_ptr(),
+                         count0.data_ptr(), float(alpha), float(clip_sigma), out[0].data_ptr(),
+                         out[1].data_ptr(), count.data_ptr(), pool.data_ptr(), ewma.PATHS[path],
+                         torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ewma_scan ({path} path): CUDA error {err}")
+    return out[0], out[1], count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(ewma.PATHS))
+@pytest.mark.parametrize("case", ["bench", "odd cells", "edges", "40,000 cells"])
+def test_each_path_within_tolerance_on_card(path, case):
+    """Both pool paths, each named to the kernel's C entry, against the
+    plain version: the bench input, an odd cell count, the edge windows,
+    and a window of 40,000 cells (160 KB a part of a cluster of two); the
+    wrapper itself takes the shared-memory path at each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    values = {"bench": lambda: bench_values(16, 4096),
+              "odd cells": lambda: bench_values(9, 4097),
+              "edges": _edge_values,
+              "40,000 cells": lambda: bench_values(3, 40000)}[case]()
+    cells = values.shape[1]
+    base = AdaptiveBaseline(n_ranks=2)
+    v = torch.from_numpy(values).cuda()
+    z = torch.zeros(cells, dtype=torch.float64, device="cuda")
+    c = torch.zeros(cells, dtype=torch.int64, device="cuda")
+    assert ewma.path_for(cells, torch.device("cuda")) == "smem"
+    got = [x.cpu().numpy() for x in _scan_on_path(v, z, z, c, base.alpha, base.clip_sigma,
+                                                   path)]
+    torch.cuda.synchronize()
+    plain = [x.numpy() for x in detect_ref.ewma_scan_ref(v.cpu(), z.cpu(), z.cpu(), c.cpu(),
+                                                          base.alpha, base.clip_sigma)]
+    _assert_close(got, plain)
+
+
+@pytest.mark.gpu
+def test_window_above_shared_memory_takes_the_l2_path_on_card():
+    """60,000 cells (240 KB a part) do not fit a CTA's shared memory: the
+    wrapper's kernel takes the L2 path by size, and its C entry refuses the
+    shared-memory path when asked for it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    cuda = torch.device("cuda")
+    assert ewma.path_for(60000, cuda) == "l2" and ewma.path_for(16384, cuda) == "smem"
+    values = bench_values(2, 60000)
+    base = AdaptiveBaseline(n_ranks=2)
+    v = torch.from_numpy(values).cuda()
+    z = torch.zeros(60000, dtype=torch.float64, device=cuda)
+    c = torch.zeros(60000, dtype=torch.int64, device=cuda)
+    got = [x.cpu().numpy() for x in ewma.ewma_scan(v, z, z, c, base.alpha, base.clip_sigma)]
+    plain = [x.numpy() for x in detect_ref.ewma_scan_ref(v.cpu(), z.cpu(), z.cpu(), c.cpu(),
+                                                          base.alpha, base.clip_sigma)]
+    _assert_close(got, plain)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _scan_on_path(v, z, z, c, base.alpha, base.clip_sigma, "smem")

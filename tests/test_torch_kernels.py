@@ -25,11 +25,11 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_causal_attention as jax_chunked
 from repro_torch.kernels import _build, ablate_decode, ablate_flash, ablate_rmsnorm, ops
-from repro_torch.kernels import ablate_slow_fold
+from repro_torch.kernels import ablate_ewma, ablate_slow_fold, ablate_waterfill
 from repro_torch.kernels import rmsnorm as rmsnorm_mod
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention_fwd
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import flash_attention_fwd, group_passes
 from repro_torch.kernels.rmsnorm import RMSNormFn, rmsnorm_bwd, rmsnorm_fwd
 from repro_torch.models.attention import chunked_causal_attention as torch_chunked
 
@@ -399,12 +399,10 @@ def _bad_inputs():
         "mixed dtype": dict(q=q, k=kv.bfloat16(), v=kv),
         "non-contiguous": dict(q=q.transpose(1, 2).contiguous().transpose(1, 2), k=kv, v=kv),
         "heads do not group": dict(q=torch.zeros(1, 8, 3, 16), k=kv, v=kv),
-        "head_dim above 256": dict(q=torch.zeros(1, 8, 4, 320), k=torch.zeros(1, 8, 2, 320),
-                                   v=torch.zeros(1, 8, 2, 320)),
+        "head_dim 0": dict(q=torch.zeros(1, 8, 4, 0), k=torch.zeros(1, 8, 2, 0),
+                           v=torch.zeros(1, 8, 2, 0)),
         "3-d input": dict(q=q[0], k=kv, v=kv),
         "negative window": dict(q=q, k=kv, v=kv, window=-1),
-        # the bf16 kernel's Q box holds 128 // group positions of a whole group
-        "group above 8": dict(q=torch.zeros(1, 8, 18, 16), k=kv, v=kv),
     }
 
 
@@ -423,6 +421,75 @@ def test_decode_rejects_pos_outside_cache(pos):
     with pytest.raises(ValueError):
         decode_attention_fwd(torch.zeros(1, 1, 4, 16), torch.zeros(1, 8, 2, 16),
                              torch.zeros(1, 8, 2, 16), pos, scale=0.25)
+
+
+def _attention(kind, q, k, v, **kw):
+    """The plain version of ``kind`` (decode: the last position's query
+    against the whole cache)."""
+    if kind == "flash":
+        return tref.flash_attention(q, k, v, **kw)
+    return tref.decode_attention(q, k, v, k.shape[1] - 1, **kw)
+
+
+def _jax_attention(kind, q, k, v, **kw):
+    if kind == "flash":
+        return jref.flash_attention(q, k, v, **kw)
+    return jref.decode_attention(q, k, v, k.shape[1] - 1, **kw)
+
+
+def _wide_inputs(kind, b, s, h, hkv, d, dtype):
+    rng = np.random.default_rng(13)
+    arrays = _qkv(rng, b, s if kind == "flash" else 1, h, hkv, d, sk=s)
+    return [_pair(a, dtype) for a in arrays]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [9, 16])
+@pytest.mark.parametrize("kind", ["flash", "decode"])
+def test_group_above_8_runs_in_passes_of_at_most_8(kind, group, dtype):
+    """A group above 8 query heads a kv head: ``group_passes`` with the
+    plain version as each pass (on the card, each pass is one launch of
+    the kernel) is held to the unsplit plain version and to the JAX
+    reference, and the wrapper takes the shape."""
+    b, s, hkv, d = 2, 40, 2, 32
+    (qj, qt), (kj, kt), (vj, vt) = _wide_inputs(kind, b, s, hkv * group, hkv, d, dtype)
+    kw = dict(window=24, logit_cap=30.0, scale=d ** -0.5)
+    passes = []
+
+    def plain_pass(qp, kp, vp):
+        passes.append(qp.shape[2] // hkv)
+        return _attention(kind, qp, kp, vp, **kw)
+
+    got = group_passes(plain_pass, qt, kt, vt)
+    assert passes == {9: [5, 4], 16: [8, 8]}[group]
+    assert got.dtype == TORCH[dtype] and got.shape == qt.shape
+    _close(got, _attention(kind, qt, kt, vt, **kw).float().numpy(), dtype)
+    _close(got, _jax_attention(kind, qj, kj, vj, **kw), dtype)
+    wrapper = flash_attention_fwd if kind == "flash" else (
+        lambda q, k, v, **a: decode_attention_fwd(q, k, v, s - 1, **a))
+    _close(wrapper(qt, kt, vt, **kw), _jax_attention(kind, qj, kj, vj, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [320, 576])
+@pytest.mark.parametrize("kind", ["flash", "decode"])
+def test_head_dim_above_256_runs_in_column_passes(kind, d, dtype):
+    """A head_dim above 256: the wrapper takes it (on the CPU, the plain
+    version), and the kernels' split of it (passes of 256 output columns,
+    each with the scores over the whole head_dim: the plain version with V
+    cut to the pass's columns) is held to the JAX reference."""
+    b, s, h, hkv = 1, 36, 4, 2
+    (qj, qt), (kj, kt), (vj, vt) = _wide_inputs(kind, b, s, h, hkv, d, dtype)
+    kw = dict(window=20, logit_cap=50.0, scale=d ** -0.5)
+    want = _jax_attention(kind, qj, kj, vj, **kw)
+    got = (flash_attention_fwd(qt, kt, vt, **kw) if kind == "flash"
+           else decode_attention_fwd(qt, kt, vt, s - 1, **kw))
+    assert got.dtype == TORCH[dtype] and got.shape == qt.shape
+    _close(got, want, dtype)
+    cols = [_attention(kind, qt, kt, vt[..., c0:c0 + 256].contiguous(), **kw)
+            for c0 in range(0, d, 256)]
+    assert [c.shape[-1] for c in cols] == [256] * (d // 256) + [d % 256]
+    _close(torch.cat(cols, dim=-1), want, dtype)
 
 
 def test_cpu_tensors_launch_nothing_and_build_nothing():
@@ -554,6 +621,19 @@ GPU_CASES = [  # bf16 flash with head_dim 64/128/256 takes the wgmma kernel
     ("decode", (1, 100, 6, 2, 24), 0, 0.0, "float32"),
     ("decode", (2, 300, 6, 2, 256), 0, 30.0, "float32"),      # two 16-byte loads a lane
     ("decode", (1, 1, 8, 1, 64), 0, 0.0, "bfloat16"),         # a one-entry cache
+    # a group above 8 in passes of at most 8 (the wgmma and TMA kernels at
+    # 16 = 8 + 8, the CUDA cores at 9 = 5 + 4)
+    ("flash", (1, 700, 32, 2, 128), 256, 50.0, "bfloat16"),
+    ("flash", (2, 300, 18, 2, 64), 0, 0.0, "float32"),
+    ("decode", (2, 4384, 32, 2, 128), 4096, 50.0, "bfloat16"),
+    ("decode", (1, 500, 18, 2, 64), 0, 30.0, "float32"),
+    # head_dim above 256 on the CUDA cores, in passes of 256 output columns
+    ("flash", (1, 400, 8, 4, 320), 128, 50.0, "float32"),
+    ("flash", (1, 400, 8, 4, 320), 0, 50.0, "bfloat16"),
+    ("flash", (1, 300, 4, 2, 576), 100, 0.0, "bfloat16"),
+    ("decode", (2, 1000, 8, 4, 320), 0, 50.0, "float32"),
+    ("decode", (2, 1000, 8, 4, 320), 512, 50.0, "bfloat16"),
+    ("decode", (1, 700, 4, 2, 576), 0, 0.0, "float32"),
 ]
 # the bf16 split kernel (head_dim 64/128/256): (b, s, h, hkv, d), pos, window, cap.
 # pos at and around a tile edge, windows of one key and one tile, B * Hkv = 1
@@ -673,3 +753,14 @@ def test_cuda_decode_split_kernel_matches_plain_version(cuda, dims, pos, window,
     assert torch.isfinite(got).all() and torch.equal(got.view(torch.int16), again.view(torch.int16))
     assert tref.max_row_rel_err(got, tref.decode_attention(q, k, v, pos, **kw)) <= tol
     assert tref.max_row_rel_err(got2, tref.decode_attention(q, k2, v2, pos, **kw)) <= tol
+
+
+@pytest.mark.parametrize("module,name", [(m, n) for m in (ablate_waterfill, ablate_ewma)
+                                         for n in sorted(m.ABLATIONS) if n != "l2_path"])
+def test_waterfill_and_ewma_ablations_edit_the_kernel_source(module, name):
+    """Each design choice the two ablations undo is found in the source (the
+    first designs replace it whole, from ``csrc/earlier``; the EWMA scan's
+    L2 path is the source as it is, told to take that path)."""
+    src = module.SOURCE.read_text()
+    edited = module.ABLATIONS[name][1](src)
+    assert edited != src and "__global__" in edited

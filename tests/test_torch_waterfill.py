@@ -9,9 +9,14 @@ jit kernel (``FlowSet.max_min(backend="jax")``, which runs here once the
 ``enable_x64`` name it calls is pointed at ``jax.enable_x64(True)``; jax 0.9
 dropped ``jax.experimental.enable_x64``), on 40 random fabrics (links failed
 in the odd ones), on the Fig. 2 fabric with and without CNP jitter and on a
-10,240-GPU fabric. On the card (``-m gpu``) both variants of the kernel are
-held bit-equal to the plain version and to NumPy.
+10,240-GPU fabric. The kernel's schedule (a round refreshes only the links
+of the flows it froze, and re-reduces only their chunks' minimums) is
+emulated step by step in NumPy and held bit-equal to the NumPy loop on the
+same 43 fabrics, and a planted fault of it (only the first link of each
+frozen flow marked) must differ. On the card (``-m gpu``) every variant of
+the kernel is held bit-equal to the plain version and to NumPy.
 """
+import math
 import dataclasses
 import importlib.util
 from pathlib import Path
@@ -146,6 +151,128 @@ def test_10240_gpu_fabric_bit_equal_to_numpy_and_jit(x64):
     assert int(np.diff(ptr).max()) == 18
 
 
+CHUNK = 32       # csrc/waterfill.cu: links a chunk
+
+
+def dirty_link_waterfill(fs, w, alive, cap, fault=False):
+    """csrc/waterfill.cu's schedule, step by step in NumPy: round 0 computes
+    every link's share and each chunk's least share; then a round takes the
+    least of the chunk minimums, freezes the unfrozen flows of every link
+    at that share (only chunks whose minimum equals it are looked at), marks
+    the links of each newly frozen flow dirty (``fault``: only its first
+    link), recomputes dec, remaining, load and share for the dirty links
+    alone (each sum serial in pair order) and re-reduces only their chunks.
+    Returns (rate, remaining, rounds)."""
+    link_ptr, link_flow = (a.tolist() for a in waterfill.link_csr(
+        fs.pair_flow, fs.pair_link, fs.n_links))
+    flow_ptr, flow_link = (a.tolist() for a in waterfill.flow_csr(
+        fs.pair_flow, fs.pair_link, fs.n_flows))
+    n_flows, n_links = fs.n_flows, fs.n_links
+    w, cap = w.tolist(), cap.tolist()
+    stamp = [-1 if a else -2 for a in alive]
+    rate, rem, share = [0.0] * n_flows, list(cap), [math.inf] * n_links
+
+    def refresh(link, r, m, first):
+        dec = load = 0.0
+        for f in link_flow[link_ptr[link]:link_ptr[link + 1]]:
+            if stamp[f] == r:
+                dec += m * w[f]
+            elif stamp[f] == -1:
+                load += w[f]
+        if not first:
+            x = rem[link] - dec
+            rem[link] = x if x > 0.0 else 0.0
+        share[link] = rem[link] / load if load > 0.0 else math.inf
+
+    def chunk_min(c):
+        return min(share[c * CHUNK:(c + 1) * CHUNK])
+
+    for link in range(n_links):
+        refresh(link, -3, 0.0, True)
+    cmin = [chunk_min(c) for c in range(-(-n_links // CHUNK))]
+    r = 0
+    while True:
+        m = min(cmin, default=math.inf)
+        if not math.isfinite(m) or r > n_flows:
+            break
+        dirty = set()
+        for c in (c for c, x in enumerate(cmin) if x == m):
+            for link in range(c * CHUNK, min((c + 1) * CHUNK, n_links)):
+                if share[link] != m:
+                    continue
+                for f in link_flow[link_ptr[link]:link_ptr[link + 1]]:
+                    if stamp[f] == -1:
+                        stamp[f], rate[f] = r, m * w[f]
+                        links = flow_link[flow_ptr[f]:flow_ptr[f + 1]]
+                        dirty.update(links[:1] if fault else links)
+        for link in dirty:
+            refresh(link, r, m, False)
+        for c in {link // CHUNK for link in dirty}:
+            cmin[c] = chunk_min(c)
+        r += 1
+    return np.array(rate), np.array(rem), r
+
+
+def _numpy_inputs(fs, jitter=0.0, seed=0):
+    """``max_min``'s inputs to the filling loop: floored weights, aliveness,
+    capacity after the jitter draw, and the links a live flow touches."""
+    cap = fs.base_cap.copy()
+    if jitter:
+        cap *= 1.0 - jitter * np.random.default_rng(seed).uniform(0.0, 1.0, size=fs.n_links)
+    alive = fs.alive_mask()
+    touched = np.zeros(fs.n_links, dtype=bool)
+    touched[fs.pair_link[alive[fs.pair_flow]]] = True
+    return np.maximum(fs.weights, 1e-9), alive, cap, touched
+
+
+FABRICS = [f"random {i}" for i in range(N_RANDOM)] + ["fig2", "fig2 jitter 0.05", "10240"]
+
+
+def _fabric(label):
+    """(the port's FlowSet, jitter, seed) of one of the 43 fabrics."""
+    if label.startswith("random"):
+        return _port(*random_scenario(int(label.split()[1]))), 0.0, 0
+    if label == "10240":
+        return _port(*clos_scenario(1280)), 0.0, 0
+    return _port(*clos_scenario(128)), (0.05 if "jitter" in label else 0.0), 3
+
+
+@pytest.mark.parametrize("label", FABRICS)
+def test_dirty_link_schedule_bit_equal_to_numpy_loop(label):
+    fs, jitter, seed = _fabric(label)
+    w, alive, cap, touched = _numpy_inputs(fs, jitter, seed)
+    rate, remaining, rounds = dirty_link_waterfill(fs, w, alive, cap)
+    _assert_equal(fs._finish(rate, remaining, cap, touched, alive),
+                  fs.max_min(backend="numpy", cnp_jitter=jitter, seed=seed))
+    if label == "10240":
+        assert rounds == 57
+
+
+def test_dirty_link_schedule_planted_fault_differs():
+    """Only the first link of each frozen flow marked dirty: the links it
+    leaves stale must show on at least one of the 43 fabrics."""
+    differ = []
+    for label in FABRICS:
+        fs, jitter, seed = _fabric(label)
+        w, alive, cap, _ = _numpy_inputs(fs, jitter, seed)
+        sound = dirty_link_waterfill(fs, w, alive, cap)
+        wrong = dirty_link_waterfill(fs, w, alive, cap, fault=True)
+        if not (np.array_equal(_bits(sound[0]), _bits(wrong[0]))
+                and np.array_equal(_bits(sound[1]), _bits(wrong[1]))):
+            differ.append(label)
+    assert differ, "the planted fault reads equal on every fabric"
+
+
+def test_flow_csr_lists_each_flows_links():
+    fs = _port(*clos_scenario(128))
+    ptr, link = waterfill.flow_csr(fs.pair_flow, fs.pair_link, fs.n_flows)
+    assert ptr.dtype == link.dtype == np.int64
+    assert ptr[0] == 0 and ptr[-1] == fs.pair_flow.size and ptr.size == fs.n_flows + 1
+    for f in range(fs.n_flows):
+        assert link[ptr[f]:ptr[f + 1]].tolist() == fs.pair_link[fs.pair_flow == f].tolist()
+        assert [fs.links[k] for k in link[ptr[f]:ptr[f + 1]]] == list(fs.flow_links[f])
+
+
 def test_torch_branch_goes_through_the_wrapper_numpy_through_none(monkeypatch):
     calls = []
     real = waterfill.waterfill
@@ -221,10 +348,38 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         waterfill.waterfill(ptr, flow, w, alive, torch.ones(2, dtype=torch.float64))
 
 
+@pytest.mark.parametrize("hosts", [16, 128])
+def test_c4p_fabrics_give_the_timed_fabrics(hosts):
+    """``scenarios/c4p_fabrics.py`` builds the fabrics that chip_smoke.py and
+    the ablation time: the reference's Fig. 2 scenario (at 128 hosts the
+    Fig. 2 fabric, 2,048 flows on 4,094 links, 17 rounds), and kernel inputs
+    whose plain water-fill gives the NumPy loop's bits."""
+    from repro_torch.scenarios.c4p_fabrics import FIG2_HOSTS, clos_fabric, waterfill_inputs
+    fs = clos_fabric(hosts)
+    ref = RefFlowSet(*clos_scenario(hosts))
+    assert (fs.n_flows, fs.n_links) == (ref.n_flows, ref.n_links)
+    assert np.array_equal(fs.pair_flow, ref.pair_flow)
+    assert np.array_equal(fs.pair_link, ref.pair_link)
+    if hosts == FIG2_HOSTS:
+        assert (fs.n_flows, fs.n_links) == (2048, 4094)
+    args, by_flow = waterfill_inputs(fs, "cpu")
+    rate, remaining, rounds = waterfill.waterfill_ref(*args)
+    want = ref.max_min()
+    ptr, flow = waterfill.flow_csr(fs.pair_flow, fs.pair_link, fs.n_flows)
+    assert torch.equal(by_flow[0], torch.from_numpy(ptr))
+    assert torch.equal(by_flow[1], torch.from_numpy(flow))
+    assert np.array_equal(_bits(rate.numpy()), _bits(want.flow_rate))
+    if hosts == FIG2_HOSTS:
+        assert int(rounds[0]) == 17
+
+
 def test_build_flags_hold_waterfill_exact():
     assert "waterfill" in _build.KERNELS and "--fmad=false" in _build.flags("waterfill")
     src = (_build.CSRC / "waterfill.cu").read_text()
     assert f"MAX_BLOCKS = {waterfill.MAX_BLOCKS};" in src
+    assert f"CHUNK = {CHUNK};" in src
+    assert "enum Variant { " + ", ".join(f"{k.upper()} = {v}" for k, v in sorted(
+        waterfill.VARIANTS.items(), key=lambda kv: kv[1])) + " };" in src
 
 
 # --- on the card only ------------------------------------------------------------
@@ -255,9 +410,14 @@ def test_kernel_bit_equal_on_card(cuda, case):
         ptr, flow = waterfill.link_csr(fs.pair_flow, fs.pair_link, fs.n_links)
         args = [torch.from_numpy(a).to(cuda) for a in (
             ptr, flow, np.maximum(fs.weights, 1e-9), fs.alive_mask(), fs.base_cap)]
+        by_flow = [torch.from_numpy(a).to(cuda) for a in waterfill.flow_csr(
+            fs.pair_flow, fs.pair_link, fs.n_flows)]
         plain = waterfill.waterfill_ref(*args)
-        for grid in (False, True):
-            got = waterfill.waterfill(*args, grid=grid)
+        for variant in waterfill.VARIANTS:
+            if variant == "smem" and not waterfill._kernel("waterfill_smem_bytes")(
+                    fs.n_flows, fs.n_links, fs.pair_flow.size):
+                continue        # the 10,240-GPU fabric's state does not fit
+            got = waterfill.waterfill(*args, flow_csr=by_flow, variant=variant)
             for g, p in zip(got, plain):
                 assert torch.equal(g.view(torch.int64) if g.is_floating_point() else g,
                                    p.view(torch.int64) if p.is_floating_point() else p)
