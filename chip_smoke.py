@@ -24,7 +24,13 @@ Phases, each fatal on failure:
     fp32 and bf16, with a planted fault each (a pass's heads in the wrong
     columns, V's last 64 columns dropped). At RMSNorm's decode shape, an empty kernel's
     device time (the floor of a launch) and the host path by events: the
-    wrapper, the model's entry under no_grad, and F.rms_norm.
+    wrapper, the model's entry under no_grad, and F.rms_norm. At the
+    [models] configs' shapes (no window, no cap): flash and decode at
+    yi-34b's (56 heads on 8, head_dim 128), stablelm-12b's (32 on 8, 160:
+    the CUDA-core flash, split-K decode) and musicgen-medium's (24 on 24,
+    64) prefill and decode shapes, with planted faults (a window of 4096;
+    V's last 32 columns, or the last 128 keys, dropped); RMSNorm at each
+    one's d_model and stablelm-12b's qk-norm rows (2 x 4352 x 32 of 160).
     Kernel, plain and library times from CUDA events, the
     kernel's and the library call's device time from torch.profiler (each
     kernel's mean a launch times the launches of one call; a launched kernel
@@ -125,7 +131,19 @@ Phases, each fatal on failure:
     and at ``numpy``: reports (and the selected operating point) equal. Each
     card run in this process must launch ``window_score``, ``slow_fold`` and
     ``waterfill``. Wall seconds at both backends.
-They run in the order 1, 2, 5, 6, 7, 9, 3, 4, 8: late in the process (after the
+ 10. models: yi-34b (60 layers), stablelm-12b (40, qk-norm) and musicgen-medium
+    (48, audio: frame embeddings in, a zero frame a decode step) at full width
+    and depth through ``serve`` as in 3: exact launch counts (flash n_layers,
+    decode n_layers x 32, RMSNorm (2 + 2 [qk-norm]) n_layers + 1 a forward),
+    tokens in range, prefill logits within 2e-2 of the plain path's. Each
+    trained at full width for 2 steps of ``make_train_step`` over
+    ``TokenPipeline`` batches (seq 4096, global batch 2, 2 microbatches, the
+    config's remat and optimizer; yi-34b and stablelm-12b cut to 4 layers):
+    the first batch's loss and grad norm against the plain norms, finite
+    losses, exact RMSNorm launches a step; musicgen-medium's first step
+    under remat ``dots`` against ``full`` (within 1e-6), with seconds and
+    peak memory of each.
+They run in the order 1, 2, 5, 6, 7, 9, 3, 4, 8, 10: late in the process (after the
 train phase) torch.profiler dropped the records of short profiled windows, so
 the detection kernels are timed first.
 The line before the last is a JSON ``kernels`` record; the last line is
@@ -139,6 +157,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -327,9 +346,42 @@ def randn(shape, dtype, gen, std: float = 1.0):
     return (x * std).to(dtype)
 
 
+def time_flash(name, q, k, v, kw, dt: str, iters: int):
+    """Event and device ms of the flash kernel, its plain version and causal
+    SDPA (no window, no cap; a yardstick only, never called by the port) on
+    the same q, k, v, and the bound. Returns the row (ms, plain, lib,
+    bound_ms, bound_by, device_ms, library_device_ms)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    b, s, h, d = q.shape
+    hkv, w = k.shape[2], kw["window"]
+    n_keys = sum(min(i + 1, w) if w else i + 1 for i in range(s))
+    flops = 4.0 * b * h * n_keys * d
+    nbytes = 2.0 * (q.numel() + k.numel()) * q.element_size()
+    b_ms, b_by = bound(flops, nbytes, dt)
+    ms = time_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters)
+    dev = device_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters, FLASH_KERNELS)
+    plain = time_ms(lambda: ref.flash_attention(q, k, v, **kw), max(2, iters // 4))
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+
+    def run_lib():
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=d ** -0.5)
+
+    lib, lib_dev = time_ms(run_lib, iters), device_ms(run_lib, iters)
+    print(f"  time {name}: kernel_ms={ms:.4f} device_ms={_ms(dev, 4)} plain_ms={plain:.4f} "
+          f"library_ms={lib:.4f} library_device_ms={_ms(lib_dev, 4)} bound_ms={b_ms:.4f} "
+          f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/device={_share(b_ms, dev)} "
+          f"achieved {_ms(None if dev is None else flops / dev / 1e9, 1)} TFLOP/s "
+          "(device time)", flush=True)
+    return (ms, plain, lib, b_ms, b_by, dev, lib_dev)
+
+
 def flash_phase(iters: int):
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
 
@@ -373,33 +425,63 @@ def flash_phase(iters: int):
             errs.append(err)
         if not timed:
             continue
-        n_keys = sum(min(i + 1, w) if w else i + 1 for i in range(s))
-        flops = 4.0 * b * h * n_keys * d
-        nbytes = 2.0 * (q.numel() + k.numel()) * q.element_size()
-        b_ms, b_by = bound(flops, nbytes, dt)
-        ms = time_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters)
-        dev = device_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters, FLASH_KERNELS)
-        plain = time_ms(lambda: ref.flash_attention(q, k, v, **kw), max(2, iters // 4))
-        # yardstick only, never called by the port: causal SDPA, no window, no cap
-        qt = q.transpose(1, 2).contiguous()
-        kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
-        vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
-        def run_lib():
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=d ** -0.5)
-
-        lib, lib_dev = time_ms(run_lib, iters), device_ms(run_lib, iters)
-        print(f"  time {name}: kernel_ms={ms:.4f} device_ms={_ms(dev, 4)} plain_ms={plain:.4f} "
-              f"library_ms={lib:.4f} library_device_ms={_ms(lib_dev, 4)} bound_ms={b_ms:.4f} "
-              f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/device={_share(b_ms, dev)} "
-              f"achieved {_ms(None if dev is None else flops / dev / 1e9, 1)} TFLOP/s "
-              "(device time)", flush=True)
-        rows.append((ms, plain, lib, b_ms, b_by, dev, lib_dev))
+        rows.append(time_flash(name, q, k, v, kw, dt, iters))
     return tuple(max(e[i] for e in errs) for i in range(2)), rows
+
+
+def time_decode(name, sets, pos: int, kw, iters: int):
+    """Event and device ms of the decode kernel at ``pos``, its plain version
+    and SDPA over the keys in range (no cap; a yardstick only), each cycling
+    the cache ``sets`` so that the L2 does not hold the cache a launch reads,
+    and the bound. Returns the row as ``time_flash`` does."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+
+    q0, k0, _ = sets[0]
+    b, _, h, d = q0.shape
+    hkv, w = k0.shape[2], kw["window"]
+    lo = max(0, pos - w + 1) if w else 0
+    n = pos - lo + 1
+    flops = 4.0 * b * h * n * d
+    nbytes = (2.0 * b * n * hkv * d + 2.0 * q0.numel()) * q0.element_size()
+    b_ms, b_by = bound(flops, nbytes, str(q0.dtype)[6:])
+    it = iter(range(1 << 30))
+
+    def run_kernel():
+        qq, kk, vv = sets[next(it) % len(sets)]
+        decode_attention_fwd(qq, kk, vv, pos, **kw)
+
+    def run_plain():
+        qq, kk, vv = sets[next(it) % len(sets)]
+        ref.decode_attention(qq, kk, vv, pos, **kw)
+
+    ms = time_ms(run_kernel, iters * 4)
+    dev = device_ms(run_kernel, iters * 4, DECODE_KERNELS)
+    plain = time_ms(run_plain, iters)
+    libs = [(qq.transpose(1, 2).contiguous(),
+             kk[:, lo:pos + 1].repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous(),
+             vv[:, lo:pos + 1].repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous())
+            for qq, kk, vv in sets]
+
+    def run_lib():
+        qq, kk, vv = libs[next(it) % len(libs)]
+        F.scaled_dot_product_attention(qq, kk, vv, scale=d ** -0.5)
+
+    lib, lib_dev = time_ms(run_lib, iters * 4), device_ms(run_lib, iters * 4)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    path = (f"one launch, {len(ref.plan_splits(lo, pos, n_sm, b, hkv))} splits on {n_sm} SMs"
+            if q0.dtype == torch.bfloat16 and d in (64, 128, 256) else "split-K + combine")
+    print(f"  time {name}: kernel_ms={ms:.5f} device_ms={_ms(dev)} plain_ms={plain:.5f} "
+          f"library_ms={lib:.5f} library_device_ms={_ms(lib_dev)} bound_ms={b_ms:.5f} "
+          f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/kernel={b_ms / ms:.4f} "
+          f"bound/device={_share(b_ms, dev)} ({path})", flush=True)
+    return (ms, plain, lib, b_ms, b_by, dev, lib_dev)
 
 
 def decode_phase(iters: int):
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_fwd
 
@@ -448,39 +530,7 @@ def decode_phase(iters: int):
             fail(f"{name}: two calls on the same inputs differ")
         if not plain_q or pos != CACHE - 1:
             continue
-        n = pos - lo + 1
-        flops = 4.0 * B * H * n * D
-        nbytes = (2.0 * B * n * HKV * D + 2.0 * q.numel()) * q.element_size()
-        b_ms, b_by = bound(flops, nbytes, dt)
-        it = iter(range(1 << 30))
-
-        def run_kernel():
-            qq, kk, vv = sets[next(it) % len(sets)]
-            decode_attention_fwd(qq, kk, vv, pos, **kw)
-
-        def run_plain():
-            qq, kk, vv = sets[next(it) % len(sets)]
-            ref.decode_attention(qq, kk, vv, pos, **kw)
-
-        ms = time_ms(run_kernel, iters * 4)
-        dev = device_ms(run_kernel, iters * 4, DECODE_KERNELS)
-        plain = time_ms(run_plain, iters)
-        libs = [(qq.transpose(1, 2).contiguous(),
-                 kk[:, lo:pos + 1].repeat_interleave(H // HKV, dim=2).transpose(1, 2).contiguous(),
-                 vv[:, lo:pos + 1].repeat_interleave(H // HKV, dim=2).transpose(1, 2).contiguous())
-                for qq, kk, vv in sets]
-
-        def run_lib():  # yardstick only: SDPA over the keys in range, no cap
-            qq, kk, vv = libs[next(it) % len(libs)]
-            F.scaled_dot_product_attention(qq, kk, vv, scale=D ** -0.5)
-
-        lib, lib_dev = time_ms(run_lib, iters * 4), device_ms(run_lib, iters * 4)
-        print(f"  time {name}: kernel_ms={ms:.5f} device_ms={_ms(dev)} plain_ms={plain:.5f} "
-              f"library_ms={lib:.5f} library_device_ms={_ms(lib_dev)} bound_ms={b_ms:.5f} "
-              f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/kernel={b_ms / ms:.4f} "
-              f"bound/device={_share(b_ms, dev)} splits={len(ref.plan_splits(lo, pos, n_sm, B, HKV))}"
-              f" on {n_sm} SMs", flush=True)
-        rows.append((ms, plain, lib, b_ms, b_by, dev, lib_dev))
+        rows.append(time_decode(name, sets, pos, kw, iters))
         # after the timed launches, on another cache set: a stale partial or
         # a counter left non-zero would show here
         qq, kk, vv = sets[2]
@@ -545,10 +595,47 @@ def wide_attention_phase() -> float:
     return worst
 
 
+def time_rmsnorm(shape, gen, iters: int):
+    """Event and device ms of the RMSNorm kernel on bf16 rows of ``shape``,
+    its plain version and ``F.rms_norm`` (weight 1 + scale precomputed; a
+    yardstick only, never called by the port), 4 input sets cycled so that
+    the 50 MB L2 does not hold the rows a launch reads, and the bound.
+    Returns the row as ``time_flash`` does, and the cycling helper."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+
+    eps = 1e-6
+    dtype = torch.bfloat16
+    sets = [(randn(shape, dtype, gen), randn(shape[-1:], dtype, gen, 0.1)) for _ in range(4)]
+    weights = [(1.0 + s.float()).to(dtype) for _, s in sets]
+    it = iter(range(1 << 30))
+
+    def cycled(fn):
+        def run():
+            i = next(it) % len(sets)
+            fn(sets[i][0], sets[i][1], weights[i])
+        return run
+
+    ms = time_ms(cycled(lambda x, s, w: rmsnorm_fwd(x, s, eps)), iters * 4)
+    dev = device_ms(cycled(lambda x, s, w: rmsnorm_fwd(x, s, eps)), iters * 4, RMSNORM_KERNELS)
+    plain = time_ms(cycled(lambda x, s, w: ref.rmsnorm(x, s, eps)), iters * 4)
+    run_lib = cycled(lambda x, s, w: F.rms_norm(x, (shape[-1],), w, eps))
+    lib, lib_dev = time_ms(run_lib, iters * 4), device_ms(run_lib, iters * 4)
+    n = sets[0][0].numel()
+    nbytes = (2.0 * n + shape[-1]) * 2
+    b_ms, b_by = bound(4.0 * n, nbytes, "float32")
+    print(f"  time rmsnorm bfloat16 x={shape}: kernel_ms={ms:.5f} device_ms={_ms(dev)} "
+          f"plain_ms={plain:.5f} library_ms={lib:.5f} library_device_ms={_ms(lib_dev)} "
+          f"bound_ms={b_ms:.5f} ({b_by}; {nbytes:.4e} B) bound/kernel={b_ms / ms:.4f} "
+          f"bound/device={_share(b_ms, dev)}", flush=True)
+    return (ms, plain, lib, b_ms, b_by, dev, lib_dev), cycled
+
+
 def rmsnorm_phase(iters: int):
     import ctypes
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 
@@ -587,34 +674,9 @@ def rmsnorm_phase(iters: int):
             grad_check(x, scale, eps, gen)
     extra = {}
     for shape in path:
-        dtype = torch.bfloat16
-        # 4 input sets cycled, so that the 50 MB L2 does not hold the rows a
-        # launch reads (the larger two shapes are 19 and 40 MB an input)
-        sets = [(randn(shape, dtype, gen), randn(shape[-1:], dtype, gen, 0.1)) for _ in range(4)]
-        weights = [(1.0 + s.float()).to(dtype) for _, s in sets]
-        it = iter(range(1 << 30))
-
-        def cycled(fn):
-            def run():
-                i = next(it) % len(sets)
-                fn(sets[i][0], sets[i][1], weights[i])
-            return run
-
-        ms = time_ms(cycled(lambda x, s, w: rmsnorm_fwd(x, s, eps)), iters * 4)
-        dev = device_ms(cycled(lambda x, s, w: rmsnorm_fwd(x, s, eps)), iters * 4,
-                        RMSNORM_KERNELS)
-        plain = time_ms(cycled(lambda x, s, w: ref.rmsnorm(x, s, eps)), iters * 4)
-        # yardstick only, never called by the port: weight 1 + scale precomputed
-        run_lib = cycled(lambda x, s, w: F.rms_norm(x, (shape[-1],), w, eps))
-        lib, lib_dev = time_ms(run_lib, iters * 4), device_ms(run_lib, iters * 4)
-        n = sets[0][0].numel()
-        nbytes = (2.0 * n + shape[-1]) * 2
-        b_ms, b_by = bound(4.0 * n, nbytes, "float32")
-        print(f"  time rmsnorm bfloat16 x={shape}: kernel_ms={ms:.5f} device_ms={_ms(dev)} "
-              f"plain_ms={plain:.5f} library_ms={lib:.5f} library_device_ms={_ms(lib_dev)} "
-              f"bound_ms={b_ms:.5f} ({b_by}; {nbytes:.4e} B) bound/kernel={b_ms / ms:.4f} "
-              f"bound/device={_share(b_ms, dev)}", flush=True)
-        rows.append((ms, plain, lib, b_ms, b_by, dev, lib_dev))
+        row, cycled = time_rmsnorm(shape, gen, iters)
+        rows.append(row)
+        ms, _, lib, _, _, dev, _ = row
         if shape != path[2]:
             continue
         # the decode shape is bound by the launch: an empty kernel's device
@@ -666,9 +728,10 @@ GRAD_SCALE_TOL = 1e-2
 
 
 def norms_per_forward(cfg) -> int:
-    """RMSNorm launches of one forward: 2 a block (4 with sandwich norms) and
-    the final norm."""
-    return (4 if cfg.post_block_norm else 2) * cfg.n_layers + 1
+    """RMSNorm launches of one forward: 2 a block (4 with sandwich norms, 2
+    more with the qk norm) and the final norm."""
+    per_block = (4 if cfg.post_block_norm else 2) + (2 if cfg.qk_norm else 0)
+    return per_block * cfg.n_layers + 1
 
 
 def serve_phase():
@@ -725,6 +788,368 @@ def serve_phase():
     if not err <= 2e-2 * scale:
         fail("served prefill logits disagree with the plain path")
     return counts
+
+
+# --- the [models] configs: kernel rows at their shapes, serve and train -------
+
+MODEL_ARCHS = ("yi-34b", "stablelm-12b", "musicgen-medium")
+# training depth on one card: yi-34b and stablelm-12b cut to 4 layers (the
+# optimizer state of all 60 / 40 does not fit 80 GB), musicgen-medium whole
+MODEL_TRAIN_LAYERS = {"yi-34b": 4, "stablelm-12b": 4, "musicgen-medium": 48}
+MODEL_TRAIN_STEPS = 2
+
+
+def model_kernel_phase(iters: int):
+    """Flash and decode at each [models] config's prefill and decode shapes
+    (its heads, kv heads and head_dim; no window, no cap), and RMSNorm at
+    each config's d_model and at stablelm-12b's qk-norm rows (160 wide), each
+    against its plain version with planted faults, then timed. Returns
+    {kernel: (max_abs_err, max_row_rel_err)} and {kernel: {label: row}}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    dt, dtype, eps = "bfloat16", torch.bfloat16, 1e-6
+    errs = {"flash_attention": [], "decode_attention": [], "rmsnorm": []}
+    rows = {"flash_attention": {}, "decode_attention": {}, "rmsnorm": {}}
+    for arch in MODEL_ARCHS:
+        cfg = get_config(arch).model
+        h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        kw = dict(window=cfg.sliding_window, logit_cap=cfg.attn_logit_softcap, scale=d ** -0.5)
+        if kw["window"] or kw["logit_cap"]:
+            fail(f"{arch}: the planted faults below are for no window and no cap")
+        q = randn((B, PROMPT, h, d), dtype, gen)
+        k, v = randn((B, PROMPT, hkv, d), dtype, gen), randn((B, PROMPT, hkv, d), dtype, gen)
+        v_cut = v.clone()
+        v_cut[..., -32:] = 0
+        name = f"flash {dt} {arch} (b,s,h,hkv,d)={(B, PROMPT, h, hkv, d)} window=0 cap=0"
+        faults = [(f"window {WINDOW} instead of 0",
+                   ref.flash_attention(q, k, v, **{**kw, "window": WINDOW})),
+                  ("V's last 32 columns dropped", ref.flash_attention(q, k, v_cut, **kw))]
+        errs["flash_attention"].append(compare(name, flash_attention_fwd(q, k, v, **kw),
+                                               ref.flash_attention(q, k, v, **kw), faults))
+        del faults, v_cut
+        rows["flash_attention"][arch] = time_flash(name, q, k, v, kw, dt, iters)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+        sets = [(randn((B, 1, h, d), dtype, gen), randn((B, CACHE, hkv, d), dtype, gen),
+                 randn((B, CACHE, hkv, d), dtype, gen)) for _ in range(4)]
+        q, kc, vc = sets[0]
+        pos = CACHE - 1
+        name = f"decode {dt} {arch} B={B} cache={CACHE} H={h} Hkv={hkv} D={d} pos={pos} window=0"
+        faults = [(f"window {WINDOW} instead of 0",
+                   ref.decode_attention(q, kc, vc, pos, **{**kw, "window": WINDOW})),
+                  ("last 128 keys dropped", ref.decode_attention(q, kc, vc, pos - 128, **kw))]
+        got = decode_attention_fwd(q, kc, vc, pos, **kw)
+        errs["decode_attention"].append(
+            compare(name, got, ref.decode_attention(q, kc, vc, pos, **kw), faults))
+        if not _bit_equal(decode_attention_fwd(q, kc, vc, pos, **kw), got):
+            fail(f"{name}: two calls on the same inputs differ")
+        rows["decode_attention"][arch] = time_decode(name, sets, pos, kw, iters)
+        qq, kk, vv = sets[2]
+        errs["decode_attention"].append(compare(
+            name + " again, cache set 2", decode_attention_fwd(qq, kk, vv, pos, **kw),
+            ref.decode_attention(qq, kk, vv, pos, **kw)))
+        del sets, q, kc, vc, qq, kk, vv, got, faults
+        torch.cuda.empty_cache()
+
+        norm_shapes = [(arch, (B, PROMPT, cfg.d_model))]
+        if cfg.qk_norm:
+            norm_shapes.append((f"{arch} qk", (B, PROMPT, h, d)))
+        for label, shape in norm_shapes:
+            x = randn(shape, dtype, gen)
+            scale = randn(shape[-1:], dtype, gen, 0.1)
+            errs["rmsnorm"].append(compare(
+                f"rmsnorm {dt} {label} x={shape}", rmsnorm_fwd(x, scale, eps),
+                ref.rmsnorm(x, scale, eps),
+                [(ref.RMSNORM_FAULTS["scale"], ref.rmsnorm_fault(x, scale, eps, "scale"))]))
+            del x, scale
+            rows["rmsnorm"][label] = time_rmsnorm(shape, gen, iters)[0]
+    return ({name: tuple(max(e[i] for e in es) for i in range(2)) for name, es in errs.items()},
+            rows)
+
+
+def model_serve(arch: str, card: str) -> dict:
+    """``serve`` at full width and depth: batch 2, the 4352-token prompt, 32
+    greedy steps; exact launch counts, tokens in range, and the prefill
+    logits against the same model served through the plain attention and
+    norms (within 2e-2 of the largest |logit|, as gemma2-2b's)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import MAX_GROUP
+    from repro_torch.launch.serve import serve
+
+    run = get_config(arch)
+    cfg = run.model
+    n_layers, n_norms = cfg.n_layers, norms_per_forward(cfg)
+    passes = -(-(cfg.n_heads // cfg.n_kv_heads) // MAX_GROUP)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve(run, batch=B, prompt_len=PROMPT, decode_steps=STEPS, device="cuda", seed=0)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": passes * n_layers, "decode_attention": passes * n_layers * STEPS,
+            "rmsnorm": n_norms * (1 + STEPS)}
+    want_all = {"flash_attention": 2 * passes * n_layers,
+                "decode_attention": passes * n_layers * (STEPS + 1),
+                "rmsnorm": n_norms * (3 + STEPS)}
+    toks, logits = res["tokens"], res["prefill_logits"]
+    print(f"  models serve {arch}: {n_layers} layers, prefill_s={res['prefill_s']:.4f} "
+          f"decode_s={res['decode_s']:.4f} decode_tok_per_s={res['decode_tok_per_s']:.2f} "
+          f"max_memory_allocated={peak / 1e9:.2f} GB; launches {res['kernel_launches']} timed, "
+          f"{counts} in all; tokens[0]={toks[0].tolist()} [{card}]", flush=True)
+    if res["kernel_launches"] != want or counts != want_all:
+        fail(f"{arch} serve: launch counts {res['kernel_launches']} timed, {counts} in all; "
+             f"expected {want} and {want_all}")
+    if toks.shape != (B, STEPS + 1) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"{arch} serve: sampled tokens out of shape or range: {toks.shape}")
+    if logits.shape != (B, 1, cfg.vocab_size) or not torch.isfinite(logits).all():
+        fail(f"{arch} serve: prefill logits not finite or of the wrong shape")
+
+    torch.cuda.empty_cache()
+    plain = serve(run, batch=B, prompt_len=PROMPT, decode_steps=STEPS, device="cuda", seed=0,
+                  use_kernel=False)
+    if any(plain["kernel_launches"].values()):
+        fail(f"{arch} serve: the plain path launched a kernel")
+    err = (logits - plain["prefill_logits"]).abs().max().item()
+    scale = plain["prefill_logits"].abs().max().item()
+    agree = float((toks == plain["tokens"]).mean())
+    print(f"  models serve {arch} prefill logits vs the plain path ({n_layers} layers): "
+          f"max_abs_err={err:.4e} max|logit|={scale:.4e} rel={err / scale:.4e} tol_rel=2e-2; "
+          f"greedy tokens equal to the plain path's: {agree:.4f} (plain prefill_s="
+          f"{plain['prefill_s']:.4f}, decode_tok_per_s={plain['decode_tok_per_s']:.2f})",
+          flush=True)
+    floor = None
+    if not err <= 2e-2 * scale:
+        # A deep bf16 model can sit this far from any other bf16 path: then
+        # the kernel path must be as close to the exact forward (fp32, the
+        # same bf16-rounded weights) as the plain bf16 path is
+        exact = fp32_prefill_logits(run, seed=0)
+        k_err = (logits - exact).abs().max().item()
+        floor = (plain["prefill_logits"] - exact).abs().max().item()
+        print(f"  models serve {arch} against the fp32 forward of the same weights: kernel "
+              f"path max_abs_err={k_err:.4e}, plain bf16 path {floor:.4e} (the bf16 noise "
+              f"floor, rel={floor / scale:.4e}); kernel/plain={k_err / floor:.4f} (limit "
+              f"{EXACT_RATIO:g})", flush=True)
+        if not k_err <= EXACT_RATIO * floor:
+            fail(f"{arch}: served prefill logits disagree with the plain path")
+    return {"launches": res["kernel_launches"], "launches_all": counts,
+            "prefill_s": res["prefill_s"], "decode_tok_per_s": res["decode_tok_per_s"],
+            "max_memory_allocated": peak, "logit_err": err / scale}
+
+
+# the kernel path's distance to the exact forward, at most this many times
+# the plain bf16 path's (both round every op to bf16)
+EXACT_RATIO = 1.25
+
+
+def fp32_prefill_logits(run, seed: int):
+    """Last-position prefill logits of ``serve``'s model and prompt (the
+    same seeds) in float32 through the plain path, with every weight
+    rounded to bf16 first: the exact forward that both bf16 paths
+    approximate. (B, 1, vocab) float32 on the CPU."""
+    import torch
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.models.model import build_model, synthetic_batch
+    from repro_torch.train.steps import make_prefill_step
+
+    torch.cuda.empty_cache()
+    run32 = run.replace(parallel=dataclasses.replace(run.parallel, param_dtype="float32"))
+    model = build_model(run32, device="cuda", use_kernel=False)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.to(torch.bfloat16))
+    prompt = synthetic_batch(run.model, ShapeSpec("serve", PROMPT, B, "prefill"), seed=1,
+                             device="cuda")
+    logits, _ = make_prefill_step(model)(prompt, model.init_cache(B, PROMPT, torch.float32))
+    return logits.float().cpu()
+
+
+def model_train_run(arch: str):
+    """The [models] training run of ``arch``: seq 4096, global batch 2 (the
+    config's 256 cut to one card), 2 microbatches, the config's remat and
+    optimizer, depth ``MODEL_TRAIN_LAYERS``."""
+    from repro_torch.configs import get_config
+    run = get_config(arch)
+    return run.replace(
+        model=dataclasses.replace(run.model, n_layers=MODEL_TRAIN_LAYERS[arch]),
+        parallel=dataclasses.replace(run.parallel, microbatches=2),
+        train=dataclasses.replace(run.train, global_batch=TRAIN_BATCH))
+
+
+def model_train(arch: str, card: str) -> dict:
+    """``MODEL_TRAIN_STEPS`` steps of ``make_train_step`` over ``TokenPipeline``
+    batches: the first batch's loss and grad norm against the plain norms,
+    finite losses, the RMSNorm launches of each step exact."""
+    import torch
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_grad_fn, make_train_step
+
+    run = model_train_run(arch)
+    cfg, pcfg = run.model, run.parallel
+    if pcfg.remat not in ("full", "dots"):
+        fail(f"{arch}: the launch count below is derived for remat 'full' or 'dots'")
+    per_step = pcfg.microbatches * (2 * norms_per_forward(cfg) - 1)
+    shape = ShapeSpec("train", run.train.seq_len, TRAIN_BATCH, "train")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(run, device="cuda")
+    model.init_weights(torch.Generator("cuda").manual_seed(run.train.seed))
+    params = dict(model.named_parameters())
+    opt_cfg = adamw.OptimizerConfig(kind=pcfg.optimizer_state,
+                                    weight_decay=run.train.weight_decay)
+    opt_state = adamw.init_state(opt_cfg, params)
+    pipeline = TokenPipeline(cfg, shape, PipelineConfig(seed=run.train.seed))
+
+    def batch_of(step):
+        return {k: torch.from_numpy(v).cuda() for k, v in pipeline.batch(step).items()}
+
+    grad_fn = make_grad_fn(model, run)
+    got = {}
+    for use_kernel in (True, False):
+        model.use_kernel = use_kernel
+        ops.reset_launch_counts()
+        loss, _, grads = grad_fn(params, batch_of(0))
+        got[use_kernel] = (loss.item(), adamw.global_norm(grads).item(), ops.launch_counts())
+        del grads
+    model.use_kernel = True
+    (lk, gk, ck), (lp, gp, cp) = got[True], got[False]
+    rel_l, rel_g = abs(lk - lp) / abs(lp), abs(gk - gp) / gp
+    print(f"  models train {arch} kernel vs plain norms, batch 0: loss {lk:.6f} vs {lp:.6f} "
+          f"rel={rel_l:.3e} (limit 2e-3); grad_norm {gk:.6f} vs {gp:.6f} rel={rel_g:.3e} "
+          f"(limit 2e-2); rmsnorm launches {ck['rmsnorm']} vs {cp['rmsnorm']}", flush=True)
+    if not (rel_l <= 2e-3 and rel_g <= 2e-2):
+        fail(f"{arch} train: loss or grad norm with the RMSNorm kernel disagrees with the "
+             "plain norms")
+    if ck != {"flash_attention": 0, "decode_attention": 0, "rmsnorm": per_step} or any(cp.values()):
+        fail(f"{arch} train: gradient launches {ck} (kernel) and {cp} (plain); expected "
+             f"{per_step} rmsnorm launches and none")
+
+    step_fn = make_train_step(model, run, opt_cfg)
+    losses, secs, counts = [], [], []
+    for step in range(MODEL_TRAIN_STEPS):
+        batch = batch_of(step)
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts.append(ops.launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  models train {arch}: {model.num_params():,} params ({cfg.n_layers} layers), seq "
+          f"{shape.seq_len}, global batch {TRAIN_BATCH}, microbatches {pcfg.microbatches}, "
+          f"remat {pcfg.remat}, {opt_cfg.kind}: losses {losses}, step_s "
+          f"{[round(t, 4) for t in secs]}, tokens_per_s (step 2) "
+          f"{TRAIN_BATCH * shape.seq_len / secs[-1]:.1f}, max_memory_allocated "
+          f"{peak / 1e9:.2f} GB; rmsnorm launches a step {[c['rmsnorm'] for c in counts]} "
+          f"[{card}]", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{arch} train: non-finite losses {losses}")
+    want = {"flash_attention": 0, "decode_attention": 0, "rmsnorm": per_step}
+    if any(c != want for c in counts):
+        fail(f"{arch} train: launches a step {counts}; expected {want}")
+    return {"launches": sum(c["rmsnorm"] for c in counts), "step_s": secs, "losses": losses,
+            "max_memory_allocated": peak, "params": model.num_params()}
+
+
+def dots_check(arch: str, card: str) -> dict:
+    """The first train step of ``arch`` from the same weights and batch
+    under remat ``full`` and ``dots``: loss and grad norm within 1e-6
+    relative of each other; seconds and peak memory of each."""
+    import torch
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import make_train_step
+
+    run = model_train_run(arch)
+    torch.cuda.empty_cache()
+    model = build_model(run, device="cuda")
+    opt_cfg = adamw.OptimizerConfig(kind=run.parallel.optimizer_state,
+                                    weight_decay=run.train.weight_decay)
+    shape = ShapeSpec("train", run.train.seq_len, TRAIN_BATCH, "train")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(
+        run.model, shape, PipelineConfig(seed=run.train.seed)).batch(0).items()}
+    model.init_weights(torch.Generator("cuda").manual_seed(run.train.seed))
+    params = dict(model.named_parameters())
+    start = {n: p.detach().clone() for n, p in params.items()}
+    out = {}
+    for remat in ("full", "dots"):   # warm: model_train ran this config's steps before
+        model.remat = remat
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(start[n])
+        opt_state = adamw.init_state(opt_cfg, params)
+        step_fn = make_train_step(model, run, opt_cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, opt_state, metrics = step_fn(params, opt_state, batch)
+        loss, gnorm = metrics["loss"].item(), metrics["grad_norm"].item()
+        torch.cuda.synchronize()
+        out[remat] = {"loss": loss, "grad_norm": gnorm, "step_s": time.perf_counter() - t0,
+                      "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                      "rmsnorm": ops.launch_counts()["rmsnorm"]}
+        del opt_state, metrics
+    full, dots = out["full"], out["dots"]
+    rel_l = abs(dots["loss"] - full["loss"]) / abs(full["loss"])
+    rel_g = abs(dots["grad_norm"] - full["grad_norm"]) / full["grad_norm"]
+    bit_equal = dots["loss"] == full["loss"] and dots["grad_norm"] == full["grad_norm"]
+    print(f"  models dots {arch} ({run.model.n_layers} layers), first step from the same "
+          f"weights: loss {full['loss']!r} (full) vs {dots['loss']!r} (dots) rel={rel_l:.3e}; "
+          f"grad_norm {full['grad_norm']!r} vs {dots['grad_norm']!r} rel={rel_g:.3e} (limit "
+          f"1e-6 each); bit-equal: {bit_equal}; step_s full {full['step_s']:.4f} dots "
+          f"{dots['step_s']:.4f}; max_memory_allocated full "
+          f"{full['max_memory_allocated'] / 1e9:.2f} GB dots "
+          f"{dots['max_memory_allocated'] / 1e9:.2f} GB; rmsnorm launches {full['rmsnorm']} "
+          f"and {dots['rmsnorm']} [{card}]", flush=True)
+    if not (rel_l <= 1e-6 and rel_g <= 1e-6) or full["rmsnorm"] != dots["rmsnorm"]:
+        fail(f"{arch}: remat dots disagrees with full")
+    return dict(out, bit_equal=bit_equal)
+
+
+def models_phase(card: str) -> dict:
+    """yi-34b, stablelm-12b and musicgen-medium: serve at full width and
+    depth, train at full width (``MODEL_TRAIN_LAYERS``), and musicgen's
+    first step under remat ``dots`` against ``full``. The launch counts of
+    each path are read from 0 around it."""
+    import gc
+    import torch
+    held = torch.cuda.memory_allocated()
+    gc.collect()   # what the earlier phases left in reference cycles
+    torch.cuda.empty_cache()
+    print(f"  models: the earlier phases left {held / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after gc.collect()", flush=True)
+    out = {}
+    for arch in MODEL_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = {"serve": model_serve(arch, card), "train": model_train(arch, card)}
+        print(f"  models {arch} done in {time.perf_counter() - t0:.1f} s", flush=True)
+    out["dots"] = dots_check("musicgen-medium", card)
+    cuts = ", ".join(f"{a} {MODEL_TRAIN_LAYERS[a]} layers" for a in MODEL_ARCHS)
+    print(f"  models reduced: training depth {cuts}; train global batch {TRAIN_BATCH} (the "
+          "configs' 256) in 2 microbatches; serving at full depth; weights random from a "
+          "seeded torch.Generator", flush=True)
+    return out
 
 
 def numpy_fault_replay(kind: str, rank: int, seed: int, sim_nodes: int, at_step: int):
@@ -2655,6 +3080,7 @@ def main(argv=None) -> int:
     decode_err, decode_rows = decode_phase(ITERS)
     wide_attention_phase()
     norm_err, norm_rows, norm_extra = rmsnorm_phase(ITERS)
+    model_err, model_rows = model_kernel_phase(ITERS)
     print(f"[kernels] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # [detect] before [serve] and [train]: after the train phase the profiler
@@ -2697,26 +3123,38 @@ def main(argv=None) -> int:
     print("[live]", flush=True)
     live_counts = live_phase()
     print(f"[live] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print(f"[models] {card}", flush=True)
+    models = models_phase(card)
+    print(f"[models] done in {time.perf_counter() - t0:.1f} s", flush=True)
     counts = {k: serve_counts[k] + train_counts[k] for k in serve_counts}
+    model_launches = {name: {arch: {"serve": models[arch]["serve"]["launches"][name],
+                                    "train": models[arch]["train"]["launches"]
+                                    if name == "rmsnorm" else 0}
+                             for arch in MODEL_ARCHS} for name in counts}
     print(f"launches on the main paths: serve {serve_counts}, train {train_counts}, "
           f"train fault {train_fault_counts}, live {live_counts}, campaigns "
-          f"{campaign_counts}", flush=True)
+          f"{campaign_counts}, models {model_launches}", flush=True)
 
-
-    def entry(name, source, replaces, err, rows):
-        # attention: one local-window and one global launch of the main path,
-        # averaged; rmsnorm: the training microbatch (1, 4096, 2304)
-        col = [[r[i] for r in rows] for i in range(7)]
-        mean = [None if i == 4 or None in c else sum(c) / len(c) for i, c in enumerate(col)]
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": counts[name], "max_abs_err": err[0], "max_row_rel_err": err[1],
-                "ms": mean[0], "device_ms": mean[5], "plain_ms": mean[1], "bound_ms": mean[3],
-                "bound_by": rows[0][4], "library_ms": mean[2], "library_device_ms": mean[6]}
 
     def times(row):
         ms, plain, lib, b_ms, b_by, dev, lib_dev = row
         return {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": lib, "library_device_ms": lib_dev}
+
+    def entry(name, source, replaces, err, rows):
+        # attention: one local-window and one global launch of the main path,
+        # averaged; rmsnorm: the training microbatch (1, 4096, 2304). The
+        # [models] configs' shapes and launches besides (max_abs_err over all)
+        col = [[r[i] for r in rows] for i in range(7)]
+        mean = [None if i == 4 or None in c else sum(c) / len(c) for i, c in enumerate(col)]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": counts[name], "max_abs_err": max(err[0], model_err[name][0]),
+                "max_row_rel_err": max(err[1], model_err[name][1]),
+                "ms": mean[0], "device_ms": mean[5], "plain_ms": mean[1], "bound_ms": mean[3],
+                "bound_by": rows[0][4], "library_ms": mean[2], "library_device_ms": mean[6],
+                "models": {label: times(row) for label, row in model_rows[name].items()},
+                "models_launches": model_launches[name]}
 
     batch_counts, batch_rows = det_rows["batched"]
 

@@ -13,6 +13,9 @@ from typing import List
 ARCHS: List[str] = [
     "gemma2-2b",
     "smollm-135m",
+    "yi-34b",
+    "stablelm-12b",
+    "musicgen-medium",
 ]
 
 

@@ -6,7 +6,10 @@ leaves (``jax.tree.map(np.asarray, params)``) and returns the dict to pass to
 a leading units axis (``params["segments"][0]["unit"]["0"]``); here that axis
 is unstacked into ``blocks.<layer>``. Weights keep the JAX ``(in, out)``
 orientation: the port computes ``x @ w`` as the JAX package does, so nothing is
-transposed.
+transposed. The tree's ``embed`` (absent for the audio family) and ``head``
+(an untied read-out) are carried across where present, and so are the qk
+norms' ``attn.q_norm.scale`` / ``attn.k_norm.scale``, per layer like every
+block weight.
 
 ``baseline_from_reference(state)`` carries a detector's state across: it takes
 the arrays of a reference ``AdaptiveBaseline`` as numpy and returns the port's
@@ -36,8 +39,11 @@ def params_from_jax(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch
     segments = params["segments"]
     if len(segments) != 1 or set(segments[0]["unit"]) != {"0"} or segments[0]["shared"]:
         raise ValueError("only a single dense segment (one block per unit) is ported")
-    state = {"embed.table": params["embed"]["table"],
-             "final_norm.scale": params["final_norm"]["scale"]}
+    state = {"final_norm.scale": params["final_norm"]["scale"]}
+    if "embed" in params:
+        state["embed.table"] = params["embed"]["table"]
+    if "head" in params:
+        state["head"] = params["head"]
     for name, stacked in _flatten(segments[0]["unit"]["0"]):
         if stacked.shape[0] != cfg.n_layers:
             raise ValueError(f"{name}: {stacked.shape[0]} units for {cfg.n_layers} layers")

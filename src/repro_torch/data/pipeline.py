@@ -1,11 +1,13 @@
 """Deterministic, seed-addressable synthetic data pipeline.
 
-The port's own copy of ``repro.data.pipeline`` (numpy only), for token
-models. ``batch(step)`` is a pure function of (seed, step): a counter-based
-Philox generator keyed ``(step << 8) + salt``, so a job restarted from
-checkpoint step k consumes the exact same stream from k on, and a seed gives
-the same bytes as the JAX package's pipeline. ``host_batch`` is the slice of
-the global batch that one host loads.
+The port's own copy of ``repro.data.pipeline`` (numpy only): token ids,
+codebook labels, and the audio family's frame embeddings (float32 here; the
+model casts them to its ``param_dtype``). ``batch(step)`` is a pure function
+of (seed, step): a counter-based Philox generator keyed ``(step << 8) +
+salt``, so a job restarted from checkpoint step k consumes the exact same
+stream from k on, and a seed gives the same bytes as the JAX package's
+pipeline. ``host_batch`` is the slice of the global batch that one host
+loads.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ class PipelineConfig:
 
 
 class TokenPipeline:
-    """step -> batch dict of numpy arrays (tokens)."""
+    """step -> batch dict of numpy arrays (tokens / labels / embeddings)."""
 
     def __init__(self, model: ModelConfig, shape: ShapeSpec,
                  cfg: Optional[PipelineConfig] = None):

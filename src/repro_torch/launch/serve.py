@@ -7,7 +7,10 @@ Port of ``repro.launch.serve``: the same flags and JSON keys, plus
 ``--device`` (default ``cuda``; ``cpu`` only when asked) and the kernels'
 launch counts. One device, no mesh. Unlike the JAX entry point, which builds
 its model with ``use_kernel=False``, this one serves through the CUDA kernels.
-Weights are random, drawn from a ``torch.Generator`` with a fixed seed.
+Weights are random, drawn from a ``torch.Generator`` with a fixed seed. For
+the audio family the prompt is frame embeddings and every decode step feeds a
+zero frame (the stub front end, as in the JAX entry point); the greedy tokens
+are then codebook ids.
 """
 from __future__ import annotations
 
@@ -47,13 +50,21 @@ def serve(run: RunConfig, *, batch: int = 2, prompt_len: int = 64, decode_steps:
                              dtype=DTYPES[run.parallel.param_dtype])
     prefill = make_prefill_step(model)
     decode = make_decode_step(model)
+    if "embeddings" in prompt:  # audio: a zero frame a step (stub front end)
+        frame = torch.zeros((batch, 1, run.model.d_model), dtype=model.param_dtype, device=dev)
+
+        def step_batch(tokens):
+            return {"embeddings": frame}
+    else:
+        def step_batch(tokens):
+            return {"tokens": tokens[:, None]}
     # one untimed prefill and decode step first, so that the times below are
     # those of a warm server (library handles, allocator, kernel loading); the
     # timed prefill rewrites every cache entry the warm-up wrote
     logits, cache = prefill(prompt, cache)
     if decode_steps:
-        decode({"tokens": torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]},
-               cache, prompt_len)
+        decode(step_batch(torch.argmax(logits[:, -1], dim=-1).to(torch.int32)), cache,
+               prompt_len)
     launches0 = kops.launch_counts()
 
     _sync(dev)
@@ -67,7 +78,7 @@ def serve(run: RunConfig, *, batch: int = 2, prompt_len: int = 64, decode_steps:
     out_tokens = [tokens]
     t0 = time.perf_counter()
     for i in range(decode_steps):
-        logits, cache = decode({"tokens": tokens[:, None]}, cache, prompt_len + i)
+        logits, cache = decode(step_batch(tokens), cache, prompt_len + i)
         tokens = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         out_tokens.append(tokens)
     _sync(dev)

@@ -2,8 +2,8 @@
 
 Port of the GQA part of ``repro.models.attention``: ``KVCache``,
 ``layer_window``, ``chunked_causal_attention`` and the GQA block in its
-``train``, ``prefill`` and ``decode`` modes. MLA and cross attention are not
-ported yet.
+``train``, ``prefill`` and ``decode`` modes, with the optional per-head qk
+norm. MLA and cross attention are not ported yet.
 
 ``use_kernel`` means "the hand-written kernel wherever this mode has one":
 prefill goes through the flash kernel and decode through the decode kernel.
@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF, causal_window_mask
-from repro_torch.models.layers import apply_rope, softcap, truncated_normal
+from repro_torch.models.layers import RMSNorm, apply_rope, softcap, truncated_normal
 
 
 # ---------------------------------------------------------------------------
@@ -90,12 +90,12 @@ def layer_window(cfg: ModelConfig, layer_idx: int) -> int:
 
 
 class GQAttention(nn.Module):
-    """Weights in the JAX package's ``(in, out)`` orientation."""
+    """Weights in the JAX package's ``(in, out)`` orientation. With
+    ``qk_norm``, q and k go through an RMSNorm over ``head_dim`` each
+    (``q_norm``, ``k_norm``) after the projections and before RoPE."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
-        if cfg.qk_norm:
-            raise ValueError("qk_norm is not ported yet")
         self.cfg = cfg
         d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         kw = dict(dtype=dtype, device=device)
@@ -103,28 +103,34 @@ class GQAttention(nn.Module):
         self.wk = nn.Parameter(torch.empty(d, hkv * hd, **kw))
         self.wv = nn.Parameter(torch.empty(d, hkv * hd, **kw))
         self.wo = nn.Parameter(torch.empty(h * hd, d, **kw))
+        if cfg.qk_norm:
+            self.q_norm = RMSNorm(hd, cfg.norm_eps, dtype, device)
+            self.k_norm = RMSNorm(hd, cfg.norm_eps, dtype, device)
 
     def init_weights(self, generator: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
             w.copy_(truncated_normal(w.shape, w.shape[0] ** -0.5, w.dtype, w.device, generator))
 
-    def _qkv(self, x, positions):
+    def _qkv(self, x, positions, use_kernel: bool):
         cfg = self.cfg
         b, s, _ = x.shape
         h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         q = (x @ self.wq.to(x.dtype)).reshape(b, s, h, hd)
         k = (x @ self.wk.to(x.dtype)).reshape(b, s, hkv, hd)
         v = (x @ self.wv.to(x.dtype)).reshape(b, s, hkv, hd)
+        if cfg.qk_norm:
+            q = self.q_norm(q, use_kernel)
+            k = self.k_norm(k, use_kernel)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def forward_train(self, x, *, window: int):
+    def forward_train(self, x, *, window: int, use_kernel: bool = True):
         """Full-sequence causal attention without a cache (JAX ``gqa_train``),
-        through the plain chunked attention. (``train`` is taken by
-        ``nn.Module``.)"""
+        through the plain chunked attention; ``use_kernel`` picks the qk
+        norms' path. (``train`` is taken by ``nn.Module``.)"""
         b, s, _ = x.shape
-        q, k, v = self._qkv(x, torch.arange(s, device=x.device)[None, :])
+        q, k, v = self._qkv(x, torch.arange(s, device=x.device)[None, :], use_kernel)
         out = chunked_causal_attention(q, k, v, window=window,
                                        logit_cap=self.cfg.attn_logit_softcap,
                                        scale=self.cfg.resolved_head_dim ** -0.5)
@@ -133,7 +139,7 @@ class GQAttention(nn.Module):
     def prefill(self, x, cache: KVCache, *, window: int, use_kernel: bool = True):
         """Attend causally and write k/v into ``cache[:, :S]`` in place."""
         b, s, _ = x.shape
-        q, k, v = self._qkv(x, torch.arange(s, device=x.device)[None, :])
+        q, k, v = self._qkv(x, torch.arange(s, device=x.device)[None, :], use_kernel)
         out = kops.flash_attention(
             q, k, v, window=window, logit_cap=self.cfg.attn_logit_softcap,
             scale=self.cfg.resolved_head_dim ** -0.5, use_kernel=use_kernel)
@@ -145,7 +151,7 @@ class GQAttention(nn.Module):
         """One token at host position ``pos``. x: (B,1,D). Writes k/v into
         ``cache[:, pos]`` in place, then attends to the cache."""
         b = x.shape[0]
-        q, k, v = self._qkv(x, torch.full((b, 1), pos, device=x.device))
+        q, k, v = self._qkv(x, torch.full((b, 1), pos, device=x.device), use_kernel)
         cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
         cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
         out = kops.decode_attention(

@@ -8,7 +8,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import rmsnorm  # noqa: F401  (JAX apply_rmsnorm; the model's
 #                                                    norms go through kernels.ops.rmsnorm)
 
@@ -18,6 +20,24 @@ def truncated_normal(shape, std: float, dtype, device, generator: torch.Generato
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (t * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+class RMSNorm(nn.Module):
+    """Gemma-style ``(1 + scale)`` over the last axis; the scale starts at
+    zero. Goes through ``kernels.ops.rmsnorm``: the CUDA kernel on the card
+    when ``use_kernel`` is set."""
+
+    def __init__(self, d: int, eps: float, dtype, device):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
+
+    def forward(self, x, use_kernel: bool = True):
+        return kops.rmsnorm(x, self.scale, self.eps, use_kernel=use_kernel)
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +88,11 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, scale_by_sqrt_dim: bool = F
 def logits_from_embedding(table: torch.Tensor, x: torch.Tensor):
     """Tied read-out."""
     return x @ table.to(x.dtype).T
+
+
+def logits_from_head(head: torch.Tensor, x: torch.Tensor):
+    """Untied read-out: ``head`` is (d_model, vocab), as in the JAX package."""
+    return x @ head.to(x.dtype)
 
 
 def softcap(x, cap: float):

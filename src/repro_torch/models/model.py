@@ -1,9 +1,9 @@
 """Model facade: build the LM, the loss, and the shapes and values of its inputs.
 
-Port of ``repro.models.model`` (dense token models; the parameter accounting
-is ``LM.num_params``). ``synthetic_batch`` draws token ids with numpy's
-``default_rng`` exactly as the JAX package does, so a seed gives both packages
-the same ids.
+Port of ``repro.models.model`` (dense token and audio models; the parameter
+accounting is ``LM.num_params``). ``synthetic_batch`` draws token ids and frame
+embeddings with numpy's ``default_rng`` exactly as the JAX package does, so a
+seed gives both packages the same bytes.
 """
 from __future__ import annotations
 
@@ -64,32 +64,53 @@ def _chunked_ce(model: LM, hidden, labels, chunk: int = CE_CHUNK):
     return total / (b * s)
 
 
+def model_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The ``LM.forward`` keyword of a batch: its ``embeddings`` where it has
+    them (the audio family), else its ``tokens``."""
+    if "embeddings" in batch:
+        return {"embeddings": batch["embeddings"]}
+    return {"tokens": batch["tokens"]}
+
+
 def lm_loss(model: LM, batch: Dict[str, torch.Tensor]):
     """Next-token cross entropy; labels are the shifted tokens unless the
     batch has ``labels``. Returns (loss, metrics)."""
-    tokens = batch["tokens"]
-    hidden, _ = model(tokens, mode="train", head="none")
+    hidden, _ = model(mode="train", head="none", **model_inputs(batch))
     if "labels" in batch:
         hidden_s, labels_s = hidden, batch["labels"]
     else:
+        tokens = batch["tokens"]
         hidden_s, labels_s = hidden[:, :-1], tokens[:, 1:]
     loss = _chunked_ce(model, hidden_s, labels_s)
     return loss, {"ce_loss": loss, "loss": loss}
 
 
 def batch_shapes(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
-    """Shapes/dtypes for one step's inputs, as (shape, dtype) tuples. Only
-    token inputs: the audio and vision front ends are not ported yet."""
+    """Shapes/dtypes for one step's inputs, as (shape, dtype) tuples: token
+    ids, or for the audio family frame ``embeddings`` (the stub front end's
+    output) and, to train, codebook ``labels``. The vision front end is not
+    ported yet."""
+    b = shape.global_batch
     s_in = 1 if shape.kind == "decode" else shape.seq_len
-    return {"tokens": ((shape.global_batch, s_in), torch.int32)}
+    if cfg.family == "audio":
+        d = {"embeddings": ((b, s_in, cfg.d_model), torch.bfloat16)}
+        if shape.kind == "train":
+            d["labels"] = ((b, s_in), torch.int32)
+        return d
+    return {"tokens": ((b, s_in), torch.int32)}
 
 
 def synthetic_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0, device=None):
-    """Concrete random batch (for smoke tests / examples)."""
+    """Concrete random batch (for smoke tests / examples). Floats are drawn
+    in float64 and rounded on the host, through float32, as the JAX
+    package's ``jnp.asarray(..., bfloat16)`` rounds them."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     out = {}
     for k, (shp, dt) in batch_shapes(cfg, shape).items():
-        ids = rng.integers(0, cfg.vocab_size, size=shp).astype(np.int32)
-        out[k] = torch.from_numpy(ids).to(device=dev, dtype=dt)
+        if dt == torch.int32:
+            vals = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=shp).astype(np.int32))
+        else:
+            vals = torch.from_numpy(rng.normal(0, 1, size=shp)).to(dt)
+        out[k] = vals.to(dev)
     return out

@@ -6,45 +6,52 @@ the weights of a segment on a leading units axis and runs the stack with
 blocks and runs them in a Python loop, so each layer's sliding window is a
 host int. Modes: ``train`` (full sequence, no cache), ``prefill`` (full
 sequence, writes the cache) and ``decode`` (one token against the cache).
-MoE, MLA, recurrent and cross-attention blocks are not ported yet.
+The input is token ids, or frame ``embeddings`` for the audio family (whose
+front end is a stub in both packages); the read-out is the tied embedding
+table or an untied ``head``. MoE, MLA, recurrent and cross-attention blocks
+are not ported yet.
 
 Every norm goes through ``kernels.ops.rmsnorm``: the CUDA kernel on the card
 when ``use_kernel`` is set, in every mode. The parameters are trainable;
 the serve steps (``train/steps.py``) run under ``torch.no_grad``.
 
-Remat follows the JAX package: ``full`` recomputes each block in the backward
+Remat follows the JAX package. ``full`` recomputes each block in the backward
 pass (a non-reentrant ``torch.utils.checkpoint`` around it, as
-``jax.checkpoint`` with ``nothing_saveable``), ``none`` keeps every
-activation. ``dots`` is not ported (ROADMAP.md, Queue 1, "models/: the rest").
+``jax.checkpoint`` with ``nothing_saveable``). ``dots`` keeps the outputs of
+the block's 2-D matmuls (``aten.mm``: the projections of attention and the
+MLP, which have no batch dimension once flattened) and recomputes the rest,
+the attention's batched score and PV products included: a selective
+checkpoint whose policy is JAX's ``dots_with_no_batch_dims_saveable``. The
+RMSNorm kernel runs outside the dispatcher, so the policy never sees it and
+it is recomputed, as it is under ``full``. ``none`` keeps every activation.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.common.config import ModelConfig
-from repro_torch.kernels import ops as kops
 from repro_torch.models.attention import GQAttention, KVCache, layer_window
-from repro_torch.models.layers import (embed, glu_mlp, logits_from_embedding, softcap,
-                                       truncated_normal)
+from repro_torch.models.layers import (RMSNorm, embed, glu_mlp, logits_from_embedding,
+                                       logits_from_head, softcap, truncated_normal)
 
 REMAT = ("none", "dots", "full")
 
 
-class RMSNorm(nn.Module):
-    """Gemma-style ``(1 + scale)``; the scale starts at zero."""
+def _dots_policy(ctx, func, *args, **kwargs):
+    """Save the outputs of 2-D matmuls, recompute everything else."""
+    if func is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
-    def __init__(self, d: int, eps: float, dtype, device):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
 
-    def forward(self, x, use_kernel: bool = True):
-        return kops.rmsnorm(x, self.scale, self.eps, use_kernel=use_kernel)
+_dots_context = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
 class GLUMLP(nn.Module):
@@ -84,7 +91,7 @@ class DenseBlock(nn.Module):
                 pos: Optional[int] = None, use_kernel: bool = True):
         h = self.ln1(x, use_kernel)
         if mode == "train":
-            a = self.attn.forward_train(h, window=self.window)
+            a = self.attn.forward_train(h, window=self.window, use_kernel=use_kernel)
         elif mode == "prefill":
             a = self.attn.prefill(h, cache, window=self.window, use_kernel=use_kernel)
         elif mode == "decode":
@@ -104,19 +111,19 @@ def _check_ported(cfg: ModelConfig) -> None:
     unported = [name for name, on in (
         ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
         ("ssm", cfg.ssm is not None), ("block_pattern", bool(cfg.block_pattern)),
-        ("cross_attn_every", bool(cfg.cross_attn_every)),
-        ("family=audio", cfg.family == "audio"),
-        ("untied embeddings", not cfg.tie_embeddings)) if on]
+        ("cross_attn_every", bool(cfg.cross_attn_every))) if on]
     if unported:
         raise ValueError(f"{cfg.name}: not ported yet: {', '.join(unported)}")
 
 
 class LM(nn.Module):
-    """Dense decoder LM with tied embeddings. ``device=None`` means ``cuda``.
+    """Dense decoder LM. ``device=None`` means ``cuda``.
 
-    Parameter names mirror the JAX pytree: ``embed.table``,
-    ``final_norm.scale`` and ``blocks.<layer>.<path>`` for the per-layer
-    weights (see ``repro_torch.convert``)."""
+    Parameter names mirror the JAX pytree: ``embed.table`` (not for the
+    audio family), ``head`` (d_model, vocab) where the read-out is untied
+    (the audio family, or ``tie_embeddings`` off), ``final_norm.scale`` and
+    ``blocks.<layer>.<path>`` for the per-layer weights (see
+    ``repro_torch.convert``)."""
 
     def __init__(self, cfg: ModelConfig, param_dtype=torch.bfloat16, device=None,
                  use_kernel: bool = True, remat: str = "none"):
@@ -129,16 +136,20 @@ class LM(nn.Module):
         self.param_dtype = param_dtype
         self.use_kernel = use_kernel
         self.remat = remat
-        self.embed = nn.Module()
-        self.embed.table = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.d_model, dtype=param_dtype, device=dev))
+        if cfg.family != "audio":
+            self.embed = nn.Module()
+            self.embed.table = nn.Parameter(
+                torch.empty(cfg.vocab_size, cfg.d_model, dtype=param_dtype, device=dev))
+        if cfg.family == "audio" or not cfg.tie_embeddings:
+            self.head = nn.Parameter(
+                torch.empty(cfg.d_model, cfg.vocab_size, dtype=param_dtype, device=dev))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, param_dtype, dev)
         self.blocks = nn.ModuleList(
             DenseBlock(cfg, i, param_dtype, dev) for i in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
-        return self.embed.table.device
+        return self.final_norm.scale.device
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -147,9 +158,11 @@ class LM(nn.Module):
     def init_weights(self, generator: torch.Generator) -> "LM":
         """Random weights drawn from ``generator`` (on the model's device);
         norm scales start at zero, as in the JAX package."""
-        t = self.embed.table
-        t.copy_(truncated_normal(t.shape, self.cfg.d_model ** -0.5, t.dtype, t.device,
-                                 generator))
+        for t in (getattr(getattr(self, "embed", None), "table", None),
+                  getattr(self, "head", None)):
+            if t is not None:
+                t.copy_(truncated_normal(t.shape, self.cfg.d_model ** -0.5, t.dtype, t.device,
+                                         generator))
         for blk in self.blocks:
             blk.attn.init_weights(generator)
             blk.mlp.init_weights(generator)
@@ -163,36 +176,48 @@ class LM(nn.Module):
                 for _ in self.blocks]
 
     def logits_fn(self, x):
-        """Tied read-out for post-final-norm hidden states, in float32."""
-        return softcap(logits_from_embedding(self.embed.table, x).float(),
-                       self.cfg.final_logit_softcap)
+        """Read-out for post-final-norm hidden states, in float32: the untied
+        ``head`` where the model has one, else the tied embedding table."""
+        if hasattr(self, "head"):
+            logits = logits_from_head(self.head, x)
+        else:
+            logits = logits_from_embedding(self.embed.table, x)
+        return softcap(logits.float(), self.cfg.final_logit_softcap)
 
-    def forward(self, tokens: torch.Tensor, *, mode: str,
+    def forward(self, tokens: Optional[torch.Tensor] = None, *, mode: str,
+                embeddings: Optional[torch.Tensor] = None,
                 cache: Optional[List[KVCache]] = None, pos: Optional[int] = None,
                 head: str = "full"):
-        """tokens: (B, S) ints. ``train`` takes no cache; ``prefill`` writes
-        ``cache[:, :S]``; ``decode`` takes S = 1 at host position ``pos``.
-        head: "full" -> logits for every position, "last" -> the final
-        position only, "none" -> the post-final-norm hidden states (for the
-        chunked loss). Returns (logits or hidden, cache); the cache is updated
-        in place."""
+        """tokens: (B, S) ints, or embeddings: (B, S, d_model) (the audio
+        family's frames; cast to ``param_dtype``), exactly one of the two.
+        ``train`` takes no cache; ``prefill`` writes ``cache[:, :S]``;
+        ``decode`` takes S = 1 at host position ``pos``. head: "full" ->
+        logits for every position, "last" -> the final position only, "none"
+        -> the post-final-norm hidden states (for the chunked loss). Returns
+        (logits or hidden, cache); the cache is updated in place."""
         cfg = self.cfg
         if head not in ("full", "last", "none"):
             raise ValueError(f"head {head!r}")
         if (mode == "train") != (cache is None):
             raise ValueError(f"mode {mode!r}: 'train' takes no cache, "
                              "'prefill' and 'decode' need one")
-        if mode == "train" and self.remat == "dots":
-            raise NotImplementedError(
-                "remat 'dots' is not ported (ROADMAP.md, Queue 1, \"models/: the rest\"); "
-                "use 'full' or 'none'")
-        remat = mode == "train" and self.remat == "full" and torch.is_grad_enabled()
-        x = embed(self.embed.table, tokens, scale_by_sqrt_dim=cfg.embed_scale)
-        x = x.to(self.param_dtype)
+        if (tokens is None) == (embeddings is None):
+            raise ValueError("pass exactly one of tokens and embeddings")
+        remat = self.remat if mode == "train" and torch.is_grad_enabled() else "none"
+        if embeddings is not None:
+            x = embeddings.to(self.param_dtype)
+        else:
+            x = embed(self.embed.table, tokens, scale_by_sqrt_dim=cfg.embed_scale)
+            x = x.to(self.param_dtype)
         for i, blk in enumerate(self.blocks):
             kw = dict(mode=mode, cache=None if cache is None else cache[i], pos=pos,
                       use_kernel=self.use_kernel)
-            x = checkpoint(blk, x, use_reentrant=False, **kw) if remat else blk(x, **kw)
+            if remat == "full":
+                x = checkpoint(blk, x, use_reentrant=False, **kw)
+            elif remat == "dots":
+                x = checkpoint(blk, x, use_reentrant=False, context_fn=_dots_context, **kw)
+            else:
+                x = blk(x, **kw)
         x = self.final_norm(x, self.use_kernel)
         if head == "none":
             return x, cache

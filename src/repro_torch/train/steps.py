@@ -16,7 +16,7 @@ from typing import Dict, List
 import torch
 
 from repro_torch.common.config import RunConfig
-from repro_torch.models.model import DTYPES, lm_loss
+from repro_torch.models.model import DTYPES, lm_loss, model_inputs
 from repro_torch.optim import adamw
 
 
@@ -95,16 +95,18 @@ def make_train_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig):
 
 
 def make_prefill_step(model):
+    """prefill(batch, cache): the batch's ``tokens`` or ``embeddings``."""
     @torch.no_grad()
     def prefill(batch, cache):
-        logits, cache = model(batch["tokens"], mode="prefill", cache=cache, head="last")
+        logits, cache = model(mode="prefill", cache=cache, head="last", **model_inputs(batch))
         return logits, cache
     return prefill
 
 
 def make_decode_step(model):
+    """decode(batch, cache, pos): the batch's ``tokens`` or ``embeddings``."""
     @torch.no_grad()
     def decode(batch, cache, pos: int):
-        logits, cache = model(batch["tokens"], mode="decode", cache=cache, pos=pos)
+        logits, cache = model(mode="decode", cache=cache, pos=pos, **model_inputs(batch))
         return logits, cache
     return decode

@@ -19,6 +19,7 @@ from repro.models import attention as jax_attn
 from repro.models import layers as jl
 from repro.models.model import count_params_analytic
 from repro_torch import configs as torch_configs
+from repro_torch.common import config as tcfg
 from repro_torch.convert import _flatten, params_from_jax
 from repro_torch.models import attention as torch_attn
 from repro_torch.models import layers as tl
@@ -43,7 +44,25 @@ def test_config_equals_jax_field_for_field(arch, which):
 
 def test_unported_arch_is_refused():
     with pytest.raises(ValueError, match="not ported"):
-        torch_configs.get_config("yi-34b")
+        torch_configs.get_config("arctic-480b")
+
+
+UNPORTED_FEATURES = {
+    "moe": dict(moe=tcfg.MoEConfig(num_experts=4, top_k=2, d_ff_expert=64)),
+    "mla": dict(mla=tcfg.MLAConfig(kv_lora_rank=32, rope_head_dim=8, nope_head_dim=8,
+                                   v_head_dim=8)),
+    "ssm": dict(ssm=tcfg.SSMConfig(state_dim=8, head_dim=8)),
+    "block_pattern": dict(block_pattern=("dense", "mamba2")),
+    "cross_attn_every": dict(cross_attn_every=2),
+}
+
+
+@pytest.mark.parametrize("feature", sorted(UNPORTED_FEATURES))
+def test_unported_block_kinds_are_refused(feature):
+    cfg = dataclasses.replace(torch_configs.get_smoke_config("yi-34b").model,
+                              **UNPORTED_FEATURES[feature])
+    with pytest.raises(ValueError, match=f"not ported yet: {feature}"):
+        LM(cfg, torch.float32, "cpu")
 
 
 # --- layers -----------------------------------------------------------------
@@ -76,6 +95,12 @@ def test_glu_mlp_matches_jax(act):
                              "wo": jnp.asarray(o)}, jnp.asarray(x), act)
     got = tl.glu_mlp(*(torch.from_numpy(a) for a in (x, g, u, o)), act=act)
     _close(got, want)
+
+
+def test_untied_readout_matches_jax():
+    head, x = _arr(36, 50, std=0.2), _arr(3, 7, 36)
+    _close(tl.logits_from_head(torch.from_numpy(head), torch.from_numpy(x)),
+           jnp.asarray(x) @ jnp.asarray(head))
 
 
 @pytest.mark.parametrize("scale", [False, True])
@@ -128,7 +153,11 @@ def _block_pair(arch, layer):
     return jcfg, jax.tree.map(jnp.asarray, p), blk
 
 
-@pytest.mark.parametrize("arch,layer", [("gemma2-2b", 0), ("gemma2-2b", 1), ("smollm-135m", 0)])
+BLOCK_CASES = [("gemma2-2b", 0), ("gemma2-2b", 1), ("smollm-135m", 0), ("yi-34b", 0),
+               ("stablelm-12b", 1), ("musicgen-medium", 2)]   # stablelm: qk norm
+
+
+@pytest.mark.parametrize("arch,layer", BLOCK_CASES)
 @pytest.mark.parametrize("mode", ["prefill", "decode"])
 def test_dense_block_matches_jax(arch, layer, mode):
     jcfg, jp, blk = _block_pair(arch, layer)
@@ -151,7 +180,7 @@ def test_dense_block_matches_jax(arch, layer, mode):
     _close(tcache.v, jcache.v)
 
 
-@pytest.mark.parametrize("arch,layer", [("gemma2-2b", 0), ("gemma2-2b", 1), ("smollm-135m", 0)])
+@pytest.mark.parametrize("arch,layer", BLOCK_CASES)
 def test_dense_block_train_mode_matches_jax(arch, layer):
     """Train mode: no cache, plain chunked attention, the norms through
     ``kernels.ops.rmsnorm`` (its CPU path)."""
@@ -176,3 +205,31 @@ def test_converted_params_load_and_count_as_in_jax(arch, monkeypatch):
         model.blocks[1].attn.wq.detach().numpy(),
         np.asarray(params["segments"][0]["unit"]["0"]["attn"]["wq"][1]))
 
+
+
+@pytest.mark.parametrize("arch", torch_configs.ARCHS)
+def test_logits_fn_reads_out_as_jax(arch, monkeypatch):
+    """The tied table or the untied ``head`` (d_model, vocab), soft-capped in
+    fp32: the same parameters and hidden states through both ``logits_fn``."""
+    monkeypatch.setattr(jax_transformer, "shard_activations", lambda x: x)
+    jcfg = jax_configs.get_smoke_config(arch).model
+    jm = jax_transformer.LM(jcfg, param_dtype=jnp.float32)
+    params = jm.init(jax.random.key(1))
+    model = LM(torch_configs.get_smoke_config(arch).model, torch.float32, "cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), model.cfg))
+    untied = jcfg.family == "audio" or not jcfg.tie_embeddings
+    assert hasattr(model, "head") == untied == ("head" in params)
+    assert hasattr(model, "embed") == (jcfg.family != "audio") == ("embed" in params)
+    x = _arr(2, 5, jcfg.d_model)
+    _close(model.logits_fn(torch.from_numpy(x)), jm.logits_fn(params, jnp.asarray(x)))
+
+
+def test_forward_takes_exactly_one_of_tokens_and_embeddings():
+    cfg = torch_configs.get_smoke_config("musicgen-medium").model
+    model = LM(cfg, torch.float32, "cpu").init_weights(torch.Generator().manual_seed(0))
+    emb = torch.zeros(1, 4, cfg.d_model)
+    out, _ = model(embeddings=emb.bfloat16(), mode="train")
+    assert out.shape == (1, 4, cfg.vocab_size) and out.dtype == torch.float32
+    for kw in ({}, {"tokens": torch.zeros(1, 4, dtype=torch.int32), "embeddings": emb}):
+        with pytest.raises(ValueError, match="exactly one"):
+            model(mode="train", **kw)

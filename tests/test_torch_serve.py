@@ -52,8 +52,17 @@ def _fp32(run):
     return run.replace(parallel=dataclasses.replace(run.parallel, param_dtype="float32"))
 
 
+def _as_bits(a):
+    """The bytes of a torch or JAX array, bf16 included."""
+    a = a.view(torch.int16).numpy() if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16 \
+        else np.asarray(a)
+    return a.tobytes()
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_slice_matches_jax_through_decode_past_the_window(arch, no_shard):
+    """Token models decode their greedy tokens; the audio family decodes a
+    zero frame a step, as the JAX entry point's stub front end does."""
     jcfg = jax_configs.get_smoke_config(arch).model
     jm = jax_transformer.LM(jcfg, param_dtype=jnp.float32, remat="none", use_kernel=False)
     params = jm.init(jax.random.key(0))
@@ -64,7 +73,10 @@ def test_slice_matches_jax_through_decode_past_the_window(arch, no_shard):
     jbatch = jax_model.synthetic_batch(jcfg, JaxShapeSpec("p", PROMPT, BATCH, "prefill"), seed=1)
     tbatch = synthetic_batch(run.model, ShapeSpec("p", PROMPT, BATCH, "prefill"), seed=1,
                              device="cpu")
-    np.testing.assert_array_equal(tbatch["tokens"].numpy(), np.asarray(jbatch["tokens"]))
+    assert tbatch.keys() == jbatch.keys()
+    for key in jbatch:
+        assert _as_bits(tbatch[key]) == _as_bits(jbatch[key]), key
+    audio = "embeddings" in jbatch
 
     max_len = PROMPT + STEPS
     jcache = jm.init_cache(BATCH, max_len, dtype=jnp.float32)
@@ -72,6 +84,7 @@ def test_slice_matches_jax_through_decode_past_the_window(arch, no_shard):
     jprefill = jax.jit(functools.partial(jm.forward, mode="prefill", head="last"))
     jdecode = jax.jit(lambda p, b, c, pos: jm.forward(p, b, mode="decode", cache=c, pos=pos))
     tprefill, tdecode = make_prefill_step(model), make_decode_step(model)
+    frame = np.zeros((BATCH, 1, jcfg.d_model), np.float32)
 
     jl, _, jcache = jprefill(params, jbatch, cache=jcache)
     tl, tcache = tprefill(tbatch, tcache)
@@ -84,9 +97,11 @@ def test_slice_matches_jax_through_decode_past_the_window(arch, no_shard):
         np.testing.assert_array_equal(ttok.numpy(), jtok, err_msg=f"step {i}")
         if i == STEPS:
             break
-        jl, _, jcache = jdecode(params, {"tokens": jnp.asarray(jtok)[:, None]}, jcache,
-                                jnp.asarray(PROMPT + i, jnp.int32))
-        tl, tcache = tdecode({"tokens": ttok[:, None]}, tcache, PROMPT + i)
+        jstep = {"embeddings": jnp.asarray(frame)} if audio else {
+            "tokens": jnp.asarray(jtok)[:, None]}
+        tstep = {"embeddings": torch.from_numpy(frame)} if audio else {"tokens": ttok[:, None]}
+        jl, _, jcache = jdecode(params, jstep, jcache, jnp.asarray(PROMPT + i, jnp.int32))
+        tl, tcache = tdecode(tstep, tcache, PROMPT + i)
 
 
 def test_head_full_matches_head_last():
@@ -111,6 +126,19 @@ def test_serve_cli_on_cpu_prints_the_jax_keys(capsys):
     assert out["device"] == "cpu"
     assert out["kernel_launches"] == {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0}
     assert np.asarray(out["sampled_tokens_head"]).shape == (2, 5)
+
+
+@pytest.mark.parametrize("arch", ["yi-34b", "stablelm-12b", "musicgen-medium"])
+def test_serve_cli_serves_the_dense_and_audio_archs_on_cpu(arch, capsys):
+    serve_mod.main(["--arch", arch, "--smoke", "--device", "cpu", "--prompt-len", "20",
+                    "--decode-steps", "4"])
+    out = json.loads(capsys.readouterr().out)
+    assert {"arch", "prefill_s", "decode_s", "decode_tok_per_s",
+            "sampled_tokens_head"} <= set(out)
+    assert out["arch"] == get_smoke_config(arch).model.name
+    toks = np.asarray(out["sampled_tokens_head"])
+    assert toks.shape == (2, 5)
+    assert 0 <= toks.min() and toks.max() < get_smoke_config(arch).model.vocab_size
 
 
 def test_serve_is_deterministic_for_a_seed():

@@ -15,6 +15,7 @@ two train steps: losses and parameters 1e-5. The data pipeline is
 byte-equal; checkpoints restore bit-exact; a restarted Trainer repeats the
 first run's losses exactly.
 """
+import collections
 import dataclasses
 import json
 import os
@@ -25,6 +26,7 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import repro.configs as jax_configs
 import repro.models.model as jax_model
@@ -39,6 +41,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.data import pipeline as torch_pipeline
 from repro_torch.kernels import rmsnorm as rmsnorm_mod
 from repro_torch.launch import train as train_cli
+from repro_torch.models import model as torch_model
 from repro_torch.models.model import _chunked_ce, build_model, lm_loss
 from repro_torch.optim import adamw
 from repro_torch.train.steps import make_train_step
@@ -73,9 +76,16 @@ def _pair(arch, **parallel):
 
 
 def _batch(cfg, seed=1):
-    tokens = jax_model.synthetic_batch(cfg, JaxShapeSpec("t", SEQ, BATCH, "train"),
-                                       seed=seed)["tokens"]
-    return {"tokens": tokens}, {"tokens": torch.from_numpy(np.array(tokens))}
+    """The JAX package's synthetic train batch (tokens, or the audio family's
+    bf16 embeddings and labels) and the same bytes as torch tensors."""
+    jb = jax_model.synthetic_batch(cfg, JaxShapeSpec("t", SEQ, BATCH, "train"), seed=seed)
+
+    def to_torch(a):
+        a = np.array(a)
+        if a.dtype == jnp.bfloat16:
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(a)
+    return jb, {k: to_torch(v) for k, v in jb.items()}
 
 
 def _leaf_rel(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -118,13 +128,16 @@ def test_chunked_ce_pads_and_masks_the_tail_as_jax(no_shard):
 
 
 def test_remat_full_and_none_give_equal_gradients_and_recompute_the_block_norms(monkeypatch):
+    """And ``dots``: it recomputes the block norms as ``full`` does (the
+    RMSNorm launches run outside the dispatcher, so its policy cannot save
+    them)."""
     calls = []
     fwd = rmsnorm_mod.rmsnorm_fwd
     monkeypatch.setattr(rmsnorm_mod, "rmsnorm_fwd", lambda *a: calls.append(1) or fwd(*a))
     tokens = {"tokens": torch.from_numpy(
         np.random.default_rng(4).integers(0, 512, (BATCH, SEQ)).astype(np.int32))}
     grads, norms = {}, {}
-    for remat in ("none", "full"):
+    for remat in ("none", "full", "dots"):
         model = build_model(_run("gemma2-2b", remat=remat), device="cpu")
         model.init_weights(torch.Generator().manual_seed(0))
         calls.clear()
@@ -132,14 +145,81 @@ def test_remat_full_and_none_give_equal_gradients_and_recompute_the_block_norms(
         loss.backward()
         norms[remat] = len(calls)
         grads[remat] = {n: p.grad for n, p in model.named_parameters()}
-    for n, g in grads["none"].items():
-        torch.testing.assert_close(grads["full"][n], g, atol=1e-6, rtol=1e-6)
+    for remat in ("full", "dots"):
+        for n, g in grads["none"].items():
+            torch.testing.assert_close(grads[remat][n], g, atol=1e-6, rtol=1e-6)
     n_layers = model.cfg.n_layers
-    # 4 norms a block + the final norm; remat full runs each block's 4 again
-    assert norms == {"none": 4 * n_layers + 1, "full": 8 * n_layers + 1}
-    model.remat = "dots"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm_loss(model, tokens)
+    # 4 norms a block + the final norm; remat full and dots run each block's 4 again
+    assert norms == {"none": 4 * n_layers + 1, "full": 8 * n_layers + 1,
+                     "dots": 8 * n_layers + 1}
+
+
+NEW_ARCHS = ["yi-34b", "stablelm-12b", "musicgen-medium"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_dots_gradients_match_none_and_jax_dots(arch, no_shard):
+    """``dots`` against ``none`` in the port (1e-6), and against ``jax.grad``
+    of ``lm_loss`` under the JAX package's ``dots_with_no_batch_dims_saveable``
+    (the gradient tolerance above)."""
+    jrun, jm, params, run, model = _pair(arch, remat="dots")
+    jb, tb = _batch(jrun.model)
+    jgrads = jax.jit(jax.grad(lambda p, b: jax_model.lm_loss(jm, p, b)[0]))(params, jb)
+    want = params_from_jax(jax.tree.map(np.asarray, jgrads), run.model)
+    got = {}
+    for remat in ("dots", "none"):
+        model.remat = remat
+        model.zero_grad(set_to_none=True)
+        lm_loss(model, tb)[0].backward()
+        got[remat] = {n: p.grad for n, p in model.named_parameters()}
+    for n, g in got["none"].items():
+        torch.testing.assert_close(got["dots"][n], g, atol=1e-6, rtol=1e-6, msg=n)
+    worst = max((_leaf_rel(got["dots"][n], want[n]), n) for n in want)
+    assert worst[0] <= 1e-4, worst
+
+
+class _OpCounts(TorchDispatchMode):
+    """Counts the aten ops dispatched while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_remat_dots_recomputes_the_bmm_and_norms_but_no_mm(arch, monkeypatch):
+    """The backward pass under ``dots`` makes as many ``aten.mm`` as under
+    ``none`` (the saved projections are not recomputed) and repeats every
+    ``aten.bmm`` of the forward pass (the attention's score and PV einsums)
+    and every block norm; ``full`` repeats the projections too."""
+    calls = []
+    fwd = rmsnorm_mod.rmsnorm_fwd
+    monkeypatch.setattr(rmsnorm_mod, "rmsnorm_fwd", lambda *a: calls.append(1) or fwd(*a))
+    mm, bmm = torch.ops.aten.mm.default, torch.ops.aten.bmm.default
+    run = _run(arch)
+    batch = torch_model.synthetic_batch(run.model, ShapeSpec("t", SEQ, BATCH, "train"),
+                                        seed=2, device="cpu")
+    fwd_n, bwd_n, norms = {}, {}, {}
+    for remat in ("none", "dots", "full"):
+        model = build_model(_run(arch, remat=remat), device="cpu")
+        model.init_weights(torch.Generator().manual_seed(0))
+        calls.clear()
+        with _OpCounts() as f:
+            loss, _ = lm_loss(model, batch)
+        with _OpCounts() as b:
+            loss.backward()
+        fwd_n[remat], bwd_n[remat], norms[remat] = f.n, b.n, len(calls)
+    assert fwd_n["dots"][bmm] > 0 and fwd_n["dots"][mm] > 0
+    assert bwd_n["dots"][mm] == bwd_n["none"][mm] < bwd_n["full"][mm]
+    assert bwd_n["dots"][bmm] == bwd_n["none"][bmm] + fwd_n["dots"][bmm] == bwd_n["full"][bmm]
+    per_block = 2 + 2 * run.model.qk_norm
+    n_layers = run.model.n_layers
+    assert norms == {"none": per_block * n_layers + 1, "dots": 2 * per_block * n_layers + 1,
+                     "full": 2 * per_block * n_layers + 1}
 
 
 def test_chunked_train_attention_gradients_match_jax():
@@ -274,6 +354,8 @@ def test_int8_grad_compression_is_refused():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_pipeline_batches_are_byte_equal_to_jax(arch):
+    """Tokens; for the audio family float32 embeddings (salt 0) and int32
+    labels (salt 1)."""
     cfg = get_smoke_config(arch).model
     jcfg = jax_configs.get_smoke_config(arch).model
     kw = dict(seed=7, n_hosts=2)
@@ -281,15 +363,36 @@ def test_pipeline_batches_are_byte_equal_to_jax(arch):
                                       torch_pipeline.PipelineConfig(**kw))
     jp = jax_pipeline.TokenPipeline(jcfg, JaxShapeSpec("t", 64, 4, "train"),
                                     jax_pipeline.PipelineConfig(**kw))
+    keys = {"embeddings", "labels"} if cfg.family == "audio" else {"tokens"}
     for step in (0, 1, 7, 1000):
         got, want = tp.batch(step), jp.batch(step)
-        assert got.keys() == want.keys() == {"tokens"}
-        assert got["tokens"].dtype == want["tokens"].dtype == np.int32
-        assert got["tokens"].tobytes() == want["tokens"].tobytes()
-        for host in (0, 1):
-            assert (tp.host_batch(step, host)["tokens"].tobytes()
-                    == jp.host_batch(step, host)["tokens"].tobytes())
-    assert tp.batch(1)["tokens"].tobytes() != tp.batch(0)["tokens"].tobytes()
+        assert got.keys() == want.keys() == keys
+        for key in keys:
+            assert got[key].dtype == want[key].dtype
+            assert got[key].dtype == (np.float32 if key == "embeddings" else np.int32)
+            assert got[key].tobytes() == want[key].tobytes()
+            for host in (0, 1):
+                assert (tp.host_batch(step, host)[key].tobytes()
+                        == jp.host_batch(step, host)[key].tobytes())
+    for key in keys:
+        assert tp.batch(1)[key].tobytes() != tp.batch(0)[key].tobytes()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_synthetic_batches_are_byte_equal_to_jax(arch):
+    """bf16 embeddings included: both round numpy's float64 draws the same way."""
+    cfg, jcfg = get_smoke_config(arch).model, jax_configs.get_smoke_config(arch).model
+    for kind in ("train", "prefill", "decode"):
+        got = torch_model.synthetic_batch(cfg, ShapeSpec("t", SEQ, BATCH, kind), seed=3,
+                                          device="cpu")
+        want = jax_model.synthetic_batch(jcfg, JaxShapeSpec("t", SEQ, BATCH, kind), seed=3)
+        assert got.keys() == want.keys()
+        for key, w in want.items():
+            w = np.asarray(w)
+            g = got[key]
+            assert tuple(g.shape) == w.shape and str(g.dtype)[6:] == str(w.dtype), key
+            gb = g.view(torch.int16).numpy() if g.dtype == torch.bfloat16 else g.numpy()
+            assert gb.tobytes() == w.tobytes(), (kind, key)
 
 
 # --- checkpoints ----------------------------------------------------------------------
@@ -419,6 +522,18 @@ def test_train_cli_on_cpu_prints_the_jax_keys(tmp_path, capsys):
                         "detections", "step_stats", "checkpoints_saved"}
     assert out["steps_run"] == 2 and out["restarts"] == 0 and out["checkpoints_saved"] == 1
     assert np.isfinite(out["last_loss"])
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_train_cli_trains_the_dense_and_audio_archs_on_cpu(arch, tmp_path, capsys):
+    train_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                    "--workdir", str(tmp_path)])
+    out = json.loads(capsys.readouterr().out)
+    assert set(out) == {"arch", "steps_run", "restarts", "first_loss", "last_loss",
+                        "detections", "step_stats", "checkpoints_saved"}
+    assert out["arch"] == get_smoke_config(arch).model.name
+    assert out["steps_run"] == 2 and out["restarts"] == 0
+    assert np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"])
 
 
 @pytest.mark.parametrize("argv,message", [(["--data", "2"], "must be 1")])
