@@ -27,10 +27,16 @@ Phases, each fatal on failure:
     wrapper, the model's entry under no_grad, and F.rms_norm. At the
     [models] configs' shapes (no window, no cap): flash and decode at
     yi-34b's (56 heads on 8, head_dim 128), stablelm-12b's (32 on 8, 160:
-    the CUDA-core flash, split-K decode) and musicgen-medium's (24 on 24,
-    64) prefill and decode shapes, with planted faults (a window of 4096;
-    V's last 32 columns, or the last 128 keys, dropped); RMSNorm at each
-    one's d_model and stablelm-12b's qk-norm rows (2 x 4352 x 32 of 160).
+    the wgmma flash and the TMA decode over three 64-column boxes, the last
+    half out of bounds) and musicgen-medium's (24 on 24, 64) prefill and
+    decode shapes, with planted faults (a window of 4096; V's last 32
+    columns, at head_dim 160 its columns 128..159, the partial box, or the
+    last 128 keys, dropped); RMSNorm at each one's d_model and stablelm-12b's
+    qk-norm rows (2 x 4352 x 32 of 160). Every timed attention row must
+    launch the kernels the wrapper's dispatch rule names for its shape
+    (``wgmma_path``, ``tma_path``), as many a call as it has group passes,
+    and no other: at stablelm-12b's shapes ``flash_wgmma_kernel`` and one
+    ``decode_tma_kernel``, no CUDA-core or split-K kernel.
     Kernel, plain and library times from CUDA events, the
     kernel's and the library call's device time from torch.profiler (each
     kernel's mean a launch times the launches of one call; a launched kernel
@@ -252,7 +258,7 @@ def _is_copy(key: str) -> bool:
     return key.startswith(("Memcpy", "Memset"))
 
 
-def device_ms(fn, iters: int, names=None, by_name=None) -> float | None:
+def device_ms(fn, iters: int, names=None, by_name=None, calls=None) -> float | None:
     """Device time of one call of ``fn`` (torch.profiler): each kernel's mean
     time a launch over ``iters`` profiled calls, times the launches one call
     makes, summed over the call's kernels. The launches a call makes are
@@ -262,7 +268,8 @@ def device_ms(fn, iters: int, names=None, by_name=None) -> float | None:
     kernels ``fn`` launches (parts of their names; copies and memsets aside),
     or None for a library call: a launched kernel that matches none fails
     the run, so that a renamed or added ``__global__`` cannot drop out of
-    the sum. ``by_name``, a dict, receives each name's ms per call. None
+    the sum. ``by_name``, a dict, receives each name's ms per call, and
+    ``calls`` each name's launches a call. None
     (printed "not measured") when no window of ``iters`` calls recorded a
     kernel; a single call that recorded none counts its launches from those
     ``iters`` calls."""
@@ -294,6 +301,8 @@ def device_ms(fn, iters: int, names=None, by_name=None) -> float | None:
         by_calls += us / iters / 1e3 if key in many else 0.0
         if by_name is not None:
             by_name[hit[0]] = by_name.get(hit[0], 0.0) + ms
+        if calls is not None:
+            calls[hit[0]] = calls.get(hit[0], 0) + per_call
     if abs(by_calls - total) > 0.01 * total:
         print(f"    device time by the calls made (the earlier rule) would read {by_calls:.5f} ms "
               f"for {total:.5f}", flush=True)
@@ -346,11 +355,32 @@ def randn(shape, dtype, gen, std: float = 1.0):
     return (x * std).to(dtype)
 
 
+def path_check(name: str, kind: str, q, k, calls: dict) -> None:
+    """Fail unless one call launched the kernels that the wrapper's dispatch
+    rule names for this shape, once a group pass each, and no other."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    group = q.shape[2] // k.shape[2]
+    passes = -(-group // fa.pass_group(group))
+    if kind == "flash":
+        fast = fa.wgmma_path(q.dtype, q.shape[3], fa.pass_group(group))
+        want = ["flash_wgmma_kernel"] if fast else ["flash_fwd_kernel"]
+    else:
+        fast = da.tma_path(q.dtype, q.shape[3], fa.pass_group(group))
+        want = ["decode_tma_kernel"] if fast else ["decode_partial_kernel", "decode_combine_kernel"]
+    want = dict.fromkeys(want, passes)
+    print(f"    kernels a call: {calls or 'not measured'} (the dispatch rule: {want})", flush=True)
+    if calls != want:
+        fail(f"{name}: a call launched {calls or 'nothing the profiler recorded'}; the dispatch "
+             f"rule names {want}")
+
+
 def time_flash(name, q, k, v, kw, dt: str, iters: int):
     """Event and device ms of the flash kernel, its plain version and causal
     SDPA (no window, no cap; a yardstick only, never called by the port) on
-    the same q, k, v, and the bound. Returns the row (ms, plain, lib,
-    bound_ms, bound_by, device_ms, library_device_ms)."""
+    the same q, k, v, and the bound; the kernels a call launched held to the
+    dispatch rule. Returns the row (ms, plain, lib, bound_ms, bound_by,
+    device_ms, library_device_ms, {kernel: launches a call})."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_fwd
@@ -362,7 +392,9 @@ def time_flash(name, q, k, v, kw, dt: str, iters: int):
     nbytes = 2.0 * (q.numel() + k.numel()) * q.element_size()
     b_ms, b_by = bound(flops, nbytes, dt)
     ms = time_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters)
-    dev = device_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters, FLASH_KERNELS)
+    calls = {}
+    dev = device_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters, FLASH_KERNELS, calls=calls)
+    path_check(name, "flash", q, k, calls)
     plain = time_ms(lambda: ref.flash_attention(q, k, v, **kw), max(2, iters // 4))
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
@@ -377,7 +409,7 @@ def time_flash(name, q, k, v, kw, dt: str, iters: int):
           f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/device={_share(b_ms, dev)} "
           f"achieved {_ms(None if dev is None else flops / dev / 1e9, 1)} TFLOP/s "
           "(device time)", flush=True)
-    return (ms, plain, lib, b_ms, b_by, dev, lib_dev)
+    return (ms, plain, lib, b_ms, b_by, dev, lib_dev, calls)
 
 
 def flash_phase(iters: int):
@@ -433,11 +465,13 @@ def time_decode(name, sets, pos: int, kw, iters: int):
     """Event and device ms of the decode kernel at ``pos``, its plain version
     and SDPA over the keys in range (no cap; a yardstick only), each cycling
     the cache ``sets`` so that the L2 does not hold the cache a launch reads,
-    and the bound. Returns the row as ``time_flash`` does."""
+    and the bound; the kernels a call launched held to the dispatch rule.
+    Returns the row as ``time_flash`` does."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.decode_attention import decode_attention_fwd, tma_path
+    from repro_torch.kernels.flash_attention import pass_group
 
     q0, k0, _ = sets[0]
     b, _, h, d = q0.shape
@@ -458,7 +492,9 @@ def time_decode(name, sets, pos: int, kw, iters: int):
         ref.decode_attention(qq, kk, vv, pos, **kw)
 
     ms = time_ms(run_kernel, iters * 4)
-    dev = device_ms(run_kernel, iters * 4, DECODE_KERNELS)
+    calls = {}
+    dev = device_ms(run_kernel, iters * 4, DECODE_KERNELS, calls=calls)
+    path_check(name, "decode", q0, k0, calls)
     plain = time_ms(run_plain, iters)
     libs = [(qq.transpose(1, 2).contiguous(),
              kk[:, lo:pos + 1].repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous(),
@@ -472,12 +508,12 @@ def time_decode(name, sets, pos: int, kw, iters: int):
     lib, lib_dev = time_ms(run_lib, iters * 4), device_ms(run_lib, iters * 4)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     path = (f"one launch, {len(ref.plan_splits(lo, pos, n_sm, b, hkv))} splits on {n_sm} SMs"
-            if q0.dtype == torch.bfloat16 and d in (64, 128, 256) else "split-K + combine")
+            if tma_path(q0.dtype, d, pass_group(h // hkv)) else "split-K + combine")
     print(f"  time {name}: kernel_ms={ms:.5f} device_ms={_ms(dev)} plain_ms={plain:.5f} "
           f"library_ms={lib:.5f} library_device_ms={_ms(lib_dev)} bound_ms={b_ms:.5f} "
           f"({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) bound/kernel={b_ms / ms:.4f} "
           f"bound/device={_share(b_ms, dev)} ({path})", flush=True)
-    return (ms, plain, lib, b_ms, b_by, dev, lib_dev)
+    return (ms, plain, lib, b_ms, b_by, dev, lib_dev, calls)
 
 
 def decode_phase(iters: int):
@@ -803,7 +839,9 @@ def model_kernel_phase(iters: int):
     """Flash and decode at each [models] config's prefill and decode shapes
     (its heads, kv heads and head_dim; no window, no cap), and RMSNorm at
     each config's d_model and at stablelm-12b's qk-norm rows (160 wide), each
-    against its plain version with planted faults, then timed. Returns
+    against its plain version with planted faults (at a head_dim that is not
+    whole 64-column boxes, V's columns in the partial box dropped), then
+    timed, the attention rows' kernels held to the dispatch rule. Returns
     {kernel: (max_abs_err, max_row_rel_err)} and {kernel: {label: row}}."""
     import torch
     from repro_torch.configs import get_config
@@ -824,12 +862,16 @@ def model_kernel_phase(iters: int):
             fail(f"{arch}: the planted faults below are for no window and no cap")
         q = randn((B, PROMPT, h, d), dtype, gen)
         k, v = randn((B, PROMPT, hkv, d), dtype, gen), randn((B, PROMPT, hkv, d), dtype, gen)
+        # the partial box's columns (160: 128..159), else the last 32
+        tail = d % 64 or 32
+        cut = (f"V's columns {d - tail}..{d - 1} (the partial box) dropped" if d % 64
+               else "V's last 32 columns dropped")
         v_cut = v.clone()
-        v_cut[..., -32:] = 0
+        v_cut[..., d - tail:] = 0
         name = f"flash {dt} {arch} (b,s,h,hkv,d)={(B, PROMPT, h, hkv, d)} window=0 cap=0"
         faults = [(f"window {WINDOW} instead of 0",
                    ref.flash_attention(q, k, v, **{**kw, "window": WINDOW})),
-                  ("V's last 32 columns dropped", ref.flash_attention(q, k, v_cut, **kw))]
+                  (cut, ref.flash_attention(q, k, v_cut, **kw))]
         errs["flash_attention"].append(compare(name, flash_attention_fwd(q, k, v, **kw),
                                                ref.flash_attention(q, k, v, **kw), faults))
         del faults, v_cut
@@ -842,9 +884,12 @@ def model_kernel_phase(iters: int):
         q, kc, vc = sets[0]
         pos = CACHE - 1
         name = f"decode {dt} {arch} B={B} cache={CACHE} H={h} Hkv={hkv} D={d} pos={pos} window=0"
+        vc_cut = vc.clone()
+        vc_cut[..., d - tail:] = 0
         faults = [(f"window {WINDOW} instead of 0",
                    ref.decode_attention(q, kc, vc, pos, **{**kw, "window": WINDOW})),
-                  ("last 128 keys dropped", ref.decode_attention(q, kc, vc, pos - 128, **kw))]
+                  ("last 128 keys dropped", ref.decode_attention(q, kc, vc, pos - 128, **kw)),
+                  (cut, ref.decode_attention(q, kc, vc_cut, pos, **kw))]
         got = decode_attention_fwd(q, kc, vc, pos, **kw)
         errs["decode_attention"].append(
             compare(name, got, ref.decode_attention(q, kc, vc, pos, **kw), faults))
@@ -855,7 +900,7 @@ def model_kernel_phase(iters: int):
         errs["decode_attention"].append(compare(
             name + " again, cache set 2", decode_attention_fwd(qq, kk, vv, pos, **kw),
             ref.decode_attention(qq, kk, vv, pos, **kw)))
-        del sets, q, kc, vc, qq, kk, vv, got, faults
+        del sets, q, kc, vc, qq, kk, vv, got, faults, vc_cut
         torch.cuda.empty_cache()
 
         norm_shapes = [(arch, (B, PROMPT, cfg.d_model))]
@@ -3138,9 +3183,12 @@ def main(argv=None) -> int:
 
 
     def times(row):
-        ms, plain, lib, b_ms, b_by, dev, lib_dev = row
-        return {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": lib, "library_device_ms": lib_dev}
+        ms, plain, lib, b_ms, b_by, dev, lib_dev = row[:7]
+        out = {"ms": ms, "device_ms": dev, "plain_ms": plain, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": lib, "library_device_ms": lib_dev}
+        if len(row) > 7:   # attention: the kernels a call launched (profiler)
+            out["kernels_a_call"] = row[7]
+        return out
 
     def entry(name, source, replaces, err, rows):
         # attention: one local-window and one global launch of the main path,
@@ -3154,7 +3202,8 @@ def main(argv=None) -> int:
                 "ms": mean[0], "device_ms": mean[5], "plain_ms": mean[1], "bound_ms": mean[3],
                 "bound_by": rows[0][4], "library_ms": mean[2], "library_device_ms": mean[6],
                 "models": {label: times(row) for label, row in model_rows[name].items()},
-                "models_launches": model_launches[name]}
+                "models_launches": model_launches[name],
+                **({"kernels_a_call": rows[0][7]} if len(rows[0]) > 7 else {})}
 
     batch_counts, batch_rows = det_rows["batched"]
 

@@ -1,19 +1,20 @@
 """Ablation of the bf16 decode kernel's design choices, on the card.
 
     PYTHONPATH=src python -m repro_torch.kernels.ablate_decode [--iters N]
+        [--shape gemma2-2b|stablelm-12b]
 
 Builds ``csrc/decode_attention.cu`` as it is and, beside it, copies with one
 choice undone each (``ABLATIONS``), all with the flags of ``_build``, into
 ``build/ablate/``. Each build is held against ``ref.decode_attention`` per row
-within ``ROW_REL_TOL`` and timed at gemma2-2b's decode shape (B=2, cache
-4384, H=8 on 4 kv heads, D=256, cap 50, pos 4383; window 4096 and full), 4
-cache sets cycled so that the 50 MB L2 does not hold the one a launch reads,
-by device time from torch.profiler, in turns: kernel as it is, each
-ablation, kernel as it is. Then the kernel as it is over a sweep of
-positions (global attention, 64 to 4384 keys), whose device times against
-the bytes read split a fixed cost from the rate at which it streams the
-cache. Prints one line a build or position and a JSON object last. Needs
-a CUDA card; used nowhere by the port.
+within ``ROW_REL_TOL`` and timed at a decode shape (``SHAPES``: gemma2-2b's
+B=2, cache 4384, H=8 on 4 kv heads, D=256, cap 50, pos 4383, window 4096 and
+full; stablelm-12b's 32 heads on 8, D=160, no cap, full), 4 cache sets cycled
+so that the 50 MB L2 does not hold the one a launch reads, by device time
+from torch.profiler, in turns: kernel as it is, each ablation, kernel as it
+is. Then the kernel as it is over a sweep of positions (global attention, 64
+to 4384 keys), whose device times against the bytes read split a fixed cost
+from the rate at which it streams the cache. Prints one line a build or
+position and a JSON object last. Needs a CUDA card; used nowhere by the port.
 """
 from __future__ import annotations
 
@@ -59,7 +60,18 @@ ABLATIONS = {
     "two_launch": ("the combine as a second launch, not by the last CTA",
                    _sub("constexpr bool FUSED_COMBINE = true;",
                         "constexpr bool FUSED_COMBINE = false;")),
+    "floor_splits": ("splits floor(2 n_SM / (B Hkv)), at most one wave, not the ceiling",
+                     _sub("const int want = (SPLITS_PER_SM * n_sm + B * Hkv - 1) / (B * Hkv);",
+                          "const int want = SPLITS_PER_SM * n_sm / (B * Hkv);")),
+    "g8_for_group4": ("a group of 3 or 4 on the 8-head instance (one CTA an SM), not the 4-head",
+                      _sub("  if (group <= 4)\n", "  if (false)\n")),
+    "split_k_160": ("bf16 head_dim 160 on split-K + combine (the first draft), not the TMA kernel",
+                    _sub(" || D == 160", "")),
 }
+
+# decode shapes: (b, cache, h, hkv, d, cap, pos, windows)
+SHAPES = {"gemma2-2b": (2, 4384, 8, 4, 256, 50.0, 4383, (4096, 0)),
+          "stablelm-12b": (2, 4384, 32, 8, 160, 0.0, 4383, (0,))}
 
 
 def build(names):
@@ -96,11 +108,12 @@ def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=80)
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="gemma2-2b")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device: the ablation runs on the card only", file=sys.stderr)
         return 1
-    b, s, h, hkv, d, cap, pos = 2, 4384, 8, 4, 256, 50.0, 4383
+    b, s, h, hkv, d, cap, pos, windows = SHAPES[args.shape]
     order = ["kernel", *ABLATIONS, "kernel"]
     libs = build(dict.fromkeys(order))
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -110,7 +123,7 @@ def main(argv=None) -> int:
     out = torch.empty_like(sets[0][0])
     stream = torch.cuda.current_stream().cuda_stream
     want = {w: ref.decode_attention(*sets[0], pos, window=w, logit_cap=cap, scale=d ** -0.5)
-            for w in (4096, 0)}
+            for w in windows}
     tol = ref.ROW_REL_TOL[torch.bfloat16]
     rows = []
     for name in order:
@@ -128,8 +141,9 @@ def main(argv=None) -> int:
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
 
-        row = {"build": name, "undone": ABLATIONS[name][0] if name in ABLATIONS else None}
-        for w in (4096, 0):
+        row = {"build": name, "undone": ABLATIONS[name][0] if name in ABLATIONS else None,
+               "shape": args.shape}
+        for w in windows:
             run(w, 0)
             torch.cuda.synchronize()
             rel = ref.max_row_rel_err(out, want[w])
@@ -138,9 +152,10 @@ def main(argv=None) -> int:
             row[f"window_{w}"] = {"device_ms": device_ms(lambda: run(w), args.iters),
                                   "max_row_rel_err": rel}
         rows.append(row)
-        print(f"  {name:12s} device_ms window 4096 {row['window_4096']['device_ms']:.5f}, "
-              f"full {row['window_0']['device_ms']:.5f}; max_row_rel_err "
-              f"{row['window_4096']['max_row_rel_err']:.3e}  {row['undone'] or ''}", flush=True)
+        times = ", ".join(f"window {w} {row[f'window_{w}']['device_ms']:.5f}" for w in windows)
+        print(f"  {name:12s} {args.shape} device_ms {times}; max_row_rel_err "
+              f"{max(row[f'window_{w}']['max_row_rel_err'] for w in windows):.3e}  "
+              f"{row['undone'] or ''}", flush=True)
     lib = _lib(libs["kernel"])
     part = torch.empty(lib.decode_attention_scratch_floats(b, s, h, hkv, d, 1),
                        dtype=torch.float32, device="cuda")

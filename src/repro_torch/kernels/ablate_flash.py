@@ -1,12 +1,14 @@
 """Ablation of the bf16 flash kernel's design choices, on the card.
 
     PYTHONPATH=src python -m repro_torch.kernels.ablate_flash [--iters N]
+        [--shape gemma2-2b|stablelm-12b]
 
 Builds ``csrc/flash_attention.cu`` as it is and, beside it, copies with one
 choice undone each (``ABLATIONS``), all with the flags of ``_build``, into
 ``build/ablate/``. Each build is held against ``ref.flash_attention`` per row
-within ``ROW_REL_TOL`` and timed at gemma2-2b's prefill shape (B=2, S=4352,
-H=8 on 4 kv heads, D=256, cap 50; window 4096 and full), by device time from
+within ``ROW_REL_TOL`` and timed at a prefill shape (``SHAPES``: gemma2-2b's
+B=2, S=4352, H=8 on 4 kv heads, D=256, cap 50, window 4096 and full;
+stablelm-12b's 32 heads on 8, D=160, no cap, full), by device time from
 torch.profiler, in turns: kernel as it is, each ablation, kernel as it is.
 Prints one line a build and a JSON list last. Needs a CUDA card; used nowhere
 by the port.
@@ -66,7 +68,14 @@ ABLATIONS = {
                         _sub("named_sync(my_turn);", ";")(s))),
     "direct_epilogue": ("O stored from registers in 4-byte pieces, not staged",
                         _direct_epilogue),
+    "cuda_cores_160": ("bf16 head_dim 160 on the fp32 CUDA-core kernel (the first draft), not wgmma",
+                       _sub("    if (D == 160) return (int)launch_wgmma<160>(q, k, v, o, B, S, H, "
+                            "Hkv, window, scale, cap, st);\n", "")),
 }
+
+# prefill shapes: (b, s, h, hkv, d, cap, windows)
+SHAPES = {"gemma2-2b": (2, 4352, 8, 4, 256, 50.0, (4096, 0)),
+          "stablelm-12b": (2, 4352, 32, 8, 160, 0.0, (0,))}
 
 
 def build(names):
@@ -116,11 +125,12 @@ def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="gemma2-2b")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device: the ablation runs on the card only", file=sys.stderr)
         return 1
-    b, s, h, hkv, d, cap = 2, 4352, 8, 4, 256, 50.0
+    b, s, h, hkv, d, cap, windows = SHAPES[args.shape]
     order = ["kernel", *ABLATIONS, "kernel"]
     libs = build(dict.fromkeys(order))
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -129,7 +139,7 @@ def main(argv=None) -> int:
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
     want = {w: ref.flash_attention(q, k, v, window=w, logit_cap=cap, scale=d ** -0.5)
-            for w in (4096, 0)}
+            for w in windows}
     tol = ref.ROW_REL_TOL[torch.bfloat16]
     rows = []
     for name in order:
@@ -141,8 +151,9 @@ def main(argv=None) -> int:
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
 
-        row = {"build": name, "undone": ABLATIONS[name][0] if name in ABLATIONS else None}
-        for w in (4096, 0):
+        row = {"build": name, "undone": ABLATIONS[name][0] if name in ABLATIONS else None,
+               "shape": args.shape}
+        for w in windows:
             run(w)
             torch.cuda.synchronize()
             rel = ref.max_row_rel_err(out, want[w])
@@ -151,9 +162,10 @@ def main(argv=None) -> int:
             row[f"window_{w}"] = {"device_ms": device_ms(lambda: run(w), args.iters),
                                   "max_row_rel_err": rel}
         rows.append(row)
-        print(f"  {name:16s} device_ms window 4096 {row['window_4096']['device_ms']:.4f}, "
-              f"full {row['window_0']['device_ms']:.4f}; max_row_rel_err "
-              f"{row['window_4096']['max_row_rel_err']:.3e}  {row['undone'] or ''}", flush=True)
+        times = ", ".join(f"window {w} {row[f'window_{w}']['device_ms']:.4f}" for w in windows)
+        print(f"  {name:16s} {args.shape} device_ms {times}; max_row_rel_err "
+              f"{max(row[f'window_{w}']['max_row_rel_err'] for w in windows):.3e}  "
+              f"{row['undone'] or ''}", flush=True)
     print(json.dumps(rows))
     return 0
 

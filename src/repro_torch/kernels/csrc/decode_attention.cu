@@ -14,22 +14,28 @@
 // spending nothing around them. The TPU kernel walks the kv axis inside one
 // grid cell per (batch, kv head): 8 cells for 132 SMs here.
 //
-// bf16 with head_dim 64, 128 or 256 and a group of up to 8 query heads a kv
-// head (gemma2-2b: D=256, group 2; smollm-135m: D=64, group 3):
-// decode_tma_kernel, one launch.
+// bf16 with head_dim 64, 112, 128, 160 or 256 and a group of up to 8 query
+// heads a kv head (gemma2-2b: D=256, group 2; stablelm-12b: D=160, group 4;
+// smollm-135m: D=64, group 3; zamba2-7b: D=112): decode_tma_kernel, one launch.
 //  * A grid sized to the card. The key range [lo, pos] of each (batch, kv
 //    head) is cut into nsplit runs of whole 64-key tiles, nsplit = min(tiles,
 //    ceil(SPLITS_PER_SM * n_SM / (B * Hkv))); split i takes tiles
 //    [i * n / nsplit, (i + 1) * n / nsplit), never none. At the serve shape
-//    that is 8 x 33 CTAs of 1-3 tiles, two CTAs an SM, one wave. n_SM is read
-//    once with cudaDeviceGetAttribute. kernels/ref.py::plan_splits mirrors
+//    that is 8 x 33 CTAs of 1-3 tiles, two CTAs an SM, one wave (16 x 17 of
+//    4-5 tiles at stablelm-12b's). Two CTAs share an SM where a warp keeps
+//    state for at most 4 query heads (the instances G = 2 and 4); a group of
+//    5 to 8 (G = 8) holds an SM alone. n_SM is read once with
+//    cudaDeviceGetAttribute. kernels/ref.py::plan_splits mirrors
 //    the plan, and the CPU tests hold its merge to the plain version.
 //  * A TMA-fed ring. One producer thread keeps a ring of K and V tiles (64
-//    keys x D, 32 KB at D=256; 64 KB of ring: 2 slots at D=256, 4 at 128, 8
-//    at 64) in flight under full and empty mbarriers. The tensor maps cover the caches in
-//    place, (D, Hkv, S, B), so rows past S arrive as zeros and never cross
-//    into the next batch. Boxes of 64 columns land in the 128-byte swizzle, so
-//    both read patterns below are free of bank conflicts. Two CTAs share an
+//    keys x ceil(D / 64) boxes of 64 columns, 32 KB at D=256 and 24 KB at
+//    160; 64 KB of ring: 2 slots at D=256 and 160, 4 at 128 and 112, 8 at
+//    64) in flight under full and empty mbarriers. The tensor maps cover the
+//    caches in place, (D, Hkv, S, B), so rows past S arrive as zeros and never
+//    cross into the next batch, and a last box's columns past D (160..191,
+//    112..127) arrive as zeros that cost no HBM bytes. Boxes of 64 columns
+//    land in the 128-byte swizzle, so both read patterns below are free of
+//    bank conflicts (at D=160, one score step in 5 reads two ways). Two CTAs share an
 //    SM: ~128 KB in flight an SM, five times what Little's law asks. A ring
 //    of 96 KB (3 slots at D=256) measured slower (kernels/ablate_decode.py).
 //  * Consumers: 8 warps, each owning 8 keys of every tile and its own fp32
@@ -42,8 +48,14 @@
 //    dotting a quarter of the K row, in 16-byte units rotated so that a
 //    quarter-warp hits 8 bank groups, with the group's query rows, held in
 //    shared memory as fp32 (each quarter shifted by 4 floats, for the same
-//    reason). PV: a lane owns a 16-byte unit of the V row and the keys'
-//    weights come by __shfl_sync; CUDA cores suffice at ~2 FLOP a byte. The
+//    reason); at D=112 the 14 units of a row are read as 16, the last two
+//    zero in K and in q. PV: a lane owns a 16-byte unit of the V row (a
+//    unit for 8 / KPI of the warp's keys, KPI = 32 / units of a row: 28 of
+//    32 lanes at D=112) and the keys' weights come by __shfl_sync; CUDA
+//    cores suffice at ~2 FLOP a byte. At D=160 a row is 20 units, which
+//    would keep 12 lanes idle: there a lane owns 5 aligned 4-byte words (10
+//    columns) for 4 of the warp's keys, the two halves of the warp on rows
+//    4 apart, so every load of the warp hits 32 banks. The
 //    loads of the next tiles are in flight under the work on this one, and
 //    an SM's two CTAs overlap each other's scores and PV. Only the ragged
 //    tiles at lo and pos are masked.
@@ -60,7 +72,8 @@
 //  * Exact tanhf for the cap and exp2f in log2 units: a tile has 64 scores
 //    a query head, so neither is on the critical path of a bytes-bound kernel.
 //
-// Any other case (fp32, another head dim): decode_partial_kernel, split-K over
+// Any other case (fp32 at any head dim; bf16 at a head dim not listed above,
+// 320 and 576 among them): decode_partial_kernel, split-K over
 // 128-key chunks on the CUDA cores (a lane a key in the score step, lanes
 // across the head dim in the PV step), then decode_combine_kernel: two
 // launches. Any cache length is taken; the ragged last chunk is masked. The
@@ -279,7 +292,7 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_m,
 
 
 // ---------------------------------------------------------------------------
-// bf16, head_dim 64/128/256: TMA ring, split sized to the card, fused combine
+// bf16, head_dim 64/112/128/160/256: TMA ring, split sized to the card, fused combine
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
@@ -292,13 +305,18 @@ constexpr int CTHREADS = CWARPS * 32;
 constexpr int TMA_THREADS = CTHREADS + 32;    // and a producer warp
 
 // Shared memory of one CTA, in bytes from a 1024-aligned base. A tile slot is
-// D / 64 boxes of 64 rows x 128 bytes. After the last tile the ring holds the
-// warps' outputs for the CTA's merge, then the last CTA's merge of the splits.
+// ceil(D / 64) boxes of 64 rows x 128 bytes, the last zero past D. After the
+// last tile the ring holds the warps' outputs for the CTA's merge, then the
+// last CTA's merge of the splits.
 template <int D, int G>
 struct DSmem {
-  static constexpr int TILE = TK * D * 2;
+  static_assert(D % 16 == 0 && D >= 64 && D <= 256, "head_dim: a multiple of 16 in 64..256");
+  static constexpr int NCH = (D + TMA_BOX_COLS - 1) / TMA_BOX_COLS;   // boxes of a row
+  static constexpr int TILE = NCH * TK * 128;
   static constexpr int NS = RING_BYTES / TILE < 8 ? RING_BYTES / TILE : 8;  // ring slots
-  static constexpr int QSTR = D + 16;         // floats of a query row
+  static constexpr int UPR = D / 8;           // 16-byte units of a row
+  static constexpr int SU = (UPR + 3) / 4 * 4;   // units the score step reads: 4 equal quarters
+  static constexpr int QSTR = SU * 8 + 16;    // floats of a query row
   static constexpr int Q = NS * TILE;
   static constexpr int WM = Q + G * QSTR * 4; // each warp's max of each head, then its factor
   static constexpr int WL = WM + CWARPS * G * 4;
@@ -407,9 +425,10 @@ __device__ void merge_splits(const float* __restrict__ part_acc,
   }
 }
 
-// G: query heads a warp keeps state for (2, or 8 for a group of 3 to 8)
+// G: query heads a warp keeps state for (2, 4 for a group of 3 or 4, 8 for
+// 5 to 8); up to 4, two CTAs an SM
 template <int D, int G>
-__global__ void __launch_bounds__(TMA_THREADS, G <= 2 ? 2 : 1)
+__global__ void __launch_bounds__(TMA_THREADS, G <= 4 ? 2 : 1)
 decode_tma_kernel(const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ q,
                   bf16* __restrict__ o, float* __restrict__ part_acc,
@@ -418,11 +437,19 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap kmap,
                   float post, int capped) {
   using L = DSmem<D, G>;
   constexpr int NS = L::NS;
-  constexpr int NCH = D / TMA_BOX_COLS;      // boxes of a row
+  constexpr int NCH = L::NCH;                // boxes of a row
   constexpr int BOX = TK * 128;              // bytes of a box
-  constexpr int UPR = D / 8;                 // 16-byte units of a row
-  constexpr int QU = UPR / 4;                // of a quarter of a row
-  constexpr int KPI = 32 / UPR;              // rows a warp reads at once in PV
+  constexpr int UPR = L::UPR;                // 16-byte units of a row
+  constexpr int QU = L::SU / 4;              // units of a quarter in the score step
+  constexpr int SD = L::SU * 8;              // columns the score step reads (zero past D)
+  // PV by 16-byte units: KPI rows a warp reads at once (the warp's 8 keys in
+  // 8 / KPI steps), UPR * KPI lanes busy. Where that leaves a fifth of the
+  // lanes idle and a row is whole 4-byte words for 16 lanes (D=160), PV by
+  // words: a lane WPL words of 4 of the warp's keys.
+  constexpr int KPI = 32 / UPR == 3 ? 2 : 32 / UPR;
+  constexpr bool WORDS = 5 * UPR * KPI < 4 * 32 && D % 32 == 0;
+  constexpr int WPL = D / 32;                // words of a lane (WORDS)
+  constexpr int ACC = WORDS ? 2 * WPL : 8;   // output columns of a lane
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + (((smem_u32(smem_raw) + 1023u) & ~1023u) - smem_u32(smem_raw));
   const uint32_t base = smem_u32(sm);
@@ -476,25 +503,28 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap kmap,
   // other banks
   const int tid = threadIdx.x;
   const bf16* qg = q + ((long long)b * H + kvh * group) * D;
-  for (int idx = tid; idx < G * D; idx += CTHREADS) {
-    const int g = idx / D, d = idx % D;
-    qs[g * L::QSTR + d + 4 * (d / (D / 4))] = g < group ? __bfloat162float(qg[g * D + d]) : 0.f;
+  for (int idx = tid; idx < G * SD; idx += CTHREADS) {
+    const int g = idx / SD, d = idx % SD;
+    qs[g * L::QSTR + d + 4 * (d / (SD / 4))] =
+        g < group && d < D ? __bfloat162float(qg[g * D + d]) : 0.f;
   }
   consumer_sync();
 
   // scores: 4 lanes a key, each a quarter of the row, rotated so that a
   // quarter-warp (2 keys x 4 quarters) reads 8 distinct 16-byte bank groups
-  // of K and of q; PV: a lane a 16-byte unit of the V row
+  // of K and of q (QU = 5: 6 reads where 5 would do, the fewest any order
+  // gets); PV: a lane a 16-byte unit of the V row, or WPL words of it
   const int r = warp * 8 + lane / 4, qq = lane & 3;
   const int unit = lane % UPR, sub = lane / UPR;
-  const int rot = 2 * (qq / (8 / QU));
-  float m[G], l[G], acc[G][8];
+  const int wsub = lane / 16, wbyte = 4 * WPL * (lane % 16);   // WORDS: keys, first byte
+  const int rot = QU % 2 ? (QU - 1) * (qq & 1) : 2 * (qq / (8 / QU));
+  float m[G], l[G], acc[G][ACC];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < ACC; ++e) acc[g][e] = 0.f;
   }
 
   for (int j = 0; j < n_local; ++j) {
@@ -553,22 +583,51 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap kmap,
     }
 
     mbar_wait(full + 8 * sv, ((2 * j + 1) / NS) & 1);
-    const uint8_t* vt = sm + sv * L::TILE + (unit / 8) * BOX;
+    const uint8_t* vt = sm + sv * L::TILE;
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[g][e] *= corr[g];
+      for (int e = 0; e < ACC; ++e) acc[g][e] *= corr[g];
+    if constexpr (WORDS) {
+      // the halves of the warp on rows 4 apart: their swizzles differ by 4
+      // groups, so that the 16 lanes' words of each half fill the other 16 banks
 #pragma unroll
-    for (int kk = 0; kk < 8 / KPI; ++kk) {
-      const int rl = kk * KPI + sub, rr = warp * 8 + rl;
-      float vx[8];
-      unpack8(*reinterpret_cast<const uint4*>(vt + rr * 128 + ((unit % 8) ^ (rr % 8)) * 16), vx);
+      for (int kk = 0; kk < 4; ++kk) {
+        const int rl = 4 * wsub + kk, rr = warp * 8 + rl;
+        float vx[ACC];
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        if (g < group) {
-          const float pk = __shfl_sync(FULL, p[g], 4 * rl);
+        for (int w = 0; w < WPL; ++w) {
+          const int byte = wbyte + 4 * w;
+          const uint32_t x = *reinterpret_cast<const uint32_t*>(
+              vt + (byte / 128) * BOX + rr * 128 + (((byte / 16) % 8) ^ (rr % 8)) * 16 + byte % 16);
+          vx[2 * w] = __uint_as_float(x << 16);
+          vx[2 * w + 1] = __uint_as_float(x & 0xffff0000u);
+        }
 #pragma unroll
-          for (int e = 0; e < 8; ++e) acc[g][e] += pk * vx[e];
+        for (int g = 0; g < G; ++g) {
+          if (g < group) {
+            const float pk = __shfl_sync(FULL, p[g], 4 * rl);
+#pragma unroll
+            for (int e = 0; e < ACC; ++e) acc[g][e] += pk * vx[e];
+          }
+        }
+      }
+    } else {
+      const bool busy = UPR * KPI == 32 || sub < KPI;   // D=112: lanes 28..31 idle
+#pragma unroll
+      for (int kk = 0; kk < 8 / KPI; ++kk) {
+        const int rl = kk * KPI + sub, rr = warp * 8 + rl;
+        float vx[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (busy)
+          unpack8(*reinterpret_cast<const uint4*>(vt + (unit / 8) * BOX + rr * 128 +
+                                                  ((unit % 8) ^ (rr % 8)) * 16), vx);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (g < group) {
+            const float pk = __shfl_sync(FULL, p[g], 4 * rl);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[g][e] += pk * vx[e];
+          }
         }
       }
     }
@@ -576,20 +635,26 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap kmap,
     if (lane == 0) mbar_arrive(empty + 8 * sv);
   }
 
-  // merge the 8 warps: lanes sharing a unit first, then through shared
-  // memory over the idle ring (every load issued has been waited for)
+  // merge the 8 warps: lanes sharing columns first (lane + UPR, + 2 UPR ...
+  // into the lanes of sub 0, in a fixed order; WORDS: lane + 16), then
+  // through shared memory over the idle ring (every load issued has been
+  // waited for)
 #pragma unroll
-  for (int off = UPR; off < 32; off <<= 1)
+  for (int off = WORDS ? 16 : UPR; off < (WORDS ? 32 : UPR * KPI); off <<= 1)
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], off);
+      for (int e = 0; e < ACC; ++e) acc[g][e] += __shfl_down_sync(FULL, acc[g][e], off);
   float* macc = reinterpret_cast<float*>(sm);              // [warp][G][D]
   consumer_sync();
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (g >= group) break;
-    if (sub == 0) {
+    if (WORDS && wsub == 0) {
+      float2* dst = reinterpret_cast<float2*>(macc + (warp * G + g) * D + wbyte / 2);
+#pragma unroll
+      for (int w = 0; w < WPL; ++w) dst[w] = make_float2(acc[g][2 * w], acc[g][2 * w + 1]);
+    } else if (!WORDS && sub == 0) {
       float4* dst = reinterpret_cast<float4*>(macc + (warp * G + g) * D + unit * 8);
       dst[0] = make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
       dst[1] = make_float4(acc[g][4], acc[g][5], acc[g][6], acc[g][7]);
@@ -684,7 +749,8 @@ int plan_nsplit(int n_tiles, int B, int Hkv, int n_sm) {
 }
 
 bool tma_path(int dtype, int D, int group) {
-  return dtype == 1 && (D == 64 || D == 128 || D == 256) && group <= MAXG;
+  return dtype == 1 && (D == 64 || D == 112 || D == 128 || D == 160 || D == 256) &&
+         group <= MAXG;
 }
 
 template <int D, int G>
@@ -725,14 +791,22 @@ cudaError_t launch_tma(const void* q, const void* kc, const void* vc, void* o, f
   return cudaGetLastError();
 }
 
+// the instance that keeps state for the fewest heads the group needs: a
+// group of 3 or 4 (stablelm-12b's, smollm-135m's) on the 4-head one, two
+// CTAs an SM, not the 8-head one, which holds an SM alone
 template <int D>
 cudaError_t launch_tma_g(const void* q, const void* kc, const void* vc, void* o, float* scratch,
                          int* counters, int B, int S, int H, int Hkv, int pos, int window,
                          float scale, float cap, cudaStream_t stream) {
-  return H / Hkv <= 2 ? launch_tma<D, 2>(q, kc, vc, o, scratch, counters, B, S, H, Hkv, pos,
-                                         window, scale, cap, stream)
-                      : launch_tma<D, MAXG>(q, kc, vc, o, scratch, counters, B, S, H, Hkv, pos,
-                                            window, scale, cap, stream);
+  const int group = H / Hkv;
+  if (group <= 2)
+    return launch_tma<D, 2>(q, kc, vc, o, scratch, counters, B, S, H, Hkv, pos, window, scale,
+                            cap, stream);
+  if (group <= 4)
+    return launch_tma<D, 4>(q, kc, vc, o, scratch, counters, B, S, H, Hkv, pos, window, scale,
+                            cap, stream);
+  return launch_tma<D, MAXG>(q, kc, vc, o, scratch, counters, B, S, H, Hkv, pos, window, scale,
+                             cap, stream);
 }
 
 }  // namespace
@@ -771,8 +845,12 @@ extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* v
   if (tma_path(dtype, D, H / Hkv)) {
     if (D == 256)
       return (int)launch_tma_g<256>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
+    if (D == 160)
+      return (int)launch_tma_g<160>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
     if (D == 128)
       return (int)launch_tma_g<128>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
+    if (D == 112)
+      return (int)launch_tma_g<112>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
     return (int)launch_tma_g<64>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
   }
   const long long rows = (long long)B * H * ((S + CHUNK - 1) / CHUNK);

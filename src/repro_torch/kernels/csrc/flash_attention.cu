@@ -18,8 +18,10 @@
 // TPU kernel, and a group that is not a power of two (3 for smollm) needs no
 // special case.
 //
-// bf16 with head_dim 64, 128 or 256 (gemma2-2b's path): flash_wgmma_kernel,
-// built for Hopper's tensor-core pipeline.
+// bf16 with head_dim 64, 112, 128, 160 or 256 (gemma2-2b's 256, stablelm-12b's
+// 160, zamba2-7b's 112): flash_wgmma_kernel, built for Hopper's tensor-core
+// pipeline. The template takes any multiple of 16 from 64 to 256; the launcher
+// instantiates those five.
 //  * A CTA owns 128 flat rows (128 / group positions x group heads; 126 rows
 //    for a group of 3) and has three warpgroups: two consumers of 64 rows each
 //    and one producer. setmaxnreg gives the consumers 240 registers a thread
@@ -28,17 +30,23 @@
 //    2 V tiles of 64 keys in flight with TMA, each stage under a full and an
 //    empty mbarrier. The tensor maps cover q (B,S,H,D) and k/v (B,S,Hkv,D) in
 //    place; a box is 64 columns (128 bytes, the widest a 128-byte swizzle
-//    takes), so a 256-wide row is four boxes. Q's box is {64, group heads,
+//    takes), so a 256-wide row is four boxes and a 160-wide row three, the
+//    last box's columns 160..191 past the map's edge: TMA fills them with
+//    zeros and reads no bytes for them. Q's box is {64, group heads,
 //    128 / group positions}, which lands the flat rows in order. Keys and
 //    positions past S arrive as zeros.
 //  * S = Q K^T is wgmma.m64n64k16 with both operands read from shared memory
-//    (K-major descriptors). The softmax stays in registers: scale, tanh cap
+//    (K-major descriptors), D / 16 k-steps: only those holding real columns
+//    (10 at D=160, 7 at 112). The softmax stays in registers: scale, tanh cap
 //    (tanh.approx), the mask only on tiles that cross the diagonal or the
 //    window's lower edge, the running max over a quad, exp2 with log2(e)
 //    folded into the scale. O += P V is wgmma.m64n{D}k16 with P rounded to
 //    bf16 in registers as the A operand (S's accumulator layout is the A
 //    fragment of the next product) and V read as an MN-major B: one PV
 //    product per tile, P rounded where the JAX and port plain paths round it.
+//    N = D itself (n160, n112: legal shapes, multiples of 8 up to 256): the
+//    B descriptor steps a box (LBO) every 64 columns, and a product of N = D
+//    reads no zero column of the last box.
 //  * Overlap: a consumer issues S of tile i and PV of tile i-1 together and
 //    runs tile i's softmax while PV is in flight; K is released as soon as S
 //    is done, V after PV. The two consumers take turns to issue (two named
@@ -46,15 +54,18 @@
 //  * q tiles launch last positions first, so the heaviest causal CTAs are
 //    not left for the tail. The epilogue divides by l, stages each
 //    warpgroup's bf16 O tile in its own Q rows (free after its last S) and
-//    stores whole rows in 16-byte pieces. Rows past S (and past the Q box)
-//    are computed and not stored.
+//    stores the D / 8 16-byte pieces of each row, never the padded columns
+//    (at D=160 those would land on the next head's row). Rows past S (and
+//    past the Q box) are computed and not stored.
 //  * The wrapper raises on what TMA cannot take (a base pointer off a 16-byte
-//    boundary; the row strides of contiguous bf16 rows of these head_dims are
-//    multiples of 16 bytes). A group above 8 is launched by the wrapper in
-//    passes of at most 8 query heads a kv head (the launcher refuses it).
+//    boundary; the row strides of contiguous bf16 rows of these head_dims,
+//    2 D bytes, are multiples of 16). A group above 8 is launched by the
+//    wrapper in passes of at most 8 query heads a kv head (the launcher
+//    refuses it).
 //
-// Any other case (fp32, or another head_dim): flash_fwd_kernel, on the fp32
-// CUDA cores, which keeps the fp32 inputs exact.
+// Any other case (fp32 at any head_dim; bf16 at a head_dim not listed above,
+// 320 and 576 among them): flash_fwd_kernel, on the fp32 CUDA cores, which
+// keeps the fp32 inputs exact.
 //  * 4 warps x 8 rows. K/V tiles of 32 keys go through shared memory in fp32;
 //    in the score step lane j owns key j of the tile (dot over D with float4
 //    loads; the K tile's row stride is D+4 floats so the 8 lanes of a quarter
@@ -299,11 +310,13 @@ constexpr int MAX_GROUP = 8;
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Shared memory of one CTA, in bytes from a 1024-aligned base (the 128-byte
-// swizzle repeats every 8 rows of 128 bytes). Each tile is stored as D / 64
-// column chunks; a chunk is its rows of 128 bytes, as one TMA box writes it.
+// swizzle repeats every 8 rows of 128 bytes). Each tile is stored as
+// ceil(D / 64) column chunks; a chunk is its rows of 128 bytes, as one TMA box
+// writes it (the last one zero past D). D=160: 3 chunks, 144 KB in all.
 template <int D>
 struct Smem {
-  static constexpr int NCH = D / CHUNK;
+  static_assert(D % 16 == 0 && D >= 64 && D <= 256, "head_dim: a multiple of 16 in 64..256");
+  static constexpr int NCH = (D + CHUNK - 1) / CHUNK;
   static constexpr int Q_CHUNK = TROWS * 128;
   static constexpr int KV_CHUNK = TBK * 128;
   static constexpr int Q = 0;
@@ -393,6 +406,27 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 template <>
+__device__ __forceinline__ void wgmma_rs<112>(float (&d)[56], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55},"
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -413,6 +447,32 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<160>(float (&d)[80], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79},"
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 template <>
@@ -591,7 +651,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int my_turn = 1 + wg, their_turn = 2 - wg;
 
     // S = Q K^T over D in k16 steps: +32 bytes inside a 128-byte swizzled
-    // row, the next column chunk past 4 steps
+    // row, the next column chunk past 4 steps; none over the zero columns
     auto issue_s = [&](int st) {
       const uint32_t k_tile = base + L::K + st * NCH * L::KV_CHUNK;
 #pragma unroll
@@ -764,7 +824,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (D == 256) return (int)launch_wgmma<256>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
+    if (D == 160) return (int)launch_wgmma<160>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
     if (D == 128) return (int)launch_wgmma<128>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
+    if (D == 112) return (int)launch_wgmma<112>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
     if (D == 64) return (int)launch_wgmma<64>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
   }
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;

@@ -1,13 +1,15 @@
 """One-token decode attention against a KV cache: the CUDA kernel's wrapper.
 
 Port of ``repro.kernels.decode_attention.decode_attention_fwd``; the kernel is
-``csrc/decode_attention.cu``: for bf16 with head_dim 64/128/256 one launch
+``csrc/decode_attention.cu``: for bf16 with a head_dim of ``TMA_HEAD_DIMS``
+(64, 112, 128, 160, 256; ``tma_path``) one launch of ``decode_tma_kernel``
 (the key range split across the card, the splits merged by the last CTA of
-each (batch, kv head)), otherwise split-K and a combine pass (a head_dim above
-256 in passes of 256 output columns). A group above ``MAX_GROUP`` query heads
-a kv head is launched in passes (``flash_attention.group_passes``). On a CUDA tensor
-the wrapper launches the kernel (or raises); on a CPU tensor it computes the
-plain version ``ref.decode_attention``. ``pos`` and ``window`` are host ints:
+each (batch, kv head)), otherwise split-K and a combine pass on the CUDA
+cores (a head_dim above 256 in passes of 256 output columns). A group above
+``MAX_GROUP`` query heads a kv head is launched in passes
+(``flash_attention.group_passes``). On a CUDA tensor the wrapper launches the
+kernel (or raises); on a CPU tensor it computes the plain version
+``ref.decode_attention``. ``pos`` and ``window`` are host ints:
 the serve loop knows them, so no device-to-host sync is needed. The split
 partials and the per-(batch, kv head) counters are scratch kept per (device,
 stream), grown when a larger shape arrives; the counters are zeroed once when
@@ -23,10 +25,12 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_attention import (DTYPE_CODES, _window, check_attention_inputs,
-                                                 group_passes)
+from repro_torch.kernels.flash_attention import (DTYPE_CODES, MAX_GROUP, _window,
+                                                 check_attention_inputs, group_passes)
 
 launches = 0
+# bf16 head_dims ``csrc/decode_attention.cu`` runs ``decode_tma_kernel`` for
+TMA_HEAD_DIMS = (64, 112, 128, 160, 256)
 
 _lib = None
 # (device index, stream) -> (float32 partials, int32 counters)
@@ -44,6 +48,13 @@ def _kernel():
         lib.decode_attention_scratch_floats.restype = ctypes.c_longlong
         _lib = lib
     return _lib
+
+
+def tma_path(dtype, d: int, group: int) -> bool:
+    """Whether one launch of ``dtype`` at head_dim ``d`` with ``group`` query
+    heads a kv head (a pass of ``group_passes``) runs ``decode_tma_kernel``;
+    otherwise ``decode_partial_kernel`` and ``decode_combine_kernel``."""
+    return dtype == torch.bfloat16 and d in TMA_HEAD_DIMS and group <= MAX_GROUP
 
 
 def _scratch_for(device: torch.device, stream: int, floats: int, counters: int):

@@ -19,6 +19,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # 128 // group positions of the whole group; the decode kernel keeps a group
 # in a block. A larger group runs in passes (``group_passes``).
 MAX_GROUP = 8
+# bf16 head_dims ``csrc/flash_attention.cu`` instantiates its tensor-core
+# kernel for (a multiple of 16 in 64..256 builds; these are the configs')
+WGMMA_HEAD_DIMS = (64, 112, 128, 160, 256)
 
 _fn = None
 
@@ -32,6 +35,18 @@ def _kernel():
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
+
+
+def wgmma_path(dtype, d: int, group: int) -> bool:
+    """Whether one launch of ``dtype`` at head_dim ``d`` with ``group`` query
+    heads a kv head (a pass of ``group_passes``) runs ``flash_wgmma_kernel``
+    on the tensor cores; otherwise ``flash_fwd_kernel`` on the CUDA cores."""
+    return dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS and group <= MAX_GROUP
+
+
+def pass_group(group: int) -> int:
+    """The query heads a kv head of the widest pass ``group_passes`` makes."""
+    return -(-group // -(-group // MAX_GROUP))
 
 
 def check_attention_inputs(q, k, v, *, query_len=None):
@@ -60,8 +75,8 @@ def check_attention_inputs(q, k, v, *, query_len=None):
     if d <= 0:
         raise ValueError(f"head_dim {d} must be positive")
     # TMA takes a global base address on a 16-byte boundary and row strides
-    # in multiples of 16 bytes; contiguous bf16 rows of head_dim 64/128/256
-    # (H*D*2 and Hkv*D*2 bytes) always are, so the base is what can fail
+    # in multiples of 16 bytes; contiguous bf16 rows of the ``WGMMA_HEAD_DIMS``
+    # (D*2, H*D*2 and Hkv*D*2 bytes) always are, so the base is what can fail
     if q.device.type == "cuda" and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("CUDA inputs must start on a 16-byte boundary")
 
@@ -84,8 +99,7 @@ def group_passes(run, q, k, v) -> torch.Tensor:
     group = h // hkv
     if group <= MAX_GROUP:
         return run(q, k, v)
-    passes = -(-group // MAX_GROUP)
-    step = -(-group // passes)
+    step = pass_group(group)
     qg = q.view(b, s, hkv, group, d)
     out = q.new_empty(b, s, hkv, group, d)
     for c0 in range(0, group, step):
@@ -100,10 +114,11 @@ def flash_attention_fwd(q, k, v, *, window=None, logit_cap: float = 0.0,
     """q: (B,S,H,D); k,v: (B,S,Hkv,D) -> (B,S,H,D). ``window`` 0/None = full
     causal. Any S: the kernel masks the ragged edge itself.
 
-    bf16 with head_dim 64/128/256 runs on the tensor cores (wgmma fed by
-    TMA), anything else on the fp32 CUDA cores (a head_dim above 256 in
-    passes of 256 output columns). A group above ``MAX_GROUP`` is launched
-    in passes (``group_passes``); ``launches`` counts each."""
+    bf16 with a head_dim of ``WGMMA_HEAD_DIMS`` runs on the tensor cores
+    (wgmma fed by TMA; ``wgmma_path``), anything else on the fp32 CUDA cores
+    (a head_dim above 256 in passes of 256 output columns). A group above
+    ``MAX_GROUP`` is launched in passes (``group_passes``); ``launches``
+    counts each."""
     check_attention_inputs(q, k, v)
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"q has {q.shape[1]} positions, k has {k.shape[1]}")

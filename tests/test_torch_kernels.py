@@ -26,6 +26,8 @@ from repro.kernels import ref as jref
 from repro.models.attention import chunked_causal_attention as jax_chunked
 from repro_torch.kernels import _build, ablate_decode, ablate_flash, ablate_rmsnorm, ops
 from repro_torch.kernels import ablate_ewma, ablate_slow_fold, ablate_waterfill
+from repro_torch.kernels import decode_attention as decode_mod
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import rmsnorm as rmsnorm_mod
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.decode_attention import decode_attention_fwd
@@ -67,6 +69,11 @@ FLASH_CASES = [
     # ragged S (no block of 8 divides it) and a group of 3
     ((1, 100, 9, 3, 64), None, 50.0, "float32"),
     ((2, 300, 4, 2, 32), 50, 0.0, "float32"),
+    # head_dims 160 (stablelm-12b, group 4) and 112 (zamba2-7b), ragged S
+    ((1, 100, 8, 2, 160), None, 0.0, "bfloat16"),
+    ((2, 77, 8, 2, 160), 32, 50.0, "float32"),
+    ((1, 90, 4, 1, 112), None, 30.0, "bfloat16"),
+    ((2, 70, 6, 3, 112), 40, 0.0, "float32"),
 ]
 
 
@@ -91,6 +98,10 @@ DECODE_CASES = [
     # ragged cache lengths: 100, and the serve slice's 4384 (prompt 4352 + 32)
     ((1, 100, 9, 3, 64), 99, 30, 50.0, "float32"),
     ((1, 4384, 4, 2, 64), 4383, 4096, 50.0, "float32"),
+    # head_dims 160 (stablelm-12b's group of 4) and 112, ragged caches
+    ((2, 300, 8, 2, 160), 299, None, 0.0, "bfloat16"),
+    ((1, 1000, 8, 2, 160), 700, 256, 50.0, "float32"),
+    ((1, 201, 4, 1, 112), 130, 64, 30.0, "float32"),
 ]
 
 
@@ -125,6 +136,50 @@ def test_plan_splits_cover_the_key_range_once(lo, pos, b, hkv):
     assert all(k0 % 64 == 0 for k0, _ in ranges[1:]) and all(k1 % 64 == 63 for _, k1 in ranges[:-1])
     n_tiles = pos // 64 - lo // 64 + 1
     assert len(ranges) == min(n_tiles, -(-2 * 132 // (b * hkv)))
+
+
+@pytest.mark.parametrize("kind", ["flash", "decode"])
+def test_dispatch_rule_matches_the_kernel_source(kind):
+    """The head_dims each .cu dispatch instantiates its bf16 tensor-core
+    (flash) or TMA (decode) kernel for are the Python rule's, 112 and 160
+    among them; fp32, a head_dim not listed and a group above 8 take the
+    CUDA-core kernels."""
+    if kind == "flash":
+        src = (_build.CSRC / "flash_attention.cu").read_text()
+        dims = {int(x) for x in re.findall(r"return \(int\)launch_wgmma<(\d+)>\(", src)}
+        rule, listed = flash_mod.wgmma_path, flash_mod.WGMMA_HEAD_DIMS
+    else:
+        src = (_build.CSRC / "decode_attention.cu").read_text()
+        dims = {int(x) for x in re.findall(r"return \(int\)launch_tma_g<(\d+)>\(", src)}
+        gate = re.search(r"bool tma_path\(int dtype, int D, int group\) \{(.*?)\}", src, re.S)
+        assert {int(x) for x in re.findall(r"D == (\d+)", gate.group(1))} == dims
+        rule, listed = decode_mod.tma_path, decode_mod.TMA_HEAD_DIMS
+    assert dims == set(listed) and {112, 160} <= dims
+    for d in range(8, 600, 8):
+        assert rule(torch.bfloat16, d, 4) == (d in dims)
+        assert not rule(torch.float32, d, 4)
+    assert rule(torch.bfloat16, 160, flash_mod.MAX_GROUP)
+    assert not rule(torch.bfloat16, 160, flash_mod.MAX_GROUP + 1)
+    assert flash_mod.pass_group(32 // 2) == 8 and flash_mod.pass_group(9) == 5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [160, 112])
+@pytest.mark.parametrize("kind", ["flash", "decode"])
+def test_zero_padded_head_dim_leaves_the_plain_result(kind, d, dtype):
+    """The premise of the kernels' last box, whose columns past D arrive as
+    TMA's zeros: q, k and v zero-padded from D to the next multiple of 64
+    (160 -> 192, 112 -> 128), at the scale of the true D, give the plain
+    result's first D columns, and zeros after them."""
+    b, s, h, hkv = 2, 90, 8, 2
+    (qj, qt), (kj, kt), (vj, vt) = _wide_inputs(kind, b, s, h, hkv, d, dtype)
+    kw = dict(window=40, logit_cap=30.0, scale=d ** -0.5)
+    dp = -(-d // 64) * 64
+    pad = [torch.nn.functional.pad(t, (0, dp - d)) for t in (qt, kt, vt)]
+    got = _attention(kind, *pad, **kw)
+    assert got.shape[-1] == dp and not got[..., d:].any()
+    _close(got[..., :d].contiguous(), _attention(kind, qt, kt, vt, **kw).float().numpy(), dtype)
+    _close(got[..., :d].contiguous(), _jax_attention(kind, qj, kj, vj, **kw), dtype)
 
 
 def test_split_plan_constants_match_the_kernel_source():
@@ -601,7 +656,7 @@ def cuda():
     return torch.device("cuda")
 
 
-GPU_CASES = [  # bf16 flash with head_dim 64/128/256 takes the wgmma kernel
+GPU_CASES = [  # bf16 flash with a head_dim of WGMMA_HEAD_DIMS takes the wgmma kernel
     ("flash", (2, 300, 9, 3, 64), 100, 50.0, "float32"),
     ("flash", (1, 520, 8, 4, 256), 128, 50.0, "bfloat16"),
     ("flash", (2, 1000, 9, 3, 64), 300, 50.0, "bfloat16"),
@@ -634,8 +689,23 @@ GPU_CASES = [  # bf16 flash with head_dim 64/128/256 takes the wgmma kernel
     ("decode", (2, 1000, 8, 4, 320), 0, 50.0, "float32"),
     ("decode", (2, 1000, 8, 4, 320), 512, 50.0, "bfloat16"),
     ("decode", (1, 700, 4, 2, 576), 0, 0.0, "float32"),
+    # head_dims 160 (stablelm-12b) and 112 (zamba2-7b): bf16 on the wgmma and
+    # TMA kernels over ceil(D / 64) boxes, the last partly out of bounds;
+    # group 4 and 8, a window of one key tile, S below one tile, ragged S
+    ("flash", (1, 1000, 32, 8, 160), 0, 0.0, "bfloat16"),
+    ("flash", (2, 700, 16, 2, 160), 64, 50.0, "bfloat16"),
+    ("flash", (3, 20, 8, 2, 160), 0, 30.0, "bfloat16"),
+    ("flash", (1, 4352, 32, 8, 160), 0, 0.0, "bfloat16"),     # stablelm's prefill, batch 1
+    ("flash", (1, 777, 8, 2, 112), 0, 0.0, "bfloat16"),
+    ("flash", (2, 500, 8, 1, 112), 64, 50.0, "bfloat16"),
+    ("flash", (1, 30, 4, 1, 112), 0, 0.0, "bfloat16"),
+    ("flash", (1, 300, 8, 2, 160), 100, 50.0, "float32"),      # fp32: the CUDA cores
+    ("flash", (1, 300, 8, 2, 112), 0, 0.0, "float32"),
+    ("decode", (2, 4384, 32, 8, 160), 0, 0.0, "bfloat16"),    # stablelm's decode shape
+    ("decode", (1, 1000, 16, 2, 112), 0, 30.0, "bfloat16"),
+    ("decode", (1, 500, 8, 2, 160), 0, 0.0, "float32"),
 ]
-# the bf16 split kernel (head_dim 64/128/256): (b, s, h, hkv, d), pos, window, cap.
+# the bf16 split kernel (TMA_HEAD_DIMS): (b, s, h, hkv, d), pos, window, cap.
 # pos at and around a tile edge, windows of one key and one tile, B * Hkv = 1
 # (the most splits) and 64 (one split each), group 8 and 3, each head_dim
 GPU_DECODE_CASES = [
@@ -650,6 +720,16 @@ GPU_DECODE_CASES = [
     ((1, 3000, 8, 1, 128), 2999, 1000, 30.0),
     ((2, 2000, 9, 3, 64), 1999, 0, 0.0),
     ((1, 4500, 4, 2, 64), 4321, 4096, 50.0),
+    # head_dim 160 (PV by 4-byte words) and 112 (28 of 32 lanes a unit)
+    ((2, 4384, 32, 8, 160), 4383, 0, 0.0),
+    ((2, 4384, 32, 8, 160), 63, 0, 0.0),
+    ((2, 4384, 32, 8, 160), 64, 64, 50.0),
+    ((1, 3000, 16, 2, 160), 2999, 1, 0.0),
+    ((1, 40, 4, 1, 160), 39, 0, 30.0),
+    ((8, 700, 64, 8, 160), 650, 0, 0.0),
+    ((2, 2000, 8, 2, 112), 1999, 0, 50.0),
+    ((1, 4500, 8, 1, 112), 4095, 4096, 0.0),
+    ((1, 64, 16, 2, 112), 63, 0, 0.0),
 ]
 
 

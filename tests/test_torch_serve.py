@@ -218,6 +218,47 @@ def test_chip_smoke_device_time_per_launch(case, monkeypatch):
     assert not windows
 
 
+BF16, FP32 = "bfloat16", "float32"
+# kind, q and k shapes, dtype, the kernels a call launched (profiler) -> the run fails
+PATH_CASES = {
+    "stablelm-12b flash on wgmma": ("flash", (1, 8, 32, 160), (1, 8, 8, 160), BF16,
+                                    {"flash_wgmma_kernel": 1}, False),
+    "stablelm-12b flash on the CUDA cores": ("flash", (1, 8, 32, 160), (1, 8, 8, 160), BF16,
+                                             {"flash_fwd_kernel": 1}, True),
+    "stablelm-12b decode on the TMA kernel": ("decode", (1, 1, 32, 160), (1, 8, 8, 160), BF16,
+                                              {"decode_tma_kernel": 1}, False),
+    "stablelm-12b decode on split-K": ("decode", (1, 1, 32, 160), (1, 8, 8, 160), BF16,
+                                       {"decode_partial_kernel": 1, "decode_combine_kernel": 1},
+                                       True),
+    "fp32 at 160 on the CUDA cores": ("flash", (1, 8, 32, 160), (1, 8, 8, 160), FP32,
+                                      {"flash_fwd_kernel": 1}, False),
+    "bf16 at 320 on split-K": ("decode", (1, 1, 8, 320), (1, 8, 4, 320), BF16,
+                               {"decode_partial_kernel": 1, "decode_combine_kernel": 1}, False),
+    "group 16 in two passes": ("decode", (1, 1, 32, 128), (1, 8, 2, 128), BF16,
+                               {"decode_tma_kernel": 2}, False),
+    "group 16 in one launch": ("flash", (1, 8, 32, 128), (1, 8, 2, 128), BF16,
+                               {"flash_wgmma_kernel": 1}, True),
+    "nothing recorded": ("flash", (1, 8, 32, 112), (1, 8, 8, 112), BF16, {}, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PATH_CASES))
+def test_chip_smoke_path_check_holds_the_profile_to_the_dispatch_rule(case):
+    """``path_check``: a timed attention row fails unless the kernels one
+    call launched are those the wrappers' rule names for its shape, once a
+    group pass each; at stablelm-12b's head_dim 160 that is the wgmma flash
+    and the TMA decode, never a CUDA-core or split-K kernel."""
+    smoke = _smoke_module()
+    kind, q_shape, k_shape, dtype, calls, fails = PATH_CASES[case]
+    q = torch.empty(q_shape, dtype=getattr(torch, dtype))
+    k = torch.empty(k_shape, dtype=getattr(torch, dtype))
+    if fails:
+        with pytest.raises(SystemExit):
+            smoke.path_check(case, kind, q, k, calls)
+    else:
+        smoke.path_check(case, kind, q, k, calls)
+
+
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
 
 
