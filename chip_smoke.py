@@ -2,7 +2,8 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py                  # needs one CUDA card
-    python3 chip_smoke.py --profile DIR    # also profile serving and one train step
+    python3 chip_smoke.py --profile DIR    # also profile serving and one train step,
+                                           # and the MoE configs' prefill and decode
 
 Phases, each fatal on failure:
  1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions, and
@@ -31,8 +32,9 @@ Phases, each fatal on failure:
     half out of bounds) and musicgen-medium's (24 on 24, 64) prefill and
     decode shapes, with planted faults (a window of 4096; V's last 32
     columns, at head_dim 160 its columns 128..159, the partial box, or the
-    last 128 keys, dropped); RMSNorm at each one's d_model and stablelm-12b's
-    qk-norm rows (2 x 4352 x 32 of 160). Every timed attention row must
+    last 128 keys, dropped); RMSNorm at each one's d_model, stablelm-12b's
+    qk-norm rows (2 x 4352 x 32 of 160) and deepseek-v2-236b's MLA norms
+    (2 x 4352 of 512 and of 1536). Every timed attention row must
     launch the kernels the wrapper's dispatch rule names for its shape
     (``wgmma_path``, ``tma_path``), as many a call as it has group passes,
     and no other: at stablelm-12b's shapes ``flash_wgmma_kernel`` and one
@@ -137,18 +139,36 @@ Phases, each fatal on failure:
     and at ``numpy``: reports (and the selected operating point) equal. Each
     card run in this process must launch ``window_score``, ``slow_fold`` and
     ``waterfill``. Wall seconds at both backends.
- 10. models: yi-34b (60 layers), stablelm-12b (40, qk-norm) and musicgen-medium
-    (48, audio: frame embeddings in, a zero frame a decode step) at full width
-    and depth through ``serve`` as in 3: exact launch counts (flash n_layers,
-    decode n_layers x 32, RMSNorm (2 + 2 [qk-norm]) n_layers + 1 a forward),
-    tokens in range, prefill logits within 2e-2 of the plain path's. Each
-    trained at full width for 2 steps of ``make_train_step`` over
+ 10. models: yi-34b (60 layers), stablelm-12b (40, qk-norm), musicgen-medium
+    (48, audio: frame embeddings in, a zero frame a decode step), arctic-480b
+    (MoE, 128 experts top 2 with a dense residual, cut to 2 of 35 layers)
+    and deepseek-v2-236b (MLA, 160 experts top 6 with 2 shared, the first
+    layer dense; cut to 6 of 60) at full width through ``serve`` as in 3
+    (``MODEL_SERVE_LAYERS``): exact launch counts (flash n_layers, decode
+    n_layers x 32, none of either with MLA; RMSNorm (2 + 2 [qk-norm] + 2
+    [MLA]) n_layers + 1 a forward), tokens in range. The dense configs'
+    prefill logits within 2e-2 of the plain path's. The MoE configs: one
+    model prefilled (``head="full"``) through the kernels and the plain path;
+    each MoE layer's input captured in both and routed (``route_check``):
+    every top-k flip a near tie of the plain path (its k-th and (k+1)-th
+    router logits within 2x the paths' largest router-logit difference),
+    every kept/dropped difference in an expert a flip touched; the logits at
+    the positions whose routes agree in every layer within 2e-2 of
+    max|logit|; at least 0.9 of the positions agreeing, or, where flips
+    compound over the layers (deepseek-v2-236b's 5 MoE layers), disagreeing
+    at most 1.25x as often as the plain path with float64 norms does;
+    planted faults (the dense residual or the shared experts left out, gates
+    not renormalised) above the logit limit. Each but
+    arctic-480b trained at full width for 2 steps of ``make_train_step`` over
     ``TokenPipeline`` batches (seq 4096, global batch 2, 2 microbatches, the
-    config's remat and optimizer; yi-34b and stablelm-12b cut to 4 layers):
-    the first batch's loss and grad norm against the plain norms, finite
-    losses, exact RMSNorm launches a step; musicgen-medium's first step
-    under remat ``dots`` against ``full`` (within 1e-6), with seconds and
-    peak memory of each.
+    config's remat and optimizer; yi-34b and stablelm-12b cut to 4 layers,
+    deepseek-v2-236b to 2): the first batch's loss and grad norm against the
+    plain norms, finite losses, exact RMSNorm launches a step;
+    musicgen-medium's first step under remat ``dots`` against ``full``
+    (within 1e-6), with seconds and peak memory of each. With ``--profile``,
+    the MoE configs' prefill and a decode step are profiled too, their
+    device time split by part (expert GEMMs, gathers and scatters, attention
+    products, norms).
 They run in the order 1, 2, 5, 6, 7, 9, 3, 4, 8, 10: late in the process (after the
 train phase) torch.profiler dropped the records of short profiled windows, so
 the detection kernels are timed first.
@@ -159,6 +179,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import hashlib
@@ -765,8 +786,11 @@ GRAD_SCALE_TOL = 1e-2
 
 def norms_per_forward(cfg) -> int:
     """RMSNorm launches of one forward: 2 a block (4 with sandwich norms, 2
-    more with the qk norm) and the final norm."""
+    more with the qk norm; with MLA, its ``kv_norm`` and, where the queries
+    are low-rank, its ``q_norm``) and the final norm."""
     per_block = (4 if cfg.post_block_norm else 2) + (2 if cfg.qk_norm else 0)
+    if cfg.mla is not None:
+        per_block += 1 + bool(cfg.mla.q_lora_rank)
     return per_block * cfg.n_layers + 1
 
 
@@ -828,17 +852,33 @@ def serve_phase():
 
 # --- the [models] configs: kernel rows at their shapes, serve and train -------
 
-MODEL_ARCHS = ("yi-34b", "stablelm-12b", "musicgen-medium")
+MODEL_ARCHS = ("yi-34b", "stablelm-12b", "musicgen-medium", "arctic-480b", "deepseek-v2-236b")
+# serving depth on one card: the dense and audio configs whole; arctic-480b
+# cut to 2 layers (an MoE layer is 13.6 B parameters: 55.4 GB of bf16
+# weights at 2), deepseek-v2-236b to 6 (1 dense + 5 MoE: 42.5 GB, and ~14 GB
+# of the chunked MLA prefill's fp32 scores at the peak)
+MODEL_SERVE_LAYERS = {"yi-34b": 60, "stablelm-12b": 40, "musicgen-medium": 48,
+                      "arctic-480b": 2, "deepseek-v2-236b": 6}
 # training depth on one card: yi-34b and stablelm-12b cut to 4 layers (the
-# optimizer state of all 60 / 40 does not fit 80 GB), musicgen-medium whole
-MODEL_TRAIN_LAYERS = {"yi-34b": 4, "stablelm-12b": 4, "musicgen-medium": 48}
+# optimizer state of all 60 / 40 does not fit 80 GB), musicgen-medium whole,
+# deepseek-v2-236b 2 (1 dense + 1 MoE: 5.34 B parameters, ~43 GB of weights,
+# accumulator, gradients and moment before activations). arctic-480b is not
+# trained on the card: one MoE layer and the embeddings are 14.1 B
+# parameters, 28 GB each for the weights, the gradients and the moment
+MODEL_TRAIN_LAYERS = {"yi-34b": 4, "stablelm-12b": 4, "musicgen-medium": 48,
+                      "deepseek-v2-236b": 2}
 MODEL_TRAIN_STEPS = 2
+# the configs whose attention and RMSNorm shapes get kernel rows; arctic-480b's
+# are yi-34b's (56 heads on 8, head_dim 128, d_model 7168), deepseek-v2-236b's
+# d_model is stablelm-12b's, and its MLA norms get rows of their own
+KERNEL_ARCHS = ("yi-34b", "stablelm-12b", "musicgen-medium")
 
 
 def model_kernel_phase(iters: int):
-    """Flash and decode at each [models] config's prefill and decode shapes
+    """Flash and decode at each of ``KERNEL_ARCHS``' prefill and decode shapes
     (its heads, kv heads and head_dim; no window, no cap), and RMSNorm at
-    each config's d_model and at stablelm-12b's qk-norm rows (160 wide), each
+    each one's d_model, at stablelm-12b's qk-norm rows (160 wide) and at
+    deepseek-v2-236b's ``kv_norm`` (512) and ``q_norm`` (1536) rows, each
     against its plain version with planted faults (at a head_dim that is not
     whole 64-column boxes, V's columns in the partial box dropped), then
     timed, the attention rows' kernels held to the dispatch rule. Returns
@@ -854,7 +894,7 @@ def model_kernel_phase(iters: int):
     dt, dtype, eps = "bfloat16", torch.bfloat16, 1e-6
     errs = {"flash_attention": [], "decode_attention": [], "rmsnorm": []}
     rows = {"flash_attention": {}, "decode_attention": {}, "rmsnorm": {}}
-    for arch in MODEL_ARCHS:
+    for arch in KERNEL_ARCHS:
         cfg = get_config(arch).model
         h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         kw = dict(window=cfg.sliding_window, logit_cap=cfg.attn_logit_softcap, scale=d ** -0.5)
@@ -906,6 +946,10 @@ def model_kernel_phase(iters: int):
         norm_shapes = [(arch, (B, PROMPT, cfg.d_model))]
         if cfg.qk_norm:
             norm_shapes.append((f"{arch} qk", (B, PROMPT, h, d)))
+        if arch == KERNEL_ARCHS[-1]:   # deepseek-v2-236b's MLA norms, at its prefill
+            mla = get_config("deepseek-v2-236b").model.mla
+            norm_shapes += [("deepseek-v2-236b kv_norm", (B, PROMPT, mla.kv_lora_rank)),
+                            ("deepseek-v2-236b q_norm", (B, PROMPT, mla.q_lora_rank))]
         for label, shape in norm_shapes:
             x = randn(shape, dtype, gen)
             scale = randn(shape[-1:], dtype, gen, 0.1)
@@ -919,21 +963,29 @@ def model_kernel_phase(iters: int):
             rows)
 
 
-def model_serve(arch: str, card: str) -> dict:
-    """``serve`` at full width and depth: batch 2, the 4352-token prompt, 32
-    greedy steps; exact launch counts, tokens in range, and the prefill
-    logits against the same model served through the plain attention and
-    norms (within 2e-2 of the largest |logit|, as gemma2-2b's)."""
-    import torch
+def model_serve_run(arch: str):
+    """The [models] serving run of ``arch``: depth ``MODEL_SERVE_LAYERS``."""
     from repro_torch.configs import get_config
+    run = get_config(arch)
+    return run.replace(model=dataclasses.replace(run.model, n_layers=MODEL_SERVE_LAYERS[arch]))
+
+
+def model_serve(arch: str, card: str, profile_dir=None) -> dict:
+    """``serve`` at full width and ``MODEL_SERVE_LAYERS`` depth: batch 2,
+    the 4352-token prompt, 32 greedy steps; exact launch counts (an MLA
+    model launches no attention kernel), tokens in range. A dense model's
+    prefill logits against the same model served through the plain
+    attention and norms (within 2e-2 of the largest |logit|, as gemma2-2b's);
+    an MoE model's through ``moe_check``."""
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import MAX_GROUP
     from repro_torch.launch.serve import serve
 
-    run = get_config(arch)
+    run = model_serve_run(arch)
     cfg = run.model
     n_layers, n_norms = cfg.n_layers, norms_per_forward(cfg)
-    passes = -(-(cfg.n_heads // cfg.n_kv_heads) // MAX_GROUP)
+    passes = 0 if cfg.mla is not None else -(-(cfg.n_heads // cfg.n_kv_heads) // MAX_GROUP)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -946,10 +998,13 @@ def model_serve(arch: str, card: str) -> dict:
                 "decode_attention": passes * n_layers * (STEPS + 1),
                 "rmsnorm": n_norms * (3 + STEPS)}
     toks, logits = res["tokens"], res["prefill_logits"]
+    weights = res["weight_bytes"]
     print(f"  models serve {arch}: {n_layers} layers, prefill_s={res['prefill_s']:.4f} "
           f"decode_s={res['decode_s']:.4f} decode_tok_per_s={res['decode_tok_per_s']:.2f} "
-          f"max_memory_allocated={peak / 1e9:.2f} GB; launches {res['kernel_launches']} timed, "
-          f"{counts} in all; tokens[0]={toks[0].tolist()} [{card}]", flush=True)
+          f"max_memory_allocated={peak / 1e9:.2f} GB; weights {weights / 1e9:.2f} GB (decode "
+          f"weight-read floor {weights / PEAK_BYTES * 1e3:.2f} ms a step); launches "
+          f"{res['kernel_launches']} timed, {counts} in all; tokens[0]={toks[0].tolist()} "
+          f"[{card}]", flush=True)
     if res["kernel_launches"] != want or counts != want_all:
         fail(f"{arch} serve: launch counts {res['kernel_launches']} timed, {counts} in all; "
              f"expected {want} and {want_all}")
@@ -957,6 +1012,12 @@ def model_serve(arch: str, card: str) -> dict:
         fail(f"{arch} serve: sampled tokens out of shape or range: {toks.shape}")
     if logits.shape != (B, 1, cfg.vocab_size) or not torch.isfinite(logits).all():
         fail(f"{arch} serve: prefill logits not finite or of the wrong shape")
+    out = {"launches": res["kernel_launches"], "launches_all": counts,
+           "prefill_s": res["prefill_s"], "decode_tok_per_s": res["decode_tok_per_s"],
+           "max_memory_allocated": peak, "weight_bytes": weights, "layers": n_layers}
+    if cfg.moe is not None:
+        del res, logits
+        return dict(out, **moe_check(run, card, profile_dir))
 
     torch.cuda.empty_cache()
     plain = serve(run, batch=B, prompt_len=PROMPT, decode_steps=STEPS, device="cuda", seed=0,
@@ -971,7 +1032,6 @@ def model_serve(arch: str, card: str) -> dict:
           f"greedy tokens equal to the plain path's: {agree:.4f} (plain prefill_s="
           f"{plain['prefill_s']:.4f}, decode_tok_per_s={plain['decode_tok_per_s']:.2f})",
           flush=True)
-    floor = None
     if not err <= 2e-2 * scale:
         # A deep bf16 model can sit this far from any other bf16 path: then
         # the kernel path must be as close to the exact forward (fp32, the
@@ -985,9 +1045,232 @@ def model_serve(arch: str, card: str) -> dict:
               f"{EXACT_RATIO:g})", flush=True)
         if not k_err <= EXACT_RATIO * floor:
             fail(f"{arch}: served prefill logits disagree with the plain path")
-    return {"launches": res["kernel_launches"], "launches_all": counts,
-            "prefill_s": res["prefill_s"], "decode_tok_per_s": res["decode_tok_per_s"],
-            "max_memory_allocated": peak, "logit_err": err / scale}
+    return dict(out, logit_err=err / scale)
+
+
+# --- the MoE configs' check: routes, then logits where the routes agree -------
+
+LOGIT_TOL = 2e-2          # of the largest |logit|, as the dense configs' check
+AGREE_MIN = 0.9           # the share of positions whose routes agree in every layer
+
+
+def prefill_routes(model, prompt):
+    """A ``head="full"`` prefill of ``prompt``: the logits (B, S, vocab) float32
+    on the host, and each MoE layer's input (what its router sees), captured
+    by a forward pre-hook on the layer's ``moe``."""
+    import torch
+    from repro_torch.models.model import model_inputs
+    inputs = {}
+    hooks = [blk.moe.register_forward_pre_hook(
+        lambda mod, args, i=i: inputs.__setitem__(i, args[0].detach()))
+        for i, blk in enumerate(model.blocks) if hasattr(blk, "moe")]
+    try:
+        with torch.no_grad():
+            logits, _ = model(mode="prefill", cache=model.init_cache(B, PROMPT), head="full",
+                              **model_inputs(prompt))
+    finally:
+        for h in hooks:
+            h.remove()
+    return logits.cpu(), inputs
+
+
+def route_check(moe, cfg, x_kernel, x_plain, layer: int):
+    """Route a MoE layer's two captured inputs (kernel and plain path) with
+    the port's ``route_topk`` / ``_dispatch_indices``. Fails unless every
+    token whose top-k sets differ is a near tie in the plain path (its k-th
+    and (k+1)-th router logits closer than 2x the largest router-logit
+    difference between the paths: no pair further apart can swap), and every
+    kept/dropped difference of a token with equal sets is in an expert that
+    such a flip touched in its group. Returns (B, S) bool: the tokens whose
+    top-k set and kept slots agree."""
+    import torch
+    from repro_torch.models.moe import _capacity, _dispatch_indices, route_topk
+    m = cfg.moe
+    cap = _capacity(x_kernel.shape[1], m)
+    logits_k = x_kernel.float() @ moe.router
+    logits_p = x_plain.float() @ moe.router
+    margin = 2 * (logits_k - logits_p).abs().max().item()
+    kept_by_expert, chosen = [], []
+    for x in (x_kernel, x_plain):
+        _, idx, _ = route_topk(moe.router, x, m)
+        _, valid, _, _, order = _dispatch_indices(idx, m.num_experts, cap)
+        kept = torch.empty_like(valid).scatter_(1, order, valid).reshape(idx.shape)
+        one = torch.zeros(*idx.shape[:2], m.num_experts, dtype=torch.bool, device=idx.device)
+        chosen.append(one.scatter(2, idx, True))
+        kept_by_expert.append(one.scatter(2, idx, kept))
+    flip_by_expert = chosen[0] != chosen[1]                          # (B, S, E)
+    flipped = flip_by_expert.any(-1)                                 # (B, S)
+    touched = flip_by_expert.any(1)                                  # (B, E)
+    top = logits_p.topk(m.top_k + 1, dim=-1).values
+    gap = top[..., m.top_k - 1] - top[..., m.top_k]
+    kept_diff = (kept_by_expert[0] != kept_by_expert[1]) & ~flipped[..., None]
+    untouched = kept_diff & ~touched[:, None, :]
+    agree = ~flipped & ~kept_diff.any(-1)
+    worst_gap = gap[flipped].max().item() if flipped.any() else 0.0
+    print(f"    layer {layer}: routes agree on {agree.float().mean().item():.4f} of "
+          f"{agree.numel()} tokens; top-k flips {int(flipped.sum())} (largest plain k-th vs "
+          f"(k+1)-th logit gap among them {worst_gap:.4e}, margin {margin:.4e} = 2 x the "
+          f"largest router-logit difference); kept/dropped differences "
+          f"{int(kept_diff.sum())} (in experts no flip touched: {int(untouched.sum())}); "
+          f"capacity {cap}", flush=True)
+    if flipped.any() and not worst_gap < margin:
+        fail(f"layer {layer}: a top-k flip where the plain path's gap {worst_gap:.4e} is "
+             f"not below the margin {margin:.4e}")
+    if untouched.any():
+        fail(f"layer {layer}: a kept/dropped difference in an expert no flip touched")
+    return agree
+
+
+def rmsnorm_f64(x, scale, eps: float = 1e-6):
+    """The plain RMSNorm computed in float64, rounded once to ``x.dtype``."""
+    import torch
+    xd = x.double()
+    var = xd.square().mean(dim=-1, keepdim=True)
+    return (xd * torch.rsqrt(var + eps) * (1.0 + scale.double())).to(x.dtype)
+
+
+def route_floor(model, prompt, plain_in) -> float:
+    """The share of positions whose routes agree in every MoE layer between
+    the plain path (``plain_in``: its MoE layers' inputs) and the plain path
+    with every RMSNorm in float64 (``route_check`` on each layer)."""
+    import torch
+    from repro_torch.kernels import ref
+    model.use_kernel = False
+    real, ref.rmsnorm = ref.rmsnorm, rmsnorm_f64
+    try:
+        _, f64_in = prefill_routes(model, prompt)
+    finally:
+        ref.rmsnorm = real
+    print("    routes of the float64-norm plain path against the plain path:", flush=True)
+    agree = torch.ones(B, PROMPT, dtype=torch.bool, device=plain_in[min(plain_in)].device)
+    for i in sorted(f64_in):
+        agree &= route_check(model.blocks[i].moe, model.cfg, f64_in[i], plain_in[i], i)
+    return agree.float().mean().item()
+
+
+def logit_err(logits, plain, mask) -> float:
+    """max |logits - plain| over the positions of ``mask`` (B, S), over the
+    largest |plain| there. On the host, a batch row at a time."""
+    err = scale = 0.0
+    for b in range(plain.shape[0]):
+        pick = mask[b]
+        if pick.any():
+            err = max(err, (logits[b, pick] - plain[b, pick]).abs().max().item())
+            scale = max(scale, plain[b, pick].abs().max().item())
+    return err / scale
+
+
+def moe_check(run, card: str, profile_dir=None) -> dict:
+    """One model of ``run`` (``serve``'s seeds), prefilled with ``head="full"``
+    through the kernels and through the plain norms and attention
+    (``use_kernel`` toggled): (a) each MoE layer's routes of the two paths by
+    ``route_check``; (b) the logits at the positions whose routes agree in
+    every MoE layer, within ``LOGIT_TOL`` of the largest |logit|, at least
+    ``AGREE_MIN`` of the positions qualifying, or else the kernel path's
+    disagreement at most ``EXACT_RATIO`` times the float64-norm plain path's
+    (``route_floor``); (c) planted faults in the
+    plain path (the dense residual or the shared experts left out, gates not
+    renormalised) read above that limit. With ``profile_dir``, a profiled
+    prefill and decode step of the kernel path."""
+    import torch
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.model import build_model, synthetic_batch
+    from repro_torch.kernels import ops
+
+    cfg = run.model
+    torch.cuda.empty_cache()
+    model = build_model(run, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    prompt = synthetic_batch(cfg, ShapeSpec("serve", PROMPT, B, "prefill"), seed=1,
+                             device="cuda")
+    t0 = time.perf_counter()
+    kernel_logits, kernel_in = prefill_routes(model, prompt)
+    model.use_kernel = False
+    ops.reset_launch_counts()
+    plain_logits, plain_in = prefill_routes(model, prompt)
+    if any(ops.launch_counts().values()):
+        fail(f"{cfg.name}: the plain path launched a kernel")
+    moe_layers = sorted(kernel_in)
+    print(f"  models moe {cfg.name}: routes of the kernel and plain paths, {len(moe_layers)} "
+          f"MoE layers of {cfg.n_layers}, {cfg.moe.num_experts} experts, top {cfg.moe.top_k}, "
+          f"capacity factor {cfg.moe.capacity_factor}", flush=True)
+    agree = torch.ones(B, PROMPT, dtype=torch.bool, device="cuda")
+    for i in moe_layers:
+        agree &= route_check(model.blocks[i].moe, cfg, kernel_in[i], plain_in[i], i)
+    del kernel_in
+    mask = agree.cpu()
+    share = mask.float().mean().item()
+    err = logit_err(kernel_logits, plain_logits, mask)
+    print(f"  models moe {cfg.name} logits (head full) at the {share:.4f} of positions whose "
+          f"routes agree in every MoE layer (at least {AGREE_MIN:g}): max_abs_err over "
+          f"max|logit| {err:.4e} (limit {LOGIT_TOL:g})", flush=True)
+    floor = None
+    if share < AGREE_MIN:
+        # A flip at one layer moves that token's later inputs by an expert's
+        # output, so disagreement compounds with depth whatever the kernel.
+        # Then the kernel path must disagree with the plain path no more than
+        # EXACT_RATIO times as often as another plain path does: every norm
+        # in float64 before its one rounding (bf16 noise of the same kind)
+        floor = route_floor(model, prompt, plain_in)
+        ratio = (1 - share) / (1 - floor) if floor < 1 else math.inf
+        print(f"  models moe {cfg.name}: the plain path with float64 norms agrees with the "
+              f"plain path at {floor:.4f} of positions; kernel-path disagreement over "
+              f"theirs {ratio:.4f} (limit {EXACT_RATIO:g})", flush=True)
+        if not ratio <= EXACT_RATIO:
+            fail(f"{cfg.name}: routes agree at {share:.4f} of positions, under {AGREE_MIN:g} "
+                 f"and under the float64-norm path's {floor:.4f}")
+    del plain_in
+    if not err <= LOGIT_TOL:
+        fail(f"{cfg.name}: prefill logits disagree with the plain path where routes agree")
+    del kernel_logits
+
+    part = "shared" if cfg.moe.num_shared_experts else "dense_residual"
+    mods = [getattr(blk.moe, part) for blk in model.blocks if hasattr(blk, "moe")]
+    hooks = [mod.register_forward_hook(lambda mod, args, out: torch.zeros_like(out))
+             for mod in mods]
+    try:
+        left_out = prefill_routes(model, prompt)[0]
+    finally:
+        for h in hooks:
+            h.remove()
+    route_topk = moe_mod.route_topk
+
+    def gates_not_renormalised(router_w, x, m):     # the top-k probabilities as gates
+        _, idx, aux = route_topk(router_w, x, m)
+        return torch.gather(torch.softmax(x.float() @ router_w, dim=-1), -1, idx), idx, aux
+    moe_mod.route_topk = gates_not_renormalised
+    try:
+        unnormalised = prefill_routes(model, prompt)[0]
+    finally:
+        moe_mod.route_topk = route_topk
+    faults = {f"{part} left out": logit_err(left_out, plain_logits, mask),
+              "gates not renormalised": logit_err(unnormalised, plain_logits, mask)}
+    del left_out, unnormalised, plain_logits
+    for label, r in faults.items():
+        print(f"    planted fault, {label}: max_abs_err over max|logit| {r:.4e}", flush=True)
+        if not r > LOGIT_TOL:
+            fail(f"{cfg.name}: the planted fault '{label}' reads within the limit")
+    print(f"  models moe {cfg.name} check done in {time.perf_counter() - t0:.1f} s", flush=True)
+    model.use_kernel = True
+    if profile_dir is not None:
+        profile_serve(model, prompt, profile_dir, cfg.name)
+    return {"routes_agree": share, "logit_err": err, "faults": faults}
+
+
+def profile_serve(model, prompt, out_dir: Path, label: str) -> None:
+    """torch.profiler over one prefill and one decode step of ``model``
+    (kernel path), each split by part (``profile_one``)."""
+    import torch
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+    cache = model.init_cache(B, CACHE)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    logits, _ = prefill(prompt, cache)
+    step = {"tokens": torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]}
+    decode(step, cache, PROMPT)
+    e = model.cfg.moe.num_experts if model.cfg.moe is not None else None
+    profile_one(f"{label}_prefill", lambda: prefill(prompt, cache), out_dir, e)
+    profile_one(f"{label}_decode", lambda: decode(step, cache, PROMPT), out_dir, e)
 
 
 # the kernel path's distance to the exact forward, at most this many times
@@ -1172,13 +1455,16 @@ def dots_check(arch: str, card: str) -> dict:
     return dict(out, bit_equal=bit_equal)
 
 
-def models_phase(card: str) -> dict:
-    """yi-34b, stablelm-12b and musicgen-medium: serve at full width and
-    depth, train at full width (``MODEL_TRAIN_LAYERS``), and musicgen's
-    first step under remat ``dots`` against ``full``. The launch counts of
-    each path are read from 0 around it."""
+def models_phase(card: str, profile_dir=None) -> dict:
+    """yi-34b, stablelm-12b, musicgen-medium, arctic-480b and
+    deepseek-v2-236b: serve at full width and ``MODEL_SERVE_LAYERS`` depth,
+    train at full width (``MODEL_TRAIN_LAYERS``; arctic-480b not), and
+    musicgen's first step under remat ``dots`` against ``full``. The launch
+    counts of each path are read from 0 around it. With ``profile_dir``, the
+    MoE configs' prefill and a decode step are profiled."""
     import gc
     import torch
+    from repro_torch.configs import get_config
     held = torch.cuda.memory_allocated()
     gc.collect()   # what the earlier phases left in reference cycles
     torch.cuda.empty_cache()
@@ -1187,13 +1473,20 @@ def models_phase(card: str) -> dict:
     out = {}
     for arch in MODEL_ARCHS:
         t0 = time.perf_counter()
-        out[arch] = {"serve": model_serve(arch, card), "train": model_train(arch, card)}
+        out[arch] = {"serve": model_serve(arch, card, profile_dir)}
+        gc.collect()
+        if arch in MODEL_TRAIN_LAYERS:
+            out[arch]["train"] = model_train(arch, card)
         print(f"  models {arch} done in {time.perf_counter() - t0:.1f} s", flush=True)
     out["dots"] = dots_check("musicgen-medium", card)
-    cuts = ", ".join(f"{a} {MODEL_TRAIN_LAYERS[a]} layers" for a in MODEL_ARCHS)
-    print(f"  models reduced: training depth {cuts}; train global batch {TRAIN_BATCH} (the "
-          "configs' 256) in 2 microbatches; serving at full depth; weights random from a "
-          "seeded torch.Generator", flush=True)
+    layers = {a: get_config(a).model.n_layers for a in MODEL_ARCHS}
+    cuts = ", ".join(f"{a} {MODEL_TRAIN_LAYERS[a]} layers" for a in MODEL_TRAIN_LAYERS)
+    serve_cuts = ", ".join(f"{a} {n} of {layers[a]} layers"
+                           for a, n in MODEL_SERVE_LAYERS.items() if n != layers[a])
+    print(f"  models reduced: serving depth {serve_cuts} (the others whole); training depth "
+          f"{cuts}; arctic-480b not trained on the card; train global batch {TRAIN_BATCH} (the "
+          "configs' 256) in 2 microbatches; weights random from a seeded torch.Generator",
+          flush=True)
     return out
 
 
@@ -3045,17 +3338,18 @@ def profile_phase(out_dir: Path) -> None:
         profile_one(label, fn, out_dir)
 
 
-def profile_one(label: str, fn, out_dir: Path) -> None:
+def profile_one(label: str, fn, out_dir: Path, num_experts=None) -> None:
     """torch.profiler over one call of ``fn``: device time by kernel and the
-    device's busy share of the profiled wall time; the table goes to
-    ``out_dir/profile_<label>.txt``."""
+    device's busy share of the profiled wall time, and the device time by
+    part (``parts``); the table goes to ``out_dir/profile_<label>.txt``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out_dir.mkdir(parents=True, exist_ok=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3068,8 +3362,54 @@ def profile_one(label: str, fn, out_dir: Path) -> None:
           f"device_busy_ms={busy / 1e3:.3f} busy_share={busy / wall_us:.4f}", flush=True)
     for us, n, key in dev[:10]:
         print(f"    {us / 1e3:10.3f} ms {us / busy:7.2%} x{n:<5d} {key[:90]}", flush=True)
+    by_part = parts(prof, num_experts)
+    print("    by part: " + "; ".join(f"{k} {us / 1e3:.3f} ms ({us / busy:.2%})"
+                                      for k, us in by_part.most_common()), flush=True)
     (out_dir / f"profile_{label}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+
+
+DISPATCH_OPS = ("aten::gather", "aten::scatter", "aten::scatter_", "aten::scatter_add_",
+                "aten::sort", "aten::argsort", "aten::cumsum", "aten::one_hot", "aten::index",
+                "aten::cat", "aten::zeros", "aten::fill_", "aten::clamp_max")
+
+
+def parts(prof, num_experts) -> collections.Counter:
+    """Device us by part: the port's kernels by name (their launches are
+    ctypes calls, in no aten op); every other kernel by the aten op that
+    launched it (its self device time): ``bmm`` batched over the experts
+    (the expert GEMMs), other ``bmm`` (attention scores and PV, MLA's
+    absorbed decode, the MoE combine), ``mm`` (projections, the router, the
+    shared or residual MLPs, the read-out), the dispatch and combine's index
+    work (gathers, scatters, sorts, concatenations), softmax, and the rest
+    (elementwise, casts and copies)."""
+    from torch.autograd import DeviceType
+    out = collections.Counter()
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = e.self_device_time_total
+        if us <= 0:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            for part, names in (("flash kernel", FLASH_KERNELS),
+                                ("decode kernel", DECODE_KERNELS),
+                                ("rmsnorm kernel", RMSNORM_KERNELS)):
+                if any(n in e.key for n in names):
+                    out[part] += us
+            continue
+        shapes = e.input_shapes or [[]]
+        if e.key == "aten::bmm" and shapes[0] and shapes[0][0] == num_experts:
+            out["expert GEMMs"] += us
+        elif e.key == "aten::bmm":
+            out["other bmm"] += us
+        elif e.key in ("aten::mm", "aten::addmm"):
+            out["mm"] += us
+        elif e.key in DISPATCH_OPS:
+            out["gather/scatter/sort/cat"] += us
+        elif "softmax" in e.key:
+            out["softmax"] += us
+        else:
+            out["other ops"] += us
+    return out
 
 
 def main(argv=None) -> int:
@@ -3170,12 +3510,12 @@ def main(argv=None) -> int:
     print(f"[live] done in {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     print(f"[models] {card}", flush=True)
-    models = models_phase(card)
+    models = models_phase(card, args.profile)
     print(f"[models] done in {time.perf_counter() - t0:.1f} s", flush=True)
     counts = {k: serve_counts[k] + train_counts[k] for k in serve_counts}
     model_launches = {name: {arch: {"serve": models[arch]["serve"]["launches"][name],
                                     "train": models[arch]["train"]["launches"]
-                                    if name == "rmsnorm" else 0}
+                                    if name == "rmsnorm" and "train" in models[arch] else 0}
                              for arch in MODEL_ARCHS} for name in counts}
     print(f"launches on the main paths: serve {serve_counts}, train {train_counts}, "
           f"train fault {train_fault_counts}, live {live_counts}, campaigns "

@@ -16,6 +16,8 @@ ARCHS: List[str] = [
     "yi-34b",
     "stablelm-12b",
     "musicgen-medium",
+    "arctic-480b",
+    "deepseek-v2-236b",
 ]
 
 

@@ -2,14 +2,18 @@
 
 ``params_from_jax(params, cfg)`` takes the JAX ``LM.init`` tree with numpy
 leaves (``jax.tree.map(np.asarray, params)``) and returns the dict to pass to
-``LM.load_state_dict``. The JAX tree stacks the weights of the dense segment on
-a leading units axis (``params["segments"][0]["unit"]["0"]``); here that axis
-is unstacked into ``blocks.<layer>``. Weights keep the JAX ``(in, out)``
+``LM.load_state_dict``. The JAX tree stacks the weights of each segment on a
+leading units axis (``params["segments"][i]["unit"]["0"]``: one segment, or
+deepseek's dense segment and then its MoE segment); here the segments' units
+are unstacked, in order, into ``blocks.<layer>``. Weights keep the JAX ``(in, out)``
 orientation: the port computes ``x @ w`` as the JAX package does, so nothing is
 transposed. The tree's ``embed`` (absent for the audio family) and ``head``
 (an untied read-out) are carried across where present, and so are the qk
-norms' ``attn.q_norm.scale`` / ``attn.k_norm.scale``, per layer like every
-block weight.
+norms' ``attn.q_norm.scale`` / ``attn.k_norm.scale``, the MLA leaves
+(``attn.w_dkv``, ``w_krope``, ``w_uk``, ``w_uv``, ``wo``, ``kv_norm.scale``,
+``w_dq``, ``w_uq``, ``q_norm.scale`` or ``w_q``) and the MoE leaves
+(``moe.router``, ``moe.wi_*``, ``moe.wo``, ``moe.shared.*``,
+``moe.dense_residual.*``), per layer like every block weight.
 
 ``baseline_from_reference(state)`` carries a detector's state across: it takes
 the arrays of a reference ``AdaptiveBaseline`` as numpy and returns the port's
@@ -36,19 +40,27 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
 
 
 def params_from_jax(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    segments = params["segments"]
-    if len(segments) != 1 or set(segments[0]["unit"]) != {"0"} or segments[0]["shared"]:
-        raise ValueError("only a single dense segment (one block per unit) is ported")
+    """Each leaf of ``params`` to the one ``LM`` parameter of its shape."""
     state = {"final_norm.scale": params["final_norm"]["scale"]}
     if "embed" in params:
         state["embed.table"] = params["embed"]["table"]
     if "head" in params:
         state["head"] = params["head"]
-    for name, stacked in _flatten(segments[0]["unit"]["0"]):
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"{name}: {stacked.shape[0]} units for {cfg.n_layers} layers")
-        for layer in range(cfg.n_layers):
-            state[f"blocks.{layer}.{name}"] = stacked[layer]
+    layer_start = 0
+    for seg in params["segments"]:
+        if set(seg["unit"]) != {"0"} or seg["shared"]:
+            raise ValueError("only segments of one block a unit, with no shared block, "
+                             "are ported")
+        leaves = list(_flatten(seg["unit"]["0"]))
+        n_units = leaves[0][1].shape[0]
+        for name, stacked in leaves:
+            if stacked.shape[0] != n_units:
+                raise ValueError(f"{name}: {stacked.shape[0]} units, the segment has {n_units}")
+            for u in range(n_units):
+                state[f"blocks.{layer_start + u}.{name}"] = stacked[u]
+        layer_start += n_units
+    if layer_start != cfg.n_layers:
+        raise ValueError(f"the segments hold {layer_start} layers for {cfg.n_layers}")
     return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
 
 

@@ -40,7 +40,8 @@ def serve(run: RunConfig, *, batch: int = 2, prompt_len: int = 64, decode_steps:
     ``kernel_launches`` counts the timed prefill and decode steps only.
 
     Returns the JSON fields of the CLI plus ``tokens`` (B, decode_steps + 1)
-    and ``prefill_logits`` (B, 1, vocab) float32, both on the CPU."""
+    and ``prefill_logits`` (B, 1, vocab) float32, both on the CPU, and
+    ``weight_bytes`` (the bytes of the model's parameters)."""
     dev = resolve_device(device)
     model = build_model(run, device=dev, use_kernel=use_kernel)
     model.init_weights(torch.Generator(device=dev).manual_seed(seed))
@@ -96,6 +97,7 @@ def serve(run: RunConfig, *, batch: int = 2, prompt_len: int = 64, decode_steps:
         "kernel_launches": launches,
         "tokens": toks,
         "prefill_logits": prefill_logits.float().cpu(),
+        "weight_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
     }
 
 

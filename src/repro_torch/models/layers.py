@@ -73,6 +73,23 @@ def glu_mlp(x, wi_gate, wi_up, wo, act: str = "silu"):
     return (g * u) @ wo.to(x.dtype)
 
 
+class GLUMLP(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, act: str, dtype, device):
+        super().__init__()
+        self.act = act
+        kw = dict(dtype=dtype, device=device)
+        self.wi_gate = nn.Parameter(torch.empty(d_model, d_ff, **kw))
+        self.wi_up = nn.Parameter(torch.empty(d_model, d_ff, **kw))
+        self.wo = nn.Parameter(torch.empty(d_ff, d_model, **kw))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for w in (self.wi_gate, self.wi_up, self.wo):
+            w.copy_(truncated_normal(w.shape, w.shape[0] ** -0.5, w.dtype, w.device, generator))
+
+    def forward(self, x):
+        return glu_mlp(x, self.wi_gate, self.wi_up, self.wo, self.act)
+
+
 # ---------------------------------------------------------------------------
 # Embeddings
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Model facade: build the LM, the loss, and the shapes and values of its inputs.
 
-Port of ``repro.models.model`` (dense token and audio models; the parameter
-accounting is ``LM.num_params``). ``synthetic_batch`` draws token ids and frame
+Port of ``repro.models.model`` (token and audio models, dense and MoE; the
+parameter accounting is ``LM.num_params``). ``synthetic_batch`` draws token ids and frame
 embeddings with numpy's ``default_rng`` exactly as the JAX package does, so a
 seed gives both packages the same bytes.
 """
@@ -73,16 +73,22 @@ def model_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def lm_loss(model: LM, batch: Dict[str, torch.Tensor]):
-    """Next-token cross entropy; labels are the shifted tokens unless the
-    batch has ``labels``. Returns (loss, metrics)."""
-    hidden, _ = model(mode="train", head="none", **model_inputs(batch))
+    """Next-token cross entropy (+ the MoE aux losses, each over n_layers);
+    labels are the shifted tokens unless the batch has ``labels``. Returns
+    (loss, metrics): ``ce_loss``, ``loss`` and each aux loss by name."""
+    hidden, _, aux = model(mode="train", head="none", with_aux=True, **model_inputs(batch))
     if "labels" in batch:
         hidden_s, labels_s = hidden, batch["labels"]
     else:
         tokens = batch["tokens"]
         hidden_s, labels_s = hidden[:, :-1], tokens[:, 1:]
     loss = _chunked_ce(model, hidden_s, labels_s)
-    return loss, {"ce_loss": loss, "loss": loss}
+    metrics = {"ce_loss": loss}
+    for k, v in aux.items():
+        loss = loss + v / max(model.cfg.n_layers, 1)
+        metrics[k] = v
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def batch_shapes(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:

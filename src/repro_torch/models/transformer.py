@@ -1,15 +1,18 @@
-"""Decoder LM over a stack of dense blocks.
+"""Decoder LM over a stack of dense and MoE blocks.
 
-Port of the dense part of ``repro.models.transformer``. The JAX package stacks
-the weights of a segment on a leading units axis and runs the stack with
-``lax.scan``; here ``LM`` is an ``nn.Module`` holding a list of per-layer
-blocks and runs them in a Python loop, so each layer's sliding window is a
-host int. Modes: ``train`` (full sequence, no cache), ``prefill`` (full
+Port of the attention-and-FFN part of ``repro.models.transformer``. The JAX
+package stacks the weights of a segment on a leading units axis and runs the
+stack with ``lax.scan``; here ``LM`` is an ``nn.Module`` holding a list of
+per-layer blocks and runs them in a Python loop, so each layer's sliding
+window is a host int. The layer plan is ``plan_segments``': every layer
+dense, or with MoE every layer MoE but the first ``first_k_dense`` (a block
+with ``MoE`` in place of the MLP). Attention is GQA, or MLA where the config
+has it. Modes: ``train`` (full sequence, no cache), ``prefill`` (full
 sequence, writes the cache) and ``decode`` (one token against the cache).
 The input is token ids, or frame ``embeddings`` for the audio family (whose
 front end is a stub in both packages); the read-out is the tied embedding
-table or an untied ``head``. MoE, MLA, recurrent and cross-attention blocks
-are not ported yet.
+table or an untied ``head``. Recurrent and cross-attention blocks are not
+ported yet.
 
 Every norm goes through ``kernels.ops.rmsnorm``: the CUDA kernel on the card
 when ``use_kernel`` is set, in every mode. The parameters are trainable;
@@ -18,9 +21,10 @@ the serve steps (``train/steps.py``) run under ``torch.no_grad``.
 Remat follows the JAX package. ``full`` recomputes each block in the backward
 pass (a non-reentrant ``torch.utils.checkpoint`` around it, as
 ``jax.checkpoint`` with ``nothing_saveable``). ``dots`` keeps the outputs of
-the block's 2-D matmuls (``aten.mm``: the projections of attention and the
-MLP, which have no batch dimension once flattened) and recomputes the rest,
-the attention's batched score and PV products included: a selective
+the block's 2-D matmuls (``aten.mm``: the projections of attention, the MLP,
+the router and the shared or residual MLPs, which have no batch dimension
+once flattened) and recomputes the rest, the attention's score and PV
+products and the experts' products (batched over E) included: a selective
 checkpoint whose policy is JAX's ``dots_with_no_batch_dims_saveable``. The
 RMSNorm kernel runs outside the dispatcher, so the policy never sees it and
 it is recomputed, as it is under ``full``. ``none`` keeps every activation.
@@ -28,7 +32,7 @@ it is recomputed, as it is under ``full``. ``none`` keeps every activation.
 from __future__ import annotations
 
 import functools
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -36,10 +40,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
-from repro_torch.common.config import ModelConfig
-from repro_torch.models.attention import GQAttention, KVCache, layer_window
-from repro_torch.models.layers import (RMSNorm, embed, glu_mlp, logits_from_embedding,
+from repro_torch.common.config import BLOCK_DENSE, BLOCK_MOE, ModelConfig
+from repro_torch.models.attention import (GQAttention, KVCache, MLACache, MLAttention,
+                                          layer_window)
+from repro_torch.models.layers import (GLUMLP, RMSNorm, embed, logits_from_embedding,
                                        logits_from_head, softcap, truncated_normal)
+from repro_torch.models.moe import MoE
 
 REMAT = ("none", "dots", "full")
 
@@ -54,25 +60,14 @@ def _dots_policy(ctx, func, *args, **kwargs):
 _dots_context = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
 
-class GLUMLP(nn.Module):
-    def __init__(self, d_model: int, d_ff: int, act: str, dtype, device):
-        super().__init__()
-        self.act = act
-        kw = dict(dtype=dtype, device=device)
-        self.wi_gate = nn.Parameter(torch.empty(d_model, d_ff, **kw))
-        self.wi_up = nn.Parameter(torch.empty(d_model, d_ff, **kw))
-        self.wo = nn.Parameter(torch.empty(d_ff, d_model, **kw))
-
-    def init_weights(self, generator: torch.Generator) -> None:
-        for w in (self.wi_gate, self.wi_up, self.wo):
-            w.copy_(truncated_normal(w.shape, w.shape[0] ** -0.5, w.dtype, w.device, generator))
-
-    def forward(self, x):
-        return glu_mlp(x, self.wi_gate, self.wi_up, self.wo, self.act)
+Aux = Dict[str, torch.Tensor]
+AUX_KEYS = ("moe_lb_loss", "moe_z_loss")
 
 
 class DenseBlock(nn.Module):
-    """Attention + GLU MLP, pre-norm, with gemma2's optional sandwich norms."""
+    """Attention (GQA or MLA) + GLU MLP, pre-norm, with gemma2's optional
+    sandwich norms. ``forward`` returns the block's output;
+    ``forward_aux`` also the FFN's aux losses (none here)."""
 
     def __init__(self, cfg: ModelConfig, layer_idx: int, dtype, device):
         super().__init__()
@@ -80,36 +75,68 @@ class DenseBlock(nn.Module):
         self.window = layer_window(cfg, layer_idx)
         d, eps = cfg.d_model, cfg.norm_eps
         self.ln1 = RMSNorm(d, eps, dtype, device)
-        self.attn = GQAttention(cfg, dtype, device)
+        self.attn = (MLAttention if cfg.mla is not None else GQAttention)(cfg, dtype, device)
         self.ln2 = RMSNorm(d, eps, dtype, device)
-        self.mlp = GLUMLP(d, cfg.d_ff, cfg.act, dtype, device)
+        self._init_ffn(cfg, dtype, device)
         if cfg.post_block_norm:
             self.pn1 = RMSNorm(d, eps, dtype, device)
             self.pn2 = RMSNorm(d, eps, dtype, device)
 
-    def forward(self, x, *, mode: str, cache: Optional[KVCache] = None,
-                pos: Optional[int] = None, use_kernel: bool = True):
-        h = self.ln1(x, use_kernel)
+    def _init_ffn(self, cfg: ModelConfig, dtype, device) -> None:
+        self.mlp = GLUMLP(cfg.d_model, cfg.d_ff, cfg.act, dtype, device)
+
+    def _ffn(self, h) -> Tuple[torch.Tensor, Aux]:
+        return self.mlp(h), {}
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.attn.init_weights(generator)
+        (self.moe if hasattr(self, "moe") else self.mlp).init_weights(generator)
+
+    def _attention(self, h, mode: str, cache, pos, use_kernel: bool):
+        # MLA attends causally on every layer; a GQA layer takes its window
+        kw = {} if self.cfg.mla is not None else {"window": self.window}
         if mode == "train":
-            a = self.attn.forward_train(h, window=self.window, use_kernel=use_kernel)
-        elif mode == "prefill":
-            a = self.attn.prefill(h, cache, window=self.window, use_kernel=use_kernel)
-        elif mode == "decode":
-            a = self.attn.decode(h, cache, pos, window=self.window, use_kernel=use_kernel)
-        else:
-            raise ValueError(f"mode {mode!r}: expected 'train', 'prefill' or 'decode'")
+            return self.attn.forward_train(h, use_kernel=use_kernel, **kw)
+        if mode == "prefill":
+            return self.attn.prefill(h, cache, use_kernel=use_kernel, **kw)
+        if mode == "decode":
+            return self.attn.decode(h, cache, pos, use_kernel=use_kernel, **kw)
+        raise ValueError(f"mode {mode!r}: expected 'train', 'prefill' or 'decode'")
+
+    def forward_aux(self, x, *, mode: str, cache: Optional[Union[KVCache, MLACache]] = None,
+                    pos: Optional[int] = None, use_kernel: bool = True) -> Tuple[torch.Tensor, Aux]:
+        a = self._attention(self.ln1(x, use_kernel), mode, cache, pos, use_kernel)
         if self.cfg.post_block_norm:
             a = self.pn1(a, use_kernel)
         x = x + a
-        ff = self.mlp(self.ln2(x, use_kernel))
+        ff, aux = self._ffn(self.ln2(x, use_kernel))
         if self.cfg.post_block_norm:
             ff = self.pn2(ff, use_kernel)
-        return x + ff
+        return x + ff, aux
+
+    def forward(self, x, **kw):
+        return self.forward_aux(x, **kw)[0]
+
+
+class MoEBlock(DenseBlock):
+    """The dense block with ``MoE`` (``moe``) in place of the MLP."""
+
+    def _init_ffn(self, cfg: ModelConfig, dtype, device) -> None:
+        self.moe = MoE(cfg, dtype, device)
+
+    def _ffn(self, h) -> Tuple[torch.Tensor, Aux]:
+        return self.moe(h)
+
+
+def layer_kinds(cfg: ModelConfig) -> List[str]:
+    """Each layer's block, as ``plan_segments`` lays them out: with MoE, the
+    first ``first_k_dense`` layers dense and the rest MoE; else all dense."""
+    return [BLOCK_MOE if cfg.moe is not None and i >= cfg.first_k_dense else BLOCK_DENSE
+            for i in range(cfg.n_layers)]
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     unported = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
         ("ssm", cfg.ssm is not None), ("block_pattern", bool(cfg.block_pattern)),
         ("cross_attn_every", bool(cfg.cross_attn_every))) if on]
     if unported:
@@ -117,7 +144,7 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 
 class LM(nn.Module):
-    """Dense decoder LM. ``device=None`` means ``cuda``.
+    """Decoder LM of dense and MoE blocks. ``device=None`` means ``cuda``.
 
     Parameter names mirror the JAX pytree: ``embed.table`` (not for the
     audio family), ``head`` (d_model, vocab) where the read-out is untied
@@ -145,7 +172,8 @@ class LM(nn.Module):
                 torch.empty(cfg.d_model, cfg.vocab_size, dtype=param_dtype, device=dev))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, param_dtype, dev)
         self.blocks = nn.ModuleList(
-            DenseBlock(cfg, i, param_dtype, dev) for i in range(cfg.n_layers))
+            (MoEBlock if kind == BLOCK_MOE else DenseBlock)(cfg, i, param_dtype, dev)
+            for i, kind in enumerate(layer_kinds(cfg)))
 
     @property
     def device(self) -> torch.device:
@@ -164,16 +192,24 @@ class LM(nn.Module):
                 t.copy_(truncated_normal(t.shape, self.cfg.d_model ** -0.5, t.dtype, t.device,
                                          generator))
         for blk in self.blocks:
-            blk.attn.init_weights(generator)
-            blk.mlp.init_weights(generator)
+            blk.init_weights(generator)
         return self
 
-    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> List[KVCache]:
+    def init_cache(self, batch: int, max_len: int,
+                   dtype=torch.bfloat16) -> List[Union[KVCache, MLACache]]:
+        """A zero cache a layer: k and v (B, max_len, Hkv, head_dim) for GQA;
+        for MLA the latent (B, max_len, kv_lora_rank) and the rotated key
+        (B, max_len, rope_head_dim)."""
         cfg = self.cfg
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        if cfg.mla is not None:
+            m = cfg.mla
+            return [MLACache(zeros(batch, max_len, m.kv_lora_rank),
+                             zeros(batch, max_len, m.rope_head_dim)) for _ in self.blocks]
         shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return [KVCache(torch.zeros(shape, dtype=dtype, device=self.device),
-                        torch.zeros(shape, dtype=dtype, device=self.device))
-                for _ in self.blocks]
+        return [KVCache(zeros(*shape), zeros(*shape)) for _ in self.blocks]
 
     def logits_fn(self, x):
         """Read-out for post-final-norm hidden states, in float32: the untied
@@ -186,15 +222,18 @@ class LM(nn.Module):
 
     def forward(self, tokens: Optional[torch.Tensor] = None, *, mode: str,
                 embeddings: Optional[torch.Tensor] = None,
-                cache: Optional[List[KVCache]] = None, pos: Optional[int] = None,
-                head: str = "full"):
+                cache: Optional[list] = None, pos: Optional[int] = None,
+                head: str = "full", with_aux: bool = False):
         """tokens: (B, S) ints, or embeddings: (B, S, d_model) (the audio
         family's frames; cast to ``param_dtype``), exactly one of the two.
         ``train`` takes no cache; ``prefill`` writes ``cache[:, :S]``;
         ``decode`` takes S = 1 at host position ``pos``. head: "full" ->
         logits for every position, "last" -> the final position only, "none"
         -> the post-final-norm hidden states (for the chunked loss). Returns
-        (logits or hidden, cache); the cache is updated in place."""
+        (logits or hidden, cache); the cache is updated in place. With
+        ``with_aux``, (logits or hidden, cache, aux): the MoE layers' aux
+        losses summed in layer order from zero (float32), ``{}`` for a model
+        without MoE, as the JAX ``forward`` returns them."""
         cfg = self.cfg
         if head not in ("full", "last", "none"):
             raise ValueError(f"head {head!r}")
@@ -209,18 +248,23 @@ class LM(nn.Module):
         else:
             x = embed(self.embed.table, tokens, scale_by_sqrt_dim=cfg.embed_scale)
             x = x.to(self.param_dtype)
+        aux = ({k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
+               if cfg.moe is not None else {})
         for i, blk in enumerate(self.blocks):
             kw = dict(mode=mode, cache=None if cache is None else cache[i], pos=pos,
                       use_kernel=self.use_kernel)
             if remat == "full":
-                x = checkpoint(blk, x, use_reentrant=False, **kw)
+                x, block_aux = checkpoint(blk.forward_aux, x, use_reentrant=False, **kw)
             elif remat == "dots":
-                x = checkpoint(blk, x, use_reentrant=False, context_fn=_dots_context, **kw)
+                x, block_aux = checkpoint(blk.forward_aux, x, use_reentrant=False,
+                                          context_fn=_dots_context, **kw)
             else:
-                x = blk(x, **kw)
+                x, block_aux = blk.forward_aux(x, **kw)
+            for k, v in block_aux.items():
+                aux[k] = aux[k] + v
         x = self.final_norm(x, self.use_kernel)
-        if head == "none":
-            return x, cache
         if head == "last":
             x = x[:, -1:]
-        return self.logits_fn(x), cache
+        if head != "none":
+            x = self.logits_fn(x)
+        return (x, cache, aux) if with_aux else (x, cache)

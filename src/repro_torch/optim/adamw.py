@@ -163,12 +163,26 @@ def _adam_update(cfg: OptimizerConfig, p, g, st, lr, step):
 def apply_updates(cfg: OptimizerConfig, params: Dict[str, torch.Tensor],
                   grads: Dict[str, torch.Tensor], state, lr):
     """One AdamW step. Writes the new values into ``params`` in place and
-    returns (params, new state); ``state["step"]`` counts the updates."""
+    returns (params, new state); ``state["step"]`` counts the updates. A leaf
+    of three or more dims with float moments (the MoE expert tensors) is
+    updated a leading index at a time: its factored statistics are over the
+    two trailing dims, so each index is independent, and the fp32
+    temporaries of a whole deepseek expert tensor would be 5 GB each."""
     step = state["step"]
     new_m = {}
     for name, p in params.items():
-        new_p, new_m[name] = _adam_update(cfg, p, grads[name], state["m"][name], lr, step)
-        p.copy_(new_p)
+        g, st = grads[name], state["m"][name]
+        if p.dim() < 3 or "mu_q" in st:
+            new_p, new_m[name] = _adam_update(cfg, p, g, st, lr, step)
+            p.copy_(new_p)
+            continue
+        new_m[name] = {k: torch.empty_like(v) for k, v in st.items()}
+        for i in range(p.shape[0]):
+            new_p, new_st = _adam_update(cfg, p[i], g[i], {k: v[i] for k, v in st.items()},
+                                         lr, step)
+            p[i].copy_(new_p)
+            for k, v in new_st.items():
+                new_m[name][k][i] = v
     return params, {"step": step + 1, "m": new_m}
 
 

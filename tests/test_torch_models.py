@@ -44,13 +44,10 @@ def test_config_equals_jax_field_for_field(arch, which):
 
 def test_unported_arch_is_refused():
     with pytest.raises(ValueError, match="not ported"):
-        torch_configs.get_config("arctic-480b")
+        torch_configs.get_config("zamba2-7b")
 
 
 UNPORTED_FEATURES = {
-    "moe": dict(moe=tcfg.MoEConfig(num_experts=4, top_k=2, d_ff_expert=64)),
-    "mla": dict(mla=tcfg.MLAConfig(kv_lora_rank=32, rope_head_dim=8, nope_head_dim=8,
-                                   v_head_dim=8)),
     "ssm": dict(ssm=tcfg.SSMConfig(state_dim=8, head_dim=8)),
     "block_pattern": dict(block_pattern=("dense", "mamba2")),
     "cross_attn_every": dict(cross_attn_every=2),
@@ -195,15 +192,28 @@ def test_dense_block_train_mode_matches_jax(arch, layer):
 
 @pytest.mark.parametrize("arch", torch_configs.ARCHS)
 def test_converted_params_load_and_count_as_in_jax(arch, monkeypatch):
+    """Every JAX leaf lands, unstacked, in the one parameter of its layer and
+    path (deepseek: the dense segment's unit 0 is layer 0, the MoE segment's
+    unit u is layer 1 + u); the float32 router stays float32 in a bf16 model."""
     monkeypatch.setattr(jax_transformer, "shard_activations", lambda x: x)
     jcfg = jax_configs.get_smoke_config(arch).model
     params = jax_transformer.LM(jcfg, param_dtype=jnp.float32).init(jax.random.key(0))
     model = LM(torch_configs.get_smoke_config(arch).model, torch.float32, "cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), model.cfg))
     assert model.num_params() == count_params_analytic(jcfg)
-    np.testing.assert_array_equal(
-        model.blocks[1].attn.wq.detach().numpy(),
-        np.asarray(params["segments"][0]["unit"]["0"]["attn"]["wq"][1]))
+    got = dict(model.named_parameters())
+    layer = 0
+    for seg in params["segments"]:
+        for name, stacked in _flatten(seg["unit"]["0"]):
+            for u in range(stacked.shape[0]):
+                np.testing.assert_array_equal(got[f"blocks.{layer + u}.{name}"].detach().numpy(),
+                                              np.asarray(stacked[u]), err_msg=name)
+        layer += stacked.shape[0]
+    assert layer == jcfg.n_layers
+    bf16 = LM(model.cfg, torch.bfloat16, "cpu")
+    bf16.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), model.cfg))
+    for name, p in bf16.named_parameters():
+        assert p.dtype == (torch.float32 if name.endswith("moe.router") else torch.bfloat16), name
 
 
 

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 
 import repro.configs as jax_configs
 import repro.models.model as jax_model
+import repro.models.moe as jax_moe
 import repro.models.transformer as jax_transformer
 from repro.common.config import ShapeSpec as JaxShapeSpec
 from repro_torch.common.config import ShapeSpec
@@ -46,6 +47,7 @@ PROMPT, STEPS, BATCH = 12, 12, 2        # decode positions 12..23 cross the wind
 @pytest.fixture
 def no_shard(monkeypatch):
     monkeypatch.setattr(jax_transformer, "shard_activations", lambda x: x)
+    monkeypatch.setattr(jax_moe, "_maybe_shard", lambda x, spec: x)
 
 
 def _fp32(run):

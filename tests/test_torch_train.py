@@ -30,6 +30,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 import repro.configs as jax_configs
 import repro.models.model as jax_model
+import repro.models.moe as jax_moe
 import repro.models.transformer as jax_transformer
 from repro.common.config import ShapeSpec as JaxShapeSpec
 from repro.data import pipeline as jax_pipeline
@@ -53,6 +54,7 @@ SEQ, BATCH = 32, 2
 @pytest.fixture
 def no_shard(monkeypatch):
     monkeypatch.setattr(jax_transformer, "shard_activations", lambda x: x)
+    monkeypatch.setattr(jax_moe, "_maybe_shard", lambda x, spec: x)
 
 
 def _run(arch, **parallel):
@@ -103,7 +105,10 @@ def test_lm_loss_and_gradients_match_jax(arch, no_shard):
     loss, metrics = lm_loss(model, tb)
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
-    assert set(metrics) == set(jmet) == {"ce_loss", "loss"}
+    moe = {"moe_lb_loss", "moe_z_loss"} if run.model.moe is not None else set()
+    assert set(metrics) == set(jmet) == {"ce_loss", "loss"} | moe
+    for key in jmet:
+        np.testing.assert_allclose(metrics[key].item(), float(jmet[key]), rtol=1e-5, err_msg=key)
     want = params_from_jax(jax.tree.map(np.asarray, jgrads), run.model)
     got = {n: p.grad for n, p in model.named_parameters()}
     assert set(got) == set(want)
