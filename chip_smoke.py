@@ -29,12 +29,14 @@ Phases, each fatal on failure:
     [models] configs' shapes (no window, no cap): flash and decode at
     yi-34b's (56 heads on 8, head_dim 128), stablelm-12b's (32 on 8, 160:
     the wgmma flash and the TMA decode over three 64-column boxes, the last
-    half out of bounds) and musicgen-medium's (24 on 24, 64) prefill and
-    decode shapes, with planted faults (a window of 4096; V's last 32
-    columns, at head_dim 160 its columns 128..159, the partial box, or the
-    last 128 keys, dropped); RMSNorm at each one's d_model, stablelm-12b's
-    qk-norm rows (2 x 4352 x 32 of 160) and deepseek-v2-236b's MLA norms
-    (2 x 4352 of 512 and of 1536). Every timed attention row must
+    half out of bounds), musicgen-medium's (24 on 24, 64),
+    llama-3.2-vision-11b's (32 on 8, 128) and zamba2-7b's (MHA 32, 112: a
+    partial box) prefill and decode shapes, with planted faults (a window of
+    4096; V's last 32 columns, at head_dim 160 or 112 its columns in the
+    partial box, or the last 128 keys, dropped); RMSNorm at each one's
+    d_model, stablelm-12b's qk-norm rows (2 x 4352 x 32 of 160),
+    deepseek-v2-236b's MLA norms (2 x 4352 of 512 and of 1536) and
+    xlstm-125m's (768 and, the mLSTM's, 1536). Every timed attention row must
     launch the kernels the wrapper's dispatch rule names for its shape
     (``wgmma_path``, ``tma_path``), as many a call as it has group passes,
     and no other: at stablelm-12b's shapes ``flash_wgmma_kernel`` and one
@@ -141,13 +143,28 @@ Phases, each fatal on failure:
     ``waterfill``. Wall seconds at both backends.
  10. models: yi-34b (60 layers), stablelm-12b (40, qk-norm), musicgen-medium
     (48, audio: frame embeddings in, a zero frame a decode step), arctic-480b
-    (MoE, 128 experts top 2 with a dense residual, cut to 2 of 35 layers)
-    and deepseek-v2-236b (MLA, 160 experts top 6 with 2 shared, the first
-    layer dense; cut to 6 of 60) at full width through ``serve`` as in 3
-    (``MODEL_SERVE_LAYERS``): exact launch counts (flash n_layers, decode
-    n_layers x 32, none of either with MLA; RMSNorm (2 + 2 [qk-norm] + 2
-    [MLA]) n_layers + 1 a forward), tokens in range. The dense configs'
-    prefill logits within 2e-2 of the plain path's. The MoE configs: one
+    (MoE, 128 experts top 2 with a dense residual, cut to 2 of 35 layers),
+    deepseek-v2-236b (MLA, 160 experts top 6 with 2 shared, the first
+    layer dense; cut to 6 of 60), llama-3.2-vision-11b (40: 32 self-attention
+    and 8 cross-attention layers over (2, 6404, 1280) image embeddings, the
+    cross gates drawn non-zero from a seed before anything runs), zamba2-7b
+    (81 Mamba2 layers and 13 applications of one shared attention block,
+    MHA at head_dim 112) and xlstm-125m (12: mLSTM x 3, sLSTM) at full width
+    through ``serve`` as in 3 (``MODEL_SERVE_LAYERS``): exact launch counts
+    (flash once an attention application, decode that x 32, none with MLA
+    or without attention; RMSNorm 2 a block application (+ 2 with sandwich
+    norms or qk-norm, + 1 or 2 with MLA) + 1 a forward), tokens in range.
+    The dense, vision, hybrid and recurrent configs' prefill logits within
+    2e-2 of the plain path's (or, where a deep bf16 model misses that with
+    no kernel at fault, as close to the fp32 forward as the plain path,
+    within 1.25x). llama-3.2-vision-11b: each cross layer's output against
+    the plain path's within 0.1 of its largest |output|, planted faults (the
+    gates back to 0, another seed's image) above it. zamba2-7b and
+    xlstm-125m, in float32: decode step 1 against a fresh prefill of the
+    prompt and that token, logits within 2e-2 of max|logit| and each block
+    application's mixer output within 1e-3, planted faults (the recurrent
+    state zeroed between prefill and decode; one KV cache for the 13
+    shared-block applications) above them. The MoE configs: one
     model prefilled (``head="full"``) through the kernels and the plain path;
     each MoE layer's input captured in both and routed (``route_check``):
     every top-k flip a near tie of the plain path (its k-th and (k+1)-th
@@ -162,13 +179,15 @@ Phases, each fatal on failure:
     arctic-480b trained at full width for 2 steps of ``make_train_step`` over
     ``TokenPipeline`` batches (seq 4096, global batch 2, 2 microbatches, the
     config's remat and optimizer; yi-34b and stablelm-12b cut to 4 layers,
-    deepseek-v2-236b to 2): the first batch's loss and grad norm against the
+    deepseek-v2-236b to 2, llama-3.2-vision-11b to 5, zamba2-7b to 13,
+    xlstm-125m to 4): the first batch's loss and grad norm against the
     plain norms, finite losses, exact RMSNorm launches a step;
     musicgen-medium's first step under remat ``dots`` against ``full``
     (within 1e-6), with seconds and peak memory of each. With ``--profile``,
-    the MoE configs' prefill and a decode step are profiled too, their
-    device time split by part (expert GEMMs, gathers and scatters, attention
-    products, norms).
+    the MoE, vision, hybrid and recurrent configs' prefill and a decode step
+    are profiled too, their device time split by part (expert GEMMs, gathers
+    and scatters, attention products, norms) and by scope (cross attention,
+    the Mamba2, mLSTM and sLSTM cells).
 They run in the order 1, 2, 5, 6, 7, 9, 3, 4, 8, 10: late in the process (after the
 train phase) torch.profiler dropped the records of short profiled windows, so
 the detection kernels are timed first.
@@ -784,14 +803,27 @@ def grad_check(x, scale, eps, gen) -> None:
 GRAD_SCALE_TOL = 1e-2
 
 
+ATTENTION_KINDS = ("dense", "moe", "shared_attn")
+
+
 def norms_per_forward(cfg) -> int:
-    """RMSNorm launches of one forward: 2 a block (4 with sandwich norms, 2
-    more with the qk norm; with MLA, its ``kv_norm`` and, where the queries
-    are low-rank, its ``q_norm``) and the final norm."""
-    per_block = (4 if cfg.post_block_norm else 2) + (2 if cfg.qk_norm else 0)
+    """RMSNorm launches of one forward: 2 an attention block application (4
+    with sandwich norms, 2 more with the qk norm; with MLA, its ``kv_norm``
+    and, where the queries are low-rank, its ``q_norm``), 2 a cross block
+    (``ln1``, ``ln2``) and 2 a recurrent block (``ln1`` and the cell's gated
+    norm), and the final norm."""
+    from repro_torch.models.transformer import layer_plan
+    per_attn = (4 if cfg.post_block_norm else 2) + (2 if cfg.qk_norm else 0)
     if cfg.mla is not None:
-        per_block += 1 + bool(cfg.mla.q_lora_rank)
-    return per_block * cfg.n_layers + 1
+        per_attn += 1 + bool(cfg.mla.q_lora_rank)
+    return sum(per_attn if k in ATTENTION_KINDS else 2 for k in layer_plan(cfg)) + 1
+
+
+def attention_applications(cfg) -> int:
+    """Applications of a self-attention block in one forward (zamba2's shared
+    block once a unit); MLA runs no attention kernel."""
+    from repro_torch.models.transformer import layer_plan
+    return 0 if cfg.mla is not None else sum(k in ATTENTION_KINDS for k in layer_plan(cfg))
 
 
 def serve_phase():
@@ -852,42 +884,111 @@ def serve_phase():
 
 # --- the [models] configs: kernel rows at their shapes, serve and train -------
 
-MODEL_ARCHS = ("yi-34b", "stablelm-12b", "musicgen-medium", "arctic-480b", "deepseek-v2-236b")
-# serving depth on one card: the dense and audio configs whole; arctic-480b
-# cut to 2 layers (an MoE layer is 13.6 B parameters: 55.4 GB of bf16
-# weights at 2), deepseek-v2-236b to 6 (1 dense + 5 MoE: 42.5 GB, and ~14 GB
-# of the chunked MLA prefill's fp32 scores at the peak)
+MODEL_ARCHS = ("yi-34b", "stablelm-12b", "musicgen-medium", "arctic-480b", "deepseek-v2-236b",
+               "llama-3.2-vision-11b", "zamba2-7b", "xlstm-125m")
+# serving depth on one card: the dense, audio, vision, hybrid and recurrent
+# configs whole; arctic-480b cut to 2 layers (an MoE layer is 13.6 B
+# parameters: 55.4 GB of bf16 weights at 2), deepseek-v2-236b to 6 (1 dense +
+# 5 MoE: 42.5 GB, and ~14 GB of the chunked MLA prefill's fp32 scores at the
+# peak)
 MODEL_SERVE_LAYERS = {"yi-34b": 60, "stablelm-12b": 40, "musicgen-medium": 48,
-                      "arctic-480b": 2, "deepseek-v2-236b": 6}
+                      "arctic-480b": 2, "deepseek-v2-236b": 6, "llama-3.2-vision-11b": 40,
+                      "zamba2-7b": 81, "xlstm-125m": 12}
 # training depth on one card: yi-34b and stablelm-12b cut to 4 layers (the
 # optimizer state of all 60 / 40 does not fit 80 GB), musicgen-medium whole,
 # deepseek-v2-236b 2 (1 dense + 1 MoE: 5.34 B parameters, ~43 GB of weights,
-# accumulator, gradients and moment before activations). arctic-480b is not
-# trained on the card: one MoE layer and the embeddings are 14.1 B
-# parameters, 28 GB each for the weights, the gradients and the moment
+# accumulator, gradients and moment before activations), llama-3.2-vision-11b
+# 5 (one unit, 4 dense + 1 cross: ~2.1 B parameters), zamba2-7b 13 (two units
+# and a tail of 1: the shared block applied twice, both segments), xlstm-125m
+# 4 (one unit, 3 mLSTM + 1 sLSTM: all 12 fit, but each sLSTM layer's loop
+# over 4096 time steps under autograd is launch-bound, ~23 s of a 68-76 s
+# step at 12 layers on an H100 80GB HBM3 at 700 W and its host, which would
+# take the run past its time limit). arctic-480b is not trained on the card:
+# one MoE layer and the embeddings are 14.1 B parameters, 28 GB each for the
+# weights, the gradients and the moment
 MODEL_TRAIN_LAYERS = {"yi-34b": 4, "stablelm-12b": 4, "musicgen-medium": 48,
-                      "deepseek-v2-236b": 2}
+                      "deepseek-v2-236b": 2, "llama-3.2-vision-11b": 5, "zamba2-7b": 13,
+                      "xlstm-125m": 4}
 MODEL_TRAIN_STEPS = 2
 # the configs whose attention and RMSNorm shapes get kernel rows; arctic-480b's
 # are yi-34b's (56 heads on 8, head_dim 128, d_model 7168), deepseek-v2-236b's
-# d_model is stablelm-12b's, and its MLA norms get rows of their own
-KERNEL_ARCHS = ("yi-34b", "stablelm-12b", "musicgen-medium")
+# d_model is stablelm-12b's, and its MLA norms get rows of their own;
+# zamba2-7b's gated norm (7168 wide) is yi-34b's row; xlstm-125m has no
+# attention, its norm rows are 768 (d_model, the sLSTM's) and 1536 (the mLSTM's)
+KERNEL_ARCHS = ("yi-34b", "stablelm-12b", "musicgen-medium", "llama-3.2-vision-11b",
+                "zamba2-7b", "xlstm-125m")
+
+
+def model_attention_rows(arch: str, cfg, gen, errs: dict, rows: dict, iters: int) -> None:
+    """Flash and decode at ``arch``'s prefill and decode shapes, each against
+    its plain version with planted faults, then timed (``model_kernel_phase``)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    dt, dtype = "bfloat16", torch.bfloat16
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    kw = dict(window=cfg.sliding_window, logit_cap=cfg.attn_logit_softcap, scale=d ** -0.5)
+    if kw["window"] or kw["logit_cap"]:
+        fail(f"{arch}: the planted faults below are for no window and no cap")
+    q = randn((B, PROMPT, h, d), dtype, gen)
+    k, v = randn((B, PROMPT, hkv, d), dtype, gen), randn((B, PROMPT, hkv, d), dtype, gen)
+    # the partial box's columns (160: 128..159), else the last 32
+    tail = d % 64 or 32
+    cut = (f"V's columns {d - tail}..{d - 1} (the partial box) dropped" if d % 64
+           else "V's last 32 columns dropped")
+    v_cut = v.clone()
+    v_cut[..., d - tail:] = 0
+    name = f"flash {dt} {arch} (b,s,h,hkv,d)={(B, PROMPT, h, hkv, d)} window=0 cap=0"
+    faults = [(f"window {WINDOW} instead of 0",
+               ref.flash_attention(q, k, v, **{**kw, "window": WINDOW})),
+              (cut, ref.flash_attention(q, k, v_cut, **kw))]
+    errs["flash_attention"].append(compare(name, flash_attention_fwd(q, k, v, **kw),
+                                           ref.flash_attention(q, k, v, **kw), faults))
+    del faults, v_cut
+    rows["flash_attention"][arch] = time_flash(name, q, k, v, kw, dt, iters)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    sets = [(randn((B, 1, h, d), dtype, gen), randn((B, CACHE, hkv, d), dtype, gen),
+             randn((B, CACHE, hkv, d), dtype, gen)) for _ in range(4)]
+    q, kc, vc = sets[0]
+    pos = CACHE - 1
+    name = f"decode {dt} {arch} B={B} cache={CACHE} H={h} Hkv={hkv} D={d} pos={pos} window=0"
+    vc_cut = vc.clone()
+    vc_cut[..., d - tail:] = 0
+    faults = [(f"window {WINDOW} instead of 0",
+               ref.decode_attention(q, kc, vc, pos, **{**kw, "window": WINDOW})),
+              ("last 128 keys dropped", ref.decode_attention(q, kc, vc, pos - 128, **kw)),
+              (cut, ref.decode_attention(q, kc, vc_cut, pos, **kw))]
+    got = decode_attention_fwd(q, kc, vc, pos, **kw)
+    errs["decode_attention"].append(
+        compare(name, got, ref.decode_attention(q, kc, vc, pos, **kw), faults))
+    if not _bit_equal(decode_attention_fwd(q, kc, vc, pos, **kw), got):
+        fail(f"{name}: two calls on the same inputs differ")
+    rows["decode_attention"][arch] = time_decode(name, sets, pos, kw, iters)
+    qq, kk, vv = sets[2]
+    errs["decode_attention"].append(compare(
+        name + " again, cache set 2", decode_attention_fwd(qq, kk, vv, pos, **kw),
+        ref.decode_attention(qq, kk, vv, pos, **kw)))
+    del sets, q, kc, vc, qq, kk, vv, got, faults, vc_cut
+    torch.cuda.empty_cache()
 
 
 def model_kernel_phase(iters: int):
     """Flash and decode at each of ``KERNEL_ARCHS``' prefill and decode shapes
-    (its heads, kv heads and head_dim; no window, no cap), and RMSNorm at
-    each one's d_model, at stablelm-12b's qk-norm rows (160 wide) and at
-    deepseek-v2-236b's ``kv_norm`` (512) and ``q_norm`` (1536) rows, each
-    against its plain version with planted faults (at a head_dim that is not
-    whole 64-column boxes, V's columns in the partial box dropped), then
-    timed, the attention rows' kernels held to the dispatch rule. Returns
-    {kernel: (max_abs_err, max_row_rel_err)} and {kernel: {label: row}}."""
+    (its heads, kv heads and head_dim; no window, no cap; xlstm-125m has no
+    attention), and RMSNorm at each one's d_model, at stablelm-12b's qk-norm
+    rows (160 wide), at deepseek-v2-236b's ``kv_norm`` (512) and ``q_norm``
+    (1536) rows and at xlstm-125m's mLSTM norm (1536), each against its
+    plain version with planted faults (at a head_dim that is not whole
+    64-column boxes, V's columns in the partial box dropped), then timed,
+    the attention rows' kernels held to the dispatch rule. Returns {kernel:
+    (max_abs_err, max_row_rel_err)} and {kernel: {label: row}}."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention_fwd
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.rmsnorm import rmsnorm_fwd
 
     gen = torch.Generator(device="cuda").manual_seed(14)
@@ -896,60 +997,17 @@ def model_kernel_phase(iters: int):
     rows = {"flash_attention": {}, "decode_attention": {}, "rmsnorm": {}}
     for arch in KERNEL_ARCHS:
         cfg = get_config(arch).model
-        h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        kw = dict(window=cfg.sliding_window, logit_cap=cfg.attn_logit_softcap, scale=d ** -0.5)
-        if kw["window"] or kw["logit_cap"]:
-            fail(f"{arch}: the planted faults below are for no window and no cap")
-        q = randn((B, PROMPT, h, d), dtype, gen)
-        k, v = randn((B, PROMPT, hkv, d), dtype, gen), randn((B, PROMPT, hkv, d), dtype, gen)
-        # the partial box's columns (160: 128..159), else the last 32
-        tail = d % 64 or 32
-        cut = (f"V's columns {d - tail}..{d - 1} (the partial box) dropped" if d % 64
-               else "V's last 32 columns dropped")
-        v_cut = v.clone()
-        v_cut[..., d - tail:] = 0
-        name = f"flash {dt} {arch} (b,s,h,hkv,d)={(B, PROMPT, h, hkv, d)} window=0 cap=0"
-        faults = [(f"window {WINDOW} instead of 0",
-                   ref.flash_attention(q, k, v, **{**kw, "window": WINDOW})),
-                  (cut, ref.flash_attention(q, k, v_cut, **kw))]
-        errs["flash_attention"].append(compare(name, flash_attention_fwd(q, k, v, **kw),
-                                               ref.flash_attention(q, k, v, **kw), faults))
-        del faults, v_cut
-        rows["flash_attention"][arch] = time_flash(name, q, k, v, kw, dt, iters)
-        del q, k, v
-        torch.cuda.empty_cache()
-
-        sets = [(randn((B, 1, h, d), dtype, gen), randn((B, CACHE, hkv, d), dtype, gen),
-                 randn((B, CACHE, hkv, d), dtype, gen)) for _ in range(4)]
-        q, kc, vc = sets[0]
-        pos = CACHE - 1
-        name = f"decode {dt} {arch} B={B} cache={CACHE} H={h} Hkv={hkv} D={d} pos={pos} window=0"
-        vc_cut = vc.clone()
-        vc_cut[..., d - tail:] = 0
-        faults = [(f"window {WINDOW} instead of 0",
-                   ref.decode_attention(q, kc, vc, pos, **{**kw, "window": WINDOW})),
-                  ("last 128 keys dropped", ref.decode_attention(q, kc, vc, pos - 128, **kw)),
-                  (cut, ref.decode_attention(q, kc, vc_cut, pos, **kw))]
-        got = decode_attention_fwd(q, kc, vc, pos, **kw)
-        errs["decode_attention"].append(
-            compare(name, got, ref.decode_attention(q, kc, vc, pos, **kw), faults))
-        if not _bit_equal(decode_attention_fwd(q, kc, vc, pos, **kw), got):
-            fail(f"{name}: two calls on the same inputs differ")
-        rows["decode_attention"][arch] = time_decode(name, sets, pos, kw, iters)
-        qq, kk, vv = sets[2]
-        errs["decode_attention"].append(compare(
-            name + " again, cache set 2", decode_attention_fwd(qq, kk, vv, pos, **kw),
-            ref.decode_attention(qq, kk, vv, pos, **kw)))
-        del sets, q, kc, vc, qq, kk, vv, got, faults, vc_cut
-        torch.cuda.empty_cache()
-
+        if attention_applications(cfg):
+            model_attention_rows(arch, cfg, gen, errs, rows, iters)
         norm_shapes = [(arch, (B, PROMPT, cfg.d_model))]
         if cfg.qk_norm:
-            norm_shapes.append((f"{arch} qk", (B, PROMPT, h, d)))
-        if arch == KERNEL_ARCHS[-1]:   # deepseek-v2-236b's MLA norms, at its prefill
+            norm_shapes.append((f"{arch} qk", (B, PROMPT, cfg.n_heads, cfg.resolved_head_dim)))
+        if arch == "musicgen-medium":   # deepseek-v2-236b's MLA norms, at its prefill
             mla = get_config("deepseek-v2-236b").model.mla
             norm_shapes += [("deepseek-v2-236b kv_norm", (B, PROMPT, mla.kv_lora_rank)),
                             ("deepseek-v2-236b q_norm", (B, PROMPT, mla.q_lora_rank))]
+        if arch == "xlstm-125m":        # the mLSTM's norm, over its d_inner
+            norm_shapes.append(("xlstm-125m mLSTM", (B, PROMPT, 2 * cfg.d_model)))
         for label, shape in norm_shapes:
             x = randn(shape, dtype, gen)
             scale = randn(shape[-1:], dtype, gen, 0.1)
@@ -981,21 +1039,22 @@ def model_serve(arch: str, card: str, profile_dir=None) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import MAX_GROUP
     from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import layer_plan
 
     run = model_serve_run(arch)
     cfg = run.model
     n_layers, n_norms = cfg.n_layers, norms_per_forward(cfg)
-    passes = 0 if cfg.mla is not None else -(-(cfg.n_heads // cfg.n_kv_heads) // MAX_GROUP)
+    # attention launches: a pass of at most MAX_GROUP query heads a kv head
+    n_attn = attention_applications(cfg) * -(-(cfg.n_heads // cfg.n_kv_heads) // MAX_GROUP)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     res = serve(run, batch=B, prompt_len=PROMPT, decode_steps=STEPS, device="cuda", seed=0)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": passes * n_layers, "decode_attention": passes * n_layers * STEPS,
+    want = {"flash_attention": n_attn, "decode_attention": n_attn * STEPS,
             "rmsnorm": n_norms * (1 + STEPS)}
-    want_all = {"flash_attention": 2 * passes * n_layers,
-                "decode_attention": passes * n_layers * (STEPS + 1),
+    want_all = {"flash_attention": 2 * n_attn, "decode_attention": n_attn * (STEPS + 1),
                 "rmsnorm": n_norms * (3 + STEPS)}
     toks, logits = res["tokens"], res["prefill_logits"]
     weights = res["weight_bytes"]
@@ -1036,7 +1095,7 @@ def model_serve(arch: str, card: str, profile_dir=None) -> dict:
         # A deep bf16 model can sit this far from any other bf16 path: then
         # the kernel path must be as close to the exact forward (fp32, the
         # same bf16-rounded weights) as the plain bf16 path is
-        exact = fp32_prefill_logits(run, seed=0)
+        exact = fp32_prefill_logits(run)
         k_err = (logits - exact).abs().max().item()
         floor = (plain["prefill_logits"] - exact).abs().max().item()
         print(f"  models serve {arch} against the fp32 forward of the same weights: kernel "
@@ -1045,7 +1104,267 @@ def model_serve(arch: str, card: str, profile_dir=None) -> dict:
               f"{EXACT_RATIO:g})", flush=True)
         if not k_err <= EXACT_RATIO * floor:
             fail(f"{arch}: served prefill logits disagree with the plain path")
-    return dict(out, logit_err=err / scale)
+        out["fp32_ratio"] = k_err / floor
+    out["logit_err"] = err / scale
+    recurrent = any(k in RECURRENT_KINDS for k in layer_plan(cfg))
+    if cfg.cross_attn_every:
+        out.update(cross_check(run, card))
+    if recurrent:
+        out.update(handoff_check(run, card))
+    if profile_dir is not None and (cfg.cross_attn_every or recurrent):
+        model, prompt = serve_model(run)
+        profile_serve(model, prompt, profile_dir, cfg.name)
+    return out
+
+
+# --- the vision, hybrid and recurrent configs' checks --------------------------
+
+RECURRENT_KINDS = ("mamba2", "mlstm", "slstm")
+GATE_SEED = 7             # the cross blocks' gates, drawn before anything runs
+# of the largest |output| of a layer: above the bf16 noise that a layer's input
+# carries from the layers before it on two paths (up to 2.7e-2 at the smoke
+# widths on the CPU, whose attention averages 12 image rows; 1.8e-2 at full
+# width on an H100 80GB HBM3, 700 W), and a tenth of what each planted fault
+# reads (~1: a zero, or another average)
+MIXER_TOL = 0.1
+# the handoff check's, in float32: two orders of float32 sums over 94 layers
+# (~1e-5 relative), with room; a fault reads ~1
+HANDOFF_TOL = 1e-3
+
+
+def draw_gates(model, seed: int = GATE_SEED) -> None:
+    """Every cross block's ``xattn.gate`` and ``ffn_gate`` drawn from ``seed``,
+    in layer order: a magnitude in [0.5, 1.5), a random sign. The JAX init
+    makes both zero, so a cross block would be the identity."""
+    import torch
+    from repro_torch.models.transformer import CrossBlock
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for blk in model.blocks:
+            if isinstance(blk, CrossBlock):
+                for gate in (blk.xattn.gate, blk.ffn_gate):
+                    sign = 2.0 * torch.randint(0, 2, (), generator=gen) - 1.0
+                    gate.fill_(float(sign * (0.5 + torch.rand((), generator=gen))))
+
+
+@contextlib.contextmanager
+def drawn_gates():
+    """Every ``LM`` whose weights are drawn inside (``serve``'s, the train
+    step's, the checks') draws its cross gates next (``draw_gates``)."""
+    from repro_torch.models.transformer import LM
+    real = LM.init_weights
+
+    def init_weights(self, generator):
+        real(self, generator)
+        draw_gates(self)
+        return self
+    LM.init_weights = init_weights
+    try:
+        yield
+    finally:
+        LM.init_weights = real
+
+
+def serve_model(run, fp32: bool = False):
+    """``serve``'s model (weights from seed 0) and prompt (seed 1) on the card;
+    with ``fp32``, the model in float32 holding the same bf16-rounded weights."""
+    import torch
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.models.model import build_model, synthetic_batch
+    torch.cuda.empty_cache()
+    if fp32:
+        run = run.replace(parallel=dataclasses.replace(run.parallel, param_dtype="float32"))
+    model = build_model(run, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    if fp32:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(p.to(torch.bfloat16))
+    prompt = synthetic_batch(run.model, ShapeSpec("serve", PROMPT, B, "prefill"), seed=1,
+                             device="cuda")
+    return model, prompt
+
+
+def max_rel(got, want) -> float:
+    """max |got - want| over max |want|, in float32."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def cross_check(run, card: str) -> dict:
+    """llama-3.2-vision: each cross block's ``xattn`` output over the whole
+    prompt, kernel path against plain path (the norms and self-attention
+    through the kernels or not; the cross attention is plain in both), within
+    ``MIXER_TOL`` of its largest |output|; the logits as ``serve``'s check.
+    Planted faults, each read against the plain path: every cross block's
+    ``gate`` back to 0, and the image embeddings of another seed. The logits
+    alone cannot hold them: attention over 6,404 random image rows averages
+    them to ~1/80 of a row, a few percent of a residual stream built by 40
+    layers."""
+    import torch
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.models.model import synthetic_batch
+    from repro_torch.models.transformer import CrossBlock
+    from repro_torch.train.steps import make_prefill_step
+
+    model, prompt = serve_model(run)
+    prefill = make_prefill_step(model)
+    crosses = [blk for blk in model.blocks if isinstance(blk, CrossBlock)]
+
+    def run_prefill(batch, use_kernel: bool):
+        model.use_kernel = use_kernel
+        outs = []
+        hooks = [blk.xattn.register_forward_hook(lambda m, a, o: outs.append(o.detach()))
+                 for blk in crosses]
+        try:
+            logits, _ = prefill(batch, model.init_cache(B, PROMPT))
+        finally:
+            for h in hooks:
+                h.remove()
+        model.use_kernel = True
+        return logits, outs
+
+    t0 = time.perf_counter()
+    plain_logits, plain = run_prefill(prompt, False)
+    logits, got = run_prefill(prompt, True)
+    ratios = [max_rel(g, p) for g, p in zip(got, plain)]
+    logit = max_rel(logits, plain_logits)
+    print(f"  models cross {run.model.name}: {len(crosses)} cross blocks, xattn output (B, "
+          f"{PROMPT}, {run.model.d_model}) kernel vs plain path, max_abs_err over max|output| "
+          f"by layer {[round(r, 6) for r in ratios]} (limit {MIXER_TOL:g}); prefill logits "
+          f"{logit:.4e}; gates (xattn, ffn) "
+          f"{[(round(b.xattn.gate.item(), 4), round(b.ffn_gate.item(), 4)) for b in crosses]}",
+          flush=True)
+    if not max(ratios) <= MIXER_TOL:
+        fail(f"{run.model.name}: cross attention disagrees with the plain path")
+    del got
+    gates = [blk.xattn.gate.detach().clone() for blk in crosses]
+    with torch.no_grad():
+        for blk in crosses:
+            blk.xattn.gate.zero_()
+    zero_logits, zero = run_prefill(prompt, True)
+    with torch.no_grad():
+        for blk, g in zip(crosses, gates):
+            blk.xattn.gate.copy_(g)
+    other = dict(prompt, vision_embed=synthetic_batch(
+        run.model, ShapeSpec("serve", PROMPT, B, "prefill"), seed=2,
+        device="cuda")["vision_embed"])
+    other_logits, moved = run_prefill(other, True)
+    faults = {"gate 0 in every cross block": (max(max_rel(z, p) for z, p in zip(zero, plain)),
+                                              max_rel(zero_logits, plain_logits)),
+              "vision_embed of another seed": (max(max_rel(m, p) for m, p in zip(moved, plain)),
+                                               max_rel(other_logits, plain_logits))}
+    for label, (r, lg) in faults.items():
+        print(f"    planted fault, {label}: xattn output {r:.4e} (limit {MIXER_TOL:g}), prefill "
+              f"logits {lg:.4e} (the serve check's limit 2e-2)", flush=True)
+        if not r > MIXER_TOL:
+            fail(f"{run.model.name}: the planted fault '{label}' reads within the limit")
+    print(f"  models cross {run.model.name} check done in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    return {"xattn_err": max(ratios), "cross_faults": faults}
+
+
+@contextlib.contextmanager
+def mixer_outputs(model, records: list):
+    """Record, for every block application in order, its mixer's output at
+    the last position ((B, d) float32): a recurrent block's increment to the
+    residual (its cell's output), an attention block's attention output
+    (``attn.prefill`` / ``attn.decode``; zamba2's shared block at each of
+    its applications)."""
+    from repro_torch.models.transformer import RecurrentBlock
+    patched = []
+    for mod in set(model._apps):
+        if isinstance(mod, RecurrentBlock):
+            def forward_aux(x, real=mod.forward_aux, **kw):
+                y, aux = real(x, **kw)
+                records.append((y - x)[:, -1].float())
+                return y, aux
+            mod.forward_aux = forward_aux
+            patched.append((mod, "forward_aux"))
+        elif hasattr(mod, "attn"):
+            for name in ("prefill", "decode"):
+                def attend(*args, real=getattr(mod.attn, name), **kw):
+                    out = real(*args, **kw)
+                    records.append(out[:, -1].float())
+                    return out
+                setattr(mod.attn, name, attend)
+                patched.append((mod.attn, name))
+    try:
+        yield records
+    finally:
+        for obj, name in patched:
+            delattr(obj, name)
+
+
+def handoff_check(run, card: str) -> dict:
+    """zamba2 and xlstm: the logits of decode step 1 (the prefill's greedy
+    token at position 4352) against a fresh prefill of the prompt and that
+    token at its last position, within 2e-2 of max|logit|, and every block
+    application's mixer output there (``mixer_outputs``) within
+    ``HANDOFF_TOL`` of its largest |output|: the chunked SSD and mLSTM forms
+    and the sLSTM loop against their one-step forms across the boundary, the
+    decode kernel against flash. In float32 (``serve_model(fp32=True)``,
+    float32 caches, the kernels' float32 paths): in bf16 the two orders of
+    the same sums differ with no fault by more than these limits over 81
+    layers (zamba2's smoke widths on the CPU: 2.66e-2 of max|logit|, 0.13 of
+    a Mamba2 cell's output), which would hide a small fault. Planted
+    faults: the recurrent state zeroed between prefill and decode, and
+    (zamba2) one KV cache for all the shared block's applications."""
+    import torch
+    from repro_torch.models.transformer import RECURRENT_BLOCKS
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+
+    cfg = run.model
+    t0 = time.perf_counter()
+    model, prompt = serve_model(run, fp32=True)
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    cache = model.init_cache(B, CACHE, torch.float32)
+    logits, _ = prefill(prompt, cache)
+    step = {"tokens": torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]}
+    with mixer_outputs(model, []) as got:
+        logits, _ = decode(step, cache, PROMPT)
+    for c, kind in zip(cache, model.kinds):            # the fault: the state zeroed
+        if kind in RECURRENT_BLOCKS:
+            for t in c:
+                t.zero_()
+    with mixer_outputs(model, []) as zeroed:
+        zero_logits, _ = decode(step, cache, PROMPT)
+    del cache
+    full = {"tokens": torch.cat([prompt["tokens"], step["tokens"]], dim=1)}
+    with mixer_outputs(model, []) as want:
+        fresh, _ = prefill(full, model.init_cache(B, CACHE, torch.float32))
+    ratios = [max_rel(g, w) for g, w in zip(got, want)]
+    logit = max_rel(logits, fresh)
+    by_kind = {k: max(r for r, kk in zip(ratios, model.kinds) if kk == k)
+               for k in dict.fromkeys(model.kinds)}
+    print(f"  models handoff {cfg.name}: decode step 1 vs a fresh prefill of {PROMPT + 1} "
+          f"tokens at its last position: logits max_abs_err over max|logit| {logit:.4e} "
+          f"(limit 2e-2); mixer outputs of {len(ratios)} applications, worst by kind "
+          f"{ {k: float(f'{v:.4e}') for k, v in by_kind.items()} } (limit {HANDOFF_TOL:g}); "
+          f"float32", flush=True)
+    if not (logit <= 2e-2 and max(ratios) <= HANDOFF_TOL):
+        fail(f"{cfg.name}: decode after prefill disagrees with a fresh prefill")
+    faults = {"recurrent state zeroed between prefill and decode": (
+        max(max_rel(z, w) for z, w in zip(zeroed, want)), max_rel(zero_logits, fresh))}
+    if "shared_attn" in model.kinds:
+        cache = model.init_cache(B, CACHE, torch.float32)
+        apps = [i for i, k in enumerate(model.kinds) if k == "shared_attn"]
+        for i in apps[1:]:
+            cache[i] = cache[apps[0]]
+        prefill(prompt, cache)
+        with mixer_outputs(model, []) as one_cache:
+            one_logits, _ = decode(step, cache, PROMPT)
+        del cache
+        faults[f"one KV cache for the {len(apps)} shared-block applications"] = (
+            max(max_rel(o, w) for o, w in zip(one_cache, want)), max_rel(one_logits, fresh))
+    for label, (r, lg) in faults.items():
+        print(f"    planted fault, {label}: mixer outputs {r:.4e} (limit {HANDOFF_TOL:g}), "
+              f"logits {lg:.4e} (limit 2e-2)", flush=True)
+        if not (r > HANDOFF_TOL or lg > 2e-2):
+            fail(f"{cfg.name}: the planted fault '{label}' reads within the limits")
+    print(f"  models handoff {cfg.name} check done in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    return {"handoff_logit_err": logit, "handoff_mixer_err": max(ratios),
+            "handoff_faults": faults}
 
 
 # --- the MoE configs' check: routes, then logits where the routes agree -------
@@ -1260,17 +1579,51 @@ def moe_check(run, card: str, profile_dir=None) -> dict:
 
 def profile_serve(model, prompt, out_dir: Path, label: str) -> None:
     """torch.profiler over one prefill and one decode step of ``model``
-    (kernel path), each split by part (``profile_one``)."""
+    (kernel path), each split by part (``profile_one``) and by the scopes of
+    ``scoped``."""
     import torch
     from repro_torch.train.steps import make_decode_step, make_prefill_step
     cache = model.init_cache(B, CACHE)
     prefill, decode = make_prefill_step(model), make_decode_step(model)
     logits, _ = prefill(prompt, cache)
     step = {"tokens": torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]}
+    if "vision_embed" in prompt:
+        step["vision_embed"] = prompt["vision_embed"]
     decode(step, cache, PROMPT)
     e = model.cfg.moe.num_experts if model.cfg.moe is not None else None
-    profile_one(f"{label}_prefill", lambda: prefill(prompt, cache), out_dir, e)
-    profile_one(f"{label}_decode", lambda: decode(step, cache, PROMPT), out_dir, e)
+    with scoped(model):
+        profile_one(f"{label}_prefill", lambda: prefill(prompt, cache), out_dir, e)
+        profile_one(f"{label}_decode", lambda: decode(step, cache, PROMPT), out_dir, e)
+
+
+SCOPES = {"CrossAttention": "scope: cross attention", "Mamba2": "scope: Mamba2 SSD cell",
+          "MLSTM": "scope: mLSTM cell", "SLSTM": "scope: sLSTM cell"}
+
+
+@contextlib.contextmanager
+def scoped(model):
+    """Each cross attention and recurrent cell of ``model`` runs inside a
+    ``record_function`` range named by ``SCOPES`` (its forward and decode),
+    so that ``profile_one`` can sum the device time of the kernels each
+    launches (GEMMs and the rest)."""
+    import torch
+    patched = []
+    for mod in model.modules():
+        label = SCOPES.get(type(mod).__name__)
+        if label is None:
+            continue
+        for name in ("forward", "decode"):
+            if hasattr(type(mod), name):
+                def run(*args, real=getattr(mod, name), label=label, **kw):
+                    with torch.profiler.record_function(label):
+                        return real(*args, **kw)
+                setattr(mod, name, run)
+                patched.append((mod, name))
+    try:
+        yield
+    finally:
+        for mod, name in patched:
+            delattr(mod, name)
 
 
 # the kernel path's distance to the exact forward, at most this many times
@@ -1278,25 +1631,16 @@ def profile_serve(model, prompt, out_dir: Path, label: str) -> None:
 EXACT_RATIO = 1.25
 
 
-def fp32_prefill_logits(run, seed: int):
-    """Last-position prefill logits of ``serve``'s model and prompt (the
-    same seeds) in float32 through the plain path, with every weight
-    rounded to bf16 first: the exact forward that both bf16 paths
+def fp32_prefill_logits(run):
+    """Last-position prefill logits of ``serve``'s model and prompt in float32
+    through the plain path, with every weight rounded to bf16 first
+    (``serve_model(fp32=True)``): the exact forward that both bf16 paths
     approximate. (B, 1, vocab) float32 on the CPU."""
     import torch
-    from repro_torch.common.config import ShapeSpec
-    from repro_torch.models.model import build_model, synthetic_batch
     from repro_torch.train.steps import make_prefill_step
 
-    torch.cuda.empty_cache()
-    run32 = run.replace(parallel=dataclasses.replace(run.parallel, param_dtype="float32"))
-    model = build_model(run32, device="cuda", use_kernel=False)
-    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
-    with torch.no_grad():
-        for p in model.parameters():
-            p.copy_(p.to(torch.bfloat16))
-    prompt = synthetic_batch(run.model, ShapeSpec("serve", PROMPT, B, "prefill"), seed=1,
-                             device="cuda")
+    model, prompt = serve_model(run, fp32=True)
+    model.use_kernel = False
     logits, _ = make_prefill_step(model)(prompt, model.init_cache(B, PROMPT, torch.float32))
     return logits.float().cpu()
 
@@ -1456,12 +1800,14 @@ def dots_check(arch: str, card: str) -> dict:
 
 
 def models_phase(card: str, profile_dir=None) -> dict:
-    """yi-34b, stablelm-12b, musicgen-medium, arctic-480b and
-    deepseek-v2-236b: serve at full width and ``MODEL_SERVE_LAYERS`` depth,
-    train at full width (``MODEL_TRAIN_LAYERS``; arctic-480b not), and
-    musicgen's first step under remat ``dots`` against ``full``. The launch
-    counts of each path are read from 0 around it. With ``profile_dir``, the
-    MoE configs' prefill and a decode step are profiled."""
+    """yi-34b, stablelm-12b, musicgen-medium, arctic-480b, deepseek-v2-236b,
+    llama-3.2-vision-11b, zamba2-7b and xlstm-125m: serve at full width and
+    ``MODEL_SERVE_LAYERS`` depth, train at full width (``MODEL_TRAIN_LAYERS``;
+    arctic-480b not), and musicgen's first step under remat ``dots`` against
+    ``full``. llama's cross gates are drawn non-zero before anything of it
+    runs (``drawn_gates``). The launch counts of each path are read from 0
+    around it. With ``profile_dir``, the MoE, vision and recurrent configs'
+    prefill and a decode step are profiled."""
     import gc
     import torch
     from repro_torch.configs import get_config
@@ -1473,13 +1819,15 @@ def models_phase(card: str, profile_dir=None) -> dict:
     out = {}
     for arch in MODEL_ARCHS:
         t0 = time.perf_counter()
-        out[arch] = {"serve": model_serve(arch, card, profile_dir)}
+        with drawn_gates() if get_config(arch).model.cross_attn_every else contextlib.nullcontext():
+            out[arch] = {"serve": model_serve(arch, card, profile_dir)}
+            gc.collect()
+            if arch in MODEL_TRAIN_LAYERS:
+                out[arch]["train"] = model_train(arch, card)
         gc.collect()
-        if arch in MODEL_TRAIN_LAYERS:
-            out[arch]["train"] = model_train(arch, card)
         print(f"  models {arch} done in {time.perf_counter() - t0:.1f} s", flush=True)
     out["dots"] = dots_check("musicgen-medium", card)
-    layers = {a: get_config(a).model.n_layers for a in MODEL_ARCHS}
+    layers = {a: get_config(a).model.n_layers for a in MODEL_SERVE_LAYERS}
     cuts = ", ".join(f"{a} {MODEL_TRAIN_LAYERS[a]} layers" for a in MODEL_TRAIN_LAYERS)
     serve_cuts = ", ".join(f"{a} {n} of {layers[a]} layers"
                            for a, n in MODEL_SERVE_LAYERS.items() if n != layers[a])
@@ -3355,8 +3703,10 @@ def profile_one(label: str, fn, out_dir: Path, num_experts=None) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only: the CPU ops also carry their kernels' time
+    # (a ``scoped`` range is shown on the device too: its span, not a kernel)
     dev = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA), reverse=True)
+                  if e.device_type == DeviceType.CUDA and not e.key.startswith("scope: ")),
+                 reverse=True)
     busy = sum(d[0] for d in dev)
     print(f"  profile {label}: wall_ms={wall_us / 1e3:.3f} (profiled) "
           f"device_busy_ms={busy / 1e3:.3f} busy_share={busy / wall_us:.4f}", flush=True)
@@ -3365,6 +3715,14 @@ def profile_one(label: str, fn, out_dir: Path, num_experts=None) -> None:
     by_part = parts(prof, num_experts)
     print("    by part: " + "; ".join(f"{k} {us / 1e3:.3f} ms ({us / busy:.2%})"
                                       for k, us in by_part.most_common()), flush=True)
+    scopes = sorted(((e.device_time_total, e.count, e.key[len("scope: "):])
+                     for e in prof.key_averages()
+                     if e.key.startswith("scope: ") and e.device_type != DeviceType.CUDA),
+                    reverse=True)
+    if scopes:
+        print("    by scope (device time of the kernels launched inside; they overlap the "
+              "parts above): " + "; ".join(f"{key} {us / 1e3:.3f} ms ({us / busy:.2%}, x{n})"
+                                          for us, n, key in scopes), flush=True)
     (out_dir / f"profile_{label}.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
 
@@ -3387,7 +3745,7 @@ def parts(prof, num_experts) -> collections.Counter:
     out = collections.Counter()
     for e in prof.key_averages(group_by_input_shape=True):
         us = e.self_device_time_total
-        if us <= 0:
+        if us <= 0 or e.key.startswith("scope: "):
             continue
         if e.device_type == DeviceType.CUDA:
             for part, names in (("flash kernel", FLASH_KERNELS),

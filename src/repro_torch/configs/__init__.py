@@ -1,4 +1,4 @@
-"""Architecture registry of the port: only the architectures ported so far.
+"""Architecture registry of the port: the ten architectures of ``repro.configs``.
 
 Each module exposes ``config()`` (the published configuration) and
 ``smoke_config()`` (a reduced same-family configuration for CPU tests),
@@ -18,13 +18,17 @@ ARCHS: List[str] = [
     "musicgen-medium",
     "arctic-480b",
     "deepseek-v2-236b",
+    "llama-3.2-vision-11b",
+    "zamba2-7b",
+    "xlstm-125m",
 ]
 
 
 def _module(name: str):
     if name not in ARCHS:
         raise ValueError(f"architecture {name!r} is not ported; ported: {ARCHS}")
-    return importlib.import_module(f"repro_torch.configs.{name.replace('-', '_')}")
+    module = name.replace("-", "_").replace(".", "_")
+    return importlib.import_module(f"repro_torch.configs.{module}")
 
 
 def get_config(name: str):

@@ -3,17 +3,19 @@
 ``params_from_jax(params, cfg)`` takes the JAX ``LM.init`` tree with numpy
 leaves (``jax.tree.map(np.asarray, params)``) and returns the dict to pass to
 ``LM.load_state_dict``. The JAX tree stacks the weights of each segment on a
-leading units axis (``params["segments"][i]["unit"]["0"]``: one segment, or
-deepseek's dense segment and then its MoE segment); here the segments' units
-are unstacked, in order, into ``blocks.<layer>``. Weights keep the JAX ``(in, out)``
-orientation: the port computes ``x @ w`` as the JAX package does, so nothing is
-transposed. The tree's ``embed`` (absent for the audio family) and ``head``
-(an untied read-out) are carried across where present, and so are the qk
-norms' ``attn.q_norm.scale`` / ``attn.k_norm.scale``, the MLA leaves
-(``attn.w_dkv``, ``w_krope``, ``w_uk``, ``w_uv``, ``wo``, ``kv_norm.scale``,
-``w_dq``, ``w_uq``, ``q_norm.scale`` or ``w_q``) and the MoE leaves
-(``moe.router``, ``moe.wi_*``, ``moe.wo``, ``moe.shared.*``,
-``moe.dense_residual.*``), per layer like every block weight.
+leading units axis: ``params["segments"][s]["unit"][str(pos)]`` holds the
+block at position ``pos`` of every unit of segment ``s``, and
+``["shared"][str(pos)]`` a block whose one weight set every unit applies
+(zamba2's attention block, unstacked). Here the units are unstacked, in order
+of application, into ``blocks.<layer>`` (a unit's positions in order, the
+units in order, the segments in order: deepseek's dense segment and then its
+MoE segment, zamba2's units and then its tail), and a shared block goes to
+``shared_attn``. Weights keep the JAX ``(in, out)`` orientation: the port
+computes ``x @ w`` as the JAX package does, so nothing is transposed. Every
+leaf lands on one parameter of the same name: ``embed`` (absent for the audio
+family) and ``head`` (an untied read-out) where present, the qk norms, the MLA
+and MoE leaves, a cross block's ``xattn.*`` and ``ffn_gate``, a recurrent
+block's ``cell.*``.
 
 ``baseline_from_reference(state)`` carries a detector's state across: it takes
 the arrays of a reference ``AdaptiveBaseline`` as numpy and returns the port's
@@ -40,27 +42,32 @@ def _flatten(tree: Dict[str, Any], prefix: str = ""):
 
 
 def params_from_jax(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """Each leaf of ``params`` to the one ``LM`` parameter of its shape."""
+    """Each leaf of ``params`` to the one ``LM`` parameter of its name."""
     state = {"final_norm.scale": params["final_norm"]["scale"]}
     if "embed" in params:
         state["embed.table"] = params["embed"]["table"]
     if "head" in params:
         state["head"] = params["head"]
-    layer_start = 0
+    shared = [block for seg in params["segments"] for block in seg["shared"].values()]
+    if len(shared) > 1:
+        raise ValueError(f"{len(shared)} shared blocks: the port has one")
+    for block in shared:
+        state.update((f"shared_attn.{name}", leaf) for name, leaf in _flatten(block))
+    layer = 0
     for seg in params["segments"]:
-        if set(seg["unit"]) != {"0"} or seg["shared"]:
-            raise ValueError("only segments of one block a unit, with no shared block, "
-                             "are ported")
-        leaves = list(_flatten(seg["unit"]["0"]))
-        n_units = leaves[0][1].shape[0]
-        for name, stacked in leaves:
+        stacks = {pos: list(_flatten(block)) for pos, block in seg["unit"].items()}
+        n_units = next(iter(stacks.values()))[0][1].shape[0]
+        for name, stacked in (leaf for leaves in stacks.values() for leaf in leaves):
             if stacked.shape[0] != n_units:
                 raise ValueError(f"{name}: {stacked.shape[0]} units, the segment has {n_units}")
-            for u in range(n_units):
-                state[f"blocks.{layer_start + u}.{name}"] = stacked[u]
-        layer_start += n_units
-    if layer_start != cfg.n_layers:
-        raise ValueError(f"the segments hold {layer_start} layers for {cfg.n_layers}")
+        positions = sorted(stacks, key=int)
+        for u in range(n_units):
+            for pos in positions:
+                for name, stacked in stacks[pos]:
+                    state[f"blocks.{layer}.{name}"] = stacked[u]
+                layer += 1
+    if layer != cfg.n_layers:
+        raise ValueError(f"the segments hold {layer} layers for {cfg.n_layers}")
     return {k: torch.from_numpy(np.array(v)) for k, v in state.items()}
 
 

@@ -1,10 +1,12 @@
 """Deterministic, seed-addressable synthetic data pipeline.
 
 The port's own copy of ``repro.data.pipeline`` (numpy only): token ids,
-codebook labels, and the audio family's frame embeddings (float32 here; the
-model casts them to its ``param_dtype``). ``batch(step)`` is a pure function
-of (seed, step): a counter-based Philox generator keyed ``(step << 8) +
-salt``, so a job restarted from checkpoint step k consumes the exact same
+codebook labels, the audio family's frame embeddings and the vlm family's
+``vision_embed`` (floats are float32 here; the model casts them to its
+``param_dtype``). ``batch(step)`` is a pure function of (seed, step): a
+counter-based Philox generator keyed ``(step << 8) + salt``, the salt the
+input's place in name order (``tokens`` 0, ``vision_embed`` 1), so a job
+restarted from checkpoint step k consumes the exact same
 stream from k on, and a seed gives the same bytes as the JAX package's
 pipeline. ``host_batch`` is the slice of the global batch that one host
 loads.

@@ -10,7 +10,9 @@ its model with ``use_kernel=False``, this one serves through the CUDA kernels.
 Weights are random, drawn from a ``torch.Generator`` with a fixed seed. For
 the audio family the prompt is frame embeddings and every decode step feeds a
 zero frame (the stub front end, as in the JAX entry point); the greedy tokens
-are then codebook ids.
+are then codebook ids. For the vlm family the prompt carries image
+embeddings, and so does every decode step. The timed prefill starts from a
+zero cache, as the JAX entry point's one prefill does.
 """
 from __future__ import annotations
 
@@ -51,21 +53,27 @@ def serve(run: RunConfig, *, batch: int = 2, prompt_len: int = 64, decode_steps:
                              dtype=DTYPES[run.parallel.param_dtype])
     prefill = make_prefill_step(model)
     decode = make_decode_step(model)
+    # every decode step carries the prompt's image embeddings (vlm)
+    extra = {"vision_embed": prompt["vision_embed"]} if "vision_embed" in prompt else {}
     if "embeddings" in prompt:  # audio: a zero frame a step (stub front end)
         frame = torch.zeros((batch, 1, run.model.d_model), dtype=model.param_dtype, device=dev)
 
         def step_batch(tokens):
-            return {"embeddings": frame}
+            return {"embeddings": frame, **extra}
     else:
         def step_batch(tokens):
-            return {"tokens": tokens[:, None]}
+            return {"tokens": tokens[:, None], **extra}
     # one untimed prefill and decode step first, so that the times below are
-    # those of a warm server (library handles, allocator, kernel loading); the
-    # timed prefill rewrites every cache entry the warm-up wrote
+    # those of a warm server (library handles, allocator, kernel loading)
     logits, cache = prefill(prompt, cache)
     if decode_steps:
         decode(step_batch(torch.argmax(logits[:, -1], dim=-1).to(torch.int32)), cache,
                prompt_len)
+    # then a fresh cache: a recurrent block's prefill starts from the state in
+    # its cache, which the warm-up left at the end of its decode step
+    del cache
+    cache = model.init_cache(batch, prompt_len + decode_steps,
+                             dtype=DTYPES[run.parallel.param_dtype])
     launches0 = kops.launch_counts()
 
     _sync(dev)

@@ -1,10 +1,12 @@
-"""Self attention with a cache: GQA (full / sliding-window / soft-capped) and MLA.
+"""Attention: GQA (full / sliding-window / soft-capped) and MLA with a cache,
+and cross attention.
 
-Port of the self-attention part of ``repro.models.attention``: ``KVCache``,
-``layer_window``, ``chunked_causal_attention``, the GQA block in its
-``train``, ``prefill`` and ``decode`` modes with the optional per-head qk
-norm, and DeepSeek-V2's MLA with its compressed cache (``MLACache``). Cross
-attention is not ported yet.
+Port of ``repro.models.attention``: ``KVCache``, ``layer_window``,
+``chunked_causal_attention``, the GQA block in its ``train``, ``prefill`` and
+``decode`` modes with the optional per-head qk norm, DeepSeek-V2's MLA with
+its compressed cache (``MLACache``), and llama-3.2-vision's tanh-gated cross
+attention to the image embeddings (``CrossAttention``), which runs the plain
+attention in every mode, as in the JAX package.
 
 ``use_kernel`` means "the hand-written kernel wherever this mode has one":
 GQA prefill goes through the flash kernel and decode through the decode
@@ -281,3 +283,73 @@ class MLAttention(nn.Module):
         w_uv = self.w_uv.to(x.dtype).reshape(m.kv_lora_rank, h, m.v_head_dim)
         out = torch.einsum("bqhl,lhd->bqhd", ctx, w_uv)
         return out.reshape(b, 1, h * m.v_head_dim) @ self.wo.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (llama-3.2-vision image layers)
+# ---------------------------------------------------------------------------
+
+def cross_attention(q, k, v, *, scale: float, q_chunk: int = 1024) -> torch.Tensor:
+    """Unmasked attention of every query to every key. q: (B, S, H, D);
+    k/v: (B, Sv, H, D), one head each per query head. Float32 scores and
+    softmax, the probabilities cast to ``v.dtype`` before PV, as the JAX
+    ``_softmax_attend``. The queries go in chunks of ``q_chunk``: at
+    llama-3.2-vision's prompt the whole fp32 score tensor would be (2, 32,
+    4352, 6404), 7.1 GB, and the probabilities as much again; each row's
+    softmax is the same either way. Under autograd each chunk runs under a
+    checkpoint, its scores recomputed in the backward pass."""
+    s = q.shape[1]
+    kf = k.float()
+    remat = s > q_chunk and torch.is_grad_enabled()
+
+    def chunk(qc, kf, v):
+        scores = torch.einsum("bqhd,bkhd->bhqk", qc.float(), kf) * scale
+        probs = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+    outs = []
+    for start in range(0, s, q_chunk):
+        qc = q[:, start:start + q_chunk]
+        outs.append(checkpoint(chunk, qc, kf, v, use_reentrant=False) if remat
+                    else chunk(qc, kf, v))
+    return torch.cat(outs, dim=1)
+
+
+class CrossAttention(nn.Module):
+    """``init_cross_attn``'s parameters: ``wq`` (d, H hd), ``wk``/``wv``
+    (vision_d_model, Hkv hd), ``wo`` (H hd, d) and the scalar ``gate``, which
+    starts at zero (the block is then the identity). K and V are repeated
+    from the kv heads to every query head; no RoPE, no mask, scale hd^-0.5;
+    the output is scaled by tanh(gate), the gate rounded to the activations'
+    dtype first, as the JAX package does."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        dv = cfg.vision_d_model or d
+        kw = dict(dtype=dtype, device=device)
+        self.wq = nn.Parameter(torch.empty(d, h * hd, **kw))
+        self.wk = nn.Parameter(torch.empty(dv, hkv * hd, **kw))
+        self.wv = nn.Parameter(torch.empty(dv, hkv * hd, **kw))
+        self.wo = nn.Parameter(torch.empty(h * hd, d, **kw))
+        self.gate = nn.Parameter(torch.zeros((), **kw))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for w in (self.wq, self.wk, self.wv, self.wo):
+            w.copy_(truncated_normal(w.shape, w.shape[0] ** -0.5, w.dtype, w.device, generator))
+        self.gate.zero_()
+
+    def forward(self, x, vision_embed):
+        """x: (B, S, d); vision_embed: (B, Sv, vision_d_model)."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        sv = vision_embed.shape[1]
+        ve = vision_embed.to(x.dtype)
+        q = (x @ self.wq.to(x.dtype)).reshape(b, s, h, hd)
+        k = (ve @ self.wk.to(x.dtype)).reshape(b, sv, hkv, hd).repeat_interleave(h // hkv, 2)
+        v = (ve @ self.wv.to(x.dtype)).reshape(b, sv, hkv, hd).repeat_interleave(h // hkv, 2)
+        out = cross_attention(q, k, v, scale=hd ** -0.5)
+        out = out.reshape(b, s, h * hd) @ self.wo.to(x.dtype)
+        return torch.tanh(self.gate.to(x.dtype)) * out

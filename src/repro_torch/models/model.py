@@ -1,9 +1,9 @@
 """Model facade: build the LM, the loss, and the shapes and values of its inputs.
 
-Port of ``repro.models.model`` (token and audio models, dense and MoE; the
-parameter accounting is ``LM.num_params``). ``synthetic_batch`` draws token ids and frame
-embeddings with numpy's ``default_rng`` exactly as the JAX package does, so a
-seed gives both packages the same bytes.
+Port of ``repro.models.model`` (every family; the parameter accounting is
+``LM.num_params``). ``synthetic_batch`` draws token ids, frame embeddings and
+image embeddings with numpy's ``default_rng`` exactly as the JAX package does,
+so a seed gives both packages the same bytes.
 """
 from __future__ import annotations
 
@@ -65,11 +65,14 @@ def _chunked_ce(model: LM, hidden, labels, chunk: int = CE_CHUNK):
 
 
 def model_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """The ``LM.forward`` keyword of a batch: its ``embeddings`` where it has
-    them (the audio family), else its ``tokens``."""
-    if "embeddings" in batch:
-        return {"embeddings": batch["embeddings"]}
-    return {"tokens": batch["tokens"]}
+    """The ``LM.forward`` keywords of a batch: its ``embeddings`` where it has
+    them (the audio family), else its ``tokens``; and its ``vision_embed``
+    where it has one (the vlm family)."""
+    out = ({"embeddings": batch["embeddings"]} if "embeddings" in batch
+           else {"tokens": batch["tokens"]})
+    if "vision_embed" in batch:
+        out["vision_embed"] = batch["vision_embed"]
+    return out
 
 
 def lm_loss(model: LM, batch: Dict[str, torch.Tensor]):
@@ -92,18 +95,24 @@ def lm_loss(model: LM, batch: Dict[str, torch.Tensor]):
 
 
 def batch_shapes(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
-    """Shapes/dtypes for one step's inputs, as (shape, dtype) tuples: token
-    ids, or for the audio family frame ``embeddings`` (the stub front end's
-    output) and, to train, codebook ``labels``. The vision front end is not
-    ported yet."""
+    """Shapes/dtypes for one step's inputs, as (shape, dtype) tuples, in the
+    JAX package's order: token ids, or for the audio family frame
+    ``embeddings`` (the stub front end's output) and, to train, codebook
+    ``labels``; then, where the model has cross blocks, the image patch
+    embeddings ``vision_embed`` (the stub vision tower's output, the same
+    in every mode)."""
     b = shape.global_batch
     s_in = 1 if shape.kind == "decode" else shape.seq_len
+    d: Dict[str, Any] = {}
     if cfg.family == "audio":
-        d = {"embeddings": ((b, s_in, cfg.d_model), torch.bfloat16)}
+        d["embeddings"] = ((b, s_in, cfg.d_model), torch.bfloat16)
         if shape.kind == "train":
             d["labels"] = ((b, s_in), torch.int32)
-        return d
-    return {"tokens": ((b, s_in), torch.int32)}
+    else:
+        d["tokens"] = ((b, s_in), torch.int32)
+    if cfg.cross_attn_every:
+        d["vision_embed"] = ((b, cfg.vision_seq_len, cfg.vision_d_model), torch.bfloat16)
+    return d
 
 
 def synthetic_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0, device=None):

@@ -43,22 +43,30 @@ def test_config_equals_jax_field_for_field(arch, which):
 
 
 def test_unported_arch_is_refused():
+    """Every architecture of the JAX package is ported; any other name is
+    refused."""
+    assert set(torch_configs.ARCHS) == set(jax_configs.ARCHS)
     with pytest.raises(ValueError, match="not ported"):
-        torch_configs.get_config("zamba2-7b")
+        torch_configs.get_config("gpt-j-6b")
 
 
+# a config that misuses each of the plan's features: a mamba2 block without an
+# SSM config, a pattern with an unknown block kind, cross attention every 3rd
+# of 2 layers (the JAX plan asserts or fails on each)
 UNPORTED_FEATURES = {
-    "ssm": dict(ssm=tcfg.SSMConfig(state_dim=8, head_dim=8)),
-    "block_pattern": dict(block_pattern=("dense", "mamba2")),
-    "cross_attn_every": dict(cross_attn_every=2),
+    "ssm": dict(block_pattern=("dense", "mamba2")),
+    "block_pattern": dict(block_pattern=("dense", "mamba3")),
+    "cross_attn_every": dict(cross_attn_every=3),
 }
 
 
 @pytest.mark.parametrize("feature", sorted(UNPORTED_FEATURES))
 def test_unported_block_kinds_are_refused(feature):
-    cfg = dataclasses.replace(torch_configs.get_smoke_config("yi-34b").model,
+    """Recurrent, pattern and cross-attention plans are ported; a
+    config that misuses them is refused with a message naming the field."""
+    cfg = dataclasses.replace(torch_configs.get_smoke_config("yi-34b").model, n_layers=2,
                               **UNPORTED_FEATURES[feature])
-    with pytest.raises(ValueError, match=f"not ported yet: {feature}"):
+    with pytest.raises(ValueError, match=feature):
         LM(cfg, torch.float32, "cpu")
 
 
@@ -190,11 +198,19 @@ def test_dense_block_train_mode_matches_jax(arch, layer):
 
 # --- parameters ---------------------------------------------------------------
 
+FP32_LEAVES = ("moe.router", "cell.A_log", "cell.dt_bias", "cell.D", "cell.if_bias", "cell.b")
+
+
 @pytest.mark.parametrize("arch", torch_configs.ARCHS)
 def test_converted_params_load_and_count_as_in_jax(arch, monkeypatch):
     """Every JAX leaf lands, unstacked, in the one parameter of its layer and
-    path (deepseek: the dense segment's unit 0 is layer 0, the MoE segment's
-    unit u is layer 1 + u); the float32 router stays float32 in a bf16 model."""
+    path, layers counted in order of application (deepseek: the dense
+    segment's unit 0 is layer 0, the MoE segment's unit u is layer 1 + u;
+    llama-vision: unit u's position p is layer 5u + p; zamba2: unit u's
+    mamba2 position p is layer 6u + p, the tail's after them, and the shared
+    block, unstacked, is ``shared_attn``); each leaf once, each parameter
+    once. The float32 leaves (the MoE router, Mamba2's A_log, dt_bias and D,
+    the xLSTM gate biases) stay float32 in a bf16 model."""
     monkeypatch.setattr(jax_transformer, "shard_activations", lambda x: x)
     jcfg = jax_configs.get_smoke_config(arch).model
     params = jax_transformer.LM(jcfg, param_dtype=jnp.float32).init(jax.random.key(0))
@@ -202,19 +218,31 @@ def test_converted_params_load_and_count_as_in_jax(arch, monkeypatch):
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), model.cfg))
     assert model.num_params() == count_params_analytic(jcfg)
     got = dict(model.named_parameters())
-    layer = 0
+    want = {k: np.asarray(v) for k, v in _flatten(
+        {k: v for k, v in params.items() if k != "segments"})}
+    leaves, layer = len(want), 0
     for seg in params["segments"]:
-        for name, stacked in _flatten(seg["unit"]["0"]):
-            for u in range(stacked.shape[0]):
-                np.testing.assert_array_equal(got[f"blocks.{layer + u}.{name}"].detach().numpy(),
-                                              np.asarray(stacked[u]), err_msg=name)
-        layer += stacked.shape[0]
-    assert layer == jcfg.n_layers
+        n_units = jax.tree.leaves(seg["unit"])[0].shape[0]
+        for u in range(n_units):
+            for pos in sorted(seg["unit"], key=int):
+                for name, stacked in _flatten(seg["unit"][pos]):
+                    assert f"blocks.{layer}.{name}" not in want
+                    want[f"blocks.{layer}.{name}"] = np.asarray(stacked[u])
+                layer += 1
+        leaves += sum(len(list(_flatten(block))) for block in seg["unit"].values())
+        for block in seg["shared"].values():
+            for name, leaf in _flatten(block):
+                assert f"shared_attn.{name}" not in want
+                want[f"shared_attn.{name}"] = np.asarray(leaf)
+                leaves += 1
+    assert layer == jcfg.n_layers and leaves == len(jax.tree.leaves(params))
+    assert set(got) == set(want)
+    for name, value in want.items():
+        np.testing.assert_array_equal(got[name].detach().numpy(), value, err_msg=name)
     bf16 = LM(model.cfg, torch.bfloat16, "cpu")
     bf16.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), model.cfg))
     for name, p in bf16.named_parameters():
-        assert p.dtype == (torch.float32 if name.endswith("moe.router") else torch.bfloat16), name
-
+        assert p.dtype == (torch.float32 if name.endswith(FP32_LEAVES) else torch.bfloat16), name
 
 
 @pytest.mark.parametrize("arch", torch_configs.ARCHS)

@@ -11,6 +11,7 @@ Logit tolerance 1e-4 (atol = rtol): both sides run in fp32, so they differ
 only by the order of sums, which four layers and the soft-caps grow from
 ~1e-6 to ~1e-5 at most. Greedy tokens must be equal.
 """
+import collections
 import dataclasses
 import functools
 import json
@@ -50,6 +51,16 @@ def no_shard(monkeypatch):
     monkeypatch.setattr(jax_moe, "_maybe_shard", lambda x, spec: x)
 
 
+def _gated(params, seed=3):
+    """``params`` with every cross-attention ``gate`` and ``ffn_gate`` drawn
+    from N(0, 1): at the JAX init they are zero and a cross block is the
+    identity. Other trees come back unchanged."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: jnp.asarray(rng.normal(0, 1, a.shape), a.dtype)
+        if path[-1].key in ("gate", "ffn_gate") else a, params)
+
+
 def _fp32(run):
     return run.replace(parallel=dataclasses.replace(run.parallel, param_dtype="float32"))
 
@@ -64,10 +75,11 @@ def _as_bits(a):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_slice_matches_jax_through_decode_past_the_window(arch, no_shard):
     """Token models decode their greedy tokens; the audio family decodes a
-    zero frame a step, as the JAX entry point's stub front end does."""
+    zero frame a step, as the JAX entry point's stub front end does; the vlm
+    family's steps carry the prompt's image embeddings, its gates non-zero."""
     jcfg = jax_configs.get_smoke_config(arch).model
     jm = jax_transformer.LM(jcfg, param_dtype=jnp.float32, remat="none", use_kernel=False)
-    params = jm.init(jax.random.key(0))
+    params = _gated(jm.init(jax.random.key(0)))
     run = _fp32(get_smoke_config(arch))
     model = build_model(run, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), run.model))
@@ -102,8 +114,35 @@ def test_slice_matches_jax_through_decode_past_the_window(arch, no_shard):
         jstep = {"embeddings": jnp.asarray(frame)} if audio else {
             "tokens": jnp.asarray(jtok)[:, None]}
         tstep = {"embeddings": torch.from_numpy(frame)} if audio else {"tokens": ttok[:, None]}
+        if "vision_embed" in jbatch:
+            jstep["vision_embed"], tstep["vision_embed"] = jbatch["vision_embed"], tbatch[
+                "vision_embed"]
         jl, _, jcache = jdecode(params, jstep, jcache, jnp.asarray(PROMPT + i, jnp.int32))
         tl, tcache = tdecode(tstep, tcache, PROMPT + i)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_prefill_equals_a_one_shot_jax_prefill(arch, no_shard, monkeypatch):
+    """``serve`` runs an untimed prefill and decode step first, then the timed
+    prefill; its logits equal the JAX entry point's one prefill from a zero
+    cache (the same weights, the gates non-zero). A recurrent block's prefill
+    starts from the state in its cache, so this holds only because the timed
+    prefill gets a fresh cache: from the warm-up's cache, zamba2's and
+    xlstm's logits would start from the warm-up's final state."""
+    jcfg = jax_configs.get_smoke_config(arch).model
+    jm = jax_transformer.LM(jcfg, param_dtype=jnp.float32, remat="none", use_kernel=False)
+    params = _gated(jm.init(jax.random.key(2)))
+    run = _fp32(get_smoke_config(arch))
+    model = build_model(run, device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), run.model))
+    model.init_weights = lambda generator: model          # keep the JAX weights
+    monkeypatch.setattr(serve_mod, "build_model", lambda run, device, use_kernel: model)
+    res = serve_mod.serve(run, batch=BATCH, prompt_len=PROMPT, decode_steps=3, device="cpu")
+    jbatch = jax_model.synthetic_batch(jcfg, JaxShapeSpec("s", PROMPT, BATCH, "prefill"), seed=1)
+    want, _, _ = jm.forward(params, jbatch, mode="prefill", head="last",
+                            cache=jm.init_cache(BATCH, PROMPT + 3, dtype=jnp.float32))
+    np.testing.assert_allclose(res["prefill_logits"].numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
 
 
 def test_head_full_matches_head_last():
@@ -141,6 +180,18 @@ def test_serve_cli_serves_the_dense_and_audio_archs_on_cpu(arch, capsys):
     toks = np.asarray(out["sampled_tokens_head"])
     assert toks.shape == (2, 5)
     assert 0 <= toks.min() and toks.max() < get_smoke_config(arch).model.vocab_size
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "zamba2-7b", "xlstm-125m"])
+def test_serve_cli_serves_the_vision_hybrid_and_recurrent_archs_on_cpu(arch, capsys):
+    serve_mod.main(["--arch", arch, "--smoke", "--device", "cpu", "--prompt-len", "20",
+                    "--decode-steps", "4"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["arch"] == get_smoke_config(arch).model.name
+    toks = np.asarray(out["sampled_tokens_head"])
+    assert toks.shape == (2, 5)
+    assert 0 <= toks.min() and toks.max() < get_smoke_config(arch).model.vocab_size
+    assert out["kernel_launches"] == {"flash_attention": 0, "decode_attention": 0, "rmsnorm": 0}
 
 
 def test_serve_is_deterministic_for_a_seed():
@@ -259,6 +310,33 @@ def test_chip_smoke_path_check_holds_the_profile_to_the_dispatch_rule(case):
             smoke.path_check(case, kind, q, k, calls)
     else:
         smoke.path_check(case, kind, q, k, calls)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_chip_smoke_counts_the_launches_of_a_forward(arch, monkeypatch):
+    """``norms_per_forward`` and ``attention_applications``, from which the
+    card's exact launch counts are derived, against the norm and flash calls
+    of one prefill of the smoke model (zamba2's shared block once a unit,
+    the cross and recurrent blocks' two norms each); ``mixer_outputs``
+    records one output a block application and leaves no patch behind."""
+    from repro_torch.kernels import ops
+    smoke = _smoke_module()
+    calls = collections.Counter()
+    for name in ("rmsnorm", "flash_attention"):
+        real = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, real=real, name=name, **kw:
+                            calls.update([name]) or real(*a, **kw))
+    run = _fp32(get_smoke_config(arch))
+    model = build_model(run, device="cpu").init_weights(torch.Generator().manual_seed(0))
+    batch = synthetic_batch(run.model, ShapeSpec("p", 8, 1, "prefill"), device="cpu")
+    records = []
+    with smoke.mixer_outputs(model, records):
+        make_prefill_step(model)(batch, model.init_cache(1, 8, torch.float32))
+    assert calls["rmsnorm"] == smoke.norms_per_forward(run.model)
+    assert calls["flash_attention"] == smoke.attention_applications(run.model)
+    assert len(records) == sum(k != "cross" for k in model.kinds)
+    assert not any(name in vars(m) for m in model.modules()
+                   for name in ("forward_aux", "prefill", "decode"))
 
 
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)

@@ -63,14 +63,24 @@ def _run(arch, **parallel):
                                                     **parallel))
 
 
+def _gated(params, seed=3):
+    """``params`` with every cross-attention ``gate`` and ``ffn_gate`` drawn
+    from N(0, 1): at the JAX init they are zero and a cross block is the
+    identity. Other trees come back unchanged."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: jnp.asarray(rng.normal(0, 1, a.shape), a.dtype)
+        if path[-1].key in ("gate", "ffn_gate") else a, params)
+
+
 def _pair(arch, **parallel):
-    """The JAX LM with fp32 params from a key, and the port's model loaded
-    with the same values."""
+    """The JAX LM with fp32 params from a key (the cross gates drawn
+    non-zero), and the port's model loaded with the same values."""
     jrun = jax_configs.get_smoke_config(arch)
     jrun = jrun.replace(parallel=dataclasses.replace(jrun.parallel, param_dtype="float32",
                                                      **parallel))
     jm = jax_model.build_model(jrun, use_kernel=False)
-    params = jm.init(jax.random.key(0))
+    params = _gated(jm.init(jax.random.key(0)))
     run = _run(arch, **parallel)
     model = build_model(run, device="cpu")
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params), run.model))
@@ -109,6 +119,27 @@ def test_lm_loss_and_gradients_match_jax(arch, no_shard):
     assert set(metrics) == set(jmet) == {"ce_loss", "loss"} | moe
     for key in jmet:
         np.testing.assert_allclose(metrics[key].item(), float(jmet[key]), rtol=1e-5, err_msg=key)
+    want = params_from_jax(jax.tree.map(np.asarray, jgrads), run.model)
+    got = {n: p.grad for n, p in model.named_parameters()}
+    assert set(got) == set(want)
+    worst = max((_leaf_rel(got[n], want[n]), n) for n in want)
+    assert worst[0] <= 1e-4, worst
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "zamba2-7b", "xlstm-125m"])
+def test_remat_full_gradients_match_jax(arch, no_shard):
+    """Remat ``full`` (each block recomputed in the backward pass; zamba2's
+    shared block at each of its applications) against ``jax.grad`` of
+    ``lm_loss`` under the JAX package's ``nothing_saveable``: loss 1e-5,
+    gradients by the per-leaf tolerance above (the shared block's sum over
+    its applications among them)."""
+    jrun, jm, params, run, model = _pair(arch, remat="full")
+    jb, tb = _batch(jrun.model)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jax_model.lm_loss(jm, p, b)[0]))(params, jb)
+    loss, _ = lm_loss(model, tb)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     want = params_from_jax(jax.tree.map(np.asarray, jgrads), run.model)
     got = {n: p.grad for n, p in model.named_parameters()}
     assert set(got) == set(want)
@@ -360,7 +391,8 @@ def test_int8_grad_compression_is_refused():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_pipeline_batches_are_byte_equal_to_jax(arch):
     """Tokens; for the audio family float32 embeddings (salt 0) and int32
-    labels (salt 1)."""
+    labels (salt 1); for the vlm family tokens (salt 0) and float32
+    ``vision_embed`` (salt 1)."""
     cfg = get_smoke_config(arch).model
     jcfg = jax_configs.get_smoke_config(arch).model
     kw = dict(seed=7, n_hosts=2)
@@ -369,12 +401,15 @@ def test_pipeline_batches_are_byte_equal_to_jax(arch):
     jp = jax_pipeline.TokenPipeline(jcfg, JaxShapeSpec("t", 64, 4, "train"),
                                     jax_pipeline.PipelineConfig(**kw))
     keys = {"embeddings", "labels"} if cfg.family == "audio" else {"tokens"}
+    if cfg.cross_attn_every:
+        keys.add("vision_embed")
     for step in (0, 1, 7, 1000):
         got, want = tp.batch(step), jp.batch(step)
         assert got.keys() == want.keys() == keys
         for key in keys:
             assert got[key].dtype == want[key].dtype
-            assert got[key].dtype == (np.float32 if key == "embeddings" else np.int32)
+            assert got[key].dtype == (np.float32 if key in ("embeddings", "vision_embed")
+                                      else np.int32)
             assert got[key].tobytes() == want[key].tobytes()
             for host in (0, 1):
                 assert (tp.host_batch(step, host)[key].tobytes()
@@ -536,6 +571,16 @@ def test_train_cli_trains_the_dense_and_audio_archs_on_cpu(arch, tmp_path, capsy
     out = json.loads(capsys.readouterr().out)
     assert set(out) == {"arch", "steps_run", "restarts", "first_loss", "last_loss",
                         "detections", "step_stats", "checkpoints_saved"}
+    assert out["arch"] == get_smoke_config(arch).model.name
+    assert out["steps_run"] == 2 and out["restarts"] == 0
+    assert np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"])
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "zamba2-7b", "xlstm-125m"])
+def test_train_cli_trains_the_vision_hybrid_and_recurrent_archs_on_cpu(arch, tmp_path, capsys):
+    train_cli.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
+                    "--workdir", str(tmp_path)])
+    out = json.loads(capsys.readouterr().out)
     assert out["arch"] == get_smoke_config(arch).model.name
     assert out["steps_run"] == 2 and out["restarts"] == 0
     assert np.isfinite(out["first_loss"]) and np.isfinite(out["last_loss"])
