@@ -70,7 +70,12 @@ Phases, each fatal on failure:
     equal the initial weights and the replica bit for bit (after the
     restore and the replay, so a step that wrote into the replica fails);
     a fault-free run of the 3 steps from the replica through the Trainer's
-    step must end with losses and parameters bit-equal to the fault run's;
+    step must end with losses and parameters bit-equal to the fault run's.
+    Then one int8 step (``grad_compression="int8"``, error feedback, the
+    ``ef`` residual of one fp32 a parameter) of the same model: a finite
+    loss, the first quantised leaves of the step, copied to the CPU, bit-equal
+    to the CPU's quantisation of the same gradient leaf at the same amax,
+    its time beside a plain step's;
  5. detect: the C4D detection loop (``repro_torch.core``) at 100,000 ranks
     (``RingJobTelemetry``, seed 3: 3M transports in 300k pair groups, 1M
     heartbeats). Each detection kernel (``window_score``, its prefilter
@@ -188,7 +193,18 @@ Phases, each fatal on failure:
     are profiled too, their device time split by part (expert GEMMs, gathers
     and scatters, attention products, norms) and by scope (cross attention,
     the Mamba2, mLSTM and sLSTM cells).
-They run in the order 1, 2, 5, 6, 7, 9, 3, 4, 8, 10: late in the process (after the
+ 11. mesh: a world-1 NCCL process group (``tcp://localhost``, a free port) and
+    a (1, 1) ``make_local_mesh("cuda")``: one full-width gemma2-2b step
+    through the sharded step (DTensor masters and moments, gathered into
+    the model, gradients reduced onto the placements) and one through the
+    one-device step from the same weights and batch; loss and parameters
+    must be equal (``torch.equal``), or the script prints which leaves
+    differ (and fails only above a learning rate's difference); the
+    one-device step run twice (does it repeat itself bit for bit; the second
+    is timed warm) and the sharded step twice (the first starts the NCCL
+    communicators); the sharded step's RMSNorm launches counted; the
+    process group destroyed.
+They run in the order 1, 2, 5, 6, 7, 9, 3, 4, 11, 8, 10: late in the process (after the
 train phase) torch.profiler dropped the records of short profiled windows, so
 the detection kernels are timed first.
 The line before the last is a JSON ``kernels`` record; the last line is
@@ -1555,8 +1571,8 @@ def moe_check(run, card: str, profile_dir=None) -> dict:
             h.remove()
     route_topk = moe_mod.route_topk
 
-    def gates_not_renormalised(router_w, x, m):     # the top-k probabilities as gates
-        _, idx, aux = route_topk(router_w, x, m)
+    def gates_not_renormalised(router_w, x, m, **kw):     # the top-k probabilities as gates
+        _, idx, aux = route_topk(router_w, x, m, **kw)
         return torch.gather(torch.softmax(x.float() @ router_w, dim=-1), -1, idx), idx, aux
     moe_mod.route_topk = gates_not_renormalised
     try:
@@ -2026,6 +2042,7 @@ def train_phase(profile_dir=None):
             fail(f"the step-0 checkpoint restored from disk differs in {bad[:5]}")
         del flat
         fault_free_check(trainer, report)
+        int8_counts = int8_check(trainer, run)
         if profile_dir is not None:
             batch = {k: torch.from_numpy(v).cuda() for k, v in trainer.pipeline.batch(3).items()}
 
@@ -2035,10 +2052,198 @@ def train_phase(profile_dir=None):
                 metrics["loss"].item()
             profile_one("train_step", one_step, profile_dir)
         trainer.ckpt.close()
-        return dict(counts, detect=det_counts)
+        return dict(counts, detect=det_counts, int8=int8_counts)
     finally:
         ckpt_mod._sha = sha
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+INT8_CHECKED = 4          # quantised leaves copied back and checked on the CPU
+INT8_CHECK_NUMEL = 1 << 23
+
+
+def int8_check(trainer, run) -> dict:
+    """One int8 step of the Trainer's model from its present state (the
+    ``ef`` residual started at zero, one fp32 a parameter), beside a plain
+    step of the same batch: the loss finite, the first ``INT8_CHECKED``
+    quantised leaves of at most ``INT8_CHECK_NUMEL`` elements copied to the
+    CPU bit-equal to the CPU's round trip of the same corrected gradient at
+    the same amax, and to ``quantize_int8`` there; the seconds of both steps
+    (the plain one first). Returns the int8 step's launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.compression import (ErrorFeedback, dequantize_int8,
+                                                  quantize_int8)
+    from repro_torch.train import steps as steps_mod
+    irun = run.replace(parallel=dataclasses.replace(run.parallel, grad_compression="int8"))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in trainer.pipeline.batch(3).items()}
+    seen = []
+    roundtrip = steps_mod.roundtrip_int8
+
+    def spy(x, amax=None):
+        out = roundtrip(x, amax)
+        if len(seen) < INT8_CHECKED and x.numel() <= INT8_CHECK_NUMEL:
+            q, s = quantize_int8(x, amax)
+            seen.append(tuple(t.to("cpu", copy=True) for t in (x, amax, out, q, s)))
+        return out
+
+    def timed_step(step, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(trainer.params, state, batch)
+        loss = metrics["loss"].item()
+        return params, state, loss, time.perf_counter() - t0
+
+    _, trainer.opt_state, plain_loss, plain_s = timed_step(trainer._step_fn, trainer.opt_state)
+    state = dict(trainer.opt_state, ef=ErrorFeedback.init(trainer.params))
+    ef_bytes = sum(r.numel() * r.element_size() for r in state["ef"].values())
+    step = steps_mod.make_train_step(trainer.model, irun, trainer.opt_cfg)
+    compress = steps_mod._compress
+    stage_s = []
+
+    def timed_compress(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = compress(*a, **kw)
+        torch.cuda.synchronize()
+        stage_s.append(time.perf_counter() - t0)
+        return out
+    steps_mod.roundtrip_int8, steps_mod._compress = spy, timed_compress
+    ops.reset_launch_counts()
+    try:
+        _, state, loss, int8_s = timed_step(step, state)
+    finally:
+        steps_mod.roundtrip_int8, steps_mod._compress = roundtrip, compress
+    counts = ops.launch_counts()
+    resid = max(float(r.abs().max()) for r in state["ef"].values())
+    del state
+    bad = []
+    for i, (x, amax, out, q, s) in enumerate(seen):
+        cq, cs = quantize_int8(x, amax)
+        if not (torch.equal(out, dequantize_int8(cq, cs).to(x.dtype)) and torch.equal(q, cq)
+                and torch.equal(s, cs)):
+            bad.append(i)
+    print(f"  train int8 step (ef {ef_bytes / 1e9:.3f} GB, fp32 a parameter): loss {loss:.6f} "
+          f"(plain step {plain_loss:.6f}); step_s {int8_s:.4f} against the plain step's "
+          f"{plain_s:.4f} ({(int8_s - plain_s) * 1e3:+.1f} ms), of it the int8 stage "
+          f"(amax, error feedback, round trip) {stage_s[0] * 1e3:.1f} ms; largest residual "
+          f"{resid:.3e}; "
+          f"{len(seen)} quantised leaves of {[tuple(x.shape) for x, *_ in seen]} bit-equal to "
+          f"the CPU's quantisation: {not bad}; rmsnorm launches {counts['rmsnorm']}",
+          flush=True)
+    if not math.isfinite(loss) or len(seen) < INT8_CHECKED or bad or not resid > 0:
+        fail(f"train int8 step: loss {loss}, {len(seen)} leaves checked, leaves {bad} differ "
+             f"from the CPU's quantisation, largest residual {resid}")
+    return counts
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_phase() -> dict:
+    """One full-width gemma2-2b step through the sharded step on a world-1
+    NCCL (1, 1) mesh and one through the one-device step, from the same
+    weights and batch: loss and parameters equal (``torch.equal``) or the
+    leaves that differ printed, with whether the one-device step repeats
+    itself. Returns the sharded step's launch counts."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.steps import gather, make_train_step, shard_train_state
+
+    gc.collect()        # what the train phase left in reference cycles
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_local_mesh(1, 1, device="cuda")
+        run = get_config("gemma2-2b")
+        run = run.replace(train=dataclasses.replace(run.train, global_batch=TRAIN_BATCH))
+        shape = ShapeSpec("train", run.train.seq_len, TRAIN_BATCH, "train")
+        batch = {k: torch.from_numpy(v).cuda() for k, v in TokenPipeline(
+            run.model, shape, PipelineConfig(seed=run.train.seed)).batch(0).items()}
+        model = build_model(run, device="cuda")
+        model.init_weights(torch.Generator("cuda").manual_seed(run.train.seed))
+        params = dict(model.named_parameters())
+        w0 = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
+        cfg = adamw.OptimizerConfig(kind=run.parallel.optimizer_state,
+                                    weight_decay=run.train.weight_decay)
+
+        def plain_step():
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(w0[n])
+            state = adamw.init_state(cfg, params)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, met = make_train_step(model, run, cfg)(params, state, batch)
+            loss = met["loss"].item()
+            seconds = time.perf_counter() - t0
+            return loss, {n: p.detach().to("cpu", copy=True) for n, p in params.items()}, seconds
+
+        # twice from the same weights: the second time is warm, and the two
+        # show whether the one-device step repeats itself bit for bit
+        plain_loss, plain_after, plain_cold = plain_step()
+        again_loss, again, plain_s = plain_step()
+        repeat = again_loss == plain_loss and all(
+            torch.equal(again[n], plain_after[n]) for n in again)
+        del again
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(w0[n])
+        placements = shd.param_placements(params, mesh)
+        masters, state = shard_train_state(params, adamw.init_state(cfg, params), cfg, mesh,
+                                           placements)
+        step = make_train_step(model, run, cfg, mesh)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        masters, state, met = step(masters, state, batch)
+        loss = met["loss"].item()
+        sharded_cold = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        after = {n: t.to("cpu", copy=True) for n, t in gather(masters).items()}
+        t0 = time.perf_counter()
+        masters, state, met = step(masters, state, batch)
+        warm_loss = met["loss"].item()
+        sharded_s = time.perf_counter() - t0
+        del state, masters
+        diff = {n: float((after[n].float() - plain_after[n].float()).abs().max())
+                for n in after if not torch.equal(after[n], plain_after[n])}
+        sharded = sum(1 for pl in placements.values() if any(
+            type(p).__name__ == "Shard" for p in pl))
+        print(f"  mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} nccl world 1: "
+              f"{sharded} of {len(placements)} leaves under Shard placements; sharded step "
+              f"{sharded_cold:.4f} s (first: the NCCL communicators start), then "
+              f"{sharded_s:.4f} s; one-device step {plain_cold:.4f} s, then {plain_s:.4f} s; "
+              f"loss {loss!r} against {plain_loss!r}; rmsnorm launches {counts['rmsnorm']}; "
+              f"loss equal: {loss == plain_loss}, parameters torch.equal: {not diff}; the "
+              f"one-device step repeats itself bit for bit: {repeat}", flush=True)
+        if diff or loss != plain_loss:
+            worst = max(diff.items(), key=lambda kv: kv[1], default=(None, 0.0))
+            print(f"  mesh: {len(diff)} leaves differ (largest {worst[0]}: {worst[1]:.3e})",
+                  flush=True)
+            if worst[1] > run.train.learning_rate or abs(loss - plain_loss) > 1e-3 * abs(
+                    plain_loss):
+                fail("mesh: the sharded step is more than a learning rate from the "
+                     "one-device step")
+        if counts["rmsnorm"] == 0 or not (math.isfinite(loss) and math.isfinite(warm_loss)):
+            fail(f"mesh: launches {counts}, losses {loss}, {warm_loss}")
+        return counts
+    finally:
+        dist.destroy_process_group()
 
 
 def fault_check(trainer, report, per_ingest, spent, det_counts, ckpt_bytes) -> None:
@@ -3860,7 +4065,13 @@ def main(argv=None) -> int:
     print("[train]", flush=True)
     train_counts = train_phase(args.profile)
     train_fault_counts = train_counts.pop("detect")
+    int8_counts = train_counts.pop("int8")
     print(f"[train] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    print("[mesh]", flush=True)
+    mesh_counts = mesh_phase()
+    print(f"[mesh] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     print("[live]", flush=True)
@@ -3876,8 +4087,9 @@ def main(argv=None) -> int:
                                     if name == "rmsnorm" and "train" in models[arch] else 0}
                              for arch in MODEL_ARCHS} for name in counts}
     print(f"launches on the main paths: serve {serve_counts}, train {train_counts}, "
-          f"train fault {train_fault_counts}, live {live_counts}, campaigns "
-          f"{campaign_counts}, models {model_launches}", flush=True)
+          f"train fault {train_fault_counts}, train int8 {int8_counts}, mesh {mesh_counts}, "
+          f"live {live_counts}, campaigns {campaign_counts}, models {model_launches}",
+          flush=True)
 
 
     def times(row):
@@ -3932,7 +4144,8 @@ def main(argv=None) -> int:
         dict(entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                    "src/repro/kernels/rmsnorm.py:27", norm_err, norm_rows[:1]),
              prefill=times(norm_rows[1]), decode=dict(times(norm_rows[2]), **norm_extra),
-             live=live_counts["rmsnorm"]),
+             live=live_counts["rmsnorm"], train_int8=int8_counts["rmsnorm"],
+             mesh=mesh_counts["rmsnorm"]),
         *(detect_entry(name, src, rep, det_counts[name], det_err[name], det_rows[name])
           for name, src, rep in DETECT_KERNELS),
         # the balancer's last call of the C4P main path; launches there, in the

@@ -12,6 +12,9 @@ little work is lost when C4D restarts a job. This manager provides:
     first, falling back past corrupt ones on disk,
   * retention of the last ``keep`` checkpoints, in memory and on disk.
 
+``disk=False`` keeps the in-memory replica only (the ranks of a mesh other
+than rank 0, which alone writes the shared directory).
+
 A tree is nested dicts (and lists) of tensors, numpy arrays or numbers; its
 flat keys are the ``/``-joined paths, as in the JAX package. Leaves come back
 as CPU tensors of their saved dtype. numpy has no bfloat16, so a bf16 leaf is
@@ -68,9 +71,11 @@ def _sha(arr: np.ndarray) -> str:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, async_disk: bool = True):
+    def __init__(self, directory: str, keep: int = 3, async_disk: bool = True,
+                 disk: bool = True):
         self.dir = directory
         self.keep = keep
+        self.disk = disk
         os.makedirs(directory, exist_ok=True)
         self.memory: Dict[int, Dict[str, torch.Tensor]] = {}   # Gemini-style replica
         self._pool = ThreadPoolExecutor(max_workers=1) if async_disk else None
@@ -84,6 +89,8 @@ class CheckpointManager:
         for old in sorted(self.memory)[: -self.keep]:
             self.memory.pop(old, None)
         self.save_count += 1
+        if not self.disk:
+            return
         if self._pool is not None and not blocking:
             self._pending.append(self._pool.submit(self._write, step, flat))
         else:

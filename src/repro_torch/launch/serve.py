@@ -2,10 +2,17 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --prompt-len 4352 --decode-steps 32 --batch 2
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch gemma2-2b --smoke --device cpu --batch 4 --data 2
 
 Port of ``repro.launch.serve``: the same flags and JSON keys, plus
 ``--device`` (default ``cuda``; ``cpu`` only when asked) and the kernels'
-launch counts. One device, no mesh. Unlike the JAX entry point, which builds
+launch counts. ``--data``/``--model`` above 1 serve on a (data, model) mesh
+over data x model ranks (``torchrun``): the parameters replicated (every rank
+draws them from the same seed), each data rank prefilling and decoding its
+rows of the batch, and rank 0 printing the JSON over the gathered tokens. A
+MoE model's decode step routes the batch as one group, so on a mesh each
+data rank's rows are a group of their own. Unlike the JAX entry point, which builds
 its model with ``use_kernel=False``, this one serves through the CUDA kernels.
 Weights are random, drawn from a ``torch.Generator`` with a fixed seed. For
 the audio family the prompt is frame embeddings and every decode step feeds a
@@ -21,14 +28,17 @@ import json
 import time
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.common.config import RunConfig, ShapeSpec
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.model import DTYPES, build_model, synthetic_batch
-from repro_torch.train.steps import make_decode_step, make_prefill_step
+from repro_torch.train.steps import (batch_coordinate, local_batch, make_decode_step,
+                                     make_prefill_step)
 
 
 def _sync(dev: torch.device) -> None:
@@ -37,18 +47,24 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve(run: RunConfig, *, batch: int = 2, prompt_len: int = 64, decode_steps: int = 16,
-          device=None, seed: int = 0, use_kernel: bool = True) -> Dict[str, Any]:
+          device=None, seed: int = 0, use_kernel: bool = True, mesh=None) -> Dict[str, Any]:
     """Prefill ``batch`` synthetic prompts, then ``decode_steps`` greedy steps.
     ``kernel_launches`` counts the timed prefill and decode steps only.
 
     Returns the JSON fields of the CLI plus ``tokens`` (B, decode_steps + 1)
     and ``prefill_logits`` (B, 1, vocab) float32, both on the CPU, and
-    ``weight_bytes`` (the bytes of the model's parameters)."""
+    ``weight_bytes`` (the bytes of the model's parameters). With a ``mesh``
+    this rank serves its rows of the batch (all of it where the batch axes
+    do not divide it), and ``tokens`` and ``prefill_logits`` are gathered
+    over the ranks: every rank returns the whole batch's."""
     dev = resolve_device(device)
     model = build_model(run, device=dev, use_kernel=use_kernel)
     model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     shape = ShapeSpec("serve", prompt_len, batch, "prefill")
     prompt = synthetic_batch(run.model, shape, seed=1, device=dev)
+    if mesh is not None:
+        prompt = local_batch(prompt, 1, *batch_coordinate(mesh))
+        batch = next(iter(prompt.values())).shape[0]
     cache = model.init_cache(batch, prompt_len + decode_steps,
                              dtype=DTYPES[run.parallel.param_dtype])
     prefill = make_prefill_step(model)
@@ -94,19 +110,37 @@ def serve(run: RunConfig, *, batch: int = 2, prompt_len: int = 64, decode_steps:
     t_decode = time.perf_counter() - t0
 
     toks = torch.stack(out_tokens, dim=1).cpu().numpy()
+    prefill_logits = prefill_logits.float().cpu()
+    if mesh is not None:
+        toks, prefill_logits = _gather_rows(mesh, toks, prefill_logits)
     launches = {k: v - launches0[k] for k, v in kops.launch_counts().items()}
     return {
         "arch": run.model.name,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "prefill_s": t_prefill,
         "decode_s": t_decode,
-        "decode_tok_per_s": batch * decode_steps / max(t_decode, 1e-9),
+        "decode_tok_per_s": toks.shape[0] * decode_steps / max(t_decode, 1e-9),
         "sampled_tokens_head": toks[:, :8].tolist(),
         "kernel_launches": launches,
         "tokens": toks,
-        "prefill_logits": prefill_logits.float().cpu(),
+        "prefill_logits": prefill_logits,
         "weight_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
     }
+
+
+def _gather_rows(mesh, toks, logits):
+    """Every rank's rows, in the order of the batch: one rank of each batch
+    coordinate (ranks along ``model`` hold the same rows)."""
+    import torch.distributed as dist
+    mine = (*batch_coordinate(mesh), toks, logits)
+    rows = [None] * dist.get_world_size()
+    dist.all_gather_object(rows, mine)
+    by_coord = {r: (t, lg) for r, n, t, lg in rows}
+    if len(by_coord) == 1:                  # a replicated batch
+        return toks, logits
+    order = sorted(by_coord)
+    return (np.concatenate([by_coord[r][0] for r in order]),
+            torch.cat([by_coord[r][1] for r in order]))
 
 
 def main(argv=None):
@@ -121,12 +155,18 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; there is no automatic CPU fallback")
     args = ap.parse_args(argv)
-    if args.data != 1 or args.model != 1:
-        ap.error("the port serves on one device: --data and --model must be 1")
+    mesh = None
+    if args.data * args.model > 1:
+        try:
+            mesh = make_local_mesh(args.data, args.model, device=args.device)
+        except (RuntimeError, ValueError) as e:
+            ap.error(str(e))
 
     run = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     res = serve(run, batch=args.batch, prompt_len=args.prompt_len,
-                decode_steps=args.decode_steps, device=args.device)
+                decode_steps=args.decode_steps, device=args.device, mesh=mesh)
+    if mesh is not None and mesh.get_rank() != 0:
+        return
     print(json.dumps({
         "arch": res["arch"],
         "device": res["device"],

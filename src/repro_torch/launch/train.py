@@ -2,12 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \
         --smoke --steps 4 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch gemma2-2b --smoke --steps 4 --device cpu --data 2 --model 2
 
 Port of ``repro.launch.train``: the same flags and JSON keys, plus
 ``--device`` (default ``cuda``; ``cpu`` only when asked). ``--smoke`` uses
-the reduced same-family config. One device, no mesh: ``--data`` and
-``--model`` must be 1. ``--inject-fault KIND:STEP`` runs the C4D detect ->
-isolate -> restore loop mid-training, its detection on the same device.
+the reduced same-family config. ``--data``/``--model`` above 1 train on a
+(data, model) mesh (``launch.mesh.make_local_mesh``) over a process group of
+data x model ranks, one process a device, as ``torchrun`` starts them; rank
+0 prints. ``--inject-fault KIND:STEP`` runs the C4D detect -> isolate ->
+restore loop mid-training, its detection on the same device, on every rank.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import tempfile
 from repro_torch.common.config import SHAPES, ShapeSpec
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.faults import Fault
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.train.trainer import FaultInjector, Trainer
 
 
@@ -39,8 +44,12 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu; there is no automatic CPU fallback")
     args = ap.parse_args(argv)
-    if args.data != 1 or args.model != 1:
-        ap.error("the port trains on one device: --data and --model must be 1")
+    mesh = None
+    if args.data * args.model > 1:
+        try:
+            mesh = make_local_mesh(args.data, args.model, device=args.device)
+        except (RuntimeError, ValueError) as e:
+            ap.error(str(e))
 
     logging.basicConfig(level=logging.INFO)
     run = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -48,7 +57,7 @@ def main(argv=None):
         shape = SHAPES[args.shape]
     else:
         shape = ShapeSpec("train", run.train.seq_len, run.train.global_batch, "train")
-    trainer = Trainer(run, shape, workdir=args.workdir, device=args.device)
+    trainer = Trainer(run, shape, workdir=args.workdir, device=args.device, mesh=mesh)
 
     injector = None
     if args.inject_fault:
@@ -66,7 +75,8 @@ def main(argv=None):
         "step_stats": trainer.monitor.summary(),
         "checkpoints_saved": trainer.ckpt.save_count,
     }
-    print(json.dumps(out, indent=1, default=str))
+    if mesh is None or mesh.get_rank() == 0:
+        print(json.dumps(out, indent=1, default=str))
 
 
 if __name__ == "__main__":

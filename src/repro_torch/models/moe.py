@@ -14,11 +14,15 @@ The routing bookkeeping is integer and exact, as in the JAX package:
 first k of a stable descending sort; ``argsort(..., stable=True)`` is
 ``torch.argsort(stable=True)``. The router is float32 whatever the model's
 parameter dtype, as ``init_moe`` draws it. Sharding constraints
-(``_maybe_shard``) have no counterpart on one device.
+(``_maybe_shard``) have no counterpart: the model never sees a sharded
+tensor. Under data parallelism each rank routes its own rows, and the
+load-balance loss, which multiplies two means over the whole batch, takes
+them over every rank through the module's ``batch_mean`` (set by the sharded
+train step, ``train/steps.py``, around its forward and backward).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,9 +37,12 @@ def _capacity(tokens_per_group: int, m: MoEConfig) -> int:
     return max(8, (c + 7) // 8 * 8)  # a multiple of 8, as the JAX package rounds it
 
 
-def route_topk(router_w: torch.Tensor, x: torch.Tensor, m: MoEConfig):
+def route_topk(router_w: torch.Tensor, x: torch.Tensor, m: MoEConfig,
+               batch_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
     """x: (G, S, D) -> gates (G, S, k) float32, idx (G, S, k) int64, aux
-    losses (the Switch load-balance loss and the router z-loss, scaled)."""
+    losses (the Switch load-balance loss and the router z-loss, scaled).
+    ``batch_mean`` takes the load-balance loss's per-expert means ``me`` and
+    ``ce`` over the ranks that split the batch (autograd-aware)."""
     logits = x.float() @ router_w                                     # (G, S, E)
     probs = torch.softmax(logits, dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -43,6 +50,8 @@ def route_topk(router_w: torch.Tensor, x: torch.Tensor, m: MoEConfig):
     gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     me = probs.mean(dim=(0, 1))                                       # (E,)
     ce = F.one_hot(idx, m.num_experts).float().sum(dim=2).mean(dim=(0, 1))
+    if batch_mean is not None:
+        me, ce = batch_mean(me), batch_mean(ce)
     lb_loss = m.num_experts * torch.sum(me * ce) / m.top_k
     z_loss = torch.logsumexp(logits, dim=-1).square().mean()
     aux = {"moe_lb_loss": lb_loss * m.load_balance_loss,
@@ -87,7 +96,7 @@ def apply_moe(moe: "MoE", cfg: ModelConfig, x: torch.Tensor,
     cap = capacity if capacity is not None else _capacity(s, m)
     e = m.num_experts
 
-    gates, idx, aux = route_topk(moe.router, x, m)
+    gates, idx, aux = route_topk(moe.router, x, m, batch_mean=moe.batch_mean)
     dest, valid, token, _, order = _dispatch_indices(idx, e, cap)
 
     # dispatch: every slot into its row of a (G, E*C + 1, D) buffer; the
@@ -123,11 +132,13 @@ class MoE(nn.Module):
     ``wi_gate`` / ``wi_up`` (E, d_model, d_ff_expert), ``wo`` (E,
     d_ff_expert, d_model), and the GLU MLPs ``shared`` (width d_ff_expert x
     num_shared_experts) and ``dense_residual`` where the config has them.
-    ``forward(x)`` returns (out, aux losses)."""
+    ``forward(x)`` returns (out, aux losses). ``batch_mean``: see
+    ``route_topk``; None on one rank."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.cfg = cfg
+        self.batch_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
         m = cfg.moe
         d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
         kw = dict(dtype=dtype, device=device)

@@ -279,6 +279,23 @@ def layer_plan(cfg: ModelConfig) -> List[str]:
     return [BLOCK_DENSE] * n
 
 
+def stack_positions(cfg: ModelConfig) -> List[Tuple[int, int]]:
+    """Each layer's (segment, position in the unit) in the JAX package's
+    ``plan_segments``: the layers of one pair are one stacked JAX leaf a
+    weight (zamba2's shared block is not a layer)."""
+    n = cfg.n_layers
+    if cfg.cross_attn_every:
+        return [(0, i % cfg.cross_attn_every) for i in range(n)]
+    if cfg.shared_attn_every and cfg.ssm is not None:
+        full = n // cfg.shared_attn_every * cfg.shared_attn_every
+        return [(0, i % cfg.shared_attn_every) if i < full else (1, i - full) for i in range(n)]
+    if cfg.block_pattern:
+        return [(0, i % len(cfg.block_pattern)) for i in range(n)]
+    if cfg.moe is not None and cfg.first_k_dense:
+        return [(0 if i < cfg.first_k_dense else 1, 0) for i in range(n)]
+    return [(0, 0)] * n
+
+
 def _make_block(cfg: ModelConfig, kind: str, layer_idx: int, dtype, device) -> nn.Module:
     if kind in RECURRENT_BLOCKS:
         if kind == BLOCK_MAMBA2 and cfg.ssm is None:

@@ -57,9 +57,13 @@ def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
         [torch.sum(torch.square(x.float())) for x in tree.values()])))
 
 
-def clip_by_global_norm(tree: Dict[str, torch.Tensor], max_norm: float):
-    """Scale every leaf by min(1, max_norm / norm). Returns (tree, norm)."""
-    norm = global_norm(tree)
+def clip_by_global_norm(tree: Dict[str, torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
+    """Scale every leaf by min(1, max_norm / norm). Returns (tree, norm).
+    ``norm`` defaults to ``global_norm(tree)``; a tree of shards passes the
+    norm of the whole tree."""
+    if norm is None:
+        norm = global_norm(tree)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {k: (x.float() * scale).to(x.dtype) for k, x in tree.items()}, norm
 

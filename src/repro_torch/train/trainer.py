@@ -1,9 +1,14 @@
 """Fault-tolerant Trainer: the paper's RUN -> DETECT -> ISOLATE -> RESTORE
-loop, on one device.
+loop, on one device or on a mesh.
 
 Port of ``repro.train.trainer``:
-  * the BSP train step (``train/steps.py``), rebuilt after a restart,
-  * frequent checkpoints (in-memory replica + async disk flush),
+  * the BSP train step (``train/steps.py``), rebuilt after a restart; with a
+    ``DeviceMesh`` the sharded step (data parallelism with the JAX package's
+    FSDP/TP/EP storage placements, every rank one process running this loop),
+  * frequent checkpoints (in-memory replica + async disk flush) of full
+    tensors under the one-device keys, so that a mesh run and a one-device
+    run restore each other's; on a mesh every rank keeps the replica and
+    rank 0 alone writes the disk,
   * C4D integration: a ``StepMonitor`` anchored at the step boundary; a
     ``FaultInjector`` produces enhanced-CCL telemetry faults and the C4D
     master (``core/c4d/master.py``, on the Trainer's device) issues verdicts,
@@ -36,8 +41,10 @@ from repro_torch.core.faults import Fault, RingJobTelemetry
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
 from repro_torch.models.model import build_model
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.compression import ErrorFeedback
 from repro_torch.train.hooks import StepMonitor
-from repro_torch.train.steps import make_train_step
+from repro_torch.train.steps import gather, make_train_step, shard_train_state
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -71,9 +78,21 @@ class TrainerReport:
 class Trainer:
     """Weights from ``model.init_weights`` with a ``torch.Generator`` seeded
     ``run.train.seed``; ``device=None`` means ``cuda``. The default C4D
-    master runs its detection on the same device."""
+    master runs its detection on the same device.
+
+    With int8 compression the optimizer state starts with ``ef`` as zeros,
+    where the JAX Trainer adds it at the first step: its step-0 checkpoint
+    then lacks ``opt/ef`` and a restore to it after an int8 step raises
+    ``KeyError``; here the restore completes, with the same numbers, since
+    the residual starts at zero either way.
+
+    ``mesh``: a ``DeviceMesh`` (``launch.mesh.make_local_mesh``) over the
+    process group on ``device``'s type; ``params`` and ``opt_state`` are
+    then the sharded step's DTensors (``full_params`` gathers them). Every
+    rank runs the same seeded control plane and reaches the same actions."""
 
     def __init__(self, run: RunConfig, shape: ShapeSpec, workdir: str, device=None,
+                 mesh=None,
                  sim_nodes: int = 4, use_kernel: bool = True,
                  checkpoint_async: bool = True,
                  cluster: Optional[SimCluster] = None,
@@ -89,8 +108,20 @@ class Trainer:
         self.opt_cfg = adamw.OptimizerConfig(kind=run.parallel.optimizer_state,
                                              weight_decay=run.train.weight_decay)
         self.opt_state = adamw.init_state(self.opt_cfg, self.params)
+        if run.parallel.grad_compression == "int8":
+            self.opt_state["ef"] = ErrorFeedback.init(self.params)
+        self.mesh = mesh
+        writes = True
+        if mesh is not None:
+            import torch.distributed as dist
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for a {self.device.type} Trainer")
+            self.placements = shd.param_placements(self.params, mesh)
+            self.params, self.opt_state = shard_train_state(
+                self.params, self.opt_state, self.opt_cfg, mesh, self.placements)
+            writes = dist.get_rank() == 0
         self.ckpt = CheckpointManager(workdir, keep=run.train.keep_checkpoints,
-                                      async_disk=checkpoint_async)
+                                      async_disk=checkpoint_async, disk=writes)
         self.pipeline = TokenPipeline(run.model, shape, PipelineConfig(seed=run.train.seed))
         self.monitor = StepMonitor()
         # simulated production cluster + C4D control plane; each piece can be
@@ -104,24 +135,38 @@ class Trainer:
         self.c4d = c4d or C4DMaster(n_ranks=self.telemetry.n, ranks_per_node=8,
                                     device=self.device)
         self.report = TrainerReport()
-        self._step_fn = make_train_step(self.model, run, self.opt_cfg)
+        self._step_fn = self._make_step()
         self.step = 0
+
+    def _make_step(self):
+        if self.mesh is None:
+            return make_train_step(self.model, self.run, self.opt_cfg)
+        return make_train_step(self.model, self.run, self.opt_cfg, self.mesh)
 
     # ------------------------------------------------------------------
     def _tree(self):
         return {"params": self.params, "opt": self.opt_state, "step": np.asarray(self.step)}
 
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """The parameters as full tensors (on a mesh, a collective)."""
+        return gather(self.params)
+
     def _save_checkpoint(self, blocking: bool = False):
-        self.ckpt.save(self.step, self._tree(), blocking=blocking)
+        self.ckpt.save(self.step, gather(self._tree()), blocking=blocking)
 
     @torch.no_grad()
     def restore(self, step: Optional[int] = None) -> int:
         """Load the newest valid checkpoint (or ``step``'s) into the model and
         the optimizer state; the next step trained is the restored one."""
         s, tree = self.ckpt.restore(self._tree(), step)
-        for name, p in self.params.items():
-            p.copy_(tree["params"][name])
-        self.opt_state = _to_device(tree["opt"], self.device)
+        if self.mesh is None:
+            for name, p in self.params.items():
+                p.copy_(tree["params"][name])
+            self.opt_state = _to_device(tree["opt"], self.device)
+        else:
+            self.params, self.opt_state = shard_train_state(
+                _to_device(tree["params"], self.device), _to_device(tree["opt"], self.device),
+                self.opt_cfg, self.mesh, self.placements)
         self.step = int(tree["step"])
         log.info("restored step %d", s)
         return s
@@ -160,7 +205,10 @@ class Trainer:
                     fault.kind, restored, replaced)
 
     def _build_after_restart(self):
-        self._step_fn = make_train_step(self.model, self.run, self.opt_cfg)
+        if self.mesh is not None:
+            from repro_torch.launch.mesh import rebuild
+            self.mesh = rebuild(self.mesh)
+        self._step_fn = self._make_step()
 
     # ------------------------------------------------------------------
     def train(self, n_steps: int,

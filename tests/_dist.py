@@ -1,0 +1,135 @@
+"""Spawn gloo ranks on the CPU for the multi-rank tests of the port.
+
+``run_world(target, world, tmp_path, **kwargs)`` starts ``world`` Python
+processes. Each sets ``torch.set_num_threads(1)``, joins a gloo process group
+through a file rendezvous under ``tmp_path`` (no fixed port, so parallel test
+workers never collide), calls ``target(rank, world, out_dir, **kwargs)`` and
+leaves the group. ``target`` is ``"path/to/file.py:function"``; the file is
+loaded by path, so it must import nothing heavy at module level that the
+ranks do not need. ``kwargs`` must be JSON.
+
+The spawn has its own time limit (``timeout`` seconds, at most 120): past it
+every child is killed and the test fails, so a hung collective cannot run
+the suite into its own limit. Returns ``out_dir``, where the ranks write
+what the test reads.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MAX_TIMEOUT = 120
+
+_CHILD = r"""
+import importlib.util, json, os, sys
+sys.path.insert(0, os.path.join({root!r}, "src"))
+sys.path.insert(0, os.path.join({root!r}, "tests"))
+import torch
+torch.set_num_threads(1)
+import torch.distributed as dist
+from datetime import timedelta
+rank, world = int(sys.argv[1]), int(sys.argv[2])
+dist.init_process_group("gloo", init_method="file://" + {rdv!r}, world_size=world, rank=rank,
+                        timeout=timedelta(seconds={timeout}))
+path, fn = {target!r}.rsplit(":", 1)
+spec = importlib.util.spec_from_file_location("_dist_target", path)
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+getattr(mod, fn)(rank, world, {out!r}, **json.loads({kwargs!r}))
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def run_world(target: str, world: int, tmp_path, timeout: float = MAX_TIMEOUT, **kwargs) -> str:
+    timeout = min(timeout, MAX_TIMEOUT)
+    tmp = str(tmp_path)
+    out = os.path.join(tmp, "out")
+    os.makedirs(out, exist_ok=True)
+    code = _CHILD.format(root=ROOT, rdv=os.path.join(tmp, "rendezvous"), timeout=int(timeout),
+                         target=target, out=out, kwargs=json.dumps(kwargs))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.path.join(ROOT, "src"))
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world)], cwd=ROOT,
+                              env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break            # one rank failed: the others would wait for it
+            time.sleep(0.05)
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.poll() is None]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    failed = {r: p.returncode for r, p in enumerate(procs) if p.returncode != 0}
+    if failed:
+        tails = []
+        for r, f in enumerate(logs):
+            f.seek(0)
+            tails.append(f"--- rank {r} (rc {procs[r].returncode}) ---\n{f.read()[-3000:]}")
+        for f in logs:
+            f.close()
+        reason = (f"ranks {hung} still running after {timeout:.0f} s, killed"
+                  if hung and time.monotonic() >= deadline else f"ranks failed: {failed}")
+        raise AssertionError(f"{target} on {world} ranks: {reason}\n" + "\n".join(tails))
+    for f in logs:
+        f.close()
+    return out
+
+
+class JaxChild:
+    """A Python child that computes the JAX package's side of a test, with
+    ``n_devices`` forced host devices and ``repro.common.jax_compat``
+    imported under a supported version string (it refuses this jax; the
+    string is put back once it is imported). It runs beside the spawned
+    ranks; ``result()`` waits for it (``timeout`` seconds at most, then it is
+    killed and the test fails) and returns its output directory."""
+
+    PRELUDE = r'''
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={n}"
+os.environ["JAX_PLATFORMS"] = "cpu"
+sys.path.insert(0, os.path.join({root!r}, "src"))
+sys.path.insert(0, os.path.join({root!r}, "tests"))
+OUT = {out!r}
+import jax
+_real = jax.__version__
+jax.__version__ = "0.4.37"
+from repro.common import jax_compat as jc
+jax.__version__ = _real
+'''
+
+    def __init__(self, code: str, tmp_path, n_devices: int = 4, timeout: float = MAX_TIMEOUT):
+        import textwrap
+        self.out = os.path.join(str(tmp_path), "jax")
+        os.makedirs(self.out, exist_ok=True)
+        self.timeout = min(timeout, MAX_TIMEOUT)
+        self.log = open(os.path.join(str(tmp_path), "jax.log"), "w+")
+        src = self.PRELUDE.format(n=n_devices, root=ROOT, out=self.out) + textwrap.dedent(code)
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        self.proc = subprocess.Popen([sys.executable, "-c", src], cwd=ROOT, env=env,
+                                     stdout=self.log, stderr=subprocess.STDOUT)
+        self.started = time.monotonic()
+
+    def result(self) -> str:
+        try:
+            self.proc.wait(timeout=max(self.timeout - (time.monotonic() - self.started), 1))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.seek(0)
+        text = self.log.read()
+        self.log.close()
+        assert self.proc.returncode == 0, (
+            f"JAX child rc {self.proc.returncode} after {time.monotonic() - self.started:.0f} s:\n"
+            + text[-4000:])
+        return self.out

@@ -1,0 +1,403 @@
+"""The sharded train step, the mesh Trainer and the mesh CLIs, on gloo ranks.
+
+One spawn of four gloo ranks (``_dist.run_world``) on a (data 2, model 2)
+mesh runs every multi-rank case of this file while a JAX child
+(``_dist.JaxChild``, 4 forced host devices) runs the JAX package's jitted
+step on its own (2, 2) mesh, with its ``param_shardings`` and
+``batch_specs`` and ``shard_activations`` / ``_maybe_shard`` patched to the
+identity (they pin layouts only). The parameters are carried across from
+one ``LM.init``.
+
+Held, fp32 throughout:
+  * two sharded steps against the JAX GSPMD step: gemma2-2b smoke with int8
+    compression and deepseek-v2-236b smoke (MoE load-balance loss over the
+    global batch, MLA), microbatches 2: loss, grad norm and the MoE metrics
+    1e-5; params and ``ef`` 1e-5 but for the rare elements whose int8
+    rounding sat on a tie (counted, at most 1 in 2,000; see
+    test_torch_train.py's int8 test);
+  * the sharded step against the one-device step for every optimizer:
+    ``adamw`` and ``adamw_factored`` 1e-5 after two steps, ``adamw_8bit``
+    after one (its int8 moments turn an fp32 difference into a block's
+    quantisation step from the second on);
+  * the mesh Trainer with a crash at step 2: the one-device Trainer's
+    detections, its losses at 1e-5, checkpoints that restore across;
+  * ``launch.train`` and ``launch.serve`` on the mesh: the JAX launcher's
+    keys from rank 0 alone; the one-process run's sampled tokens.
+"""
+import dataclasses
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from _dist import JaxChild, run_world
+
+HERE = os.path.abspath(__file__)
+STEP_ARCHS = {"gemma2-2b": "int8", "deepseek-v2-236b": "none"}
+TRAIN = dict(warmup_steps=1, learning_rate=1e-4)
+BATCH, SEQ = 4, 32
+OPTIMIZERS = {"adamw_factored": 2, "adamw_8bit": 1}       # optimizer -> steps held
+SERVE = dict(batch=4, prompt_len=12, decode_steps=6)
+SERVE_MESHES = {"data2_model2": (2, 2), "data4": (4, 1)}
+
+
+def step_run(arch, compression="none", optimizer="adamw"):
+    from repro_torch.configs import get_smoke_config
+    run = get_smoke_config(arch)
+    return run.replace(parallel=dataclasses.replace(
+        run.parallel, param_dtype="float32", microbatches=2, grad_compression=compression,
+        optimizer_state=optimizer), train=dataclasses.replace(run.train, **TRAIN))
+
+
+def trainer_run():
+    from repro_torch.configs import get_smoke_config
+    run = get_smoke_config("gemma2-2b")
+    return run.replace(parallel=dataclasses.replace(run.parallel, param_dtype="float32"),
+                       train=dataclasses.replace(run.train, checkpoint_every=2))
+
+
+def trainer_shape(run):
+    from repro_torch.common.config import ShapeSpec
+    return ShapeSpec("train", run.train.seq_len, run.train.global_batch, "train")
+
+
+JAX_SIDE = r"""
+import dataclasses
+import numpy as np
+import jax.numpy as jnp
+import repro.models.moe as jax_moe
+import repro.models.transformer as jax_transformer
+jax_transformer.shard_activations = lambda x: x
+jax_moe._maybe_shard = lambda x, spec: x
+from repro.common.config import ShapeSpec
+from repro.configs import get_smoke_config
+from repro.models.model import build_model, synthetic_batch
+from repro.optim import adamw
+from repro.parallel import sharding as shd
+from repro.train.steps import make_train_step
+from repro_torch.convert import params_from_jax
+
+out = {}
+mesh = jc.make_mesh((2, 2), ("data", "model"), axis_types=(jc.AxisType.Auto,) * 2)
+for arch, compression in STEP_ARCHS.items():
+    run = get_smoke_config(arch)
+    run = run.replace(parallel=dataclasses.replace(
+        run.parallel, param_dtype="float32", microbatches=2, grad_compression=compression),
+        train=dataclasses.replace(run.train, **TRAIN))
+    model = build_model(run, use_kernel=False)
+    np_tree = lambda t: params_from_jax(jax.tree.map(np.asarray, t), run.model)
+    with jc.set_mesh(mesh):
+        params = model.init(jax.random.key(0))
+        out.update({f"{arch}/p0/{k}": v.numpy() for k, v in np_tree(params).items()})
+        shardings = shd.param_shardings(params, mesh)
+        params = jax.tree.map(jax.device_put, params, shardings)
+        cfg = adamw.OptimizerConfig()
+        state = adamw.init_state(cfg, params)
+        step = None
+        for i in range(2):
+            batch = {k: jnp.asarray(v) for k, v in synthetic_batch(
+                run.model, ShapeSpec("t", SEQ, BATCH, "train"), seed=10 + i).items()}
+            bsh = shd.to_shardings(shd.batch_specs(batch, mesh), mesh)
+            batch = jax.tree.map(jax.device_put, batch, bsh)
+            if step is None:
+                step = jax.jit(make_train_step(model, run, cfg, mesh),
+                               in_shardings=(shardings, None, bsh),
+                               out_shardings=(shardings, None, None))
+            params, state, met = step(params, state, batch)
+            for key, v in met.items():
+                out[f"{arch}/{key}/{i}"] = np.asarray(v)
+        out.update({f"{arch}/p2/{k}": v.numpy() for k, v in np_tree(params).items()})
+        if "ef" in state:
+            out.update({f"{arch}/ef/{k}": v.numpy() for k, v in np_tree(state["ef"]).items()})
+np.savez(os.path.join(OUT, "steps.npz"), **out)
+"""
+
+
+# --- rank side -----------------------------------------------------------------------
+
+def _batch(run, seed):
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.models.model import synthetic_batch
+    return synthetic_batch(run.model, ShapeSpec("t", SEQ, BATCH, "train"), seed=seed,
+                           device="cpu")
+
+
+def _sharded_steps(run, mesh, p0, n_steps, with_plain=False):
+    """n_steps sharded steps from ``p0`` (and, on request, the one-device
+    steps beside them). Returns per-step metrics, full params, full ef."""
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.compression import ErrorFeedback
+    from repro_torch.train.steps import gather, make_train_step, shard_train_state
+    cfg = adamw.OptimizerConfig(kind=run.parallel.optimizer_state)
+
+    def fresh():
+        model = build_model(run, device="cpu")
+        model.load_state_dict(p0)
+        params = dict(model.named_parameters())
+        state = adamw.init_state(cfg, params)
+        if run.parallel.grad_compression == "int8":
+            state["ef"] = ErrorFeedback.init(params)
+        return model, params, state
+
+    model, params, state = fresh()
+    pl = shd.param_placements(params, mesh)
+    masters, sstate = shard_train_state(params, state, cfg, mesh, pl)
+    step = make_train_step(model, run, cfg, mesh)
+    plain = None
+    if with_plain:
+        pmodel, pparams, pstate = fresh()
+        plain = make_train_step(pmodel, run, cfg)
+    res = {}
+    for i in range(n_steps):
+        batch = _batch(run, 10 + i)
+        masters, sstate, met = step(masters, sstate, batch)
+        res.update({f"{k}/{i}": v.detach().numpy() for k, v in met.items()})
+        if plain is not None:
+            pparams, pstate, pmet = plain(pparams, pstate, batch)
+            res.update({f"plain/{k}/{i}": v.detach().numpy() for k, v in pmet.items()})
+    res.update({f"p2/{k}": v.detach().numpy() for k, v in gather(masters).items()})
+    if "ef" in sstate:
+        res.update({f"ef/{k}": v.numpy() for k, v in gather(sstate["ef"]).items()})
+    if plain is not None:
+        res.update({f"plain/p2/{k}": v.detach().numpy() for k, v in pparams.items()})
+    return res
+
+
+def ranks(rank, world, out, inputs):
+    import contextlib
+    import io
+    import torch.distributed as dist
+    from repro_torch.core.faults import Fault
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.trainer import FaultInjector, Trainer
+
+    with pytest.raises(ValueError, match="needs 3 ranks"):
+        make_local_mesh(3, 1, device="cpu")
+    mesh = make_local_mesh(2, 2, device="cpu")
+    saved = {}
+    # the sharded steps against the JAX package's and the one-device step
+    for arch, compression in STEP_ARCHS.items():
+        p0 = {k: torch.from_numpy(v) for k, v in np.load(inputs[arch]).items()}
+        res = _sharded_steps(step_run(arch, compression), mesh, p0, 2)
+        saved.update({f"{arch}/{k}": v for k, v in res.items()})
+    p0 = {k: torch.from_numpy(v) for k, v in np.load(inputs["gemma2-2b"]).items()}
+    for opt, n in {"adamw": 2, **OPTIMIZERS}.items():
+        res = _sharded_steps(step_run("gemma2-2b", optimizer=opt), mesh, p0, n, with_plain=True)
+        saved.update({f"{opt}/{k}": v for k, v in res.items()})
+
+    # the mesh Trainer: a crash at step 2; then a restore of the one-device
+    # Trainer's checkpoint
+    run = trainer_run()
+    tr = Trainer(run, trainer_shape(run), os.path.join(out, "mesh_ckpt"), device="cpu",
+                 mesh=mesh, checkpoint_async=False)
+    first_mesh = tr.mesh
+    rep = tr.train(4, injector=FaultInjector({2: Fault("crash", rank=3)}))
+    dist.barrier()                  # rank 0 may still be writing the last checkpoint
+    trainer = {"losses": rep.losses, "restarts": rep.restarts,
+               "detections": [{k: d[k] for k in ("fault", "at_step", "verdicts", "isolated",
+                                                  "detection_windows", "restored_step")}
+                              for d in rep.detections],
+               "rebuilt_mesh": tr.mesh is not first_mesh,
+               "disk_steps": tr.ckpt.disk_steps(), "save_count": tr.ckpt.save_count}
+    back = Trainer(run, trainer_shape(run), inputs["one_device_ckpt"], device="cpu", mesh=mesh,
+                   checkpoint_async=False)
+    trainer["restored"] = back.restore(step=2)
+    back.ckpt.disk = False          # leave the one-device run's directory as it was
+    trainer["continued"] = back.train(2).losses
+
+    # the CLIs
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train_cli.main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu", "--steps", "2",
+                        "--data", "2", "--model", "2", "--inject-fault", "crash:1",
+                        "--workdir", os.path.join(out, "cli")])
+    trainer["train_cli"] = buf.getvalue()
+    for key, (data, model) in SERVE_MESHES.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_cli.main(["--arch", "gemma2-2b", "--smoke", "--device", "cpu",
+                            "--batch", str(SERVE["batch"]),
+                            "--prompt-len", str(SERVE["prompt_len"]),
+                            "--decode-steps", str(SERVE["decode_steps"]),
+                            "--data", str(data), "--model", str(model)])
+        trainer[f"serve/{key}"] = buf.getvalue()
+    dist.barrier()
+    if rank == 0:
+        np.savez(os.path.join(out, "steps.npz"), **saved)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(trainer, f)
+
+
+# --- fixtures ------------------------------------------------------------------------------
+
+def _initial_params(tmp):
+    """The JAX package's LM.init of each step config, in the port's names."""
+    import jax
+    import repro.configs as jax_configs
+    import repro.models.model as jax_model
+    from repro_torch.convert import params_from_jax
+    paths = {}
+    for arch in STEP_ARCHS:
+        jrun = jax_configs.get_smoke_config(arch)
+        jrun = jrun.replace(parallel=dataclasses.replace(jrun.parallel, param_dtype="float32"))
+        params = jax_model.build_model(jrun, use_kernel=False).init(jax.random.key(0))
+        state = params_from_jax(jax.tree.map(np.asarray, params), step_run(arch).model)
+        paths[arch] = os.path.join(tmp, f"{arch}.npz")
+        np.savez(paths[arch], **{k: v.numpy() for k, v in state.items()})
+    return paths
+
+
+@pytest.fixture(scope="module")
+def mesh_run(tmp_path_factory):
+    from repro_torch.core.faults import Fault
+    from repro_torch.train.trainer import FaultInjector, Trainer
+    tmp = tmp_path_factory.mktemp("mesh")
+    code = JAX_SIDE.replace("STEP_ARCHS", repr(STEP_ARCHS)).replace("TRAIN", repr(TRAIN))
+    code = code.replace("SEQ", str(SEQ)).replace("BATCH", str(BATCH))
+    child = JaxChild(code, tmp_path_factory.mktemp("jax"))
+    inputs = _initial_params(str(tmp))
+    # the one-device Trainer's run, and its checkpoints for the mesh to restore
+    run = trainer_run()
+    one = Trainer(run, trainer_shape(run), str(tmp / "one_ckpt"), device="cpu",
+                  checkpoint_async=False)
+    one_rep = one.train(4, injector=FaultInjector({2: Fault("crash", rank=3)}))
+    inputs["one_device_ckpt"] = str(tmp / "one_ckpt")
+    out = run_world(f"{HERE}:ranks", 4, tmp, inputs=inputs)
+    ranks_out = []
+    for r in range(4):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks_out.append(json.load(f))
+    ours = dict(np.load(os.path.join(out, "steps.npz")))
+    jax_out = dict(np.load(os.path.join(child.result(), "steps.npz")))
+    return dict(ranks=ranks_out, ours=ours, jax=jax_out, one=one_rep, out=out,
+                inputs=inputs)
+
+
+def _off(got, want):
+    """How many elements miss 1e-5 (rtol and atol)."""
+    return int((np.abs(got - want) > 1e-5 + 1e-5 * np.abs(want)).sum())
+
+
+# --- the sharded step -------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", list(STEP_ARCHS))
+def test_sharded_step_matches_the_jax_gspmd_step(arch, mesh_run):
+    ours, ref = mesh_run["ours"], mesh_run["jax"]
+    p0 = np.load(mesh_run["inputs"][arch])
+    for k in p0.files:          # the same LM.init on both sides
+        np.testing.assert_array_equal(p0[k], ref[f"{arch}/p0/{k}"])
+    keys = {k.split("/")[1] for k in ref if k.endswith("/0") and k.startswith(arch)}
+    assert {"loss", "grad_norm", "lr"} <= keys
+    if arch == "deepseek-v2-236b":
+        assert {"moe_lb_loss", "moe_z_loss"} <= keys
+    for i in range(2):
+        for key in keys:
+            np.testing.assert_allclose(ours[f"{arch}/{key}/{i}"], ref[f"{arch}/{key}/{i}"],
+                                       rtol=1e-5, err_msg=f"step {i} {key}")
+    flips, total = 0, 0
+    lr_bound = 1.5 * TRAIN["learning_rate"] * 2
+    for k in p0.files:
+        got, want = ours[f"{arch}/p2/{k}"], ref[f"{arch}/p2/{k}"]
+        assert np.abs(got - want).max() <= lr_bound, k
+        flips += _off(got, want)
+        total += want.size
+        if STEP_ARCHS[arch] == "int8":
+            got, want = ours[f"{arch}/ef/{k}"], ref[f"{arch}/ef/{k}"]
+            step = 2 * max(np.abs(got).max(), np.abs(want).max())
+            assert np.abs(got - want).max() <= step + 1e-5, k
+            flips += int((np.abs(got - want) > 1e-5).sum())
+    if STEP_ARCHS[arch] == "int8":
+        assert flips <= total / 2000, f"{flips} of {total} elements flipped"
+    else:
+        assert flips == 0
+
+
+@pytest.mark.parametrize("opt", ["adamw", *OPTIMIZERS])
+def test_sharded_step_equals_the_one_device_step(opt, mesh_run):
+    """The elementwise update on the shards, the factored and 8-bit ones on
+    the gathered leaf, against the same steps on one device."""
+    ours = mesh_run["ours"]
+    n = OPTIMIZERS.get(opt, 2)
+    for i in range(n):
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(ours[f"{opt}/{key}/{i}"], ours[f"{opt}/plain/{key}/{i}"],
+                                       rtol=1e-5, err_msg=f"{opt} step {i} {key}")
+    names = [k[len(f"{opt}/p2/"):] for k in ours if k.startswith(f"{opt}/p2/")]
+    assert names
+    for k in names:
+        np.testing.assert_allclose(ours[f"{opt}/p2/{k}"], ours[f"{opt}/plain/p2/{k}"],
+                                   rtol=1e-5, atol=1e-5, err_msg=f"{opt} {k}")
+
+
+# --- the Trainer -------------------------------------------------------------------------------
+
+def test_mesh_trainer_fault_run_equals_the_one_device_trainer(mesh_run):
+    """Every rank runs the same seeded control plane: the same detection
+    and isolation as the one-device Trainer, the restore to step 2, the
+    mesh rebuilt, the same losses (1e-5); rank 0 alone wrote checkpoints."""
+    one = mesh_run["one"]
+    want = [{k: d[k] for k in ("fault", "at_step", "verdicts", "isolated",
+                               "detection_windows", "restored_step")} for d in one.detections]
+    want = json.loads(json.dumps(want))
+    for r, res in enumerate(mesh_run["ranks"]):
+        assert res["detections"] == want, r
+        assert res["restarts"] == 1 and res["rebuilt_mesh"]
+        np.testing.assert_allclose(res["losses"], one.losses, rtol=1e-5, err_msg=f"rank {r}")
+        assert res["disk_steps"] == [0, 2, 4] and res["save_count"] == 3
+    assert want[0]["restored_step"] == 2
+    files = sorted(os.listdir(os.path.join(mesh_run["out"], "mesh_ckpt")))
+    assert files == [f"ckpt_{s:08d}.{e}" for s in (0, 2, 4) for e in ("json", "npz")]
+
+
+def test_mesh_checkpoint_restores_into_a_one_device_trainer(mesh_run, tmp_path):
+    import shutil
+    from repro_torch.train.trainer import Trainer
+    run = trainer_run()
+    work = tmp_path / "ckpt"
+    shutil.copytree(os.path.join(mesh_run["out"], "mesh_ckpt"), work)
+    tr = Trainer(run, trainer_shape(run), str(work), device="cpu", checkpoint_async=False)
+    assert tr.restore(step=2) == 2
+    losses = tr.train(2).losses
+    mesh_losses = mesh_run["ranks"][0]["losses"]
+    # the mesh run's steps 2 and 3, replayed after its restore (its last two)
+    np.testing.assert_allclose(losses, mesh_losses[-2:], rtol=1e-5)
+
+
+def test_one_device_checkpoint_restores_into_a_mesh_trainer(mesh_run):
+    one = mesh_run["one"]
+    for r, res in enumerate(mesh_run["ranks"]):
+        assert res["restored"] == 2
+        np.testing.assert_allclose(res["continued"], one.losses[-2:], rtol=1e-5,
+                                   err_msg=f"rank {r}")
+
+
+# --- the CLIs ---------------------------------------------------------------------------------
+
+def test_train_cli_trains_on_a_data_model_mesh(mesh_run):
+    outs = [res["train_cli"] for res in mesh_run["ranks"]]
+    assert all(o == "" for o in outs[1:])
+    out = json.loads(outs[0])
+    assert set(out) == {"arch", "steps_run", "restarts", "first_loss", "last_loss",
+                        "detections", "step_stats", "checkpoints_saved"}
+    assert out["steps_run"] == 3 and out["restarts"] == 1 and np.isfinite(out["last_loss"])
+    assert out["detections"][0]["restored_step"] == 0
+
+
+@pytest.mark.parametrize("mesh", list(SERVE_MESHES))
+def test_serve_cli_data_ranks_give_the_one_process_tokens(mesh, mesh_run):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import serve
+    outs = [res[f"serve/{mesh}"] for res in mesh_run["ranks"]]
+    assert all(o == "" for o in outs[1:])
+    out = json.loads(outs[0])
+    assert set(out) == {"arch", "device", "prefill_s", "decode_s", "decode_tok_per_s",
+                        "sampled_tokens_head", "kernel_launches"}
+    want = serve(get_smoke_config("gemma2-2b"), device="cpu", **SERVE)
+    assert out["sampled_tokens_head"] == want["sampled_tokens_head"]
+    assert len(out["sampled_tokens_head"]) == SERVE["batch"]
