@@ -204,7 +204,21 @@ Phases, each fatal on failure:
     is timed warm) and the sharded step twice (the first starts the NCCL
     communicators); the sharded step's RMSNorm launches counted; the
     process group destroyed.
-They run in the order 1, 2, 5, 6, 7, 9, 3, 4, 11, 8, 10: late in the process (after the
+ 12. dryrun: ``repro_torch.launch.dryrun`` traces the two gemma2-2b cells of
+    3 and 4 (the prefill at 2 x 4352; the train step at seq 4096, batch 2, 2
+    microbatches, remat full, adamw) on the meta device for one device and
+    prints their counted and model FLOPs, the three roofline terms at the
+    H100's peaks (``launch/mesh.py``), the dominant term and the bound, the
+    measured time (3's ``prefill_s``, 4's median step s), the roofline share
+    (bound / measured) and the MFU (model FLOPs / (989e12 x measured)), and
+    the predicted peak beside ``max_memory_allocated``. It fails where the
+    predicted argument bytes (parameters, optimizer state, cache, batch)
+    differ from the real tensors', where the share or the MFU exceeds 1.05
+    (a count too high), or where ``HBM_BYTES`` exceeds the card's
+    ``total_memory``.
+At start-up ``common/torch_compat.py`` checks the torch release and the card
+(compute capability 9.0, CUDA 12) and prints one line.
+They run in the order 1, 2, 5, 6, 7, 9, 3, 4, 12, 11, 8, 10: late in the process (after the
 train phase) torch.profiler dropped the records of short profiled windows, so
 the detection kernels are timed first.
 The line before the last is a JSON ``kernels`` record; the last line is
@@ -233,9 +247,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores,
-# fp32 CUDA cores, HBM3 bandwidth.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
+# fp32 CUDA cores, HBM3 bandwidth; launch/mesh.py holds them for the roofline too
+try:
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_FP32
+except ImportError as e:
+    sys.exit(f"FAIL: this script runs from the root of the repository ({e})")
+PEAK_FLOPS = {"bfloat16": PEAK_FLOPS_BF16, "float32": PEAK_FLOPS_FP32}
+PEAK_BYTES = HBM_BW
 ITERS = 20                                   # timed launches per measurement
 PROFILE_ATTEMPTS = 8                         # profiled windows before "not measured"
 
@@ -843,6 +861,9 @@ def attention_applications(cfg) -> int:
 
 
 def serve_phase():
+    """gemma2-2b served through the kernels and through the plain path.
+    Returns the kernels' launch counts and what ``[dryrun]`` holds its
+    prefill cell to: ``prefill_s`` and the weights' bytes."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
@@ -854,6 +875,7 @@ def serve_phase():
     ops.reset_launch_counts()
     res = serve(run, batch=B, prompt_len=PROMPT, decode_steps=STEPS, device="cuda", seed=0)
     counts = ops.launch_counts()
+    facts = {"seconds": res["prefill_s"], "weight_bytes": res["weight_bytes"]}
     print("  serve " + json.dumps({k: res[k] for k in (
         "arch", "device", "prefill_s", "decode_s", "decode_tok_per_s", "kernel_launches")}),
         flush=True)
@@ -895,7 +917,7 @@ def serve_phase():
           f"decode_tok_per_s={plain['decode_tok_per_s']:.2f})", flush=True)
     if not err <= 2e-2 * scale:
         fail("served prefill logits disagree with the plain path")
-    return counts
+    return counts, facts
 
 
 # --- the [models] configs: kernel rows at their shapes, serve and train -------
@@ -1906,7 +1928,9 @@ def train_phase(profile_dir=None):
     """gemma2-2b through the Trainer with a crash of rank 9 before step
     FAULT_STEP: DETECT -> ISOLATE -> RESTORE, then the replay. Returns the
     launch counts of the run (RMSNorm's, and the detection kernels' under
-    ``detect``)."""
+    ``detect``), and under ``dryrun`` what ``[dryrun]`` holds its train cell
+    to: the median step s, the run's peak memory and the bytes of the
+    Trainer's parameters, optimizer state and batch."""
     import torch
     from repro_torch.checkpoint import manager as ckpt_mod
     from repro_torch.checkpoint.manager import CheckpointManager
@@ -1999,6 +2023,10 @@ def train_phase(profile_dir=None):
                   f"grad_norm={m['grad_norm']:.6f} lr={m['lr']:.4e} "
                   f"step_s={trainer.monitor.durations[i]:.4f}", flush=True)
         stats = trainer.monitor.summary()
+        dry = {"seconds": stats["median_s"], "peak": peak,
+               "param_bytes": _nbytes(*trainer.params.values()),
+               "opt_bytes": _nbytes(*_leaves(trainer.opt_state)),
+               "batch_bytes": sum(v.nbytes for v in trainer.pipeline.batch(0).values())}
         tok_s = shape.global_batch * shape.seq_len / stats["median_s"]
         ckpt_bytes = sum(t.numel() * t.element_size() for t in trainer.ckpt.memory[0].values())
         npz = os.path.join(workdir, "ckpt_00000000.npz")
@@ -2052,10 +2080,120 @@ def train_phase(profile_dir=None):
                 metrics["loss"].item()
             profile_one("train_step", one_step, profile_dir)
         trainer.ckpt.close()
-        return dict(counts, detect=det_counts, int8=int8_counts)
+        return dict(counts, detect=det_counts, int8=int8_counts, dryrun=dry)
     finally:
         ckpt_mod._sha = sha
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+DRYRUN_MAX = 1.05         # a roofline share or MFU above this: a count is too high
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def dryrun_phase(card: str, serve_facts: dict, train_facts: dict) -> None:
+    """The dry run (``repro_torch.launch.dryrun``) of the two gemma2-2b cells
+    this script runs, traced on the meta device for one device, against the
+    card: ``[serve]``'s prefill (2 x 4352) and ``[train]``'s step (seq 4096,
+    batch 2, 2 microbatches, remat full, adamw). Fails where the predicted
+    argument bytes differ from the real tensors' (parameters, optimizer
+    state, cache, batch), or where the roofline share (the bound, the
+    largest of the three terms, over the measured time) or the MFU (model
+    FLOPs over the bf16 peak times the measured time) exceeds DRYRUN_MAX:
+    either would mean a count is too high. The predicted peak is printed
+    beside max_memory_allocated, not held to it: the train step's over the
+    Trainer's run, the prefill's over one prefill of the cell's tensors
+    (weights drawn before the count starts, the memory held before them
+    taken off), run as traced (``use_kernel=False``) and, printed beside it,
+    through the kernels. Fails too where ``launch/mesh.py``'s HBM_BYTES
+    exceeds the card's memory."""
+    import torch
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import mesh as meshmod
+    from repro_torch.models.model import DTYPES, build_model, synthetic_batch
+    from repro_torch.train.steps import make_prefill_step
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"  {card}: total_memory {total:,} bytes; launch/mesh.py HBM_BYTES "
+          f"{meshmod.HBM_BYTES:,.0f}", flush=True)
+    if meshmod.HBM_BYTES > total:
+        fail("launch/mesh.py's HBM_BYTES exceeds the card's memory")
+    run = get_config("gemma2-2b")
+    prefill = ShapeSpec("prefill_card", PROMPT, B, "prefill")
+    # the prefill cell's arguments as real tensors on the card, and one
+    # prefill's peak with the memory held before them taken off
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    model = build_model(run, device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    cache = model.init_cache(B, PROMPT, dtype=DTYPES[run.parallel.param_dtype])
+    prompt = synthetic_batch(run.model, prefill, seed=1, device="cuda")
+    step = make_prefill_step(model)
+    peaks = {}
+    for use_kernel in (False, True):
+        model.use_kernel = use_kernel
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(prompt, cache)
+        torch.cuda.synchronize()
+        peaks[use_kernel] = torch.cuda.max_memory_allocated() - held
+    print(f"  dryrun serve prefill: one prefill's peak {peaks[False] / 1e9:.3f} GB as traced "
+          f"(use_kernel=False), {peaks[True] / 1e9:.3f} GB through the kernels; "
+          f"{held / 1e9:.3f} GB held before it, taken off", flush=True)
+    serve_facts = dict(serve_facts, peak=peaks[False], param_bytes=_nbytes(*model.parameters()),
+                       cache_bytes=_nbytes(*(t for c in cache if c is not None for t in c)),
+                       batch_bytes=_nbytes(*prompt.values()))
+    if serve_facts["param_bytes"] != serve_facts["weight_bytes"]:
+        fail(f"the served weights' bytes {serve_facts['weight_bytes']} differ from the model's "
+             f"{serve_facts['param_bytes']}")
+    del model, cache, prompt, step
+    torch.cuda.empty_cache()
+    train_run = run.replace(train=dataclasses.replace(run.train, global_batch=TRAIN_BATCH))
+    train = ShapeSpec("train_card", train_run.train.seq_len, TRAIN_BATCH, "train")
+    one = ("one_device", {"data": 1, "model": 1})
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        for label, cell_run, shape, facts in (("serve prefill", run, prefill, serve_facts),
+                                              ("train step", train_run, train, train_facts)):
+            rec = dr.run_cell(cell_run.model.name, shape.name, False, True, out_dir, mesh=one,
+                              run=cell_run, shape=shape)
+            if rec["status"] != "ok":
+                fail(f"dry run of the {label}: {rec.get('error')}\n{rec.get('traceback', '')}")
+            mem, roof, cost = rec["memory"], rec["roofline"], rec["cost_analysis"]
+            terms = {"compute": roof["t_comp_s"], "memory": roof["t_mem_s"],
+                     "collective": roof["t_coll_s"]}
+            bound = max(terms.values())
+            measured = facts["seconds"]
+            share = bound / measured
+            mfu = roof["model_flops"] / (meshmod.PEAK_FLOPS_BF16 * measured)
+            parts = ("param_bytes", "opt_bytes", "cache_bytes", "batch_bytes")
+            want = {k: facts.get(k, 0) for k in parts}
+            got = {k: int(mem[k]) for k in parts}
+            print(f"  dryrun {label} ({shape.global_batch} x {shape.seq_len}): FLOPs counted "
+                  f"{cost['flops_per_device']:.6e}, model {roof['model_flops']:.6e}; terms "
+                  f"compute {terms['compute'] * 1e3:.4f} ms, memory {terms['memory'] * 1e3:.4f} "
+                  f"ms (traced, unfused: {roof['t_mem_traced_s'] * 1e3:.4f}), collective "
+                  f"{terms['collective'] * 1e3:.4f} ms; dominant {roof['dominant']}, bound "
+                  f"{bound * 1e3:.4f} ms; measured {measured:.4f} s: roofline_share "
+                  f"{share:.4f}, mfu {mfu:.4f} (limit {DRYRUN_MAX}); trace "
+                  f"{rec['trace_s']} s", flush=True)
+            print(f"  dryrun {label}: argument bytes predicted {got}, real {want}; peak "
+                  f"predicted {mem['peak_bytes'] / 1e9:.3f} GB (temporaries "
+                  f"{mem['temp_bytes'] / 1e9:.3f}), max_memory_allocated "
+                  f"{facts['peak'] / 1e9:.3f} GB", flush=True)
+            if got != want:
+                fail(f"the dry run's argument bytes of the {label} differ from the real tensors'")
+            if share > DRYRUN_MAX or mfu > DRYRUN_MAX:
+                fail(f"the {label}'s roofline share {share:.4f} or mfu {mfu:.4f} exceeds "
+                     f"{DRYRUN_MAX}: a count is too high")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
 
 
 INT8_CHECKED = 4          # quantised leaves copied back and checked on the CPU
@@ -3991,6 +4129,15 @@ def main(argv=None) -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} x{count}",
           flush=True)
+    from repro_torch.common import torch_compat
+    try:
+        version, capability = torch_compat.check_supported(), torch_compat.check_device(0)
+    except torch_compat.TorchCompatError as e:
+        fail(str(e))
+    print(f"torch_compat: torch {'.'.join(map(str, version))} supported (>= "
+          f"{'.'.join(map(str, torch_compat.MIN_TORCH))}, tested to "
+          f"{'.'.join(map(str, torch_compat.NEWEST_TESTED))}); device 0 compute capability "
+          f"{capability}, CUDA {torch.version.cuda}: runs the sm_90a kernels", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4055,7 +4202,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     print("[serve]", flush=True)
-    serve_counts = serve_phase()
+    serve_counts, serve_facts = serve_phase()
     print(f"[serve] done in {time.perf_counter() - t0:.1f} s", flush=True)
     if args.profile is not None:
         print("[profile]", flush=True)
@@ -4066,7 +4213,13 @@ def main(argv=None) -> int:
     train_counts = train_phase(args.profile)
     train_fault_counts = train_counts.pop("detect")
     int8_counts = train_counts.pop("int8")
+    train_facts = train_counts.pop("dryrun")
     print(f"[train] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    print("[dryrun]", flush=True)
+    dryrun_phase(card, serve_facts, train_facts)
+    print(f"[dryrun] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     print("[mesh]", flush=True)

@@ -7,7 +7,10 @@ The hash covers the source, the headers of ``csrc/`` it includes (``#include
 ``NVCC_FLAGS`` and the kernel's own in ``EXTRA_FLAGS``), so an
 edited source or header is rebuilt and an unchanged one is loaded as it is.
 ``build_all`` starts one ``nvcc`` per source, all at once, and waits for
-them. Nothing is built at import time.
+them. Before the first ``nvcc`` runs it checks that there is one, then the
+card and the toolkit (``common.torch_compat.check_device``), so a card that
+cannot run ``sm_90a`` code is refused with its reason, not by a failed launch.
+Nothing is built at import time.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List
+
+from repro_torch.common import torch_compat
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -89,14 +94,18 @@ def build_log(name: str) -> str:
 
 def build_all(names: Iterable[str] = KERNELS) -> float:
     """Compile every source that is not built yet, in parallel. Returns the
-    wall seconds spent; raises with nvcc's output if any build fails."""
+    wall seconds spent; raises with nvcc's output if any build fails, and
+    before any build if the current card cannot run the kernels."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pending = [name for name in names if not _target(name).exists()]
+    if pending:
+        import torch
+        _nvcc()
+        torch_compat.check_device(torch.cuda.current_device())
     procs = []
-    for name in names:
+    for name in pending:
         out = _target(name)
-        if out.exists():
-            continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         procs.append((name, out, tmp, subprocess.Popen(
             nvcc_command(CSRC / f"{name}.cu", tmp, name), stdout=subprocess.PIPE,

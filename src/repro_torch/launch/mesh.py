@@ -8,6 +8,13 @@ started at import.
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch gemma2-2b \
         --smoke --device cpu --data 2 --model 2
+
+The hardware constants at the end are one H100 SXM's, the roofline's targets
+(``launch/roofline.py``) and the bounds ``chip_smoke.py`` holds the kernels
+to. The production meshes keep the JAX package's shapes, so that the dry
+run's cells compare one for one with its own; their 16-wide ``model`` axis
+spans two 8-GPU hosts, so every collective crosses the network and NVLink
+does not enter the collective term.
 """
 from __future__ import annotations
 
@@ -68,3 +75,13 @@ def rebuild(mesh):
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(mesh.device_type, tuple(mesh.mesh.shape),
                             mesh_dim_names=mesh.mesh_dim_names)
+
+
+# One H100 SXM (NVIDIA data sheet, dense rates, at the full 700 W)
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s, bf16 on the tensor cores
+PEAK_FLOPS_FP32 = 67e12           # FLOP/s, fp32 on the CUDA cores
+HBM_BW = 3.35e12                  # bytes/s, HBM3
+HBM_BYTES = 80e9                  # bytes of HBM a GPU
+# bytes/s a GPU on the network: one NIC a GPU, two 200 Gbps ports bonded (the
+# paper's testbed, core/topology.py: nics_per_host 8, port_gbps 200)
+NET_BW = 50e9

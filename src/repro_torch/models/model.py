@@ -1,13 +1,17 @@
 """Model facade: build the LM, the loss, and the shapes and values of its inputs.
 
-Port of ``repro.models.model`` (every family; the parameter accounting is
-``LM.num_params``). ``synthetic_batch`` draws token ids, frame embeddings and
-image embeddings with numpy's ``default_rng`` exactly as the JAX package does,
-so a seed gives both packages the same bytes.
+Port of ``repro.models.model`` (every family). ``count_params_analytic`` and
+``input_specs`` build on the meta device (no weights, no storage), as the JAX
+package uses ``jax.eval_shape`` and ``ShapeDtypeStruct``. ``synthetic_batch``
+draws token ids, frame embeddings and image embeddings with numpy's
+``default_rng`` exactly as the JAX package does, so a seed gives both packages
+the same bytes.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import functools
+import math
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +98,36 @@ def lm_loss(model: LM, batch: Dict[str, torch.Tensor]):
     return loss, metrics
 
 
+# ---------------------------------------------------------------------------
+# Parameter accounting
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def _param_shapes(cfg: ModelConfig) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
+    model = LM(cfg, device="meta")
+    return tuple((name, tuple(p.shape)) for name, p in model.named_parameters())
+
+
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count of the model built on the meta device.
+    ``active_only`` scales a tensor under ``moe`` named ``wi_gate``, ``wi_up``
+    or ``wo`` (the shared experts' and the dense residual's too, as the JAX
+    package does) to the activated expert fraction, top_k / num_experts."""
+    total = 0
+    for name, shape in _param_shapes(cfg):
+        n = math.prod(shape)
+        parts = name.split(".")
+        if (active_only and cfg.moe is not None and "moe" in parts
+                and any(k in ("wi_gate", "wi_up", "wo") for k in parts)):
+            n = int(n * cfg.moe.top_k / cfg.moe.num_experts)
+        total += n
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Inputs
+# ---------------------------------------------------------------------------
+
 def batch_shapes(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
     """Shapes/dtypes for one step's inputs, as (shape, dtype) tuples, in the
     JAX package's order: token ids, or for the audio family frame
@@ -113,6 +147,14 @@ def batch_shapes(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
     if cfg.cross_attn_every:
         d["vision_embed"] = ((b, cfg.vision_seq_len, cfg.vision_d_model), torch.bfloat16)
     return d
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """Every input of one step as a tensor on the meta device (shape and
+    dtype, no storage): the counterpart of the JAX package's
+    ``ShapeDtypeStruct`` stand-ins, used by the dry run."""
+    return {k: torch.empty(s, dtype=dt, device="meta")
+            for k, (s, dt) in batch_shapes(cfg, shape).items()}
 
 
 def synthetic_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int = 0, device=None):

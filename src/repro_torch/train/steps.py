@@ -27,11 +27,11 @@ computes them.
 """
 from __future__ import annotations
 
-import warnings
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.common import torch_compat
 from repro_torch.common.config import RunConfig
 from repro_torch.models import moe
 from repro_torch.models.model import DTYPES, lm_loss, model_inputs
@@ -227,7 +227,6 @@ def gather(tree):
 
 def _make_sharded_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, mesh):
     import torch.distributed as dist
-    import torch.distributed.nn.functional as dist_nn
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     pcfg, tcfg = run.parallel, run.train
@@ -247,9 +246,7 @@ def _make_sharded_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, me
     # ranks along ``model`` hold the same rows, so a mean over the world is
     # the mean over the batch axes
     def world_mean(t):
-        with warnings.catch_warnings():     # newer torch names a private successor
-            warnings.simplefilter("ignore", FutureWarning)
-            return dist_nn.all_reduce(t) / world
+        return torch_compat.autograd_all_reduce(t) / world
 
     def reduce_stack(values: List[torch.Tensor], op) -> torch.Tensor:
         v = torch.stack(values)

@@ -8,10 +8,12 @@ leaves the group. ``target`` is ``"path/to/file.py:function"``; the file is
 loaded by path, so it must import nothing heavy at module level that the
 ranks do not need. ``kwargs`` must be JSON.
 
-The spawn has its own time limit (``timeout`` seconds, at most 120): past it
+The spawn has its own time limit (``timeout`` seconds, at most 240): past it
 every child is killed and the test fails, so a hung collective cannot run
-the suite into its own limit. Returns ``out_dir``, where the ranks write
-what the test reads.
+the suite into its own limit. 240, not less: under the suite's six parallel
+workers the mesh tests' JAX child (a GSPMD step compiled for several
+configs, 70 s alone) has taken more than 120 s. Returns ``out_dir``, where
+the ranks write what the test reads.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MAX_TIMEOUT = 120
+MAX_TIMEOUT = 240
 
 _CHILD = r"""
 import importlib.util, json, os, sys
