@@ -195,15 +195,30 @@ Phases, each fatal on failure:
     the Mamba2, mLSTM and sLSTM cells).
  11. mesh: a world-1 NCCL process group (``tcp://localhost``, a free port) and
     a (1, 1) ``make_local_mesh("cuda")``: one full-width gemma2-2b step
-    through the sharded step (DTensor masters and moments, gathered into
-    the model, gradients reduced onto the placements) and one through the
-    one-device step from the same weights and batch; loss and parameters
-    must be equal (``torch.equal``), or the script prints which leaves
-    differ (and fails only above a learning rate's difference); the
-    one-device step run twice (does it repeat itself bit for bit; the second
-    is timed warm) and the sharded step twice (the first starts the NCCL
-    communicators); the sharded step's RMSNorm launches counted; the
-    process group destroyed.
+    through the sharded step (the tensor-parallel code path of
+    ``parallel/tensor.py`` at model 1: DTensor masters and moments, the
+    model on its shards, each layer's gathers and Megatron's f and g, the
+    gradients arriving on the shards) and one through the one-device step
+    from the same weights and batch; loss and parameters must be equal
+    (``torch.equal``), or the script prints which leaves differ (and fails
+    only above a learning rate's difference); the one-device step run twice
+    (does it repeat itself bit for bit; the second is timed warm) and the
+    sharded step twice (the first starts the NCCL communicators); the
+    sharded step's RMSNorm launches counted; the process group destroyed.
+ 13. tp: one rank (rank 0) of a (data 1, model 8) mesh under torch's fake
+    process group (``fake``, in which a collective moves nothing) on the
+    card: stablelm-12b at its full 40 layers and full widths (32 heads on 8,
+    4 of them and 1 kv head a rank; a 12,544-wide vocab shard), seq 4096,
+    batch 2, one microbatch, remat full, adamw_factored, drawn on its shards
+    a block at a time and trained 2 steps through ``make_train_step`` on the
+    mesh. It prints each step's seconds, ``max_memory_allocated`` beside the
+    dry run's prediction of the same rank's peak (``launch/dryrun.py``,
+    traced on the meta device under its own fake group of 8), and the
+    RMSNorm kernel's launches in a step; it fails where the kernel did not
+    launch or a loss or grad norm is not finite. The loss is not a model's
+    loss: the fake group sums nothing, so each rank's attention and FFN
+    outputs stand for the sum of 8, and the token ids are drawn within the
+    rank's vocab shard (a token outside it would embed as zeros on this rank).
  12. dryrun: ``repro_torch.launch.dryrun`` traces the two gemma2-2b cells of
     3 and 4 (the prefill at 2 x 4352; the train step at seq 4096, batch 2, 2
     microbatches, remat full, adamw) on the meta device for one device and
@@ -218,7 +233,7 @@ Phases, each fatal on failure:
     ``total_memory``.
 At start-up ``common/torch_compat.py`` checks the torch release and the card
 (compute capability 9.0, CUDA 12) and prints one line.
-They run in the order 1, 2, 5, 6, 7, 9, 3, 4, 12, 11, 8, 10: late in the process (after the
+They run in the order 1, 2, 5, 6, 7, 9, 3, 4, 12, 11, 13, 8, 10: late in the process (after the
 train phase) torch.profiler dropped the records of short profiled windows, so
 the detection kernels are timed first.
 The line before the last is a JSON ``kernels`` record; the last line is
@@ -2384,6 +2399,112 @@ def mesh_phase() -> dict:
         dist.destroy_process_group()
 
 
+TP_ARCH = "stablelm-12b"
+TP_MESH = {"data": 1, "model": 8}
+TP_SEQ, TP_BATCH, TP_STEPS = 4096, 2, 2
+TP_PEAK_TOL = 0.10        # the measured peak within 10 % of the predicted one
+
+
+def tp_run():
+    """stablelm-12b's config at ``[tp]``'s size: one microbatch of batch 2 at
+    seq 4096 (the config's 8 microbatches of 256 cut to one card's rank)."""
+    from repro_torch.configs import get_config
+    run = get_config(TP_ARCH)
+    return run.replace(parallel=dataclasses.replace(run.parallel, microbatches=1),
+                       train=dataclasses.replace(run.train, seq_len=TP_SEQ,
+                                                 global_batch=TP_BATCH))
+
+
+def tp_phase(card: str) -> dict:
+    """Phase 13: one rank of stablelm-12b's tensor-parallel train step on the
+    card under the fake group (module docstring). Returns its launch counts."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import tensor
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    run = tp_run()
+    shape = ShapeSpec("train_tp_card", TP_SEQ, TP_BATCH, "train")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        rec = dr.run_cell(TP_ARCH, shape.name, False, False, out,
+                          mesh=("data1_model8", TP_MESH), run=run, shape=shape)
+    if rec["status"] != "ok":
+        fail(f"tp: the dry run of the rank failed: {rec.get('error')}")
+    mem = rec["memory"]
+    print(f"  dry run of rank 0 ({time.perf_counter() - t0:.1f} s): predicted peak "
+          f"{mem['peak_bytes'] / 2**30:.3f} GiB (stored {mem['argument_bytes'] / 2**30:.3f}, "
+          f"gathered {mem['gathered_bytes'] / 2**30:.3f}, temporaries "
+          f"{mem['temp_bytes'] / 2**30:.3f}); {rec['cost_analysis']['flops_per_device']:.4e} "
+          f"FLOPs, collectives {rec['collectives']['counts']}", flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(TP_MESH.values()))
+    try:
+        mesh = init_device_mesh("cuda", tuple(TP_MESH.values()),
+                                mesh_dim_names=tuple(TP_MESH))
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        model = build_model(run, device="meta")
+        tensor.build_sharded(model, mesh, torch.Generator("cuda").manual_seed(run.train.seed))
+        cfg = adamw.OptimizerConfig(kind=run.parallel.optimizer_state,
+                                    weight_decay=run.train.weight_decay)
+        masters, state = init_train_state(model, cfg, mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        whole = sum(math.prod(p.tp_full_shape) for p in model.parameters())
+        local = sum(p.numel() for p in model.parameters())
+        step = make_train_step(model, run, cfg, mesh)
+        # token ids in this rank's vocab shard: the fake group does not add the
+        # other ranks' rows of the embedding, so a token outside the shard would
+        # embed as zeros here (with the whole vocab the 40-layer gradient is NaN
+        # from step 1 on; with the shard's tokens it is finite)
+        shard = run.model.vocab_size // TP_MESH["model"]
+        batch = {k: torch.from_numpy(v % shard).cuda() for k, v in TokenPipeline(
+            run.model, shape, PipelineConfig(seed=run.train.seed)).batch(0).items()}
+        losses, norms, seconds, launches = [], [], [], []
+        for _ in range(TP_STEPS):
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            masters, state, met = step(masters, state, batch)
+            losses.append(met["loss"].item())
+            seconds.append(time.perf_counter() - t0)
+            norms.append(met["grad_norm"].item())
+            launches.append(ops.launch_counts())
+        peak = torch.cuda.max_memory_allocated() - base
+        del masters, state, step, model
+    finally:
+        dist.destroy_process_group()
+    predicted = mem["peak_bytes"]
+    miss = peak / predicted - 1
+    print(f"  rank 0 of {TP_MESH} ({run.model.n_layers} layers, d_model {run.model.d_model}, "
+          f"{run.model.n_heads} heads on {TP_MESH['model']}): {local / 1e9:.4f} B of "
+          f"{whole / 1e9:.4f} B parameters held, drawn in {build_s:.2f} s; step seconds "
+          f"{[round(x, 4) for x in seconds]}; max_memory_allocated {peak / 2**30:.3f} GiB "
+          f"against the dry run's {predicted / 2**30:.3f} GiB ({miss:+.2%}, "
+          f"{'within' if abs(miss) <= TP_PEAK_TOL else 'outside'} "
+          f"{TP_PEAK_TOL:.0%}); rmsnorm launches a step {[c['rmsnorm'] for c in launches]}; "
+          f"losses {losses}, grad norms {norms} (not a model's: the fake group sums "
+          f"nothing; token ids below {shard}, this rank's vocab shard); {card}", flush=True)
+    if any(c["rmsnorm"] == 0 for c in launches) or not all(map(math.isfinite, losses + norms)):
+        fail(f"tp: launches {launches}, losses {losses}, grad norms {norms}")
+    return dict(launches[-1], peak_bytes=peak, predicted_peak_bytes=predicted,
+                step_s=seconds)
+
+
 def fault_check(trainer, report, per_ingest, spent, det_counts, ckpt_bytes) -> None:
     """The fault of ``[train]``: one restart from step 0, the detection
     record equal to the port's NumPy master's on the same windows, the
@@ -4227,6 +4348,11 @@ def main(argv=None) -> int:
     print(f"[mesh] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
+    print("[tp]", flush=True)
+    tp_counts = tp_phase(card)
+    print(f"[tp] done in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
     print("[live]", flush=True)
     live_counts = live_phase()
     print(f"[live] done in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4241,6 +4367,7 @@ def main(argv=None) -> int:
                              for arch in MODEL_ARCHS} for name in counts}
     print(f"launches on the main paths: serve {serve_counts}, train {train_counts}, "
           f"train fault {train_fault_counts}, train int8 {int8_counts}, mesh {mesh_counts}, "
+          f"tp {tp_counts}, "
           f"live {live_counts}, campaigns {campaign_counts}, models {model_launches}",
           flush=True)
 
@@ -4298,7 +4425,7 @@ def main(argv=None) -> int:
                    "src/repro/kernels/rmsnorm.py:27", norm_err, norm_rows[:1]),
              prefill=times(norm_rows[1]), decode=dict(times(norm_rows[2]), **norm_extra),
              live=live_counts["rmsnorm"], train_int8=int8_counts["rmsnorm"],
-             mesh=mesh_counts["rmsnorm"]),
+             mesh=mesh_counts["rmsnorm"], tp=tp_counts["rmsnorm"]),
         *(detect_entry(name, src, rep, det_counts[name], det_err[name], det_rows[name])
           for name, src, rep in DETECT_KERNELS),
         # the balancer's last call of the C4P main path; launches there, in the

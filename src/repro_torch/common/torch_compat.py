@@ -15,12 +15,6 @@ anything is compiled for it: they are built for ``sm_90a`` (``wgmma``, TMA,
 capability and ``torch.version.cuda``, so a test on the CPU reaches both of
 its branches.
 
-The port's one version-sensitive call goes through this module:
-``autograd_all_reduce`` silences the ``FutureWarning`` with which newer
-torch releases deprecate ``torch.distributed.nn.functional.all_reduce`` (its
-successor is private); on a release that does not warn the silencing changes
-nothing, so there is one path for every release.
-
 The JAX package's shims for ``shard_map``, ``set_mesh``/``get_abstract_mesh``,
 ``make_mesh``'s axis types, Pallas' ``tpu_compiler_params``,
 ``resolve_interpret``, ``cost_analysis_dict``, ``axis_size`` and the tree and
@@ -112,12 +106,3 @@ def check_device(index: int = 0) -> Tuple[int, int]:
     if err is not None:
         raise TorchCompatError(f"CUDA device {index}: {err}")
     return capability
-
-
-def autograd_all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """The sum of ``t`` over every rank of the default group, differentiable
-    (its gradient is the sum of the ranks' gradients)."""
-    import torch.distributed.nn.functional as dist_nn
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", FutureWarning)
-        return dist_nn.all_reduce(t)

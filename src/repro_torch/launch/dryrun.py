@@ -18,37 +18,48 @@ the bytes alive at once through finalizers on the outputs' storages.
 alive through the step (2.6 GB more at the peak of gemma2-2b's train step at
 2 units, measured on the meta device). The steps:
 
-  * train: ``make_train_step`` (the one-device step) with the config's
-    microbatches, remat and optimizer;
+  * train on one device: ``make_train_step`` (the one-device step) with the
+    config's microbatches, remat and optimizer;
+  * train on a mesh: rank 0's share of the sharded step
+    (``steps.make_local_step``) on the model cut to its shards
+    (``parallel.tensor.shard_model``), run by the port's own tensor- and
+    expert-parallel code under torch's fake process group (``fake_world``:
+    the groups exist, nothing moves). ``StepCounter`` records each
+    collective op the step issues instead of running it, so the FLOPs, the
+    bytes and the collectives are those of the code that runs. Every rank of
+    a mesh holds shards of one shape, so rank 0 stands for all;
   * prefill: ``make_prefill_step``; decode: ``make_decode_step`` at the last
     position of a cache of the shape's length.
 
-The mesh is a plain ``{axis: size}`` mapping, so no process group is started
-and 256 or 512 devices cost nothing. A device does what the port does, not
-what the JAX package's GSPMD program does:
+The mesh is a plain ``{axis: size}`` mapping; the fake group of 256 or 512
+ranks costs nothing. A device does what the port does:
 
-  * the batch splits over ``pod x data`` only (``steps.local_batch``), so each
-    device traces its own rows through the whole model, and the 16 devices
-    of a ``model`` group repeat one another's compute: there is no TP or EP
-    compute yet. A roofline fraction near 1/16 of the ideal is that, not a
-    fault;
+  * a train step's batch splits over ``pod x data`` (``steps.local_batch``);
+    each layer runs on this rank's ``model`` shard where the heads, the FFN
+    columns, the experts or the vocab divide by the ``model`` size, and whole
+    on every ``model`` rank where they do not (attention where ``n_heads``
+    does not divide: gemma2-2b's 8, smollm-135m's 9, musicgen-medium's 24,
+    yi-34b's and arctic-480b's 56 at 16) and in every recurrent cell (Mamba2,
+    mLSTM, sLSTM: their in-projections' ``model`` split does not fall on whole
+    heads), whose weights are then gathered over ``model`` too;
   * ``memory.argument_bytes`` is the state stored under the JAX package's
     placements: ``param_specs`` with its ``attn_zero`` rule (tp = the mesh's
     ``model`` size) and ``moe_zero``, the optimizer state as
     ``shard_train_state`` places it (the ``adamw`` moments and the int8
     residual like their parameter, the factored and 8-bit statistics whole),
     ``cache_specs`` at ``kv_cache_dtype`` and ``batch_spec``;
-  * ``memory.gathered_bytes`` is what a device holds beyond its shards
-    because the port computes unsharded: the sharded train step gathers every
-    master into the model's own parameters before the forward (an optimizer
-    that is not elementwise gathers them whole once more for its update),
-    ``serve`` replicates the weights and keeps its rows' whole cache, and
-    both steps take the global batch. ``fits`` is false where that does not
-    fit 80 GB (arctic-480b and deepseek-v2-236b train), which is a finding;
-  * ``attn_activation_sharding`` has no effect until TP compute exists; the
-    record carries its value and nothing emulates it;
+  * ``memory.gathered_bytes`` is what a device holds beyond its shards: in a
+    train step the most bytes of all-gather outputs alive at once in the
+    trace (a layer's weights whole over the batch axes, or an optimizer that
+    is not elementwise gathering one leaf and its gradient whole), plus the
+    global batch the step takes; ``serve`` replicates the weights and keeps
+    its rows' whole cache. ``fits`` is false where that does not fit 80 GB,
+    which is a finding;
+  * ``attn_activation_sharding`` has no counterpart (the JAX package's
+    "batch" mode re-shards attention's activations over the batch); the
+    record carries its value;
   * a serve step issues no collective (the weights are replicated); a train
-    step's collectives are ``roofline.collectives_of``.
+    step's collectives are those its trace issued (``collectives_of``).
 
 A mesh of one device is the one-device step: no gathered copy, no
 collective (``chip_smoke.py``'s ``[dryrun]`` holds such cells to the card).
@@ -89,6 +100,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import contextlib
 import dataclasses
 import json
 import math
@@ -111,8 +123,10 @@ from repro_torch.models.model import build_model, count_params_analytic, input_s
 from repro_torch.models.transformer import RECURRENT_BLOCKS, layer_plan
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor
 from repro_torch.parallel.compression import ErrorFeedback
-from repro_torch.train.steps import make_decode_step, make_prefill_step, make_train_step
+from repro_torch.train.steps import (make_decode_step, make_local_step, make_prefill_step,
+                                     make_train_step)
 
 DEFAULT_OUT = "experiments/dryrun_torch"
 # the JAX package's production meshes (launch/mesh.py::make_production_mesh)
@@ -240,6 +254,11 @@ class StepCounter(TorchDispatchMode):
         self.bytes = 0
         self.live = 0
         self.peak = 0
+        # the collectives (``roofline.CollectiveStats``) and the bytes alive
+        # of all-gathers' outputs (what a rank holds beyond its shards)
+        self.coll = rl.CollectiveStats()
+        self.gathered_live = 0
+        self.gathered_peak = 0
         # the timeline: each op's signature id (the op and its inputs', or
         # else its outputs', metadata), the op's id, the bytes alive after it;
         # ``ids`` numbers them, shared by the traces that are compared
@@ -253,7 +272,7 @@ class StepCounter(TorchDispatchMode):
         for t in tensors:
             self._hold(t)
 
-    def _hold(self, t: torch.Tensor) -> None:
+    def _hold(self, t: torch.Tensor, gathered: bool = False) -> None:
         st = t.untyped_storage()
         key = id(st)
         if key in self._held:
@@ -262,11 +281,37 @@ class StepCounter(TorchDispatchMode):
         self._held.add(key)
         self.live += n
         self.peak = max(self.peak, self.live)
-        weakref.finalize(st, self._free, key, n).atexit = False
+        if gathered:
+            self.gathered_live += n
+            self.gathered_peak = max(self.gathered_peak, self.gathered_live)
+        weakref.finalize(st, self._free, key, n, gathered).atexit = False
 
-    def _free(self, key: int, n: int) -> None:
+    def _free(self, key: int, n: int, gathered: bool = False) -> None:
         self._held.discard(key)
         self.live -= n
+        if gathered:
+            self.gathered_live -= n
+
+    def _collective(self, func, args):
+        """A ``_c10d_functional`` op: recorded, not run (on the meta device
+        under a fake group nothing would move); an empty output of its shape."""
+        name = func._schema.name.split("::")[1]
+        if name == "wait_tensor":
+            return args[0]
+        t = args[0]
+        if name == "all_reduce":
+            kind, shape, group = "all-reduce", t.shape, _group_size(args[2])
+        elif name == "all_gather_into_tensor":
+            kind, shape, group = "all-gather", (t.shape[0] * args[1], *t.shape[1:]), args[1]
+        elif name == "reduce_scatter_tensor":
+            kind, shape, group = "reduce-scatter", (t.shape[0] // args[2], *t.shape[1:]), args[2]
+        else:
+            raise NotImplementedError(f"the dry run does not count {func}")
+        out = torch.empty(shape, dtype=t.dtype, device=t.device)
+        nbytes = _nbytes(out) if kind == "all-gather" else _nbytes(t)
+        if group > 1:
+            self.coll.add(kind, nbytes, group)
+        return out
 
     def _run(self, func, args, kwargs, ins):
         """(the op's outputs, its signature or None)."""
@@ -287,6 +332,14 @@ class StepCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.namespace == "_c10d_functional":
+            out = self._collective(func, args)
+            self._hold(out, gathered=func._schema.name.endswith("all_gather_into_tensor"))
+            sig = (func, tuple(out.shape), out.dtype)
+            self.sigs.append(self._ids.setdefault(sig, len(self._ids)))
+            self.names.append(self._ids.setdefault(func, len(self._ids)))
+            self.lives.append(self.live)
+            return out
         ins = []            # the input tensors, which _run collects for a fresh-output op
         out, sig = self._run(func, args, kwargs, ins)
         if not self._fresh[func]:
@@ -305,6 +358,11 @@ class StepCounter(TorchDispatchMode):
         self.names.append(self._ids.setdefault(func, len(self._ids)))
         self.lives.append(self.live)
         return out
+
+
+def _group_size(name: str) -> int:
+    import torch.distributed as dist
+    return dist.distributed_c10d._resolve_process_group(name).size()
 
 
 def _signature(x, tensors: list):
@@ -353,13 +411,16 @@ def _replay(record):
 @dataclasses.dataclass
 class Trace:
     """One device's step as traced: FLOPs, bytes moved, the most bytes alive
-    at once (its arguments included), its arguments' bytes, and the timeline
-    (``StepCounter``'s ``sigs``, ``names``, ``lives``)."""
+    at once (its arguments included), its arguments' bytes, the collectives
+    it issued, the most bytes of all-gathers' outputs alive at once, and the
+    timeline (``StepCounter``'s ``sigs``, ``names``, ``lives``)."""
     flops: float
     bytes: float
     peak_bytes: float
     arg_bytes: float
     seconds: float
+    coll: rl.CollectiveStats = dataclasses.field(default_factory=rl.CollectiveStats)
+    gathered_bytes: float = 0.0
     sigs: list = dataclasses.field(default_factory=list, repr=False)
     names: list = dataclasses.field(default_factory=list, repr=False)
     lives: list = dataclasses.field(default_factory=list, repr=False)
@@ -381,11 +442,37 @@ def optimizer_config(run: RunConfig) -> adamw.OptimizerConfig:
 
 def init_opt_state(run: RunConfig, params: Dict[str, torch.Tensor]):
     """The Trainer's initial optimizer state: ``adamw.init_state``, and the
-    int8 residual ``ef`` with int8 compression."""
-    state = adamw.init_state(optimizer_config(run), params)
+    int8 residual ``ef`` with int8 compression. For parameters cut to a
+    rank's shards, this rank's share: the ``adamw`` moments and ``ef`` on the
+    shards, the factored and 8-bit statistics whole (``steps.init_train_state``)."""
+    cfg = optimizer_config(run)
+    leaves = params if cfg.kind == "adamw" else {
+        n: torch.empty(getattr(p, "tp_full_shape", p.shape), dtype=p.dtype, device=p.device)
+        for n, p in params.items()}
+    state = adamw.init_state(cfg, leaves)
     if run.parallel.grad_compression == "int8":
         state["ef"] = ErrorFeedback.init(params)
     return state
+
+
+@contextlib.contextmanager
+def fake_world(mesh_sizes: Dict[str, int]):
+    """A ``DeviceMesh`` of ``mesh_sizes`` over torch's fake process group,
+    this process its rank 0: the groups exist, and a collective would move
+    nothing (``StepCounter`` runs none). The process may have no other group."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("the dry run traces a mesh under a fake process group of its own, "
+                           "and this process already has a process group")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(mesh_sizes.values()))
+    try:
+        yield init_device_mesh("cpu", tuple(mesh_sizes.values()),
+                               mesh_dim_names=tuple(mesh_sizes))
+    finally:
+        dist.destroy_process_group()
 
 
 def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
@@ -394,7 +481,10 @@ def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
     """One device's step of the cell (``run`` at ``units`` units, or whole;
     ``shape`` at ``seq_len``, or its own) on the meta device, counted;
     ``ids`` numbers the timeline's signatures (share it between traces to be
-    aligned)."""
+    aligned). A train step on a mesh of more than one device is rank 0's
+    share of the sharded step (``steps.make_local_step``), run by the port's
+    own TP code on the model cut to that rank's shards, under a fake process
+    group (``fake_world``)."""
     if units is not None:
         run = with_units(run, units)
     seq = shape.seq_len if seq_len is None else seq_len
@@ -403,37 +493,61 @@ def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
     local = ShapeSpec(shape.name, seq, rows, shape.kind)
     model = build_model(run, device="meta", use_kernel=False)
     batch = input_specs(run.model, local)
-    if shape.kind == "train":
-        params = dict(model.named_parameters())
-        opt_state = init_opt_state(run, params)
-        run = run.replace(train=dataclasses.replace(run.train, seq_len=seq, global_batch=rows))
-        step = make_train_step(model, run, optimizer_config(run))
-        args = [*params.values(), *_tensors(opt_state), *batch.values()]
-
-        def call():
-            step(params, opt_state, batch)
-    else:
-        cache = model.init_cache(rows, seq, dtype=getattr(torch, run.parallel.kv_cache_dtype))
-        args = [*model.parameters(), *_tensors(cache), *batch.values()]
-        if shape.kind == "prefill":
-            prefill = make_prefill_step(model)
+    meshed = shape.kind == "train" and math.prod(mesh_sizes.values()) > 1
+    with (fake_world(mesh_sizes) if meshed else contextlib.nullcontext()) as mesh:
+        if shape.kind == "train":
+            run = run.replace(train=dataclasses.replace(run.train, seq_len=seq,
+                                                        global_batch=rows))
+            opt_cfg = optimizer_config(run)
+            if meshed:
+                tp = tensor.shard_model(model, mesh)
+                params = dict(model.named_parameters())
+                opt_state = init_opt_state(run, params)
+                step = make_local_step(model, run, opt_cfg, tp)
+            else:
+                params = dict(model.named_parameters())
+                opt_state = init_opt_state(run, params)
+                step = make_train_step(model, run, opt_cfg)
+            args = [*params.values(), *_tensors(opt_state), *batch.values()]
 
             def call():
-                prefill(batch, cache)
+                step(params, opt_state, batch)
         else:
-            decode = make_decode_step(model)
+            cache = model.init_cache(rows, seq, dtype=getattr(torch, run.parallel.kv_cache_dtype))
+            args = [*model.parameters(), *_tensors(cache), *batch.values()]
+            if shape.kind == "prefill":
+                prefill = make_prefill_step(model)
 
-            def call():
-                decode(batch, cache, seq - 1)
-    counter = StepCounter(ids)
-    counter.hold(args)
-    arg_bytes = counter.live
-    t0 = time.perf_counter()
-    with counter:
-        call()
+                def call():
+                    prefill(batch, cache)
+            else:
+                decode = make_decode_step(model)
+
+                def call():
+                    decode(batch, cache, seq - 1)
+        counter = StepCounter(ids)
+        counter.hold(args)
+        arg_bytes = counter.live
+        t0 = time.perf_counter()
+        with counter:
+            call()
     return Trace(float(counter.flops), float(counter.bytes), float(counter.peak),
-                 float(arg_bytes), time.perf_counter() - t0, counter.sigs, counter.names,
-                 counter.lives)
+                 float(arg_bytes), time.perf_counter() - t0, counter.coll,
+                 float(counter.gathered_peak), counter.sigs, counter.names, counter.lives)
+
+
+def collectives_of(run: RunConfig, shape: ShapeSpec,
+                   mesh_sizes: Dict[str, int]) -> rl.CollectiveStats:
+    """The collectives one rank's share of the cell's train step issues, as
+    its trace counts them (``trace_cell``; a group of one rank moves nothing
+    and is not counted): each layer's gathers over the batch axes in the
+    forward and again in remat's recompute, the reduce-scatters of their
+    gradients, the all-reduces over ``model`` of the tensor-parallel layers
+    (forward, backward and recompute) and of the vocab-parallel loss, the
+    all-reduces over the batch axes of the gradients they leave whole, the
+    whole-leaf gathers of an optimizer that is not elementwise, the metrics,
+    the global norm, the int8 maxima and the MoE load-balance means."""
+    return trace_cell(run, shape, mesh_sizes).coll
 
 
 # ---------------------------------------------------------------------------
@@ -627,7 +741,6 @@ def cell_costs(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int]) -> 
     traced = UNITS if units > UNITS[-1] else (units,)
     extra = units - traced[0]
     lengths = LENGTHS.get(shape.kind) if recurrent_only(run) else None
-    opt_cfg = optimizer_config(run)
     ids: dict = {}
     totals, args, peaks, lives, names, seconds = [], [], [], [], [], 0.0
     aligned = True
@@ -636,11 +749,8 @@ def cell_costs(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int]) -> 
         for k in traced:
             tr = trace_cell(run, shape, mesh_sizes, units=k, seq_len=seq, ids=ids)
             seconds += tr.seconds
-            coll = rl.CollectiveStats()
-            if shape.kind == "train":
-                params = dict(build_model(with_units(run, k), device="meta").named_parameters())
-                coll = rl.collectives_of(params, mesh_sizes, opt_cfg, run)
-            traces.append((tr, rl.CostTerms(tr.flops, tr.bytes, coll)))
+            gathered = tr.gathered_bytes
+            traces.append((tr, rl.CostTerms(tr.flops, tr.bytes, tr.coll)))
         (t1, c1), (t2, c2) = traces[0], traces[-1]
         totals.append(c1.extrapolate(c2.diff(c1), extra))
         args.append(t1.arg_bytes + (t2.arg_bytes - t1.arg_bytes) * extra)
@@ -669,14 +779,17 @@ def cell_costs(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int]) -> 
                      "full_seq_len": shape.seq_len,
                      "peak": "timeline" if aligned else "peak",
                      "affine_temp_bytes": affine - arg}
-    return {"cost": total, "temp_bytes": peak - arg, "trace_s": seconds,
-            "extrapolation": extrapolation}
+    return {"cost": total, "temp_bytes": peak - arg, "gathered_bytes": gathered,
+            "trace_s": seconds, "extrapolation": extrapolation}
 
 
 def memory_record(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int],
-                  temp_bytes: float) -> Dict:
+                  temp_bytes: float, traced_gathered: float = 0.0) -> Dict:
     """``memory`` of a record: the stored arguments, what the port holds
-    beyond them, the step's temporaries, the peak and whether it fits."""
+    beyond them, the step's temporaries, the peak and whether it fits.
+    ``temp_bytes`` is the traced peak over the traced arguments, of which
+    ``traced_gathered`` (a train step's all-gather outputs at their most,
+    ``Trace.gathered_bytes``) is reported under ``gathered_bytes``."""
     st = state_bytes(run, shape, mesh_sizes)
     stored, full = st["stored"], st["full"]
     world = math.prod(mesh_sizes.values())
@@ -684,9 +797,8 @@ def memory_record(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int],
     if world > 1:
         gathered = full["batch"] - stored["batch"]
         if shape.kind == "train":
-            gathered += full["params"]
-            if optimizer_config(run).kind != "adamw":
-                gathered += full["params"]
+            gathered += traced_gathered
+            temp_bytes -= traced_gathered
         else:
             gathered += (full["params"] - stored["params"]
                          + full["cache_rows"] - stored["cache"])
@@ -756,7 +868,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, do_roofline: bool,
                          "attn_zero": attn_zero, "moe_zero": moe_zero,
                          "attn_activation_sharding": run.parallel.attn_activation_sharding,
                          "optimizer_state": run.parallel.optimizer_state},
-            "memory": memory_record(run, shape, sizes, costs["temp_bytes"]),
+            "memory": memory_record(run, shape, sizes, costs["temp_bytes"],
+                                    costs["gathered_bytes"]),
             "cost_analysis": {"flops_per_device": cost.flops,
                               "bytes_per_device": cost.hbm_bytes},
             "collectives": {"counts": cost.coll.counts,

@@ -15,9 +15,10 @@ step on the meta device (``launch/dryrun.py``), at 2 and 3 units
     total    = cost(2 units) + (n_units - 2) * per_unit
 
 The JAX package parses its collectives from the compiled HLO
-(``parse_collectives``). The port has no HLO: ``collectives_of`` counts what
-the port's sharded train step (``train/steps.py``) issues, a leaf at a time,
-with the JAX package's ring wire factors:
+(``parse_collectives``). The port has no HLO: the dry run counts the
+collectives that one rank's share of the sharded train step issues as it
+traces it (``dryrun.collectives_of``), with the JAX package's ring wire
+factors:
 
     all-reduce      2 (N-1)/N * bytes     all-gather     (N-1)/N * out_bytes
     reduce-scatter  (N-1)/N * in_bytes    all-to-all     (N-1)/N * bytes
@@ -200,96 +201,3 @@ def structural_hbm_bytes(run, shape, chips: int) -> float:
     # decode: read every param + the whole cache once per token
     toks = shape.global_batch / dp_shards
     return a_bytes_active + cache + cfg.n_layers * toks * d * 2 * 8
-
-
-# ---------------------------------------------------------------------------
-# The sharded train step's collectives
-# ---------------------------------------------------------------------------
-
-METRICS = ("ce_loss", "loss")
-MOE_METRICS = ("moe_lb_loss", "moe_z_loss")
-
-
-def collectives_of(params: Dict[str, torch.Tensor], mesh_sizes: Dict[str, int], opt_cfg,
-                   run) -> CollectiveStats:
-    """The collectives one step of ``train/steps.py``'s sharded step issues
-    on a mesh of ``mesh_sizes`` ({axis: size} in mesh order), for the
-    parameters ``params`` ({name: tensor}; meta tensors will do) under
-    ``param_placements``' specs, the optimizer ``opt_cfg`` and ``run``'s
-    microbatches, remat, accumulator dtype and compression. A group of one
-    device moves nothing and is not counted. Per parameter:
-
-      * its master gathered before the forward (``full_tensor``): an
-        all-gather a mesh axis that shards it, the last axis first, each
-        growing the tensor by that axis;
-      * its gradient averaged over each batch axis onto its placement: a
-        reduce-scatter of the whole gradient over an axis that shards the
-        master, else an all-reduce; the ``model`` axis is sliced, no
-        collective;
-      * with an optimizer that is not elementwise (``adamw_factored``,
-        ``adamw_8bit``): master and gradient gathered whole again for the
-        update.
-
-    Besides: the metrics' all-reduce over every device; the global norm's
-    all-reduce of one float a leaf over each mesh axis that shards a leaf;
-    with int8 compression, the per-leaf maxima over every device; with MoE,
-    each MoE layer's two load-balance means over every device in each
-    forward (again in remat's recompute) and the gradient of one of them in
-    the backward, a microbatch each."""
-    from repro_torch.models.model import DTYPES
-    from repro_torch.parallel import sharding as shd
-
-    sizes = dict(mesh_sizes)
-    world = math.prod(sizes.values())
-    stats = CollectiveStats()
-    if world == 1:
-        return stats
-    pcfg = run.parallel
-    k = max(pcfg.microbatches, 1)
-    int8 = pcfg.grad_compression == "int8"
-    specs = shd.param_specs(params, sizes)
-    axes_order = [a for a in sizes if sizes[a] > 1]
-    batch = [a for a in shd.BATCH_AXES if sizes.get(a, 1) > 1]
-
-    def add(kind: str, nbytes: float, n: int) -> None:
-        if n > 1:
-            stats.add(kind, nbytes, n)
-
-    def gather(nbytes: float, axes) -> None:
-        cur = nbytes / math.prod(sizes[a] for a in axes)
-        for a in reversed(axes):
-            cur *= sizes[a]
-            add("all-gather", cur, sizes[a])
-
-    sharding_axes = set()
-    for name, p in params.items():
-        on = {a for e in specs[name] for a in shd._axes_of(e)}
-        axes = [a for a in axes_order if a in on]
-        sharding_axes.update(axes)
-        p_bytes = p.numel() * p.element_size()
-        g_dtype = DTYPES[pcfg.grad_accum_dtype] if k > 1 else p.dtype
-        g_bytes = p.numel() * g_dtype.itemsize
-        gather(p_bytes, axes)
-        for a in batch:
-            add("reduce-scatter" if a in axes else "all-reduce", g_bytes, sizes[a])
-        if opt_cfg.kind != "adamw":
-            gather(p_bytes, axes)
-            gather(p.numel() * (4 if int8 else g_dtype.itemsize), axes)
-
-    n_leaves = len(params)
-    moe_layers = sum(name.endswith("moe.router") for name in params)
-    metrics = len(METRICS) + (len(MOE_METRICS) if moe_layers else 0)
-    add("all-reduce", 4 * metrics, world)
-    if int8:
-        add("all-reduce", 4 * n_leaves, world)
-    for a in axes_order:
-        if a in sharding_axes:
-            add("all-reduce", 4 * n_leaves, sizes[a])
-    if moe_layers:
-        e = run.model.moe.num_experts
-        # a microbatch: me and ce in the forward and in remat's recompute,
-        # me's gradient in the backward
-        per_microbatch = 2 * (2 if pcfg.remat != "none" else 1) + 1
-        for _ in range(moe_layers * k * per_microbatch):
-            add("all-reduce", 4 * e, world)
-    return stats

@@ -17,6 +17,12 @@ as the JAX Trainer does.
 
 The KV cache is updated in place (``cache.k[:, pos] = k``, a slice write at
 prefill); the JAX package builds new arrays with ``dynamic_update_slice``.
+
+On a mesh (a module's ``tp``, ``parallel.tensor``) train mode computes on this
+rank's heads: q heads over ``model``, the kv heads too where they divide,
+``wo`` row-parallel with the outputs all-reduced over ``model``; each class
+says what it computes where the heads do not divide. Serving runs on one
+device or on data-parallel replicas and takes no ``tp``.
 """
 from __future__ import annotations
 
@@ -93,10 +99,49 @@ def layer_window(cfg: ModelConfig, layer_idx: int) -> int:
     return cfg.sliding_window
 
 
+def _same(x):
+    return x
+
+
+def kv_plan(tp, n_heads: int, n_kv: int, hd: int, wk, wv):
+    """The kv weights a rank's block of q heads reads, on a mesh whose
+    ``model`` axis splits the q heads: (wk, wv, their heads, an index that
+    gives each local q head its kv head, or None where the heads keep
+    ``n_heads / n_kv`` to a group). Where ``model`` splits the kv heads too,
+    each rank takes its own block; else each gathers the kv weights whole and
+    keeps the heads its q heads read (each rank's gradient is then a part,
+    summed over ``model``)."""
+    n, group = tp.size, n_heads // n_kv
+    if n_kv % n == 0 and tp.split_on((wk, 1), (wv, 1)):
+        return tp.gather_batch(wk), tp.gather_batch(wv), n_kv // n, None
+    h_l = n_heads // n
+    heads = [(tp.rank * h_l + i) // group for i in range(h_l)]
+    k0, k1 = heads[0], heads[-1] + 1
+    wk_l = tp.whole(wk, partial=True)[:, k0 * hd:k1 * hd]
+    wv_l = tp.whole(wv, partial=True)[:, k0 * hd:k1 * hd]
+    per = h_l // (k1 - k0)
+    if h_l % (k1 - k0) == 0 and all(hh - k0 == i // per for i, hh in enumerate(heads)):
+        return wk_l, wv_l, k1 - k0, None
+    return wk_l, wv_l, k1 - k0, torch.tensor([hh - k0 for hh in heads], device=wk.device)
+
+
 class GQAttention(nn.Module):
     """Weights in the JAX package's ``(in, out)`` orientation. With
     ``qk_norm``, q and k go through an RMSNorm over ``head_dim`` each
-    (``q_norm``, ``k_norm``) after the projections and before RoPE."""
+    (``q_norm``, ``k_norm``) after the projections and before RoPE.
+
+    On a mesh (``tp``), ``forward_train`` splits the heads over ``model``
+    where ``n_heads`` divides by its size: each rank projects its q heads
+    (and, where ``n_kv_heads`` divides too, its kv heads, else the kv heads
+    its q heads read: ``kv_plan``), normalises them with the shared qk-norm
+    scales, attends, and multiplies by its rows of ``wo``; the outputs are
+    all-reduced over ``model``. Where ``n_heads`` does not divide (the JAX
+    package's ``attn_zero_sharding`` "auto" case: at 16, gemma2-2b's 8 heads,
+    smollm-135m's 9, musicgen-medium's 24, yi-34b's and arctic-480b's 56), the
+    layer gathers its weights whole and every ``model`` rank computes the
+    whole attention."""
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -115,30 +160,65 @@ class GQAttention(nn.Module):
         for w in (self.wq, self.wk, self.wv, self.wo):
             w.copy_(truncated_normal(w.shape, w.shape[0] ** -0.5, w.dtype, w.device, generator))
 
-    def _qkv(self, x, positions, use_kernel: bool):
+    def _own(self):
+        w = {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
+        if self.cfg.qk_norm:
+            w["q_norm"], w["k_norm"] = self.q_norm.scale, self.k_norm.scale
+        return w
+
+    def _qkv(self, x, positions, use_kernel: bool, w=None, h=None, hkv=None):
         cfg = self.cfg
+        w = self._own() if w is None else w
+        h = cfg.n_heads if h is None else h
+        hkv = cfg.n_kv_heads if hkv is None else hkv
         b, s, _ = x.shape
-        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        q = (x @ self.wq.to(x.dtype)).reshape(b, s, h, hd)
-        k = (x @ self.wk.to(x.dtype)).reshape(b, s, hkv, hd)
-        v = (x @ self.wv.to(x.dtype)).reshape(b, s, hkv, hd)
+        hd = cfg.resolved_head_dim
+        q = (x @ w["wq"].to(x.dtype)).reshape(b, s, h, hd)
+        k = (x @ w["wk"].to(x.dtype)).reshape(b, s, hkv, hd)
+        v = (x @ w["wv"].to(x.dtype)).reshape(b, s, hkv, hd)
         if cfg.qk_norm:
-            q = self.q_norm(q, use_kernel)
-            k = self.k_norm(k, use_kernel)
+            q = kops.rmsnorm(q, w["q_norm"], cfg.norm_eps, use_kernel)
+            k = kops.rmsnorm(k, w["k_norm"], cfg.norm_eps, use_kernel)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
+
+    def _train(self, x, window: int, use_kernel: bool, w=None, h=None, hkv=None,
+               kv_index=None):
+        b, s, _ = x.shape
+        w = self._own() if w is None else w
+        q, k, v = self._qkv(x, torch.arange(s, device=x.device)[None, :], use_kernel, w, h, hkv)
+        if kv_index is not None:
+            k, v = k[:, :, kv_index], v[:, :, kv_index]
+        out = chunked_causal_attention(q, k, v, window=window,
+                                       logit_cap=self.cfg.attn_logit_softcap,
+                                       scale=self.cfg.resolved_head_dim ** -0.5)
+        return out.reshape(b, s, -1) @ w["wo"].to(x.dtype)
+
+    def heads_split(self) -> bool:
+        tp = self.tp
+        return self.cfg.n_heads % tp.size == 0 and tp.split_on((self.wq, 1), (self.wo, 0))
 
     def forward_train(self, x, *, window: int, use_kernel: bool = True):
         """Full-sequence causal attention without a cache (JAX ``gqa_train``),
         through the plain chunked attention; ``use_kernel`` picks the qk
         norms' path. (``train`` is taken by ``nn.Module``.)"""
-        b, s, _ = x.shape
-        q, k, v = self._qkv(x, torch.arange(s, device=x.device)[None, :], use_kernel)
-        out = chunked_causal_attention(q, k, v, window=window,
-                                       logit_cap=self.cfg.attn_logit_softcap,
-                                       scale=self.cfg.resolved_head_dim ** -0.5)
-        return out.reshape(b, s, -1) @ self.wo.to(x.dtype)
+        tp = self.tp
+        if tp is None:
+            return self._train(x, window, use_kernel)
+        if not self.heads_split():
+            whole = {k: tp.whole(v) for k, v in self._own().items()}
+            return self._train(x, window, use_kernel, whole)
+        cfg = self.cfg
+        wk, wv, hkv, kv_index = kv_plan(tp, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                                      self.wk, self.wv)
+        w = {"wq": tp.gather_batch(self.wq), "wk": wk, "wv": wv, "wo": tp.gather_batch(self.wo)}
+        if cfg.qk_norm:     # shared by every head: each rank's gradient is a part
+            w["q_norm"] = tp.copy_in(self.q_norm.scale)
+            w["k_norm"] = tp.copy_in(self.k_norm.scale)
+        out = self._train(tp.copy_in(x), window, use_kernel, w, cfg.n_heads // tp.size, hkv,
+                          kv_index)
+        return tp.reduce_out(out)
 
     def prefill(self, x, cache: KVCache, *, window: int, use_kernel: bool = True):
         """Attend causally and write k/v into ``cache[:, :S]`` in place."""
@@ -186,6 +266,8 @@ class MLAttention(nn.Module):
     scores and context), as the JAX package does: MLA has no attention kernel
     in either package. ``use_kernel`` picks the norms' path."""
 
+    tp = None
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.cfg = cfg
@@ -212,42 +294,87 @@ class MLAttention(nn.Module):
         for w in self.parameters(recurse=False):
             w.copy_(truncated_normal(w.shape, w.shape[0] ** -0.5, w.dtype, w.device, generator))
 
-    def _q(self, x, positions, use_kernel: bool):
-        m, h = self.cfg.mla, self.cfg.n_heads
+    def _own(self):
+        w = {n: p for n, p in self.named_parameters(recurse=False)}
+        w["kv_norm"] = self.kv_norm.scale
+        if self.cfg.mla.q_lora_rank:
+            w["q_norm"] = self.q_norm.scale
+        return w
+
+    def _q(self, x, positions, use_kernel: bool, w=None, h=None, f=_same):
+        """``f`` marks where the replicated latent meets the per-head
+        up-projection (``tp.copy_in`` on a mesh)."""
+        m, eps = self.cfg.mla, self.cfg.norm_eps
+        w = self._own() if w is None else w
+        h = self.cfg.n_heads if h is None else h
         b, s, _ = x.shape
         if m.q_lora_rank:
-            cq = self.q_norm(x @ self.w_dq.to(x.dtype), use_kernel)
-            q = cq @ self.w_uq.to(x.dtype)
+            cq = kops.rmsnorm(x @ w["w_dq"].to(x.dtype), w["q_norm"], eps, use_kernel)
+            q = f(cq) @ w["w_uq"].to(x.dtype)
         else:
-            q = x @ self.w_q.to(x.dtype)
+            q = f(x) @ w["w_q"].to(x.dtype)
         q = q.reshape(b, s, h, m.nope_head_dim + m.rope_head_dim)
         q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
         return q_nope, apply_rope(q_rope, positions, self.cfg.rope_theta)
 
-    def _ckv(self, x, positions, use_kernel: bool):
-        c_kv = self.kv_norm(x @ self.w_dkv.to(x.dtype), use_kernel)
-        k_rope = (x @ self.w_krope.to(x.dtype))[:, :, None, :]       # one shared head
+    def _ckv(self, x, positions, use_kernel: bool, w=None):
+        w = self._own() if w is None else w
+        c_kv = kops.rmsnorm(x @ w["w_dkv"].to(x.dtype), w["kv_norm"], self.cfg.norm_eps,
+                            use_kernel)
+        k_rope = (x @ w["w_krope"].to(x.dtype))[:, :, None, :]       # one shared head
         return c_kv, apply_rope(k_rope, positions, self.cfg.rope_theta)[:, :, 0]
 
-    def _attend(self, q_nope, q_rope, c_kv, k_rope):
+    def _attend(self, q_nope, q_rope, c_kv, k_rope, w=None, h=None, f=_same):
         """Naive MLA: per-head K and V materialised from the latent."""
-        m, h = self.cfg.mla, self.cfg.n_heads
+        m = self.cfg.mla
+        w = self._own() if w is None else w
+        h = self.cfg.n_heads if h is None else h
         b, sk = c_kv.shape[:2]
-        k_nope = (c_kv @ self.w_uk.to(c_kv.dtype)).reshape(b, sk, h, m.nope_head_dim)
-        v = (c_kv @ self.w_uv.to(c_kv.dtype)).reshape(b, sk, h, m.v_head_dim)
-        k_rope = k_rope[:, :, None, :].expand(b, sk, h, m.rope_head_dim)
+        c_kv = f(c_kv)
+        k_nope = (c_kv @ w["w_uk"].to(c_kv.dtype)).reshape(b, sk, h, m.nope_head_dim)
+        v = (c_kv @ w["w_uv"].to(c_kv.dtype)).reshape(b, sk, h, m.v_head_dim)
+        k_rope = f(k_rope)[:, :, None, :].expand(b, sk, h, m.rope_head_dim)
         q = torch.cat([q_nope, q_rope], dim=-1)
         k = torch.cat([k_nope, k_rope], dim=-1)
         return chunked_causal_attention(q, k, v, window=None, scale=self.scale)
 
-    def forward_train(self, x, *, use_kernel: bool = True):
-        """Full-sequence causal MLA without a cache (JAX ``mla_train``)."""
+    def _train(self, x, use_kernel: bool, w=None, h=None, f=_same):
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None, :]
-        q_nope, q_rope = self._q(x, positions, use_kernel)
-        c_kv, k_rope = self._ckv(x, positions, use_kernel)
-        out = self._attend(q_nope, q_rope, c_kv, k_rope)
-        return out.reshape(b, s, -1) @ self.wo.to(x.dtype)
+        w = self._own() if w is None else w
+        q_nope, q_rope = self._q(x, positions, use_kernel, w, h, f)
+        c_kv, k_rope = self._ckv(x, positions, use_kernel, w)
+        out = self._attend(q_nope, q_rope, c_kv, k_rope, w, h, f)
+        return out.reshape(b, s, -1) @ w["wo"].to(x.dtype)
+
+    def heads_split(self) -> bool:
+        tp, m = self.tp, self.cfg.mla
+        up = (self.w_uq, 1) if m.q_lora_rank else (self.wo, 0)
+        return (self.cfg.n_heads % tp.size == 0
+                and tp.split_on((self.w_uk, 1), (self.w_uv, 1), (self.wo, 0), up))
+
+    def forward_train(self, x, *, use_kernel: bool = True):
+        """Full-sequence causal MLA without a cache (JAX ``mla_train``). On a
+        mesh whose ``model`` axis splits the heads, the latents (``w_dkv``,
+        ``w_krope``, ``w_dq`` and their norms) are computed whole on every
+        rank, and ``w_uq`` (or this rank's columns of ``w_q``), ``w_uk``,
+        ``w_uv`` and ``wo`` on this rank's heads; the outputs are all-reduced
+        over ``model``. Else every rank computes the whole layer."""
+        tp = self.tp
+        if tp is None:
+            return self._train(x, use_kernel)
+        own = self._own()
+        if not self.heads_split():
+            return self._train(x, use_kernel, {k: tp.whole(v) for k, v in own.items()})
+        m, h = self.cfg.mla, self.cfg.n_heads // tp.size
+        local = ("w_uq", "w_uk", "w_uv", "wo")
+        w = {k: tp.gather_batch(v) if k in local else
+             v if k.endswith("norm") else tp.whole(v) for k, v in own.items() if k != "w_q"}
+        if not m.q_lora_rank:
+            qd = m.nope_head_dim + m.rope_head_dim
+            w["w_q"] = tp.whole(self.w_q, partial=True)[:, tp.rank * h * qd:
+                                                         (tp.rank + 1) * h * qd]
+        return tp.reduce_out(self._train(x, use_kernel, w, h, tp.copy_in))
 
     def prefill(self, x, cache: MLACache, *, use_kernel: bool = True):
         """``forward_train``'s attention; writes the latent and the rotated key
@@ -323,6 +450,8 @@ class CrossAttention(nn.Module):
     the output is scaled by tanh(gate), the gate rounded to the activations'
     dtype first, as the JAX package does."""
 
+    tp = None
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.cfg = cfg
@@ -340,16 +469,41 @@ class CrossAttention(nn.Module):
             w.copy_(truncated_normal(w.shape, w.shape[0] ** -0.5, w.dtype, w.device, generator))
         self.gate.zero_()
 
-    def forward(self, x, vision_embed):
-        """x: (B, S, d); vision_embed: (B, Sv, vision_d_model)."""
-        cfg = self.cfg
+    def _attend(self, x, vision_embed, w, h: int, hkv: int, kv_index=None):
+        hd = self.cfg.resolved_head_dim
         b, s, _ = x.shape
-        h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         sv = vision_embed.shape[1]
         ve = vision_embed.to(x.dtype)
-        q = (x @ self.wq.to(x.dtype)).reshape(b, s, h, hd)
-        k = (ve @ self.wk.to(x.dtype)).reshape(b, sv, hkv, hd).repeat_interleave(h // hkv, 2)
-        v = (ve @ self.wv.to(x.dtype)).reshape(b, sv, hkv, hd).repeat_interleave(h // hkv, 2)
+        q = (x @ w["wq"].to(x.dtype)).reshape(b, s, h, hd)
+        k = (ve @ w["wk"].to(x.dtype)).reshape(b, sv, hkv, hd)
+        v = (ve @ w["wv"].to(x.dtype)).reshape(b, sv, hkv, hd)
+        if kv_index is None:
+            k, v = k.repeat_interleave(h // hkv, 2), v.repeat_interleave(h // hkv, 2)
+        else:
+            k, v = k[:, :, kv_index], v[:, :, kv_index]
         out = cross_attention(q, k, v, scale=hd ** -0.5)
-        out = out.reshape(b, s, h * hd) @ self.wo.to(x.dtype)
+        return out.reshape(b, s, h * hd) @ w["wo"].to(x.dtype)
+
+    def forward(self, x, vision_embed):
+        """x: (B, S, d); vision_embed: (B, Sv, vision_d_model). On a mesh whose
+        ``model`` axis splits the heads, ``wq``/``wk``/``wv`` are
+        column-parallel (the kv heads as ``kv_plan`` gives them), ``wo``
+        row-parallel and the output all-reduced over ``model`` before the
+        gate, which every rank applies whole; else every rank computes the
+        whole layer."""
+        cfg, tp = self.cfg, self.tp
+        h, hkv = cfg.n_heads, cfg.n_kv_heads
+        own = {"wq": self.wq, "wk": self.wk, "wv": self.wv, "wo": self.wo}
+        if tp is None:
+            out = self._attend(x, vision_embed, own, h, hkv)
+        elif h % tp.size or not tp.split_on((self.wq, 1), (self.wo, 0)):
+            whole = {k: tp.whole(v) for k, v in own.items()}
+            out = self._attend(x, vision_embed, whole, h, hkv)
+        else:
+            wk, wv, hkv_l, kv_index = kv_plan(tp, h, hkv, cfg.resolved_head_dim,
+                                              self.wk, self.wv)
+            w = {"wq": tp.gather_batch(self.wq), "wk": wk, "wv": wv,
+                 "wo": tp.gather_batch(self.wo)}
+            out = tp.reduce_out(self._attend(tp.copy_in(x), vision_embed, w, h // tp.size,
+                                             hkv_l, kv_index))
         return torch.tanh(self.gate.to(x.dtype)) * out

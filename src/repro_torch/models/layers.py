@@ -2,6 +2,12 @@
 
 Port of ``repro.models.layers``. Weights keep the JAX package's ``(in, out)``
 orientation, so a projection is ``x @ w`` here as there.
+
+A module's ``tp`` is None on one device. On a mesh it is the model's
+``parallel.tensor.TensorParallel`` and the parameters are this rank's shards:
+``GLUMLP`` is column-parallel in ``wi_gate``/``wi_up`` and row-parallel in
+``wo``, and the embedding is vocab-parallel (``vocab_embed``; the read-out is
+``LM.readout_weight`` and the loss ``models.model._chunked_ce``).
 """
 from __future__ import annotations
 
@@ -74,6 +80,14 @@ def glu_mlp(x, wi_gate, wi_up, wo, act: str = "silu"):
 
 
 class GLUMLP(nn.Module):
+    """The GLU FFN. On a mesh whose ``model`` axis splits d_ff, each rank
+    computes its columns of the hidden layer and its rows of ``wo``
+    (``forward_partial``, a partial sum) and the sum is all-reduced over
+    ``model``; where d_ff does not split, the weights are gathered whole and
+    every rank computes the whole FFN."""
+
+    tp = None
+
     def __init__(self, d_model: int, d_ff: int, act: str, dtype, device):
         super().__init__()
         self.act = act
@@ -86,8 +100,23 @@ class GLUMLP(nn.Module):
         for w in (self.wi_gate, self.wi_up, self.wo):
             w.copy_(truncated_normal(w.shape, w.shape[0] ** -0.5, w.dtype, w.device, generator))
 
+    def sharded(self) -> bool:
+        return self.tp.split_on((self.wi_gate, 1), (self.wi_up, 1), (self.wo, 0))
+
+    def forward_partial(self, x):
+        """This rank's part of the FFN of ``x`` (which has been through
+        ``tp.copy_in``): to be summed over ``model``."""
+        g = self.tp.gather_batch
+        return glu_mlp(x, g(self.wi_gate), g(self.wi_up), g(self.wo), self.act)
+
     def forward(self, x):
-        return glu_mlp(x, self.wi_gate, self.wi_up, self.wo, self.act)
+        tp = self.tp
+        if tp is None:
+            return glu_mlp(x, self.wi_gate, self.wi_up, self.wo, self.act)
+        if self.sharded():
+            return tp.reduce_out(self.forward_partial(tp.copy_in(x)))
+        return glu_mlp(x, tp.whole(self.wi_gate), tp.whole(self.wi_up), tp.whole(self.wo),
+                       self.act)
 
 
 # ---------------------------------------------------------------------------
@@ -95,11 +124,27 @@ class GLUMLP(nn.Module):
 # ---------------------------------------------------------------------------
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, scale_by_sqrt_dim: bool = False):
-    x = table[tokens]
+    return _scaled(table[tokens], scale_by_sqrt_dim)
+
+
+def _scaled(x, scale_by_sqrt_dim: bool):
     if scale_by_sqrt_dim:
         # the factor is rounded to x.dtype first, as the JAX package does
         x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=x.dtype, device=x.device)
     return x
+
+
+def vocab_embed(tp, table: torch.Tensor, tokens: torch.Tensor, scale_by_sqrt_dim: bool = False):
+    """``embed`` on a mesh. Where ``model`` splits the vocab, each rank looks
+    up the tokens its rows of the table hold, zeros elsewhere, and the rows
+    are all-reduced over ``model``; else the table is gathered whole."""
+    if tp.split_dim(table) != 0 or tp.size == 1:
+        return embed(tp.whole(table), tokens, scale_by_sqrt_dim)
+    w = tp.gather_batch(table)
+    local = tokens.long() - tp.rank * w.shape[0]
+    inside = (local >= 0) & (local < w.shape[0])
+    x = torch.where(inside[..., None], w[torch.where(inside, local, 0)], 0)
+    return _scaled(tp.reduce_out(x), scale_by_sqrt_dim)
 
 
 def logits_from_embedding(table: torch.Tensor, x: torch.Tensor):

@@ -44,7 +44,11 @@ def _chunked_ce(model: LM, hidden, labels, chunk: int = CE_CHUNK):
     (B, S, vocab) fp32 logits never exist at once (256k vocab x 4096 tokens
     is 4 GB a sequence). Each chunk's read-out and log-softmax run under a
     checkpoint, recomputed in the backward pass; the sequence is padded to a
-    whole number of chunks and the padded positions are masked."""
+    whole number of chunks and the padded positions are masked. The read-out
+    weight is taken once for every chunk (on a mesh, gathered once over the
+    batch axes). Where a mesh splits the vocab over ``model``, each chunk's
+    loss is vocab-parallel: the soft-capped logits' max, their log-sum-exp
+    and the label's logit are all-reduced over ``model``."""
     b, s, _ = hidden.shape
     c = min(chunk, s)
     n = -(-s // c)
@@ -53,19 +57,40 @@ def _chunked_ce(model: LM, hidden, labels, chunk: int = CE_CHUNK):
         hidden = F.pad(hidden, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad))
     remat = torch.is_grad_enabled()
+    tp = model.tp
+    split = model.vocab_split()
 
-    def nll_sum(h, lab, start: int):
-        logp = torch.log_softmax(model.logits_fn(h), dim=-1)       # (B, c, V) fp32
-        nll = -torch.gather(logp, -1, lab[..., None].long())[..., 0]
+    def nll_sum(h, lab, start: int, w):
+        if split:
+            nll = _vocab_parallel_nll(tp, model.logits_fn(tp.copy_in(h), w), lab)
+        else:
+            logp = torch.log_softmax(model.logits_fn(h, w), dim=-1)      # (B, c, V) fp32
+            nll = -torch.gather(logp, -1, lab[..., None].long())[..., 0]
         posn = start + torch.arange(c, device=h.device)
         return torch.where(posn[None, :] < s, nll, 0.0).sum()
 
+    w = model.readout_weight()
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n):
-        args = (hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c], i * c)
+        args = (hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c], i * c, w)
         total = total + (checkpoint(nll_sum, *args, use_reentrant=False) if remat
                          else nll_sum(*args))
     return total / (b * s)
+
+
+def _vocab_parallel_nll(tp, logits, labels):
+    """-log softmax(logits)[label] where ``logits`` (B, c, V/tp) is this
+    rank's vocab shard: the max (a constant of the backward) and the sum of
+    exponentials are reduced over ``model``, and the label's logit is taken
+    on the rank that holds it."""
+    m = tp.max_over_model(logits.amax(dim=-1))
+    sumexp = tp.reduce_out(torch.exp(logits - m[..., None]).sum(dim=-1))
+    n = logits.shape[-1]
+    local = labels.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+    label_logit = tp.reduce_out(torch.where(inside, picked, 0.0))
+    return torch.log(sumexp) + m - label_logit
 
 
 def model_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

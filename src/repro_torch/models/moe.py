@@ -13,12 +13,19 @@ The routing bookkeeping is integer and exact, as in the JAX package:
 ``lax.top_k`` takes ties toward the lower index, so the top k here are the
 first k of a stable descending sort; ``argsort(..., stable=True)`` is
 ``torch.argsort(stable=True)``. The router is float32 whatever the model's
-parameter dtype, as ``init_moe`` draws it. Sharding constraints
-(``_maybe_shard``) have no counterpart: the model never sees a sharded
-tensor. Under data parallelism each rank routes its own rows, and the
-load-balance loss, which multiplies two means over the whole batch, takes
-them over every rank through the module's ``batch_mean`` (set by the sharded
-train step, ``train/steps.py``, around its forward and backward).
+parameter dtype, as ``init_moe`` draws it. Under data parallelism each rank
+routes its own rows, and the load-balance loss, which multiplies two means
+over the whole batch, takes them over the batch ranks through the module's
+``batch_mean`` (set by the sharded train step, ``train/steps.py``, around its
+forward and backward).
+
+On a mesh (``tp``, ``parallel.tensor``) the experts are split over ``model``
+(EP), as the JAX package's ``_maybe_shard`` pins them: routing, ties and
+capacity are computed whole on every ``model`` rank; each rank runs its E/tp
+experts on its rows of the dispatch buffer, its part of the combine (zero for
+the other ranks' experts) is summed over ``model``, and the shared experts
+and the dense residual are column/row-parallel inside the same sum. Where
+``model`` does not divide E, every rank runs every expert.
 """
 from __future__ import annotations
 
@@ -30,6 +37,10 @@ from torch import nn
 
 from repro_torch.common.config import ModelConfig, MoEConfig
 from repro_torch.models.layers import GLUMLP, act_fn, truncated_normal
+
+
+def _same(x):
+    return x
 
 
 def _capacity(tokens_per_group: int, m: MoEConfig) -> int:
@@ -95,35 +106,60 @@ def apply_moe(moe: "MoE", cfg: ModelConfig, x: torch.Tensor,
         return out.reshape(b, s, d), aux
     cap = capacity if capacity is not None else _capacity(s, m)
     e = m.num_experts
+    tp = moe.tp
+    ep = tp is not None and moe.experts_split()
+    e0, e1, f = 0, e, _same
+    if tp is None:
+        router, w_gate, w_up, w_out = moe.router, moe.wi_gate, moe.wi_up, moe.wo
+    elif ep:
+        router = tp.whole(moe.router)
+        w_gate, w_up, w_out = (tp.gather_batch(w) for w in (moe.wi_gate, moe.wi_up, moe.wo))
+        (e0, e1), f = tp.units(e), tp.copy_in
+    else:
+        router, w_gate, w_up, w_out = (tp.whole(w) for w in
+                                       (moe.router, moe.wi_gate, moe.wi_up, moe.wo))
+    el = e1 - e0
 
-    gates, idx, aux = route_topk(moe.router, x, m, batch_mean=moe.batch_mean)
+    gates, idx, aux = route_topk(router, x, m, batch_mean=moe.batch_mean)
     dest, valid, token, _, order = _dispatch_indices(idx, e, cap)
 
     # dispatch: every slot into its row of a (G, E*C + 1, D) buffer; the
     # dropped ones all land in the last row (the dump slot), which is cut away
+    xs = f(x)
     buf = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.scatter_(1, dest[..., None].expand(-1, -1, d), _rows(x, token))
-    expert_in = buf[:, :e * cap].reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    buf.scatter_(1, dest[..., None].expand(-1, -1, d), _rows(xs, token))
+    expert_in = (buf[:, e0 * cap:e1 * cap].reshape(b, el, cap, d).transpose(0, 1)
+                 .reshape(el, b * cap, d))
 
-    # the experts, batched over E
-    h = act_fn(cfg.act)(torch.bmm(expert_in, moe.wi_gate.to(x.dtype)))
-    h = h * torch.bmm(expert_in, moe.wi_up.to(x.dtype))
-    expert_out = torch.bmm(h, moe.wo.to(x.dtype))                     # (E, G*C, D)
+    # this rank's experts (all of them off a mesh), batched over E
+    h = act_fn(cfg.act)(torch.bmm(expert_in, w_gate.to(x.dtype)))
+    h = h * torch.bmm(expert_in, w_up.to(x.dtype))
+    expert_out = torch.bmm(h, w_out.to(x.dtype))                      # (El, G*C, D)
 
-    # combine: each slot's output back (zero where dropped), into (token,
-    # k-slot) order, weighted by the gates
-    flat_out = expert_out.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
-    flat_out = torch.cat([flat_out, flat_out.new_zeros(b, 1, d)], dim=1)
+    # combine: each slot's output back (zero where dropped, or where another
+    # rank's expert took it), into (token, k-slot) order, weighted by the gates
+    flat_out = expert_out.reshape(el, b, cap, d).transpose(0, 1).reshape(b, el * cap, d)
+    flat_out = F.pad(flat_out, (0, 0, e0 * cap, (e - e1) * cap + 1))
     slot_out = _rows(flat_out, dest.clamp_max(e * cap))
     slot_out = torch.where(valid[..., None], slot_out, 0)
     inv = torch.argsort(order, dim=-1)
     slot_out = _rows(slot_out, inv).reshape(b, s, m.top_k, d)
-    out = torch.einsum("gskd,gsk->gsd", slot_out, gates.to(x.dtype))
+    out = torch.einsum("gskd,gsk->gsd", slot_out, f(gates).to(x.dtype))
 
-    if m.num_shared_experts:
-        out = out + moe.shared(x)
-    if m.dense_residual_d_ff:
-        out = out + moe.dense_residual(x)
+    later = []
+    for mlp in (getattr(moe, "shared", None), getattr(moe, "dense_residual", None)):
+        if mlp is None:
+            continue
+        if ep and mlp.sharded():
+            out = out + mlp.forward_partial(xs)
+        elif ep:
+            later.append(mlp)
+        else:
+            out = out + mlp(x)
+    if ep:
+        out = tp.reduce_out(out)
+    for mlp in later:
+        out = out + mlp(x)
     return out, aux
 
 
@@ -134,6 +170,8 @@ class MoE(nn.Module):
     num_shared_experts) and ``dense_residual`` where the config has them.
     ``forward(x)`` returns (out, aux losses). ``batch_mean``: see
     ``route_topk``; None on one rank."""
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -164,6 +202,11 @@ class MoE(nn.Module):
         for mlp in (getattr(self, "shared", None), getattr(self, "dense_residual", None)):
             if mlp is not None:
                 mlp.init_weights(generator)
+
+    def experts_split(self) -> bool:
+        tp = self.tp
+        return (self.cfg.moe.num_experts % tp.size == 0
+                and tp.split_on((self.wi_gate, 0), (self.wi_up, 0), (self.wo, 0)))
 
     def forward(self, x: torch.Tensor):
         return apply_moe(self, self.cfg, x)

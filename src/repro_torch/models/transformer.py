@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -60,7 +61,8 @@ from repro_torch.common.config import (BLOCK_DENSE, BLOCK_MAMBA2, BLOCK_MLSTM, B
 from repro_torch.models.attention import (CrossAttention, GQAttention, KVCache, MLACache,
                                           MLAttention, layer_window)
 from repro_torch.models.layers import (GLUMLP, RMSNorm, embed, logits_from_embedding,
-                                       logits_from_head, softcap, truncated_normal)
+                                       logits_from_head, softcap, truncated_normal,
+                                       vocab_embed)
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import MLSTM, SLSTM, Mamba2
 
@@ -199,9 +201,12 @@ class CrossBlock(nn.Module):
 class RecurrentBlock(nn.Module):
     """``ln1`` + a recurrent cell (``cell``) + the residual; no FFN. Prefill
     starts from the state in the cache and decode steps from it; both write
-    the final state back into the cache in place."""
+    the final state back into the cache in place. On a mesh the cell's
+    weights are gathered whole and every rank runs the whole cell: its heads
+    and channels are not split over ``model`` yet."""
 
     cell_type = None
+    tp = None
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
@@ -220,7 +225,13 @@ class RecurrentBlock(nn.Module):
                     use_kernel: bool = True, vision_embed=None) -> Tuple[torch.Tensor, Aux]:
         h = self.ln1(x, use_kernel)
         if mode == "train":
-            out, _ = self.cell(h, None, use_kernel)
+            if self.tp is None:
+                out, _ = self.cell(h, None, use_kernel)
+            else:
+                # the cell computes whole on every rank of a mesh, from its
+                # weights gathered whole (see parallel.tensor)
+                whole = {n: self.tp.whole(p) for n, p in self.cell.named_parameters()}
+                out, _ = functional_call(self.cell, whole, (h, None, use_kernel))
             return x + out, {}
         if mode == "prefill":
             out, state = self.cell(h, cache, use_kernel)
@@ -317,7 +328,16 @@ class LM(nn.Module):
     ``blocks.<layer>.<path>`` for the per-layer weights (``xattn.*`` and
     ``ffn_gate`` in a cross block, ``cell.*`` in a recurrent one) and
     ``shared_attn.<path>`` for zamba2's shared block (see
-    ``repro_torch.convert``)."""
+    ``repro_torch.convert``).
+
+    ``tp`` is None on one device. On a mesh (``parallel.tensor.shard_model``
+    or ``build_sharded``) every parameter is this rank's shard and every
+    module computes its share of the train step (the module docstrings say
+    what): the embedding and the read-out are vocab-parallel where ``model``
+    divides the vocab, each block gathers its weights over the batch axes
+    when it runs, and under remat again in the recompute."""
+
+    tp = None
 
     def __init__(self, cfg: ModelConfig, param_dtype=torch.bfloat16, device=None,
                  use_kernel: bool = True, remat: str = "none"):
@@ -357,17 +377,31 @@ class LM(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> "LM":
+    def init_weights(self, generator: torch.Generator, cut=None) -> "LM":
         """Random weights drawn from ``generator`` (on the model's device);
         norm scales and the cross blocks' gates start at zero, as in the JAX
-        package."""
-        for t in (getattr(getattr(self, "embed", None), "table", None),
-                  getattr(self, "head", None)):
-            if t is not None:
-                t.copy_(truncated_normal(t.shape, self.cfg.d_model ** -0.5, t.dtype, t.device,
-                                         generator))
+        package. ``cut``: the model was built on the meta device, and each
+        part (the table, the head, a block, the final norm) is made on the
+        generator's device just before it is drawn and ``cut()`` is called
+        right after (``parallel.tensor.build_sharded`` cuts it to a rank's
+        shards there); the draws are those of the one-device model."""
+        make = (functools.partial(_materialize, device=generator.device) if cut is not None
+                else lambda module, recurse=True: None)
+        done = cut if cut is not None else lambda: None
+        for owner, name in ((getattr(self, "embed", None), "table"), (self, "head")):
+            if owner is None or name not in owner._parameters:
+                continue
+            make(owner, recurse=False)
+            t = owner._parameters[name]
+            t.copy_(truncated_normal(t.shape, self.cfg.d_model ** -0.5, t.dtype, t.device,
+                                     generator))
+            done()
         for blk in [*self.blocks, *([self.shared_attn] if hasattr(self, "shared_attn") else [])]:
+            make(blk)
             blk.init_weights(generator)
+            done()
+        make(self.final_norm)
+        done()
         return self
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> list:
@@ -377,13 +411,38 @@ class LM(nn.Module):
         for a cross block."""
         return [blk.init_cache(batch, max_len, dtype) for blk in self._apps]
 
-    def logits_fn(self, x):
+    def readout_param(self) -> torch.Tensor:
+        """The untied ``head`` (d_model, vocab) where the model has one, else
+        the tied embedding table (vocab, d_model)."""
+        return self.head if hasattr(self, "head") else self.embed.table
+
+    def vocab_split(self) -> bool:
+        """On a mesh of more than one ``model`` rank, the read-out's vocab is
+        split over ``model`` (each rank's logits are its vocab columns)."""
+        tp, w = self.tp, self.readout_param()
+        return tp is not None and tp.size > 1 and tp.split_dim(w) == (
+            1 if hasattr(self, "head") else 0)
+
+    def readout_weight(self) -> torch.Tensor:
+        """``readout_param`` as the read-out multiplies by it: on a mesh
+        gathered over the batch axes (this rank's vocab shard where
+        ``vocab_split``, else whole)."""
+        w, tp = self.readout_param(), self.tp
+        if tp is None:
+            return w
+        return tp.gather_batch(w) if self.vocab_split() else tp.whole(w)
+
+    def logits_fn(self, x, w: Optional[torch.Tensor] = None):
         """Read-out for post-final-norm hidden states, in float32: the untied
-        ``head`` where the model has one, else the tied embedding table."""
+        ``head`` where the model has one, else the tied embedding table; ``w``
+        is ``readout_weight()`` where the caller has it. Where the vocab is
+        split over a mesh's ``model`` axis, the logits of this rank's vocab
+        shard (``x`` having been through ``tp.copy_in``)."""
+        w = self.readout_weight() if w is None else w
         if hasattr(self, "head"):
-            logits = logits_from_head(self.head, x)
+            logits = logits_from_head(w, x)
         else:
-            logits = logits_from_embedding(self.embed.table, x)
+            logits = logits_from_embedding(w, x)
         return softcap(logits.float(), self.cfg.final_logit_softcap)
 
     def forward(self, tokens: Optional[torch.Tensor] = None, *, mode: str,
@@ -419,9 +478,11 @@ class LM(nn.Module):
         remat = self.remat if mode == "train" and torch.is_grad_enabled() else "none"
         if embeddings is not None:
             x = embeddings.to(self.param_dtype)
+        elif self.tp is not None:
+            x = vocab_embed(self.tp, self.embed.table, tokens, cfg.embed_scale)
         else:
             x = embed(self.embed.table, tokens, scale_by_sqrt_dim=cfg.embed_scale)
-            x = x.to(self.param_dtype)
+        x = x.to(self.param_dtype)
         aux = ({k: torch.zeros((), dtype=torch.float32, device=x.device) for k in AUX_KEYS}
                if cfg.moe is not None else {})
         for i, blk in enumerate(self._apps):
@@ -439,6 +500,21 @@ class LM(nn.Module):
         x = self.final_norm(x, self.use_kernel)
         if head == "last":
             x = x[:, -1:]
-        if head != "none":
+        if head != "none" and self.vocab_split():
+            # every rank's vocab shard, gathered: the whole logits on each rank
+            x = self.tp.gather_model(self.logits_fn(self.tp.copy_in(x)), -1)
+        elif head != "none":
             x = self.logits_fn(x)
         return (x, cache, aux) if with_aux else (x, cache)
+
+
+def _materialize(module: nn.Module, device, recurse: bool = True) -> None:
+    """Each parameter of ``module`` still on the meta device made as zeros
+    on ``device`` (what the constructor gives a norm scale or a gate; the
+    weights are drawn next)."""
+    mods = module.modules() if recurse else [module]
+    for m in mods:
+        for name, p in list(m._parameters.items()):
+            if p is not None and p.is_meta:
+                m._parameters[name] = nn.Parameter(torch.zeros(p.shape, dtype=p.dtype,
+                                                               device=device))

@@ -1,0 +1,329 @@
+"""Tensor and expert parallelism over a ``DeviceMesh``: the counterpart of
+what GSPMD derives from ``repro.parallel.sharding``'s specs.
+
+The JAX Trainer jits its step with the parameters placed by the sharding
+rules (attention heads, FFN hidden, vocab and experts over ``model``; the
+other weight dim over ``data``), and GSPMD computes each projection on its
+``model`` shard and gathers the ``data`` shards where a layer needs them. The
+port writes that out, Megatron-style:
+
+  * every parameter of a model on a mesh is this rank's shard under the same
+    rules (``shard_model``; its spec rides on the parameter as ``tp_spec``);
+  * a layer gathers its parameters over the batch axes (``pod``, ``data``)
+    just before it runs (``TensorParallel.gather_batch``; an all-gather whose
+    backward is a reduce-scatter, so the gradient lands on the shard summed
+    over the batch ranks). Under remat the gather is inside the checkpointed
+    block and runs again in the recompute; the gathered copy is freed once
+    the layer's backward has used it;
+  * a layer whose ``model`` split falls on whole heads, experts or FFN
+    columns computes on its shard between ``copy_in`` (identity forward,
+    all-reduce over ``model`` backward: Megatron's f) and ``reduce_out``
+    (all-reduce forward, identity backward: Megatron's g);
+  * a layer whose split does not fall on whole units gathers its ``model``
+    shards too (``whole``) and computes whole on every ``model`` rank; its
+    gradient is then the same on each, and the backward of that gather keeps
+    this rank's slice. A slice that each rank reads only in part (a kv head
+    shared by the q heads of two ranks) takes ``whole(partial=True)``, whose
+    backward sums over ``model``.
+
+Every collective is a ``torch.ops._c10d_functional`` op followed by its
+``wait_tensor``: the dispatcher sees it (the dry run counts it, under a fake
+process group, on the meta device), and gloo runs it (its reduce-scatter
+included). A collective over a group of one rank is skipped.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.parallel import sharding as shd
+
+_fc = torch.ops._c10d_functional
+
+
+# ---------------------------------------------------------------------------
+# Plain collectives on one group (no autograd)
+# ---------------------------------------------------------------------------
+
+class Group(NamedTuple):
+    """One process group of a mesh axis: its name, size and this rank's index."""
+    name: str
+    size: int
+    rank: int
+
+
+def all_reduce(t: torch.Tensor, group: Group, op: str = "sum") -> torch.Tensor:
+    if group.size == 1:
+        return t
+    return _fc.wait_tensor(_fc.all_reduce(t.contiguous(), op, group.name))
+
+
+def all_gather(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """The group's shards of ``dim`` concatenated in rank order."""
+    if group.size == 1:
+        return t
+    x = t.movedim(dim, 0).contiguous()
+    out = _fc.wait_tensor(_fc.all_gather_into_tensor(x, group.size, group.name))
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """This rank's chunk of ``dim`` of the sum over the group."""
+    if group.size == 1:
+        return t
+    x = t.movedim(dim, 0).contiguous()
+    out = _fc.wait_tensor(_fc.reduce_scatter_tensor(x, "sum", group.size, group.name))
+    return out.movedim(0, dim)
+
+
+def local_chunk(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    return t.chunk(group.size, dim=dim)[group.rank] if group.size > 1 else t
+
+
+# ---------------------------------------------------------------------------
+# Autograd-aware collectives
+# ---------------------------------------------------------------------------
+
+class _CopyIn(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Megatron's g: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBoth(torch.autograd.Function):
+    """All-reduce forward and backward: a value summed over ranks that each
+    use the sum (the load-balance loss's means)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        for gr in groups:
+            x = all_reduce(x, gr)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for gr in ctx.groups:
+            g = all_reduce(g, gr)
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather over ``steps`` ((dim, group), minor axis first); backward a
+    reduce-scatter over them (``sum``) or this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, steps, sum_grad: bool):
+        ctx.steps, ctx.sum_grad = steps, sum_grad
+        for dim, gr in steps:
+            x = all_gather(x, gr, dim)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for dim, gr in reversed(ctx.steps):
+            g = reduce_scatter(g, gr, dim) if ctx.sum_grad else local_chunk(g, gr, dim)
+        return g, None, None
+
+
+# ---------------------------------------------------------------------------
+# The mesh a model computes over
+# ---------------------------------------------------------------------------
+
+class TensorParallel:
+    """The groups of a ``DeviceMesh`` a model on its shards computes over:
+    ``model`` (``size``, ``rank``) and the batch axes. Every rank holds the
+    same object shape; ``sizes`` and ``coord`` are by axis name."""
+
+    def __init__(self, mesh):
+        names = tuple(mesh.mesh_dim_names)
+        self.mesh = mesh
+        self.sizes = dict(zip(names, (int(s) for s in mesh.mesh.shape)))
+        coord = mesh.get_coordinate()
+        self.coord = dict(zip(names, coord))
+        self.groups = {a: Group(mesh.get_group(a).group_name, self.sizes[a], self.coord[a])
+                       for a in names}
+        self.model = self.groups.get("model", Group("", 1, 0))
+        self.size, self.rank = self.model.size, self.model.rank
+        self.batch_axes = tuple(a for a in shd.BATCH_AXES if a in names)
+        self.n_batch = math.prod(self.sizes[a] for a in self.batch_axes)
+
+    # --- specs ----------------------------------------------------------
+    @staticmethod
+    def spec(p: torch.Tensor) -> tuple:
+        return getattr(p, "tp_spec", (None,) * p.dim())
+
+    def split_dim(self, p: torch.Tensor) -> Optional[int]:
+        """The dim of ``p`` split over ``model``, or None."""
+        for d, entry in enumerate(self.spec(p)):
+            if "model" in shd._axes_of(entry):
+                return d
+        return None
+
+    def split_on(self, *pairs: Tuple[torch.Tensor, int]) -> bool:
+        """Each (tensor, dim): the tensor is split over ``model`` on that dim
+        (a size-one ``model`` axis splits every dim the rules name)."""
+        return all(self.split_dim(p) == d for p, d in pairs)
+
+    def _steps(self, p: torch.Tensor, axes: Sequence[str]) -> List[Tuple[int, Group]]:
+        """(dim, group) of each axis in ``axes`` that shards ``p``, minor first."""
+        steps = []
+        for d, entry in enumerate(self.spec(p)):
+            for a in reversed(shd._axes_of(entry)):
+                if a in axes and self.sizes[a] > 1:
+                    steps.append((d, self.groups[a]))
+        return steps
+
+    def replicated_batch_axes(self, p: torch.Tensor) -> Tuple[str, ...]:
+        """The batch axes that do not shard ``p``: its gradient is summed
+        over them after the backward."""
+        on = {a for e in self.spec(p) for a in shd._axes_of(e)}
+        return tuple(a for a in self.batch_axes if a not in on and self.sizes[a] > 1)
+
+    # --- gathers ----------------------------------------------------------
+    def gather_batch(self, p: torch.Tensor) -> torch.Tensor:
+        """``p`` whole over the batch axes, still split over ``model``; the
+        backward reduce-scatters the gradient onto the shard."""
+        steps = self._steps(p, self.batch_axes)
+        return _Gather.apply(p, steps, True) if steps else p
+
+    def whole(self, p: torch.Tensor, partial: bool = False) -> torch.Tensor:
+        """``p`` whole on every rank. The compute that reads it runs whole on
+        each ``model`` rank (the backward keeps this rank's slice), or with
+        ``partial`` each rank's gradient is a part (the backward sums it over
+        ``model``; a tensor the rules leave whole goes through ``copy_in``)."""
+        w = self.gather_batch(p)
+        steps = self._steps(p, ("model",))
+        if steps:
+            return _Gather.apply(w, steps, partial)
+        return self.copy_in(w) if partial else w
+
+    def full(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """A stored shard under ``spec`` gathered whole over every axis (no
+        autograd: the optimizer's whole-leaf update)."""
+        for d, entry in enumerate(spec):
+            for a in reversed(shd._axes_of(entry)):
+                t = all_gather(t, self.groups[a], d)
+        return t
+
+    def shard(self, t: torch.Tensor, spec: tuple) -> torch.Tensor:
+        """This rank's shard of a whole ``t`` under ``spec`` (no collective)."""
+        for d, entry in enumerate(spec):
+            for a in shd._axes_of(entry):
+                t = local_chunk(t, self.groups[a], d)
+        return t
+
+    # --- Megatron's f and g, and sums over the batch ------------------------
+    def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every ``model`` rank's part of ``x`` along ``dim``, concatenated;
+        each rank then computes on the whole, so the backward keeps this
+        rank's slice."""
+        return _Gather.apply(x, [(dim, self.model)], False) if self.size > 1 else x
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyIn.apply(x, self.model) if self.size > 1 else x
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceOut.apply(x, self.model) if self.size > 1 else x
+
+    def max_over_model(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce(x.detach(), self.model, "max")
+
+    def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the batch ranks of a value every rank then uses
+        (differentiable: the ranks along ``model`` hold the same value)."""
+        groups = [self.groups[a] for a in self.batch_axes if self.sizes[a] > 1]
+        if not groups:
+            return x
+        return _SumBoth.apply(x, groups) / self.n_batch
+
+    def sum_over(self, x: torch.Tensor, axes: Sequence[str], op: str = "sum") -> torch.Tensor:
+        for a in axes:
+            x = all_reduce(x, self.groups[a], op)
+        return x
+
+    def units(self, n: int) -> Tuple[int, int]:
+        """[start, stop) of this rank's block of ``n`` units split over ``model``."""
+        k = n // self.size
+        return self.rank * k, (self.rank + 1) * k
+
+
+# ---------------------------------------------------------------------------
+# A model on its shards
+# ---------------------------------------------------------------------------
+
+def param_specs(model, mesh) -> Dict[str, tuple]:
+    """The rules' spec of each parameter (``sharding.param_specs`` of the
+    whole shapes; a parameter already cut carries its own)."""
+    shapes = {n: getattr(p, "tp_full_shape", tuple(p.shape)) for n, p in model.named_parameters()}
+    return shd.param_specs(shapes, mesh)
+
+
+def attach(model, tp: TensorParallel) -> TensorParallel:
+    """Every module of ``model`` computes over ``tp``."""
+    for m in model.modules():
+        m.tp = tp
+    return tp
+
+
+def cut(model, tp: TensorParallel, specs: Dict[str, tuple]) -> None:
+    """Cut each whole, materialised parameter of ``model`` to this rank's
+    shard under ``specs`` in place; one already cut, or still on the meta
+    device while the model is not, is left alone."""
+    all_meta = all(q.is_meta for q in model.parameters())
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if hasattr(p, "tp_spec") or (p.is_meta and not all_meta):
+                continue
+            full_shape = tuple(p.shape)
+            p.data = tp.shard(p.data, specs[name]).clone()
+            p.tp_spec, p.tp_full_shape = specs[name], full_shape
+
+
+def shard_model(model, mesh) -> TensorParallel:
+    """Turn a model holding whole parameters into one on this rank's shards
+    (every rank holds the same whole model; nothing is sent). A model on its
+    shards is moved onto ``mesh``'s groups (a mesh rebuilt after a restart)."""
+    tp = getattr(model, "tp", None)
+    if tp is not None and tp.mesh is mesh:
+        return tp
+    tp = TensorParallel(mesh)
+    cut(model, tp, param_specs(model, mesh))
+    return attach(model, tp)
+
+
+def build_sharded(model, mesh, generator: torch.Generator) -> TensorParallel:
+    """Draw the weights of ``model``, built on the meta device, onto
+    ``generator``'s device as the one-device ``init_weights`` draws them,
+    cutting each part to this rank's shards as soon as it is drawn: no more
+    than one block is ever whole."""
+    tp = TensorParallel(mesh)
+    specs = param_specs(model, mesh)
+    model.init_weights(generator, cut=lambda: cut(model, tp, specs))
+    return attach(model, tp)
+
+
+def placements(model, mesh) -> Dict[str, list]:
+    """Each parameter's DTensor placements (``sharding.placements`` of its spec)."""
+    return {n: shd.placements(TensorParallel.spec(p), mesh) for n, p in model.named_parameters()}

@@ -8,22 +8,23 @@ microbatched gradient accumulation, the int8 lossy stage with error feedback
 under ``torch.no_grad`` and update the KV cache in place and return it, so the
 call sites read like the JAX ones.
 
-Given a ``DeviceMesh``, ``make_train_step`` builds the sharded step: data
-parallelism with the JAX package's storage placements. Each parameter's
-master copy, its AdamW moments and its ``ef`` residual are DTensors placed by
+Given a ``DeviceMesh``, ``make_train_step`` builds the sharded step, the
+counterpart of the JAX Trainer's GSPMD step. Each parameter's master copy, its
+AdamW moments and its ``ef`` residual are DTensors placed by
 ``parallel.sharding.param_specs`` (FSDP over ``data``, TP and EP over
-``model``). Before the forward each master is gathered into the model's
-ordinary parameter, so the model never sees a DTensor; each rank takes its
-share of every global microbatch (``local_batch``); the gradients are
-averaged over the batch axes onto the placements, and a dim over ``model`` is
-sliced without a reduction, since ranks along ``model`` hold the same rows.
-Plain ``adamw`` then updates each shard; ``adamw_factored`` and
-``adamw_8bit`` take row and column means or blocks of the flattened leaf, so
-they update the gathered leaf from replicated state and keep their shard.
-Activations are not split over heads or experts: there is no TP or EP
-compute. The metrics, the MoE load-balance statistics, the int8 ``amax`` and
-the global norm are those of the whole batch and the whole leaf, as GSPMD
-computes them.
+``model``), and the model holds this rank's shards
+(``parallel.tensor.shard_model``): each step binds the model's parameters to
+the masters' local tensors, so no rank holds a whole master. Each rank takes
+its share of every global microbatch (``local_batch``) and computes its
+``model`` shard of each layer, gathering the layer's weights over the batch
+axes when it runs (``parallel.tensor``); the gradients arrive on the shards,
+reduce-scattered by those gathers' backward, and a dim that the batch axes
+leave whole is all-reduced over them (``make_local_step``). Plain ``adamw``
+then updates each shard; ``adamw_factored`` and ``adamw_8bit`` take row and
+column means or blocks of the flattened leaf, so they gather one leaf and its
+gradient at a time, update it from replicated state and keep their shard. The
+metrics, the MoE load-balance statistics, the int8 ``amax`` and the global
+norm are those of the whole batch and the whole leaf, as GSPMD computes them.
 """
 from __future__ import annotations
 
@@ -31,13 +32,13 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.common import torch_compat
 from repro_torch.common.config import RunConfig
 from repro_torch.models import moe
 from repro_torch.models.model import DTYPES, lm_loss, model_inputs
 from repro_torch.models.transformer import stack_positions
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor
 from repro_torch.parallel.compression import ErrorFeedback, roundtrip_int8
 
 
@@ -137,10 +138,12 @@ def make_train_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, mesh=
     where it has none) and the gradients reach the clip and AdamW in fp32,
     whatever the parameters' dtype, as in the JAX package.
 
-    With a ``mesh``, the sharded step (module docstring): ``params`` and
+    With a ``mesh``, the sharded step (module docstring): a model holding
+    whole parameters is cut to this rank's shards in place; ``params`` and
     ``opt_state`` are those of ``shard_train_state`` under
-    ``param_placements`` of the model's parameters, and ``batch`` is the
-    global batch, the same on every rank."""
+    ``param_placements`` of the whole parameters (or of
+    ``init_train_state``), and ``batch`` is the global batch, the same on
+    every rank. ``step.local`` is ``make_local_step``'s step on plain tensors."""
     pcfg = run.parallel
     if pcfg.grad_compression not in ("none", "int8"):
         raise ValueError(f"grad_compression {pcfg.grad_compression!r}")
@@ -225,96 +228,150 @@ def gather(tree):
     return tree.full_tensor() if isinstance(tree, DTensor) else tree
 
 
-def _make_sharded_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, mesh):
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+def init_train_state(model, opt_cfg: adamw.OptimizerConfig, mesh, int8: bool = False):
+    """The sharded step's (params, opt_state) for a model on its shards
+    (``parallel.tensor.build_sharded``), as ``shard_train_state`` would make
+    them from the whole model: the masters are DTensors over the model's own
+    local tensors; the ``adamw`` moments and the int8 residual are zeros on
+    the shards; the factored and 8-bit statistics are zeros whole (made a
+    leaf at a time, without a whole parameter)."""
+    from torch.distributed.tensor import DTensor
+    pl = tensor.placements(model, mesh)
+    local = dict(model.named_parameters())
+    masters = {n: DTensor.from_local(p.detach(), mesh, pl[n]) for n, p in local.items()}
+    if _elementwise(opt_cfg):
+        state = adamw.init_state(opt_cfg, local)
+        state["m"] = {n: {k: DTensor.from_local(v, mesh, pl[n]) for k, v in st.items()}
+                      for n, st in state["m"].items()}
+    else:
+        # a zero-stride stand-in of each whole leaf: init_state reads its shape
+        shapes = {n: torch.empty((), dtype=p.dtype, device=p.device).expand(p.tp_full_shape)
+                  for n, p in local.items()}
+        state = adamw.init_state(opt_cfg, shapes)
+    if int8:
+        state["ef"] = {n: DTensor.from_local(v, mesh, pl[n])
+                       for n, v in ErrorFeedback.init(local).items()}
+    return masters, state
 
+
+def make_local_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, tp):
+    """The sharded step on plain tensors: step(params, opt_state, batch) ->
+    (params, opt_state, metrics), where ``params`` is
+    ``dict(model.named_parameters())`` of a model on its shards (updated in
+    place), ``opt_state`` holds this rank's local tensors and ``batch`` is
+    this rank's rows (``local_batch``). The dry run traces this."""
     pcfg, tcfg = run.parallel, run.train
     accumulate = make_grad_fn(model, run)
-    model_params = dict(model.named_parameters())
-    placements = shd.param_placements(model_params, mesh)
     moes = [m for m in model.modules() if isinstance(m, moe.MoE)]
-    k = max(pcfg.microbatches, 1)
-    rank, n_batch = batch_coordinate(mesh)
-    world = dist.get_world_size()
-    names = mesh.mesh_dim_names
-    grad_pl = [Partial("avg") if a in shd.BATCH_AXES else Replicate() for a in names]
-    sharded_on = [[isinstance(placements[n][i], Shard) for n in model_params]
-                  for i in range(len(names))]
     groups = int8_groups(model)
-
-    # ranks along ``model`` hold the same rows, so a mean over the world is
-    # the mean over the batch axes
-    def world_mean(t):
-        return torch_compat.autograd_all_reduce(t) / world
-
-    def reduce_stack(values: List[torch.Tensor], op) -> torch.Tensor:
-        v = torch.stack(values)
-        dist.all_reduce(v, op=op)
-        return v
+    names = list(tp.sizes)
+    sharded_by = {n: {a for e in tp.spec(p) for a in shd._axes_of(e)}
+                  for n, p in model.named_parameters()}
 
     def global_norm(grads):
-        """Each leaf's sum of squares summed over the mesh dims that shard
+        """Each leaf's sum of squares summed over the mesh axes that shard
         it, so that a replicated shard is counted once."""
         sq = torch.stack([torch.sum(torch.square(g.float())) for g in grads.values()])
-        for i, flags in enumerate(sharded_on):
-            if any(flags):
+        for axis in names:
+            flags = [axis in sharded_by[n] for n in grads]
+            if any(flags) and tp.sizes[axis] > 1:
                 mask = torch.tensor(flags, device=sq.device)
-                part = torch.where(mask, sq, 0.0)
-                dist.all_reduce(part, group=mesh.get_group(i))
+                part = tensor.all_reduce(torch.where(mask, sq, 0.0), tp.groups[axis])
                 sq = torch.where(mask, part, sq)
         return torch.sqrt(torch.sum(sq))
 
+    def reduce_grads(params, grads):
+        """The gradients summed over the batch ranks (the gathers'
+        backward reduce-scattered those of the sharded dims; a dim the
+        batch axes leave whole is all-reduced here), as their mean."""
+        for name, g in grads.items():
+            axes = tp.replicated_batch_axes(params[name])
+            if axes:
+                g = tp.sum_over(g, axes)
+            grads[name] = g / tp.n_batch if tp.n_batch > 1 else g
+        return grads
+
     def step(params, opt_state, batch):
-        with torch.no_grad():
-            for name, p in model_params.items():
-                p.copy_(params[name].full_tensor())
         for m in moes:          # the load-balance loss of the whole batch
-            m.batch_mean = world_mean
+            m.batch_mean = tp.batch_mean
         try:
-            _, metrics, grads = accumulate(model_params, local_batch(batch, k, rank, n_batch))
+            _, metrics, grads = accumulate(params, batch)
         finally:
             for m in moes:
                 m.batch_mean = None
-        grads = {name: DTensor.from_local(g, mesh, grad_pl).redistribute(mesh, placements[name])
-                 .to_local() for name, g in grads.items()}
+        grads = reduce_grads(params, grads)
         keys = list(metrics)
-        means = reduce_stack([metrics[m].float() for m in keys], dist.ReduceOp.SUM) / world
+        means = tp.sum_over(torch.stack([metrics[m].float() for m in keys]),
+                            tp.batch_axes) / tp.n_batch
         metrics = dict(zip(keys, means.unbind()))
 
         opt_state = dict(opt_state)
-        ef = opt_state.pop("ef", None)
-        resid = None if ef is None else {name: r.to_local() for name, r in ef.items()}
+        resid = opt_state.pop("ef", None)
         if pcfg.grad_compression == "int8":
             # amax over the whole leaf: the max over its shards
             grads, resid = _compress(grads, resid, groups,
-                                     lambda v: reduce_stack(v, dist.ReduceOp.MAX))
+                                     lambda v: tp.sum_over(torch.stack(v), names, "max"))
         grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip_norm,
                                                  norm=global_norm(grads))
         lr = adamw.warmup_cosine(opt_state["step"], base_lr=tcfg.learning_rate,
                                  warmup=tcfg.warmup_steps, total=tcfg.total_steps)
         if _elementwise(opt_cfg):
-            local = {name: p.to_local() for name, p in params.items()}
-            local_state = dict(opt_state, m={name: {key: v.to_local() for key, v in st.items()}
-                                             for name, st in opt_state["m"].items()})
-            local, opt_state = adamw.apply_updates(opt_cfg, local, grads, local_state, lr)
-            params = {name: DTensor.from_local(p, mesh, placements[name])
-                      for name, p in local.items()}
-            opt_state["m"] = {name: {key: DTensor.from_local(v, mesh, placements[name])
-                                     for key, v in st.items()}
-                              for name, st in opt_state["m"].items()}
+            params, opt_state = adamw.apply_updates(opt_cfg, params, grads, opt_state, lr)
         else:
-            full = {name: p.full_tensor() for name, p in params.items()}
-            full_g = {name: DTensor.from_local(g, mesh, placements[name]).full_tensor()
-                      for name, g in grads.items()}
-            full, opt_state = adamw.apply_updates(opt_cfg, full, full_g, opt_state, lr)
-            params = {name: shd.shard_tensor(p, mesh, placements[name])
-                      for name, p in full.items()}
+            # the factored and 8-bit statistics are of the whole leaf: each
+            # leaf is gathered, updated and cut back in turn
+            new_m = {}
+            for name, p in params.items():
+                spec = tp.spec(p)
+                whole = tp.full(p.detach(), spec)
+                _, st = adamw.apply_updates(
+                    opt_cfg, {name: whole}, {name: tp.full(grads.pop(name), spec)},
+                    {"step": opt_state["step"], "m": {name: opt_state["m"][name]}}, lr)
+                new_m[name] = st["m"][name]
+                with torch.no_grad():
+                    p.copy_(tp.shard(whole, spec))
+                del whole
+            opt_state = {"step": opt_state["step"] + 1, "m": new_m}
         if resid is not None:
-            opt_state["ef"] = {name: DTensor.from_local(r, mesh, placements[name])
-                               for name, r in resid.items()}
+            opt_state["ef"] = resid
         return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
 
+    return step
+
+
+def _make_sharded_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, mesh):
+    from torch.distributed.tensor import DTensor
+
+    tp = tensor.shard_model(model, mesh)
+    k = max(run.parallel.microbatches, 1)
+    model_params = dict(model.named_parameters())
+    placements = tensor.placements(model, mesh)
+    rank, n_batch = batch_coordinate(mesh)
+    local_step = make_local_step(model, run, opt_cfg, tp)
+
+    def wrap(t, name):
+        return DTensor.from_local(t.detach(), mesh, placements[name])
+
+    def step(params, opt_state, batch):
+        with torch.no_grad():       # the model computes on the masters' own shards
+            for name, p in model_params.items():
+                p.data = params[name].to_local()
+        state = dict(opt_state)
+        if _elementwise(opt_cfg):
+            state["m"] = {n: {key: v.to_local() for key, v in st.items()}
+                          for n, st in opt_state["m"].items()}
+        if "ef" in state:
+            state["ef"] = {n: r.to_local() for n, r in state["ef"].items()}
+        _, state, metrics = local_step(model_params, state, local_batch(batch, k, rank, n_batch))
+        params = {name: wrap(p, name) for name, p in model_params.items()}
+        if _elementwise(opt_cfg):
+            state["m"] = {n: {key: wrap(v, n) for key, v in st.items()}
+                          for n, st in state["m"].items()}
+        if "ef" in state:
+            state["ef"] = {n: wrap(r, n) for n, r in state["ef"].items()}
+        return params, state, metrics
+
+    step.local = local_step
     return step
 
 

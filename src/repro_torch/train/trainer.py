@@ -3,8 +3,10 @@ loop, on one device or on a mesh.
 
 Port of ``repro.train.trainer``:
   * the BSP train step (``train/steps.py``), rebuilt after a restart; with a
-    ``DeviceMesh`` the sharded step (data parallelism with the JAX package's
-    FSDP/TP/EP storage placements, every rank one process running this loop),
+    ``DeviceMesh`` the sharded step (the JAX package's FSDP/TP/EP placements,
+    each rank computing its ``model`` shard of the batch axes' rows, every
+    rank one process running this loop; the model is drawn on its shards a
+    block at a time, the draws those of one device),
   * frequent checkpoints (in-memory replica + async disk flush) of full
     tensors under the one-device keys, so that a mesh run and a one-device
     run restore each other's; on a mesh every rank keeps the replica and
@@ -41,10 +43,10 @@ from repro_torch.core.faults import Fault, RingJobTelemetry
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
 from repro_torch.models.model import build_model
 from repro_torch.optim import adamw
-from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor
 from repro_torch.parallel.compression import ErrorFeedback
 from repro_torch.train.hooks import StepMonitor
-from repro_torch.train.steps import gather, make_train_step, shard_train_state
+from repro_torch.train.steps import gather, init_train_state, make_train_step, shard_train_state
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -102,23 +104,28 @@ class Trainer:
         self.run = run
         self.shape = shape
         self.device = resolve_device(device)
-        self.model = build_model(run, device=self.device, use_kernel=use_kernel)
-        self.model.init_weights(torch.Generator(self.device).manual_seed(run.train.seed))
-        self.params = dict(self.model.named_parameters())
         self.opt_cfg = adamw.OptimizerConfig(kind=run.parallel.optimizer_state,
                                              weight_decay=run.train.weight_decay)
-        self.opt_state = adamw.init_state(self.opt_cfg, self.params)
-        if run.parallel.grad_compression == "int8":
-            self.opt_state["ef"] = ErrorFeedback.init(self.params)
+        generator = torch.Generator(self.device).manual_seed(run.train.seed)
+        int8 = run.parallel.grad_compression == "int8"
         self.mesh = mesh
         writes = True
-        if mesh is not None:
+        if mesh is None:
+            self.model = build_model(run, device=self.device, use_kernel=use_kernel)
+            self.model.init_weights(generator)
+            self.params = dict(self.model.named_parameters())
+            self.opt_state = adamw.init_state(self.opt_cfg, self.params)
+            if int8:
+                self.opt_state["ef"] = ErrorFeedback.init(self.params)
+        else:
             import torch.distributed as dist
             if mesh.device_type != self.device.type:
                 raise ValueError(f"a {mesh.device_type} mesh for a {self.device.type} Trainer")
-            self.placements = shd.param_placements(self.params, mesh)
-            self.params, self.opt_state = shard_train_state(
-                self.params, self.opt_state, self.opt_cfg, mesh, self.placements)
+            # the model on this rank's shards, drawn a block at a time
+            self.model = build_model(run, device="meta", use_kernel=use_kernel)
+            tensor.build_sharded(self.model, mesh, generator)
+            self.placements = tensor.placements(self.model, mesh)
+            self.params, self.opt_state = init_train_state(self.model, self.opt_cfg, mesh, int8)
             writes = dist.get_rank() == 0
         self.ckpt = CheckpointManager(workdir, keep=run.train.keep_checkpoints,
                                       async_disk=checkpoint_async, disk=writes)

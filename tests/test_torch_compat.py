@@ -6,10 +6,8 @@ imported under jax 0.4.37, since its gate refuses this jax), and pinned on
 torch's release strings. ``check_supported`` raises below ``MIN_TORCH`` and
 only warns, once, above ``NEWEST_TESTED``; ``device_error`` and
 ``check_device`` are held on both of their branches with the capability and
-the CUDA version given or monkeypatched; ``autograd_all_reduce`` silences
-the ``FutureWarning`` of the collective it calls and nothing else, whether
-or not that warns; ``kernels/_build.build_all`` refuses a card before it
-starts ``nvcc``. Everything is exact (no tolerance).
+the CUDA version given or monkeypatched; ``kernels/_build.build_all``
+refuses a card before it starts ``nvcc``. Everything is exact (no tolerance).
 """
 import json
 import os
@@ -18,7 +16,7 @@ import warnings
 import pytest
 import torch
 
-from _dist import JaxChild, run_world
+from _dist import JaxChild
 from repro_torch.common import torch_compat as tc
 
 JAX_STRINGS = ["0.4.37", "0.5.0.dev20250101", "0.6.1rc1", "0.4.35", "1.0"]
@@ -131,41 +129,3 @@ def test_build_refuses_the_card_before_nvcc(monkeypatch, tmp_path):
     with pytest.raises(tc.TorchCompatError, match="sm_90a"):
         _build.build_all(["rmsnorm"])
     assert not started
-
-
-@pytest.mark.parametrize("deprecated", [False, True])
-def test_autograd_all_reduce_silences_only_the_deprecation(deprecated, monkeypatch):
-    """It calls torch.distributed.nn.functional.all_reduce; a FutureWarning
-    that call raises is silenced, any other warning passes."""
-    import torch.distributed.nn.functional as dist_nn
-
-    def fake(t):
-        if deprecated:
-            warnings.warn("all_reduce is deprecated", FutureWarning)
-        warnings.warn("another", UserWarning)
-        return t * 2
-    monkeypatch.setattr(dist_nn, "all_reduce", fake)
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        out = tc.autograd_all_reduce(torch.ones(3))
-    assert torch.equal(out, torch.full((3,), 2.0))
-    assert [w.category.__name__ for w in seen] == ["UserWarning"]
-
-
-def test_autograd_all_reduce_sums_and_carries_the_gradient(tmp_path):
-    """On a gloo world of two ranks: the sum of the ranks' values, and the
-    sum of the ranks' gradients back."""
-    run_world(f"{os.path.abspath(__file__)}:_sum_ranks", 2, tmp_path)
-    for r in range(2):
-        with open(os.path.join(tmp_path, "out", f"rank{r}.json")) as f:
-            assert json.load(f) == {"sum": [3.0, 6.0], "grad": [2.0, 2.0]}
-
-
-def _sum_ranks(rank, world, out):
-    from repro_torch.common import torch_compat
-    x = torch.tensor([1.0, 2.0]) * (rank + 1)
-    x.requires_grad_(True)
-    y = torch_compat.autograd_all_reduce(x)
-    y.sum().backward()
-    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
-        json.dump({"sum": y.tolist(), "grad": x.grad.tolist()}, f)

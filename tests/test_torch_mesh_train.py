@@ -1,4 +1,5 @@
-"""The sharded train step, the mesh Trainer and the mesh CLIs, on gloo ranks.
+"""The sharded (tensor- and expert-parallel) train step, the mesh Trainer and
+the mesh CLIs, on gloo ranks.
 
 One spawn of four gloo ranks (``_dist.run_world``) on a (data 2, model 2)
 mesh runs every multi-rank case of this file while a JAX child
@@ -18,7 +19,10 @@ Held, fp32 throughout:
   * the sharded step against the one-device step for every optimizer:
     ``adamw`` and ``adamw_factored`` 1e-5 after two steps, ``adamw_8bit``
     after one (its int8 moments turn an fp32 difference into a block's
-    quantisation step from the second on);
+    quantisation step from the second on); and for more families
+    (``TP_CASES``) from the port's own init, 1e-5 after two steps;
+  * every rank's parameters are its shards, a step gathers them over data
+    only and a layer at a time;
   * the mesh Trainer with a crash at step 2: the one-device Trainer's
     detections, its losses at 1e-5, checkpoints that restore across;
   * ``launch.train`` and ``launch.serve`` on the mesh: the JAX launcher's
@@ -39,6 +43,16 @@ STEP_ARCHS = {"gemma2-2b": "int8", "deepseek-v2-236b": "none"}
 TRAIN = dict(warmup_steps=1, learning_rate=1e-4)
 BATCH, SEQ = 4, 32
 OPTIMIZERS = {"adamw_factored": 2, "adamw_8bit": 1}       # optimizer -> steps held
+# more families held to the one-device step: case -> (arch, ModelConfig overrides).
+# qk-norm and an untied head; cross attention; 3 heads on model 2 (the layer
+# computes whole); one kv head (each rank computes the kv head its q heads
+# read); the Mamba2 cell and zamba2's shared attention block
+TP_CASES = {"stablelm-12b": ("stablelm-12b", {}),
+            "llama-3.2-vision-11b": ("llama-3.2-vision-11b", {}),
+            "smollm-135m": ("smollm-135m", {}),
+            "gemma2-2b-mqa": ("gemma2-2b", {"n_kv_heads": 1}),
+            "zamba2-7b": ("zamba2-7b", {})}
+SHAPE_ARCHS = ("gemma2-2b", "deepseek-v2-236b")
 SERVE = dict(batch=4, prompt_len=12, decode_steps=6)
 SERVE_MESHES = {"data2_model2": (2, 2), "data4": (4, 1)}
 
@@ -49,6 +63,12 @@ def step_run(arch, compression="none", optimizer="adamw"):
     return run.replace(parallel=dataclasses.replace(
         run.parallel, param_dtype="float32", microbatches=2, grad_compression=compression,
         optimizer_state=optimizer), train=dataclasses.replace(run.train, **TRAIN))
+
+
+def tp_case_run(case):
+    arch, overrides = TP_CASES[case]
+    run = step_run(arch)
+    return run.replace(model=dataclasses.replace(run.model, **overrides))
 
 
 def trainer_run():
@@ -167,6 +187,54 @@ def _sharded_steps(run, mesh, p0, n_steps, with_plain=False):
     return res
 
 
+def _port_init(run):
+    """The port's own LM.init_weights (seed 0), the same on every rank."""
+    from repro_torch.models.model import build_model
+    model = build_model(run, device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _shapes_and_gathers(mesh):
+    """For each of SHAPE_ARCHS: the model's parameter shapes once the step
+    has cut it, and (shape, bytes, group) of every all-gather one step
+    issues."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.train.steps import make_train_step, shard_train_state
+
+    class Gathers(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out_ = func(*args, **(kwargs or {}))
+            if func._schema.name == "_c10d_functional::all_gather_into_tensor":
+                self.seen.append((list(out_.shape), out_.numel() * out_.element_size(), args[2]))
+            return out_
+
+    res = {"groups": {a: mesh.get_group(a).group_name for a in mesh.mesh_dim_names}}
+    for arch in SHAPE_ARCHS:
+        run = step_run(arch)
+        cfg = adamw.OptimizerConfig()
+        model = build_model(run, device="cpu")
+        model.load_state_dict(_port_init(run))
+        params = dict(model.named_parameters())
+        masters, state = shard_train_state(params, adamw.init_state(cfg, params), cfg, mesh,
+                                           shd.param_placements(params, mesh))
+        step = make_train_step(model, run, cfg, mesh)
+        mode = Gathers()
+        with mode:
+            step(masters, state, _batch(run, 10))
+        res[arch] = {"shapes": {n: list(p.shape) for n, p in model.named_parameters()},
+                     "full": {n: list(p.tp_full_shape) for n, p in model.named_parameters()},
+                     "gathers": mode.seen}
+    return res
+
+
 def ranks(rank, world, out, inputs):
     import contextlib
     import io
@@ -190,6 +258,11 @@ def ranks(rank, world, out, inputs):
     for opt, n in {"adamw": 2, **OPTIMIZERS}.items():
         res = _sharded_steps(step_run("gemma2-2b", optimizer=opt), mesh, p0, n, with_plain=True)
         saved.update({f"{opt}/{k}": v for k, v in res.items()})
+    for case in TP_CASES:
+        run = tp_case_run(case)
+        res = _sharded_steps(run, mesh, _port_init(run), 2, with_plain=True)
+        saved.update({f"{case}/{k}": v for k, v in res.items()})
+    shapes = _shapes_and_gathers(mesh)
 
     # the mesh Trainer: a crash at step 2; then a restore of the one-device
     # Trainer's checkpoint
@@ -231,7 +304,7 @@ def ranks(rank, world, out, inputs):
     if rank == 0:
         np.savez(os.path.join(out, "steps.npz"), **saved)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
-        json.dump(trainer, f)
+        json.dump(dict(trainer, shapes=shapes), f)
 
 
 # --- fixtures ------------------------------------------------------------------------------
@@ -318,21 +391,66 @@ def test_sharded_step_matches_the_jax_gspmd_step(arch, mesh_run):
         assert flips == 0
 
 
+def _hold_to_one_device(ours, key, n):
+    """Loss and grad norm at each of ``n`` steps (1e-5), and the params
+    after them (1e-5 relative and absolute), against the one-device step."""
+    for i in range(n):
+        for m in ("loss", "grad_norm"):
+            np.testing.assert_allclose(ours[f"{key}/{m}/{i}"], ours[f"{key}/plain/{m}/{i}"],
+                                       rtol=1e-5, err_msg=f"{key} step {i} {m}")
+    names = [k[len(f"{key}/p2/"):] for k in ours if k.startswith(f"{key}/p2/")]
+    assert names
+    for k in names:
+        np.testing.assert_allclose(ours[f"{key}/p2/{k}"], ours[f"{key}/plain/p2/{k}"],
+                                   rtol=1e-5, atol=1e-5, err_msg=f"{key} {k}")
+
+
 @pytest.mark.parametrize("opt", ["adamw", *OPTIMIZERS])
 def test_sharded_step_equals_the_one_device_step(opt, mesh_run):
     """The elementwise update on the shards, the factored and 8-bit ones on
     the gathered leaf, against the same steps on one device."""
-    ours = mesh_run["ours"]
-    n = OPTIMIZERS.get(opt, 2)
-    for i in range(n):
-        for key in ("loss", "grad_norm"):
-            np.testing.assert_allclose(ours[f"{opt}/{key}/{i}"], ours[f"{opt}/plain/{key}/{i}"],
-                                       rtol=1e-5, err_msg=f"{opt} step {i} {key}")
-    names = [k[len(f"{opt}/p2/"):] for k in ours if k.startswith(f"{opt}/p2/")]
-    assert names
-    for k in names:
-        np.testing.assert_allclose(ours[f"{opt}/p2/{k}"], ours[f"{opt}/plain/p2/{k}"],
-                                   rtol=1e-5, atol=1e-5, err_msg=f"{opt} {k}")
+    _hold_to_one_device(mesh_run["ours"], opt, OPTIMIZERS.get(opt, 2))
+
+
+@pytest.mark.parametrize("case", list(TP_CASES))
+def test_tp_step_equals_the_one_device_step(case, mesh_run):
+    """Tensor-parallel attention with qk-norm and an untied vocab-parallel
+    head (stablelm-12b), cross attention (llama-3.2-vision-11b), attention
+    computed whole where 3 heads do not divide by 2 (smollm-135m), one kv
+    head read by both ranks' q heads, the Mamba2 cell and the shared block
+    (zamba2-7b): two steps on the (2, 2) mesh against the one-device step."""
+    _hold_to_one_device(mesh_run["ours"], case, 2)
+
+
+def test_ranks_hold_local_shards_and_gather_one_layer_over_data(mesh_run):
+    """On the (data 2, model 2) mesh each rank's module parameters are its
+    shards: ``wq`` (d/2, H hd/2), whole over data when the layer runs (d,
+    H hd/2); the MoE ``wi_gate`` (E/2, d/2, f); the table (V/2, d/2). A step
+    gathers only over data (every layer of these configs splits over
+    model), and its largest gather is one layer's weights."""
+    from repro_torch.configs import get_smoke_config
+    for r, res in enumerate(mesh_run["ranks"]):
+        sh = res["shapes"]
+        data_group = sh["groups"]["data"]
+        for arch in SHAPE_ARCHS:
+            cfg = get_smoke_config(arch).model
+            d, h, hd, v = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim, cfg.vocab_size
+            shapes, gathers = sh[arch]["shapes"], sh[arch]["gathers"]
+            assert shapes["embed.table"] == [v // 2, d // 2], (r, arch)
+            if arch == "gemma2-2b":
+                assert shapes["blocks.0.attn.wq"] == [d // 2, h * hd // 2]
+                assert [d, h * hd // 2] in [g[0] for g in gathers]
+            else:
+                m = cfg.moe
+                moe_layer = next(i for i in range(cfg.n_layers) if i >= cfg.first_k_dense)
+                assert shapes[f"blocks.{moe_layer}.moe.wi_gate"] == [
+                    m.num_experts // 2, d // 2, m.d_ff_expert]
+            assert gathers and all(g[2] == data_group for g in gathers), (r, arch)
+            layers = {}
+            for name, shape in shapes.items():
+                layer = ".".join(name.split(".")[:2]) if name.startswith("blocks.") else name
+                layers[layer] = layers.get(layer, 0) + 2 * int(np.prod(shape)) * 4
+            assert max(g[1] for g in gathers) <= max(layers.values()), (r, arch)
 
 
 # --- the Trainer -------------------------------------------------------------------------------
