@@ -199,7 +199,9 @@ Phases, each fatal on failure:
     ``parallel/tensor.py`` at model 1: DTensor masters and moments, the
     model on its shards, each layer's gathers and Megatron's f and g, the
     gradients arriving on the shards) and one through the one-device step
-    from the same weights and batch; loss and parameters must be equal
+    from the same weights and batch, under ``adamw`` and then under
+    ``adamw_factored`` (its first moment on the shards, its row and column
+    statistics reduced over the mesh); loss and parameters must be equal
     (``torch.equal``), or the script prints which leaves differ (and fails
     only above a learning rate's difference); the one-device step run twice
     (does it repeat itself bit for bit; the second is timed warm) and the
@@ -211,11 +213,16 @@ Phases, each fatal on failure:
     4 of them and 1 kv head a rank; a 12,544-wide vocab shard), seq 4096,
     batch 2, one microbatch, remat full, adamw_factored, drawn on its shards
     a block at a time and trained 2 steps through ``make_train_step`` on the
-    mesh. It prints each step's seconds, ``max_memory_allocated`` beside the
-    dry run's prediction of the same rank's peak (``launch/dryrun.py``,
-    traced on the meta device under its own fake group of 8), and the
-    RMSNorm kernel's launches in a step; it fails where the kernel did not
-    launch or a loss or grad norm is not finite. The loss is not a model's
+    mesh, its optimizer state as the JAX package places it (the factored
+    first moment on the rank's shards, the row and column statistics
+    whole) and updated on the shards. It prints each step's seconds,
+    ``max_memory_allocated`` beside the dry run's prediction of the same
+    rank's peak (``launch/dryrun.py``, traced on the meta device under its
+    own fake group of 8), the rank's stored optimizer bytes beside the dry
+    run's, and the RMSNorm kernel's launches in a step; it fails where the
+    kernel did not launch, a loss or grad norm is not finite, the stored
+    optimizer bytes are not the dry run's, or the peak misses the
+    prediction by more than ``TP_PEAK_TOL``. The loss is not a model's
     loss: the fake group sums nothing, so each rank's attention and FFN
     outputs stand for the sum of 8, and the token ids are drawn within the
     rank's vocab shard (a token outside it would embed as zeros on this rank).
@@ -2300,9 +2307,10 @@ def free_port() -> int:
 def mesh_phase() -> dict:
     """One full-width gemma2-2b step through the sharded step on a world-1
     NCCL (1, 1) mesh and one through the one-device step, from the same
-    weights and batch: loss and parameters equal (``torch.equal``) or the
-    leaves that differ printed, with whether the one-device step repeats
-    itself. Returns the sharded step's launch counts."""
+    weights and batch, under ``adamw`` and under ``adamw_factored``: loss
+    and parameters equal (``torch.equal``) or the leaves that differ
+    printed, with whether the one-device step repeats itself. Returns the
+    sharded ``adamw`` step's launch counts."""
     import gc
     import torch
     import torch.distributed as dist
@@ -2334,7 +2342,7 @@ def mesh_phase() -> dict:
         cfg = adamw.OptimizerConfig(kind=run.parallel.optimizer_state,
                                     weight_decay=run.train.weight_decay)
 
-        def plain_step():
+        def plain_step(cfg=cfg):
             with torch.no_grad():
                 for n, p in params.items():
                     p.copy_(w0[n])
@@ -2346,6 +2354,23 @@ def mesh_phase() -> dict:
             seconds = time.perf_counter() - t0
             return loss, {n: p.detach().to("cpu", copy=True) for n, p in params.items()}, seconds
 
+        def same_step(kind, after, plain_after, loss, plain_loss):
+            """The sharded step's loss and parameters ``torch.equal`` to the
+            one-device step's, or the leaves that differ printed; fails
+            above a learning rate's difference."""
+            diff = {n: float((after[n].float() - plain_after[n].float()).abs().max())
+                    for n in after if not torch.equal(after[n], plain_after[n])}
+            print(f"  mesh {kind}: loss equal: {loss == plain_loss}, parameters "
+                  f"torch.equal: {not diff}", flush=True)
+            if diff or loss != plain_loss:
+                worst = max(diff.items(), key=lambda kv: kv[1], default=(None, 0.0))
+                print(f"  mesh {kind}: {len(diff)} leaves differ (largest {worst[0]}: "
+                      f"{worst[1]:.3e})", flush=True)
+                if worst[1] > run.train.learning_rate or abs(loss - plain_loss) > 1e-3 * abs(
+                        plain_loss):
+                    fail(f"mesh: the sharded {kind} step is more than a learning rate from "
+                         "the one-device step")
+
         # twice from the same weights: the second time is warm, and the two
         # show whether the one-device step repeats itself bit for bit
         plain_loss, plain_after, plain_cold = plain_step()
@@ -2353,6 +2378,11 @@ def mesh_phase() -> dict:
         repeat = again_loss == plain_loss and all(
             torch.equal(again[n], plain_after[n]) for n in again)
         del again
+        # adamw_factored one step on one device too, before the sharded step
+        # cuts the model (its first moment on the shards there, its
+        # statistics reduced over the mesh)
+        fcfg = dataclasses.replace(cfg, kind="adamw_factored")
+        f_plain_loss, f_plain_after, f_plain_s = plain_step(fcfg)
         with torch.no_grad():
             for n, p in params.items():
                 p.copy_(w0[n])
@@ -2373,8 +2403,6 @@ def mesh_phase() -> dict:
         warm_loss = met["loss"].item()
         sharded_s = time.perf_counter() - t0
         del state, masters
-        diff = {n: float((after[n].float() - plain_after[n].float()).abs().max())
-                for n in after if not torch.equal(after[n], plain_after[n])}
         sharded = sum(1 for pl in placements.values() if any(
             type(p).__name__ == "Shard" for p in pl))
         print(f"  mesh {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} nccl world 1: "
@@ -2382,16 +2410,27 @@ def mesh_phase() -> dict:
               f"{sharded_cold:.4f} s (first: the NCCL communicators start), then "
               f"{sharded_s:.4f} s; one-device step {plain_cold:.4f} s, then {plain_s:.4f} s; "
               f"loss {loss!r} against {plain_loss!r}; rmsnorm launches {counts['rmsnorm']}; "
-              f"loss equal: {loss == plain_loss}, parameters torch.equal: {not diff}; the "
-              f"one-device step repeats itself bit for bit: {repeat}", flush=True)
-        if diff or loss != plain_loss:
-            worst = max(diff.items(), key=lambda kv: kv[1], default=(None, 0.0))
-            print(f"  mesh: {len(diff)} leaves differ (largest {worst[0]}: {worst[1]:.3e})",
-                  flush=True)
-            if worst[1] > run.train.learning_rate or abs(loss - plain_loss) > 1e-3 * abs(
-                    plain_loss):
-                fail("mesh: the sharded step is more than a learning rate from the "
-                     "one-device step")
+              f"the one-device step repeats itself bit for bit: {repeat}", flush=True)
+        same_step("adamw", after, plain_after, loss, plain_loss)
+        del after, plain_after
+
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(w0[n])
+        masters, state = shard_train_state(params, adamw.init_state(fcfg, params), fcfg, mesh,
+                                           placements)
+        step = make_train_step(model, run, fcfg, mesh)
+        t0 = time.perf_counter()
+        masters, state, met = step(masters, state, batch)
+        f_loss = met["loss"].item()
+        f_s = time.perf_counter() - t0
+        f_after = {n: t.to("cpu", copy=True) for n, t in gather(masters).items()}
+        mu = [v["mu"].to_local().numel() for v in state["m"].values() if "nu_row" in v]
+        del state, masters
+        print(f"  mesh adamw_factored: sharded step {f_s:.4f} s, one-device {f_plain_s:.4f} s; "
+              f"loss {f_loss!r} against {f_plain_loss!r}; {len(mu)} factored first moments, "
+              f"{sum(mu) / 1e9:.4f} B elements on the shards", flush=True)
+        same_step("adamw_factored", f_after, f_plain_after, f_loss, f_plain_loss)
         if counts["rmsnorm"] == 0 or not (math.isfinite(loss) and math.isfinite(warm_loss)):
             fail(f"mesh: launches {counts}, losses {loss}, {warm_loss}")
         return counts
@@ -2464,6 +2503,8 @@ def tp_phase(card: str) -> dict:
         masters, state = init_train_state(model, cfg, mesh)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
+        held_opt = _nbytes(*(t.to_local() if hasattr(t, "to_local") else t
+                             for t in _leaves(state)))
         whole = sum(math.prod(p.tp_full_shape) for p in model.parameters())
         local = sum(p.numel() for p in model.parameters())
         step = make_train_step(model, run, cfg, mesh)
@@ -2499,10 +2540,20 @@ def tp_phase(card: str) -> dict:
           f"{TP_PEAK_TOL:.0%}); rmsnorm launches a step {[c['rmsnorm'] for c in launches]}; "
           f"losses {losses}, grad norms {norms} (not a model's: the fake group sums "
           f"nothing; token ids below {shard}, this rank's vocab shard); {card}", flush=True)
+    print(f"  rank 0's stored optimizer state {held_opt / 2**30:.3f} GiB "
+          f"({held_opt} bytes) against the dry run's {mem['opt_bytes'] / 2**30:.3f} GiB of "
+          f"{mem['argument_bytes'] / 2**30:.3f} GiB stored (argument_bytes)", flush=True)
     if any(c["rmsnorm"] == 0 for c in launches) or not all(map(math.isfinite, losses + norms)):
         fail(f"tp: launches {launches}, losses {losses}, grad norms {norms}")
+    if held_opt != mem["opt_bytes"]:
+        fail(f"tp: the rank holds {held_opt} bytes of optimizer state, the dry run "
+             f"predicts {mem['opt_bytes']}")
+    if abs(miss) > TP_PEAK_TOL:
+        fail(f"tp: max_memory_allocated {peak / 2**30:.3f} GiB misses the dry run's "
+             f"{predicted / 2**30:.3f} GiB by {miss:+.2%}")
     return dict(launches[-1], peak_bytes=peak, predicted_peak_bytes=predicted,
                 step_s=seconds)
+
 
 
 def fault_check(trainer, report, per_ingest, spent, det_counts, ckpt_bytes) -> None:

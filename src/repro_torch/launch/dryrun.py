@@ -44,14 +44,18 @@ ranks costs nothing. A device does what the port does:
     heads), whose weights are then gathered over ``model`` too;
   * ``memory.argument_bytes`` is the state stored under the JAX package's
     placements: ``param_specs`` with its ``attn_zero`` rule (tp = the mesh's
-    ``model`` size) and ``moe_zero``, the optimizer state as
-    ``shard_train_state`` places it (the ``adamw`` moments and the int8
-    residual like their parameter, the factored and 8-bit statistics whole),
+    ``model`` size) and ``moe_zero``; the optimizer state under
+    ``opt_state_shardings`` (``sharding.opt_state_specs``, as
+    ``shard_train_state`` places it: the ``adamw`` moments and the factored
+    first moment like their parameter, the factored row and column
+    statistics whole, the 8-bit blocks like their parameter only for the
+    unstacked 2-D leaves) and the int8 residual like its parameter;
     ``cache_specs`` at ``kv_cache_dtype`` and ``batch_spec``;
   * ``memory.gathered_bytes`` is what a device holds beyond its shards: in a
     train step the most bytes of all-gather outputs alive at once in the
-    trace (a layer's weights whole over the batch axes, or an optimizer that
-    is not elementwise gathering one leaf and its gradient whole), plus the
+    trace (a layer's weights whole over the batch axes, the factored
+    optimizer's row and column statistics, or ``adamw_8bit`` gathering one
+    leaf, its gradient and its state whole), plus the
     global batch the step takes; ``serve`` replicates the weights and keeps
     its rows' whole cache. ``fits`` is false where that does not fit 80 GB,
     which is a finding;
@@ -125,8 +129,8 @@ from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor
 from repro_torch.parallel.compression import ErrorFeedback
-from repro_torch.train.steps import (make_decode_step, make_local_step, make_prefill_step,
-                                     make_train_step)
+from repro_torch.train.steps import (local_opt_state, make_decode_step, make_local_step,
+                                     make_prefill_step, make_train_step, state_specs)
 
 DEFAULT_OUT = "experiments/dryrun_torch"
 # the JAX package's production meshes (launch/mesh.py::make_production_mesh)
@@ -440,16 +444,13 @@ def optimizer_config(run: RunConfig) -> adamw.OptimizerConfig:
                                  weight_decay=run.train.weight_decay)
 
 
-def init_opt_state(run: RunConfig, params: Dict[str, torch.Tensor]):
+def init_opt_state(run: RunConfig, params: Dict[str, torch.Tensor], mesh=None):
     """The Trainer's initial optimizer state: ``adamw.init_state``, and the
-    int8 residual ``ef`` with int8 compression. For parameters cut to a
-    rank's shards, this rank's share: the ``adamw`` moments and ``ef`` on the
-    shards, the factored and 8-bit statistics whole (``steps.init_train_state``)."""
-    cfg = optimizer_config(run)
-    leaves = params if cfg.kind == "adamw" else {
-        n: torch.empty(getattr(p, "tp_full_shape", p.shape), dtype=p.dtype, device=p.device)
-        for n, p in params.items()}
-    state = adamw.init_state(cfg, leaves)
+    int8 residual ``ef`` with int8 compression. On a ``mesh``, for
+    parameters cut to a rank's shards, this rank's share: each state tensor
+    made on its shard under ``steps.state_specs`` and ``ef`` on the
+    parameter's (``steps.init_train_state``)."""
+    state = local_opt_state(optimizer_config(run), params, {} if mesh is None else mesh)[0]
     if run.parallel.grad_compression == "int8":
         state["ef"] = ErrorFeedback.init(params)
     return state
@@ -502,7 +503,7 @@ def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
             if meshed:
                 tp = tensor.shard_model(model, mesh)
                 params = dict(model.named_parameters())
-                opt_state = init_opt_state(run, params)
+                opt_state = init_opt_state(run, params, mesh)
                 step = make_local_step(model, run, opt_cfg, tp)
             else:
                 params = dict(model.named_parameters())
@@ -545,8 +546,9 @@ def collectives_of(run: RunConfig, shape: ShapeSpec,
     gradients, the all-reduces over ``model`` of the tensor-parallel layers
     (forward, backward and recompute) and of the vocab-parallel loss, the
     all-reduces over the batch axes of the gradients they leave whole, the
-    whole-leaf gathers of an optimizer that is not elementwise, the metrics,
-    the global norm, the int8 maxima and the MoE load-balance means."""
+    factored optimizer's all-reduces and all-gathers of its row and column
+    sums, ``adamw_8bit``'s whole-leaf gathers, the metrics, the global norm,
+    the int8 maxima and the MoE load-balance means."""
     return trace_cell(run, shape, mesh_sizes).coll
 
 
@@ -582,11 +584,12 @@ def state_bytes(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int]) ->
            "opt": 0.0, "cache": 0.0}
     if shape.kind == "train":
         state = init_opt_state(run, params)
-        elementwise = optimizer_config(run).kind == "adamw"
+        ospecs = state_specs(optimizer_config(run), specs,
+                             {n: tuple(p.shape) for n, p in params.items()}, sizes)
         opt = float(_nbytes(state["step"]))
         for name, leaf in state["m"].items():
-            for t in leaf.values():
-                opt += _sharded(_nbytes(t), specs[name], sizes) if elementwise else _nbytes(t)
+            for key, t in leaf.items():
+                opt += _sharded(_nbytes(t), ospecs[name][key], sizes)
         for name, t in state.get("ef", {}).items():
             opt += _sharded(_nbytes(t), specs[name], sizes)
         out["opt"] = opt

@@ -10,7 +10,9 @@ is fp32, step for step that of the JAX package:
 
 ``apply_updates`` writes the new values into the parameter tensors in place
 (they are the model's own, and a copy of 2.6B parameters would not fit beside
-the state); the state dict is returned anew. The JAX package stacks a
+the state); the state dict is returned anew. On a mesh the same body updates
+a shard (``Shards``: the sharded step sums the factored statistics over the
+mesh; everything else is elementwise on the shard). The JAX package stacks a
 segment's layers on a leading axis and the port keeps one tensor per layer:
 ``adamw`` is elementwise and the same either way, while ``adamw_factored`` and
 ``adamw_8bit`` factor or quantise each layer's tensor on its own, where a
@@ -98,25 +100,30 @@ def _factored_dims(shape) -> Optional[Tuple[int, int]]:
     return len(shape) - 2, len(shape) - 1
 
 
+def state_layout(cfg: OptimizerConfig, shape) -> Dict[str, Tuple[tuple, torch.dtype, float]]:
+    """Each state tensor of a leaf of ``shape``: (shape, dtype, initial
+    value). The 8-bit moments start as ``_q8_encode`` of zeros: int8 zeros
+    and scales at the 1e-12 floor."""
+    shape = tuple(shape)
+    f32 = torch.float32
+    if cfg.kind == "adamw" or (cfg.kind == "adamw_factored" and _factored_dims(shape) is None):
+        return {"mu": (shape, f32, 0.0), "nu": (shape, f32, 0.0)}
+    if cfg.kind == "adamw_factored":
+        r, c = _factored_dims(shape)
+        return {"mu": (shape, torch.bfloat16, 0.0),
+                "nu_row": (shape[:c] + shape[c + 1:], f32, 0.0),
+                "nu_col": (shape[:r] + shape[r + 1:], f32, 0.0)}
+    if cfg.kind == "adamw_8bit":
+        n = -(-math.prod(shape) // cfg.block)
+        q, s = ((n, cfg.block), torch.int8, 0.0), ((n, 1), f32, 1e-12)
+        return {"mu_q": q, "mu_s": s, "nu_q": q, "nu_s": s}
+    raise ValueError(cfg.kind)
+
+
 def init_state(cfg: OptimizerConfig, params: Dict[str, torch.Tensor]):
     def leaf(p):
-        f32 = dict(dtype=torch.float32, device=p.device)
-        if cfg.kind == "adamw":
-            return {"mu": torch.zeros(p.shape, **f32), "nu": torch.zeros(p.shape, **f32)}
-        if cfg.kind == "adamw_factored":
-            dims = _factored_dims(p.shape)
-            if dims is None:
-                return {"mu": torch.zeros(p.shape, **f32), "nu": torch.zeros(p.shape, **f32)}
-            r, c = dims
-            row_shape = tuple(d for i, d in enumerate(p.shape) if i != c)
-            col_shape = tuple(d for i, d in enumerate(p.shape) if i != r)
-            return {"mu": torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device),
-                    "nu_row": torch.zeros(row_shape, **f32),
-                    "nu_col": torch.zeros(col_shape, **f32)}
-        if cfg.kind == "adamw_8bit":
-            q, s = _q8_encode(torch.zeros(p.shape, **f32), cfg.block)
-            return {"mu_q": q, "mu_s": s, "nu_q": q.clone(), "nu_s": s.clone()}
-        raise ValueError(cfg.kind)
+        return {k: torch.full(shape, fill, dtype=dt, device=p.device)
+                for k, (shape, dt, fill) in state_layout(cfg, p.shape).items()}
 
     device = next(iter(params.values())).device if params else None
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
@@ -127,66 +134,132 @@ def init_state(cfg: OptimizerConfig, params: Dict[str, torch.Tensor]):
 # Update
 # ---------------------------------------------------------------------------
 
-def _adam_update(cfg: OptimizerConfig, p, g, st, lr, step):
-    """Returns (new parameter value in p's dtype, new state of the leaf)."""
-    g = g.to(torch.float32)
-    b1, b2 = cfg.b1, cfg.b2
-    if "nu_row" in st:  # factored
-        r, c = _factored_dims(p.shape)
-        mu = b1 * st["mu"].to(torch.float32) + (1 - b1) * g
-        g2 = torch.square(g) + 1e-30
-        nu_row = b2 * st["nu_row"] + (1 - b2) * torch.mean(g2, dim=c)
-        nu_col = b2 * st["nu_col"] + (1 - b2) * torch.mean(g2, dim=r)
-        row_mean = torch.mean(nu_row, dim=-1, keepdim=True)
-        nu = (nu_row.unsqueeze(c) * nu_col.unsqueeze(r)
-              / torch.clamp(row_mean.unsqueeze(c), min=1e-30))
-        new_st = {"mu": mu.to(torch.bfloat16), "nu_row": nu_row, "nu_col": nu_col}
-    elif "mu_q" in st:  # 8-bit
-        mu_prev = _q8_decode(st["mu_q"], st["mu_s"], p.shape, cfg.block)
-        nu_prev = _q8_decode(st["nu_q"], st["nu_s"], p.shape, cfg.block)
-        mu = b1 * mu_prev + (1 - b1) * g
-        nu = b2 * nu_prev + (1 - b2) * torch.square(g)
-        mq, ms = _q8_encode(mu, cfg.block)
-        nq, ns = _q8_encode(nu, cfg.block)
-        new_st = {"mu_q": mq, "mu_s": ms, "nu_q": nq, "nu_s": ns}
-    else:
-        mu = b1 * st["mu"] + (1 - b1) * g
-        nu = b2 * st["nu"] + (1 - b2) * torch.square(g)
-        new_st = {"mu": mu, "nu": nu}
+class Shards:
+    """How a parameter tensor relates to the whole leaf whose factored
+    statistics it updates: on one device it is the leaf, and this class is
+    the identity. The sharded step (``train/steps.py``) passes one whose
+    methods sum and gather over the mesh. ``shape`` is the whole leaf's."""
 
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+
+    def row_sums(self, part: torch.Tensor) -> torch.Tensor:
+        """The shard's sums over its columns -> the whole leaf's row sums."""
+        return part
+
+    def col_sums(self, part: torch.Tensor) -> torch.Tensor:
+        """The shard's sums over its rows -> the whole leaf's column sums."""
+        return part
+
+    def rows(self, whole: torch.Tensor) -> torch.Tensor:
+        """A whole (..., rows) statistic -> the shard's part of it."""
+        return whole
+
+    def cols(self, whole: torch.Tensor) -> torch.Tensor:
+        """A whole (..., cols) statistic -> the shard's part of it."""
+        return whole
+
+
+def _new_param(cfg: OptimizerConfig, p, mu, nu, lr, step):
+    """Bias correction, the update and the decay: p's new value in its dtype."""
+    b1, b2 = cfg.b1, cfg.b2
     t = step.to(torch.float32) + 1.0
     mu_hat = mu / (1 - b1 ** t)
     nu_hat = nu / (1 - b2 ** t)
     upd = mu_hat / (torch.sqrt(nu_hat) + cfg.eps)
     decay = cfg.weight_decay * p.to(torch.float32)
-    new_p = (p.to(torch.float32) - lr * (upd + decay)).to(p.dtype)
-    return new_p, new_st
+    return (p.to(torch.float32) - lr * (upd + decay)).to(p.dtype)
+
+
+def _rows_of(t: torch.Tensor):
+    """The leading indices a leaf of 3+ dims is updated at, one at a time;
+    a 2-D leaf is one piece."""
+    return range(t.shape[0]) if t.dim() > 2 else [None]
+
+
+def _at(t: torch.Tensor, i):
+    return t if i is None else t[i]
+
+
+def _factored_update(cfg: OptimizerConfig, p, g, st, lr, step, shards: Shards):
+    """The factored update of ``p`` in place; returns its new state. The
+    second moment's row and column means are of the whole leaf: ``shards``
+    turns this tensor's partial sums into the whole leaf's, and the whole
+    statistics into this tensor's rows and columns. A leaf of 3+ dims (the
+    MoE experts) is factored over its two trailing dims, each leading index
+    on its own, and updated an index at a time (the fp32 temporaries of a
+    whole deepseek expert tensor would be 5 GB each)."""
+    b1, b2 = cfg.b1, cfg.b2
+    idx = _rows_of(p)
+    row_part, col_part = [], []
+    for i in idx:
+        g2 = torch.square(_at(g, i).to(torch.float32)) + 1e-30
+        row_part.append(torch.sum(g2, dim=-1))
+        col_part.append(torch.sum(g2, dim=-2))
+        del g2
+    row_part = row_part[0] if idx == [None] else torch.stack(row_part)
+    col_part = col_part[0] if idx == [None] else torch.stack(col_part)
+    height, width = shards.shape[-2:]
+    nu_row = b2 * st["nu_row"] + (1 - b2) * (shards.row_sums(row_part) / width)
+    nu_col = b2 * st["nu_col"] + (1 - b2) * (shards.col_sums(col_part) / height)
+    row_mean = torch.mean(nu_row, dim=-1, keepdim=True)
+    rows, cols = shards.rows(nu_row), shards.cols(nu_col)
+    means = shards.rows(row_mean.expand(nu_row.shape))[..., :1]
+    new_mu = torch.empty_like(st["mu"])
+    for i in idx:
+        mu = b1 * _at(st["mu"], i).to(torch.float32) + (1 - b1) * _at(g, i).to(torch.float32)
+        nu = (_at(rows, i).unsqueeze(-1) * _at(cols, i).unsqueeze(-2)
+              / torch.clamp(_at(means, i).unsqueeze(-1), min=1e-30))
+        _at(p, i).copy_(_new_param(cfg, _at(p, i), mu, nu, lr, step))
+        _at(new_mu, i).copy_(mu)
+    return {"mu": new_mu, "nu_row": nu_row, "nu_col": nu_col}
+
+
+@torch.no_grad()
+def update_leaf(cfg: OptimizerConfig, p, g, st, lr, step, shards: Optional[Shards] = None):
+    """One leaf's step: writes ``p``'s new value in place and returns its
+    new state; ``shards`` as ``apply_updates`` takes it. The 8-bit
+    branch pops the old moments out of ``st`` as it decodes them, so that a
+    caller that hands over its only reference holds the old and the new
+    int8 state no longer than it must."""
+    if "nu_row" in st:  # factored
+        return _factored_update(cfg, p, g, st, lr, step, shards or Shards(p.shape))
+    b1, b2 = cfg.b1, cfg.b2
+    if "mu_q" in st:  # 8-bit: a block spans the flattened leaf, so the leaf is whole
+        g = g.to(torch.float32)
+        mu = b1 * _q8_decode(st.pop("mu_q"), st.pop("mu_s"), p.shape, cfg.block) + (1 - b1) * g
+        nu = (b2 * _q8_decode(st.pop("nu_q"), st.pop("nu_s"), p.shape, cfg.block)
+              + (1 - b2) * torch.square(g))
+        mq, ms = _q8_encode(mu, cfg.block)
+        nq, ns = _q8_encode(nu, cfg.block)
+        p.copy_(_new_param(cfg, p, mu, nu, lr, step))
+        return {"mu_q": mq, "mu_s": ms, "nu_q": nq, "nu_s": ns}
+    new_st = {k: torch.empty_like(v) for k, v in st.items()}
+    for i in _rows_of(p):   # elementwise: a leaf of 3+ dims an index at a time
+        gi = _at(g, i).to(torch.float32)
+        mu = b1 * _at(st["mu"], i) + (1 - b1) * gi
+        nu = b2 * _at(st["nu"], i) + (1 - b2) * torch.square(gi)
+        _at(p, i).copy_(_new_param(cfg, _at(p, i), mu, nu, lr, step))
+        _at(new_st["mu"], i).copy_(mu)
+        _at(new_st["nu"], i).copy_(nu)
+    return new_st
 
 
 @torch.no_grad()
 def apply_updates(cfg: OptimizerConfig, params: Dict[str, torch.Tensor],
-                  grads: Dict[str, torch.Tensor], state, lr):
+                  grads: Dict[str, torch.Tensor], state, lr,
+                  shards: Optional[Dict[str, Shards]] = None):
     """One AdamW step. Writes the new values into ``params`` in place and
     returns (params, new state); ``state["step"]`` counts the updates. A leaf
     of three or more dims with float moments (the MoE expert tensors) is
-    updated a leading index at a time: its factored statistics are over the
-    two trailing dims, so each index is independent, and the fp32
-    temporaries of a whole deepseek expert tensor would be 5 GB each."""
+    updated a leading index at a time. ``shards``: on a mesh, each factored
+    leaf's ``Shards`` (``params`` then hold shards); absent, every leaf is
+    whole."""
     step = state["step"]
     new_m = {}
     for name, p in params.items():
-        g, st = grads[name], state["m"][name]
-        if p.dim() < 3 or "mu_q" in st:
-            new_p, new_m[name] = _adam_update(cfg, p, g, st, lr, step)
-            p.copy_(new_p)
-            continue
-        new_m[name] = {k: torch.empty_like(v) for k, v in st.items()}
-        for i in range(p.shape[0]):
-            new_p, new_st = _adam_update(cfg, p[i], g[i], {k: v[i] for k, v in st.items()},
-                                         lr, step)
-            p[i].copy_(new_p)
-            for k, v in new_st.items():
-                new_m[name][k][i] = v
+        sh = shards.get(name) if shards else None
+        new_m[name] = update_leaf(cfg, p, grads[name], dict(state["m"][name]), lr, step, sh)
     return params, {"step": step + 1, "m": new_m}
 
 

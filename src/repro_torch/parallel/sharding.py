@@ -187,6 +187,79 @@ def param_specs(shapes: Dict[str, Sequence[int]], mesh, fsdp_over_pod: bool = Fa
     return out
 
 
+BLOCK_KEYS = ("mu_q", "mu_s", "nu_q", "nu_s")
+
+
+def stacked(name: str) -> bool:
+    """The JAX package stacks every block's parameter with its segment's
+    other units on a leading units dim; the port keeps one tensor a layer."""
+    return name.startswith("blocks.")
+
+
+def opt_state_specs(specs: Dict[str, Spec], state: Dict[str, Dict]) -> Dict[str, Dict[str, Spec]]:
+    """The spec of each optimizer state tensor: the JAX package's
+    ``opt_state_shardings``, which gives a state leaf its parameter's spec
+    where the leaf has the parameter's rank and replicates the rest, read
+    against the JAX leaf (``stacked``: one rank more than the port's).
+    ``specs``: each parameter's spec; ``state``: ``adamw.init_state(...)["m"]``
+    (tensors or shapes).
+
+    So a moment of the parameter's shape (``adamw``'s two, the factored
+    ``mu``, and a 1-D leaf's ``mu`` and ``nu``) takes the spec, and the
+    factored ``nu_row`` and ``nu_col`` are whole. The 8-bit blocks (n, block)
+    of the flattened leaf take it only where the JAX leaf is itself 2-D and
+    unstacked (the embedding, an untied read-out): a stacked leaf's blocks
+    span its layers, so a layer's blocks have no counterpart there and stay
+    whole. The spec is the JAX package's even where its axes do not divide a
+    block tensor's dim (an (n, 1) scale); ``fit_spec`` places it."""
+    out = {}
+    for name, leaf in state.items():
+        spec = tuple(specs[name])
+        out[name] = {}
+        for key, t in leaf.items():
+            shape = tuple(t.shape) if isinstance(t, torch.Tensor) else tuple(t)
+            if key in BLOCK_KEYS:
+                inherits = len(spec) == 2 and not stacked(name)
+            else:
+                inherits = len(shape) == len(spec)
+            out[name][key] = spec if inherits else (None,) * len(shape)
+    return out
+
+
+def fit_spec(spec: Spec, shape: Sequence[int], mesh) -> Spec:
+    """``spec`` with each dim's axes cut to the longest prefix whose sizes
+    divide the dim, as the parameter rules resolve a dim. The JAX package's
+    jit refuses an argument whose spec does not divide its dim; where the
+    optimizer rule names such axes (an 8-bit (n, 1) scale over ``data``),
+    the port holds that dim whole on each rank, which is also what GSPMD's
+    padded layout of a size-one dim stores on every device."""
+    sizes = mesh_sizes(mesh)
+    out = []
+    for dim, entry in zip(shape, spec):
+        axes = _axes_of(entry)
+        k = len(axes)
+        while k and dim % math.prod(sizes[a] for a in axes[:k]):
+            k -= 1
+        out.append(None if not k else axes[0] if k == 1 else axes[:k])
+    return tuple(out)
+
+
+def local_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:
+    """A rank's shard of ``shape`` under ``spec`` (whose axes divide it)."""
+    sizes = mesh_sizes(mesh)
+    return tuple(d // math.prod(sizes[a] for a in _axes_of(e)) for d, e in zip(shape, spec))
+
+
+def spec_of(placement: list, mesh, ndim: int) -> Spec:
+    """The spec of DTensor placements (``placements``' inverse)."""
+    from torch.distributed.tensor import Shard
+    dims: List[List[str]] = [[] for _ in range(ndim)]
+    for name, pl in zip(mesh_sizes(mesh), placement):
+        if isinstance(pl, Shard):
+            dims[pl.dim].append(name)
+    return tuple(None if not d else d[0] if len(d) == 1 else tuple(d) for d in dims)
+
+
 def batch_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in BATCH_AXES if a in mesh_sizes(mesh))
 

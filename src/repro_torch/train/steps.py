@@ -9,22 +9,28 @@ under ``torch.no_grad`` and update the KV cache in place and return it, so the
 call sites read like the JAX ones.
 
 Given a ``DeviceMesh``, ``make_train_step`` builds the sharded step, the
-counterpart of the JAX Trainer's GSPMD step. Each parameter's master copy, its
-AdamW moments and its ``ef`` residual are DTensors placed by
-``parallel.sharding.param_specs`` (FSDP over ``data``, TP and EP over
-``model``), and the model holds this rank's shards
-(``parallel.tensor.shard_model``): each step binds the model's parameters to
-the masters' local tensors, so no rank holds a whole master. Each rank takes
-its share of every global microbatch (``local_batch``) and computes its
-``model`` shard of each layer, gathering the layer's weights over the batch
-axes when it runs (``parallel.tensor``); the gradients arrive on the shards,
-reduce-scattered by those gathers' backward, and a dim that the batch axes
-leave whole is all-reduced over them (``make_local_step``). Plain ``adamw``
-then updates each shard; ``adamw_factored`` and ``adamw_8bit`` take row and
-column means or blocks of the flattened leaf, so they gather one leaf and its
-gradient at a time, update it from replicated state and keep their shard. The
-metrics, the MoE load-balance statistics, the int8 ``amax`` and the global
-norm are those of the whole batch and the whole leaf, as GSPMD computes them.
+counterpart of the JAX Trainer's GSPMD step. Each parameter's master copy and
+its ``ef`` residual are DTensors placed by ``parallel.sharding.param_specs``
+(FSDP over ``data``, TP and EP over ``model``), and its optimizer state as
+the JAX package's ``opt_state_shardings`` places it
+(``sharding.opt_state_specs``): the ``adamw`` moments and the factored first
+moment like their parameter, the factored row and column statistics whole,
+the 8-bit blocks like their parameter only for the unstacked 2-D leaves. The
+model holds this rank's shards (``parallel.tensor.shard_model``): each step
+binds the model's parameters to the masters' local tensors, so no rank holds
+a whole master. Each rank takes its share of every global microbatch
+(``local_batch``) and computes its ``model`` shard of each layer, gathering
+the layer's weights over the batch axes when it runs (``parallel.tensor``);
+the gradients arrive on the shards, reduce-scattered by those gathers'
+backward, and a dim that the batch axes leave whole is all-reduced over them
+(``make_local_step``). ``adamw`` then updates each shard, and
+``adamw_factored`` too: its row and column means are the shard's partial
+sums all-reduced over the axes that shard the summed dim and gathered whole
+(``LeafShards``). ``adamw_8bit``'s blocks span the flattened leaf, so it
+gathers one leaf, its gradient and its state at a time and cuts them back.
+The metrics, the MoE load-balance statistics, the int8 ``amax`` and the
+global norm are those of the whole batch and the whole leaf, as GSPMD
+computes them.
 """
 from __future__ import annotations
 
@@ -198,21 +204,35 @@ def local_batch(batch: Dict[str, torch.Tensor], k: int, rank: int, n: int):
             .reshape((k * share,) + v.shape[1:]) for name, v in batch.items()}
 
 
-def _elementwise(opt_cfg: adamw.OptimizerConfig) -> bool:
-    return opt_cfg.kind == "adamw"
+def state_specs(opt_cfg: adamw.OptimizerConfig, specs: Dict[str, tuple],
+                shapes: Dict[str, tuple], mesh) -> Dict[str, Dict[str, tuple]]:
+    """Each optimizer state tensor's spec as placed on ``mesh``:
+    ``sharding.opt_state_specs`` of the leaves of whole ``shapes`` whose
+    parameters have ``specs``, each fitted to its tensor (``fit_spec``)."""
+    layout = {n: adamw.state_layout(opt_cfg, shape) for n, shape in shapes.items()}
+    raw = shd.opt_state_specs(specs, {n: {k: v[0] for k, v in lay.items()}
+                                      for n, lay in layout.items()})
+    return {n: {k: shd.fit_spec(spec, layout[n][k][0], mesh) for k, spec in leaf.items()}
+            for n, leaf in raw.items()}
+
+
+def _spec_placements(specs: Dict[str, Dict[str, tuple]], mesh) -> Dict[str, Dict[str, list]]:
+    return {n: {k: shd.placements(s, mesh) for k, s in leaf.items()} for n, leaf in specs.items()}
 
 
 def shard_train_state(params: Dict[str, torch.Tensor], opt_state, opt_cfg: adamw.OptimizerConfig,
                       mesh, placements: Dict[str, list]):
     """Full parameters and optimizer state (every rank the same) -> the
-    sharded step's (params, opt_state): each parameter, its ``adamw`` moments
-    and its ``ef`` residual a DTensor under its placements; the factored and
-    8-bit statistics stay whole on every rank."""
+    sharded step's (params, opt_state): each parameter and its ``ef``
+    residual a DTensor under its placements, each optimizer state tensor a
+    DTensor under ``state_specs`` (Replicate where it is whole)."""
     masters = {n: shd.shard_tensor(p.detach(), mesh, placements[n]) for n, p in params.items()}
+    specs = {n: shd.spec_of(placements[n], mesh, p.dim()) for n, p in params.items()}
+    pl = _spec_placements(state_specs(opt_cfg, specs, {n: tuple(p.shape) for n, p in
+                                                       params.items()}, mesh), mesh)
     state = dict(opt_state)
-    if _elementwise(opt_cfg):
-        state["m"] = {n: {k: shd.shard_tensor(v, mesh, placements[n]) for k, v in st.items()}
-                      for n, st in opt_state["m"].items()}
+    state["m"] = {n: {k: shd.shard_tensor(v, mesh, pl[n][k]) for k, v in st.items()}
+                  for n, st in opt_state["m"].items()}
     if "ef" in state:
         state["ef"] = {n: shd.shard_tensor(v, mesh, placements[n])
                        for n, v in opt_state["ef"].items()}
@@ -228,30 +248,67 @@ def gather(tree):
     return tree.full_tensor() if isinstance(tree, DTensor) else tree
 
 
+def local_opt_state(opt_cfg: adamw.OptimizerConfig, params: Dict[str, torch.Tensor], mesh):
+    """``adamw.init_state`` of the whole leaves of ``params`` (a model's
+    parameters on their shards: ``tp_spec``, ``tp_full_shape``; whole where
+    they have none), each tensor made on this rank's shard under
+    ``state_specs``: a factored ``mu`` is never whole. Returns (state of
+    local tensors, the specs)."""
+    whole = {n: tuple(getattr(p, "tp_full_shape", p.shape)) for n, p in params.items()}
+    specs = state_specs(opt_cfg, {n: tensor.TensorParallel.spec(p) for n, p in params.items()},
+                        whole, mesh)
+    m = {n: {k: torch.full(shd.local_shape(shape, specs[n][k], mesh), fill, dtype=dt,
+                           device=p.device)
+             for k, (shape, dt, fill) in adamw.state_layout(opt_cfg, whole[n]).items()}
+         for n, p in params.items()}
+    device = next(iter(params.values())).device if params else None
+    return {"step": torch.zeros((), dtype=torch.int32, device=device), "m": m}, specs
+
+
 def init_train_state(model, opt_cfg: adamw.OptimizerConfig, mesh, int8: bool = False):
     """The sharded step's (params, opt_state) for a model on its shards
     (``parallel.tensor.build_sharded``), as ``shard_train_state`` would make
     them from the whole model: the masters are DTensors over the model's own
-    local tensors; the ``adamw`` moments and the int8 residual are zeros on
-    the shards; the factored and 8-bit statistics are zeros whole (made a
-    leaf at a time, without a whole parameter)."""
+    local tensors; the optimizer state and the int8 residual are zeros made
+    on their shards (``local_opt_state``)."""
     from torch.distributed.tensor import DTensor
     pl = tensor.placements(model, mesh)
     local = dict(model.named_parameters())
     masters = {n: DTensor.from_local(p.detach(), mesh, pl[n]) for n, p in local.items()}
-    if _elementwise(opt_cfg):
-        state = adamw.init_state(opt_cfg, local)
-        state["m"] = {n: {k: DTensor.from_local(v, mesh, pl[n]) for k, v in st.items()}
-                      for n, st in state["m"].items()}
-    else:
-        # a zero-stride stand-in of each whole leaf: init_state reads its shape
-        shapes = {n: torch.empty((), dtype=p.dtype, device=p.device).expand(p.tp_full_shape)
-                  for n, p in local.items()}
-        state = adamw.init_state(opt_cfg, shapes)
+    state, specs = local_opt_state(opt_cfg, local, mesh)
+    spl = _spec_placements(specs, mesh)
+    state["m"] = {n: {k: DTensor.from_local(v, mesh, spl[n][k]) for k, v in st.items()}
+                  for n, st in state["m"].items()}
     if int8:
         state["ef"] = {n: DTensor.from_local(v, mesh, pl[n])
                        for n, v in ErrorFeedback.init(local).items()}
     return masters, state
+
+
+class LeafShards(adamw.Shards):
+    """A parameter shard's factored statistics over the mesh: the shard's
+    partial sums all-reduced over the axes that shard the summed dim, then
+    gathered whole over those that shard the others (the JAX package holds
+    ``nu_row`` and ``nu_col`` whole); the whole statistics cut back to the
+    shard's rows and columns."""
+
+    def __init__(self, tp, spec: tuple, shape):
+        super().__init__(shape)
+        self.tp = tp
+        self.row_spec, self.col_spec = spec[:-1], spec[:-2] + spec[-1:]
+        self.over_cols, self.over_rows = shd._axes_of(spec[-1]), shd._axes_of(spec[-2])
+
+    def row_sums(self, part):
+        return self.tp.full(self.tp.sum_over(part, self.over_cols), self.row_spec)
+
+    def col_sums(self, part):
+        return self.tp.full(self.tp.sum_over(part, self.over_rows), self.col_spec)
+
+    def rows(self, whole):
+        return self.tp.shard(whole, self.row_spec)
+
+    def cols(self, whole):
+        return self.tp.shard(whole, self.col_spec)
 
 
 def make_local_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, tp):
@@ -267,6 +324,33 @@ def make_local_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, tp):
     names = list(tp.sizes)
     sharded_by = {n: {a for e in tp.spec(p) for a in shd._axes_of(e)}
                   for n, p in model.named_parameters()}
+    whole = {n: tuple(getattr(p, "tp_full_shape", p.shape)) for n, p in model.named_parameters()}
+    specs = state_specs(opt_cfg, {n: tp.spec(p) for n, p in model.named_parameters()}, whole,
+                        tp.mesh)
+    shards = {n: LeafShards(tp, tp.spec(p), whole[n]) for n, p in model.named_parameters()
+              if "nu_row" in specs[n]}
+
+    def cut(t, spec):
+        """This rank's shard of a whole ``t``, in storage of its own."""
+        return tp.shard(t, spec).clone() if any(spec) else t
+
+    @torch.no_grad()
+    def update_8bit(params, grads, opt_state, lr):
+        """The 8-bit blocks span the flattened leaf: each leaf, its gradient
+        and its state gathered whole in turn, updated, and cut back. The
+        gathered old state is the update's alone, so it is freed as it is
+        decoded, before the new one is encoded."""
+        step, new_m = opt_state["step"], {}
+        for name, p in params.items():
+            spec, st_specs = tp.spec(p), specs[name]
+            leaf = tp.full(p.detach(), spec)
+            new = adamw.update_leaf(
+                opt_cfg, leaf, tp.full(grads.pop(name), spec),
+                {k: tp.full(v, st_specs[k]) for k, v in opt_state["m"][name].items()}, lr, step)
+            new_m[name] = {k: cut(v, st_specs[k]) for k, v in new.items()}
+            p.copy_(tp.shard(leaf, spec))
+            del leaf, new
+        return {"step": step + 1, "m": new_m}
 
     def global_norm(grads):
         """Each leaf's sum of squares summed over the mesh axes that shard
@@ -315,23 +399,11 @@ def make_local_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, tp):
                                                  norm=global_norm(grads))
         lr = adamw.warmup_cosine(opt_state["step"], base_lr=tcfg.learning_rate,
                                  warmup=tcfg.warmup_steps, total=tcfg.total_steps)
-        if _elementwise(opt_cfg):
-            params, opt_state = adamw.apply_updates(opt_cfg, params, grads, opt_state, lr)
+        if opt_cfg.kind == "adamw_8bit":
+            opt_state = update_8bit(params, grads, opt_state, lr)
         else:
-            # the factored and 8-bit statistics are of the whole leaf: each
-            # leaf is gathered, updated and cut back in turn
-            new_m = {}
-            for name, p in params.items():
-                spec = tp.spec(p)
-                whole = tp.full(p.detach(), spec)
-                _, st = adamw.apply_updates(
-                    opt_cfg, {name: whole}, {name: tp.full(grads.pop(name), spec)},
-                    {"step": opt_state["step"], "m": {name: opt_state["m"][name]}}, lr)
-                new_m[name] = st["m"][name]
-                with torch.no_grad():
-                    p.copy_(tp.shard(whole, spec))
-                del whole
-            opt_state = {"step": opt_state["step"] + 1, "m": new_m}
+            params, opt_state = adamw.apply_updates(opt_cfg, params, grads, opt_state, lr,
+                                                    shards)
         if resid is not None:
             opt_state["ef"] = resid
         return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
@@ -346,29 +418,30 @@ def _make_sharded_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, me
     k = max(run.parallel.microbatches, 1)
     model_params = dict(model.named_parameters())
     placements = tensor.placements(model, mesh)
+    state_pl = _spec_placements(state_specs(
+        opt_cfg, {n: tp.spec(p) for n, p in model_params.items()},
+        {n: tuple(p.tp_full_shape) for n, p in model_params.items()}, mesh), mesh)
     rank, n_batch = batch_coordinate(mesh)
     local_step = make_local_step(model, run, opt_cfg, tp)
 
-    def wrap(t, name):
-        return DTensor.from_local(t.detach(), mesh, placements[name])
+    def wrap(t, pl):
+        return DTensor.from_local(t.detach(), mesh, pl)
 
     def step(params, opt_state, batch):
         with torch.no_grad():       # the model computes on the masters' own shards
             for name, p in model_params.items():
                 p.data = params[name].to_local()
         state = dict(opt_state)
-        if _elementwise(opt_cfg):
-            state["m"] = {n: {key: v.to_local() for key, v in st.items()}
-                          for n, st in opt_state["m"].items()}
+        state["m"] = {n: {key: v.to_local() for key, v in st.items()}
+                      for n, st in opt_state["m"].items()}
         if "ef" in state:
             state["ef"] = {n: r.to_local() for n, r in state["ef"].items()}
         _, state, metrics = local_step(model_params, state, local_batch(batch, k, rank, n_batch))
-        params = {name: wrap(p, name) for name, p in model_params.items()}
-        if _elementwise(opt_cfg):
-            state["m"] = {n: {key: wrap(v, n) for key, v in st.items()}
-                          for n, st in state["m"].items()}
+        params = {name: wrap(p, placements[name]) for name, p in model_params.items()}
+        state["m"] = {n: {key: wrap(v, state_pl[n][key]) for key, v in st.items()}
+                      for n, st in state["m"].items()}
         if "ef" in state:
-            state["ef"] = {n: wrap(r, n) for n, r in state["ef"].items()}
+            state["ef"] = {n: wrap(r, placements[n]) for n, r in state["ef"].items()}
         return params, state, metrics
 
     step.local = local_step

@@ -16,6 +16,11 @@ Held, fp32 throughout:
     1e-5; params and ``ef`` 1e-5 but for the rare elements whose int8
     rounding sat on a tie (counted, at most 1 in 2,000; see
     test_torch_train.py's int8 test);
+  * gemma2-2b's ``adamw_factored`` step, its state on the shards, against
+    the JAX GSPMD step with its state under ``opt_state_shardings``: loss,
+    grad norm and the parameters of two or more dims 1e-5 after two steps;
+    each rank's ``mu`` its shard, the statistics whole; the step gathers no
+    whole parameter over model;
   * the sharded step against the one-device step for every optimizer:
     ``adamw`` and ``adamw_factored`` 1e-5 after two steps, ``adamw_8bit``
     after one (its int8 moments turn an fp32 difference into a block's
@@ -23,7 +28,8 @@ Held, fp32 throughout:
     (``TP_CASES``) from the port's own init, 1e-5 after two steps;
   * every rank's parameters are its shards, a step gathers them over data
     only and a layer at a time;
-  * the mesh Trainer with a crash at step 2: the one-device Trainer's
+  * the mesh Trainer with a crash at step 2, under ``adamw``,
+    ``adamw_factored`` and ``adamw_8bit``: the one-device Trainer's
     detections, its losses at 1e-5, checkpoints that restore across;
   * ``launch.train`` and ``launch.serve`` on the mesh: the JAX launcher's
     keys from rank 0 alone; the one-process run's sampled tokens.
@@ -54,6 +60,8 @@ TP_CASES = {"stablelm-12b": ("stablelm-12b", {}),
             "zamba2-7b": ("zamba2-7b", {})}
 SHAPE_ARCHS = ("gemma2-2b", "deepseek-v2-236b")
 SERVE = dict(batch=4, prompt_len=12, decode_steps=6)
+# the optimizers of the mesh Trainer's fault run and cross restores
+TRAINER_OPTS = ("adamw", "adamw_factored", "adamw_8bit")
 SERVE_MESHES = {"data2_model2": (2, 2), "data4": (4, 1)}
 
 
@@ -71,10 +79,11 @@ def tp_case_run(case):
     return run.replace(model=dataclasses.replace(run.model, **overrides))
 
 
-def trainer_run():
+def trainer_run(optimizer="adamw"):
     from repro_torch.configs import get_smoke_config
     run = get_smoke_config("gemma2-2b")
-    return run.replace(parallel=dataclasses.replace(run.parallel, param_dtype="float32"),
+    return run.replace(parallel=dataclasses.replace(run.parallel, param_dtype="float32",
+                                                    optimizer_state=optimizer),
                        train=dataclasses.replace(run.train, checkpoint_every=2))
 
 
@@ -131,6 +140,39 @@ for arch, compression in STEP_ARCHS.items():
         out.update({f"{arch}/p2/{k}": v.numpy() for k, v in np_tree(params).items()})
         if "ef" in state:
             out.update({f"{arch}/ef/{k}": v.numpy() for k, v in np_tree(state["ef"]).items()})
+
+# the factored step with its state under opt_state_shardings, as lower_cell
+# places it: gemma2-2b, no compression
+from repro.launch.dryrun import opt_state_shardings
+run = get_smoke_config("gemma2-2b")
+run = run.replace(parallel=dataclasses.replace(run.parallel, param_dtype="float32",
+                                               microbatches=2),
+                  train=dataclasses.replace(run.train, **TRAIN))
+model = build_model(run, use_kernel=False)
+np_tree = lambda t: params_from_jax(jax.tree.map(np.asarray, t), run.model)
+with jc.set_mesh(mesh):
+    params = model.init(jax.random.key(0))
+    pspecs = shd.param_specs(params, mesh)
+    shardings = shd.to_shardings(pspecs, mesh)
+    params = jax.tree.map(jax.device_put, params, shardings)
+    cfg = adamw.OptimizerConfig(kind="adamw_factored")
+    oshard = opt_state_shardings(jax.eval_shape(lambda p: adamw.init_state(cfg, p), params),
+                                 pspecs, mesh)
+    state = jax.tree.map(jax.device_put, adamw.init_state(cfg, params), oshard)
+    step = None
+    for i in range(2):
+        batch = {k: jnp.asarray(v) for k, v in synthetic_batch(
+            run.model, ShapeSpec("t", SEQ, BATCH, "train"), seed=10 + i).items()}
+        bsh = shd.to_shardings(shd.batch_specs(batch, mesh), mesh)
+        batch = jax.tree.map(jax.device_put, batch, bsh)
+        if step is None:
+            step = jax.jit(make_train_step(model, run, cfg, mesh),
+                           in_shardings=(shardings, oshard, bsh),
+                           out_shardings=(shardings, oshard, None))
+        params, state, met = step(params, state, batch)
+        for key, v in met.items():
+            out[f"factored/{key}/{i}"] = np.asarray(v)
+    out.update({f"factored/p2/{k}": v.numpy() for k, v in np_tree(params).items()})
 np.savez(os.path.join(OUT, "steps.npz"), **out)
 """
 
@@ -144,9 +186,10 @@ def _batch(run, seed):
                            device="cpu")
 
 
-def _sharded_steps(run, mesh, p0, n_steps, with_plain=False):
+def _sharded_steps(run, mesh, p0, n_steps, with_plain=False, keep=None):
     """n_steps sharded steps from ``p0`` (and, on request, the one-device
-    steps beside them). Returns per-step metrics, full params, full ef."""
+    steps beside them). Returns per-step metrics, full params, full ef;
+    ``keep`` (a dict) receives the last masters and optimizer state."""
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
     from repro_torch.parallel import sharding as shd
@@ -179,6 +222,8 @@ def _sharded_steps(run, mesh, p0, n_steps, with_plain=False):
         if plain is not None:
             pparams, pstate, pmet = plain(pparams, pstate, batch)
             res.update({f"plain/{k}/{i}": v.detach().numpy() for k, v in pmet.items()})
+    if keep is not None:
+        keep.update(masters=masters, state=sstate)
     res.update({f"p2/{k}": v.detach().numpy() for k, v in gather(masters).items()})
     if "ef" in sstate:
         res.update({f"ef/{k}": v.numpy() for k, v in gather(sstate["ef"]).items()})
@@ -232,7 +277,36 @@ def _shapes_and_gathers(mesh):
         res[arch] = {"shapes": {n: list(p.shape) for n, p in model.named_parameters()},
                      "full": {n: list(p.tp_full_shape) for n, p in model.named_parameters()},
                      "gathers": mode.seen}
+    # one factored step of gemma2-2b: its update's gathers
+    run = step_run("gemma2-2b", optimizer="adamw_factored")
+    cfg = adamw.OptimizerConfig(kind="adamw_factored")
+    model = build_model(run, device="cpu")
+    model.load_state_dict(_port_init(run))
+    params = dict(model.named_parameters())
+    masters, state = shard_train_state(params, adamw.init_state(cfg, params), cfg, mesh,
+                                       shd.param_placements(params, mesh))
+    step = make_train_step(model, run, cfg, mesh)
+    mode = Gathers()
+    with mode:
+        step(masters, state, _batch(run, 10))
+    res["factored_gathers"] = mode.seen
     return res
+
+
+def _state_sizes(kept):
+    """Each factored leaf's local and whole sizes on this rank: the
+    parameter's shard and whole numel, ``mu``'s local numel and dtype,
+    ``nu_row`` and ``nu_col``'s local and whole shapes."""
+    masters, state = kept["masters"], kept["state"]
+    out = {}
+    for name, st in state["m"].items():
+        if "nu_row" not in st:
+            continue
+        out[name] = {"param": [masters[name].to_local().numel(), masters[name].numel()],
+                     "mu": [st["mu"].to_local().numel(), str(st["mu"].dtype)],
+                     **{k: [list(st[k].to_local().shape), list(st[k].shape)]
+                        for k in ("nu_row", "nu_col")}}
+    return out
 
 
 def ranks(rank, world, out, inputs):
@@ -255,34 +329,42 @@ def ranks(rank, world, out, inputs):
         res = _sharded_steps(step_run(arch, compression), mesh, p0, 2)
         saved.update({f"{arch}/{k}": v for k, v in res.items()})
     p0 = {k: torch.from_numpy(v) for k, v in np.load(inputs["gemma2-2b"]).items()}
+    kept = {}
     for opt, n in {"adamw": 2, **OPTIMIZERS}.items():
-        res = _sharded_steps(step_run("gemma2-2b", optimizer=opt), mesh, p0, n, with_plain=True)
+        res = _sharded_steps(step_run("gemma2-2b", optimizer=opt), mesh, p0, n, with_plain=True,
+                             keep=kept.setdefault(opt, {}))
         saved.update({f"{opt}/{k}": v for k, v in res.items()})
+    factored = _state_sizes(kept["adamw_factored"])
+    del kept
     for case in TP_CASES:
         run = tp_case_run(case)
         res = _sharded_steps(run, mesh, _port_init(run), 2, with_plain=True)
         saved.update({f"{case}/{k}": v for k, v in res.items()})
     shapes = _shapes_and_gathers(mesh)
 
-    # the mesh Trainer: a crash at step 2; then a restore of the one-device
-    # Trainer's checkpoint
-    run = trainer_run()
-    tr = Trainer(run, trainer_shape(run), os.path.join(out, "mesh_ckpt"), device="cpu",
-                 mesh=mesh, checkpoint_async=False)
-    first_mesh = tr.mesh
-    rep = tr.train(4, injector=FaultInjector({2: Fault("crash", rank=3)}))
-    dist.barrier()                  # rank 0 may still be writing the last checkpoint
-    trainer = {"losses": rep.losses, "restarts": rep.restarts,
+    # the mesh Trainer of each optimizer: a crash at step 2; then a restore of
+    # the one-device Trainer's checkpoint
+    trainers = {}
+    for opt in TRAINER_OPTS:
+        run = trainer_run(opt)
+        tr = Trainer(run, trainer_shape(run), os.path.join(out, f"mesh_ckpt_{opt}"),
+                     device="cpu", mesh=mesh, checkpoint_async=False)
+        first_mesh = tr.mesh
+        rep = tr.train(4, injector=FaultInjector({2: Fault("crash", rank=3)}))
+        dist.barrier()              # rank 0 may still be writing the last checkpoint
+        res = {"losses": rep.losses, "restarts": rep.restarts,
                "detections": [{k: d[k] for k in ("fault", "at_step", "verdicts", "isolated",
                                                   "detection_windows", "restored_step")}
                               for d in rep.detections],
                "rebuilt_mesh": tr.mesh is not first_mesh,
                "disk_steps": tr.ckpt.disk_steps(), "save_count": tr.ckpt.save_count}
-    back = Trainer(run, trainer_shape(run), inputs["one_device_ckpt"], device="cpu", mesh=mesh,
-                   checkpoint_async=False)
-    trainer["restored"] = back.restore(step=2)
-    back.ckpt.disk = False          # leave the one-device run's directory as it was
-    trainer["continued"] = back.train(2).losses
+        back = Trainer(run, trainer_shape(run), inputs[f"one_device_ckpt_{opt}"], device="cpu",
+                       mesh=mesh, checkpoint_async=False)
+        res["restored"] = back.restore(step=2)
+        back.ckpt.disk = False      # leave the one-device run's directory as it was
+        res["continued"] = back.train(2).losses
+        trainers[opt] = res
+    trainer = {"trainers": trainers, "factored": factored}
 
     # the CLIs
     buf = io.StringIO()
@@ -335,12 +417,15 @@ def mesh_run(tmp_path_factory):
     code = code.replace("SEQ", str(SEQ)).replace("BATCH", str(BATCH))
     child = JaxChild(code, tmp_path_factory.mktemp("jax"))
     inputs = _initial_params(str(tmp))
-    # the one-device Trainer's run, and its checkpoints for the mesh to restore
-    run = trainer_run()
-    one = Trainer(run, trainer_shape(run), str(tmp / "one_ckpt"), device="cpu",
-                  checkpoint_async=False)
-    one_rep = one.train(4, injector=FaultInjector({2: Fault("crash", rank=3)}))
-    inputs["one_device_ckpt"] = str(tmp / "one_ckpt")
+    # the one-device Trainer's run of each optimizer, and its checkpoints for
+    # the mesh to restore
+    one_rep = {}
+    for opt in TRAINER_OPTS:
+        run = trainer_run(opt)
+        one = Trainer(run, trainer_shape(run), str(tmp / f"one_ckpt_{opt}"), device="cpu",
+                      checkpoint_async=False)
+        one_rep[opt] = one.train(4, injector=FaultInjector({2: Fault("crash", rank=3)}))
+        inputs[f"one_device_ckpt_{opt}"] = str(tmp / f"one_ckpt_{opt}")
     out = run_world(f"{HERE}:ranks", 4, tmp, inputs=inputs)
     ranks_out = []
     for r in range(4):
@@ -391,6 +476,67 @@ def test_sharded_step_matches_the_jax_gspmd_step(arch, mesh_run):
         assert flips == 0
 
 
+def test_factored_step_matches_the_jax_gspmd_step_under_its_state_placement(mesh_run):
+    """gemma2-2b's factored step on the (2, 2) mesh, its state under
+    ``opt_state_specs`` and updated on the shards, against the JAX GSPMD step
+    with its state under ``opt_state_shardings`` as ``in_shardings``: loss and
+    grad norm at both steps 1e-5, every parameter of two or more dims 1e-5
+    after two steps. The JAX package stacks a per-layer vector (a norm
+    scale) on a units dim and factors the stack over both dims, where the
+    port's one tensor a layer has elementwise moments (``optim/adamw.py``),
+    so those leaves take other steps here (by up to 4.8e-4 at a learning
+    rate of 1e-4); the one-device test holds them to the port's own step."""
+    ours, ref = mesh_run["ours"], mesh_run["jax"]
+    for i in range(2):
+        for key in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(ours[f"adamw_factored/{key}/{i}"],
+                                       ref[f"factored/{key}/{i}"], rtol=1e-5,
+                                       err_msg=f"step {i} {key}")
+    names = [k[len("factored/p2/"):] for k in ref if k.startswith("factored/p2/")]
+    matrices = [n for n in names if ref[f"factored/p2/{n}"].ndim >= 2]
+    assert len(matrices) > len(names) / 3
+    for n in names:
+        got = ours[f"adamw_factored/p2/{n}"]
+        assert np.isfinite(got).all(), n
+        if n in matrices:
+            np.testing.assert_allclose(got, ref[f"factored/p2/{n}"], rtol=1e-5, atol=1e-5,
+                                       err_msg=n)
+
+
+def test_each_rank_holds_its_shard_of_the_factored_first_moment(mesh_run):
+    """On every rank each factored leaf's bf16 ``mu`` is a local shard of
+    numel / (the shards of its parameter), never the whole leaf where the
+    parameter is cut; ``nu_row`` and ``nu_col`` are whole, as the JAX
+    package places them."""
+    cut = 0
+    for r, res in enumerate(mesh_run["ranks"]):
+        sizes = res["factored"]
+        assert sizes, r
+        for name, sz in sizes.items():
+            local, whole = sz["param"]
+            assert sz["mu"] == [local, "torch.bfloat16"], (r, name, sz)
+            assert local * (whole // local) == whole
+            cut += local < whole
+            for key in ("nu_row", "nu_col"):
+                assert sz[key][0] == sz[key][1], (r, name, key)
+    assert cut >= 4 * len(mesh_run["ranks"][0]["factored"]) // 2
+
+
+def test_a_factored_step_gathers_no_whole_parameter(mesh_run):
+    """One factored step of gemma2-2b on the (2, 2) mesh, its all-gathers
+    counted by a dispatch mode: the forward's are one layer's weights over
+    data (half a parameter, still split over model), the update's are the
+    row and column statistics, vectors: no gather outputs a whole parameter
+    over model (the whole-leaf update's last gather of a model-split leaf
+    did)."""
+    for r, res in enumerate(mesh_run["ranks"]):
+        sh = res["shapes"]
+        full = {d for s in sh["gemma2-2b"]["full"].values() for d in s}
+        over_model = [g for g in sh["factored_gathers"] if g[2] == sh["groups"]["model"]]
+        assert over_model, r             # the column statistics of the model-split leaves
+        assert all(len(g[0]) == 1 and g[0][0] in full for g in over_model), (r, over_model)
+
+
 def _hold_to_one_device(ours, key, n):
     """Loss and grad norm at each of ``n`` steps (1e-5), and the params
     after them (1e-5 relative and absolute), against the one-device step."""
@@ -407,7 +553,7 @@ def _hold_to_one_device(ours, key, n):
 
 @pytest.mark.parametrize("opt", ["adamw", *OPTIMIZERS])
 def test_sharded_step_equals_the_one_device_step(opt, mesh_run):
-    """The elementwise update on the shards, the factored and 8-bit ones on
+    """The elementwise and factored updates on the shards, the 8-bit one on
     the gathered leaf, against the same steps on one device."""
     _hold_to_one_device(mesh_run["ours"], opt, OPTIMIZERS.get(opt, 2))
 
@@ -455,41 +601,56 @@ def test_ranks_hold_local_shards_and_gather_one_layer_over_data(mesh_run):
 
 # --- the Trainer -------------------------------------------------------------------------------
 
-def test_mesh_trainer_fault_run_equals_the_one_device_trainer(mesh_run):
+@pytest.mark.parametrize("opt", TRAINER_OPTS)
+def test_mesh_trainer_fault_run_equals_the_one_device_trainer(opt, mesh_run):
     """Every rank runs the same seeded control plane: the same detection
     and isolation as the one-device Trainer, the restore to step 2, the
     mesh rebuilt, the same losses (1e-5); rank 0 alone wrote checkpoints."""
-    one = mesh_run["one"]
+    one = mesh_run["one"][opt]
     want = [{k: d[k] for k in ("fault", "at_step", "verdicts", "isolated",
                                "detection_windows", "restored_step")} for d in one.detections]
     want = json.loads(json.dumps(want))
-    for r, res in enumerate(mesh_run["ranks"]):
+    for r, ranks_out in enumerate(mesh_run["ranks"]):
+        res = ranks_out["trainers"][opt]
         assert res["detections"] == want, r
         assert res["restarts"] == 1 and res["rebuilt_mesh"]
         np.testing.assert_allclose(res["losses"], one.losses, rtol=1e-5, err_msg=f"rank {r}")
         assert res["disk_steps"] == [0, 2, 4] and res["save_count"] == 3
     assert want[0]["restored_step"] == 2
-    files = sorted(os.listdir(os.path.join(mesh_run["out"], "mesh_ckpt")))
+    files = sorted(os.listdir(os.path.join(mesh_run["out"], f"mesh_ckpt_{opt}")))
     assert files == [f"ckpt_{s:08d}.{e}" for s in (0, 2, 4) for e in ("json", "npz")]
 
 
-def test_mesh_checkpoint_restores_into_a_one_device_trainer(mesh_run, tmp_path):
+@pytest.mark.parametrize("opt", TRAINER_OPTS)
+def test_mesh_checkpoint_restores_into_a_one_device_trainer(opt, mesh_run, tmp_path):
+    """The mesh Trainer's checkpoint holds the one-device keys and whole
+    tensors (its sharded optimizer state gathered): a one-device Trainer
+    restores it and replays the mesh run's last two steps."""
     import shutil
     from repro_torch.train.trainer import Trainer
-    run = trainer_run()
+    run = trainer_run(opt)
     work = tmp_path / "ckpt"
-    shutil.copytree(os.path.join(mesh_run["out"], "mesh_ckpt"), work)
+    shutil.copytree(os.path.join(mesh_run["out"], f"mesh_ckpt_{opt}"), work)
     tr = Trainer(run, trainer_shape(run), str(work), device="cpu", checkpoint_async=False)
+    one = Trainer(run, trainer_shape(run), mesh_run["inputs"][f"one_device_ckpt_{opt}"],
+                  device="cpu", checkpoint_async=False)
+    # the same keys, shapes and dtypes as the one-device Trainer's checkpoint
+    _, mine = tr.ckpt.restore_flat(2)
+    _, theirs = one.ckpt.restore_flat(2)
+    assert {k: (tuple(v.shape), v.dtype) for k, v in mine.items()} == {
+        k: (tuple(v.shape), v.dtype) for k, v in theirs.items()}
     assert tr.restore(step=2) == 2
     losses = tr.train(2).losses
-    mesh_losses = mesh_run["ranks"][0]["losses"]
+    mesh_losses = mesh_run["ranks"][0]["trainers"][opt]["losses"]
     # the mesh run's steps 2 and 3, replayed after its restore (its last two)
     np.testing.assert_allclose(losses, mesh_losses[-2:], rtol=1e-5)
 
 
-def test_one_device_checkpoint_restores_into_a_mesh_trainer(mesh_run):
-    one = mesh_run["one"]
-    for r, res in enumerate(mesh_run["ranks"]):
+@pytest.mark.parametrize("opt", TRAINER_OPTS)
+def test_one_device_checkpoint_restores_into_a_mesh_trainer(opt, mesh_run):
+    one = mesh_run["one"][opt]
+    for r, ranks_out in enumerate(mesh_run["ranks"]):
+        res = ranks_out["trainers"][opt]
         assert res["restored"] == 2
         np.testing.assert_allclose(res["continued"], one.losses[-2:], rtol=1e-5,
                                    err_msg=f"rank {r}")

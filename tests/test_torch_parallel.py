@@ -3,8 +3,10 @@
 One JAX child (4 forced host devices, ``_dist.JaxChild``) computes the
 reference side: int8 quantisation of every case, ``_ring_allreduce_int8_local``
 at 2, 3 and 4 devices, ``_hier_allreduce_local`` on (pod 2, data 2), plain
-and with the int8 slow axis, ``pipeline_forward`` at 2 and 4 stages, and the
-sharding specs of all ten full configs. The port runs the collectives on
+and with the int8 slow axis, ``pipeline_forward`` at 2 and 4 stages, the
+sharding specs of all ten full configs, and ``opt_state_shardings`` over
+``adamw.init_state``'s tree for ``adamw_factored`` and ``adamw_8bit`` on the
+same meshes. The port runs the collectives on
 gloo ranks spawned once a world size (``_dist.run_world``) while the child
 runs.
 
@@ -18,7 +20,9 @@ product and the sum apart, so about one element in seven differs by an ulp
 (2.4e-7 at world 2), and a later requantisation can turn an ulp into a
 step. The plain hierarchical reduction sums two values an axis, so it is
 bit-equal. The pipeline 1e-6 (fp32 matmuls in two libraries). Specs equal,
-entry for entry, with the JAX leaf's units dim dropped.
+entry for entry, with the JAX leaf's units dim dropped; the optimizer
+state's too, but for the 8-bit blocks of a stacked leaf (whole here, see the
+test).
 """
 import json
 import os
@@ -41,6 +45,13 @@ RING_WORLDS = [2, 3, 4]
 RING_SHAPE = (5, 67)           # 335 elements: padded at every world size
 STAGES = [2, 4]
 N_MICRO, MB, D = 6, 2, 8
+OPT_KINDS = ("adamw_factored", "adamw_8bit")
+# the parameters whose 8-bit blocks take their spec: the JAX package's 2-D
+# leaves that are not stacked on a units dim (the embedding, an untied head,
+# zamba2's shared attention block, applied every 6 layers); every other
+# leaf's blocks span layers or are not 2-D, and stay whole
+BLOCKS_SHARDED = {"embed.table", "head", *(f"shared_attn.attn.w{x}" for x in "qkvo"),
+                  *(f"shared_attn.mlp.{w}" for w in ("wi_gate", "wi_up", "wo"))}
 
 
 def quant_cases():
@@ -90,6 +101,9 @@ from repro.parallel.collectives import _hier_allreduce_local
 from repro.parallel.pipeline import pipeline_forward
 from repro.parallel import sharding as shd
 from repro.configs import get_config
+from repro.launch.dryrun import opt_state_shardings
+from repro.optim import adamw
+from jax.sharding import AbstractMesh, NamedSharding
 from repro.models.model import batch_shapes
 from repro.models.transformer import LM
 from repro.common.config import ShapeSpec
@@ -171,8 +185,29 @@ for arch in t.ARCHS:
         shape = leaf[key].shape
         stacked = "unit" in key.split("/")
         per[name] = {"shape": list(shape[1:] if stacked else shape), "leaf": key,
+                     "stacked": stacked,
                      "specs": {m: full(f[key], len(shape))[1 if stacked else 0:]
                                for m, f in flat.items()}}
+    # the optimizer state's placement: opt_state_shardings over init_state's
+    # abstract tree, on an abstract mesh of each table's sizes
+    opt = {}
+    for kind in t.OPT_KINDS:
+        ocfg = adamw.OptimizerConfig(kind=kind)
+        abstract_opt = jax.eval_shape(lambda p: adamw.init_state(ocfg, p), abstract)
+        for m, tab in tables.items():
+            mesh = meshes["2pod" if m in t.VARIANTS else m]
+            amesh = AbstractMesh(tuple(mesh.shape.values()), tuple(mesh.shape))
+            shard = opt_state_shardings(abstract_opt, tab, amesh)
+            rows = opt.setdefault(kind, {}).setdefault(m, {})
+            for (p, sh), (_, l) in zip(
+                    jax.tree_util.tree_flatten_with_path(
+                        shard["m"], is_leaf=lambda x: isinstance(x, NamedSharding))[0],
+                    jax.tree_util.tree_flatten_with_path(abstract_opt["m"])[0]):
+                key, leaf_key = shd._path_str(p[:-1]), p[-1].key
+                rows.setdefault(key, {})[leaf_key] = full(sh.spec, len(l.shape))
+    for name in per:
+        per[name]["opt"] = {kind: {m: rows[per[name]["leaf"]] for m, rows in tabs.items()}
+                            for kind, tabs in opt.items()}
     cache = jax.eval_shape(lambda: model.init_cache(4, 64, jnp.bfloat16))
     cache_rows = []
     for m, mesh in meshes.items():
@@ -397,6 +432,68 @@ def test_param_specs_equal_jax_without_the_units_dim(arch, world_outputs, monkey
     for m, table in tables.items():
         for name, spec in table.items():
             assert _as_lists(spec) == want[name]["specs"][m], (m, name, spec)
+
+
+@pytest.mark.parametrize("kind", OPT_KINDS)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_opt_state_specs_equal_jax_without_the_units_dim(arch, kind, world_outputs, monkeypatch):
+    """``sharding.opt_state_specs`` against the JAX package's
+    ``opt_state_shardings`` over ``adamw.init_state``'s tree, on every mesh
+    and variant of the parameter specs' test, leaf for leaf: each state
+    tensor the two share (a per-layer 1-D leaf has ``mu`` and ``nu`` here,
+    ``mu``, ``nu_row`` and ``nu_col`` in its stacked JAX leaf) with the units
+    dim dropped where the JAX leaf is stacked. The 8-bit blocks of a stacked
+    leaf span its layers in the JAX package; the port's blocks of one layer
+    are whole, and exactly ``BLOCKS_SHARDED`` take a spec."""
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    _, _, specs = world_outputs
+    want = specs[arch]["params"]
+    shapes = {n: tuple(p.shape) for n, p in _port_model(arch, monkeypatch).named_parameters()}
+    cfg = adamw.OptimizerConfig(kind=kind)
+    state = {n: {k: v[0] for k, v in adamw.state_layout(cfg, s).items()} for n, s in shapes.items()}
+    tables = {m: shd.param_specs(shapes, mesh) for m, mesh in MESHES.items()}
+    tables.update({v: shd.param_specs(shapes, MESHES["2pod"], **kw) for v, kw in VARIANTS.items()})
+    compared, sharded_blocks = 0, set()
+    for m, table in tables.items():
+        got = shd.opt_state_specs(table, state)
+        for name, leaf in got.items():
+            ref, stacked = want[name]["opt"][kind][m], want[name]["stacked"]
+            assert shd.stacked(name) == stacked, name
+            for key, spec in leaf.items():
+                assert len(spec) == len(state[name][key]), (m, name, key)
+                if key in shd.BLOCK_KEYS and stacked:
+                    assert not any(spec), (m, name, key, spec)
+                    continue
+                if key not in ref:
+                    assert key == "nu" and len(shapes[name]) == 1, (name, key)
+                    assert spec == table[name], (m, name)
+                    continue
+                r = ref[key][1:] if stacked and key not in shd.BLOCK_KEYS else ref[key]
+                assert _as_lists(spec) == r, (m, name, key, spec, ref[key])
+                compared += 1
+                if key in shd.BLOCK_KEYS and any(spec):
+                    sharded_blocks.add(name)
+    # every factored leaf's mu on every mesh; the unstacked leaves' blocks
+    unstacked = sum(not want[n]["stacked"] for n in shapes)
+    assert compared >= len(tables) * (len(shapes) if kind == "adamw_factored" else 4 * unstacked)
+    if kind == "adamw_8bit":
+        assert sharded_blocks == BLOCKS_SHARDED & set(shapes), sharded_blocks
+    else:
+        mu = shd.opt_state_specs(tables["1pod"], state)
+        assert all(mu[n]["mu"] == tables["1pod"][n] for n in shapes)
+        assert all(not any(mu[n][k]) for n in shapes for k in ("nu_row", "nu_col") if k in mu[n])
+
+
+def test_fit_spec_holds_a_dim_whole_that_its_axes_do_not_divide():
+    from repro_torch.parallel import sharding as shd
+    mesh = {"pod": 2, "data": 16, "model": 16}
+    # an 8-bit scale (n, 1) of a leaf specced (model, (pod, data)): dim 1 whole
+    assert shd.fit_spec(("model", ("pod", "data")), (3584, 1), mesh) == ("model", None)
+    assert shd.fit_spec(("model", ("pod", "data")), (3584, 256), mesh) == (
+        "model", ("pod", "data"))
+    assert shd.fit_spec((("pod", "data"), None), (48, 7), mesh) == ("pod", None)
+    assert shd.local_shape((3584, 256), ("model", ("pod", "data")), mesh) == (224, 8)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
