@@ -36,7 +36,19 @@ Phases, each fatal on failure:
     partial box, or the last 128 keys, dropped); RMSNorm at each one's
     d_model, stablelm-12b's qk-norm rows (2 x 4352 x 32 of 160),
     deepseek-v2-236b's MLA norms (2 x 4352 of 512 and of 1536) and
-    xlstm-125m's (768 and, the mLSTM's, 1536). Every timed attention row must
+    xlstm-125m's (768 and, the mLSTM's, 1536). The decode kernel's shard
+    mode (``k0``, ``return_lse``; ``SHARD_CASES``): gemma2-2b's,
+    stablelm-12b's (32 heads on 8, 160) and yi-34b's (56 on 8, 128) decode
+    caches and a float32 one on the split-K path cut into 8 shards of 548
+    keys, each launched at its global offset; the float32 partials merged on
+    the card by ``ref.merge_shards`` and held within ``ROW_REL_TOL[float32]``
+    of the plain shards merged, and, rounded once to the inputs' dtype,
+    within that dtype's ``ROW_REL_TOL`` of the plain version and of the
+    whole-cache launch; each shard's lse within ``LSE_TOL`` of its plain
+    version's, the wholly masked shards (past pos, or before the window) out
+    0 and lse NEG_INF, a planted fault (the shard holding pos launched one
+    64-key tile late) above the limit; each shard launch's event ms and the
+    8 launches' device ms beside the card. Every timed attention row must
     launch the kernels the wrapper's dispatch rule names for its shape
     (``wgmma_path``, ``tma_path``), as many a call as it has group passes,
     and no other: at stablelm-12b's shapes ``flash_wgmma_kernel`` and one
@@ -206,7 +218,11 @@ Phases, each fatal on failure:
     only above a learning rate's difference); the one-device step run twice
     (does it repeat itself bit for bit; the second is timed warm) and the
     sharded step twice (the first starts the NCCL communicators); the
-    sharded step's RMSNorm launches counted; the process group destroyed.
+    sharded step's RMSNorm launches counted. Then gemma2-2b served at full
+    width on that mesh with its weights and caches on the rank's shards
+    (``serve(..., sharded=True)``) and on one device from the same seed:
+    tokens and prefill logits ``torch.equal``, every kernel launched; the
+    process group destroyed.
  13. tp: one rank (rank 0) of a (data 1, model 8) mesh under torch's fake
     process group (``fake``, in which a collective moves nothing) on the
     card: stablelm-12b at its full 40 layers and full widths (32 heads on 8,
@@ -226,6 +242,13 @@ Phases, each fatal on failure:
     loss: the fake group sums nothing, so each rank's attention and FFN
     outputs stand for the sum of 8, and the token ids are drawn within the
     rank's vocab shard (a token outside it would embed as zeros on this rank).
+    Then one rank of yi-34b's sharded serve on the same (1, 8) mesh at its 60
+    layers and published widths (``tp_serve_phase``): batch 2, the
+    4352-token prompt, 32 decode steps, the cache 4384 = 8 x 548 long with
+    its sequence over model (the decode kernel's shard mode a layer and
+    step), ``max_memory_allocated`` from the end of the weights' draw against
+    the dry run's peak of the rank's prefill cell within ``TP_PEAK_TOL``,
+    finite logits, tokens in range, exact flash and decode launches.
  12. dryrun: ``repro_torch.launch.dryrun`` traces the two gemma2-2b cells of
     3 and 4 (the prefill at 2 x 4352; the train step at seq 4096, batch 2, 2
     microbatches, remat full, adamw) on the meta device for one device and
@@ -282,7 +305,7 @@ PROFILE_ATTEMPTS = 8                         # profiled windows before "not meas
 # the __global__ functions each wrapper may launch (parts of their names)
 FLASH_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel")
 DECODE_KERNELS = ("decode_tma_kernel", "decode_partial_kernel", "decode_combine_kernel",
-                  "decode_merge_kernel")
+                  "decode_merge_kernel", "decode_empty_kernel")
 RMSNORM_KERNELS = ("rmsnorm_block_kernel",)
 
 # gemma2-2b serving shapes of this smoke run
@@ -668,6 +691,119 @@ def decode_phase(iters: int):
         qq, kk, vv = sets[2]
         errs.append(compare(name + " again, cache set 2", decode_attention_fwd(qq, kk, vv, pos, **kw),
                             ref.decode_attention(qq, kk, vv, pos, **kw)))
+    return tuple(max(e[i] for e in errs) for i in range(2)), rows
+
+
+# the decode kernel's shard mode: the cache cut into SHARDS shards over its
+# sequence, as a rank of a (1, 8) mesh holds it in sharded serving, at
+# gemma2-2b's decode shape (window, cap; the TMA kernel's 2-head instance),
+# stablelm-12b's (32 heads on 8, 160: the 4-head instance) and yi-34b's (56
+# heads on 8, 128: the 8-head instance), and on the split-K + combine path
+# (float32 at gemma2-2b's heads, its window cut to 1024 so that the first
+# shards lie wholly before it); (label, (b, cache, h, hkv, d), window, cap,
+# dtype, positions): at the positions below CACHE - 1 the last shards lie
+# wholly past pos
+SHARDS = 8
+SHARD_CASES = [
+    ("gemma2-2b", (B, CACHE, H, HKV, D), WINDOW, CAP, "bfloat16", (CACHE - 1, 3000)),
+    ("stablelm-12b", (B, CACHE, 32, 8, 160), 0, 0.0, "bfloat16", (3000,)),
+    ("yi-34b", (B, CACHE, 56, 8, 128), 0, 0.0, "bfloat16", (CACHE - 1, 2000)),
+    ("split-K float32", (B, CACHE, H, HKV, D), 1024, CAP, "float32", (CACHE - 1,)),
+]
+LSE_TOL = 1e-3            # |lse - the plain lse| of a shard, fp32 sums of the inputs
+
+
+def shard_decode_phase(iters: int, card: str):
+    """The decode kernel's shard mode (``k0``, ``return_lse``): each of
+    ``SHARD_CASES``' caches cut into ``SHARDS`` contiguous shards, each
+    launched at its global offset. The partials are float32 and merged on
+    the card (``ref.merge_shards``, float32) and held per row within
+    ``ROW_REL_TOL[float32]`` of the plain shards merged; rounded once to the
+    inputs' dtype, within ``ROW_REL_TOL`` of that dtype of the plain whole-
+    cache version and of the whole-cache launch; every shard's lse within
+    ``LSE_TOL`` of its plain version's; a wholly masked shard zero with lse
+    NEG_INF; a planted fault (the shard holding pos launched one 64-key tile
+    late) above the limit. Each shard launch's event ms, the 8 launches'
+    device ms beside the card. Returns ((max_abs_err, max_row_rel_err),
+    {case: row})."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    errs, rows = [], {}
+    for label, (b, s, h, hkv, d), w, cap, dtype, positions in SHARD_CASES:
+        dt = getattr(torch, dtype)
+        q = randn((b, 1, h, d), dt, gen)
+        k, v = randn((b, s, hkv, d), dt, gen), randn((b, s, hkv, d), dt, gen)
+        cuts = [i * s // SHARDS for i in range(SHARDS + 1)]
+        shards = [(a, k[:, a:c].contiguous(), v[:, a:c].contiguous())
+                  for a, c in zip(cuts, cuts[1:])]
+        kw = dict(window=w, logit_cap=cap, scale=d ** -0.5)
+        for pos in positions:
+            lo = max(0, pos - w + 1) if w else 0
+            name = (f"decode shard mode {label} (b,cache,h,hkv,d)={(b, s, h, hkv, d)} {dtype} "
+                    f"{SHARDS} shards of {s // SHARDS} pos={pos} window={w} cap={cap:g}")
+
+            def launch_all():
+                return [decode_attention_fwd(q, kk, vv, pos, k0=k0, return_lse=True, **kw)
+                        for k0, kk, vv in shards]
+
+            parts = launch_all()
+            plain_parts = [ref.decode_attention_shard(q, kk, vv, pos, k0=k0, **kw)
+                           for k0, kk, vv in shards]
+            if any(o.dtype != torch.float32 for o, _ in parts):
+                fail(f"{name}: a shard's output is not float32")
+            empty = [i for i, (k0, kk, _) in enumerate(shards)
+                     if k0 > pos or k0 + kk.shape[1] <= lo]
+            for i in empty:
+                o, l = parts[i]
+                if o.any() or not bool((l == ref.NEG_INF).all()):
+                    fail(f"{name}: the wholly masked shard {i} is not out 0, lse NEG_INF")
+            lse_err = max((l - pl).abs().max().item() for (_, l), (_, pl) in
+                          zip(parts, plain_parts) if bool((pl > ref.NEG_INF).all()))
+            hold = max(i for i, (k0, _, _) in enumerate(shards) if k0 <= pos)
+            late = [ref.decode_attention_shard(q, kk, vv, pos, k0=k0 + (64 if i == hold else 0),
+                                               **kw) for i, (k0, kk, vv) in enumerate(shards)]
+            merged = ref.merge_shards(*zip(*parts))
+            errs.append(compare(name, merged, ref.merge_shards(*zip(*plain_parts)), [
+                (f"the shard holding pos ({hold}) launched one 64-key tile late",
+                 ref.merge_shards(*zip(*late)))]))
+            once = merged.to(dt)
+            whole = decode_attention_fwd(q, k, v, pos, **kw)
+            vs_plain = ref.max_row_rel_err(once, ref.decode_attention(q, k, v, pos, **kw))
+            vs_whole = ref.max_row_rel_err(once, whole)
+            print(f"    rounded once to {dtype}: max_row_rel_err {vs_plain:.3e} against the plain "
+                  f"whole-cache version, {vs_whole:.3e} against the whole-cache launch (limit "
+                  f"{ref.ROW_REL_TOL[dt]:g}); wholly masked shards {empty}; max |lse - plain lse| "
+                  f"{lse_err:.3e} (limit {LSE_TOL:g})", flush=True)
+            if max(vs_plain, vs_whole) > ref.ROW_REL_TOL[dt] or lse_err > LSE_TOL:
+                fail(f"{name}: the merged shards miss the whole-cache version or launch, or the "
+                     "lse its plain version")
+            each = [time_ms(lambda kk=kk, vv=vv, k0=k0: decode_attention_fwd(
+                q, kk, vv, pos, k0=k0, return_lse=True, **kw), iters) for k0, kk, vv in shards]
+            dev = device_ms(launch_all, iters, DECODE_KERNELS)
+            whole_ms = time_ms(lambda: decode_attention_fwd(q, k, v, pos, **kw), iters)
+            plain_ms = time_ms(lambda: ref.merge_shards(*zip(*[ref.decode_attention_shard(
+                q, kk, vv, pos, k0=k0, **kw) for k0, kk, vv in shards])), 2)
+            n_keys = max(0, pos - lo + 1)
+            flops = 4.0 * b * h * n_keys * d
+            es = q.element_size()
+            # the valid keys and each live shard's q read; every shard's
+            # float32 out and lse written
+            nbytes = (2.0 * b * n_keys * hkv * d + (SHARDS - len(empty)) * q.numel()) * es \
+                + 4.0 * SHARDS * (q.numel() + b * h)
+            b_ms, b_by = bound(flops, nbytes, dtype)
+            print(f"  time {name}: each shard's launch ms (events) {[round(x, 5) for x in each]}; "
+                  f"the {SHARDS} launches {sum(each):.5f} ms by events, device_ms={_ms(dev)}; "
+                  f"whole-cache launch {whole_ms:.5f} ms; plain shards and merge {plain_ms:.5f} ms; "
+                  f"bound_ms={b_ms:.5f} ({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B; the L2 holds "
+                  f"the {SHARDS} shards between launches: warm); {card}", flush=True)
+            rows[f"{label} pos={pos}"] = {"ms": sum(each), "shard_ms": each, "device_ms": dev,
+                                          "whole_cache_ms": whole_ms, "plain_ms": plain_ms,
+                                          "bound_ms": b_ms, "bound_by": b_by,
+                                          "max_row_rel_err_vs_whole": vs_whole,
+                                          "wholly_masked_shards": empty}
     return tuple(max(e[i] for e in errs) for i in range(2)), rows
 
 
@@ -2433,9 +2569,42 @@ def mesh_phase() -> dict:
         same_step("adamw_factored", f_after, f_plain_after, f_loss, f_plain_loss)
         if counts["rmsnorm"] == 0 or not (math.isfinite(loss) and math.isfinite(warm_loss)):
             fail(f"mesh: launches {counts}, losses {loss}, {warm_loss}")
-        return counts
+        del model, params, w0
+        return dict(counts, serve=mesh_serve_check(mesh))
     finally:
         dist.destroy_process_group()
+
+
+def mesh_serve_check(mesh) -> dict:
+    """gemma2-2b at full width served on the world-1 mesh with its weights
+    and caches on the rank's shards (``serve(..., sharded=True)``: the
+    sharded prefill and decode of ``models/attention.py``) and on one
+    device, from the same seed: tokens and prefill logits ``torch.equal``.
+    Returns the sharded serve's launch counts (reset just before it)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = get_config("gemma2-2b")
+    kw = dict(batch=B, prompt_len=PROMPT, decode_steps=STEPS, device="cuda", seed=0)
+    ops.reset_launch_counts()
+    sharded = serve(run, mesh=mesh, sharded=True, **kw)
+    counts = ops.launch_counts()
+    one = serve(run, **kw)
+    same_tokens = bool((sharded["tokens"] == one["tokens"]).all())
+    same_logits = torch.equal(sharded["prefill_logits"], one["prefill_logits"])
+    print(f"  mesh serve (sharded=True, world 1): prefill_s {sharded['prefill_s']:.4f}, "
+          f"decode_tok_per_s {sharded['decode_tok_per_s']:.2f} (one device "
+          f"{one['prefill_s']:.4f}, {one['decode_tok_per_s']:.2f}); tokens equal: {same_tokens}; "
+          f"prefill logits torch.equal: {same_logits}; launches {counts}", flush=True)
+    if not (same_tokens and same_logits) or not all(counts.values()):
+        fail("mesh: the sharded serve differs from the one-device serve, or a kernel did not "
+             "launch")
+    return counts
 
 
 TP_ARCH = "stablelm-12b"
@@ -2554,6 +2723,102 @@ def tp_phase(card: str) -> dict:
     return dict(launches[-1], peak_bytes=peak, predicted_peak_bytes=predicted,
                 step_s=seconds)
 
+
+
+TP_SERVE_ARCH = "yi-34b"
+
+
+def tp_serve_phase(card: str) -> dict:
+    """One rank (rank 0) of yi-34b's sharded serve on a (data 1, model 8)
+    mesh under the fake group, at its 60 layers and published widths:
+    ``serve(..., sharded=True)`` with batch B, the PROMPT-token prompt and
+    STEPS decode steps (the cache CACHE = 8 x 548 long, its sequence over
+    model: the rank holds positions 0..547 of every layer's cache and
+    launches the decode kernel's shard mode over them), its 7 q heads and 1
+    kv head a layer through the flash kernel. ``max_memory_allocated`` from
+    the end of the weights' draw (the draw makes a block whole before it
+    cuts it) against the dry run's peak of the rank's prefill cell (the
+    prompt's length, the same placement), within ``TP_PEAK_TOL``; finite
+    logits, tokens in range, each kernel launched (the counts reset just
+    before the serve). The outputs are not a model's: the fake group sums
+    nothing. Returns the launch counts."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import serve as serve_mod
+
+    run = get_config(TP_SERVE_ARCH)
+    shape = ShapeSpec("prefill_tp_card", PROMPT, B, "prefill")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        rec = dr.run_cell(TP_SERVE_ARCH, shape.name, False, False, out,
+                          mesh=("data1_model8", TP_MESH), run=run, shape=shape)
+    if rec["status"] != "ok":
+        fail(f"tp serve: the dry run of the rank failed: {rec.get('error')}")
+    mem = rec["memory"]
+    print(f"  dry run of the rank's prefill ({time.perf_counter() - t0:.1f} s): predicted peak "
+          f"{mem['peak_bytes'] / 2**30:.3f} GiB (stored {mem['argument_bytes'] / 2**30:.3f}: "
+          f"cache {mem['cache_bytes'] / 2**30:.3f}; gathered {mem['gathered_bytes'] / 2**30:.3f}, "
+          f"temporaries {mem['temp_bytes'] / 2**30:.3f}); "
+          f"{rec['cost_analysis']['flops_per_device']:.4e} FLOPs, collectives "
+          f"{rec['collectives']['counts']}", flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    draw = serve_mod.tensor.build_sharded
+
+    def drawn(*args, **kw):        # the peak of serving, from the end of the draw
+        tp = draw(*args, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return tp
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=math.prod(TP_MESH.values()))
+    serve_mod.tensor.build_sharded = drawn
+    try:
+        mesh = init_device_mesh("cuda", tuple(TP_MESH.values()), mesh_dim_names=tuple(TP_MESH))
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = serve_mod.serve(run, batch=B, prompt_len=PROMPT, decode_steps=STEPS, device="cuda",
+                              mesh=mesh, sharded=True)
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        serve_mod.tensor.build_sharded = draw
+        dist.destroy_process_group()
+    predicted = mem["peak_bytes"]
+    miss = peak / predicted - 1
+    logits, toks = res["prefill_logits"], res["tokens"]
+    n_layers = run.model.n_layers
+    want = {"flash_attention": n_layers, "decode_attention": n_layers * STEPS}
+    timed = res["kernel_launches"]
+    print(f"  tp serve: rank 0 of {TP_MESH} {TP_SERVE_ARCH} ({n_layers} layers, "
+          f"{run.model.n_heads} heads on {run.model.n_kv_heads} on {TP_MESH['model']}), batch {B}, "
+          f"prompt {PROMPT}, {STEPS} steps, cache {CACHE} ({CACHE // TP_MESH['model']} a rank): "
+          f"{res['weight_bytes'] / 2**30:.3f} GiB of weights held; serve {seconds:.2f} s with the "
+          f"draw; prefill_s {res['prefill_s']:.4f}, decode_tok_per_s "
+          f"{res['decode_tok_per_s']:.2f}; max_memory_allocated {peak / 2**30:.3f} GiB against "
+          f"the dry run's {predicted / 2**30:.3f} GiB ({miss:+.2%}, "
+          f"{'within' if abs(miss) <= TP_PEAK_TOL else 'outside'} {TP_PEAK_TOL:.0%}); "
+          f"launches timed {timed}, in all {counts}; {card}", flush=True)
+    if not torch.isfinite(logits).all() or toks.min() < 0 or toks.max() >= run.model.vocab_size:
+        fail("tp serve: prefill logits not finite or tokens out of range")
+    if not all(counts.values()) or any(timed[k] != v for k, v in want.items()):
+        fail(f"tp serve: launches {timed} timed, {counts} in all; expected {want} timed")
+    if abs(miss) > TP_PEAK_TOL:
+        fail(f"tp serve: max_memory_allocated {peak / 2**30:.3f} GiB misses the dry run's "
+             f"{predicted / 2**30:.3f} GiB by {miss:+.2%}")
+    return dict(counts, peak_bytes=peak, predicted_peak_bytes=predicted,
+                prefill_s=res["prefill_s"], decode_tok_per_s=res["decode_tok_per_s"])
 
 
 def fault_check(trainer, report, per_ingest, spent, det_counts, ckpt_bytes) -> None:
@@ -4345,6 +4610,7 @@ def main(argv=None) -> int:
     print("[kernels]", flush=True)
     flash_err, flash_rows = flash_phase(ITERS)
     decode_err, decode_rows = decode_phase(ITERS)
+    shard_err, shard_rows = shard_decode_phase(ITERS, card)
     wide_attention_phase()
     norm_err, norm_rows, norm_extra = rmsnorm_phase(ITERS)
     model_err, model_rows = model_kernel_phase(ITERS)
@@ -4401,6 +4667,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     print("[tp]", flush=True)
     tp_counts = tp_phase(card)
+    tp_serve_counts = tp_serve_phase(card)
     print(f"[tp] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -4418,7 +4685,7 @@ def main(argv=None) -> int:
                              for arch in MODEL_ARCHS} for name in counts}
     print(f"launches on the main paths: serve {serve_counts}, train {train_counts}, "
           f"train fault {train_fault_counts}, train int8 {int8_counts}, mesh {mesh_counts}, "
-          f"tp {tp_counts}, "
+          f"tp {tp_counts}, tp serve {tp_serve_counts}, "
           f"live {live_counts}, campaigns {campaign_counts}, models {model_launches}",
           flush=True)
 
@@ -4467,16 +4734,25 @@ def main(argv=None) -> int:
         return entry
 
     print(card, flush=True)
+    # the sharded serves' launches: [mesh]'s world-1 gemma2-2b, [tp]'s yi-34b rank
+    def sharded(name):
+        return {"mesh_serve": mesh_counts["serve"][name], "tp_serve": tp_serve_counts[name]}
+
     print(json.dumps({"kernels": [
-        entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:88", flash_err, flash_rows),
-        entry("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
-              "src/repro/kernels/decode_attention.py:70", decode_err, decode_rows),
+        dict(entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:88", flash_err, flash_rows),
+             **sharded("flash_attention")),
+        # the shard mode at its shapes (8 shards, merged), its launches in
+        # [tp]'s sharded serve (world 1 runs the whole-cache call)
+        dict(entry("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention.py:70",
+                   tuple(max(a, b) for a, b in zip(decode_err, shard_err)), decode_rows),
+             shard_mode=shard_rows, **sharded("decode_attention")),
         dict(entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                    "src/repro/kernels/rmsnorm.py:27", norm_err, norm_rows[:1]),
              prefill=times(norm_rows[1]), decode=dict(times(norm_rows[2]), **norm_extra),
              live=live_counts["rmsnorm"], train_int8=int8_counts["rmsnorm"],
-             mesh=mesh_counts["rmsnorm"], tp=tp_counts["rmsnorm"]),
+             mesh=mesh_counts["rmsnorm"], tp=tp_counts["rmsnorm"], **sharded("rmsnorm")),
         *(detect_entry(name, src, rep, det_counts[name], det_err[name], det_rows[name])
           for name, src, rep in DETECT_KERNELS),
         # the balancer's last call of the C4P main path; launches there, in the

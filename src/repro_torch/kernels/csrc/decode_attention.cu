@@ -88,6 +88,19 @@
 //
 // Masked scores take the finite NEG_INF of the TPU kernel, not -inf, so that
 // exp(NEG_INF - NEG_INF) = 1 and a later exp(NEG_INF - m) = 0 stay finite.
+//
+// Shard mode (decode_attention_shard_fwd): the cache holds the S keys at
+// global positions k0 .. k0 + S - 1 of a longer cache cut over ranks, and the
+// masks are those of the global positions: key j is valid where
+// lo <= k0 + j <= pos. Both paths then run over the shard's valid range in
+// local positions, [max(lo - k0, 0), min(pos - k0, S - 1)], so the split plan
+// counts only the shard's valid tiles; with lse given, each query head's
+// log-sum-exp of its valid (scaled, capped) scores and its output are written
+// in float32, so that the shards' outputs are merged
+// (kernels/ref.py::merge_shards) before they are rounded to the cache's
+// dtype, once. A shard with no valid key (all past pos, or all before lo)
+// launches decode_empty_kernel: O = 0 and lse = NEG_INF. k0 = 0 without lse
+// is the whole-cache call, decode_attention_fwd.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -130,6 +143,8 @@ __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
   return x;
 }
+
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -274,7 +289,8 @@ template <typename T>
 __global__ void decode_combine_kernel(const float* __restrict__ part_m,
                                       const float* __restrict__ part_l,
                                       const float* __restrict__ part_acc,
-                                      T* __restrict__ o, int D, int nsplit) {
+                                      T* __restrict__ o, float* __restrict__ lse, int D,
+                                      int nsplit) {
   const long long row = blockIdx.x;            // b * H + h
   const float* pm = part_m + row * nsplit;
   const float* pl = part_l + row * nsplit;
@@ -282,6 +298,7 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_m,
   for (int i = 0; i < nsplit; ++i) mx = fmaxf(mx, pm[i]);
   float lsum = 0.f;
   for (int i = 0; i < nsplit; ++i) lsum += pl[i] * expf(pm[i] - mx);
+  if (lse != nullptr && threadIdx.x == 0) lse[row] = mx + logf(lsum);
   const float inv = 1.f / fmaxf(lsum, 1e-30f);
   for (int d = threadIdx.x; d < D; d += blockDim.x) {
     float a = 0.f;
@@ -290,6 +307,15 @@ __global__ void decode_combine_kernel(const float* __restrict__ part_m,
   }
 }
 
+// a shard with no valid key: O = 0 and lse = NEG_INF (float32, shard mode)
+__global__ void decode_empty_kernel(float* __restrict__ o, float* __restrict__ lse, long long n,
+                                    int rows) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    o[i] = 0.f;
+    if (i < rows) lse[i] = NEG_INF;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // bf16, head_dim 64/112/128/160/256: TMA ring, split sized to the card, fused combine
@@ -350,6 +376,19 @@ __host__ __device__ constexpr int merge_smem_bytes(int nsplit, int group, int D)
   return merge_red_offset(nsplit * group) + (group * D / 4 > CTHREADS ? 0 : 16 * CTHREADS);
 }
 
+// four output columns from their sums a and 1 / (sum of weights): bf16, or
+// float32 in shard mode (lse given)
+__device__ __forceinline__ void store4(void* o, long long at, float4 a, float inv, bool f32) {
+  if (f32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(o) + at) =
+        make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+  } else {
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(o) + at);
+    dst[0] = __floats2bfloat162_rn(a.x * inv, a.y * inv);
+    dst[1] = __floats2bfloat162_rn(a.z * inv, a.w * inv);
+  }
+}
+
 // Merge the partials of every split of (batch, kv head) bkv in split order,
 // by the 256 threads of a block. The splits' (max, sum) pairs go to shared
 // memory in one round of loads; a warp a head then takes the largest max,
@@ -361,9 +400,9 @@ __host__ __device__ constexpr int merge_smem_bytes(int nsplit, int group, int D)
 // other CTAs wrote them in this launch.
 template <int D>
 __device__ void merge_splits(const float* __restrict__ part_acc,
-                             const float* __restrict__ part_ml, bf16* __restrict__ o,
-                             uint8_t* smem, int bkv, int nsplit, int group, int H, int Hkv,
-                             int tid) {
+                             const float* __restrict__ part_ml, void* __restrict__ o,
+                             float* __restrict__ lse, uint8_t* smem, int bkv, int nsplit,
+                             int group, int H, int Hkv, int tid) {
   const int n = nsplit * group;                     // partial rows: split-major
   float2* sml = reinterpret_cast<float2*>(smem);    // (max, sum), then (factor, sum)
   float* sl = reinterpret_cast<float*>(smem + 8 * n);
@@ -384,12 +423,14 @@ __device__ void merge_splits(const float* __restrict__ part_acc,
     }
     l = warp_sum(l);
     if (lane == 0) sl[warp] = l;
+    if (lse != nullptr && lane == 0)   // natural log: the scores are in log2 units
+      lse[(long long)(bkv / Hkv) * H + (bkv % Hkv) * group + warp] = (mx + log2f(l)) * LN2;
   }
   consumer_sync();
   const int cols = group * D / 4;                   // float4 columns of the output rows
   const int parts = cols >= CTHREADS ? 1 : CTHREADS / cols;
   const float4* pa = reinterpret_cast<const float4*>(part_acc + (long long)bkv * n * D);
-  bf16* ob = o + ((long long)(bkv / Hkv) * H + (bkv % Hkv) * group) * D;
+  const long long ob = ((long long)(bkv / Hkv) * H + (bkv % Hkv) * group) * D;
   const int part = tid / cols;
   for (int col = tid % cols; part < parts && col < cols; col += CTHREADS) {
     const int g = col * 4 / D;
@@ -401,14 +442,10 @@ __device__ void merge_splits(const float* __restrict__ part_acc,
       const float f = sml[s * group + g].x;
       a.x += x.x * f; a.y += x.y * f; a.z += x.z * f; a.w += x.w * f;
     }
-    if (parts == 1) {
-      const float inv = 1.f / sl[g];
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(ob + col * 4);
-      dst[0] = __floats2bfloat162_rn(a.x * inv, a.y * inv);
-      dst[1] = __floats2bfloat162_rn(a.z * inv, a.w * inv);
-    } else {
+    if (parts == 1)
+      store4(o, ob + col * 4, a, 1.f / sl[g], lse != nullptr);
+    else
       red[part * cols + col] = a;
-    }
   }
   if (parts == 1) return;
   consumer_sync();
@@ -418,10 +455,7 @@ __device__ void merge_splits(const float* __restrict__ part_acc,
       const float4 x = red[p * cols + col];
       a.x += x.x; a.y += x.y; a.z += x.z; a.w += x.w;
     }
-    const float inv = 1.f / sl[col * 4 / D];
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(ob + col * 4);
-    dst[0] = __floats2bfloat162_rn(a.x * inv, a.y * inv);
-    dst[1] = __floats2bfloat162_rn(a.z * inv, a.w * inv);
+    store4(o, ob + col * 4, a, 1.f / sl[col * 4 / D], lse != nullptr);
   }
 }
 
@@ -431,8 +465,9 @@ template <int D, int G>
 __global__ void __launch_bounds__(TMA_THREADS, G <= 4 ? 2 : 1)
 decode_tma_kernel(const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap, const bf16* __restrict__ q,
-                  bf16* __restrict__ o, float* __restrict__ part_acc,
-                  float* __restrict__ part_ml, int* __restrict__ counters, int H, int Hkv,
+                  void* __restrict__ o, float* __restrict__ part_acc,
+                  float* __restrict__ part_ml, int* __restrict__ counters,
+                  float* __restrict__ lse, int H, int Hkv,
                   int pos, int lo, int t_begin, int n_tiles, int nsplit, float pre,
                   float post, int capped) {
   using L = DSmem<D, G>;
@@ -683,12 +718,19 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap kmap,
     float a = 0.f;
 #pragma unroll
     for (int w = 0; w < CWARPS; ++w) a += macc[(w * G + g) * D + d] * wm[w * G + g];
-    if (nsplit == 1)
-      o[((long long)b * H + kvh * group) * D + idx] = __float2bfloat16(a / cl[g]);
+    const long long at = ((long long)b * H + kvh * group) * D + idx;
+    if (nsplit == 1 && lse != nullptr)
+      static_cast<float*>(o)[at] = a / cl[g];
+    else if (nsplit == 1)
+      static_cast<bf16*>(o)[at] = __float2bfloat16(a / cl[g]);
     else
       part_acc[row0 * D + idx] = a;
   }
-  if (nsplit == 1) return;
+  if (nsplit == 1) {
+    if (lse != nullptr && tid < group)
+      lse[(long long)b * H + kvh * group + tid] = (cm[tid] + log2f(cl[tid])) * LN2;
+    return;
+  }
   if (tid < group) {
     part_ml[(row0 + tid) * 2] = cm[tid];
     part_ml[(row0 + tid) * 2 + 1] = cl[tid];
@@ -700,7 +742,7 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap kmap,
   consumer_sync();
   if (!*flag) return;
   __threadfence();
-  merge_splits<D>(part_acc, part_ml, o, sm, bkv, nsplit, group, H, Hkv, tid);   // over the ring
+  merge_splits<D>(part_acc, part_ml, o, lse, sm, bkv, nsplit, group, H, Hkv, tid);   // over the ring
   if (tid == 0) counters[bkv] = 0;                          // ready for the next launch
 }
 
@@ -708,16 +750,16 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap kmap,
 template <int D>
 __global__ void __launch_bounds__(CTHREADS)
 decode_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                    bf16* __restrict__ o, int nsplit, int H, int Hkv) {
+                    void* __restrict__ o, float* __restrict__ lse, int nsplit, int H, int Hkv) {
   extern __shared__ uint8_t msm[];
-  merge_splits<D>(part_acc, part_ml, o, msm, blockIdx.x, nsplit, H / Hkv, H, Hkv, threadIdx.x);
+  merge_splits<D>(part_acc, part_ml, o, lse, msm, blockIdx.x, nsplit, H / Hkv, H, Hkv,
+                  threadIdx.x);
 }
 
 template <typename T, int NV>
-cudaError_t launch(const void* q, const void* kc, const void* vc, void* o, float* pm,
-                   float* pl, float* pa, int B, int S, int H, int Hkv, int D, int pos,
-                   int window, float scale, float cap, cudaStream_t stream) {
-  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
+cudaError_t launch(const void* q, const void* kc, const void* vc, void* o, float* lse, float* pm,
+                   float* pl, float* pa, int B, int S, int H, int Hkv, int D, int lo, int pos,
+                   float scale, float cap, cudaStream_t stream) {
   const int split0 = lo / CHUNK;
   const int nsplit = pos / CHUNK - split0 + 1;
   const unsigned passes = (unsigned)((D + MAXD - 1) / MAXD);
@@ -726,8 +768,12 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* o, float
       pa, S, H, Hkv, D, pos, lo, split0, nsplit, scale, cap);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<B * H, 128, 0, stream>>>(pm, pl, pa, static_cast<T*>(o), D,
-                                                      nsplit);
+  if (lse != nullptr)   // shard mode: the output in float32
+    decode_combine_kernel<float><<<B * H, 128, 0, stream>>>(pm, pl, pa, static_cast<float*>(o),
+                                                            lse, D, nsplit);
+  else
+    decode_combine_kernel<T><<<B * H, 128, 0, stream>>>(pm, pl, pa, static_cast<T*>(o), nullptr,
+                                                        D, nsplit);
   return cudaGetLastError();
 }
 
@@ -755,10 +801,9 @@ bool tma_path(int dtype, int D, int group) {
 
 template <int D, int G>
 cudaError_t launch_tma(const void* q, const void* kc, const void* vc, void* o, float* scratch,
-                       int* counters, int B, int S, int H, int Hkv, int pos, int window,
+                       int* counters, float* lse, int B, int S, int H, int Hkv, int lo, int pos,
                        float scale, float cap, cudaStream_t stream) {
   using L = DSmem<D, G>;
-  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
   const int t_begin = lo / TK, n_tiles = pos / TK - t_begin + 1;
   const int n_sm = sm_count();
   if (n_sm <= 0) return cudaErrorNoDevice;
@@ -781,13 +826,13 @@ cudaError_t launch_tma(const void* q, const void* kc, const void* vc, void* o, f
   const bool capped = cap > 0.f;
   const float LOG2E = 1.4426950408889634f;
   kern<<<dim3(nsplit, B * Hkv), TMA_THREADS, L::BYTES, stream>>>(
-      km, vm, static_cast<const bf16*>(q), static_cast<bf16*>(o), part_acc, part_ml, counters, H,
-      Hkv, pos, lo, t_begin, n_tiles, nsplit, capped ? scale / cap : scale * LOG2E,
+      km, vm, static_cast<const bf16*>(q), o, part_acc, part_ml, counters, lse,
+      H, Hkv, pos, lo, t_begin, n_tiles, nsplit, capped ? scale / cap : scale * LOG2E,
       capped ? cap * LOG2E : 1.f, capped ? 1 : 0);
   err = cudaGetLastError();
   if (err != cudaSuccess || FUSED_COMBINE || nsplit == 1) return err;
   decode_merge_kernel<D><<<B * Hkv, CTHREADS, merge_bytes, stream>>>(
-      part_acc, part_ml, static_cast<bf16*>(o), nsplit, H, Hkv);
+      part_acc, part_ml, o, lse, nsplit, H, Hkv);
   return cudaGetLastError();
 }
 
@@ -796,16 +841,16 @@ cudaError_t launch_tma(const void* q, const void* kc, const void* vc, void* o, f
 // CTAs an SM, not the 8-head one, which holds an SM alone
 template <int D>
 cudaError_t launch_tma_g(const void* q, const void* kc, const void* vc, void* o, float* scratch,
-                         int* counters, int B, int S, int H, int Hkv, int pos, int window,
-                         float scale, float cap, cudaStream_t stream) {
+                         int* counters, float* lse, int B, int S, int H, int Hkv, int lo,
+                         int pos, float scale, float cap, cudaStream_t stream) {
   const int group = H / Hkv;
   if (group <= 2)
-    return launch_tma<D, 2>(q, kc, vc, o, scratch, counters, B, S, H, Hkv, pos, window, scale,
+    return launch_tma<D, 2>(q, kc, vc, o, scratch, counters, lse, B, S, H, Hkv, lo, pos, scale,
                             cap, stream);
   if (group <= 4)
-    return launch_tma<D, 4>(q, kc, vc, o, scratch, counters, B, S, H, Hkv, pos, window, scale,
+    return launch_tma<D, 4>(q, kc, vc, o, scratch, counters, lse, B, S, H, Hkv, lo, pos, scale,
                             cap, stream);
-  return launch_tma<D, MAXG>(q, kc, vc, o, scratch, counters, B, S, H, Hkv, pos, window, scale,
+  return launch_tma<D, MAXG>(q, kc, vc, o, scratch, counters, lse, B, S, H, Hkv, lo, pos, scale,
                              cap, stream);
 }
 
@@ -825,45 +870,67 @@ extern "C" long long decode_attention_scratch_floats(int B, int S, int H, int Hk
   return (long long)B * H * nsplit * (D + 2);
 }
 
-// q: (B,1,H,D); k_cache, v_cache: (B,S,Hkv,D); o: (B,1,H,D); one dtype (0 =
-// float32, 1 = bfloat16), contiguous, D a multiple of 8 (bf16) or 4 (fp32).
-// scratch: float32, decode_attention_scratch_floats(...) of them; counters:
-// int32 (B*Hkv), zero before the first call and left zero by every call.
-// 0 <= pos < S; window <= 0 = no window; cap <= 0 = no cap. Returns the CUDA
-// error code of the launches.
-extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* vc, void* o,
-                                    void* scratch, void* counters, int B, int S, int H, int Hkv,
-                                    int D, int pos, int window, float scale, float cap,
-                                    int dtype, void* stream) {
+// q: (B,1,H,D); k_cache, v_cache: (B,S,Hkv,D), the keys at global positions
+// k0 .. k0 + S - 1; o: (B,1,H,D); one dtype (0 = float32, 1 = bfloat16),
+// contiguous, D a multiple of 8 (bf16) or 4 (fp32). lse: float32 (B,H) or
+// null; with lse, o is float32 whatever the inputs' dtype. scratch: float32, decode_attention_scratch_floats(...) of them;
+// counters: int32 (B*Hkv), zero before the first call and left zero by every
+// call. pos >= 0, k0 >= 0; window <= 0 = no window; cap <= 0 = no cap.
+// Returns the CUDA error code of the launches.
+extern "C" int decode_attention_shard_fwd(const void* q, const void* kc, const void* vc, void* o,
+                                          void* lse, void* scratch, void* counters, int B,
+                                          int S, int H, int Hkv, int D, int pos, int k0,
+                                          int window, float scale, float cap, int dtype,
+                                          void* stream) {
   const int vec = dtype == 1 ? 8 : 4;
   if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG || D <= 0 ||
-      D > MAXD * 65535 || D % vec != 0 || pos < 0 || pos >= S || B * Hkv > 65535)
+      D > MAXD * 65535 || D % vec != 0 || pos < 0 || k0 < 0 || B * Hkv > 65535 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
+  // the shard's valid keys in local positions
+  const int lo = max((window > 0 ? max(0, pos - window + 1) : 0) - k0, 0);
+  const int hi = (long long)pos - k0 < S - 1 ? pos - k0 : S - 1;
+  if (hi < lo) {
+    if (ls == nullptr) return (int)cudaErrorInvalidValue;   // only a shard can be empty
+    const long long n = (long long)B * H * D;
+    const int blocks = n > 1024 * 256 ? 1024 : (int)((n + 255) / 256);
+    decode_empty_kernel<<<blocks, 256, 0, st>>>(static_cast<float*>(o), ls, n, B * H);
+    return (int)cudaGetLastError();
+  }
   float* sc = static_cast<float*>(scratch);
   int* cnt = static_cast<int*>(counters);
   if (tma_path(dtype, D, H / Hkv)) {
     if (D == 256)
-      return (int)launch_tma_g<256>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
+      return (int)launch_tma_g<256>(q, kc, vc, o, sc, cnt, ls, B, S, H, Hkv, lo, hi, scale, cap, st);
     if (D == 160)
-      return (int)launch_tma_g<160>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
+      return (int)launch_tma_g<160>(q, kc, vc, o, sc, cnt, ls, B, S, H, Hkv, lo, hi, scale, cap, st);
     if (D == 128)
-      return (int)launch_tma_g<128>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
+      return (int)launch_tma_g<128>(q, kc, vc, o, sc, cnt, ls, B, S, H, Hkv, lo, hi, scale, cap, st);
     if (D == 112)
-      return (int)launch_tma_g<112>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
-    return (int)launch_tma_g<64>(q, kc, vc, o, sc, cnt, B, S, H, Hkv, pos, window, scale, cap, st);
+      return (int)launch_tma_g<112>(q, kc, vc, o, sc, cnt, ls, B, S, H, Hkv, lo, hi, scale, cap, st);
+    return (int)launch_tma_g<64>(q, kc, vc, o, sc, cnt, ls, B, S, H, Hkv, lo, hi, scale, cap, st);
   }
   const long long rows = (long long)B * H * ((S + CHUNK - 1) / CHUNK);
   float* pm = sc;
   float* pl = pm + rows;
   float* pa = pl + rows;
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16, 1>(q, kc, vc, o, pm, pl, pa, B, S, H, Hkv, D, pos,
-                                         window, scale, cap, st);
-  if (dtype == 0)
-    return (int)(D > 128 ? launch<float, 2>(q, kc, vc, o, pm, pl, pa, B, S, H, Hkv, D, pos,
-                                            window, scale, cap, st)
-                         : launch<float, 1>(q, kc, vc, o, pm, pl, pa, B, S, H, Hkv, D, pos,
-                                            window, scale, cap, st));
-  return (int)cudaErrorInvalidValue;
+    return (int)launch<__nv_bfloat16, 1>(q, kc, vc, o, ls, pm, pl, pa, B, S, H, Hkv, D, lo, hi,
+                                         scale, cap, st);
+  return (int)(D > 128 ? launch<float, 2>(q, kc, vc, o, ls, pm, pl, pa, B, S, H, Hkv, D, lo, hi,
+                                          scale, cap, st)
+                       : launch<float, 1>(q, kc, vc, o, ls, pm, pl, pa, B, S, H, Hkv, D, lo, hi,
+                                          scale, cap, st));
+}
+
+// The whole cache: decode_attention_shard_fwd at k0 = 0 without lse; 0 <= pos < S.
+extern "C" int decode_attention_fwd(const void* q, const void* kc, const void* vc, void* o,
+                                    void* scratch, void* counters, int B, int S, int H, int Hkv,
+                                    int D, int pos, int window, float scale, float cap,
+                                    int dtype, void* stream) {
+  if (pos >= S) return (int)cudaErrorInvalidValue;
+  return decode_attention_shard_fwd(q, kc, vc, o, nullptr, scratch, counters, B, S, H, Hkv, D,
+                                    pos, 0, window, scale, cap, dtype, stream);
 }

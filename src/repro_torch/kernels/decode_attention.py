@@ -16,6 +16,16 @@ stream), grown when a larger shape arrives; the counters are zeroed once when
 allocated and every launch leaves them zero. A call allocates only its
 output. ``launches`` counts the kernel calls (one per call or group pass,
 whatever the kernel's launch count).
+
+Shard mode (``return_lse=True``): the cache is a shard of a longer one, its
+keys at global positions ``k0`` .. ``k0 + S - 1``, masked by their global
+positions; the call returns (out, lse), both float32 whatever the inputs'
+dtype (the merge rounds once): out normalised over the shard's valid keys,
+lse the log-sum-exp (B, H) of each query head's valid scores, or
+``ref.NEG_INF`` with out 0 where the shard holds no valid key; one launch, so
+at most ``MAX_GROUP`` query heads a kv head. ``ref.merge_shards`` (or an all-reduce of the same sums across ranks)
+merges the shards into the whole cache's output. Its plain version is
+``ref.decode_attention_shard``.
 """
 from __future__ import annotations
 
@@ -41,9 +51,9 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = _build.load("decode_attention")
-        lib.decode_attention_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        lib.decode_attention_shard_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        lib.decode_attention_fwd.restype = ctypes.c_int
+        lib.decode_attention_shard_fwd.restype = ctypes.c_int
         lib.decode_attention_scratch_floats.argtypes = [ctypes.c_int] * 6
         lib.decode_attention_scratch_floats.restype = ctypes.c_longlong
         _lib = lib
@@ -70,42 +80,60 @@ def _scratch_for(device: torch.device, stream: int, floats: int, counters: int):
 
 
 def decode_attention_fwd(q, k_cache, v_cache, pos: int, *, window=None,
-                         logit_cap: float = 0.0, scale: float) -> torch.Tensor:
+                         logit_cap: float = 0.0, scale: float, k0: int = 0,
+                         return_lse: bool = False):
     """q: (B,1,H,D); caches: (B,S,Hkv,D); ``pos`` the current token's index
-    (keys past it are masked) -> (B,1,H,D). Any cache length S."""
+    (keys past it are masked) -> (B,1,H,D). Any cache length S. With
+    ``return_lse``, the caches are the shard at global positions ``k0`` ..
+    ``k0 + S - 1`` (any ``pos`` >= 0) and the call returns (out (B,1,H,D),
+    lse (B,H)), both float32."""
     check_attention_inputs(q, k_cache, v_cache, query_len=1)
     d, s = q.shape[3], k_cache.shape[1]
-    pos = int(pos)
-    if not 0 <= pos < s:
+    pos, k0 = int(pos), int(k0)
+    if not return_lse and k0:
+        raise ValueError("a shard's output (k0 > 0) is only of use with its lse: pass "
+                         "return_lse=True")
+    if pos < 0 or k0 < 0 or (not return_lse and pos >= s):
         raise ValueError(f"pos {pos} outside the cache of length {s}")
     w = _window(window)
     if q.device.type == "cpu":
+        if return_lse:
+            return ref.decode_attention_shard(q, k_cache, v_cache, pos, k0=k0, window=w,
+                                              logit_cap=logit_cap, scale=scale)
         return ref.decode_attention(q, k_cache, v_cache, pos, window=w,
                                     logit_cap=logit_cap, scale=scale)
     if d % (16 // q.element_size()):
         raise ValueError(f"head_dim {d}: the CUDA kernel reads rows in 16-byte pieces")
-    return group_passes(lambda qp, kp, vp: _launch(qp, kp, vp, pos, w, scale, logit_cap),
-                        q, k_cache, v_cache)
+
+    if not return_lse:
+        return group_passes(lambda qp, kp, vp: _launch(qp, kp, vp, pos, 0, w, scale, logit_cap,
+                                                       False), q, k_cache, v_cache)
+    if q.shape[2] // k_cache.shape[2] > MAX_GROUP:
+        raise ValueError(f"shard mode: at most {MAX_GROUP} query heads a kv head in one launch")
+    return _launch(q, k_cache, v_cache, pos, k0, w, scale, logit_cap, True)
 
 
-def _launch(q, k_cache, v_cache, pos: int, w: int, scale: float, logit_cap: float):
+def _launch(q, k_cache, v_cache, pos: int, k0: int, w: int, scale: float, logit_cap: float,
+            return_lse: bool):
     global launches
     b, _, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     lib = _kernel()
     dtype = DTYPE_CODES[q.dtype]
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device) if return_lse else \
+        torch.empty_like(q)
+    lse = torch.empty(b, h, dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         floats = lib.decode_attention_scratch_floats(b, s, h, hkv, d, dtype)
         if floats < 0:
             raise RuntimeError("decode_attention_fwd: no CUDA device to size the scratch for")
         part, cnt = _scratch_for(q.device, stream, floats, b * hkv)
-        err = lib.decode_attention_fwd(
+        err = lib.decode_attention_shard_fwd(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-            part.data_ptr(), cnt.data_ptr(), b, s, h, hkv, d, pos, w, float(scale),
-            float(logit_cap or 0.0), dtype, stream)
+            None if lse is None else lse.data_ptr(), part.data_ptr(), cnt.data_ptr(),
+            b, s, h, hkv, d, pos, k0, w, float(scale), float(logit_cap or 0.0), dtype, stream)
     if err != 0:
         raise RuntimeError(f"decode_attention_fwd launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -32,11 +32,18 @@ def flash_attention(q, k, v, *, window=None, logit_cap: float = 0.0,
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *, window=None,
-                     logit_cap: float = 0.0, scale: float, use_kernel: bool = True):
-    """One-token decode against a KV cache. q: (B,1,H,D)."""
+                     logit_cap: float = 0.0, scale: float, use_kernel: bool = True,
+                     k0: int = 0, return_lse: bool = False):
+    """One-token decode against a KV cache. q: (B,1,H,D). With
+    ``return_lse``, the cache is the shard at global positions ``k0`` on and
+    the result is (out, lse) (``decode_attention.decode_attention_fwd``)."""
     if use_kernel:
         return _decode.decode_attention_fwd(q, k_cache, v_cache, pos, window=window,
-                                            logit_cap=logit_cap, scale=scale)
+                                            logit_cap=logit_cap, scale=scale, k0=k0,
+                                            return_lse=return_lse)
+    if return_lse:
+        return ref.decode_attention_shard(q, k_cache, v_cache, pos, k0=k0, window=window,
+                                          logit_cap=logit_cap, scale=scale)
     return ref.decode_attention(q, k_cache, v_cache, pos, window=window,
                                 logit_cap=logit_cap, scale=scale)
 

@@ -140,6 +140,54 @@ def decode_attention_split(q, k_cache, v_cache, pos: int, *, window=None,
     return (num / den).reshape(b, 1, h, d).to(q.dtype)
 
 
+def decode_attention_shard(q, k_cache, v_cache, pos: int, *, k0: int = 0, window=None,
+                           logit_cap: float = 0.0, scale: float):
+    """One shard of ``decode_attention``'s keys, as a rank of a cache cut over
+    its sequence holds them: the caches (B,S,Hkv,D) are the keys at global
+    positions k0 .. k0 + S - 1, masked by those positions (valid: lo <= k0 + j
+    <= pos, lo the window's first key), and ``pos`` may lie past the shard.
+    Returns (out (B,1,H,Dv), normalised over the shard's valid keys; lse
+    (B,H), the log-sum-exp of their scores), both float32, so that the
+    merged output is rounded once: one split of ``decode_attention_split``'s
+    partials, normalised. A shard with no valid
+    key gives out 0 and lse ``NEG_INF``. ``merge_shards`` merges them."""
+    b, _, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    dv = v_cache.shape[-1]
+    group = h // hkv
+    lo = max(0, pos - window + 1) if window and window > 0 else 0
+    if max(lo, k0) > min(pos, k0 + s - 1):
+        return (torch.zeros(b, 1, h, dv, dtype=torch.float32, device=q.device),
+                torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device))
+    qg = q.reshape(b, hkv, group, d).float()
+    sc = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) * scale
+    if logit_cap:
+        sc = torch.tanh(sc / logit_cap) * logit_cap
+    keys = k0 + torch.arange(s, device=q.device)
+    sc = torch.where((keys >= lo) & (keys <= pos), sc, NEG_INF)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float()) / l
+    return out.reshape(b, 1, h, dv), (m + torch.log(l)).reshape(b, h)
+
+
+def merge_shards(outs, lses):
+    """The whole cache's decode output from its shards' (out (B,1,H,Dv),
+    lse (B,H)): each shard's output weighted by exp(lse - max lse), summed,
+    over the weights' sum, in float32 and in the order given; returns
+    float32 (the caller rounds once). A shard with no valid key (lse
+    ``NEG_INF``, out 0) weighs 0."""
+    m = torch.stack([l.float() for l in lses]).amax(dim=0)
+    num = torch.zeros(outs[0].shape, dtype=torch.float32, device=outs[0].device)
+    den = torch.zeros_like(m)
+    for o, l in zip(outs, lses):
+        w = torch.exp(l.float() - m)
+        num = num + o.float() * w[:, None, :, None]
+        den = den + w
+    return num / den[:, None, :, None]
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Gemma-style RMSNorm, ``(1 + scale)``, computed in float32."""
     xf = x.float()

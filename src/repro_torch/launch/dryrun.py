@@ -29,7 +29,15 @@ alive through the step (2.6 GB more at the peak of gemma2-2b's train step at
     bytes and the collectives are those of the code that runs. Every rank of
     a mesh holds shards of one shape, so rank 0 stands for all;
   * prefill: ``make_prefill_step``; decode: ``make_decode_step`` at the last
-    position of a cache of the shape's length.
+    position of a cache of the shape's length. On a mesh, the last rank's
+    share of the sharded serve step, as the JAX package's ``lower_cell``
+    places it: the model cut to its shards under ``param_specs`` with the
+    ``zero_rules`` (``parallel.tensor.shard_model``), its rows of the batch,
+    its shard of the caches under ``cache_spec`` (the sequence over
+    ``model``), each layer computed on its shard and a decode step's
+    attention merged over ``model`` (``models/attention.py``), under the same
+    fake group. The last rank holds the decoded position, so its shard of
+    the cache is all valid keys: the rank with the most work.
 
 The mesh is a plain ``{axis: size}`` mapping; the fake group of 256 or 512
 ranks costs nothing. A device does what the port does:
@@ -56,14 +64,19 @@ ranks costs nothing. A device does what the port does:
     trace (a layer's weights whole over the batch axes, the factored
     optimizer's row and column statistics, or ``adamw_8bit`` gathering one
     leaf, its gradient and its state whole), plus the
-    global batch the step takes; ``serve`` replicates the weights and keeps
-    its rows' whole cache. ``fits`` is false where that does not fit 80 GB,
-    which is a finding;
+    global batch the step takes; in a serve step likewise the most bytes of
+    all-gather outputs alive (a layer's weights over the batch axes, the
+    activations a layer gathers over ``model``: the new keys, the queries of
+    every head, the logits of every vocab shard). ``fits`` is false where
+    that does not fit 80 GB, which is a finding;
   * ``attn_activation_sharding`` has no counterpart (the JAX package's
     "batch" mode re-shards attention's activations over the batch); the
     record carries its value;
-  * a serve step issues no collective (the weights are replicated); a train
-    step's collectives are those its trace issued (``collectives_of``).
+  * a step's collectives are those its trace issued (``collectives_of``): a
+    serve step's are each layer's gathers of its weights over the batch
+    axes, the tensor-parallel all-reduces over ``model``, the gathers of
+    the new keys, the queries and the logits, and a decode step's merge of
+    the attention over ``model``.
 
 A mesh of one device is the one-device step: no gathered copy, no
 collective (``chip_smoke.py``'s ``[dryrun]`` holds such cells to the card).
@@ -457,9 +470,9 @@ def init_opt_state(run: RunConfig, params: Dict[str, torch.Tensor], mesh=None):
 
 
 @contextlib.contextmanager
-def fake_world(mesh_sizes: Dict[str, int]):
+def fake_world(mesh_sizes: Dict[str, int], rank: int = 0):
     """A ``DeviceMesh`` of ``mesh_sizes`` over torch's fake process group,
-    this process its rank 0: the groups exist, and a collective would move
+    this process its ``rank``: the groups exist, and a collective would move
     nothing (``StepCounter`` runs none). The process may have no other group."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -467,7 +480,7 @@ def fake_world(mesh_sizes: Dict[str, int]):
     if dist.is_initialized():
         raise RuntimeError("the dry run traces a mesh under a fake process group of its own, "
                            "and this process already has a process group")
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=math.prod(mesh_sizes.values()))
     try:
         yield init_device_mesh("cpu", tuple(mesh_sizes.values()),
@@ -485,7 +498,8 @@ def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
     aligned). A train step on a mesh of more than one device is rank 0's
     share of the sharded step (``steps.make_local_step``), run by the port's
     own TP code on the model cut to that rank's shards, under a fake process
-    group (``fake_world``)."""
+    group (``fake_world``); a serve step the last rank's share of the
+    sharded serve step (module docstring)."""
     if units is not None:
         run = with_units(run, units)
     seq = shape.seq_len if seq_len is None else seq_len
@@ -494,8 +508,10 @@ def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
     local = ShapeSpec(shape.name, seq, rows, shape.kind)
     model = build_model(run, device="meta", use_kernel=False)
     batch = input_specs(run.model, local)
-    meshed = shape.kind == "train" and math.prod(mesh_sizes.values()) > 1
-    with (fake_world(mesh_sizes) if meshed else contextlib.nullcontext()) as mesh:
+    world = math.prod(mesh_sizes.values())
+    meshed = world > 1
+    rank = 0 if shape.kind == "train" else world - 1
+    with (fake_world(mesh_sizes, rank) if meshed else contextlib.nullcontext()) as mesh:
         if shape.kind == "train":
             run = run.replace(train=dataclasses.replace(run.train, seq_len=seq,
                                                         global_batch=rows))
@@ -514,6 +530,10 @@ def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
             def call():
                 step(params, opt_state, batch)
         else:
+            if meshed:
+                attn_zero, moe_zero = shd.zero_rules(run, mesh_sizes)
+                tensor.shard_model(model, mesh, attn_zero=attn_zero, moe_zero=moe_zero)
+                seq = shd.serve_cache_len(seq, mesh_sizes)
             cache = model.init_cache(rows, seq, dtype=getattr(torch, run.parallel.kv_cache_dtype))
             args = [*model.parameters(), *_tensors(cache), *batch.values()]
             if shape.kind == "prefill":
@@ -539,9 +559,10 @@ def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
 
 def collectives_of(run: RunConfig, shape: ShapeSpec,
                    mesh_sizes: Dict[str, int]) -> rl.CollectiveStats:
-    """The collectives one rank's share of the cell's train step issues, as
-    its trace counts them (``trace_cell``; a group of one rank moves nothing
-    and is not counted): each layer's gathers over the batch axes in the
+    """The collectives one rank's share of the cell's step issues, as its
+    trace counts them (``trace_cell``; a group of one rank moves nothing and
+    is not counted). A serve step's: see the module docstring. A train
+    step's: each layer's gathers over the batch axes in the
     forward and again in remat's recompute, the reduce-scatters of their
     gradients, the all-reduces over ``model`` of the tensor-parallel layers
     (forward, backward and recompute) and of the vocab-parallel loss, the
@@ -560,24 +581,13 @@ def _sharded(nbytes: int, spec, sizes: Dict[str, int]) -> float:
     return nbytes / math.prod(sizes[a] for e in spec for a in shd._axes_of(e))
 
 
-def zero_rules(run: RunConfig, mesh_sizes: Dict[str, int]) -> Tuple[bool, bool]:
-    """(attn_zero, moe_zero) by the JAX package's rule (``lower_cell``):
-    ``attn_zero_sharding`` "on", or "auto" where the heads do not divide tp
-    (the mesh's ``model`` size) and the model has no MLA."""
-    az = run.parallel.attn_zero_sharding
-    tp = mesh_sizes.get("model", 1)
-    attn_zero = az == "on" or (az == "auto" and run.model.n_heads % tp != 0
-                               and run.model.mla is None)
-    return attn_zero, run.parallel.moe_weight_sharding == "zero"
-
-
 def state_bytes(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int]) -> Dict[str, float]:
     """A device's stored arguments of the cell, in bytes, under the
     placements (module docstring), and the full sizes they are cut from."""
     sizes = dict(mesh_sizes)
     model = build_model(run, device="meta", use_kernel=False)
     params = dict(model.named_parameters())
-    attn_zero, moe_zero = zero_rules(run, sizes)
+    attn_zero, moe_zero = shd.zero_rules(run, sizes)
     specs = shd.param_specs(params, sizes, attn_zero=attn_zero, moe_zero=moe_zero)
     full = {"params": float(sum(map(_nbytes, params.values())))}
     out = {"params": sum(_sharded(_nbytes(p), specs[n], sizes) for n, p in params.items()),
@@ -594,13 +604,13 @@ def state_bytes(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int]) ->
             opt += _sharded(_nbytes(t), specs[name], sizes)
         out["opt"] = opt
     else:
-        rows = batch_rows(shape.global_batch, sizes)
         dt = getattr(torch, run.parallel.kv_cache_dtype)
-        cache = model.init_cache(shape.global_batch, shape.seq_len, dtype=dt)
+        seq = shd.serve_cache_len(shape.seq_len, sizes) if math.prod(sizes.values()) > 1 \
+            else shape.seq_len
+        cache = model.init_cache(shape.global_batch, seq, dtype=dt)
         out["cache"] = sum(_sharded(_nbytes(t), spd, sizes)
                            for c, cs in zip(cache, shd.cache_specs(cache, sizes))
                            if c is not None for t, spd in zip(c, cs))
-        full["cache_rows"] = float(rl.cache_bytes(run, rows, shape.seq_len))
     batch = input_specs(run.model, shape)
     out["batch"] = sum(_sharded(_nbytes(t), shd.batch_spec(tuple(t.shape), sizes), sizes)
                        for t in batch.values())
@@ -791,20 +801,15 @@ def memory_record(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int],
     """``memory`` of a record: the stored arguments, what the port holds
     beyond them, the step's temporaries, the peak and whether it fits.
     ``temp_bytes`` is the traced peak over the traced arguments, of which
-    ``traced_gathered`` (a train step's all-gather outputs at their most,
+    ``traced_gathered`` (the step's all-gather outputs at their most,
     ``Trace.gathered_bytes``) is reported under ``gathered_bytes``."""
     st = state_bytes(run, shape, mesh_sizes)
     stored, full = st["stored"], st["full"]
     world = math.prod(mesh_sizes.values())
     gathered = 0.0
     if world > 1:
-        gathered = full["batch"] - stored["batch"]
-        if shape.kind == "train":
-            gathered += traced_gathered
-            temp_bytes -= traced_gathered
-        else:
-            gathered += (full["params"] - stored["params"]
-                         + full["cache_rows"] - stored["cache"])
+        gathered = full["batch"] - stored["batch"] + traced_gathered
+        temp_bytes -= traced_gathered
     argument = sum(stored.values())
     peak = argument + gathered + temp_bytes
     return {"argument_bytes": argument, "param_bytes": stored["params"],
@@ -860,7 +865,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, do_roofline: bool,
     try:
         costs = cell_costs(run, shape, sizes)
         cost = costs["cost"]
-        attn_zero, moe_zero = zero_rules(run, sizes)
+        attn_zero, moe_zero = shd.zero_rules(run, sizes)
         rec.update({
             "status": "ok",
             "trace_s": round(costs["trace_s"], 1),

@@ -12,7 +12,13 @@ over data x model ranks (``torchrun``): the parameters replicated (every rank
 draws them from the same seed), each data rank prefilling and decoding its
 rows of the batch, and rank 0 printing the JSON over the gathered tokens. A
 MoE model's decode step routes the batch as one group, so on a mesh each
-data rank's rows are a group of their own. Unlike the JAX entry point, which builds
+data rank's rows are a group of their own. ``serve(..., mesh,
+sharded=True)`` serves as the JAX package's dry run places a serve step
+(``lower_cell``): the weights on this rank's shards under ``param_specs``
+(``build_sharded``, with the ``zero_rules``), the caches on its shards under
+``cache_spec`` (the cache length rounded up to a multiple of ``model``: the
+sequence over ``model``), each layer computed on its shard
+(``parallel.tensor``, ``models/attention.py``). Unlike the JAX entry point, which builds
 its model with ``use_kernel=False``, this one serves through the CUDA kernels.
 Weights are random, drawn from a ``torch.Generator`` with a fixed seed. For
 the audio family the prompt is frame embeddings and every decode step feeds a
@@ -37,6 +43,8 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.model import DTYPES, build_model, synthetic_batch
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tensor
 from repro_torch.train.steps import (batch_coordinate, local_batch, make_decode_step,
                                      make_prefill_step)
 
@@ -47,7 +55,8 @@ def _sync(dev: torch.device) -> None:
 
 
 def serve(run: RunConfig, *, batch: int = 2, prompt_len: int = 64, decode_steps: int = 16,
-          device=None, seed: int = 0, use_kernel: bool = True, mesh=None) -> Dict[str, Any]:
+          device=None, seed: int = 0, use_kernel: bool = True, mesh=None,
+          sharded: bool = False) -> Dict[str, Any]:
     """Prefill ``batch`` synthetic prompts, then ``decode_steps`` greedy steps.
     ``kernel_launches`` counts the timed prefill and decode steps only.
 
@@ -56,17 +65,29 @@ def serve(run: RunConfig, *, batch: int = 2, prompt_len: int = 64, decode_steps:
     ``weight_bytes`` (the bytes of the model's parameters). With a ``mesh``
     this rank serves its rows of the batch (all of it where the batch axes
     do not divide it), and ``tokens`` and ``prefill_logits`` are gathered
-    over the ranks: every rank returns the whole batch's."""
+    over the ranks: every rank returns the whole batch's. With ``sharded``
+    the weights and caches are this rank's shards (module docstring); the
+    draws are the one-device model's."""
     dev = resolve_device(device)
-    model = build_model(run, device=dev, use_kernel=use_kernel)
-    model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+    if sharded:
+        if mesh is None:
+            raise ValueError("sharded serving needs a mesh")
+        model = build_model(run, device="meta", use_kernel=use_kernel)
+        attn_zero, moe_zero = shd.zero_rules(run, mesh)
+        tensor.build_sharded(model, mesh, torch.Generator(device=dev).manual_seed(seed),
+                             attn_zero=attn_zero, moe_zero=moe_zero)
+    else:
+        model = build_model(run, device=dev, use_kernel=use_kernel)
+        model.init_weights(torch.Generator(device=dev).manual_seed(seed))
     shape = ShapeSpec("serve", prompt_len, batch, "prefill")
     prompt = synthetic_batch(run.model, shape, seed=1, device=dev)
     if mesh is not None:
         prompt = local_batch(prompt, 1, *batch_coordinate(mesh))
         batch = next(iter(prompt.values())).shape[0]
-    cache = model.init_cache(batch, prompt_len + decode_steps,
-                             dtype=DTYPES[run.parallel.param_dtype])
+    cache_len = prompt_len + decode_steps
+    if sharded:
+        cache_len = shd.serve_cache_len(cache_len, mesh)
+    cache = model.init_cache(batch, cache_len, dtype=DTYPES[run.parallel.param_dtype])
     prefill = make_prefill_step(model)
     decode = make_decode_step(model)
     # every decode step carries the prompt's image embeddings (vlm)
@@ -88,8 +109,7 @@ def serve(run: RunConfig, *, batch: int = 2, prompt_len: int = 64, decode_steps:
     # then a fresh cache: a recurrent block's prefill starts from the state in
     # its cache, which the warm-up left at the end of its decode step
     del cache
-    cache = model.init_cache(batch, prompt_len + decode_steps,
-                             dtype=DTYPES[run.parallel.param_dtype])
+    cache = model.init_cache(batch, cache_len, dtype=DTYPES[run.parallel.param_dtype])
     launches0 = kops.launch_counts()
 
     _sync(dev)
@@ -111,7 +131,7 @@ def serve(run: RunConfig, *, batch: int = 2, prompt_len: int = 64, decode_steps:
 
     toks = torch.stack(out_tokens, dim=1).cpu().numpy()
     prefill_logits = prefill_logits.float().cpu()
-    if mesh is not None:
+    if mesh is not None and batch_coordinate(mesh)[1] > 1:
         toks, prefill_logits = _gather_rows(mesh, toks, prefill_logits)
     launches = {k: v - launches0[k] for k, v in kops.launch_counts().items()}
     return {

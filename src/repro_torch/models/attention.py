@@ -18,11 +18,15 @@ as the JAX Trainer does.
 The KV cache is updated in place (``cache.k[:, pos] = k``, a slice write at
 prefill); the JAX package builds new arrays with ``dynamic_update_slice``.
 
-On a mesh (a module's ``tp``, ``parallel.tensor``) train mode computes on this
-rank's heads: q heads over ``model``, the kv heads too where they divide,
-``wo`` row-parallel with the outputs all-reduced over ``model``; each class
-says what it computes where the heads do not divide. Serving runs on one
-device or on data-parallel replicas and takes no ``tp``.
+On a mesh (a module's ``tp``, ``parallel.tensor``) every mode computes on
+this rank's heads: q heads over ``model``, the kv heads too where they
+divide, ``wo`` row-parallel with the outputs all-reduced over ``model``; each
+class says what it computes where the heads do not divide. Serving on a mesh
+keeps this rank's shard of the cache (``sharding.cache_spec``: the sequence
+over ``model``): prefill writes its slice of the whole new keys, and decode
+attends over its shard of the sequence, masked by global positions, and
+merges the ranks' outputs by their log-sum-exp (``tp.merge_over_model``),
+as GSPMD computes the JAX package's serve step under ``cache_specs``.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF, causal_window_mask
 from repro_torch.models.layers import RMSNorm, apply_rope, softcap, truncated_normal
+from repro_torch.parallel.tensor import all_gather, write_cache
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +108,20 @@ def _same(x):
     return x
 
 
+def kv_heads(tp, n_heads: int, n_kv: int):
+    """The kv heads a rank's block of q heads reads where ``model`` does not
+    split the kv heads: (first, stop, an index that gives each local q head
+    its kv head among them, or None where they keep ``n_heads / n_kv`` to a
+    group)."""
+    h_l, group = n_heads // tp.size, n_heads // n_kv
+    heads = [(tp.rank * h_l + i) // group for i in range(h_l)]
+    k0, k1 = heads[0], heads[-1] + 1
+    per = h_l // (k1 - k0)
+    if h_l % (k1 - k0) == 0 and all(hh - k0 == i // per for i, hh in enumerate(heads)):
+        return k0, k1, None
+    return k0, k1, [hh - k0 for hh in heads]
+
+
 def kv_plan(tp, n_heads: int, n_kv: int, hd: int, wk, wv):
     """The kv weights a rank's block of q heads reads, on a mesh whose
     ``model`` axis splits the q heads: (wk, wv, their heads, an index that
@@ -111,18 +130,12 @@ def kv_plan(tp, n_heads: int, n_kv: int, hd: int, wk, wv):
     each rank takes its own block; else each gathers the kv weights whole and
     keeps the heads its q heads read (each rank's gradient is then a part,
     summed over ``model``)."""
-    n, group = tp.size, n_heads // n_kv
-    if n_kv % n == 0 and tp.split_on((wk, 1), (wv, 1)):
-        return tp.gather_batch(wk), tp.gather_batch(wv), n_kv // n, None
-    h_l = n_heads // n
-    heads = [(tp.rank * h_l + i) // group for i in range(h_l)]
-    k0, k1 = heads[0], heads[-1] + 1
+    if n_kv % tp.size == 0 and tp.split_on((wk, 1), (wv, 1)):
+        return tp.gather_batch(wk), tp.gather_batch(wv), n_kv // tp.size, None
+    k0, k1, index = kv_heads(tp, n_heads, n_kv)
     wk_l = tp.whole(wk, partial=True)[:, k0 * hd:k1 * hd]
     wv_l = tp.whole(wv, partial=True)[:, k0 * hd:k1 * hd]
-    per = h_l // (k1 - k0)
-    if h_l % (k1 - k0) == 0 and all(hh - k0 == i // per for i, hh in enumerate(heads)):
-        return wk_l, wv_l, k1 - k0, None
-    return wk_l, wv_l, k1 - k0, torch.tensor([hh - k0 for hh in heads], device=wk.device)
+    return wk_l, wv_l, k1 - k0, None if index is None else torch.tensor(index, device=wk.device)
 
 
 class GQAttention(nn.Module):
@@ -166,28 +179,31 @@ class GQAttention(nn.Module):
             w["q_norm"], w["k_norm"] = self.q_norm.scale, self.k_norm.scale
         return w
 
-    def _qkv(self, x, positions, use_kernel: bool, w=None, h=None, hkv=None):
+    def _q(self, x, positions, use_kernel: bool, w, h=None):
         cfg = self.cfg
-        w = self._own() if w is None else w
-        h = cfg.n_heads if h is None else h
-        hkv = cfg.n_kv_heads if hkv is None else hkv
         b, s, _ = x.shape
-        hd = cfg.resolved_head_dim
-        q = (x @ w["wq"].to(x.dtype)).reshape(b, s, h, hd)
-        k = (x @ w["wk"].to(x.dtype)).reshape(b, s, hkv, hd)
-        v = (x @ w["wv"].to(x.dtype)).reshape(b, s, hkv, hd)
+        q = (x @ w["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads if h is None else h, -1)
         if cfg.qk_norm:
             q = kops.rmsnorm(q, w["q_norm"], cfg.norm_eps, use_kernel)
+        return apply_rope(q, positions, cfg.rope_theta)
+
+    def _kv(self, x, positions, use_kernel: bool, w, hkv=None):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hkv = cfg.n_kv_heads if hkv is None else hkv
+        k = (x @ w["wk"].to(x.dtype)).reshape(b, s, hkv, -1)
+        v = (x @ w["wv"].to(x.dtype)).reshape(b, s, hkv, -1)
+        if cfg.qk_norm:
             k = kops.rmsnorm(k, w["k_norm"], cfg.norm_eps, use_kernel)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        return q, k, v
+        return apply_rope(k, positions, cfg.rope_theta), v
 
     def _train(self, x, window: int, use_kernel: bool, w=None, h=None, hkv=None,
                kv_index=None):
         b, s, _ = x.shape
         w = self._own() if w is None else w
-        q, k, v = self._qkv(x, torch.arange(s, device=x.device)[None, :], use_kernel, w, h, hkv)
+        positions = torch.arange(s, device=x.device)[None, :]
+        q = self._q(x, positions, use_kernel, w, h)
+        k, v = self._kv(x, positions, use_kernel, w, hkv)
         if kv_index is not None:
             k, v = k[:, :, kv_index], v[:, :, kv_index]
         out = chunked_causal_attention(q, k, v, window=window,
@@ -220,29 +236,91 @@ class GQAttention(nn.Module):
                           kv_index)
         return tp.reduce_out(out)
 
+    def _serve_weights(self):
+        """What a serve step of this rank reads: (weights, q heads, kv heads,
+        heads split, kv heads split). On one device its own weights. On a
+        mesh where ``heads_split``, its q heads' ``wq`` and ``wo`` rows, and
+        ``wk``/``wv`` its block of the kv heads where ``model`` splits them,
+        else whole (the new keys are then computed whole on every rank, for
+        the cache); otherwise everything whole (the layer computes whole on
+        every ``model`` rank)."""
+        tp, cfg = self.tp, self.cfg
+        if tp is None:
+            return self._own(), cfg.n_heads, cfg.n_kv_heads, False, False
+        if not self.heads_split():
+            w = {k: tp.whole(v) for k, v in self._own().items()}
+            return w, cfg.n_heads, cfg.n_kv_heads, False, False
+        kv_split = cfg.n_kv_heads % tp.size == 0 and tp.split_on((self.wk, 1), (self.wv, 1))
+        kv = tp.gather_batch if kv_split else tp.whole
+        w = {"wq": tp.gather_batch(self.wq), "wo": tp.gather_batch(self.wo),
+             "wk": kv(self.wk), "wv": kv(self.wv)}
+        if cfg.qk_norm:
+            w["q_norm"], w["k_norm"] = self.q_norm.scale, self.k_norm.scale
+        hkv = cfg.n_kv_heads // tp.size if kv_split else cfg.n_kv_heads
+        return w, cfg.n_heads // tp.size, hkv, True, kv_split
+
     def prefill(self, x, cache: KVCache, *, window: int, use_kernel: bool = True):
-        """Attend causally and write k/v into ``cache[:, :S]`` in place."""
+        """Attend causally and write k/v into ``cache[:, :S]`` in place. On a
+        mesh: this rank's q heads through the flash kernel against the kv
+        heads they read, and the whole new k/v (gathered over ``model``
+        where it splits the kv heads) written into this rank's shard of the
+        cache; ``wo`` row-parallel. Where the heads do not split, whole."""
         b, s, _ = x.shape
-        q, k, v = self._qkv(x, torch.arange(s, device=x.device)[None, :], use_kernel)
-        out = kops.flash_attention(
-            q, k, v, window=window, logit_cap=self.cfg.attn_logit_softcap,
-            scale=self.cfg.resolved_head_dim ** -0.5, use_kernel=use_kernel)
-        cache.k[:, :s] = k.to(cache.k.dtype)
-        cache.v[:, :s] = v.to(cache.v.dtype)
-        return out.reshape(b, s, -1) @ self.wo.to(x.dtype)
+        positions = torch.arange(s, device=x.device)[None, :]
+        kw = dict(window=window, logit_cap=self.cfg.attn_logit_softcap,
+                  scale=self.cfg.resolved_head_dim ** -0.5, use_kernel=use_kernel)
+        tp = self.tp
+        w, h, hkv, split, kv_split = self._serve_weights()
+        q = self._q(x, positions, use_kernel, w, h)
+        k, v = self._kv(x, positions, use_kernel, w, hkv)
+        ka, va = k, v
+        if split and not kv_split:        # the kv heads this rank's q heads read
+            k0, k1, index = kv_heads(tp, self.cfg.n_heads, self.cfg.n_kv_heads)
+            sel = slice(k0, k1) if index is None else torch.tensor(
+                [k0 + i for i in index], device=x.device)
+            ka, va = k[:, :, sel].contiguous(), v[:, :, sel].contiguous()
+        out = kops.flash_attention(q, ka, va, **kw)
+        if kv_split:
+            k, v = (all_gather(t, tp.model, 2) for t in (k, v))
+        write_cache(tp, cache.k, k, 0)
+        write_cache(tp, cache.v, v, 0)
+        out = out.reshape(b, s, -1) @ w["wo"].to(x.dtype)
+        return tp.reduce_out(out) if split else out
 
     def decode(self, x, cache: KVCache, pos: int, *, window: int, use_kernel: bool = True):
         """One token at host position ``pos``. x: (B,1,D). Writes k/v into
-        ``cache[:, pos]`` in place, then attends to the cache."""
+        ``cache[:, pos]`` in place, then attends to the cache. On a mesh:
+        the new k/v made whole over ``model`` and written by the rank that
+        holds ``pos``; q gathered to every head; the decode kernel over this
+        rank's shard of the sequence (its global offset and lse) and the
+        ranks' outputs merged (``tp.merge_over_model``); this rank's heads
+        then through its rows of ``wo``."""
         b = x.shape[0]
-        q, k, v = self._qkv(x, torch.full((b, 1), pos, device=x.device), use_kernel)
-        cache.k[:, pos] = k[:, 0].to(cache.k.dtype)
-        cache.v[:, pos] = v[:, 0].to(cache.v.dtype)
-        out = kops.decode_attention(
-            q.to(cache.k.dtype), cache.k, cache.v, pos, window=window,
-            logit_cap=self.cfg.attn_logit_softcap,
-            scale=self.cfg.resolved_head_dim ** -0.5, use_kernel=use_kernel)
-        return out.to(x.dtype).reshape(b, 1, -1) @ self.wo.to(x.dtype)
+        positions = torch.full((b, 1), pos, device=x.device)
+        kw = dict(window=window, logit_cap=self.cfg.attn_logit_softcap,
+                  scale=self.cfg.resolved_head_dim ** -0.5, use_kernel=use_kernel)
+        tp = self.tp
+        w, h, hkv, split, kv_split = self._serve_weights()
+        q = self._q(x, positions, use_kernel, w, h)
+        k, v = self._kv(x, positions, use_kernel, w, hkv)
+        if split:
+            q = all_gather(q, tp.model, 2)
+        if kv_split:
+            k, v = (all_gather(t, tp.model, 2) for t in (k, v))
+        write_cache(tp, cache.k, k, pos)
+        write_cache(tp, cache.v, v, pos)
+        q = q.to(cache.k.dtype).contiguous()
+        if getattr(cache.k, "tp_dim", None) == 1:
+            out, lse = kops.decode_attention(q, cache.k, cache.v, pos, k0=tp.seq_offset(cache.k),
+                                             return_lse=True, **kw)
+            out = tp.merge_over_model(out, lse)      # float32, rounded once below
+        else:
+            out = kops.decode_attention(q, cache.k, cache.v, pos, **kw)
+        if split:
+            out = out[:, :, tp.rank * h:(tp.rank + 1) * h]
+        out = out.to(x.dtype).reshape(b, 1, -1) @ w["wo"].to(x.dtype)
+        return tp.reduce_out(out) if split else out
+
 
 
 # ---------------------------------------------------------------------------
@@ -366,50 +444,99 @@ class MLAttention(nn.Module):
         own = self._own()
         if not self.heads_split():
             return self._train(x, use_kernel, {k: tp.whole(v) for k, v in own.items()})
-        m, h = self.cfg.mla, self.cfg.n_heads // tp.size
+        w, h = self._split_weights()
+        return tp.reduce_out(self._train(x, use_kernel, w, h, tp.copy_in))
+
+    def _split_weights(self):
+        """On a mesh whose ``model`` axis splits the heads: the up-projections
+        and ``wo`` of this rank's heads, the latents' weights whole, and its
+        heads."""
+        tp, m, h = self.tp, self.cfg.mla, self.cfg.n_heads // self.tp.size
         local = ("w_uq", "w_uk", "w_uv", "wo")
         w = {k: tp.gather_batch(v) if k in local else
-             v if k.endswith("norm") else tp.whole(v) for k, v in own.items() if k != "w_q"}
+             v if k.endswith("norm") else tp.whole(v) for k, v in self._own().items()
+             if k != "w_q"}
         if not m.q_lora_rank:
             qd = m.nope_head_dim + m.rope_head_dim
             w["w_q"] = tp.whole(self.w_q, partial=True)[:, tp.rank * h * qd:
                                                          (tp.rank + 1) * h * qd]
-        return tp.reduce_out(self._train(x, use_kernel, w, h, tp.copy_in))
+        return w, h
+
+    def _serve_weights(self):
+        """(weights, heads, split): ``forward_train``'s split on a mesh whose
+        ``model`` axis splits the heads, else everything whole."""
+        if self.tp is None:
+            return self._own(), self.cfg.n_heads, False
+        if not self.heads_split():
+            return {k: self.tp.whole(v) for k, v in self._own().items()}, self.cfg.n_heads, False
+        return (*self._split_weights(), True)
 
     def prefill(self, x, cache: MLACache, *, use_kernel: bool = True):
         """``forward_train``'s attention; writes the latent and the rotated key
-        into ``cache[:, :S]`` in place."""
+        into ``cache[:, :S]`` in place (on a mesh, this rank's shard of them:
+        the latents are whole on every rank)."""
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None, :]
-        q_nope, q_rope = self._q(x, positions, use_kernel)
-        c_kv, k_rope = self._ckv(x, positions, use_kernel)
-        out = self._attend(q_nope, q_rope, c_kv, k_rope)
-        cache.c_kv[:, :s] = c_kv.to(cache.c_kv.dtype)
-        cache.k_rope[:, :s] = k_rope.to(cache.k_rope.dtype)
-        return out.reshape(b, s, -1) @ self.wo.to(x.dtype)
+        w, h, split = self._serve_weights()
+        q_nope, q_rope = self._q(x, positions, use_kernel, w, h)
+        c_kv, k_rope = self._ckv(x, positions, use_kernel, w)
+        out = self._attend(q_nope, q_rope, c_kv, k_rope, w, h)
+        write_cache(self.tp, cache.c_kv, c_kv, 0)
+        write_cache(self.tp, cache.k_rope, k_rope, 0)
+        out = out.reshape(b, s, -1) @ w["wo"].to(x.dtype)
+        return self.tp.reduce_out(out) if split else out
 
     def decode(self, x, cache: MLACache, pos: int, *, use_kernel: bool = True):
         """One token at host position ``pos`` against the whole cache (masked
-        past ``pos``), absorbed: the cache stays (kv_lora + rope) wide."""
-        m, h = self.cfg.mla, self.cfg.n_heads
+        past ``pos``), absorbed: the cache stays (kv_lora + rope) wide. On a
+        mesh whose ``cache_spec`` cuts the sequence, each rank scores every
+        head (the absorbed queries gathered over ``model``) against its shard
+        of the keys, and the ranks' contexts are merged by their log-sum-exp
+        (``tp.merge_over_model``) before this rank's heads go through
+        ``w_uv`` and its rows of ``wo``."""
+        m = self.cfg.mla
         b = x.shape[0]
+        tp = self.tp
+        w, h, split = self._serve_weights()
         positions = torch.full((b, 1), pos, device=x.device)
-        q_nope, q_rope = self._q(x, positions, use_kernel)                # (B, 1, H, *)
-        c_kv_t, k_rope_t = self._ckv(x, positions, use_kernel)
-        cache.c_kv[:, pos] = c_kv_t[:, 0].to(cache.c_kv.dtype)
-        cache.k_rope[:, pos] = k_rope_t[:, 0].to(cache.k_rope.dtype)
+        q_nope, q_rope = self._q(x, positions, use_kernel, w, h)          # (B, 1, h, *)
+        c_kv_t, k_rope_t = self._ckv(x, positions, use_kernel, w)
+        write_cache(tp, cache.c_kv, c_kv_t, pos)
+        write_cache(tp, cache.k_rope, k_rope_t, pos)
         c_kv = cache.c_kv.float()
-        w_uk = self.w_uk.to(x.dtype).reshape(m.kv_lora_rank, h, m.nope_head_dim)
+        w_uk = w["w_uk"].to(x.dtype).reshape(m.kv_lora_rank, h, m.nope_head_dim)
         q_lat = torch.einsum("bqhd,lhd->bqhl", q_nope, w_uk)
+        if split:                                   # every head, on every rank
+            q_lat, q_rope = (all_gather(t, tp.model, 2) for t in (q_lat, q_rope))
         scores = torch.einsum("bqhl,bkl->bhqk", q_lat.float(), c_kv)
         scores = scores + torch.einsum("bqhd,bkd->bhqk", q_rope.float(), cache.k_rope.float())
         scores = scores * self.scale
-        mask = torch.arange(c_kv.shape[1], device=x.device) <= pos
-        probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
-        ctx = torch.einsum("bhqk,bkl->bqhl", probs, c_kv).to(x.dtype)
-        w_uv = self.w_uv.to(x.dtype).reshape(m.kv_lora_rank, h, m.v_head_dim)
+        if getattr(cache.c_kv, "tp_dim", None) == 1:
+            k0 = tp.seq_offset(cache.c_kv)
+            n_valid = max(0, min(pos - k0 + 1, c_kv.shape[1]))
+            if n_valid:
+                mask = torch.arange(c_kv.shape[1], device=x.device) < n_valid
+                scores = torch.where(mask, scores, NEG_INF)
+                mx = scores.amax(dim=-1, keepdim=True)
+                p = torch.exp(scores - mx)
+                den = p.sum(dim=-1, keepdim=True)
+                ctx = torch.einsum("bhqk,bkl->bqhl", p / den, c_kv)
+                lse = (mx + torch.log(den))[:, :, 0, 0]
+            else:                                   # a shard wholly past pos
+                ctx = c_kv.new_zeros(b, 1, scores.shape[1], m.kv_lora_rank)
+                lse = torch.full((b, scores.shape[1]), NEG_INF, device=x.device)
+            ctx = tp.merge_over_model(ctx, lse)
+        else:
+            mask = torch.arange(c_kv.shape[1], device=x.device) <= pos
+            probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+            ctx = torch.einsum("bhqk,bkl->bqhl", probs, c_kv)
+        ctx = ctx.to(x.dtype)
+        if split:
+            ctx = ctx[:, :, tp.rank * h:(tp.rank + 1) * h]
+        w_uv = w["w_uv"].to(x.dtype).reshape(m.kv_lora_rank, h, m.v_head_dim)
         out = torch.einsum("bqhl,lhd->bqhd", ctx, w_uv)
-        return out.reshape(b, 1, h * m.v_head_dim) @ self.wo.to(x.dtype)
+        out = out.reshape(b, 1, h * m.v_head_dim) @ w["wo"].to(x.dtype)
+        return tp.reduce_out(out) if split else out
 
 
 # ---------------------------------------------------------------------------

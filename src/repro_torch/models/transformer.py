@@ -117,15 +117,29 @@ class DenseBlock(nn.Module):
     def init_cache(self, batch: int, max_len: int, dtype):
         """Zeros: k and v (B, max_len, Hkv, head_dim) for GQA; for MLA the
         latent (B, max_len, kv_lora_rank) and the rotated key (B, max_len,
-        rope_head_dim)."""
+        rope_head_dim). On a mesh, this rank's shard of each under
+        ``sharding.cache_spec`` (``tp.cache_dim``: the sequence; a placement
+        on another dim is refused)."""
         cfg = self.cfg
         kw = dict(dtype=dtype, device=self.ln1.scale.device)
         if cfg.mla is not None:
             m = cfg.mla
-            return MLACache(torch.zeros(batch, max_len, m.kv_lora_rank, **kw),
-                            torch.zeros(batch, max_len, m.rope_head_dim, **kw))
-        shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return KVCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+            shapes, kind = ((batch, max_len, m.kv_lora_rank),
+                            (batch, max_len, m.rope_head_dim)), MLACache
+        else:
+            shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+            shapes, kind = (shape, shape), KVCache
+        tp = self.attn.tp
+        if tp is None:
+            return kind(*(torch.zeros(sh, **kw) for sh in shapes))
+        leaves = []
+        for sh in shapes:
+            dim = tp.cache_dim(sh, allowed=(1,))
+            t = torch.zeros(sh if dim is None else
+                            sh[:dim] + (sh[dim] // tp.size,) + sh[dim + 1:], **kw)
+            t.tp_dim = dim
+            leaves.append(t)
+        return kind(*leaves)
 
     def _attention(self, h, mode: str, cache, pos, use_kernel: bool):
         # MLA attends causally on every layer; a GQA layer takes its window
@@ -203,7 +217,9 @@ class RecurrentBlock(nn.Module):
     starts from the state in the cache and decode steps from it; both write
     the final state back into the cache in place. On a mesh the cell's
     weights are gathered whole and every rank runs the whole cell: its heads
-    and channels are not split over ``model`` yet."""
+    and channels are not split over ``model`` yet. Serving keeps this rank's
+    shard of each state tensor (``sharding.cache_spec``), gathers the state
+    whole over ``model`` for a step and keeps its shard of the new one."""
 
     cell_type = None
     tp = None
@@ -218,8 +234,12 @@ class RecurrentBlock(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype):
         """The cell's zero state (its conv inputs in ``dtype``, the rest
-        float32); ``max_len`` does not matter."""
-        return self.cell.init_cache(batch, dtype)
+        float32); ``max_len`` does not matter. On a mesh, this rank's shard
+        of each tensor."""
+        state = self.cell.init_cache(batch, dtype)
+        if self.tp is None:
+            return state
+        return type(state)(*(self.tp.local_cache(t) for t in state))
 
     def forward_aux(self, x, *, mode: str, cache=None, pos: Optional[int] = None,
                     use_kernel: bool = True, vision_embed=None) -> Tuple[torch.Tensor, Aux]:
@@ -233,18 +253,37 @@ class RecurrentBlock(nn.Module):
                 whole = {n: self.tp.whole(p) for n, p in self.cell.named_parameters()}
                 out, _ = functional_call(self.cell, whole, (h, None, use_kernel))
             return x + out, {}
-        if mode == "prefill":
-            out, state = self.cell(h, cache, use_kernel)
-        elif mode == "decode":
-            out, state = self.cell.decode(h, cache, use_kernel)
-        else:
+        if mode not in ("prefill", "decode"):
             raise ValueError(f"mode {mode!r}: expected 'train', 'prefill' or 'decode'")
+        if self.tp is None:
+            step = self.cell if mode == "prefill" else self.cell.decode
+            out, state = step(h, cache, use_kernel)
+            for dst, src in zip(cache, state):
+                dst.copy_(src)
+            return x + out, {}
+        tp = self.tp
+        whole = {f"cell.{n}": tp.whole(p) for n, p in self.cell.named_parameters()}
+        state = type(cache)(*(tp.gather_cache(t) for t in cache))
+        out, state = functional_call(_CellStep(self.cell), whole,
+                                     (h, state, use_kernel, mode == "decode"))
         for dst, src in zip(cache, state):
-            dst.copy_(src)
+            tp.keep_cache(dst, src)
         return x + out, {}
 
     def forward(self, x, **kw):
         return self.forward_aux(x, **kw)[0]
+
+
+class _CellStep(nn.Module):
+    """A cell's prefill or one-token step as a module's forward, for
+    ``functional_call`` with the cell's weights gathered whole."""
+
+    def __init__(self, cell: nn.Module):
+        super().__init__()
+        self.cell = cell
+
+    def forward(self, h, state, use_kernel: bool, decode: bool):
+        return (self.cell.decode if decode else self.cell)(h, state, use_kernel)
 
 
 class MambaBlock(RecurrentBlock):
@@ -332,10 +371,12 @@ class LM(nn.Module):
 
     ``tp`` is None on one device. On a mesh (``parallel.tensor.shard_model``
     or ``build_sharded``) every parameter is this rank's shard and every
-    module computes its share of the train step (the module docstrings say
-    what): the embedding and the read-out are vocab-parallel where ``model``
-    divides the vocab, each block gathers its weights over the batch axes
-    when it runs, and under remat again in the recompute."""
+    module computes its share of the train and serve steps (the module
+    docstrings say what): the embedding and the read-out are vocab-parallel
+    where ``model`` divides the vocab, each block gathers its weights over
+    the batch axes when it runs, and under remat again in the recompute;
+    ``init_cache`` gives this rank's shard of every cache
+    (``sharding.cache_spec``)."""
 
     tp = None
 

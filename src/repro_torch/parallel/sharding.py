@@ -279,6 +279,18 @@ def batch_specs(batch: Dict[str, torch.Tensor], mesh) -> Dict[str, Spec]:
     return {k: batch_spec(tuple(v.shape), mesh) for k, v in batch.items()}
 
 
+def zero_rules(run, mesh) -> Tuple[bool, bool]:
+    """(attn_zero, moe_zero) of ``run`` (a ``RunConfig``) on ``mesh`` by the
+    JAX package's rule (``lower_cell``): ``attn_zero_sharding`` "on", or
+    "auto" where the heads do not divide the ``model`` size and the model has
+    no MLA; ``moe_zero`` where ``moe_weight_sharding`` is "zero"."""
+    az = run.parallel.attn_zero_sharding
+    tp = mesh_sizes(mesh).get("model", 1)
+    attn_zero = az == "on" or (az == "auto" and run.model.n_heads % tp != 0
+                               and run.model.mla is None)
+    return attn_zero, run.parallel.moe_weight_sharding == "zero"
+
+
 def cache_spec(shape: Sequence[int], mesh) -> Spec:
     """A cache leaf of one block application, (B, ...state): the batch over
     pod x data when they divide it; the largest state dim that ``model``
@@ -299,6 +311,15 @@ def cache_spec(shape: Sequence[int], mesh) -> Spec:
         if cands:
             spec[max(cands)[1]] = "model"
     return tuple(spec)
+
+
+def serve_cache_len(max_len: int, mesh) -> int:
+    """A serve cache's length on a mesh: ``max_len`` rounded up to a multiple
+    of the ``model`` size, so that ``cache_spec`` puts ``model`` on the
+    sequence, as it does at every shape of the JAX package's grid (the keys
+    past the position being decoded are masked)."""
+    tp = mesh_sizes(mesh).get("model", 1)
+    return -(-max_len // tp) * tp
 
 
 def cache_specs(cache: list, mesh) -> list:

@@ -26,6 +26,15 @@ port writes that out, Megatron-style:
     shared by the q heads of two ranks) takes ``whole(partial=True)``, whose
     backward sums over ``model``.
 
+Serving (``prefill``/``decode`` on a mesh) runs the same layers without
+autograd, its caches placed by ``sharding.cache_spec``: each cache tensor is
+this rank's shard, ``model`` on the sequence (a recurrent state's on any of
+its dims; ``cache_dim``) and the rows over the batch axes. A layer writes its whole new keys into its shard (``write_cache``: the
+rank that holds a position writes it), attends over its shard of the
+sequence and merges the ranks' outputs by their log-sum-exp
+(``merge_over_model``); a recurrent cell gathers its state whole
+(``gather_cache``), steps it and keeps its shard.
+
 Every collective is a ``torch.ops._c10d_functional`` op followed by its
 ``wait_tensor``: the dispatcher sees it (the dry run counts it, under a fake
 process group, on the meta device), and gloo runs it (its reduce-scatter
@@ -263,6 +272,59 @@ class TensorParallel:
             x = all_reduce(x, self.groups[a], op)
         return x
 
+    # --- the serve step's caches (no autograd) ------------------------------
+    def cache_dim(self, shape: Sequence[int], allowed: Optional[Sequence[int]] = None
+                  ) -> Optional[int]:
+        """The dim of a cache tensor of ``shape`` (one block application's,
+        (B, ...state)) that ``sharding.cache_spec`` puts ``model`` on, or None
+        (whole on every ``model`` rank). ``allowed``: the dims the layer can
+        compute a shard of (an attention cache's sequence); another is
+        refused."""
+        spec = shd.cache_spec(tuple(shape), {"model": self.size})
+        dim = next((d for d, e in enumerate(spec) if e == "model"), None)
+        if dim is not None and allowed is not None and dim not in allowed:
+            raise ValueError(f"cache {tuple(shape)}: cache_spec puts model ({self.size}) on dim "
+                             f"{dim}; this layer computes on a shard of dims {tuple(allowed)} "
+                             "only (serve rounds the cache length up to a multiple of model)")
+        return dim
+
+    def local_cache(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of a whole cache tensor, with its ``model`` dim
+        (``cache_dim``) as ``tp_dim``."""
+        dim = self.cache_dim(t.shape)
+        out = t if dim is None else local_chunk(t, self.model, dim).clone()
+        out.tp_dim = dim
+        return out
+
+    def gather_cache(self, t: torch.Tensor) -> torch.Tensor:
+        """A cache shard made whole over ``model``."""
+        dim = getattr(t, "tp_dim", None)
+        return t if dim is None else all_gather(t, self.model, dim)
+
+    def keep_cache(self, dst: torch.Tensor, whole: torch.Tensor) -> None:
+        """Write this rank's shard of ``whole`` into the cache shard ``dst``."""
+        dim = getattr(dst, "tp_dim", None)
+        dst.copy_(whole if dim is None else local_chunk(whole, self.model, dim))
+
+    def seq_offset(self, t: torch.Tensor) -> int:
+        """The global position of a cache shard's first entry."""
+        return self.rank * t.shape[1] if getattr(t, "tp_dim", None) == 1 else 0
+
+    def merge_over_model(self, out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+        """Each ``model`` rank's attention output over its shard of the keys,
+        out (B, Q, H, Dv) with lse (B, H), merged into the whole keys'
+        output: weights exp(lse - max over ranks), the weighted outputs and
+        the weights summed over ranks in one all-reduce (``ref.merge_shards``
+        across ranks), in float32. A shard with no valid key (lse NEG_INF)
+        weighs 0."""
+        if self.size == 1:
+            return out.float()
+        m = all_reduce(lse.float(), self.model, "max")
+        w = torch.exp(lse.float() - m)[:, None, :, None]
+        w = w.expand(*out.shape[:-1], 1)
+        both = all_reduce(torch.cat([out.float() * w, w], dim=-1), self.model)
+        return both[..., :-1] / both[..., -1:]
+
     def units(self, n: int) -> Tuple[int, int]:
         """[start, stop) of this rank's block of ``n`` units split over ``model``."""
         k = n // self.size
@@ -273,11 +335,25 @@ class TensorParallel:
 # A model on its shards
 # ---------------------------------------------------------------------------
 
-def param_specs(model, mesh) -> Dict[str, tuple]:
+def write_cache(tp: Optional[TensorParallel], dst: torch.Tensor, src: torch.Tensor,
+                start: int) -> None:
+    """Write ``src``, the whole new entries at positions ``start`` ..
+    ``start + src.shape[1] - 1`` of a cache's sequence, into ``dst``: the
+    whole cache on one device (``tp`` None), else this rank's shard of it:
+    where ``model`` cuts the sequence (``tp_dim`` 1), the positions this rank
+    holds (none, some or all)."""
+    off = tp.seq_offset(dst) if tp is not None else 0
+    a, b = max(start, off), min(start + src.shape[1], off + dst.shape[1])
+    if a < b:
+        dst[:, a - off:b - off] = src[:, a - start:b - start].to(dst.dtype)
+
+
+def param_specs(model, mesh, **rules) -> Dict[str, tuple]:
     """The rules' spec of each parameter (``sharding.param_specs`` of the
-    whole shapes; a parameter already cut carries its own)."""
+    whole shapes, with its ``attn_zero``/``moe_zero`` ``rules``; a parameter
+    already cut carries its own)."""
     shapes = {n: getattr(p, "tp_full_shape", tuple(p.shape)) for n, p in model.named_parameters()}
-    return shd.param_specs(shapes, mesh)
+    return shd.param_specs(shapes, mesh, **rules)
 
 
 def attach(model, tp: TensorParallel) -> TensorParallel:
@@ -301,25 +377,26 @@ def cut(model, tp: TensorParallel, specs: Dict[str, tuple]) -> None:
             p.tp_spec, p.tp_full_shape = specs[name], full_shape
 
 
-def shard_model(model, mesh) -> TensorParallel:
+def shard_model(model, mesh, **rules) -> TensorParallel:
     """Turn a model holding whole parameters into one on this rank's shards
     (every rank holds the same whole model; nothing is sent). A model on its
-    shards is moved onto ``mesh``'s groups (a mesh rebuilt after a restart)."""
+    shards is moved onto ``mesh``'s groups (a mesh rebuilt after a restart).
+    ``rules``: ``param_specs``' ``attn_zero``/``moe_zero``."""
     tp = getattr(model, "tp", None)
     if tp is not None and tp.mesh is mesh:
         return tp
     tp = TensorParallel(mesh)
-    cut(model, tp, param_specs(model, mesh))
+    cut(model, tp, param_specs(model, mesh, **rules))
     return attach(model, tp)
 
 
-def build_sharded(model, mesh, generator: torch.Generator) -> TensorParallel:
+def build_sharded(model, mesh, generator: torch.Generator, **rules) -> TensorParallel:
     """Draw the weights of ``model``, built on the meta device, onto
     ``generator``'s device as the one-device ``init_weights`` draws them,
     cutting each part to this rank's shards as soon as it is drawn: no more
-    than one block is ever whole."""
+    than one block is ever whole. ``rules`` as ``shard_model``'s."""
     tp = TensorParallel(mesh)
-    specs = param_specs(model, mesh)
+    specs = param_specs(model, mesh, **rules)
     model.init_weights(generator, cut=lambda: cut(model, tp, specs))
     return attach(model, tp)
 

@@ -449,7 +449,11 @@ def _make_sharded_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, me
 
 
 def make_prefill_step(model):
-    """prefill(batch, cache): the batch's ``tokens`` or ``embeddings``."""
+    """prefill(batch, cache): the batch's ``tokens`` or ``embeddings``. On a
+    mesh (a model on its shards: ``tensor.shard_model``, ``build_sharded``)
+    the batch is this rank's rows and the cache its shards
+    (``LM.init_cache``); the logits come back whole over the vocab on every
+    ``model`` rank (``LM.forward`` gathers the vocab-parallel read-out)."""
     @torch.no_grad()
     def prefill(batch, cache):
         logits, cache = model(mode="prefill", cache=cache, head="last", **model_inputs(batch))
