@@ -242,6 +242,12 @@ Phases, each fatal on failure:
     loss: the fake group sums nothing, so each rank's attention and FFN
     outputs stand for the sum of 8, and the token ids are drawn within the
     rank's vocab shard (a token outside it would embed as zeros on this rank).
+    Before it, gemma2-2b's layer-0 prefill attention under
+    ``attn_activation_sharding`` "batch" on rank 0 of a (1, 2) mesh
+    (``batch_mode_check``: the flash kernel on the rank's rows only, within
+    ``ROW_REL_TOL`` of the one-device layer's rows); after it, one step of
+    the same rank under ``adamw_8bit`` (the embedding's and head's 8-bit
+    state on their shards), its peak printed beside the dry run's.
     Then one rank of yi-34b's sharded serve on the same (1, 8) mesh at its 60
     layers and published widths (``tp_serve_phase``): batch 2, the
     4352-token prompt, 32 decode steps, the cache 4384 = 8 x 548 long with
@@ -256,7 +262,9 @@ Phases, each fatal on failure:
     H100's peaks (``launch/mesh.py``), the dominant term and the bound, the
     measured time (3's ``prefill_s``, 4's median step s), the roofline share
     (bound / measured) and the MFU (model FLOPs / (989e12 x measured)), and
-    the predicted peak beside ``max_memory_allocated``. It fails where the
+    the predicted peak beside ``max_memory_allocated``; the record's train
+    roofline is at one microbatch (the JAX package's rule) and printed, the
+    card's step held to the terms at its own 2 microbatches. It fails where the
     predicted argument bytes (parameters, optimizer state, cache, batch)
     differ from the real tensors', where the share or the MFU exceeds 1.05
     (a count too high), or where ``HBM_BYTES`` exceeds the card's
@@ -713,6 +721,46 @@ SHARD_CASES = [
 LSE_TOL = 1e-3            # |lse - the plain lse| of a shard, fp32 sums of the inputs
 
 
+def shard_library(q, shards, pos: int, lo: int, cap: float, dtype: str, iters: int):
+    """The shard mode's library counterpart, timed: one memory-efficient
+    attention call (``aten._scaled_dot_product_efficient_attention`` with
+    ``compute_log_sumexp``; aten's flash call where it refuses the shapes) a
+    shard that holds a valid key, over those keys, the kv heads repeated to
+    the query heads (made before the timing). Only without a soft-cap (no
+    library call has one) and in bf16. Returns (events ms, device ms, calls)
+    of the calls together, or (None, None, 0)."""
+    import torch
+    if cap or dtype != "bfloat16":
+        return None, None, 0
+    h, d = q.shape[2], q.shape[3]
+    qt = q.transpose(1, 2)
+    live = []
+    for k0, kk, vv in shards:
+        a, c = max(k0, lo), min(k0 + kk.shape[1], pos + 1)
+        if a < c:
+            live.append([t[:, a - k0:c - k0].repeat_interleave(h // t.shape[2], dim=2)
+                         .transpose(1, 2).contiguous() for t in (kk, vv)])
+
+    def efficient():
+        return [torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kl, vl, None, True, scale=d ** -0.5) for kl, vl in live]
+
+    def flash():
+        return [torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kl, vl, scale=d ** -0.5) for kl, vl in live]
+
+    for label, library in (("memory-efficient", efficient), ("flash", flash)):
+        try:
+            library()
+        except RuntimeError as e:
+            print(f"    library: the {label} call refused these shapes ({str(e)[:120]})",
+                  flush=True)
+            continue
+        print(f"    library: aten's {label} attention with its log-sum-exp", flush=True)
+        return time_ms(library, iters), device_ms(library, iters), len(live)
+    return None, None, 0
+
+
 def shard_decode_phase(iters: int, card: str):
     """The decode kernel's shard mode (``k0``, ``return_lse``): each of
     ``SHARD_CASES``' caches cut into ``SHARDS`` contiguous shards, each
@@ -786,6 +834,7 @@ def shard_decode_phase(iters: int, card: str):
             whole_ms = time_ms(lambda: decode_attention_fwd(q, k, v, pos, **kw), iters)
             plain_ms = time_ms(lambda: ref.merge_shards(*zip(*[ref.decode_attention_shard(
                 q, kk, vv, pos, k0=k0, **kw) for k0, kk, vv in shards])), 2)
+            lib_ms, lib_dev, lib_calls = shard_library(q, shards, pos, lo, cap, dtype, iters)
             n_keys = max(0, pos - lo + 1)
             flops = 4.0 * b * h * n_keys * d
             es = q.element_size()
@@ -797,10 +846,15 @@ def shard_decode_phase(iters: int, card: str):
             print(f"  time {name}: each shard's launch ms (events) {[round(x, 5) for x in each]}; "
                   f"the {SHARDS} launches {sum(each):.5f} ms by events, device_ms={_ms(dev)}; "
                   f"whole-cache launch {whole_ms:.5f} ms; plain shards and merge {plain_ms:.5f} ms; "
-                  f"bound_ms={b_ms:.5f} ({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B; the L2 holds "
-                  f"the {SHARDS} shards between launches: warm); {card}", flush=True)
+                  f"library ({lib_calls} calls over the shards' valid keys, lse computed) "
+                  f"{'none: no library call has a soft-cap' if cap else _ms(lib_ms)} ms by events, "
+                  f"device_ms={_ms(lib_dev)}; bound_ms={b_ms:.5f} ({b_by}; {flops:.4e} FLOP, "
+                  f"{nbytes:.4e} B; the L2 holds the {SHARDS} shards between launches: warm); "
+                  f"{card}", flush=True)
             rows[f"{label} pos={pos}"] = {"ms": sum(each), "shard_ms": each, "device_ms": dev,
                                           "whole_cache_ms": whole_ms, "plain_ms": plain_ms,
+                                          "library_ms": lib_ms, "library_device_ms": lib_dev,
+                                          "library_calls": lib_calls,
                                           "bound_ms": b_ms, "bound_by": b_by,
                                           "max_row_rel_err_vs_whole": vs_whole,
                                           "wholly_masked_shards": empty}
@@ -2268,7 +2322,11 @@ def dryrun_phase(card: str, serve_facts: dict, train_facts: dict) -> None:
     (weights drawn before the count starts, the memory held before them
     taken off), run as traced (``use_kernel=False``) and, printed beside it,
     through the kernels. Fails too where ``launch/mesh.py``'s HBM_BYTES
-    exceeds the card's memory."""
+    exceeds the card's memory. The record's train roofline is traced at one
+    microbatch (the JAX package's rule) and printed; the share and the MFU
+    hold the card's step to the terms at its own 2 microbatches
+    (``dryrun.config_cost``; on one device the FLOPs do not change with the
+    microbatches)."""
     import torch
     from repro_torch.common.config import ShapeSpec
     from repro_torch.configs import get_config
@@ -2324,6 +2382,18 @@ def dryrun_phase(card: str, serve_facts: dict, train_facts: dict) -> None:
             if rec["status"] != "ok":
                 fail(f"dry run of the {label}: {rec.get('error')}\n{rec.get('traceback', '')}")
             mem, roof, cost = rec["memory"], rec["roofline"], rec["cost_analysis"]
+            k = max(cell_run.parallel.microbatches, 1) if shape.kind == "train" else 1
+            if k > 1:
+                # the record's roofline follows the JAX package's rule (one
+                # microbatch); the card ran the config's k: its terms at k
+                print(f"  dryrun {label}: the record's roofline at microbatches "
+                      f"{roof['microbatches']} (the JAX package's rule): compute "
+                      f"{roof['t_comp_s'] * 1e3:.4f} ms, memory {roof['t_mem_s'] * 1e3:.4f} ms, "
+                      f"collective {roof['t_coll_s'] * 1e3:.4f} ms, FLOPs "
+                      f"{roof['flops_per_device']:.6e}; held to the card at its microbatches "
+                      f"{k} below", flush=True)
+                roof = dr.roofline_record(cell_run, shape, one[0], 1, cell_run.model.name,
+                                          dr.config_cost(rec), rec["extrapolation"], k)
             terms = {"compute": roof["t_comp_s"], "memory": roof["t_mem_s"],
                      "collective": roof["t_coll_s"]}
             bound = max(terms.values())
@@ -2333,7 +2403,8 @@ def dryrun_phase(card: str, serve_facts: dict, train_facts: dict) -> None:
             parts = ("param_bytes", "opt_bytes", "cache_bytes", "batch_bytes")
             want = {k: facts.get(k, 0) for k in parts}
             got = {k: int(mem[k]) for k in parts}
-            print(f"  dryrun {label} ({shape.global_batch} x {shape.seq_len}): FLOPs counted "
+            print(f"  dryrun {label} ({shape.global_batch} x {shape.seq_len}, microbatches "
+                  f"{roof['microbatches']}): FLOPs counted "
                   f"{cost['flops_per_device']:.6e}, model {roof['model_flops']:.6e}; terms "
                   f"compute {terms['compute'] * 1e3:.4f} ms, memory {terms['memory'] * 1e3:.4f} "
                   f"ms (traced, unfused: {roof['t_mem_traced_s'] * 1e3:.4f}), collective "
@@ -2623,15 +2694,94 @@ def tp_run():
                                                  global_batch=TP_BATCH))
 
 
-def tp_phase(card: str) -> dict:
-    """Phase 13: one rank of stablelm-12b's tensor-parallel train step on the
-    card under the fake group (module docstring). Returns its launch counts."""
+BATCH_MODE_MESH = {"data": 1, "model": 2}
+
+
+def batch_mode_check(card: str) -> dict:
+    """gemma2-2b's prefill attention (layer 0, its window) under
+    ``attn_activation_sharding`` "batch" on rank 0 of a (data 1, model 2)
+    mesh under the fake group, at batch B and the PROMPT-token prompt: the
+    layer's weights whole on the rank, as a layer whose heads do not divide
+    ``model`` holds them (gemma2-2b's 8 heads at the production mesh's 16),
+    so that nothing the flash kernel reads crosses the fake group. Fails
+    unless the kernel is launched on the rank's rows only (its q holds B / 2
+    rows; as many launches as the one-device call's) and its output rows are
+    within ``ROW_REL_TOL`` of the one-device layer's flash output at those
+    rows. Returns the rank's launch counts."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention import GQAttention, KVCache, layer_window
+    from repro_torch.parallel import tensor
+
+    cfg = get_config("gemma2-2b").model
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    layer = GQAttention(cfg, torch.bfloat16, "cuda", sp_attn="batch")
+    with torch.no_grad():
+        layer.init_weights(gen)
+    x = randn((B, PROMPT, cfg.d_model), torch.bfloat16, gen)
+    kv = (B, PROMPT, cfg.n_kv_heads, cfg.resolved_head_dim)
+    seen, real = [], ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        seen.append((tuple(q.shape), out))
+        return out
+
+    def prefill():
+        ops.reset_launch_counts()
+        cache = KVCache(torch.zeros(kv, dtype=torch.bfloat16, device="cuda"),
+                        torch.zeros(kv, dtype=torch.bfloat16, device="cuda"))
+        with torch.no_grad():
+            layer.prefill(x, cache, window=layer_window(cfg, 0))
+        torch.cuda.synchronize()
+        return seen[-1], ops.launch_counts()
+
+    ops.flash_attention = spy
+    try:
+        (whole_q, whole_out), whole_counts = prefill()
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=math.prod(BATCH_MODE_MESH.values()))
+        try:
+            mesh = init_device_mesh("cuda", tuple(BATCH_MODE_MESH.values()),
+                                    mesh_dim_names=tuple(BATCH_MODE_MESH))
+            layer.tp = tensor.TensorParallel(mesh)
+            (rank_q, rank_out), counts = prefill()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        ops.flash_attention = real
+    rows = B // BATCH_MODE_MESH["model"]
+    rel = ref.max_row_rel_err(rank_out, whole_out[:rows])
+    tol = ref.ROW_REL_TOL[torch.bfloat16]
+    print(f"  batch mode: rank 0 of {BATCH_MODE_MESH}, gemma2-2b layer 0 prefill at batch {B} x "
+          f"{PROMPT}: flash q {rank_q} (one device {whole_q}), launches {counts['flash_attention']} "
+          f"(one device {whole_counts['flash_attention']}); its rows against the one-device "
+          f"layer's rows 0..{rows - 1}: max_row_rel_err {rel:.3e} (limit {tol:g}); {card}",
+          flush=True)
+    if rank_q[0] != rows or whole_q[0] != B \
+            or counts["flash_attention"] != whole_counts["flash_attention"] \
+            or not counts["flash_attention"] or rel > tol:
+        fail(f"batch mode: flash q {rank_q} against {whole_q}, launches {counts} against "
+             f"{whole_counts}, max_row_rel_err {rel:.3e}")
+    return counts
+
+
+def tp_rank(run, shape, steps: int) -> dict:
+    """The dry run of rank 0 of ``run``'s (data 1, model 8) train step at
+    ``shape``, then that rank on the card under the fake group (module
+    docstring): drawn on its shards, its optimizer state made, ``steps``
+    steps. Returns the record's memory and costs, the card's peak over the
+    memory held before the draw, each step's losses, grad norms, seconds and
+    launch counts, the stored optimizer bytes and the parameter counts."""
     import gc
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    from repro_torch.common.config import ShapeSpec
     from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun as dr
@@ -2640,8 +2790,6 @@ def tp_phase(card: str) -> dict:
     from repro_torch.parallel import tensor
     from repro_torch.train.steps import init_train_state, make_train_step
 
-    run = tp_run()
-    shape = ShapeSpec("train_tp_card", TP_SEQ, TP_BATCH, "train")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
         rec = dr.run_cell(TP_ARCH, shape.name, False, False, out,
@@ -2649,7 +2797,8 @@ def tp_phase(card: str) -> dict:
     if rec["status"] != "ok":
         fail(f"tp: the dry run of the rank failed: {rec.get('error')}")
     mem = rec["memory"]
-    print(f"  dry run of rank 0 ({time.perf_counter() - t0:.1f} s): predicted peak "
+    print(f"  dry run of rank 0 ({run.parallel.optimizer_state}, "
+          f"{time.perf_counter() - t0:.1f} s): predicted peak "
           f"{mem['peak_bytes'] / 2**30:.3f} GiB (stored {mem['argument_bytes'] / 2**30:.3f}, "
           f"gathered {mem['gathered_bytes'] / 2**30:.3f}, temporaries "
           f"{mem['temp_bytes'] / 2**30:.3f}); {rec['cost_analysis']['flops_per_device']:.4e} "
@@ -2685,7 +2834,7 @@ def tp_phase(card: str) -> dict:
         batch = {k: torch.from_numpy(v % shard).cuda() for k, v in TokenPipeline(
             run.model, shape, PipelineConfig(seed=run.train.seed)).batch(0).items()}
         losses, norms, seconds, launches = [], [], [], []
-        for _ in range(TP_STEPS):
+        for _ in range(steps):
             ops.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2698,17 +2847,37 @@ def tp_phase(card: str) -> dict:
         del masters, state, step, model
     finally:
         dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"mem": mem, "peak": peak, "miss": peak / mem["peak_bytes"] - 1, "losses": losses,
+            "norms": norms, "seconds": seconds, "launches": launches, "held_opt": held_opt,
+            "build_s": build_s, "local": local, "whole": whole, "shard": shard}
+
+
+def tp_phase(card: str) -> dict:
+    """Phase 13: one rank of stablelm-12b's tensor-parallel train step on the
+    card under the fake group (module docstring), ``TP_STEPS`` steps under
+    its config's optimizer, then one under ``adamw_8bit`` (its embedding's
+    and head's 8-bit state on their shards, ``steps.BlockShards``; the
+    layers' whole on every rank), its peak printed beside the dry run's.
+    Returns the launch counts of the first."""
+    from repro_torch.common.config import ShapeSpec
+
+    run = tp_run()
+    shape = ShapeSpec("train_tp_card", TP_SEQ, TP_BATCH, "train")
+    r = tp_rank(run, shape, TP_STEPS)
+    mem, peak, miss, launches = r["mem"], r["peak"], r["miss"], r["launches"]
+    losses, norms, held_opt = r["losses"], r["norms"], r["held_opt"]
     predicted = mem["peak_bytes"]
-    miss = peak / predicted - 1
     print(f"  rank 0 of {TP_MESH} ({run.model.n_layers} layers, d_model {run.model.d_model}, "
-          f"{run.model.n_heads} heads on {TP_MESH['model']}): {local / 1e9:.4f} B of "
-          f"{whole / 1e9:.4f} B parameters held, drawn in {build_s:.2f} s; step seconds "
-          f"{[round(x, 4) for x in seconds]}; max_memory_allocated {peak / 2**30:.3f} GiB "
+          f"{run.model.n_heads} heads on {TP_MESH['model']}): {r['local'] / 1e9:.4f} B of "
+          f"{r['whole'] / 1e9:.4f} B parameters held, drawn in {r['build_s']:.2f} s; step seconds "
+          f"{[round(x, 4) for x in r['seconds']]}; max_memory_allocated {peak / 2**30:.3f} GiB "
           f"against the dry run's {predicted / 2**30:.3f} GiB ({miss:+.2%}, "
           f"{'within' if abs(miss) <= TP_PEAK_TOL else 'outside'} "
           f"{TP_PEAK_TOL:.0%}); rmsnorm launches a step {[c['rmsnorm'] for c in launches]}; "
           f"losses {losses}, grad norms {norms} (not a model's: the fake group sums "
-          f"nothing; token ids below {shard}, this rank's vocab shard); {card}", flush=True)
+          f"nothing; token ids below {r['shard']}, this rank's vocab shard); {card}", flush=True)
     print(f"  rank 0's stored optimizer state {held_opt / 2**30:.3f} GiB "
           f"({held_opt} bytes) against the dry run's {mem['opt_bytes'] / 2**30:.3f} GiB of "
           f"{mem['argument_bytes'] / 2**30:.3f} GiB stored (argument_bytes)", flush=True)
@@ -2720,8 +2889,23 @@ def tp_phase(card: str) -> dict:
     if abs(miss) > TP_PEAK_TOL:
         fail(f"tp: max_memory_allocated {peak / 2**30:.3f} GiB misses the dry run's "
              f"{predicted / 2**30:.3f} GiB by {miss:+.2%}")
+
+    q8 = tp_rank(run.replace(parallel=dataclasses.replace(run.parallel,
+                                                          optimizer_state="adamw_8bit")),
+                 shape, 1)
+    print(f"  rank 0 under adamw_8bit: one step {q8['seconds'][0]:.4f} s, loss "
+          f"{q8['losses'][0]}, grad norm {q8['norms'][0]}; stored optimizer state "
+          f"{q8['held_opt'] / 2**30:.3f} GiB (dry run {q8['mem']['opt_bytes'] / 2**30:.3f}); "
+          f"max_memory_allocated {q8['peak'] / 2**30:.3f} GiB against the dry run's "
+          f"{q8['mem']['peak_bytes'] / 2**30:.3f} GiB ({q8['miss']:+.2%}; gathered "
+          f"{q8['mem']['gathered_bytes'] / 2**30:.3f} GiB); {card}", flush=True)
+    if not all(map(math.isfinite, q8["losses"] + q8["norms"])) \
+            or q8["held_opt"] != q8["mem"]["opt_bytes"]:
+        fail(f"tp 8-bit: losses {q8['losses']}, grad norms {q8['norms']}, stored optimizer "
+             f"bytes {q8['held_opt']} against the dry run's {q8['mem']['opt_bytes']}")
     return dict(launches[-1], peak_bytes=peak, predicted_peak_bytes=predicted,
-                step_s=seconds)
+                step_s=r["seconds"], adamw_8bit=dict(peak_bytes=q8["peak"],
+                                                      predicted_peak_bytes=q8["mem"]["peak_bytes"]))
 
 
 
@@ -4666,6 +4850,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     print("[tp]", flush=True)
+    batch_mode_counts = batch_mode_check(card)
     tp_counts = tp_phase(card)
     tp_serve_counts = tp_serve_phase(card)
     print(f"[tp] done in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4685,7 +4870,7 @@ def main(argv=None) -> int:
                              for arch in MODEL_ARCHS} for name in counts}
     print(f"launches on the main paths: serve {serve_counts}, train {train_counts}, "
           f"train fault {train_fault_counts}, train int8 {int8_counts}, mesh {mesh_counts}, "
-          f"tp {tp_counts}, tp serve {tp_serve_counts}, "
+          f"tp {tp_counts}, tp serve {tp_serve_counts}, tp batch mode {batch_mode_counts}, "
           f"live {live_counts}, campaigns {campaign_counts}, models {model_launches}",
           flush=True)
 
@@ -4741,7 +4926,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": [
         dict(entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:88", flash_err, flash_rows),
-             **sharded("flash_attention")),
+             **sharded("flash_attention"),
+             tp_batch_mode=batch_mode_counts["flash_attention"]),
         # the shard mode at its shapes (8 shards, merged), its launches in
         # [tp]'s sharded serve (world 1 runs the whole-cache call)
         dict(entry("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",

@@ -63,15 +63,20 @@ ranks costs nothing. A device does what the port does:
     train step the most bytes of all-gather outputs alive at once in the
     trace (a layer's weights whole over the batch axes, the factored
     optimizer's row and column statistics, or ``adamw_8bit`` gathering one
-    leaf, its gradient and its state whole), plus the
+    leaf whose state is whole, its gradient and its state), plus the
     global batch the step takes; in a serve step likewise the most bytes of
     all-gather outputs alive (a layer's weights over the batch axes, the
     activations a layer gathers over ``model``: the new keys, the queries of
     every head, the logits of every vocab shard). ``fits`` is false where
     that does not fit 80 GB, which is a finding;
-  * ``attn_activation_sharding`` has no counterpart (the JAX package's
-    "batch" mode re-shards attention's activations over the batch); the
-    record carries its value;
+  * ``attn_activation_sharding`` is resolved as the JAX package's
+    ``build_model`` resolves it (``models.model.attn_activation_mode``:
+    "auto" is "batch" where the kv heads do not divide 16 and the model has
+    no MLA) and runs in the traced step: under "batch", a GQA layer whose
+    rank's rows divide ``model`` attends its ``1/model`` of them over every
+    head (``models/attention.py``; its all-to-alls over ``model`` counted as
+    "all-to-all"); the record carries the configured value and the resolved
+    one (``parallel.attn_activation_mode``);
   * a step's collectives are those its trace issued (``collectives_of``): a
     serve step's are each layer's gathers of its weights over the batch
     axes, the tensor-parallel all-reduces over ``model``, the gathers of
@@ -110,8 +115,12 @@ Record keys follow the JAX package's where they mean the same. Renamed:
 structural estimate), ``dominant_hlo`` -> ``dominant_traced``,
 ``hlo_flops_global`` -> ``flops_global`` and ``roofline_fraction_hlo`` ->
 ``roofline_fraction_traced``. ``cpu_float_normalization_bytes`` (an XLA:CPU
-artifact) has no counterpart. The roofline is written for both meshes: it
-needs no trace of its own here.
+artifact) has no counterpart. The roofline is written for both meshes. As the
+JAX package's ``roofline_cell``, a train cell's roofline is traced at one
+microbatch, while its memory, ``cost_analysis`` and ``collectives`` are the
+config's microbatches' (``run_cell``); the roofline section keeps the costs
+it was computed from and their microbatches (``stored_cost``), which
+``--roofline-only`` reads.
 """
 from __future__ import annotations
 
@@ -136,14 +145,16 @@ from repro_torch.common.config import RunConfig, SHAPES, ShapeSpec, shape_applic
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import mesh as meshmod
 from repro_torch.launch import roofline as rl
-from repro_torch.models.model import build_model, count_params_analytic, input_specs
+from repro_torch.models.model import (attn_activation_mode, build_model,
+                                      count_params_analytic, input_specs)
 from repro_torch.models.transformer import RECURRENT_BLOCKS, layer_plan
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor
 from repro_torch.parallel.compression import ErrorFeedback
 from repro_torch.train.steps import (local_opt_state, make_decode_step, make_local_step,
-                                     make_prefill_step, make_train_step, state_specs)
+                                     make_prefill_step, make_train_step, mark_batch,
+                                     state_specs)
 
 DEFAULT_OUT = "experiments/dryrun_torch"
 # the JAX package's production meshes (launch/mesh.py::make_production_mesh)
@@ -322,6 +333,8 @@ class StepCounter(TorchDispatchMode):
             kind, shape, group = "all-gather", (t.shape[0] * args[1], *t.shape[1:]), args[1]
         elif name == "reduce_scatter_tensor":
             kind, shape, group = "reduce-scatter", (t.shape[0] // args[2], *t.shape[1:]), args[2]
+        elif name == "all_to_all_single":
+            kind, shape, group = "all-to-all", (sum(args[1]), *t.shape[1:]), _group_size(args[3])
         else:
             raise NotImplementedError(f"the dry run does not count {func}")
         out = torch.empty(shape, dtype=t.dtype, device=t.device)
@@ -511,6 +524,7 @@ def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
     world = math.prod(mesh_sizes.values())
     meshed = world > 1
     rank = 0 if shape.kind == "train" else world - 1
+    n_batch = math.prod(mesh_sizes.get(a, 1) for a in shd.BATCH_AXES)
     with (fake_world(mesh_sizes, rank) if meshed else contextlib.nullcontext()) as mesh:
         if shape.kind == "train":
             run = run.replace(train=dataclasses.replace(run.train, seq_len=seq,
@@ -518,6 +532,7 @@ def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
             opt_cfg = optimizer_config(run)
             if meshed:
                 tp = tensor.shard_model(model, mesh)
+                mark_batch(tp, shape.global_batch, k, n_batch)
                 params = dict(model.named_parameters())
                 opt_state = init_opt_state(run, params, mesh)
                 step = make_local_step(model, run, opt_cfg, tp)
@@ -532,7 +547,8 @@ def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
         else:
             if meshed:
                 attn_zero, moe_zero = shd.zero_rules(run, mesh_sizes)
-                tensor.shard_model(model, mesh, attn_zero=attn_zero, moe_zero=moe_zero)
+                tp = tensor.shard_model(model, mesh, attn_zero=attn_zero, moe_zero=moe_zero)
+                mark_batch(tp, shape.global_batch, 1, n_batch)
                 seq = shd.serve_cache_len(seq, mesh_sizes)
             cache = model.init_cache(rows, seq, dtype=getattr(torch, run.parallel.kv_cache_dtype))
             args = [*model.parameters(), *_tensors(cache), *batch.values()]
@@ -568,8 +584,11 @@ def collectives_of(run: RunConfig, shape: ShapeSpec,
     (forward, backward and recompute) and of the vocab-parallel loss, the
     all-reduces over the batch axes of the gradients they leave whole, the
     factored optimizer's all-reduces and all-gathers of its row and column
-    sums, ``adamw_8bit``'s whole-leaf gathers, the metrics, the global norm,
-    the int8 maxima and the MoE load-balance means."""
+    sums, ``adamw_8bit``'s whole-leaf gathers (and, for a leaf whose state
+    sits like it, the all-to-alls of its codes and the max of its blocks'
+    scales), the "batch" attention mode's moves over ``model``, the
+    metrics, the global norm, the int8 maxima and the MoE load-balance
+    means."""
     return trace_cell(run, shape, mesh_sizes).coll
 
 
@@ -820,8 +839,10 @@ def memory_record(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int],
 
 
 def roofline_record(run: RunConfig, shape: ShapeSpec, mesh_name: str, chips: int, arch: str,
-                    cost: rl.CostTerms, extrapolation: Dict) -> Dict:
-    """The roofline section of a record from its extrapolated costs."""
+                    cost: rl.CostTerms, extrapolation: Dict, microbatches: int = 1) -> Dict:
+    """The roofline section of a record from its extrapolated costs, traced
+    at ``microbatches``; the section keeps those costs (``stored_cost``
+    reads them back)."""
     n_active = count_params_analytic(run.model, active_only=True)
     mf = rl.step_model_flops(run.model, n_active, shape)
     roof = rl.roofline_terms(arch, shape.name, mesh_name, chips, cost, mf, 0.0)
@@ -842,8 +863,33 @@ def roofline_record(run: RunConfig, shape: ShapeSpec, mesh_name: str, chips: int
         "roofline_fraction": ideal / max(max(terms.values()), 1e-30),
         "collective_counts": cost.coll.counts,
         "collective_wire_bytes_per_device": cost.coll.wire_bytes,
+        "flops_per_device": cost.flops,
+        "bytes_per_device": cost.hbm_bytes,
+        "microbatches": microbatches,
         "units_extrapolated": extrapolation["full_units"],
     }
+
+
+def config_cost(rec: Dict) -> rl.CostTerms:
+    """A record's costs at the config's microbatches (``cost_analysis`` and
+    ``collectives``)."""
+    coll = rl.CollectiveStats(dict(rec["collectives"]["counts"]), {},
+                              rec["collectives"]["wire_bytes_per_device"])
+    return rl.CostTerms(rec["cost_analysis"]["flops_per_device"],
+                        rec["cost_analysis"]["bytes_per_device"], coll)
+
+
+def stored_cost(rec: Dict) -> Tuple[rl.CostTerms, Optional[int]]:
+    """(the costs, their microbatches) a record's roofline was computed
+    from: its own where the section keeps them, else (a record written
+    before it did) ``config_cost`` and None."""
+    roof = rec.get("roofline", {})
+    if "flops_per_device" not in roof:
+        return config_cost(rec), None
+    coll = rl.CollectiveStats(dict(roof["collective_counts"]), {},
+                              roof["collective_wire_bytes_per_device"])
+    return rl.CostTerms(roof["flops_per_device"], roof["bytes_per_device"], coll), \
+        roof["microbatches"]
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, do_roofline: bool,
@@ -875,6 +921,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, do_roofline: bool,
                                                    if shape.kind == "train" else 1),
                          "attn_zero": attn_zero, "moe_zero": moe_zero,
                          "attn_activation_sharding": run.parallel.attn_activation_sharding,
+                         "attn_activation_mode": attn_activation_mode(run),
                          "optimizer_state": run.parallel.optimizer_state},
             "memory": memory_record(run, shape, sizes, costs["temp_bytes"],
                                     costs["gathered_bytes"]),
@@ -884,8 +931,15 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, do_roofline: bool,
                             "wire_bytes_per_device": cost.coll.wire_bytes},
         })
         if do_roofline:
-            rec["roofline"] = roofline_record(run, shape, mesh_name, chips, arch, cost,
-                                              costs["extrapolation"])
+            # the JAX package's rule (``roofline_cell``): a train step's
+            # roofline at one microbatch, its memory at the config's
+            k = max(run.parallel.microbatches, 1) if shape.kind == "train" else 1
+            if k > 1:
+                one = run.replace(parallel=dataclasses.replace(run.parallel, microbatches=1))
+                costs = cell_costs(one, shape, sizes)
+                rec["trace_s"] = round(rec["trace_s"] + costs["trace_s"], 1)
+            rec["roofline"] = roofline_record(run, shape, mesh_name, chips, arch, costs["cost"],
+                                              costs["extrapolation"], 1)
     except Exception as e:
         rec["status"] = "error"
         rec["error"] = f"{type(e).__name__}: {e}"
@@ -916,8 +970,9 @@ def _write(rec: Dict, out_dir: str) -> Dict:
 
 def refresh_roofline(arch: str, shape_name: str, out_dir: str) -> Dict:
     """Recompute only the roofline section of an existing single-pod record
-    from its stored costs (after a change of peaks); a cell without a record
-    is traced."""
+    from the costs it was computed from (``stored_cost``; after a change of
+    peaks); a cell without a record, or a train cell whose record holds only
+    the costs at the config's microbatches (more than one), is traced."""
     run = get_config(arch)
     shape = SHAPES[shape_name]
     if not shape_applicable(run.model, shape):
@@ -929,12 +984,13 @@ def refresh_roofline(arch: str, shape_name: str, out_dir: str) -> Dict:
     with open(path) as f:
         rec = json.load(f)
     try:
-        coll = rl.CollectiveStats(dict(rec["collectives"]["counts"]), {},
-                                  rec["collectives"]["wire_bytes_per_device"])
-        cost = rl.CostTerms(rec["cost_analysis"]["flops_per_device"],
-                            rec["cost_analysis"]["bytes_per_device"], coll)
+        cost, k = stored_cost(rec)
+        if k is None:
+            k = max(run.parallel.microbatches, 1) if shape.kind == "train" else 1
+            if k > 1:
+                return run_cell(arch, shape_name, False, True, out_dir)
         rec["roofline"] = roofline_record(run, shape, mesh_name, rec["chips"], arch, cost,
-                                          rec["extrapolation"])
+                                          rec["extrapolation"], k)
     except Exception as e:
         rec["roofline_error"] = f"{type(e).__name__}: {e}"
     return _write(rec, out_dir)

@@ -46,7 +46,7 @@ from repro_torch.models.model import DTYPES, build_model, synthetic_batch
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor
 from repro_torch.train.steps import (batch_coordinate, local_batch, make_decode_step,
-                                     make_prefill_step)
+                                     make_prefill_step, mark_batch)
 
 
 def _sync(dev: torch.device) -> None:
@@ -82,6 +82,8 @@ def serve(run: RunConfig, *, batch: int = 2, prompt_len: int = 64, decode_steps:
     shape = ShapeSpec("serve", prompt_len, batch, "prefill")
     prompt = synthetic_batch(run.model, shape, seed=1, device=dev)
     if mesh is not None:
+        if sharded:
+            mark_batch(model.tp, batch, 1, batch_coordinate(mesh)[1])
         prompt = local_batch(prompt, 1, *batch_coordinate(mesh))
         batch = next(iter(prompt.values())).shape[0]
     cache_len = prompt_len + decode_steps

@@ -40,7 +40,7 @@ from repro_torch.common.config import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import NEG_INF, causal_window_mask
 from repro_torch.models.layers import RMSNorm, apply_rope, softcap, truncated_normal
-from repro_torch.parallel.tensor import all_gather, write_cache
+from repro_torch.parallel.tensor import all_gather, local_chunk, write_cache
 
 
 # ---------------------------------------------------------------------------
@@ -152,13 +152,30 @@ class GQAttention(nn.Module):
     package's ``attn_zero_sharding`` "auto" case: at 16, gemma2-2b's 8 heads,
     smollm-135m's 9, musicgen-medium's 24, yi-34b's and arctic-480b's 56), the
     layer gathers its weights whole and every ``model`` rank computes the
-    whole attention."""
+    whole attention.
+
+    ``sp_attn`` "batch" is the JAX package's ``attn_activation_sharding``
+    "batch" mode (``_sp_shard``: q, k and v constrained to the batch over
+    pod x data x model in ``gqa_train`` and ``gqa_prefill``). On a mesh where
+    this rank's rows split over ``model`` (``tp.rows_over_model``), each
+    ``model`` rank attends its ``1/model`` of the rows over every head, and
+    the outputs come back to every ``model`` rank; elsewhere (one device,
+    rows that do not divide, decode) the mode changes nothing, as
+    ``_maybe_shard`` drops the constraint. Where the heads do not divide,
+    the rows are cut before the projections and the output's rows gathered
+    after ``wo`` (the whole weights' gradients summed over ``model``); where
+    they divide, the projections stay on this rank's heads and all rows, and
+    an all-to-all over ``model`` moves q (and k and v where the kv heads
+    divide; else they are projected on this rank's rows with the kv weights
+    gathered whole) to (this rank's rows, every head) and the attention's
+    output back, before ``wo`` row-parallel."""
 
     tp = None
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, sp_attn: str = ""):
         super().__init__()
         self.cfg = cfg
+        self.sp_attn = sp_attn
         d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
         kw = dict(dtype=dtype, device=device)
         self.wq = nn.Parameter(torch.empty(d, h * hd, **kw))
@@ -215,6 +232,10 @@ class GQAttention(nn.Module):
         tp = self.tp
         return self.cfg.n_heads % tp.size == 0 and tp.split_on((self.wq, 1), (self.wo, 0))
 
+    def rows_split(self, rows: int) -> bool:
+        """The "batch" mode applies to a layer of ``rows`` rows on this mesh."""
+        return self.sp_attn == "batch" and self.tp is not None and self.tp.rows_over_model(rows)
+
     def forward_train(self, x, *, window: int, use_kernel: bool = True):
         """Full-sequence causal attention without a cache (JAX ``gqa_train``),
         through the plain chunked attention; ``use_kernel`` picks the qk
@@ -222,9 +243,17 @@ class GQAttention(nn.Module):
         tp = self.tp
         if tp is None:
             return self._train(x, window, use_kernel)
+        rows = self.rows_split(x.shape[0])
         if not self.heads_split():
-            whole = {k: tp.whole(v) for k, v in self._own().items()}
+            # whole weights; under the mode this rank's rows only, so each
+            # weight's gradient is a part, summed over model
+            whole = {k: tp.whole(v, partial=rows) for k, v in self._own().items()}
+            if rows:
+                return tp.gather_model(self._train(tp.split_rows(x), window, use_kernel, whole),
+                                       0)
             return self._train(x, window, use_kernel, whole)
+        if rows:
+            return self._train_rows(x, window, use_kernel)
         cfg = self.cfg
         wk, wv, hkv, kv_index = kv_plan(tp, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
                                       self.wk, self.wv)
@@ -234,6 +263,37 @@ class GQAttention(nn.Module):
             w["k_norm"] = tp.copy_in(self.k_norm.scale)
         out = self._train(tp.copy_in(x), window, use_kernel, w, cfg.n_heads // tp.size, hkv,
                           kv_index)
+        return tp.reduce_out(out)
+
+    def _train_rows(self, x, window: int, use_kernel: bool):
+        """``forward_train`` under the "batch" mode where the heads split:
+        q projected on this rank's heads and all rows, moved to this rank's
+        rows and every head (``tp.rows_to_heads``), k and v likewise where
+        ``model`` splits the kv heads, else projected on this rank's rows
+        (``tp.split_rows``) with the kv weights whole; the attention's output
+        moved back to this rank's heads and all rows, through its rows of
+        ``wo``, all-reduced over ``model``."""
+        tp, cfg = self.tp, self.cfg
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None, :]
+        heads = cfg.n_heads // tp.size
+        xq = tp.copy_in(x)
+        w = {"wq": tp.gather_batch(self.wq), "wo": tp.gather_batch(self.wo)}
+        if cfg.qk_norm:     # shared by every head: each rank's gradient is a part
+            w["q_norm"] = tp.copy_in(self.q_norm.scale)
+            w["k_norm"] = tp.copy_in(self.k_norm.scale)
+        q = tp.rows_to_heads(self._q(xq, positions, use_kernel, w, heads))
+        if cfg.n_kv_heads % tp.size == 0 and tp.split_on((self.wk, 1), (self.wv, 1)):
+            w["wk"], w["wv"] = tp.gather_batch(self.wk), tp.gather_batch(self.wv)
+            k, v = self._kv(xq, positions, use_kernel, w, cfg.n_kv_heads // tp.size)
+            k, v = tp.rows_to_heads(k), tp.rows_to_heads(v)
+        else:
+            w["wk"], w["wv"] = tp.whole(self.wk, partial=True), tp.whole(self.wv, partial=True)
+            k, v = self._kv(tp.split_rows(x), positions, use_kernel, w)
+        out = chunked_causal_attention(q, k, v, window=window,
+                                       logit_cap=cfg.attn_logit_softcap,
+                                       scale=cfg.resolved_head_dim ** -0.5)
+        out = tp.heads_to_rows(out).reshape(b, s, -1) @ w["wo"].to(x.dtype)
         return tp.reduce_out(out)
 
     def _serve_weights(self):
@@ -264,13 +324,18 @@ class GQAttention(nn.Module):
         mesh: this rank's q heads through the flash kernel against the kv
         heads they read, and the whole new k/v (gathered over ``model``
         where it splits the kv heads) written into this rank's shard of the
-        cache; ``wo`` row-parallel. Where the heads do not split, whole."""
+        cache; ``wo`` row-parallel. Where the heads do not split, whole.
+        Under the "batch" mode (``rows_split``) the new k/v are made as
+        before, for the cache, and the flash kernel runs on this rank's rows
+        over every head (``_prefill_rows``)."""
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device)[None, :]
         kw = dict(window=window, logit_cap=self.cfg.attn_logit_softcap,
                   scale=self.cfg.resolved_head_dim ** -0.5, use_kernel=use_kernel)
         tp = self.tp
         w, h, hkv, split, kv_split = self._serve_weights()
+        if self.rows_split(b):
+            return self._prefill_rows(x, cache, positions, kw, w, h, hkv, split, kv_split)
         q = self._q(x, positions, use_kernel, w, h)
         k, v = self._kv(x, positions, use_kernel, w, hkv)
         ka, va = k, v
@@ -286,6 +351,33 @@ class GQAttention(nn.Module):
         write_cache(tp, cache.v, v, 0)
         out = out.reshape(b, s, -1) @ w["wo"].to(x.dtype)
         return tp.reduce_out(out) if split else out
+
+    def _prefill_rows(self, x, cache: KVCache, positions, kw, w, h, hkv, split, kv_split):
+        """``prefill`` under the "batch" mode: the whole new k/v of every kv
+        head (gathered over ``model`` where it splits them) written into this
+        rank's cache shard and cut to this rank's rows; q of this rank's
+        heads moved to its rows and every head (``rows_to_heads``), or, where
+        the heads do not split, projected on its rows alone; the flash kernel
+        on those rows; the output moved back and through ``wo`` row-parallel,
+        or through the whole ``wo`` and its rows gathered over ``model``."""
+        tp, use_kernel = self.tp, kw["use_kernel"]
+        b, s, _ = x.shape
+        k, v = self._kv(x, positions, use_kernel, w, hkv)
+        if kv_split:
+            k, v = (all_gather(t, tp.model, 2) for t in (k, v))
+        write_cache(tp, cache.k, k, 0)
+        write_cache(tp, cache.v, v, 0)
+        # this rank's rows, contiguous (a gather over model leaves k and v
+        # strided): the flash kernel takes them as they are
+        k, v = (local_chunk(t, tp.model, 0).contiguous() for t in (k, v))
+        if split:
+            q = tp.rows_to_heads(self._q(x, positions, use_kernel, w, h))
+            out = tp.heads_to_rows(kops.flash_attention(q, k, v, **kw))
+            return tp.reduce_out(out.reshape(b, s, -1) @ w["wo"].to(x.dtype))
+        xr = local_chunk(x, tp.model, 0)
+        out = kops.flash_attention(self._q(xr, positions, use_kernel, w, h), k, v, **kw)
+        out = out.reshape(xr.shape[0], s, -1) @ w["wo"].to(x.dtype)
+        return all_gather(out, tp.model, 0)
 
     def decode(self, x, cache: KVCache, pos: int, *, window: int, use_kernel: bool = True):
         """One token at host position ``pos``. x: (B,1,D). Writes k/v into

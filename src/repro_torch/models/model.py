@@ -20,16 +20,42 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.common.config import ModelConfig, RunConfig, ShapeSpec
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, check_sp_attn
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+ATTN_MODES = ("off", "batch", "auto")
+# the JAX package's literal in "auto" (``build_model``, ``lower_cell``): the
+# production mesh's model size, not the mesh a model runs on
+AUTO_KV_HEADS = 16
+
+
+def attn_activation_mode(run: RunConfig) -> str:
+    """``attn_activation_sharding`` resolved as the JAX package's
+    ``build_model`` resolves it: "auto" is "batch" where the kv heads do not
+    divide 16 and the model has no MLA, else "off"; "off" and "batch" stay.
+    "sequence" (refuted in the JAX package, kept there for the record) and
+    any other value are refused by name."""
+    mode = run.parallel.attn_activation_sharding
+    if mode == "auto":
+        mode = ("batch" if run.model.n_kv_heads % AUTO_KV_HEADS != 0 and run.model.mla is None
+                else "off")
+    if mode == "sequence":
+        check_sp_attn(mode)
+    if mode not in ("off", "batch"):
+        raise ValueError(f"attn_activation_sharding {mode!r}: expected one of {ATTN_MODES}")
+    return mode
+
+
 def build_model(run: RunConfig, device=None, use_kernel: bool = True) -> LM:
     """An ``LM`` with uninitialised weights: call ``init_weights`` or load a
-    state dict (``repro_torch.convert``)."""
+    state dict (``repro_torch.convert``). Its attention activation mode is
+    the config's, resolved (``attn_activation_mode``)."""
+    mode = attn_activation_mode(run)
     return LM(run.model, param_dtype=DTYPES[run.parallel.param_dtype], device=device,
-              use_kernel=use_kernel, remat=run.parallel.remat)
+              use_kernel=use_kernel, remat=run.parallel.remat,
+              sp_attn="" if mode == "off" else mode)
 
 
 # ---------------------------------------------------------------------------

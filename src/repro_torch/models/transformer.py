@@ -69,6 +69,18 @@ from repro_torch.models.ssm import MLSTM, SLSTM, Mamba2
 BLOCK_CROSS = "cross"
 BLOCK_SHARED_ATTN = "shared_attn"
 REMAT = ("none", "dots", "full")
+SP_ATTN = ("", "batch")
+
+
+def check_sp_attn(mode: str) -> None:
+    """Refuse an attention activation mode the port does not run, by name."""
+    if mode == "sequence":
+        raise ValueError(
+            "attention activation mode 'sequence' is refused: the JAX package keeps it "
+            "for the record only, refuted (GSPMD thrashed the layouts of the chunked "
+            "attention), and the flash kernel takes no query offset for a sequence shard")
+    if mode not in SP_ATTN:
+        raise ValueError(f"attention activation mode {mode!r}: expected one of {SP_ATTN}")
 
 
 def _dots_policy(ctx, func, *args, **kwargs):
@@ -88,16 +100,20 @@ AUX_KEYS = ("moe_lb_loss", "moe_z_loss")
 class DenseBlock(nn.Module):
     """Attention (GQA or MLA) + GLU MLP, pre-norm, with gemma2's optional
     sandwich norms. ``layer_idx`` sets the layer's window; ``None`` is
-    zamba2's shared block, full causal. ``forward`` returns the block's
-    output; ``forward_aux`` also the FFN's aux losses (none here)."""
+    zamba2's shared block, full causal. ``sp_attn``: the GQA attention's
+    activation mode (``GQAttention``; MLA takes none, as in the JAX
+    package). ``forward`` returns the block's output; ``forward_aux`` also
+    the FFN's aux losses (none here)."""
 
-    def __init__(self, cfg: ModelConfig, layer_idx: Optional[int], dtype, device):
+    def __init__(self, cfg: ModelConfig, layer_idx: Optional[int], dtype, device,
+                 sp_attn: str = ""):
         super().__init__()
         self.cfg = cfg
         self.window = 0 if layer_idx is None else layer_window(cfg, layer_idx)
         d, eps = cfg.d_model, cfg.norm_eps
         self.ln1 = RMSNorm(d, eps, dtype, device)
-        self.attn = (MLAttention if cfg.mla is not None else GQAttention)(cfg, dtype, device)
+        self.attn = (MLAttention(cfg, dtype, device) if cfg.mla is not None
+                     else GQAttention(cfg, dtype, device, sp_attn=sp_attn))
         self.ln2 = RMSNorm(d, eps, dtype, device)
         self._init_ffn(cfg, dtype, device)
         if cfg.post_block_norm:
@@ -346,7 +362,8 @@ def stack_positions(cfg: ModelConfig) -> List[Tuple[int, int]]:
     return [(0, 0)] * n
 
 
-def _make_block(cfg: ModelConfig, kind: str, layer_idx: int, dtype, device) -> nn.Module:
+def _make_block(cfg: ModelConfig, kind: str, layer_idx: int, dtype, device,
+                sp_attn: str = "") -> nn.Module:
     if kind in RECURRENT_BLOCKS:
         if kind == BLOCK_MAMBA2 and cfg.ssm is None:
             raise ValueError(f"{cfg.name}: a mamba2 block needs cfg.ssm")
@@ -355,7 +372,8 @@ def _make_block(cfg: ModelConfig, kind: str, layer_idx: int, dtype, device) -> n
         return CrossBlock(cfg, dtype, device)
     if kind == BLOCK_MOE and cfg.moe is None:
         raise ValueError(f"{cfg.name}: an MoE block needs cfg.moe")
-    return (MoEBlock if kind == BLOCK_MOE else DenseBlock)(cfg, layer_idx, dtype, device)
+    return (MoEBlock if kind == BLOCK_MOE else DenseBlock)(cfg, layer_idx, dtype, device,
+                                                            sp_attn)
 
 
 class LM(nn.Module):
@@ -376,15 +394,21 @@ class LM(nn.Module):
     where ``model`` divides the vocab, each block gathers its weights over
     the batch axes when it runs, and under remat again in the recompute;
     ``init_cache`` gives this rank's shard of every cache
-    (``sharding.cache_spec``)."""
+    (``sharding.cache_spec``).
+
+    ``sp_attn``: "" or "batch", the JAX ``LM``'s argument of that name
+    (``models.model.attn_activation_mode`` resolves the config's knob), for
+    every GQA attention, zamba2's shared block included; "sequence" is
+    refused (``check_sp_attn``)."""
 
     tp = None
 
     def __init__(self, cfg: ModelConfig, param_dtype=torch.bfloat16, device=None,
-                 use_kernel: bool = True, remat: str = "none"):
+                 use_kernel: bool = True, remat: str = "none", sp_attn: str = ""):
         super().__init__()
         if remat not in REMAT:
             raise ValueError(f"remat {remat!r}: expected one of {REMAT}")
+        check_sp_attn(sp_attn)
         kinds = layer_plan(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
@@ -401,10 +425,11 @@ class LM(nn.Module):
                 torch.empty(cfg.d_model, cfg.vocab_size, dtype=param_dtype, device=dev))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, param_dtype, dev)
         layers = [k for k in kinds if k != BLOCK_SHARED_ATTN]
-        self.blocks = nn.ModuleList(_make_block(cfg, kind, i, param_dtype, dev)
+        self.sp_attn = sp_attn
+        self.blocks = nn.ModuleList(_make_block(cfg, kind, i, param_dtype, dev, sp_attn)
                                     for i, kind in enumerate(layers))
         if BLOCK_SHARED_ATTN in kinds:
-            self.shared_attn = DenseBlock(cfg, None, param_dtype, dev)
+            self.shared_attn = DenseBlock(cfg, None, param_dtype, dev, sp_attn)
         # the module of each application, in order (not registered twice)
         blocks = iter(self.blocks)
         self._apps = [self.shared_attn if k == BLOCK_SHARED_ATTN else next(blocks)

@@ -12,7 +12,8 @@ is fp32, step for step that of the JAX package:
 (they are the model's own, and a copy of 2.6B parameters would not fit beside
 the state); the state dict is returned anew. On a mesh the same body updates
 a shard (``Shards``: the sharded step sums the factored statistics over the
-mesh; everything else is elementwise on the shard). The JAX package stacks a
+mesh, and moves an 8-bit state between its placement and the shard's layout;
+everything else is elementwise on the shard). The JAX package stacks a
 segment's layers on a leading axis and the port keeps one tensor per layer:
 ``adamw`` is elementwise and the same either way, while ``adamw_factored`` and
 ``adamw_8bit`` factor or quantise each layer's tensor on its own, where a
@@ -159,6 +160,16 @@ class Shards:
         """A whole (..., cols) statistic -> the shard's part of it."""
         return whole
 
+    def decode(self, q: torch.Tensor, scale: torch.Tensor, block: int) -> torch.Tensor:
+        """An 8-bit moment as its state holds it (codes (n, block), scales
+        (n, 1)) -> its values in this tensor's layout, fp32."""
+        return _q8_decode(q, scale, self.shape, block)
+
+    def encode(self, x: torch.Tensor, block: int):
+        """A moment in this tensor's layout, fp32 -> its 8-bit state as it is
+        held (codes, scales)."""
+        return _q8_encode(x, block)
+
 
 def _new_param(cfg: OptimizerConfig, p, mu, nu, lr, step):
     """Bias correction, the update and the decay: p's new value in its dtype."""
@@ -218,20 +229,22 @@ def _factored_update(cfg: OptimizerConfig, p, g, st, lr, step, shards: Shards):
 @torch.no_grad()
 def update_leaf(cfg: OptimizerConfig, p, g, st, lr, step, shards: Optional[Shards] = None):
     """One leaf's step: writes ``p``'s new value in place and returns its
-    new state; ``shards`` as ``apply_updates`` takes it. The 8-bit
+    new state; ``shards`` as ``apply_updates`` takes it (a factored or an
+    8-bit leaf's; absent, the leaf is whole). The 8-bit
     branch pops the old moments out of ``st`` as it decodes them, so that a
     caller that hands over its only reference holds the old and the new
     int8 state no longer than it must."""
+    shards = shards or Shards(p.shape)
     if "nu_row" in st:  # factored
-        return _factored_update(cfg, p, g, st, lr, step, shards or Shards(p.shape))
+        return _factored_update(cfg, p, g, st, lr, step, shards)
     b1, b2 = cfg.b1, cfg.b2
-    if "mu_q" in st:  # 8-bit: a block spans the flattened leaf, so the leaf is whole
+    if "mu_q" in st:  # 8-bit: a block spans the flattened leaf (``Shards.decode``)
         g = g.to(torch.float32)
-        mu = b1 * _q8_decode(st.pop("mu_q"), st.pop("mu_s"), p.shape, cfg.block) + (1 - b1) * g
-        nu = (b2 * _q8_decode(st.pop("nu_q"), st.pop("nu_s"), p.shape, cfg.block)
+        mu = b1 * shards.decode(st.pop("mu_q"), st.pop("mu_s"), cfg.block) + (1 - b1) * g
+        nu = (b2 * shards.decode(st.pop("nu_q"), st.pop("nu_s"), cfg.block)
               + (1 - b2) * torch.square(g))
-        mq, ms = _q8_encode(mu, cfg.block)
-        nq, ns = _q8_encode(nu, cfg.block)
+        mq, ms = shards.encode(mu, cfg.block)
+        nq, ns = shards.encode(nu, cfg.block)
         p.copy_(_new_param(cfg, p, mu, nu, lr, step))
         return {"mu_q": mq, "mu_s": ms, "nu_q": nq, "nu_s": ns}
     new_st = {k: torch.empty_like(v) for k, v in st.items()}
@@ -253,8 +266,8 @@ def apply_updates(cfg: OptimizerConfig, params: Dict[str, torch.Tensor],
     returns (params, new state); ``state["step"]`` counts the updates. A leaf
     of three or more dims with float moments (the MoE expert tensors) is
     updated a leading index at a time. ``shards``: on a mesh, each factored
-    leaf's ``Shards`` (``params`` then hold shards); absent, every leaf is
-    whole."""
+    or 8-bit leaf's ``Shards`` (``params`` then hold shards); absent, every
+    leaf is whole."""
     step = state["step"]
     new_m = {}
     for name, p in params.items():

@@ -24,7 +24,11 @@ port writes that out, Megatron-style:
     gradient is then the same on each, and the backward of that gather keeps
     this rank's slice. A slice that each rank reads only in part (a kv head
     shared by the q heads of two ranks) takes ``whole(partial=True)``, whose
-    backward sums over ``model``.
+    backward sums over ``model``;
+  * under the "batch" attention mode a layer moves its rows over ``model``
+    instead (``split_rows``, ``rows_to_heads``/``heads_to_rows``: an
+    all-to-all whose backward is the inverse one), where they divide
+    (``rows_over_model``).
 
 Serving (``prefill``/``decode`` on a mesh) runs the same layers without
 autograd, its caches placed by ``sharding.cache_spec``: each cache tensor is
@@ -91,6 +95,28 @@ def local_chunk(t: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     return t.chunk(group.size, dim=dim)[group.rank] if group.size > 1 else t
 
 
+def all_to_all(t: torch.Tensor, group: Group, out_splits: Sequence[int],
+               in_splits: Sequence[int]) -> torch.Tensor:
+    """Rows ``in_splits[j]`` of ``t``'s dim 0 (in order) sent to rank j; the
+    rows received, ``out_splits[i]`` from rank i, concatenated in rank order."""
+    if group.size == 1:
+        return t
+    return _fc.wait_tensor(_fc.all_to_all_single(t.contiguous(), list(out_splits),
+                                                 list(in_splits), group.name))
+
+
+def swap_dims(t: torch.Tensor, group: Group, split_dim: int, cat_dim: int) -> torch.Tensor:
+    """``t`` cut into the group's size of chunks along ``split_dim``, chunk j
+    sent to rank j, and the chunks received concatenated along ``cat_dim``
+    in rank order: (all rows, this rank's heads) -> (this rank's rows, every
+    head) with ``split_dim`` 0 and ``cat_dim`` the heads', and back."""
+    if group.size == 1:
+        return t
+    x = torch.stack(t.chunk(group.size, dim=split_dim))
+    out = all_to_all(x, group, [1] * group.size, [1] * group.size)
+    return torch.cat(out.unbind(0), dim=cat_dim)
+
+
 # ---------------------------------------------------------------------------
 # Autograd-aware collectives
 # ---------------------------------------------------------------------------
@@ -138,6 +164,33 @@ class _SumBoth(torch.autograd.Function):
         return g, None
 
 
+class _Swap(torch.autograd.Function):
+    """``swap_dims`` forward; backward the inverse move of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, cat_dim):
+        ctx.args = group, cat_dim, split_dim
+        return swap_dims(x, group, split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return swap_dims(g, *ctx.args), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    """This rank's chunk of ``dim`` forward; backward the ranks' gradients
+    gathered in rank order (every rank computed on the whole before)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return local_chunk(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
 class _Gather(torch.autograd.Function):
     """All-gather over ``steps`` ((dim, group), minor axis first); backward a
     reduce-scatter over them (``sum``) or this rank's slice."""
@@ -177,6 +230,9 @@ class TensorParallel:
         self.size, self.rank = self.model.size, self.model.rank
         self.batch_axes = tuple(a for a in shd.BATCH_AXES if a in names)
         self.n_batch = math.prod(self.sizes[a] for a in self.batch_axes)
+        # the step's batch is held whole on every batch rank (rows that the
+        # batch axes do not divide: ``steps.local_batch``); set by the caller
+        self.batch_replicated = False
 
     # --- specs ----------------------------------------------------------
     @staticmethod
@@ -252,6 +308,31 @@ class TensorParallel:
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:
         return _CopyIn.apply(x, self.model) if self.size > 1 else x
+
+    # --- the "batch" attention mode's moves ---------------------------------
+    def rows_over_model(self, rows: int) -> bool:
+        """A layer of this rank's ``rows`` can split them over ``model``: the
+        microbatch's global rows divide pod x data x model, as the JAX
+        package's ``_maybe_shard`` requires of ``("pod", "data", "model")``
+        (this rank's share of rows split over the batch axes divides
+        ``model``; a batch held whole on every batch rank,
+        ``batch_replicated``, does not divide them)."""
+        return self.size > 1 and rows % self.size == 0 and not self.batch_replicated
+
+    def split_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's ``1/model`` of the rows (dim 0) of ``x``, which every
+        ``model`` rank holds whole; the backward gathers the rows'
+        gradients over ``model`` in row order."""
+        return _Split.apply(x, self.model, 0) if self.size > 1 else x
+
+    def rows_to_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(rows, S, this rank's heads, D) -> (this rank's rows, S, every
+        head, D): an all-to-all over ``model``, its inverse backward."""
+        return _Swap.apply(x, self.model, 0, 2) if self.size > 1 else x
+
+    def heads_to_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``rows_to_heads``' inverse."""
+        return _Swap.apply(x, self.model, 2, 0) if self.size > 1 else x
 
     def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
         return _ReduceOut.apply(x, self.model) if self.size > 1 else x

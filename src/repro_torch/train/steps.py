@@ -26,16 +26,20 @@ backward, and a dim that the batch axes leave whole is all-reduced over them
 (``make_local_step``). ``adamw`` then updates each shard, and
 ``adamw_factored`` too: its row and column means are the shard's partial
 sums all-reduced over the axes that shard the summed dim and gathered whole
-(``LeafShards``). ``adamw_8bit``'s blocks span the flattened leaf, so it
-gathers one leaf, its gradient and its state at a time and cuts them back.
+(``LeafShards``). ``adamw_8bit``'s blocks span the flattened leaf: a leaf
+whose 8-bit state sits like it is updated on its shard (``BlockShards``: the
+codes moved between the two layouts by an all-to-all); any other leaf, its
+gradient and its state are gathered whole one at a time and cut back.
 The metrics, the MoE load-balance statistics, the int8 ``amax`` and the
 global norm are those of the whole batch and the whole leaf, as GSPMD
 computes them.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.common.config import RunConfig
@@ -204,6 +208,14 @@ def local_batch(batch: Dict[str, torch.Tensor], k: int, rank: int, n: int):
             .reshape((k * share,) + v.shape[1:]) for name, v in batch.items()}
 
 
+def mark_batch(tp, rows: int, k: int, n: int) -> None:
+    """Tell a model's ``tp`` whether the step's global batch of ``rows`` in
+    ``k`` microbatches is held whole on each of the ``n`` batch ranks
+    (``local_batch``): its rows then never split over ``model``
+    (``TensorParallel.rows_over_model``)."""
+    tp.batch_replicated = n > 1 and rows % (k * n) != 0
+
+
 def state_specs(opt_cfg: adamw.OptimizerConfig, specs: Dict[str, tuple],
                 shapes: Dict[str, tuple], mesh) -> Dict[str, Dict[str, tuple]]:
     """Each optimizer state tensor's spec as placed on ``mesh``:
@@ -311,6 +323,94 @@ class LeafShards(adamw.Shards):
         return self.tp.shard(whole, self.col_spec)
 
 
+class BlockShards(adamw.Shards):
+    """A 2-D leaf's 8-bit state where ``opt_state_specs`` places it like the
+    parameter (spec (a, b): the codes (n, block) with the blocks over a and
+    each block's offsets over b, the scales (n, 1) over a), updated on the
+    parameter's shard (rows over a, columns over b). A row shard holds whole
+    blocks (its rows x columns divide by the block: ``block_shards``), so the
+    blocks of this rank's rows are the state's blocks over a, and only the
+    ranks along b trade elements: a block's offsets lie over b's ranks in
+    the state and its columns in the parameter, two layouts that the
+    flattened row shard repeats every lcm(columns, block) elements. From
+    one such period, each element's owner and place in both layouts give
+    the all-to-all over b that moves the int8 codes either way. A block's
+    scale is the max over the ranks that hold its elements (an all-reduce
+    over b), so the codes are those of the whole leaf's ``_q8_encode``."""
+
+    def __init__(self, tp, spec: tuple, shape, block: int, device):
+        super().__init__(shape)
+        rows, cols = shape
+        self.group = tp.groups[spec[1]] if spec[1] else tensor.Group("", 1, 0)
+        m, me = self.group.size, self.group.rank
+        self.local = (rows // math.prod(tp.sizes[a] for a in shd._axes_of(spec[0])), cols // m)
+        period = math.lcm(cols, block)
+        self.periods = self.local[0] * cols // period
+        self.blocks = period // block           # blocks a period
+        f = np.arange(period)
+        width = block // m
+        p_own, p_pos = (f % cols) // self.local[1], (f // cols) * self.local[1] + f % self.local[1]
+        s_own, s_pos = (f % block) // width, (f // block) * width + f % width
+
+        def index(x):
+            return torch.from_numpy(x.astype(np.int64)).to(device)
+        # each element of this rank's period in the parameter's layout: its block
+        block_of = np.empty(period // m, dtype=np.int64)
+        block_of[p_pos[p_own == me]] = f[p_own == me] // block
+        self.block_of = index(block_of)
+        # (places sent to rank j, places received from rank i), either way
+        self.to_state = ([index(p_pos[(p_own == me) & (s_own == j)]) for j in range(m)],
+                         [index(s_pos[(p_own == i) & (s_own == me)]) for i in range(m)])
+        self.to_param = ([index(s_pos[(s_own == me) & (p_own == j)]) for j in range(m)],
+                         [index(p_pos[(s_own == i) & (p_own == me)]) for i in range(m)])
+        self.width = width
+
+    def _move(self, x: torch.Tensor, plan) -> torch.Tensor:
+        """A period-major (periods, period / m) tensor in one layout -> the other."""
+        send, recv = plan
+        if self.group.size == 1:
+            return x
+        out = tensor.all_to_all(torch.cat([x[:, i].reshape(-1) for i in send]), self.group,
+                                [self.periods * len(i) for i in recv],
+                                [self.periods * len(i) for i in send])
+        y = torch.empty_like(x)
+        for i, part in zip(recv, out.split([self.periods * len(i) for i in recv])):
+            y[:, i] = part.view(self.periods, -1)
+        return y
+
+    def _scales(self, scale: torch.Tensor) -> torch.Tensor:
+        """Each element's block scale, (periods, period / m)."""
+        return scale.reshape(self.periods, self.blocks)[:, self.block_of]
+
+    def decode(self, q, scale, block):
+        codes = self._move(q.reshape(self.periods, -1), self.to_param)
+        return (codes.to(torch.float32) * self._scales(scale)).reshape(self.local)
+
+    def encode(self, x, block):
+        x = x.reshape(self.periods, -1)
+        amax = torch.zeros(self.periods, self.blocks, dtype=torch.float32, device=x.device)
+        amax.scatter_reduce_(1, self.block_of.expand(self.periods, -1), x.abs(), "amax")
+        scale = torch.clamp(tensor.all_reduce(amax, self.group, "max") / 127.0, min=1e-12)
+        q = torch.clamp(torch.round(x / self._scales(scale)), -127, 127).to(torch.int8)
+        return (self._move(q, self.to_state).reshape(-1, self.width),
+                scale.reshape(-1, 1))
+
+
+def block_shards(tp, spec: tuple, shape, st_specs: Dict[str, tuple], block: int,
+                 device) -> Optional[BlockShards]:
+    """The ``BlockShards`` of a leaf whose 8-bit state sits like the
+    parameter and whose row shard holds whole blocks, else None (its state
+    is whole, or the layouts do not meet: the leaf is gathered whole to be
+    updated)."""
+    if len(shape) != 2 or st_specs.get("mu_q") != tuple(spec) \
+            or st_specs.get("mu_s") != (spec[0], None) or isinstance(spec[1], tuple):
+        return None
+    rows = shape[0] // math.prod(tp.sizes[a] for a in shd._axes_of(spec[0]))
+    if rows * shape[1] % block:
+        return None
+    return BlockShards(tp, tuple(spec), shape, block, device)
+
+
 def make_local_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, tp):
     """The sharded step on plain tensors: step(params, opt_state, batch) ->
     (params, opt_state, metrics), where ``params`` is
@@ -329,6 +429,10 @@ def make_local_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, tp):
                         tp.mesh)
     shards = {n: LeafShards(tp, tp.spec(p), whole[n]) for n, p in model.named_parameters()
               if "nu_row" in specs[n]}
+    if opt_cfg.kind == "adamw_8bit":
+        blocks = {n: block_shards(tp, tp.spec(p), whole[n], specs[n], opt_cfg.block, p.device)
+                  for n, p in model.named_parameters()}
+        shards = {n: b for n, b in blocks.items() if b is not None}
 
     def cut(t, spec):
         """This rank's shard of a whole ``t``, in storage of its own."""
@@ -336,12 +440,18 @@ def make_local_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, tp):
 
     @torch.no_grad()
     def update_8bit(params, grads, opt_state, lr):
-        """The 8-bit blocks span the flattened leaf: each leaf, its gradient
-        and its state gathered whole in turn, updated, and cut back. The
-        gathered old state is the update's alone, so it is freed as it is
-        decoded, before the new one is encoded."""
+        """The 8-bit blocks span the flattened leaf. A leaf whose state sits
+        like the parameter is updated on its shard (``BlockShards``); any
+        other leaf, its gradient and its state are gathered whole in turn,
+        updated, and cut back. The gathered old state is the update's alone,
+        so it is freed as it is decoded, before the new one is encoded."""
         step, new_m = opt_state["step"], {}
         for name, p in params.items():
+            if name in shards:
+                new_m[name] = adamw.update_leaf(opt_cfg, p, grads.pop(name),
+                                                dict(opt_state["m"][name]), lr, step,
+                                                shards[name])
+                continue
             spec, st_specs = tp.spec(p), specs[name]
             leaf = tp.full(p.detach(), spec)
             new = adamw.update_leaf(
@@ -436,6 +546,7 @@ def _make_sharded_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, me
                       for n, st in opt_state["m"].items()}
         if "ef" in state:
             state["ef"] = {n: r.to_local() for n, r in state["ef"].items()}
+        mark_batch(tp, next(iter(batch.values())).shape[0], k, n_batch)
         _, state, metrics = local_step(model_params, state, local_batch(batch, k, rank, n_batch))
         params = {name: wrap(p, placements[name]) for name, p in model_params.items()}
         state["m"] = {n: {key: wrap(v, state_pl[n][key]) for key, v in st.items()}

@@ -37,7 +37,15 @@ Held to the port itself:
     exactly, wire bytes relative 1e-12), for int8, a factored optimizer, MoE
     and remat ``dots``;
   * the record's keys, ``skipped_by_design`` exactly where
-    ``shape_applicable`` is false, and the CLI on smollm-135m train_4k.
+    ``shape_applicable`` is false, and the CLI on smollm-135m train_4k
+    (its roofline at one microbatch, reproduced by ``--roofline-only``);
+  * a train cell's roofline traced at one microbatch and its memory at the
+    config's two, as the JAX package's ``run_cell`` divides them;
+  * ``attn_activation_sharding`` resolved as the JAX package's
+    ``build_model`` does for all ten configs, "sequence" and unknown values
+    refused; a rank's attention FLOPs under "batch" 1/model of "off"'s where
+    the rows divide and the heads do not, equal elsewhere; an 8-bit cell's
+    gathered bytes below the whole-leaf update's.
 """
 import dataclasses
 import json
@@ -83,7 +91,8 @@ from repro.configs import ARCHS, get_config
 from repro.launch import roofline as rl
 from repro.models.model import count_params_analytic, input_specs
 
-out = {"params": {}, "specs": {}, "units": {}, "structural": {}, "roofline": []}
+from repro.models.model import build_model as jax_build_model
+out = {"params": {}, "specs": {}, "units": {}, "structural": {}, "roofline": [], "sp_attn": {}}
 for a in ARCHS:
     run = get_config(a)
     out["params"][a] = [count_params_analytic(run.model),
@@ -93,6 +102,9 @@ for a in ARCHS:
                        for s, sh in SHAPES.items()}
     out["units"][a] = [dr.full_units(run)] + [dr.with_units(run, k).model.n_layers
                                               for k in (1, 2, 3)]
+    out["sp_attn"][a] = {m: jax_build_model(run.replace(parallel=dataclasses.replace(
+        run.parallel, attn_activation_sharding=m)), use_kernel=False).sp_attn
+        for m in ("off", "auto", "batch")}
     out["structural"][a] = {f"{s}/{c}": rl.structural_hbm_bytes(run, sh, c)
                             for s, sh in SHAPES.items() for c in (256, 512)}
 
@@ -223,6 +235,38 @@ def test_units_and_structural_bytes_equal_the_jax_packages(arch, jax_ref):
         for chips in (256, 512):
             want = jax_ref["structural"][arch][f"{s}/{chips}"]
             assert rl.structural_hbm_bytes(run, shape, chips) == pytest.approx(want, rel=1e-12)
+
+
+@pytest.mark.parametrize("arch", _archs())
+def test_attn_activation_mode_resolves_as_the_jax_build_model(arch, jax_ref):
+    """"off", "auto" and "batch" of each full config resolve to the JAX
+    ``build_model``'s ``sp_attn`` ("" for "off"), and the port's ``LM``
+    carries it: "auto" is "batch" for every GQA config whose kv heads do not
+    divide 16, "off" for deepseek-v2-236b (MLA) and zamba2-7b (32 kv
+    heads)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import attn_activation_mode, build_model
+    run = get_config(arch)
+    for mode, want in jax_ref["sp_attn"][arch].items():
+        r = run.replace(parallel=dataclasses.replace(run.parallel, attn_activation_sharding=mode))
+        got = attn_activation_mode(r)
+        assert ("" if got == "off" else got) == want, mode
+        assert build_model(r, device="meta", use_kernel=False).sp_attn == want, mode
+    auto = jax_ref["sp_attn"][arch]["auto"]
+    assert auto == ("" if arch in ("deepseek-v2-236b", "zamba2-7b") else "batch")
+
+
+@pytest.mark.parametrize("mode", ["sequence", "batched", "on"])
+def test_other_attn_activation_modes_are_refused_by_name(mode):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import LM
+    run = get_smoke_config("gemma2-2b")
+    run = run.replace(parallel=dataclasses.replace(run.parallel, attn_activation_sharding=mode))
+    with pytest.raises(ValueError, match=f"'{mode}'" + (".*refuted" if mode == "sequence" else "")):
+        build_model(run, device="meta")
+    with pytest.raises(ValueError, match=f"'{mode}'"):
+        LM(run.model, device="meta", sp_attn=mode)
 
 
 # --- the roofline's arithmetic ---------------------------------------------------------------
@@ -483,8 +527,8 @@ def ranks(rank, world, out, variants):
 
     class Collectives(TorchDispatchMode):
         """(kind, bytes, group) of every collective: in bytes for a
-        reduce-scatter, out bytes for an all-gather, the tensor's for an
-        all-reduce."""
+        reduce-scatter and an all-to-all, out bytes for an all-gather, the
+        tensor's for an all-reduce."""
 
         def __init__(self):
             super().__init__()
@@ -501,6 +545,9 @@ def ranks(rank, world, out, variants):
             elif name == "_c10d_functional::all_reduce":
                 group = dist.distributed_c10d._resolve_process_group(args[2]).size()
                 self.seen.append(("all-reduce", args[0].numel() * args[0].element_size(), group))
+            elif name == "_c10d_functional::all_to_all_single":
+                group = dist.distributed_c10d._resolve_process_group(args[3]).size()
+                self.seen.append(("all-to-all", args[0].numel() * args[0].element_size(), group))
             elif name == "c10d::allreduce_":
                 nbytes = sum(t.numel() * t.element_size() for t in args[0])
                 group = dist.ProcessGroup.unbox(args[1]).size()
@@ -580,7 +627,8 @@ MEMORY_KEYS = {"argument_bytes", "param_bytes", "opt_bytes", "cache_bytes", "bat
 ROOFLINE_KEYS = {"t_comp_s", "t_mem_traced_s", "t_mem_s", "t_coll_s", "dominant_traced",
                  "dominant", "model_flops", "flops_global", "useful_flops_ratio",
                  "roofline_fraction_traced", "roofline_fraction", "collective_counts",
-                 "collective_wire_bytes_per_device", "units_extrapolated"}
+                 "collective_wire_bytes_per_device", "flops_per_device", "bytes_per_device",
+                 "microbatches", "units_extrapolated"}
 
 
 def test_cli_writes_the_record_of_smollm_train_4k(tmp_path, capsys):
@@ -602,15 +650,117 @@ def test_cli_writes_the_record_of_smollm_train_4k(tmp_path, capsys):
         sum(mem[k] for k in ("param_bytes", "opt_bytes", "cache_bytes", "batch_bytes")))
     run = get_config("smollm-135m")
     assert rec["parallel"]["local_batch"] == 256 // 16
+    assert rec["parallel"]["attn_activation_mode"] == "off"
     assert roof["units_extrapolated"] == dr.full_units(run) == rec["extrapolation"]["full_units"]
-    assert roof["t_comp_s"] == pytest.approx(
-        rec["cost_analysis"]["flops_per_device"] / meshmod.PEAK_FLOPS_BF16)
+    # the roofline at one microbatch (the config's is 2), from its own costs
+    assert run.parallel.microbatches == 2 and roof["microbatches"] == 1
+    assert roof["t_comp_s"] == pytest.approx(roof["flops_per_device"] / meshmod.PEAK_FLOPS_BF16)
+    # --roofline-only recomputes the section from those costs: the same
+    dr.main(["--arch", "smollm-135m", "--shape", "train_4k", "--roofline-only", "--out",
+             str(tmp_path)])
+    with open(tmp_path / "single_pod_16x16__smollm-135m__train_4k.json") as f:
+        assert json.load(f)["roofline"] == roof
     assert roof["t_coll_s"] > 0 and rec["collectives"]["counts"]["all-gather"] > 0
     # smollm-135m's 9 heads do not divide by 16: its attention runs whole on
     # every model rank, and the all-reduces of d_model 576 activations over
     # model bound the cell
     assert rec["collectives"]["counts"]["all-reduce"] > 0 and roof["dominant"] == "collective"
     assert 0 < roof["roofline_fraction"] < 1 / 16 * 1.5
+
+
+def test_a_train_cells_roofline_is_traced_at_one_microbatch(tmp_path):
+    """gemma2-2b's smoke train cell at microbatches 2 on (2, 2), as the JAX
+    package's ``run_cell`` and ``roofline_cell`` divide it: the roofline
+    equals ``cell_costs`` of the same run at microbatches 1, and the memory,
+    ``cost_analysis`` and collectives those of the microbatches-2 trace. The
+    collective term differs: each layer's gathers and reduce-scatters run
+    once a microbatch."""
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.launch import dryrun as dr
+    run = _smoke("gemma2-2b", microbatches=2, remat="full")
+    shape = ShapeSpec("train_smoke", SEQ, BATCH, "train")
+    sizes = {"data": 2, "model": 2}
+    rec = dr.run_cell("gemma2-2b", shape.name, False, True, str(tmp_path),
+                      mesh=("data2_model2", sizes), run=run, shape=shape)
+    one = dr.cell_costs(run.replace(parallel=dataclasses.replace(run.parallel, microbatches=1)),
+                        shape, sizes)
+    two = dr.cell_costs(run, shape, sizes)
+    roof = rec["roofline"]
+    assert roof["microbatches"] == 1
+    assert roof["flops_per_device"] == one["cost"].flops
+    assert roof["bytes_per_device"] == one["cost"].hbm_bytes
+    assert roof["collective_counts"] == one["cost"].coll.counts
+    assert roof["collective_wire_bytes_per_device"] == one["cost"].coll.wire_bytes
+    assert rec["cost_analysis"] == {"flops_per_device": two["cost"].flops,
+                                    "bytes_per_device": two["cost"].hbm_bytes}
+    assert rec["collectives"]["counts"] == two["cost"].coll.counts
+    assert rec["memory"] == dr.memory_record(run, shape, sizes, two["temp_bytes"],
+                                             two["gathered_bytes"])
+    assert rec["collectives"]["wire_bytes_per_device"] > roof["collective_wire_bytes_per_device"]
+    assert dr.stored_cost(rec)[0].flops == roof["flops_per_device"]
+
+
+# (arch, mesh, microbatches): a rank's attention score FLOPs under "batch"
+# over "off": 1/model where the rows divide and the heads do not (smollm-135m's
+# 3), the same where the heads divide (stablelm-12b's 4: each rank's share of
+# heads x rows either way) or the rows do not (microbatches 2: 1 row a rank)
+ATTN_SHARE = [("smollm-135m", (2, 2), 1, 1 / 2), ("smollm-135m", (1, 4), 1, 1 / 4),
+              ("smollm-135m", (2, 2), 2, 1.0), ("smollm-135m", (1, 4), 2, 1.0),
+              ("stablelm-12b", (1, 4), 1, 1.0)]
+
+
+@pytest.mark.parametrize("arch, mesh, k, share", ATTN_SHARE)
+def test_a_ranks_attention_flops_under_the_batch_mode(arch, mesh, k, share, monkeypatch):
+    """Rank 0's train step traced on the meta device under "batch" and
+    "off" (global batch 4): the FLOPs of the attention's score and PV
+    products (a ``FlopCounterMode`` around each call of the plain
+    attention's core), and where the mode applies, its all-to-alls (heads
+    that divide) counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import attention as att
+    real, seen = att._softmax_attend, []
+
+    def counted(*a, **kw):
+        with FlopCounterMode(display=False) as fc:
+            out = real(*a, **kw)
+        seen.append(fc.get_total_flops())
+        return out
+
+    monkeypatch.setattr(att, "_softmax_attend", counted)
+    sizes = dict(zip(("data", "model"), mesh))
+    flops, coll = {}, {}
+    for mode in ("off", "batch"):
+        seen.clear()
+        tr = dr.trace_cell(_smoke(arch, microbatches=k, attn_activation_sharding=mode),
+                           ShapeSpec("t", SEQ, BATCH, "train"), sizes)
+        flops[mode], coll[mode] = sum(seen), tr.coll.counts
+    assert flops["off"] > 0 and flops["batch"] == flops["off"] * share
+    split_heads = arch == "stablelm-12b" and k == 1
+    assert ("all-to-all" in coll["batch"]) == split_heads and "all-to-all" not in coll["off"]
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "stablelm-12b"])
+def test_8bit_cells_gather_less_with_the_state_on_its_shards(arch, monkeypatch):
+    """An ``adamw_8bit`` train cell on (2, 2): the traced bytes of all-gather
+    outputs alive at once fall below those of the same step with every leaf
+    gathered whole for its update (``steps.block_shards`` patched to place
+    none), by the whole tied table (gemma2-2b) or untied head and table
+    (stablelm-12b) it no longer gathers; the shards' codes move by
+    all-to-all."""
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.train import steps
+    run = _smoke(arch, microbatches=1, optimizer_state="adamw_8bit")
+    shape = ShapeSpec("t", SEQ, BATCH, "train")
+    sizes = {"data": 2, "model": 2}
+    shards = dr.trace_cell(run, shape, sizes)
+    monkeypatch.setattr(steps, "block_shards", lambda *a, **kw: None)
+    whole = dr.trace_cell(run, shape, sizes)
+    assert shards.gathered_bytes < whole.gathered_bytes
+    assert shards.coll.counts["all-to-all"] > 0 and "all-to-all" not in whole.coll.counts
+    assert shards.coll.counts["all-gather"] < whole.coll.counts["all-gather"]
 
 
 def test_prefill_model_flops_count_the_read_out_at_the_last_position(tmp_path):

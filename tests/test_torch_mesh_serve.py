@@ -20,7 +20,9 @@ cache of 64 (its sequence over model: at model 4 the shard of positions
 local layers mask the shard of 0..15 wholly), prefill and decode
 logits within 1e-4 of the JAX package's (as tests/test_torch_serve.py) and
 the greedy tokens equal; each rank's caches of ``cache_spec``'s local
-shapes; ``serve(..., sharded=True)`` against the one-device ``serve``; the
+shapes; the "batch" attention mode's prefill (gemma2-2b, smollm-135m)
+against the JAX prefill whose ``_sp_shard`` keeps its own ``_maybe_shard``
+(1e-4) and its cache shards equal to the mode-off prefill's; ``serve(..., sharded=True)`` against the one-device ``serve``; the
 collectives one sharded prefill issues against the dry run's trace of it.
 Without a process group: ``ref.merge_shards`` over
 ``ref.decode_attention_shard``'s partials against ``ref.decode_attention``
@@ -38,6 +40,9 @@ from _dist import JaxChild, run_world
 
 HERE = os.path.abspath(__file__)
 ARCHS = ("gemma2-2b", "deepseek-v2-236b", "llama-3.2-vision-11b", "zamba2-7b")
+# the "batch" attention mode's prefill: 4 heads (2 kv heads: divided by
+# model 2, not by model 4) and 3 heads (divided by neither)
+MODE_ARCHS = ("gemma2-2b", "smollm-135m")
 MESHES = {"data2_model2": (2, 2), "data1_model4": (1, 4)}
 BATCH, PROMPT, STEPS, MAX_LEN = 4, 36, 6, 64
 TOL = 1e-4
@@ -51,12 +56,19 @@ def fp32_run(arch):
     return run.replace(parallel=dataclasses.replace(run.parallel, param_dtype="float32"))
 
 
+def mode_run(arch, mode):
+    run = fp32_run(arch)
+    return run.replace(parallel=dataclasses.replace(run.parallel,
+                                                    attn_activation_sharding=mode))
+
+
 JAX_SIDE = r"""
 import numpy as np
 import jax.numpy as jnp
 import repro.models.moe as jax_moe
 import repro.models.transformer as jt
 jt.shard_activations = lambda x: x
+real_maybe_shard = jax_moe._maybe_shard
 jax_moe._maybe_shard = lambda x, spec: x
 from repro.common.config import ShapeSpec
 from repro.configs import get_smoke_config
@@ -105,6 +117,44 @@ for key, shape in MESHES.items():
                 step = jax.tree.map(jax.device_put, step, sshard)
                 logits, cache = decode(params, step, cache, jnp.asarray(PROMPT + i, jnp.int32))
                 out[f"{key}/{arch}/{i + 1}"] = np.asarray(logits)
+
+# the "batch" mode's prefill: LM(sp_attn="batch"), whose _sp_shard constrains
+# q, k and v over pod x data x model with its own _maybe_shard
+import repro.models.attention as jax_attention
+real_sp_shard = jax_attention._sp_shard
+
+
+def sp_shard(q, k, v, mode="sequence"):
+    jax_moe._maybe_shard = real_maybe_shard
+    try:
+        return real_sp_shard(q, k, v, mode)
+    finally:
+        jax_moe._maybe_shard = lambda x, spec: x
+
+
+jax_attention._sp_shard = sp_shard
+for key, shape in MESHES.items():
+    mesh = jc.make_mesh(shape, ("data", "model"), axis_types=(jc.AxisType.Auto,) * 2)
+    for arch in MODE_ARCHS:
+        cfg = get_smoke_config(arch).model
+        model = jt.LM(cfg, param_dtype=jnp.float32, remat="none", use_kernel=False,
+                      sp_attn="batch")
+        with jc.set_mesh(mesh):
+            params = gated(model.init(jax.random.key(0)))
+            pshard = shd.to_shardings(shd.param_specs(params, mesh), mesh)
+            params = jax.tree.map(jax.device_put, params, pshard)
+            batch = {k: jnp.asarray(v) for k, v in synthetic_batch(
+                cfg, ShapeSpec("p", PROMPT, BATCH, "prefill"), seed=1).items()}
+            bshard = shd.to_shardings(shd.batch_specs(batch, mesh), mesh)
+            batch = jax.tree.map(jax.device_put, batch, bshard)
+            cache = model.init_cache(BATCH, MAX_LEN, dtype=jnp.float32)
+            cshard = shd.to_shardings(shd.cache_specs(cache, mesh), mesh)
+            cache = jax.tree.map(jax.device_put, cache, cshard)
+            prefill = jax.jit(make_prefill_step(model), in_shardings=(pshard, bshard, cshard))
+            out[f"mode/{key}/{arch}/constraints"] = np.asarray(
+                prefill.lower(params, batch, cache).as_text().count("sharding_constraint"))
+            logits, cache = prefill(params, batch, cache)
+            out[f"mode/{key}/{arch}/0"] = np.asarray(logits)
 np.savez(os.path.join(OUT, "serve.npz"), **out)
 """
 
@@ -216,6 +266,31 @@ def ranks(rank, world, out, inputs):
                 facts[f"collectives/{arch}"] = {
                     "seen": [seen.counts, seen.raw_bytes, seen.wire_bytes],
                     "unknown": [s for s in mode.seen if s[2] == 0]}
+    # the "batch" mode's sharded prefill, beside the same prefill with the mode off
+    for key, (data, model_size) in MESHES.items():
+        mesh = make_local_mesh(data, model_size, device="cpu")
+        row, n_rows = batch_coordinate(mesh)
+        for arch in MODE_ARCHS:
+            caches = {}
+            for mode in ("batch", "off"):
+                run = mode_run(arch, mode)
+                model = build_model(run, device="cpu")
+                model.load_state_dict({k: torch.from_numpy(v)
+                                       for k, v in np.load(inputs[arch]).items()})
+                tensor.shard_model(model, mesh)
+                batch = local_batch(synthetic_batch(
+                    run.model, ShapeSpec("p", PROMPT, BATCH, "prefill"), seed=1, device="cpu"),
+                    1, row, n_rows)
+                cache = model.init_cache(BATCH // n_rows, MAX_LEN, dtype=torch.float32)
+                logits, cache = make_prefill_step(model)(batch, cache)
+                saved[f"mode/{key}/{arch}/{mode}"] = logits.numpy()
+                caches[mode] = [t for c in cache for t in c]
+                caches[f"split/{mode}"] = model.blocks[0].attn.rows_split(BATCH // n_rows)
+            facts[f"mode/{key}/{arch}"] = {
+                "rows": [row, n_rows],
+                "cache_equal": all(torch.equal(a, b) for a, b in zip(caches["batch"],
+                                                                     caches["off"])),
+                "split": [caches["split/batch"], caches["split/off"]]}
     np.savez(os.path.join(out, f"rank{rank}.npz"), **saved)
     with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
         json.dump(facts, f)
@@ -233,7 +308,7 @@ def _jax_params(tmp):
     from repro.configs import get_smoke_config
     from repro_torch.convert import params_from_jax
     paths = {}
-    for arch in ARCHS:
+    for arch in dict.fromkeys((*ARCHS, *MODE_ARCHS)):
         cfg = get_smoke_config(arch).model
         params = jt.LM(cfg, param_dtype=jnp.float32, remat="none",
                        use_kernel=False).init(jax.random.key(0))
@@ -251,7 +326,8 @@ def _jax_params(tmp):
 def mesh_serve(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("serve")
     code = JAX_SIDE
-    for name, value in (("ARCHS", ARCHS), ("MESHES", MESHES), ("GATE_SEED", GATE_SEED),
+    for name, value in (("MODE_ARCHS", MODE_ARCHS), ("ARCHS", ARCHS), ("MESHES", MESHES),
+                        ("GATE_SEED", GATE_SEED),
                         ("BATCH", BATCH), ("PROMPT", PROMPT), ("STEPS", STEPS),
                         ("MAX_LEN", MAX_LEN)):
         code = code.replace(name, repr(value))
@@ -342,6 +418,30 @@ def test_collectives_of_a_sharded_prefill_equal_the_dry_runs(arch, mesh_serve):
         for kind, nbytes in want.raw_bytes.items():
             assert raw[kind] == pytest.approx(nbytes, rel=1e-9), kind
         assert wire == pytest.approx(want.wire_bytes, rel=1e-9)
+
+
+@pytest.mark.parametrize("key", list(MESHES))
+@pytest.mark.parametrize("arch", MODE_ARCHS)
+def test_batch_mode_prefill_matches_the_jax_gspmd_prefill(key, arch, mesh_serve):
+    """``attn_activation_sharding`` "batch": each model rank runs the flash
+    path on its rows of the rank's 2 (2, 2) or 4 (1, 4) rows over every
+    head (gemma2-2b's heads split, its kv heads on model 2 only;
+    smollm-135m's 3 heads whole). Every rank's last-position logits within
+    1e-4 of the JAX GSPMD prefill whose ``_sp_shard`` constrains q, k and v
+    (the constraint in its HLO), and within 1e-5 of the mode-off prefill's;
+    the cache shards the new k/v were written into equal to the mode-off
+    prefill's."""
+    ref = mesh_serve["jax"]
+    assert ref[f"mode/{key}/{arch}/constraints"] > 0
+    for saved, facts in mesh_serve["ranks"]:
+        f = facts[f"mode/{key}/{arch}"]
+        row, n_rows = f["rows"]
+        share = BATCH // n_rows
+        got = saved[f"mode/{key}/{arch}/batch"]
+        want = ref[f"mode/{key}/{arch}/0"][row * share:(row + 1) * share]
+        np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+        np.testing.assert_allclose(got, saved[f"mode/{key}/{arch}/off"], atol=1e-5, rtol=1e-5)
+        assert f["split"] == [True, False] and f["cache_equal"]
 
 
 # --- the plain versions, no process group ----------------------------------------------------
