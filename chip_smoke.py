@@ -48,7 +48,17 @@ Phases, each fatal on failure:
     version's, the wholly masked shards (past pos, or before the window) out
     0 and lse NEG_INF, a planted fault (the shard holding pos launched one
     64-key tile late) above the limit; each shard launch's event ms and the
-    8 launches' device ms beside the card. Every timed attention row must
+    8 launches' device ms beside the card; and at a synthetic group of 12
+    (48 heads on 4, 128; no shipped config has a group above 8) in two
+    passes of 6 a shard, 16 launches. The flash kernel's query offset
+    (``OFFSET_CASES``): the last of 8 shards of the prompt (544 query
+    positions at q_offset 3808 against all 4352 keys) at gemma2-2b's shape
+    (its window and a global layer), yi-34b's (group 7), stablelm-12b's and
+    in float32 on the CUDA cores, per row within ``ROW_REL_TOL`` of the
+    plain version with ``q_offset`` and of the whole-sequence launch's rows,
+    a planted fault (q_offset off by one) above it, offset 0 bit-equal to
+    the whole launch; its time beside the whole launch's, the bound and,
+    without a cap, SDPA with a boolean mask. Every timed attention row must
     launch the kernels the wrapper's dispatch rule names for its shape
     (``wgmma_path``, ``tma_path``), as many a call as it has group passes,
     and no other: at stablelm-12b's shapes ``flash_wgmma_kernel`` and one
@@ -245,7 +255,12 @@ Phases, each fatal on failure:
     Before it, gemma2-2b's layer-0 prefill attention under
     ``attn_activation_sharding`` "batch" on rank 0 of a (1, 2) mesh
     (``batch_mode_check``: the flash kernel on the rank's rows only, within
-    ``ROW_REL_TOL`` of the one-device layer's rows); after it, one step of
+    ``ROW_REL_TOL`` of the one-device layer's rows), and its layer-0 and
+    layer-1 prefill under "sequence" on the last rank of a (1, 8) mesh
+    (``sequence_mode_check``: the flash kernel on the rank's 544 query
+    positions at q_offset 3808 against every key, as many launches as one
+    device, within ``ROW_REL_TOL`` of the one-device layer's positions);
+    after it, one step of
     the same rank under ``adamw_8bit`` (the embedding's and head's 8-bit
     state on their shards), its peak printed beside the dry run's.
     Then one rank of yi-34b's sharded serve on the same (1, 8) mesh at its 60
@@ -315,6 +330,8 @@ FLASH_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel")
 DECODE_KERNELS = ("decode_tma_kernel", "decode_partial_kernel", "decode_combine_kernel",
                   "decode_merge_kernel", "decode_empty_kernel")
 RMSNORM_KERNELS = ("rmsnorm_block_kernel",)
+# the copies a call in group passes makes around its kernel launches
+PASS_COPIES = ("direct_copy_kernel",)
 
 # gemma2-2b serving shapes of this smoke run
 B, PROMPT, STEPS = 2, 4352, 32
@@ -588,6 +605,111 @@ def flash_phase(iters: int):
     return tuple(max(e[i] for e in errs) for i in range(2)), rows
 
 
+# the flash kernel with a query offset: the last of SEQ_SHARDS shards of the
+# PROMPT-token prefill, as the last model rank of a (1, 8) mesh runs it under
+# the "sequence" attention mode: (label, (h, hkv, d), window, cap, dtype)
+SEQ_SHARDS = 8
+OFFSET_CASES = [
+    ("gemma2-2b local", (H, HKV, D), WINDOW, CAP, "bfloat16"),
+    ("gemma2-2b global", (H, HKV, D), 0, CAP, "bfloat16"),
+    ("yi-34b", (56, 8, 128), 0, 0.0, "bfloat16"),          # group 7: one pass
+    ("stablelm-12b", (32, 8, 160), 0, 0.0, "bfloat16"),
+    ("gemma2-2b local float32", (H, HKV, D), WINDOW, CAP, "float32"),   # the CUDA cores
+]
+
+
+def flash_offset_phase(iters: int, card: str):
+    """The flash kernel's query offset (``q_offset``) at ``OFFSET_CASES``:
+    q of the last shard's Sq = PROMPT / SEQ_SHARDS positions at q_off =
+    PROMPT - Sq against all PROMPT keys, batch B. Each row is held per row
+    within ``ROW_REL_TOL`` of the plain version with ``q_offset`` and of rows
+    [q_off, PROMPT) of the whole-sequence launch; a planted fault (q_off off
+    by one) must read above the limit. The same q and keys at offset 0
+    (the first shard, a prefix of the keys) must equal the whole launch's
+    first rows bit for bit, and a launch with ``q_offset=0`` and Sk = Sq the
+    whole launch. Times: the offset launch's event and device ms beside the
+    whole-sequence launch's event ms, the plain version's, the bound (the (query,
+    key) pairs the mask keeps, each input read once) and, without a cap,
+    SDPA with an explicit boolean mask of those rows (the kv heads repeated
+    first) as the library call. Returns ((max_abs_err, max_row_rel_err),
+    {case: row})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    sq = PROMPT // SEQ_SHARDS
+    q_off = PROMPT - sq
+    errs, rows = [], {}
+    for label, (h, hkv, d), w, cap, dtype in OFFSET_CASES:
+        dt = getattr(torch, dtype)
+        q = randn((B, PROMPT, h, d), dt, gen)
+        k, v = randn((B, PROMPT, hkv, d), dt, gen), randn((B, PROMPT, hkv, d), dt, gen)
+        kw = dict(window=w, logit_cap=cap, scale=d ** -0.5)
+        qs = q[:, q_off:].contiguous()
+        name = (f"flash offset {label} {dtype} (b,sq,sk,h,hkv,d)={(B, sq, PROMPT, h, hkv, d)} "
+                f"q_off={q_off} window={w} cap={cap:g}")
+        got = flash_attention_fwd(qs, k, v, q_offset=q_off, **kw)
+        whole = flash_attention_fwd(q, k, v, **kw)
+        want = ref.flash_attention(qs, k, v, q_offset=q_off, **kw)
+        errs.append(compare(name, got, want, [
+            ("q_off off by one", ref.flash_attention(qs, k, v, q_offset=q_off + 1, **kw))]))
+        vs_whole = ref.max_row_rel_err(got, whole[:, q_off:])
+        first = flash_attention_fwd(q[:, :sq].contiguous(), k, v, q_offset=0, **kw)
+        at_zero = flash_attention_fwd(q, k, v, q_offset=0, **kw)
+        torch.cuda.synchronize()
+        prefix_equal = torch.equal(first, whole[:, :sq])
+        zero_equal = torch.equal(at_zero, whole)
+        rows_equal = torch.equal(got, whole[:, q_off:])
+        print(f"    against the whole-sequence launch's rows {q_off}..{PROMPT - 1}: "
+              f"max_row_rel_err {vs_whole:.3e} (limit {ref.ROW_REL_TOL[dt]:g}; bit-equal "
+              f"{rows_equal}); offset 0, the first {sq} rows: bit-equal {prefix_equal}; "
+              f"q_offset=0, Sk = Sq: bit-equal to the whole launch {zero_equal}", flush=True)
+        if vs_whole > ref.ROW_REL_TOL[dt] or not prefix_equal or not zero_equal:
+            fail(f"{name}: the offset launch misses the whole launch's rows, or offset 0 "
+                 "differs from the whole launch")
+        del got, whole, want, first, at_zero
+        pos = range(q_off, PROMPT)
+        n_keys = sum(min(i + 1, w) if w else i + 1 for i in pos)
+        lo = max(0, q_off - w + 1) if w else 0
+        flops = 4.0 * B * h * n_keys * d
+        nbytes = (2.0 * qs.numel() + 2.0 * B * (PROMPT - lo) * hkv * d) * qs.element_size()
+        b_ms, b_by = bound(flops, nbytes, dtype)
+        ms = time_ms(lambda: flash_attention_fwd(qs, k, v, q_offset=q_off, **kw), iters)
+        dev = device_ms(lambda: flash_attention_fwd(qs, k, v, q_offset=q_off, **kw), iters,
+                        FLASH_KERNELS)
+        # the whole launch by events only: its device ms at these shapes are
+        # the main rows' (gemma2-2b) and model_kernel_phase's (yi-34b, stablelm-12b)
+        whole_ms = time_ms(lambda: flash_attention_fwd(q, k, v, **kw), iters)
+        plain = time_ms(lambda: ref.flash_attention(qs, k, v, q_offset=q_off, **kw), 2)
+        lib = lib_dev = None
+        if not cap:
+            qpos = torch.arange(q_off, PROMPT, device="cuda")
+            mask = ref.causal_window_mask(qpos, torch.arange(PROMPT, device="cuda"), w)
+            qt = qs.transpose(1, 2).contiguous()
+            kt = k.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+            vt = v.repeat_interleave(h // hkv, dim=2).transpose(1, 2).contiguous()
+
+            def run_lib():
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=d ** -0.5)
+
+            lib, lib_dev = time_ms(run_lib, iters), device_ms(run_lib, iters)
+            del qt, kt, vt
+        print(f"  time {name}: kernel_ms={ms:.5f} device_ms={_ms(dev)}; the whole "
+              f"{PROMPT}-position launch {whole_ms:.5f} ms by events; "
+              f"plain_ms={plain:.5f} library_ms={_ms(lib)} library_device_ms={_ms(lib_dev)} "
+              f"({'none: no library call has a soft-cap' if cap else 'SDPA, a boolean mask'}); "
+              f"bound_ms={b_ms:.5f} ({b_by}; {flops:.4e} FLOP, {nbytes:.4e} B) "
+              f"bound/device={_share(b_ms, dev)}; {card}", flush=True)
+        rows[label] = {"ms": ms, "device_ms": dev, "whole_ms": whole_ms,
+                       "plain_ms": plain, "library_ms": lib,
+                       "library_device_ms": lib_dev, "bound_ms": b_ms, "bound_by": b_by,
+                       "max_row_rel_err_vs_whole": vs_whole, "bit_equal_to_whole": rows_equal,
+                       "q_offset": q_off, "sq": sq, "sk": PROMPT}
+    return tuple(max(e[i] for e in errs) for i in range(2)), rows
+
+
 def time_decode(name, sets, pos: int, kw, iters: int):
     """Event and device ms of the decode kernel at ``pos``, its plain version
     and SDPA over the keys in range (no cap; a yardstick only), each cycling
@@ -717,6 +839,10 @@ SHARD_CASES = [
     ("stablelm-12b", (B, CACHE, 32, 8, 160), 0, 0.0, "bfloat16", (3000,)),
     ("yi-34b", (B, CACHE, 56, 8, 128), 0, 0.0, "bfloat16", (CACHE - 1, 2000)),
     ("split-K float32", (B, CACHE, H, HKV, D), 1024, CAP, "float32", (CACHE - 1,)),
+    # a group of 12 in passes of 6 a kv head (two launches a shard); no
+    # shipped config has a group above 8 (yi-34b's 7 is the largest)
+    ("synthetic group 12, no shipped config", (B, CACHE, 48, 4, 128), 0, 0.0, "bfloat16",
+     (CACHE - 1,)),
 ]
 LSE_TOL = 1e-3            # |lse - the plain lse| of a shard, fp32 sums of the inputs
 
@@ -775,8 +901,10 @@ def shard_decode_phase(iters: int, card: str):
     device ms beside the card. Returns ((max_abs_err, max_row_rel_err),
     {case: row})."""
     import torch
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.flash_attention import MAX_GROUP
 
     gen = torch.Generator(device="cuda").manual_seed(14)
     errs, rows = [], {}
@@ -797,7 +925,12 @@ def shard_decode_phase(iters: int, card: str):
                 return [decode_attention_fwd(q, kk, vv, pos, k0=k0, return_lse=True, **kw)
                         for k0, kk, vv in shards]
 
+            passes = -(-(h // hkv) // MAX_GROUP)
+            before = da.launches
             parts = launch_all()
+            if da.launches - before != SHARDS * passes:
+                fail(f"{name}: {da.launches - before} launches for {SHARDS} shards in {passes} "
+                     "group pass(es) each")
             plain_parts = [ref.decode_attention_shard(q, kk, vv, pos, k0=k0, **kw)
                            for k0, kk, vv in shards]
             if any(o.dtype != torch.float32 for o, _ in parts):
@@ -830,7 +963,10 @@ def shard_decode_phase(iters: int, card: str):
                      "lse its plain version")
             each = [time_ms(lambda kk=kk, vv=vv, k0=k0: decode_attention_fwd(
                 q, kk, vv, pos, k0=k0, return_lse=True, **kw), iters) for k0, kk, vv in shards]
-            dev = device_ms(launch_all, iters, DECODE_KERNELS)
+            # a group above MAX_GROUP: each pass's q heads copied out and its
+            # out and lse columns written back (``shard_passes``), counted
+            dev = device_ms(launch_all, iters,
+                            DECODE_KERNELS + (PASS_COPIES if passes > 1 else ()))
             whole_ms = time_ms(lambda: decode_attention_fwd(q, k, v, pos, **kw), iters)
             plain_ms = time_ms(lambda: ref.merge_shards(*zip(*[ref.decode_attention_shard(
                 q, kk, vv, pos, k0=k0, **kw) for k0, kk, vv in shards])), 2)
@@ -844,7 +980,8 @@ def shard_decode_phase(iters: int, card: str):
                 + 4.0 * SHARDS * (q.numel() + b * h)
             b_ms, b_by = bound(flops, nbytes, dtype)
             print(f"  time {name}: each shard's launch ms (events) {[round(x, 5) for x in each]}; "
-                  f"the {SHARDS} launches {sum(each):.5f} ms by events, device_ms={_ms(dev)}; "
+                  f"the {SHARDS * passes} launches {sum(each):.5f} ms by events, "
+                  f"device_ms={_ms(dev)}; "
                   f"whole-cache launch {whole_ms:.5f} ms; plain shards and merge {plain_ms:.5f} ms; "
                   f"library ({lib_calls} calls over the shards' valid keys, lse computed) "
                   f"{'none: no library call has a soft-cap' if cap else _ms(lib_ms)} ms by events, "
@@ -852,6 +989,7 @@ def shard_decode_phase(iters: int, card: str):
                   f"{nbytes:.4e} B; the L2 holds the {SHARDS} shards between launches: warm); "
                   f"{card}", flush=True)
             rows[f"{label} pos={pos}"] = {"ms": sum(each), "shard_ms": each, "device_ms": dev,
+                                          "launches": SHARDS * passes,
                                           "whole_cache_ms": whole_ms, "plain_ms": plain_ms,
                                           "library_ms": lib_ms, "library_device_ms": lib_dev,
                                           "library_calls": lib_calls,
@@ -2695,6 +2833,7 @@ def tp_run():
 
 
 BATCH_MODE_MESH = {"data": 1, "model": 2}
+SEQ_MODE_MESH = {"data": 1, "model": 8}
 
 
 def batch_mode_check(card: str) -> dict:
@@ -2768,6 +2907,88 @@ def batch_mode_check(card: str) -> dict:
         fail(f"batch mode: flash q {rank_q} against {whole_q}, launches {counts} against "
              f"{whole_counts}, max_row_rel_err {rel:.3e}")
     return counts
+
+
+def sequence_mode_check(card: str) -> dict:
+    """gemma2-2b's prefill attention (layer 0, its window, and layer 1,
+    global) under ``attn_activation_sharding`` "sequence" on the last rank
+    of a (data 1, model 8) mesh under the fake group, at batch B and the
+    PROMPT-token prompt: the layer's weights whole on the rank, as a layer
+    whose heads do not divide ``model`` holds them, so that nothing the
+    flash kernel reads crosses the fake group (its output's gather over
+    ``model`` moves nothing). Fails unless the kernel is launched on the
+    rank's query positions only (q of PROMPT / 8 positions at q_offset
+    7 x PROMPT / 8, against every key; as many launches as the one-device
+    call's) and its output rows are within ``ROW_REL_TOL`` of the one-device
+    layer's flash output at those positions. Returns the rank's launch
+    counts, summed over the two layers."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention import GQAttention, KVCache, layer_window
+    from repro_torch.parallel import tensor
+
+    cfg = get_config("gemma2-2b").model
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    layer = GQAttention(cfg, torch.bfloat16, "cuda", sp_attn="sequence")
+    with torch.no_grad():
+        layer.init_weights(gen)
+    x = randn((B, PROMPT, cfg.d_model), torch.bfloat16, gen)
+    kv = (B, PROMPT, cfg.n_kv_heads, cfg.resolved_head_dim)
+    seen, real = [], ops.flash_attention
+    size = SEQ_MODE_MESH["model"]
+    sq, start = PROMPT // size, (size - 1) * (PROMPT // size)
+
+    def spy(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        seen.append((tuple(q.shape), kw.get("q_offset", 0), out))
+        return out
+
+    def prefill(i):
+        ops.reset_launch_counts()
+        cache = KVCache(torch.zeros(kv, dtype=torch.bfloat16, device="cuda"),
+                        torch.zeros(kv, dtype=torch.bfloat16, device="cuda"))
+        with torch.no_grad():
+            layer.prefill(x, cache, window=layer_window(cfg, i))
+        torch.cuda.synchronize()
+        return seen[-1], ops.launch_counts()
+
+    ops.flash_attention = spy
+    total = collections.Counter()
+    tol = ref.ROW_REL_TOL[torch.bfloat16]
+    try:
+        whole = [prefill(i) for i in (0, 1)]
+        dist.init_process_group("fake", store=FakeStore(), rank=size - 1,
+                                world_size=math.prod(SEQ_MODE_MESH.values()))
+        try:
+            mesh = init_device_mesh("cuda", tuple(SEQ_MODE_MESH.values()),
+                                    mesh_dim_names=tuple(SEQ_MODE_MESH))
+            layer.tp = tensor.TensorParallel(mesh)
+            ranks = [prefill(i) for i in (0, 1)]
+        finally:
+            dist.destroy_process_group()
+    finally:
+        ops.flash_attention = real
+    for i, (((whole_q, _, whole_out), whole_counts),
+            ((rank_q, offset, rank_out), counts)) in enumerate(zip(whole, ranks)):
+        rel = ref.max_row_rel_err(rank_out, whole_out[:, start:])
+        print(f"  sequence mode: rank {size - 1} of {SEQ_MODE_MESH}, gemma2-2b layer {i} "
+              f"(window {layer_window(cfg, i)}) prefill at batch {B} x {PROMPT}: flash q "
+              f"{rank_q} at q_offset {offset} (one device {whole_q}), launches "
+              f"{counts['flash_attention']} (one device {whole_counts['flash_attention']}); "
+              f"its rows against the one-device layer's positions {start}..{PROMPT - 1}: "
+              f"max_row_rel_err {rel:.3e} (limit {tol:g}); {card}", flush=True)
+        if rank_q[1] != sq or offset != start or whole_q[1] != PROMPT \
+                or counts["flash_attention"] != whole_counts["flash_attention"] \
+                or not counts["flash_attention"] or rel > tol:
+            fail(f"sequence mode, layer {i}: flash q {rank_q} at offset {offset} against "
+                 f"{whole_q}, launches {counts} against {whole_counts}, max_row_rel_err "
+                 f"{rel:.3e}")
+        total.update(counts)
+    return dict(total)
 
 
 def tp_rank(run, shape, steps: int) -> dict:
@@ -4793,6 +5014,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     print("[kernels]", flush=True)
     flash_err, flash_rows = flash_phase(ITERS)
+    offset_err, offset_rows = flash_offset_phase(ITERS, card)
     decode_err, decode_rows = decode_phase(ITERS)
     shard_err, shard_rows = shard_decode_phase(ITERS, card)
     wide_attention_phase()
@@ -4851,6 +5073,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     print("[tp]", flush=True)
     batch_mode_counts = batch_mode_check(card)
+    seq_mode_counts = sequence_mode_check(card)
     tp_counts = tp_phase(card)
     tp_serve_counts = tp_serve_phase(card)
     print(f"[tp] done in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4871,6 +5094,7 @@ def main(argv=None) -> int:
     print(f"launches on the main paths: serve {serve_counts}, train {train_counts}, "
           f"train fault {train_fault_counts}, train int8 {int8_counts}, mesh {mesh_counts}, "
           f"tp {tp_counts}, tp serve {tp_serve_counts}, tp batch mode {batch_mode_counts}, "
+          f"tp sequence mode {seq_mode_counts}, "
           f"live {live_counts}, campaigns {campaign_counts}, models {model_launches}",
           flush=True)
 
@@ -4924,10 +5148,14 @@ def main(argv=None) -> int:
         return {"mesh_serve": mesh_counts["serve"][name], "tp_serve": tp_serve_counts[name]}
 
     print(json.dumps({"kernels": [
+        # the query offset's rows (the last of 8 shards of the prompt) and
+        # its launches in [tp]'s "sequence" mode check
         dict(entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                   "src/repro/kernels/flash_attention.py:88", flash_err, flash_rows),
+                   "src/repro/kernels/flash_attention.py:88",
+                   tuple(max(a, b) for a, b in zip(flash_err, offset_err)), flash_rows),
              **sharded("flash_attention"),
-             tp_batch_mode=batch_mode_counts["flash_attention"]),
+             tp_batch_mode=batch_mode_counts["flash_attention"],
+             offset_mode=offset_rows, tp_sequence_mode=seq_mode_counts["flash_attention"]),
         # the shard mode at its shapes (8 shards, merged), its launches in
         # [tp]'s sharded serve (world 1 runs the whole-cache call)
         dict(entry("decode_attention", "src/repro_torch/kernels/csrc/decode_attention.cu",

@@ -1,13 +1,15 @@
-"""The dry run's train_4k cells on the 16x16 mesh with the port's
-``attn_activation_sharding`` "auto", beside each config's "off": the
-roofline at one microbatch (``launch.dryrun.run_cell``) and the FLOPs of a
-rank's attention scores and PV products under both, traced at 2 units (a
-``FlopCounterMode`` around the plain attention's core).
+"""The dry run's cells on the 16x16 mesh under ``attn_activation_sharding``
+modes, one row a config and mode: the roofline (a train cell's at one
+microbatch; ``launch.dryrun.run_cell``) and the FLOPs of a rank's attention
+scores and PV products, traced at 2 units (a ``FlopCounterMode`` around the
+plain attention's core).
 
-    PYTHONPATH=src python scripts/dryrun_attn_modes.py [ARCH ...] [--out DIR]
+    PYTHONPATH=src python scripts/dryrun_attn_modes.py [ARCH ...]
+        [--shape train_4k|prefill_32k] [--modes off auto sequence] [--out DIR]
 
-Records go to DIR (default experiments/dryrun_torch/attn_auto); one JSON
-line an arch on stdout. Counted on the meta device: no card."""
+Records go to DIR/<mode> (default experiments/dryrun_torch/attn_<shape>);
+one JSON line a config and mode on stdout. Counted on the meta device: no
+card."""
 from __future__ import annotations
 
 import argparse
@@ -20,7 +22,7 @@ from repro_torch.common.config import SHAPES
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.launch import dryrun as dr
 from repro_torch.models import attention
-from repro_torch.models.model import attn_activation_mode
+from repro_torch.models.model import ATTN_MODES, attn_activation_mode
 
 SIZES = {"data": 16, "model": 16}
 
@@ -32,8 +34,8 @@ def with_mode(run, mode: str, microbatches=None):
     return run.replace(parallel=parallel)
 
 
-def attention_flops(run) -> float:
-    """A rank's attention score and PV FLOPs in the train step at 2 units
+def attention_flops(run, shape) -> float:
+    """A rank's attention score and PV FLOPs in the cell's step at 2 units
     and one microbatch."""
     real, seen = attention._softmax_attend, []
 
@@ -45,7 +47,7 @@ def attention_flops(run) -> float:
 
     attention._softmax_attend = counted
     try:
-        dr.trace_cell(run, SHAPES["train_4k"], SIZES, units=2)
+        dr.trace_cell(run, shape, SIZES, units=2)
     finally:
         attention._softmax_attend = real
     return float(sum(seen))
@@ -54,21 +56,29 @@ def attention_flops(run) -> float:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("archs", nargs="*", default=list(ARCHS))
-    ap.add_argument("--out", default=f"{dr.DEFAULT_OUT}/attn_auto")
+    ap.add_argument("--shape", choices=("train_4k", "prefill_32k"), default="train_4k")
+    ap.add_argument("--modes", nargs="+", choices=ATTN_MODES, default=["auto"])
+    ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    out = args.out or f"{dr.DEFAULT_OUT}/attn_{args.shape}"
+    shape = SHAPES[args.shape]
     for arch in args.archs:
         run = get_config(arch)
-        auto = with_mode(run, "auto")
-        rec = dr.run_cell(arch, "train_4k", False, True, args.out, run=auto)
-        roof = rec["roofline"]
-        print(json.dumps({
-            "arch": arch, "mode": attn_activation_mode(auto),
-            "peak_bytes": rec["memory"]["peak_bytes"], "t_comp_s": roof["t_comp_s"],
-            "t_mem_s": roof["t_mem_s"], "t_coll_s": roof["t_coll_s"],
-            "dominant": roof["dominant"], "roofline_fraction": roof["roofline_fraction"],
-            "collective_counts": roof["collective_counts"],
-            "attention_flops_2_units": {m: attention_flops(with_mode(run, m, 1))
-                                        for m in ("off", "auto")}}), flush=True)
+        for mode in args.modes:
+            cell = with_mode(run, mode)
+            rec = dr.run_cell(arch, args.shape, False, True, f"{out}/{mode}", run=cell)
+            roof = rec["roofline"]
+            print(json.dumps({
+                "arch": arch, "shape": args.shape, "mode": mode,
+                "resolves": attn_activation_mode(cell),
+                "traced_rank": rec["parallel"]["traced_rank"],
+                "peak_bytes": rec["memory"]["peak_bytes"], "fits": rec["memory"]["fits"],
+                "t_comp_s": roof["t_comp_s"], "t_mem_s": roof["t_mem_s"],
+                "t_coll_s": roof["t_coll_s"], "dominant": roof["dominant"],
+                "roofline_fraction": roof["roofline_fraction"],
+                "collective_counts": roof["collective_counts"],
+                "attention_flops_2_units": attention_flops(with_mode(run, mode, 1), shape)}),
+                flush=True)
 
 
 if __name__ == "__main__":

@@ -142,10 +142,12 @@ class ParallelConfig:
     # ZeRO-style 2D attention-weight sharding ("off" | "on" | "auto");
     # "auto" enables it when n_heads % tp != 0 (see parallel/sharding.py)
     attn_zero_sharding: str = "off"
-    # attention ACTIVATION sharding: "off" | "batch" | "auto" ("sequence" is
-    # refused); "batch" splits attention's rows over pod x data x model where
-    # they divide; "auto" = "batch" where the kv heads don't divide 16 and
-    # there is no MLA, else "off" (models/model.py::attn_activation_mode)
+    # attention ACTIVATION sharding: "off" | "batch" | "sequence" | "auto";
+    # "batch" splits attention's rows over pod x data x model where they
+    # divide, "sequence" its query positions over model where they divide
+    # (every key on each rank); "auto" = "batch" where the kv heads don't
+    # divide 16 and there is no MLA, else "off"
+    # (models/model.py::attn_activation_mode)
     attn_activation_sharding: str = "off"
     # MoE expert-weight sharding: "2d" (E over tp + dim over fsdp) or
     # "zero" (E over tp, non-contracted dim over fsdp -> weights gathered,

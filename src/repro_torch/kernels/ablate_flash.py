@@ -31,9 +31,9 @@ _STAGED = "    // stage O in this warpgroup's Q rows"
 _DIRECT = """#pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
-      if (row >= rows || qpos[r] >= S) continue;
+      if (row >= rows || qpos[r] - q_off >= S) continue;
       const int h = kvh * group + row % group;
-      bf16* orow = o + (((long long)b * S + qpos[r]) * H + h) * D + 2 * t;
+      bf16* orow = o + (((long long)b * S + qpos[r] - q_off) * H + h) * D + 2 * t;
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
@@ -69,8 +69,8 @@ ABLATIONS = {
     "direct_epilogue": ("O stored from registers in 4-byte pieces, not staged",
                         _direct_epilogue),
     "cuda_cores_160": ("bf16 head_dim 160 on the fp32 CUDA-core kernel (the first draft), not wgmma",
-                       _sub("    if (D == 160) return (int)launch_wgmma<160>(q, k, v, o, B, S, H, "
-                            "Hkv, window, scale, cap, st);\n", "")),
+                       _sub("    if (D == 160) return (int)launch_wgmma<160>(ARGS, window, scale, "
+                            "cap, st);\n", "")),
 }
 
 # prefill shapes: (b, s, h, hkv, d, cap, windows)
@@ -101,7 +101,7 @@ def build(names):
 
 def _fn(so: Path):
     fn = ctypes.CDLL(str(so)).flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -146,8 +146,8 @@ def main(argv=None) -> int:
         fn = _fn(libs[name])
 
         def run(w):
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, hkv,
-                     d, w, d ** -0.5, cap, 1, stream)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, s, 0, h,
+                     hkv, d, w, d ** -0.5, cap, 1, stream)
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
 

@@ -6,6 +6,13 @@
 // given at run time (0 = full), an optional tanh logit soft-cap, an fp32 online
 // softmax, bf16 or fp32 in and out.
 //
+// Query offset: q holds Sq positions from global position q_off on, k and v
+// Sk >= q_off + Sq (a rank's shard of the sequence against every key, as the
+// "sequence" attention mode runs prefill). Every mask, tile range and causal
+// bound is taken at global positions q_off + row; loads of q and stores of o
+// at the local row. With q_off = 0 and Sk = Sq the arithmetic is the
+// whole-sequence call's, instruction for instruction.
+//
 // What bounds it on the H100: the two products (QK^T and PV) are compute; at
 // gemma2-2b's prefill (B=2, S=4352, H=8, D=256) one launch is ~1.55e11 FLOPs,
 // 0.16 ms at the 989 TFLOP/s bf16 tensor-core peak, against ~107 MB of q, k, v
@@ -153,7 +160,7 @@ template <typename T, int NCH, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int S, int H, int Hkv, int D, int Dp, int window,
+                 int S, int Sk, int q_off, int H, int Hkv, int D, int Dp, int window,
                  float scale, float cap) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -177,15 +184,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float4 acc[ROWS][NCH];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
-    qpos[i] = (int)((row0 + warp * ROWS + i) / group);
+    qpos[i] = q_off + (int)((row0 + warp * ROWS + i) / group);   // global
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < NCH; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  const int qpos_min = (int)(row0 / group);
-  const int qpos_max = (int)min((row0 + BLOCK_ROWS - 1) / group, (long long)S - 1);
+  const int qpos_min = q_off + (int)(row0 / group);
+  const int qpos_max = q_off + (int)min((row0 + BLOCK_ROWS - 1) / group, (long long)S - 1);
   const int k_begin = window > 0 ? max(0, qpos_min - window + 1) : 0;
   const int k_end = qpos_max + 1;
 
@@ -195,8 +202,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kk = idx / Dp, d = idx % Dp;
       const int key = t0 + kk;
       float kx = 0.f, vx = 0.f;
-      if (key < S && c0 + d < D) {
-        const long long off = ((b * (long long)S + key) * Hkv + kvh) * D + c0 + d;
+      if (key < Sk && c0 + d < D) {
+        const long long off = ((b * (long long)Sk + key) * Hkv + kvh) * D + c0 + d;
         if (!WIDE) kx = to_f32(k[off]);
         vx = to_f32(v[off]);
       }
@@ -216,8 +223,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int idx = tid; idx < BK * Dp; idx += THREADS) {
           const int kk = idx / Dp, d = idx % Dp;
           const int key = t0 + kk;
-          Ks[kk * kstr + d] = key < S && d0 + d < D
-                                  ? to_f32(k[((b * (long long)S + key) * Hkv + kvh) * D + d0 + d])
+          Ks[kk * kstr + d] = key < Sk && d0 + d < D
+                                  ? to_f32(k[((b * (long long)Sk + key) * Hkv + kvh) * D + d0 + d])
                                   : 0.f;
         }
       }
@@ -240,7 +247,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < ROWS; ++i) {
       float x = s[i] * scale;
       if (cap > 0.f) x = tanhf(x / cap) * cap;
-      const bool ok = key < S && key <= qpos[i] && (window <= 0 || key > qpos[i] - window);
+      const bool ok = key < Sk && key <= qpos[i] && (window <= 0 || key > qpos[i] - window);
       x = ok ? x : NEG_INF;
       const float m_new = fmaxf(m[i], warp_max(x));
       const float p = expf(x - m_new);
@@ -282,7 +289,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long fr = row0 + warp * ROWS + i;
     if (fr >= n_rows) continue;
     const int h = kvh * group + (int)(fr % group);
-    T* orow = o + ((b * (long long)S + qpos[i]) * H + h) * D + c0;
+    T* orow = o + ((b * (long long)S + qpos[i] - q_off) * H + h) * D + c0;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NCH; ++c) {
@@ -573,8 +580,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ o, int S,
-                   int H, int Hkv, int n_bh, int P, int n_qtiles, int window, float scale,
-                   float cap) {
+                   int q_off, int H, int Hkv, int n_bh, int P, int n_qtiles, int window,
+                   float scale, float cap) {
   using L = Smem<D>;
   constexpr int NCH = L::NCH;
   extern __shared__ uint8_t smem_raw[];
@@ -588,10 +595,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int rows = P * group;                         // flat rows of this CTA (<= TROWS)
   const int bh = blockIdx.x % n_bh;
   const int b = bh / Hkv, kvh = bh % Hkv;
-  // the last positions first: the heaviest causal tiles start in the first wave
+  // the last positions first: the heaviest causal tiles start in the first wave.
+  // q0: the CTA's first local row of q; g0: its global position
   const int q0 = (n_qtiles - 1 - (int)(blockIdx.x / n_bh)) * P;
-  const int qmax = min(q0 + P - 1, S - 1);
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int g0 = q_off + q0;
+  const int qmax = q_off + min(q0 + P - 1, S - 1);
+  const int k_begin = window > 0 ? max(0, g0 - window + 1) : 0;
   const int t_begin = k_begin / TBK * TBK;
   const int n_tiles = (qmax + 1 - t_begin + TBK - 1) / TBK;
 
@@ -619,7 +628,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         tma_load(base + L::Q + c * L::Q_CHUNK, &qmap, q_bar, c * CHUNK, kvh * group, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int st = i % STAGES, phase = ((i / STAGES) & 1) ^ 1;
-        const int t0 = t_begin + i * TBK;             // keys past S arrive as zeros
+        const int t0 = t_begin + i * TBK;             // keys past Sk arrive as zeros
         mbar_wait(k_empty + 8 * st, phase);
         mbar_expect_tx(k_full + 8 * st, NCH * L::KV_CHUNK);
         for (int c = 0; c < NCH; ++c)
@@ -637,8 +646,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
     const int r0 = wg * 64 + warp * 16 + g;           // this thread's rows: r0, r0 + 8
-    const int qpos[2] = {q0 + r0 / group, q0 + (r0 + 8) / group};
-    const int wq_min = q0 + wg * 64 / group, wq_max = q0 + (wg * 64 + 63) / group;
+    const int qpos[2] = {g0 + r0 / group, g0 + (r0 + 8) / group};      // global
+    const int wq_min = g0 + wg * 64 / group, wq_max = g0 + (wg * 64 + 63) / group;
     // scores in log2 units: exp2(x log2e - m log2e) = exp(x - m)
     const float pre = CAP ? scale / cap : scale * LOG2E;
     const float post = CAP ? cap * LOG2E : 1.f;
@@ -670,7 +679,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       wg_commit();
     };
     // the mask only where a tile crosses the diagonal or the window's lower
-    // edge of this warpgroup's rows (keys past S lie past the diagonal)
+    // edge of this warpgroup's rows (keys past Sk lie past the diagonal)
     auto masked = [&](int t0) {
       return t0 + TBK - 1 > wq_min || (window > 0 && t0 <= wq_max - window);
     };
@@ -766,7 +775,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S,
-                         int H, int Hkv, int window, float scale, float cap,
+                         int Sk, int q_off, int H, int Hkv, int window, float scale, float cap,
                          cudaStream_t stream) {
   const int group = H / Hkv;
   if (group > MAX_GROUP) return cudaErrorInvalidValue;
@@ -775,7 +784,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   const int P = TROWS / group;                        // query positions of a CTA
   CUtensorMap qm, km, vm;
   if (!make_map(enc, &qm, q, B, S, H, D, group, P) ||
-      !make_map(enc, &km, k, B, S, Hkv, D, 1, TBK) || !make_map(enc, &vm, v, B, S, Hkv, D, 1, TBK))
+      !make_map(enc, &km, k, B, Sk, Hkv, D, 1, TBK) ||
+      !make_map(enc, &vm, v, B, Sk, Hkv, D, 1, TBK))
     return cudaErrorInvalidValue;
   auto kern = cap > 0.f ? flash_wgmma_kernel<D, true> : flash_wgmma_kernel<D, false>;
   const int smem = Smem<D>::BYTES;
@@ -784,15 +794,15 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o, i
   const int n_qtiles = (S + P - 1) / P;
   const long long grid = (long long)n_qtiles * B * Hkv;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kern<<<(unsigned)grid, TC_THREADS, smem, stream>>>(qm, km, vm, static_cast<bf16*>(o), S, H,
-                                                    Hkv, B * Hkv, P, n_qtiles, window, scale,
-                                                    cap);
+  kern<<<(unsigned)grid, TC_THREADS, smem, stream>>>(qm, km, vm, static_cast<bf16*>(o), S,
+                                                    q_off, H, Hkv, B * Hkv, P, n_qtiles, window,
+                                                    scale, cap);
   return cudaGetLastError();
 }
 
 template <typename T, int NCH, bool WIDE>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-                   int H, int Hkv, int D, int window, float scale, float cap,
+                   int Sk, int q_off, int H, int Hkv, int D, int window, float scale, float cap,
                    cudaStream_t stream) {
   const int Dp = WIDE ? WIDE_COLS : (D + 3) / 4 * 4;
   const size_t smem = sizeof(float) * ((size_t)BLOCK_ROWS * Dp + (size_t)BK * (Dp + 4) +
@@ -805,38 +815,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((unsigned)((n_rows + BLOCK_ROWS - 1) / BLOCK_ROWS), (unsigned)(B * Hkv),
                   WIDE ? (unsigned)((D + WIDE_COLS - 1) / WIDE_COLS) : 1u);
   kern<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                        static_cast<const T*>(v), static_cast<T*>(o), S, H,
-                                        Hkv, D, Dp, window, scale, cap);
+                                        static_cast<const T*>(v), static_cast<T*>(o), S, Sk,
+                                        q_off, H, Hkv, D, Dp, window, scale, cap);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (B,S,H,D); k, v: (B,S,Hkv,D); o: (B,S,H,D); all contiguous, one dtype
+// q: (B,Sq,H,D) at global positions q_off .. q_off + Sq - 1; k, v: (B,Sk,Hkv,D)
+// at 0 .. Sk - 1, Sk >= q_off + Sq; o: (B,Sq,H,D); all contiguous, one dtype
 // (0 = float32, 1 = bfloat16). window <= 0 = full causal; cap <= 0 = no cap.
 // Returns the CUDA error code of the launch (0 = success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int S, int H, int Hkv, int D, int window,
-                                   float scale, float cap, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || B * Hkv > 65535 ||
-      D > WIDE_COLS * 65535)
+                                   int B, int Sq, int Sk, int q_off, int H, int Hkv, int D,
+                                   int window, float scale, float cap, int dtype, void* stream) {
+  if (B <= 0 || Sq <= 0 || q_off < 0 || Sk < q_off + Sq || Hkv <= 0 || H % Hkv != 0 ||
+      D <= 0 || B * Hkv > 65535 || D > WIDE_COLS * 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ARGS q, k, v, o, B, Sq, Sk, q_off, H, Hkv
   if (dtype == 1) {
-    if (D == 256) return (int)launch_wgmma<256>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
-    if (D == 160) return (int)launch_wgmma<160>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
-    if (D == 128) return (int)launch_wgmma<128>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
-    if (D == 112) return (int)launch_wgmma<112>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
-    if (D == 64) return (int)launch_wgmma<64>(q, k, v, o, B, S, H, Hkv, window, scale, cap, st);
+    if (D == 256) return (int)launch_wgmma<256>(ARGS, window, scale, cap, st);
+    if (D == 160) return (int)launch_wgmma<160>(ARGS, window, scale, cap, st);
+    if (D == 128) return (int)launch_wgmma<128>(ARGS, window, scale, cap, st);
+    if (D == 112) return (int)launch_wgmma<112>(ARGS, window, scale, cap, st);
+    if (D == 64) return (int)launch_wgmma<64>(ARGS, window, scale, cap, st);
   }
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
   if (D > WIDE_COLS)
-    return (int)(dtype ? launch<bf, 2, true>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st)
-                       : launch<float, 2, true>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st));
+    return (int)(dtype ? launch<bf, 2, true>(ARGS, D, window, scale, cap, st)
+                       : launch<float, 2, true>(ARGS, D, window, scale, cap, st));
   if (D > 128)
-    return (int)(dtype ? launch<bf, 2, false>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st)
-                       : launch<float, 2, false>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st));
-  return (int)(dtype ? launch<bf, 1, false>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st)
-                     : launch<float, 1, false>(q, k, v, o, B, S, H, Hkv, D, window, scale, cap, st));
+    return (int)(dtype ? launch<bf, 2, false>(ARGS, D, window, scale, cap, st)
+                       : launch<float, 2, false>(ARGS, D, window, scale, cap, st));
+  return (int)(dtype ? launch<bf, 1, false>(ARGS, D, window, scale, cap, st)
+                     : launch<float, 1, false>(ARGS, D, window, scale, cap, st));
+#undef ARGS
 }

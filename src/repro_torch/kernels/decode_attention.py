@@ -22,10 +22,11 @@ keys at global positions ``k0`` .. ``k0 + S - 1``, masked by their global
 positions; the call returns (out, lse), both float32 whatever the inputs'
 dtype (the merge rounds once): out normalised over the shard's valid keys,
 lse the log-sum-exp (B, H) of each query head's valid scores, or
-``ref.NEG_INF`` with out 0 where the shard holds no valid key; one launch, so
-at most ``MAX_GROUP`` query heads a kv head. ``ref.merge_shards`` (or an all-reduce of the same sums across ranks)
-merges the shards into the whole cache's output. Its plain version is
-``ref.decode_attention_shard``.
+``ref.NEG_INF`` with out 0 where the shard holds no valid key; one launch, or
+a group above ``MAX_GROUP`` in passes (``shard_passes``), each writing its
+heads' columns of out and lse. ``ref.merge_shards`` (or an all-reduce of the
+same sums across ranks) merges the shards into the whole cache's output. Its
+plain version is ``ref.decode_attention_shard``.
 """
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import (DTYPE_CODES, MAX_GROUP, _window,
-                                                 check_attention_inputs, group_passes)
+                                                 check_attention_inputs, group_passes,
+                                                 pass_group)
 
 launches = 0
 # bf16 head_dims ``csrc/decode_attention.cu`` runs ``decode_tma_kernel`` for
@@ -108,9 +110,30 @@ def decode_attention_fwd(q, k_cache, v_cache, pos: int, *, window=None,
     if not return_lse:
         return group_passes(lambda qp, kp, vp: _launch(qp, kp, vp, pos, 0, w, scale, logit_cap,
                                                        False), q, k_cache, v_cache)
-    if q.shape[2] // k_cache.shape[2] > MAX_GROUP:
-        raise ValueError(f"shard mode: at most {MAX_GROUP} query heads a kv head in one launch")
-    return _launch(q, k_cache, v_cache, pos, k0, w, scale, logit_cap, True)
+    return shard_passes(lambda qp: _launch(qp, k_cache, v_cache, pos, k0, w, scale, logit_cap,
+                                           True), q, k_cache.shape[2])
+
+
+def shard_passes(run, q, n_kv: int):
+    """``run(q_pass)`` -> (out, lse) of the shard mode over passes of at most
+    ``MAX_GROUP`` query heads of each of the ``n_kv`` kv heads, as
+    ``group_passes`` cuts them (heads c0..c0+gc-1 of each group), each
+    pass's float32 out and lse written into its heads' columns. One pass
+    when the group fits."""
+    b, _, h, d = q.shape
+    group = h // n_kv
+    if group <= MAX_GROUP:
+        return run(q)
+    step = pass_group(group)
+    qg = q.view(b, 1, n_kv, group, d)
+    out = torch.empty(b, 1, n_kv, group, d, dtype=torch.float32, device=q.device)
+    lse = torch.empty(b, n_kv, group, dtype=torch.float32, device=q.device)
+    for c0 in range(0, group, step):
+        gc = min(step, group - c0)
+        o, l = run(qg[:, :, :, c0:c0 + gc].contiguous().view(b, 1, n_kv * gc, d))
+        out[:, :, :, c0:c0 + gc] = o.view(b, 1, n_kv, gc, d)
+        lse[:, :, c0:c0 + gc] = l.view(b, n_kv, gc)
+    return out.view(b, 1, h, d), lse.view(b, h)
 
 
 def _launch(q, k_cache, v_cache, pos: int, k0: int, w: int, scale: float, logit_cap: float,

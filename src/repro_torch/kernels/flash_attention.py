@@ -30,7 +30,7 @@ def _kernel():
     global _fn
     if _fn is None:
         fn = _build.load("flash_attention").flash_attention_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -110,9 +110,12 @@ def group_passes(run, q, k, v) -> torch.Tensor:
 
 
 def flash_attention_fwd(q, k, v, *, window=None, logit_cap: float = 0.0,
-                        scale: float) -> torch.Tensor:
-    """q: (B,S,H,D); k,v: (B,S,Hkv,D) -> (B,S,H,D). ``window`` 0/None = full
-    causal. Any S: the kernel masks the ragged edge itself.
+                        scale: float, q_offset: int = 0) -> torch.Tensor:
+    """q: (B,Sq,H,D); k,v: (B,Sk,Hkv,D) -> (B,Sq,H,D). ``window`` 0/None =
+    full causal. Any Sq: the kernel masks the ragged edge itself.
+    ``q_offset``: the global position of q's first row (a rank's shard of
+    the sequence), masked against every key at positions 0 .. Sk - 1; the
+    keys must reach the last query (``q_offset + Sq <= Sk``).
 
     bf16 with a head_dim of ``WGMMA_HEAD_DIMS`` runs on the tensor cores
     (wgmma fed by TMA; ``wgmma_path``), anything else on the fp32 CUDA cores
@@ -120,23 +123,28 @@ def flash_attention_fwd(q, k, v, *, window=None, logit_cap: float = 0.0,
     ``MAX_GROUP`` is launched in passes (``group_passes``); ``launches``
     counts each."""
     check_attention_inputs(q, k, v)
-    if k.shape[1] != q.shape[1]:
-        raise ValueError(f"q has {q.shape[1]} positions, k has {k.shape[1]}")
+    q_off = int(q_offset)
+    if q_off < 0 or q_off + q.shape[1] > k.shape[1]:
+        raise ValueError(f"q_offset {q_off}: q's {q.shape[1]} positions from there must lie "
+                         f"within the {k.shape[1]} keys (0 <= q_offset, q_offset + Sq <= Sk)")
     w = _window(window)
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, window=w, logit_cap=logit_cap, scale=scale)
-    return group_passes(lambda qp, kp, vp: _launch(qp, kp, vp, w, scale, logit_cap), q, k, v)
+        return ref.flash_attention(q, k, v, window=w, logit_cap=logit_cap, scale=scale,
+                                   q_offset=q_off)
+    return group_passes(lambda qp, kp, vp: _launch(qp, kp, vp, q_off, w, scale, logit_cap),
+                        q, k, v)
 
 
-def _launch(q, k, v, w: int, scale: float, logit_cap: float) -> torch.Tensor:
+def _launch(q, k, v, q_off: int, w: int, scale: float, logit_cap: float) -> torch.Tensor:
     global launches
     b, s, h, d = q.shape
     out = torch.empty_like(q)
     fn = _kernel()
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, s, h, k.shape[2], d, w, float(scale), float(logit_cap or 0.0),
-                 DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+                 b, s, k.shape[1], q_off, h, k.shape[2], d, w, float(scale),
+                 float(logit_cap or 0.0), DTYPE_CODES[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
     launches += 1

@@ -21,14 +21,15 @@ from repro_torch.kernels import rmsnorm as _rmsnorm
 
 
 def flash_attention(q, k, v, *, window=None, logit_cap: float = 0.0,
-                    scale: float, use_kernel: bool = True):
-    """Causal GQA attention. q: (B,S,H,D); k,v: (B,S,Hkv,D)."""
+                    scale: float, use_kernel: bool = True, q_offset: int = 0):
+    """Causal GQA attention. q: (B,Sq,H,D) at global positions ``q_offset``
+    on; k,v: (B,Sk,Hkv,D), Sk >= q_offset + Sq."""
     if use_kernel:
         return _flash.flash_attention_fwd(q, k, v, window=window, logit_cap=logit_cap,
-                                          scale=scale)
+                                          scale=scale, q_offset=q_offset)
     from repro_torch.models.attention import chunked_causal_attention
     return chunked_causal_attention(q, k, v, window=window, logit_cap=logit_cap,
-                                    scale=scale)
+                                    scale=scale, q_offset=q_offset)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int, *, window=None,

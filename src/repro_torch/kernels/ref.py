@@ -39,10 +39,14 @@ def causal_window_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window) -> torc
     return mask
 
 
-def flash_attention(q, k, v, *, window=None, logit_cap: float = 0.0, scale: float):
+def flash_attention(q, k, v, *, window=None, logit_cap: float = 0.0, scale: float,
+                    q_offset: int = 0):
     """Causal (optionally sliding-window / soft-capped) GQA attention.
 
-    q: (B,S,H,D); k,v: (B,Sk,Hkv,D) -> (B,S,H,Dv). ``window`` 0/None = full."""
+    q: (B,S,H,D); k,v: (B,Sk,Hkv,D) -> (B,S,H,Dv). ``window`` 0/None = full.
+    ``q_offset``: the global position of q's first row (a rank's shard of
+    the sequence); the mask is taken at positions ``q_offset + i`` against
+    the keys' ``0 .. Sk - 1``."""
     b, s, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group = h // hkv
@@ -50,8 +54,8 @@ def flash_attention(q, k, v, *, window=None, logit_cap: float = 0.0, scale: floa
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
     if logit_cap:
         scores = torch.tanh(scores / logit_cap) * logit_cap
-    pos = torch.arange(max(s, sk), device=q.device)
-    mask = causal_window_mask(pos[:s], pos[:sk], window)
+    mask = causal_window_mask(q_offset + torch.arange(s, device=q.device),
+                              torch.arange(sk, device=q.device), window)
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())

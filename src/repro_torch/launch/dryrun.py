@@ -27,7 +27,10 @@ alive through the step (2.6 GB more at the peak of gemma2-2b's train step at
     the groups exist, nothing moves). ``StepCounter`` records each
     collective op the step issues instead of running it, so the FLOPs, the
     bytes and the collectives are those of the code that runs. Every rank of
-    a mesh holds shards of one shape, so rank 0 stands for all;
+    a mesh holds shards of one shape, so rank 0 stands for all; under the
+    "sequence" attention mode the last ``model`` rank (``traced_rank``: the
+    one that holds the last query positions; the plain attention masks
+    every key and cuts none, so every rank's FLOPs are equal);
   * prefill: ``make_prefill_step``; decode: ``make_decode_step`` at the last
     position of a cache of the shape's length. On a mesh, the last rank's
     share of the sharded serve step, as the JAX package's ``lower_cell``
@@ -74,9 +77,12 @@ ranks costs nothing. A device does what the port does:
     "auto" is "batch" where the kv heads do not divide 16 and the model has
     no MLA) and runs in the traced step: under "batch", a GQA layer whose
     rank's rows divide ``model`` attends its ``1/model`` of them over every
-    head (``models/attention.py``; its all-to-alls over ``model`` counted as
-    "all-to-all"); the record carries the configured value and the resolved
-    one (``parallel.attn_activation_mode``);
+    head, under "sequence" one whose sequence divides ``model`` its
+    ``1/model`` of the query positions against every key
+    (``models/attention.py``; their all-to-alls over ``model`` counted as
+    "all-to-all"); the record carries the configured value, the resolved
+    one (``parallel.attn_activation_mode``) and the traced rank
+    (``parallel.traced_rank``);
   * a step's collectives are those its trace issued (``collectives_of``): a
     serve step's are each layer's gathers of its weights over the batch
     axes, the tensor-parallel all-reduces over ``model``, the gathers of
@@ -502,6 +508,25 @@ def fake_world(mesh_sizes: Dict[str, int], rank: int = 0):
         dist.destroy_process_group()
 
 
+def traced_rank(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int]) -> Tuple[int, str]:
+    """The rank whose share of the step a cell traces, and why: a serve
+    step's last rank (it holds the decoded position); a train step's rank 0,
+    or under the "sequence" attention mode the last ``model`` rank of the
+    first batch coordinate, which holds the last query positions (the plain
+    attention masks every key and cuts none, so each ``model`` rank's FLOPs
+    are equal). The mesh's ``model`` axis is its last."""
+    if math.prod(mesh_sizes.values()) == 1:
+        return 0, "one device"
+    if shape.kind != "train":
+        return (math.prod(mesh_sizes.values()) - 1,
+                "the last rank, which holds the decoded position")
+    if attn_activation_mode(run) == "sequence":
+        return (mesh_sizes.get("model", 1) - 1,
+                "the last model rank, which holds the last query positions; the plain "
+                "attention masks every key and cuts none, so every model rank's FLOPs are equal")
+    return 0, "every rank holds shards of one shape"
+
+
 def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
                units: Optional[int] = None, seq_len: Optional[int] = None,
                ids: Optional[dict] = None) -> Trace:
@@ -523,7 +548,7 @@ def trace_cell(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int], *,
     batch = input_specs(run.model, local)
     world = math.prod(mesh_sizes.values())
     meshed = world > 1
-    rank = 0 if shape.kind == "train" else world - 1
+    rank = traced_rank(run, shape, mesh_sizes)[0]
     n_batch = math.prod(mesh_sizes.get(a, 1) for a in shd.BATCH_AXES)
     with (fake_world(mesh_sizes, rank) if meshed else contextlib.nullcontext()) as mesh:
         if shape.kind == "train":
@@ -922,6 +947,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, do_roofline: bool,
                          "attn_zero": attn_zero, "moe_zero": moe_zero,
                          "attn_activation_sharding": run.parallel.attn_activation_sharding,
                          "attn_activation_mode": attn_activation_mode(run),
+                         "traced_rank": "{}: {}".format(*traced_rank(run, shape, sizes)),
                          "optimizer_state": run.parallel.optimizer_state},
             "memory": memory_record(run, shape, sizes, costs["temp_bytes"],
                                     costs["gathered_bytes"]),

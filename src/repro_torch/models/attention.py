@@ -168,7 +168,27 @@ class GQAttention(nn.Module):
     an all-to-all over ``model`` moves q (and k and v where the kv heads
     divide; else they are projected on this rank's rows with the kv weights
     gathered whole) to (this rank's rows, every head) and the attention's
-    output back, before ``wo`` row-parallel."""
+    output back, before ``wo`` row-parallel.
+
+    ``sp_attn`` "sequence" is the mode's other value (``_sp_shard``: q's
+    sequence constrained to ``model``, k and v whole over it). On a mesh
+    whose ``model`` size divides the sequence (``tp.seq_over_model``), each
+    ``model`` rank attends its ``1/model`` of the query positions, from
+    global position ``tp.seq_start`` on, against every key, the window and
+    the causal mask at global positions, and the outputs come back to every
+    ``model`` rank; elsewhere (one device, a sequence that does not divide,
+    decode) the mode changes nothing. Where the heads do not divide, q is
+    projected from this rank's positions at their global RoPE positions and
+    k and v from every position with the weights whole (their gradients, and
+    x's through k and v, summed over ``model``), and the output's positions
+    gathered after ``wo``; where they divide, q moves from (every position,
+    this rank's heads) to (this rank's positions, every head) by an
+    all-to-all (``tp.seq_to_heads``), k and v are made on every position and
+    every kv head (gathered over ``model`` where it splits them, else from
+    the kv weights whole), and the output moves back before ``wo``
+    row-parallel. Train attends through the plain chunked attention with
+    ``q_offset`` over all keys (masked, not cut to the causal range, as XLA
+    counts it); prefill through the flash kernel with ``q_offset``."""
 
     tp = None
 
@@ -228,6 +248,12 @@ class GQAttention(nn.Module):
                                        scale=self.cfg.resolved_head_dim ** -0.5)
         return out.reshape(b, s, -1) @ w["wo"].to(x.dtype)
 
+    def _seq_positions(self, s: int, device):
+        """This rank's share of ``s`` positions under the "sequence" mode:
+        (its first global position, their RoPE positions (1, s / model))."""
+        start = self.tp.seq_start(s)
+        return start, start + torch.arange(s // self.tp.size, device=device)[None, :]
+
     def heads_split(self) -> bool:
         tp = self.tp
         return self.cfg.n_heads % tp.size == 0 and tp.split_on((self.wq, 1), (self.wo, 0))
@@ -236,6 +262,11 @@ class GQAttention(nn.Module):
         """The "batch" mode applies to a layer of ``rows`` rows on this mesh."""
         return self.sp_attn == "batch" and self.tp is not None and self.tp.rows_over_model(rows)
 
+    def seq_split(self, s: int) -> bool:
+        """The "sequence" mode applies to a layer of ``s`` positions on this
+        mesh."""
+        return self.sp_attn == "sequence" and self.tp is not None and self.tp.seq_over_model(s)
+
     def forward_train(self, x, *, window: int, use_kernel: bool = True):
         """Full-sequence causal attention without a cache (JAX ``gqa_train``),
         through the plain chunked attention; ``use_kernel`` picks the qk
@@ -243,17 +274,22 @@ class GQAttention(nn.Module):
         tp = self.tp
         if tp is None:
             return self._train(x, window, use_kernel)
-        rows = self.rows_split(x.shape[0])
+        rows, seq = self.rows_split(x.shape[0]), self.seq_split(x.shape[1])
         if not self.heads_split():
-            # whole weights; under the mode this rank's rows only, so each
-            # weight's gradient is a part, summed over model
-            whole = {k: tp.whole(v, partial=rows) for k, v in self._own().items()}
+            # whole weights; under the modes this rank's rows or query
+            # positions only, so each weight's gradient is a part, summed
+            # over model
+            whole = {k: tp.whole(v, partial=rows or seq) for k, v in self._own().items()}
             if rows:
                 return tp.gather_model(self._train(tp.split_rows(x), window, use_kernel, whole),
                                        0)
+            if seq:
+                return tp.gather_model(self._train_seq_whole(x, window, use_kernel, whole), 1)
             return self._train(x, window, use_kernel, whole)
         if rows:
             return self._train_rows(x, window, use_kernel)
+        if seq:
+            return self._train_seq(x, window, use_kernel)
         cfg = self.cfg
         wk, wv, hkv, kv_index = kv_plan(tp, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
                                       self.wk, self.wv)
@@ -296,6 +332,63 @@ class GQAttention(nn.Module):
         out = tp.heads_to_rows(out).reshape(b, s, -1) @ w["wo"].to(x.dtype)
         return tp.reduce_out(out)
 
+    def _train_seq_whole(self, x, window: int, use_kernel: bool, w):
+        """``forward_train`` under the "sequence" mode with the weights whole
+        (``w``): q from this rank's positions at their global RoPE
+        positions (``tp.split_seq``, whose backward gathers x's gradient),
+        k and v from every position (``tp.copy_in``: x's gradient through
+        them a part, summed over ``model``); this rank's positions of the
+        output, through ``wo``."""
+        tp, cfg = self.tp, self.cfg
+        b, s, _ = x.shape
+        start, qpos = self._seq_positions(s, x.device)
+        q = self._q(tp.split_seq(x), qpos, use_kernel, w)
+        k, v = self._kv(tp.copy_in(x), torch.arange(s, device=x.device)[None, :], use_kernel, w)
+        out = chunked_causal_attention(q, k, v, window=window, logit_cap=cfg.attn_logit_softcap,
+                                       scale=cfg.resolved_head_dim ** -0.5, q_offset=start)
+        return out.reshape(b, s // tp.size, -1) @ w["wo"].to(x.dtype)
+
+    def _seq_kv(self, x, positions, use_kernel: bool, w, kv_split: bool):
+        """k and v of every kv head at every position under the "sequence"
+        mode where the q heads split: this rank's kv heads gathered over
+        ``model`` where it splits them (each rank's gradient of the whole a
+        part, summed onto its heads; contiguous for the flash kernel), else
+        made whole from ``w``'s whole kv weights."""
+        cfg, tp = self.cfg, self.tp
+        if not kv_split:
+            return self._kv(x, positions, use_kernel, w)
+        k, v = self._kv(x, positions, use_kernel, w, cfg.n_kv_heads // tp.size)
+        return tuple(tp.gather_model(t, 2, partial=True).contiguous() for t in (k, v))
+
+    def _train_seq(self, x, window: int, use_kernel: bool):
+        """``forward_train`` under the "sequence" mode where the heads split:
+        q projected on this rank's heads and every position, moved to this
+        rank's positions and every head (``tp.seq_to_heads``); k and v of
+        every kv head at every position (``_seq_kv``); the attention of
+        those positions at ``q_offset`` over every key, moved back to this
+        rank's heads and every position, through its rows of ``wo``,
+        all-reduced over ``model``."""
+        tp, cfg = self.tp, self.cfg
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device)[None, :]
+        xq = tp.copy_in(x)
+        w = {"wq": tp.gather_batch(self.wq), "wo": tp.gather_batch(self.wo)}
+        if cfg.qk_norm:     # shared by every head: each rank's gradient is a part
+            w["q_norm"] = tp.copy_in(self.q_norm.scale)
+            w["k_norm"] = tp.copy_in(self.k_norm.scale)
+        kv_split = cfg.n_kv_heads % tp.size == 0 and tp.split_on((self.wk, 1), (self.wv, 1))
+        if kv_split:
+            w["wk"], w["wv"] = tp.gather_batch(self.wk), tp.gather_batch(self.wv)
+        else:
+            w["wk"], w["wv"] = tp.whole(self.wk, partial=True), tp.whole(self.wv, partial=True)
+        q = tp.seq_to_heads(self._q(xq, positions, use_kernel, w, cfg.n_heads // tp.size))
+        k, v = self._seq_kv(xq, positions, use_kernel, w, kv_split)
+        out = chunked_causal_attention(q, k, v, window=window, logit_cap=cfg.attn_logit_softcap,
+                                       scale=cfg.resolved_head_dim ** -0.5,
+                                       q_offset=tp.seq_start(s))
+        out = tp.heads_to_seq(out).reshape(b, s, -1) @ w["wo"].to(x.dtype)
+        return tp.reduce_out(out)
+
     def _serve_weights(self):
         """What a serve step of this rank reads: (weights, q heads, kv heads,
         heads split, kv heads split). On one device its own weights. On a
@@ -336,6 +429,8 @@ class GQAttention(nn.Module):
         w, h, hkv, split, kv_split = self._serve_weights()
         if self.rows_split(b):
             return self._prefill_rows(x, cache, positions, kw, w, h, hkv, split, kv_split)
+        if self.seq_split(s):
+            return self._prefill_seq(x, cache, positions, kw, w, h, split, kv_split)
         q = self._q(x, positions, use_kernel, w, h)
         k, v = self._kv(x, positions, use_kernel, w, hkv)
         ka, va = k, v
@@ -378,6 +473,31 @@ class GQAttention(nn.Module):
         out = kops.flash_attention(self._q(xr, positions, use_kernel, w, h), k, v, **kw)
         out = out.reshape(xr.shape[0], s, -1) @ w["wo"].to(x.dtype)
         return all_gather(out, tp.model, 0)
+
+    def _prefill_seq(self, x, cache: KVCache, positions, kw, w, h, split, kv_split):
+        """``prefill`` under the "sequence" mode: the whole new k/v of every
+        kv head (``_seq_kv``) written into this rank's cache shard; the flash
+        kernel on this rank's query positions at ``q_offset`` against every
+        key: q of this rank's heads moved to its positions and every head
+        (``seq_to_heads``) and the output moved back and through ``wo``
+        row-parallel, or, where the heads do not split, q projected from its
+        positions alone at their global RoPE positions and the output's
+        positions gathered over ``model`` after the whole ``wo``."""
+        tp, use_kernel = self.tp, kw["use_kernel"]
+        b, s, _ = x.shape
+        k, v = self._seq_kv(x, positions, use_kernel, w, kv_split)
+        write_cache(tp, cache.k, k, 0)
+        write_cache(tp, cache.v, v, 0)
+        start, qpos = self._seq_positions(s, x.device)
+        if split:
+            q = tp.seq_to_heads(self._q(x, positions, use_kernel, w, h)).contiguous()
+            out = tp.heads_to_seq(kops.flash_attention(q, k, v, q_offset=start, **kw))
+            return tp.reduce_out(out.reshape(b, s, -1) @ w["wo"].to(x.dtype))
+        xs = x[:, start:start + s // tp.size]
+        out = kops.flash_attention(self._q(xs, qpos, use_kernel, w, h), k, v, q_offset=start,
+                                   **kw)
+        out = out.reshape(b, xs.shape[1], -1) @ w["wo"].to(x.dtype)
+        return all_gather(out, tp.model, 1)
 
     def decode(self, x, cache: KVCache, pos: int, *, window: int, use_kernel: bool = True):
         """One token at host position ``pos``. x: (B,1,D). Writes k/v into

@@ -20,12 +20,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.common.config import ModelConfig, RunConfig, ShapeSpec
-from repro_torch.models.transformer import LM, check_sp_attn
+from repro_torch.models.transformer import LM
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-ATTN_MODES = ("off", "batch", "auto")
+ATTN_MODES = ("off", "batch", "sequence", "auto")
 # the JAX package's literal in "auto" (``build_model``, ``lower_cell``): the
 # production mesh's model size, not the mesh a model runs on
 AUTO_KV_HEADS = 16
@@ -34,16 +34,13 @@ AUTO_KV_HEADS = 16
 def attn_activation_mode(run: RunConfig) -> str:
     """``attn_activation_sharding`` resolved as the JAX package's
     ``build_model`` resolves it: "auto" is "batch" where the kv heads do not
-    divide 16 and the model has no MLA, else "off"; "off" and "batch" stay.
-    "sequence" (refuted in the JAX package, kept there for the record) and
-    any other value are refused by name."""
+    divide 16 and the model has no MLA, else "off"; "off", "batch" and
+    "sequence" stay. Any other value is refused by name."""
     mode = run.parallel.attn_activation_sharding
     if mode == "auto":
         mode = ("batch" if run.model.n_kv_heads % AUTO_KV_HEADS != 0 and run.model.mla is None
                 else "off")
-    if mode == "sequence":
-        check_sp_attn(mode)
-    if mode not in ("off", "batch"):
+    if mode not in ATTN_MODES[:-1]:
         raise ValueError(f"attn_activation_sharding {mode!r}: expected one of {ATTN_MODES}")
     return mode
 

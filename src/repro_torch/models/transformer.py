@@ -69,16 +69,11 @@ from repro_torch.models.ssm import MLSTM, SLSTM, Mamba2
 BLOCK_CROSS = "cross"
 BLOCK_SHARED_ATTN = "shared_attn"
 REMAT = ("none", "dots", "full")
-SP_ATTN = ("", "batch")
+SP_ATTN = ("", "batch", "sequence")
 
 
 def check_sp_attn(mode: str) -> None:
     """Refuse an attention activation mode the port does not run, by name."""
-    if mode == "sequence":
-        raise ValueError(
-            "attention activation mode 'sequence' is refused: the JAX package keeps it "
-            "for the record only, refuted (GSPMD thrashed the layouts of the chunked "
-            "attention), and the flash kernel takes no query offset for a sequence shard")
     if mode not in SP_ATTN:
         raise ValueError(f"attention activation mode {mode!r}: expected one of {SP_ATTN}")
 
@@ -396,9 +391,10 @@ class LM(nn.Module):
     ``init_cache`` gives this rank's shard of every cache
     (``sharding.cache_spec``).
 
-    ``sp_attn``: "" or "batch", the JAX ``LM``'s argument of that name
-    (``models.model.attn_activation_mode`` resolves the config's knob), for
-    every GQA attention, zamba2's shared block included; "sequence" is
+    ``sp_attn``: "", "batch" or "sequence", the JAX ``LM``'s argument of
+    that name (``models.model.attn_activation_mode`` resolves the config's
+    knob), for every GQA attention, zamba2's shared block included (MLA and
+    cross attention take none, as in the JAX package); any other name is
     refused (``check_sp_attn``)."""
 
     tp = None

@@ -28,7 +28,10 @@ port writes that out, Megatron-style:
   * under the "batch" attention mode a layer moves its rows over ``model``
     instead (``split_rows``, ``rows_to_heads``/``heads_to_rows``: an
     all-to-all whose backward is the inverse one), where they divide
-    (``rows_over_model``).
+    (``rows_over_model``); under the "sequence" mode it moves its queries'
+    positions likewise (``split_seq`` at ``seq_start``,
+    ``seq_to_heads``/``heads_to_seq``), where they divide
+    (``seq_over_model``).
 
 Serving (``prefill``/``decode`` on a mesh) runs the same layers without
 autograd, its caches placed by ``sharding.cache_spec``: each cache tensor is
@@ -300,11 +303,13 @@ class TensorParallel:
         return t
 
     # --- Megatron's f and g, and sums over the batch ------------------------
-    def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+    def gather_model(self, x: torch.Tensor, dim: int, partial: bool = False) -> torch.Tensor:
         """Every ``model`` rank's part of ``x`` along ``dim``, concatenated;
         each rank then computes on the whole, so the backward keeps this
-        rank's slice."""
-        return _Gather.apply(x, [(dim, self.model)], False) if self.size > 1 else x
+        rank's slice, or, with ``partial``, each rank's gradient of the whole
+        is a part: the backward sums it over ``model`` onto this rank's
+        slice (a reduce-scatter)."""
+        return _Gather.apply(x, [(dim, self.model)], partial) if self.size > 1 else x
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:
         return _CopyIn.apply(x, self.model) if self.size > 1 else x
@@ -333,6 +338,35 @@ class TensorParallel:
     def heads_to_rows(self, x: torch.Tensor) -> torch.Tensor:
         """``rows_to_heads``' inverse."""
         return _Swap.apply(x, self.model, 2, 0) if self.size > 1 else x
+
+    # --- the "sequence" attention mode's moves ------------------------------
+    def seq_over_model(self, s: int) -> bool:
+        """A layer of ``s`` positions can split its queries' positions over
+        ``model``: ``model`` divides them, as the JAX package's
+        ``_maybe_shard`` requires of q's sequence constrained to ``model``
+        (it drops the constraint where it does not divide)."""
+        return self.size > 1 and s % self.size == 0
+
+    def seq_start(self, s: int) -> int:
+        """The global position of this rank's first query of a sequence of
+        ``s`` positions split over ``model`` (``split_seq``)."""
+        return self.rank * (s // self.size)
+
+    def split_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's ``1/model`` of the positions (dim 1) of ``x``, which
+        every ``model`` rank holds whole; the backward gathers the
+        positions' gradients over ``model`` in order."""
+        return _Split.apply(x, self.model, 1) if self.size > 1 else x
+
+    def seq_to_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, every position, this rank's heads, D) -> (B, this rank's
+        positions, every head, D): an all-to-all over ``model``, its inverse
+        backward."""
+        return _Swap.apply(x, self.model, 1, 2) if self.size > 1 else x
+
+    def heads_to_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """``seq_to_heads``' inverse."""
+        return _Swap.apply(x, self.model, 2, 1) if self.size > 1 else x
 
     def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
         return _ReduceOut.apply(x, self.model) if self.size > 1 else x

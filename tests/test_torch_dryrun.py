@@ -104,7 +104,7 @@ for a in ARCHS:
                                               for k in (1, 2, 3)]
     out["sp_attn"][a] = {m: jax_build_model(run.replace(parallel=dataclasses.replace(
         run.parallel, attn_activation_sharding=m)), use_kernel=False).sp_attn
-        for m in ("off", "auto", "batch")}
+        for m in ("off", "auto", "batch", "sequence")}
     out["structural"][a] = {f"{s}/{c}": rl.structural_hbm_bytes(run, sh, c)
                             for s, sh in SHAPES.items() for c in (256, 512)}
 
@@ -239,7 +239,7 @@ def test_units_and_structural_bytes_equal_the_jax_packages(arch, jax_ref):
 
 @pytest.mark.parametrize("arch", _archs())
 def test_attn_activation_mode_resolves_as_the_jax_build_model(arch, jax_ref):
-    """"off", "auto" and "batch" of each full config resolve to the JAX
+    """"off", "auto", "batch" and "sequence" of each full config resolve to the JAX
     ``build_model``'s ``sp_attn`` ("" for "off"), and the port's ``LM``
     carries it: "auto" is "batch" for every GQA config whose kv heads do not
     divide 16, "off" for deepseek-v2-236b (MLA) and zamba2-7b (32 kv
@@ -258,12 +258,25 @@ def test_attn_activation_mode_resolves_as_the_jax_build_model(arch, jax_ref):
 
 @pytest.mark.parametrize("mode", ["sequence", "batched", "on"])
 def test_other_attn_activation_modes_are_refused_by_name(mode):
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.models.model import build_model
+    """Unknown names are refused by name, by ``attn_activation_mode`` (through
+    ``build_model``) and by ``LM``; "sequence", which the port refused
+    until it ran it, is accepted for all ten configs, as the JAX
+    ``build_model`` accepts it."""
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
+    from repro_torch.models.model import attn_activation_mode, build_model
     from repro_torch.models.transformer import LM
+    if mode == "sequence":
+        for arch in ARCHS:
+            run = get_config(arch)
+            run = run.replace(parallel=dataclasses.replace(run.parallel,
+                                                           attn_activation_sharding=mode))
+            assert attn_activation_mode(run) == mode, arch
+            assert build_model(run, device="meta").sp_attn == mode, arch
+            assert LM(run.model, device="meta", sp_attn=mode).sp_attn == mode, arch
+        return
     run = get_smoke_config("gemma2-2b")
     run = run.replace(parallel=dataclasses.replace(run.parallel, attn_activation_sharding=mode))
-    with pytest.raises(ValueError, match=f"'{mode}'" + (".*refuted" if mode == "sequence" else "")):
+    with pytest.raises(ValueError, match=f"'{mode}'"):
         build_model(run, device="meta")
     with pytest.raises(ValueError, match=f"'{mode}'"):
         LM(run.model, device="meta", sp_attn=mode)
@@ -739,6 +752,54 @@ def test_a_ranks_attention_flops_under_the_batch_mode(arch, mesh, k, share, monk
     assert flops["off"] > 0 and flops["batch"] == flops["off"] * share
     split_heads = arch == "stablelm-12b" and k == 1
     assert ("all-to-all" in coll["batch"]) == split_heads and "all-to-all" not in coll["off"]
+
+
+# (arch, mesh): a rank's attention score FLOPs under "sequence" over "off",
+# the last model rank traced: 1/model where the heads do not divide
+# (smollm-135m's 3: the rank's query positions against every key instead of
+# every position), the same where they divide (stablelm-12b's 4: every head
+# of a quarter of the positions instead of a quarter of the heads)
+SEQ_SHARE = [("smollm-135m", (2, 2), 1 / 2), ("smollm-135m", (1, 4), 1 / 4),
+             ("stablelm-12b", (1, 4), 1.0), ("stablelm-12b", (2, 2), 1.0)]
+
+
+@pytest.mark.parametrize("arch, mesh, share", SEQ_SHARE)
+def test_a_ranks_attention_flops_under_the_sequence_mode(arch, mesh, share, monkeypatch):
+    """The last model rank's train step traced on the meta device under
+    "sequence" and "off" (sequence 32): the FLOPs of the plain attention's
+    score and PV products, the ``q_offset`` each call is given (the rank's
+    first global position under the mode), and, where the heads divide, the
+    all-to-alls that move q and the output counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import attention as att
+    real, seen, offsets = att.chunked_causal_attention, [], []
+
+    def counted(*a, **kw):
+        offsets.append(kw.get("q_offset", 0))
+        with FlopCounterMode(display=False) as fc:
+            out = real(*a, **kw)
+        seen.append(fc.get_total_flops())
+        return out
+
+    monkeypatch.setattr(att, "chunked_causal_attention", counted)
+    sizes = dict(zip(("data", "model"), mesh))
+    shape = ShapeSpec("t", SEQ, BATCH, "train")
+    flops, coll = {}, {}
+    for mode in ("off", "sequence"):
+        seen.clear()
+        offsets.clear()
+        run = _smoke(arch, microbatches=1, attn_activation_sharding=mode)
+        tr = dr.trace_cell(run, shape, sizes)
+        flops[mode], coll[mode] = sum(seen), tr.coll.counts
+        last = mesh[1] - 1
+        assert dr.traced_rank(run, shape, sizes)[0] == (last if mode == "sequence" else 0)
+        want = last * SEQ // mesh[1] if mode == "sequence" else 0
+        assert offsets and set(offsets) == {want}, (mode, offsets)
+    assert flops["off"] > 0 and flops["sequence"] == flops["off"] * share
+    split_heads = arch == "stablelm-12b"
+    assert ("all-to-all" in coll["sequence"]) == split_heads and "all-to-all" not in coll["off"]
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "stablelm-12b"])

@@ -393,6 +393,89 @@ def test_bf16_probabilities_stay_within_the_row_limit(q_std):
     assert tref.max_row_rel_err(got, want) <= 0.75 * tref.ROW_REL_TOL[torch.bfloat16]
 
 
+# a rank's shard of a 96-position sequence: 24 query positions from q0 on,
+# every key; q0 0, an unaligned middle and the last shard
+OFFSETS = (0, 37, 72)
+
+
+@pytest.mark.parametrize("group", [1, 2, 7])
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+@pytest.mark.parametrize("window", [0, 20])
+@pytest.mark.parametrize("q0", OFFSETS)
+def test_flash_with_a_query_offset_matches_the_jax_rows(q0, window, cap, group):
+    """q of 24 positions at global offset ``q0`` against all 96 keys (a
+    window shorter than the offset, a cap, groups 1, 2 and 7): the plain
+    version with ``q_offset``, the chunked attention with ``q_offset`` and
+    ``ops.flash_attention`` both ways on the CPU all match rows [q0, q0 +
+    24) of the JAX chunked attention over the whole sequence, fp32 2e-5."""
+    rng = np.random.default_rng(20 + q0)
+    b, s, sq, hkv, d = 2, 96, 24, 2, 32
+    (qj, qt), (kj, kt), (vj, vt) = (_pair(a, "float32") for a in
+                                    _qkv(rng, b, s, hkv * group, hkv, d))
+    kw = dict(window=window, logit_cap=cap, scale=d ** -0.5)
+    want = np.asarray(jax_chunked(qj, kj, vj, q_chunk=32, **kw))[:, q0:q0 + sq]
+    qs = qt[:, q0:q0 + sq].contiguous()
+    got = {"ref": tref.flash_attention(qs, kt, vt, q_offset=q0, **kw),
+           "chunked": torch_chunked(qs, kt, vt, q_offset=q0, q_chunk=16, **kw),
+           "ops kernel": ops.flash_attention(qs, kt, vt, q_offset=q0, use_kernel=True, **kw),
+           "ops plain": ops.flash_attention(qs, kt, vt, q_offset=q0, use_kernel=False, **kw)}
+    for name, out in got.items():
+        assert out.shape == qs.shape, name
+        np.testing.assert_allclose(out.numpy(), want, atol=2e-5, rtol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("q_offset,sk", [(-1, 96), (73, 96), (0, 23)])
+def test_flash_refuses_an_offset_outside_the_keys(q_offset, sk):
+    """``q_offset < 0`` and ``q_offset + Sq > Sk`` are refused by name."""
+    q = torch.zeros(1, 24, 2, 16)
+    kv = torch.zeros(1, sk, 1, 16)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_fwd(q, kv, kv, q_offset=q_offset, scale=0.25)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q, kv, kv, q_offset=q_offset, scale=0.25)
+
+
+@pytest.mark.parametrize("pos", [40, 95])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_shard_mode_runs_a_group_of_12_in_passes(dtype, pos):
+    """The decode kernel's shard mode at a group of 12 query heads a kv head
+    (48 on 4): ``shard_passes`` with the plain shard as each pass (on the
+    card, each pass is one launch) runs passes of 6 and 6, writes each
+    pass's float32 out and lse columns, and equals the plain shard of the
+    whole group, at 1e-6, for each of 4 shards of a 96-key cache (at pos 40
+    the last two lie wholly past it: out 0, lse NEG_INF); the shards merged
+    match the whole cache's plain decode."""
+    rng = np.random.default_rng(30)
+    b, s, hkv, group, d = 2, 96, 4, 12, 32
+    q, k, v = (torch.from_numpy(a).to(TORCH[dtype]) for a in
+               _qkv(rng, b, 1, hkv * group, hkv, d, sk=s))
+    kw = dict(window=64, logit_cap=30.0, scale=d ** -0.5)
+    outs, lses = [], []
+    for k0 in range(0, s, 24):
+        ks, vs = k[:, k0:k0 + 24].contiguous(), v[:, k0:k0 + 24].contiguous()
+        passes = []
+
+        def plain_pass(qp):
+            passes.append(qp.shape[2] // hkv)
+            return tref.decode_attention_shard(qp, ks, vs, pos, k0=k0, **kw)
+
+        out, lse = decode_mod.shard_passes(plain_pass, q, hkv)
+        want_out, want_lse = tref.decode_attention_shard(q, ks, vs, pos, k0=k0, **kw)
+        assert passes == [6, 6] and out.dtype == lse.dtype == torch.float32
+        assert out.shape == (b, 1, hkv * group, d) and lse.shape == (b, hkv * group)
+        np.testing.assert_allclose(out.numpy(), want_out.numpy(), atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=1e-6, rtol=1e-6)
+        wrapped = decode_attention_fwd(q, ks, vs, pos, k0=k0, return_lse=True, **kw)
+        assert all(torch.equal(a, w) for a, w in zip(wrapped, (want_out, want_lse)))
+        if k0 > pos:
+            assert not out.any() and bool((lse == tref.NEG_INF).all())
+        outs.append(out)
+        lses.append(lse)
+    merged = tref.merge_shards(outs, lses)
+    whole = tref.decode_attention(q.float(), k.float(), v.float(), pos, **kw)
+    np.testing.assert_allclose(merged.numpy(), whole.numpy(), atol=1e-5, rtol=1e-5)
+
+
 SPLIT_FAULTS = ["one split's keys dropped", "one 64-key tile counted twice"]
 
 
@@ -705,6 +788,26 @@ GPU_CASES = [  # bf16 flash with a head_dim of WGMMA_HEAD_DIMS takes the wgmma k
     ("decode", (1, 1000, 16, 2, 112), 0, 30.0, "bfloat16"),
     ("decode", (1, 500, 8, 2, 160), 0, 0.0, "float32"),
 ]
+# the flash kernel with a query offset: (b, sq, sk, q_off, h, hkv, d), window,
+# cap, dtype. The last of 8 shards of the prefill at gemma2-2b's, yi-34b's
+# (group 7) and stablelm-12b's shapes; offsets that are not a multiple of a
+# CTA's 128 / group positions or of a 64-key tile; the CUDA cores (fp32, a
+# bf16 head_dim off the wgmma list, above 256) and a group above 8 in passes;
+# offset 0 with more keys than queries (a prefix)
+GPU_OFFSET_CASES = [
+    ((2, 544, 4352, 3808, 8, 4, 256), 4096, 50.0, "bfloat16"),
+    ((2, 544, 4352, 3808, 8, 4, 256), 0, 50.0, "bfloat16"),
+    ((1, 544, 4352, 3808, 56, 8, 128), 0, 0.0, "bfloat16"),
+    ((1, 544, 4352, 1000, 32, 8, 160), 0, 0.0, "bfloat16"),
+    ((1, 300, 1000, 333, 9, 3, 64), 100, 50.0, "bfloat16"),
+    ((1, 300, 1000, 333, 9, 3, 64), 100, 50.0, "float32"),
+    ((1, 200, 700, 499, 18, 2, 64), 0, 0.0, "bfloat16"),
+    ((2, 100, 700, 37, 4, 2, 320), 64, 50.0, "bfloat16"),
+    ((1, 17, 4352, 4335, 8, 4, 256), 1, 0.0, "bfloat16"),
+    ((2, 60, 4352, 4292, 8, 4, 256), 4096, 50.0, "bfloat16"),
+    ((1, 300, 700, 0, 8, 4, 256), 0, 0.0, "bfloat16"),
+    ((2, 50, 300, 250, 4, 2, 16), 16, 50.0, "bfloat16"),
+]
 # the bf16 split kernel (TMA_HEAD_DIMS): (b, s, h, hkv, d), pos, window, cap.
 # pos at and around a tile edge, windows of one key and one tile, B * Hkv = 1
 # (the most splits) and 64 (one split each), group 8 and 3, each head_dim
@@ -806,6 +909,59 @@ def test_cuda_kernel_matches_plain_version(cuda, kind, dims, window, cap, dtype)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert tref.max_row_rel_err(got, want) <= tref.ROW_REL_TOL[TORCH[dtype]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims,window,cap,dtype", GPU_OFFSET_CASES)
+def test_cuda_flash_with_a_query_offset_matches_plain_version(cuda, dims, window, cap, dtype):
+    """Rows at a query offset against every key: within ROW_REL_TOL of the
+    plain version with ``q_offset`` and of the whole-sequence launch's rows
+    [q_off, q_off + Sq); at offset 0 the whole launch's first rows exactly."""
+    b, sq, sk, q_off, h, hkv, d = dims
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(TORCH[dtype])
+
+    kw = dict(window=window, logit_cap=cap, scale=d ** -0.5)
+    q, k, v = rand(b, sk, h, d), rand(b, sk, hkv, d), rand(b, sk, hkv, d)
+    qs = q[:, q_off:q_off + sq].contiguous()
+    got = flash_attention_fwd(qs, k, v, q_offset=q_off, **kw)
+    whole = flash_attention_fwd(q, k, v, **kw)[:, q_off:q_off + sq]
+    want = tref.flash_attention(qs, k, v, q_offset=q_off, **kw)
+    torch.cuda.synchronize()
+    tol = tref.ROW_REL_TOL[TORCH[dtype]]
+    assert torch.isfinite(got).all() and got.shape == qs.shape
+    assert tref.max_row_rel_err(got, want) <= tol
+    assert tref.max_row_rel_err(got, whole) <= tol
+    if q_off == 0:
+        assert torch.equal(got, whole)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_decode_shard_mode_runs_a_group_of_12_in_passes(cuda, dtype):
+    """The shard mode at 48 query heads on 4 kv heads (two launches of 6
+    a kv head each) over 8 shards of 548 keys, pos in the seventh: each
+    shard's float32 out and lse against the plain shard, and the merge
+    within ROW_REL_TOL[float32] of the plain shards merged."""
+    from repro_torch.kernels import decode_attention as da
+    b, s, h, hkv, d, pos = 2, 4384, 48, 4, 128, 3500
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(TORCH[dtype])
+               for shape in ((b, 1, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    kw = dict(window=0, logit_cap=0.0, scale=d ** -0.5)
+    before = da.launches
+    parts, plain = [], []
+    for k0 in range(0, s, 548):
+        ks, vs = k[:, k0:k0 + 548].contiguous(), v[:, k0:k0 + 548].contiguous()
+        parts.append(decode_attention_fwd(q, ks, vs, pos, k0=k0, return_lse=True, **kw))
+        plain.append(tref.decode_attention_shard(q, ks, vs, pos, k0=k0, **kw))
+    torch.cuda.synchronize()
+    assert da.launches - before == 16
+    got, want = tref.merge_shards(*zip(*parts)), tref.merge_shards(*zip(*plain))
+    assert torch.isfinite(got).all()
+    assert tref.max_row_rel_err(got, want) <= tref.ROW_REL_TOL[torch.float32]
 
 
 @pytest.mark.gpu
