@@ -36,7 +36,14 @@ Phases, each fatal on failure:
     partial box, or the last 128 keys, dropped); RMSNorm at each one's
     d_model, stablelm-12b's qk-norm rows (2 x 4352 x 32 of 160),
     deepseek-v2-236b's MLA norms (2 x 4352 of 512 and of 1536) and
-    xlstm-125m's (768 and, the mLSTM's, 1536). The decode kernel's shard
+    xlstm-125m's (768 and, the mLSTM's, 1536). RMSNorm's split mode
+    (``rmsnorm_split_phase``): zamba2-7b's gated norm (2 x 4352 x 7168,
+    bf16) cut into 8 column shards, each shard's sum-of-squares launch, the
+    sums added (the all-reduce over ``model`` on a mesh), each shard's
+    scale launch, every row within ``ROW_REL_TOL`` of the plain whole row
+    and of the whole-row launch, a planted fault (each shard normalised by
+    its own columns) above the limit, the 16 launches' device ms beside the
+    whole-row launch's and the bound. The decode kernel's shard
     mode (``k0``, ``return_lse``; ``SHARD_CASES``): gemma2-2b's,
     stablelm-12b's (32 heads on 8, 160) and yi-34b's (56 on 8, 128) decode
     caches and a float32 one on the split-K path cut into 8 shards of 548
@@ -270,6 +277,15 @@ Phases, each fatal on failure:
     step), ``max_memory_allocated`` from the end of the weights' draw against
     the dry run's peak of the rank's prefill cell within ``TP_PEAK_TOL``,
     finite logits, tokens in range, exact flash and decode launches.
+    Last, one rank of zamba2-7b on the same (1, 8) mesh at full width and one
+    unit (6 Mamba2 cells and the shared block; ``tp_ssm_phase``): each cell
+    on the rank's 14 of 112 heads, its norm in RMSNorm's split mode. One
+    train step at seq 4096, batch 2, then a prefill of the 4352-token prompt
+    and 4 decode steps, each peak against the dry run's within
+    ``TP_PEAK_TOL``; finite losses, logits and tokens in range; the split
+    mode, flash and decode launched. The fake group's all-to-all leaves its
+    output unwritten on the card, so the check fills each received piece as
+    the fake group does on the CPU (the rank's own first rows).
  12. dryrun: ``repro_torch.launch.dryrun`` traces the two gemma2-2b cells of
     3 and 4 (the prefill at 2 x 4352; the train step at seq 4096, batch 2, 2
     microbatches, remat full, adamw) on the meta device for one device and
@@ -330,6 +346,7 @@ FLASH_KERNELS = ("flash_wgmma_kernel", "flash_fwd_kernel")
 DECODE_KERNELS = ("decode_tma_kernel", "decode_partial_kernel", "decode_combine_kernel",
                   "decode_merge_kernel", "decode_empty_kernel")
 RMSNORM_KERNELS = ("rmsnorm_block_kernel",)
+RMSNORM_SPLIT_KERNELS = ("rmsnorm_sumsq_kernel", "rmsnorm_scale_kernel")
 # the copies a call in group passes makes around its kernel launches
 PASS_COPIES = ("direct_copy_kernel",)
 
@@ -1156,6 +1173,83 @@ def rmsnorm_phase(iters: int):
               flush=True)
         extra = {"empty_kernel_device_ms": floor, "decode_ops_no_grad_ms": ops_ms}
     return tuple(max(e[i] for e in errs) for i in range(2)), rows, extra
+
+
+SPLIT_SHAPE = (2, 4352, 7168)   # zamba2-7b's gated norm over d_inner, a prefill
+SPLIT_SHARDS = 8                 # model 8: 14 of 112 heads a rank
+
+
+def rmsnorm_split_phase(iters: int, card: str):
+    """RMSNorm's split mode at ``SPLIT_SHAPE`` in ``SPLIT_SHARDS`` column
+    shards (module docstring). Returns ((max_abs_err, max_row_rel_err), the
+    timed row as ``time_rmsnorm``'s)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as norm
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    eps, dtype = 1e-6, torch.bfloat16
+    width = SPLIT_SHAPE[-1]
+
+    def inputs():
+        x = randn(SPLIT_SHAPE, dtype, gen)
+        scale = randn((width,), dtype, gen, 0.1)
+        return (x, scale, [c.contiguous() for c in x.chunk(SPLIT_SHARDS, -1)],
+                list(scale.chunk(SPLIT_SHARDS)))
+
+    def split(xs, ss, total=None):
+        if total is None:
+            total = sum(norm.rmsnorm_sumsq(a) for a in xs)
+        return torch.cat([norm.rmsnorm_scale(a, total, b, width, eps) for a, b in zip(xs, ss)],
+                         -1)
+
+    x, scale, xs, ss = inputs()
+    name = f"rmsnorm split mode bfloat16 x={SPLIT_SHAPE} in {SPLIT_SHARDS} shards"
+    got = split(xs, ss)
+    err = compare(name, got, ref.rmsnorm(x, scale, eps),
+                  [(ref.RMSNORM_SPLIT_FAULT,
+                    torch.cat(ref.rmsnorm_split_fault(xs, ss, eps), -1))])
+    compare(name + " against the whole-row launch", got, norm.rmsnorm_fwd(x, scale, eps))
+
+    sets = [inputs() for _ in range(4)]
+    totals = [sum(ref.rmsnorm_sumsq(a) for a in st[2]) for st in sets]
+    weights = [(1.0 + st[1].float()).to(dtype) for st in sets]
+    it = iter(range(1 << 30))
+
+    def cycled(fn):
+        def run():
+            i = next(it) % len(sets)
+            fn(i)
+        return run
+
+    # the shards' two launches each; the sums' addition (the all-reduce on a
+    # mesh) is not the kernel's
+    def launches(i):
+        _, _, xs_, ss_ = sets[i]
+        for a in xs_:
+            norm.rmsnorm_sumsq(a)
+        for a, b in zip(xs_, ss_):
+            norm.rmsnorm_scale(a, totals[i], b, width, eps)
+
+    ms = time_ms(cycled(launches), iters * 4)
+    dev = device_ms(cycled(launches), iters * 4, RMSNORM_SPLIT_KERNELS)
+    whole_dev = device_ms(cycled(lambda i: norm.rmsnorm_fwd(sets[i][0], sets[i][1], eps)),
+                          iters * 4, RMSNORM_KERNELS)
+    plain = time_ms(cycled(lambda i: ref.rmsnorm_split(sets[i][2], sets[i][3], eps)), iters * 4)
+    run_lib = cycled(lambda i: F.rms_norm(sets[i][0], (width,), weights[i], eps))
+    lib, lib_dev = time_ms(run_lib, iters * 4), device_ms(run_lib, iters * 4)
+    n = x.numel()
+    rows = n // width
+    nbytes = (2.0 * n + width) * 2 + 2.0 * rows * SPLIT_SHARDS * 4
+    b_ms, b_by = bound(4.0 * n, nbytes, "float32")
+    print(f"  time rmsnorm split mode bfloat16 x={SPLIT_SHAPE} in {SPLIT_SHARDS} shards "
+          f"({2 * SPLIT_SHARDS} launches): kernel_ms={ms:.5f} device_ms={_ms(dev)} "
+          f"(the whole-row launch {_ms(whole_dev)}) plain_ms={plain:.5f} library_ms={lib:.5f} "
+          f"library_device_ms={_ms(lib_dev)} (F.rms_norm of the whole rows) "
+          f"bound_ms={b_ms:.5f} ({b_by}; {nbytes:.4e} B) bound/device={_share(b_ms, dev)}; "
+          f"{card}", flush=True)
+    return err, (ms, plain, lib, b_ms, b_by, dev, lib_dev, whole_dev)
 
 
 def grad_check(x, scale, eps, gen) -> None:
@@ -2991,7 +3085,7 @@ def sequence_mode_check(card: str) -> dict:
     return dict(total)
 
 
-def tp_rank(run, shape, steps: int) -> dict:
+def tp_rank(run, shape, steps: int, arch: str = TP_ARCH) -> dict:
     """The dry run of rank 0 of ``run``'s (data 1, model 8) train step at
     ``shape``, then that rank on the card under the fake group (module
     docstring): drawn on its shards, its optimizer state made, ``steps``
@@ -3005,6 +3099,7 @@ def tp_rank(run, shape, steps: int) -> dict:
     from torch.testing._internal.distributed.fake_pg import FakeStore
     from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as norm
     from repro_torch.launch import dryrun as dr
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
@@ -3013,7 +3108,7 @@ def tp_rank(run, shape, steps: int) -> dict:
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
-        rec = dr.run_cell(TP_ARCH, shape.name, False, False, out,
+        rec = dr.run_cell(arch, shape.name, False, False, out,
                           mesh=("data1_model8", TP_MESH), run=run, shape=shape)
     if rec["status"] != "ok":
         fail(f"tp: the dry run of the rank failed: {rec.get('error')}")
@@ -3063,7 +3158,7 @@ def tp_rank(run, shape, steps: int) -> dict:
             losses.append(met["loss"].item())
             seconds.append(time.perf_counter() - t0)
             norms.append(met["grad_norm"].item())
-            launches.append(ops.launch_counts())
+            launches.append(dict(ops.launch_counts(), rmsnorm_split=norm.split_launches))
         peak = torch.cuda.max_memory_allocated() - base
         del masters, state, step, model
     finally:
@@ -3133,7 +3228,8 @@ def tp_phase(card: str) -> dict:
 TP_SERVE_ARCH = "yi-34b"
 
 
-def tp_serve_phase(card: str) -> dict:
+def tp_serve_phase(card: str, arch: str = TP_SERVE_ARCH, run=None, steps: int = STEPS,
+                   split: bool = False) -> dict:
     """One rank (rank 0) of yi-34b's sharded serve on a (data 1, model 8)
     mesh under the fake group, at its 60 layers and published widths:
     ``serve(..., sharded=True)`` with batch B, the PROMPT-token prompt and
@@ -3146,7 +3242,9 @@ def tp_serve_phase(card: str) -> dict:
     prompt's length, the same placement), within ``TP_PEAK_TOL``; finite
     logits, tokens in range, each kernel launched (the counts reset just
     before the serve). The outputs are not a model's: the fake group sums
-    nothing. Returns the launch counts."""
+    nothing. Returns the launch counts. ``arch``, ``run`` and ``steps``: another
+    config's rank at ``steps`` decode steps; ``split``: its recurrent cells
+    on the rank's heads, RMSNorm's split mode launched too."""
     import gc
     import torch
     import torch.distributed as dist
@@ -3158,11 +3256,12 @@ def tp_serve_phase(card: str) -> dict:
     from repro_torch.launch import dryrun as dr
     from repro_torch.launch import serve as serve_mod
 
-    run = get_config(TP_SERVE_ARCH)
+    from repro_torch.kernels import rmsnorm as norm
+    run = get_config(arch) if run is None else run
     shape = ShapeSpec("prefill_tp_card", PROMPT, B, "prefill")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
-        rec = dr.run_cell(TP_SERVE_ARCH, shape.name, False, False, out,
+        rec = dr.run_cell(arch, shape.name, False, False, out,
                           mesh=("data1_model8", TP_MESH), run=run, shape=shape)
     if rec["status"] != "ok":
         fail(f"tp serve: the dry run of the rank failed: {rec.get('error')}")
@@ -3192,10 +3291,10 @@ def tp_serve_phase(card: str) -> dict:
         base = torch.cuda.memory_allocated()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        res = serve_mod.serve(run, batch=B, prompt_len=PROMPT, decode_steps=STEPS, device="cuda",
+        res = serve_mod.serve(run, batch=B, prompt_len=PROMPT, decode_steps=steps, device="cuda",
                               mesh=mesh, sharded=True)
         seconds = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        counts = dict(ops.launch_counts(), rmsnorm_split=norm.split_launches)
         peak = torch.cuda.max_memory_allocated() - base
     finally:
         serve_mod.tensor.build_sharded = draw
@@ -3204,11 +3303,12 @@ def tp_serve_phase(card: str) -> dict:
     miss = peak / predicted - 1
     logits, toks = res["prefill_logits"], res["tokens"]
     n_layers = run.model.n_layers
-    want = {"flash_attention": n_layers, "decode_attention": n_layers * STEPS}
+    apps = attention_applications(run.model)
+    want = {"flash_attention": apps, "decode_attention": apps * steps}
     timed = res["kernel_launches"]
-    print(f"  tp serve: rank 0 of {TP_MESH} {TP_SERVE_ARCH} ({n_layers} layers, "
+    print(f"  tp serve: rank 0 of {TP_MESH} {arch} ({n_layers} layers, "
           f"{run.model.n_heads} heads on {run.model.n_kv_heads} on {TP_MESH['model']}), batch {B}, "
-          f"prompt {PROMPT}, {STEPS} steps, cache {CACHE} ({CACHE // TP_MESH['model']} a rank): "
+          f"prompt {PROMPT}, {steps} steps, cache {CACHE} ({CACHE // TP_MESH['model']} a rank): "
           f"{res['weight_bytes'] / 2**30:.3f} GiB of weights held; serve {seconds:.2f} s with the "
           f"draw; prefill_s {res['prefill_s']:.4f}, decode_tok_per_s "
           f"{res['decode_tok_per_s']:.2f}; max_memory_allocated {peak / 2**30:.3f} GiB against "
@@ -3217,13 +3317,103 @@ def tp_serve_phase(card: str) -> dict:
           f"launches timed {timed}, in all {counts}; {card}", flush=True)
     if not torch.isfinite(logits).all() or toks.min() < 0 or toks.max() >= run.model.vocab_size:
         fail("tp serve: prefill logits not finite or tokens out of range")
-    if not all(counts.values()) or any(timed[k] != v for k, v in want.items()):
+    if not all(v for k, v in counts.items() if k != "rmsnorm_split" or split) \
+            or any(timed[k] != v for k, v in want.items()):
         fail(f"tp serve: launches {timed} timed, {counts} in all; expected {want} timed")
     if abs(miss) > TP_PEAK_TOL:
         fail(f"tp serve: max_memory_allocated {peak / 2**30:.3f} GiB misses the dry run's "
              f"{predicted / 2**30:.3f} GiB by {miss:+.2%}")
     return dict(counts, peak_bytes=peak, predicted_peak_bytes=predicted,
                 prefill_s=res["prefill_s"], decode_tok_per_s=res["decode_tok_per_s"])
+
+
+TP_SSM_ARCH = "zamba2-7b"
+TP_SSM_LAYERS = 6          # one unit: 6 Mamba2 cells and the shared attention block
+TP_SSM_STEPS = 4
+
+
+def tp_ssm_run():
+    """zamba2-7b at full width cut to one unit, one microbatch of batch 2 at
+    seq 4096 (``[tp]``'s size)."""
+    from repro_torch.configs import get_config
+    run = get_config(TP_SSM_ARCH)
+    return run.replace(model=dataclasses.replace(run.model, n_layers=TP_SSM_LAYERS),
+                       parallel=dataclasses.replace(run.parallel, microbatches=1),
+                       train=dataclasses.replace(run.train, seq_len=TP_SEQ,
+                                                 global_batch=TP_BATCH))
+
+
+@contextlib.contextmanager
+def filled_all_to_all():
+    """The fake group's all-to-all leaves its output unwritten on the card
+    (uninitialised memory, NaN at times), where on the CPU it fills each
+    received piece with the first rows of the rank's input. Under
+    this context every all-to-all of ``parallel.tensor`` is issued to the
+    group as before and its output then filled as on the CPU, in place, so
+    that a rank's values stay finite (they are not a model's either way)."""
+    from repro_torch.parallel import tensor
+    real = tensor.all_to_all
+
+    def filled(t, group, out_splits, in_splits):
+        out = real(t, group, out_splits, in_splits)
+        if group.size > 1:
+            start = 0
+            for n in out_splits:
+                out[start:start + n].copy_(t[:n])
+                start += n
+        return out
+
+    tensor.all_to_all = filled
+    try:
+        yield
+    finally:
+        tensor.all_to_all = real
+
+
+def tp_ssm_phase(card: str) -> dict:
+    """One rank of zamba2-7b on the (1, 8) mesh under the fake group
+    (module docstring): every Mamba2 cell on the rank's 14 heads. A train
+    step (``tp_rank``) and a sharded serve (``tp_serve_phase``), each peak
+    within ``TP_PEAK_TOL`` of the dry run's; the split mode launched in
+    both. The all-to-alls are filled as the fake group fills them on the
+    CPU (``filled_all_to_all``). Returns the launch counts: ``train`` and
+    ``serve`` apart, and their sums."""
+    with filled_all_to_all():
+        return _tp_ssm(card)
+
+
+def _tp_ssm(card: str) -> dict:
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.models.ssm import mamba_dims
+
+    run = tp_ssm_run()
+    heads = mamba_dims(run.model)[1]
+    if heads % TP_MESH["model"]:
+        fail(f"tp zamba2: {heads} heads do not split over model {TP_MESH['model']}")
+    shape = ShapeSpec("train_tp_ssm_card", TP_SEQ, TP_BATCH, "train")
+    r = tp_rank(run, shape, 1, arch=TP_SSM_ARCH)
+    (launches,) = r["launches"]
+    print(f"  zamba2-7b rank 0 of {TP_MESH} ({run.model.n_layers} Mamba2 layers and the shared "
+          f"block, {heads // TP_MESH['model']} of {heads} heads a rank): {r['local'] / 1e9:.4f} B "
+          f"of {r['whole'] / 1e9:.4f} B parameters held; step {r['seconds'][0]:.4f} s; "
+          f"max_memory_allocated {r['peak'] / 2**30:.3f} GiB against the dry run's "
+          f"{r['mem']['peak_bytes'] / 2**30:.3f} GiB ({r['miss']:+.2%}, "
+          f"{'within' if abs(r['miss']) <= TP_PEAK_TOL else 'outside'} {TP_PEAK_TOL:.0%}); "
+          f"launches {launches}; loss {r['losses'][0]}, grad norm {r['norms'][0]} (not a "
+          f"model's: the fake group sums nothing); {card}", flush=True)
+    if launches["rmsnorm_split"] == 0 or launches["rmsnorm"] == 0 \
+            or not all(map(math.isfinite, r["losses"] + r["norms"])):
+        fail(f"tp zamba2: launches {launches}, losses {r['losses']}, grad norms {r['norms']}")
+    if abs(r["miss"]) > TP_PEAK_TOL:
+        fail(f"tp zamba2: max_memory_allocated {r['peak'] / 2**30:.3f} GiB misses the dry "
+             f"run's {r['mem']['peak_bytes'] / 2**30:.3f} GiB by {r['miss']:+.2%}")
+    serve = tp_serve_phase(card, arch=TP_SSM_ARCH, run=run, steps=TP_SSM_STEPS, split=True)
+    serve_counts = {k: v for k, v in serve.items() if k in launches}
+    return dict({k: launches[k] + serve_counts[k] for k in launches},
+                train=launches, serve=serve_counts, train_peak_bytes=r["peak"],
+                train_predicted_peak_bytes=r["mem"]["peak_bytes"],
+                serve_peak_bytes=serve["peak_bytes"],
+                serve_predicted_peak_bytes=serve["predicted_peak_bytes"])
 
 
 def fault_check(trainer, report, per_ingest, spent, det_counts, ckpt_bytes) -> None:
@@ -5019,6 +5209,7 @@ def main(argv=None) -> int:
     shard_err, shard_rows = shard_decode_phase(ITERS, card)
     wide_attention_phase()
     norm_err, norm_rows, norm_extra = rmsnorm_phase(ITERS)
+    split_err, split_row = rmsnorm_split_phase(ITERS, card)
     model_err, model_rows = model_kernel_phase(ITERS)
     print(f"[kernels] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -5076,6 +5267,7 @@ def main(argv=None) -> int:
     seq_mode_counts = sequence_mode_check(card)
     tp_counts = tp_phase(card)
     tp_serve_counts = tp_serve_phase(card)
+    tp_ssm_counts = tp_ssm_phase(card)
     print(f"[tp] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -5094,7 +5286,7 @@ def main(argv=None) -> int:
     print(f"launches on the main paths: serve {serve_counts}, train {train_counts}, "
           f"train fault {train_fault_counts}, train int8 {int8_counts}, mesh {mesh_counts}, "
           f"tp {tp_counts}, tp serve {tp_serve_counts}, tp batch mode {batch_mode_counts}, "
-          f"tp sequence mode {seq_mode_counts}, "
+          f"tp sequence mode {seq_mode_counts}, tp zamba2 {tp_ssm_counts}, "
           f"live {live_counts}, campaigns {campaign_counts}, models {model_launches}",
           flush=True)
 
@@ -5166,7 +5358,18 @@ def main(argv=None) -> int:
                    "src/repro/kernels/rmsnorm.py:27", norm_err, norm_rows[:1]),
              prefill=times(norm_rows[1]), decode=dict(times(norm_rows[2]), **norm_extra),
              live=live_counts["rmsnorm"], train_int8=int8_counts["rmsnorm"],
-             mesh=mesh_counts["rmsnorm"], tp=tp_counts["rmsnorm"], **sharded("rmsnorm")),
+             mesh=mesh_counts["rmsnorm"], tp=tp_counts["rmsnorm"], **sharded("rmsnorm"),
+             tp_zamba2=tp_ssm_counts["rmsnorm"], split_mode="rmsnorm_split"),
+        # the split mode at zamba2-7b's gated norm in 8 shards; its launches in
+        # [tp]'s zamba2-7b rank (a train step, a prefill and 4 decode steps)
+        {"name": "rmsnorm_split", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+         "replaces": "src/repro/kernels/rmsnorm.py:27",
+         "launches": tp_ssm_counts["rmsnorm_split"], "max_abs_err": split_err[0],
+         "max_row_rel_err": split_err[1], **times(split_row[:7]),
+         "whole_row_device_ms": split_row[7], "shape": list(SPLIT_SHAPE),
+         "shards": SPLIT_SHARDS, "train": tp_ssm_counts["train"]["rmsnorm_split"],
+         "serve": tp_ssm_counts["serve"]["rmsnorm_split"]},
         *(detect_entry(name, src, rep, det_counts[name], det_err[name], det_rows[name])
           for name, src, rep in DETECT_KERNELS),
         # the balancer's last call of the C4P main path; launches there, in the

@@ -208,6 +208,89 @@ cudaError_t dispatch(const void* xp, const void* sp, void* op, int rows, int D, 
   return launch_block<TX, TS, 1>(x, scale, out, rows, D, eps, stream);
 }
 
+// The split mode, for a row whose columns are spread over several ranks (a
+// norm over every head of a cell computed on a rank's heads): one launch
+// writes each row's float32 sum of squares over the rank's columns, the
+// caller sums the rows' sums over the ranks (one all-reduce of (rows,)
+// float32), and a second launch scales the rank's columns by
+// rsqrt(sum / width + eps) * (1 + scale), width the whole row's. A CTA a
+// row, its threads striding over the row's 16-byte pieces (one element a
+// piece where D or the pointers do not allow it).
+template <typename TX, int VEC>
+__global__ void rmsnorm_sumsq_kernel(const TX* __restrict__ x, float* __restrict__ sumsq,
+                                     int D) {
+  __shared__ float warp_sums[MAX_THREADS / 32];
+  const TX* row = x + (long long)blockIdx.x * D;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float ss = 0.f;
+  for (int piece = tid; piece < D / VEC; piece += blockDim.x) {
+    float v[VEC];
+    load_piece<TX, VEC>(row + (long long)piece * VEC, v);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) ss += v[e] * v[e];
+  }
+  ss = warp_sum(ss);
+  if (lane == 0) warp_sums[warp] = ss;
+  __syncthreads();
+  if (warp == 0) {
+    const float row_sum = warp_sum(lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0.f);
+    if (lane == 0) sumsq[blockIdx.x] = row_sum;
+  }
+}
+
+template <typename TX, typename TS, int VEC>
+__global__ void rmsnorm_scale_kernel(const TX* __restrict__ x, const float* __restrict__ sumsq,
+                                     const TS* __restrict__ scale, TX* __restrict__ out, int D,
+                                     float width, float eps) {
+  const long long base = (long long)blockIdx.x * D;
+  const float r = rsqrtf(sumsq[blockIdx.x] / width + eps);
+  for (int piece = threadIdx.x; piece < D / VEC; piece += blockDim.x) {
+    float v[VEC], s[VEC];
+    load_piece<TX, VEC>(x + base + (long long)piece * VEC, v);
+    load_scale<TS, VEC>(scale + piece * VEC, s);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v[e] = (v[e] * r) * (1.f + s[e]);
+    store_piece<TX, VEC>(out + base + (long long)piece * VEC, v);
+  }
+}
+
+inline int split_threads(int npieces) {
+  const int t = ((npieces + 31) / 32) * 32;
+  return t < MAX_THREADS ? t : MAX_THREADS;
+}
+
+template <typename TX, typename TS>
+cudaError_t dispatch_split(const void* xp, const void* sp, const float* sumsq, void* op,
+                           int rows, int D, float width, float eps, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(TX);
+  constexpr int SBYTES = VEC * sizeof(TS);
+  const TX* x = static_cast<const TX*>(xp);
+  const TS* scale = static_cast<const TS*>(sp);
+  TX* out = static_cast<TX*>(op);
+  const bool aligned = reinterpret_cast<std::uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<std::uintptr_t>(out) % 16 == 0 &&
+                       reinterpret_cast<std::uintptr_t>(scale) % (SBYTES < 16 ? SBYTES : 16) == 0 &&
+                       D % VEC == 0;
+  if (aligned)
+    rmsnorm_scale_kernel<TX, TS, VEC><<<rows, split_threads(D / VEC), 0, stream>>>(
+        x, sumsq, scale, out, D, width, eps);
+  else
+    rmsnorm_scale_kernel<TX, TS, 1><<<rows, split_threads(D), 0, stream>>>(
+        x, sumsq, scale, out, D, width, eps);
+  return cudaGetLastError();
+}
+
+template <typename TX>
+cudaError_t dispatch_sumsq(const void* xp, float* sumsq, int rows, int D, cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(TX);
+  const TX* x = static_cast<const TX*>(xp);
+  if (reinterpret_cast<std::uintptr_t>(x) % 16 == 0 && D % VEC == 0)
+    rmsnorm_sumsq_kernel<TX, VEC><<<rows, split_threads(D / VEC), 0, stream>>>(x, sumsq, D);
+  else
+    rmsnorm_sumsq_kernel<TX, 1><<<rows, split_threads(D), 0, stream>>>(x, sumsq, D);
+  return cudaGetLastError();
+}
+
 // A launch that does nothing: its device time is the floor under a launch
 // of a few rows (chip_smoke.py prints the two side by side).
 __global__ void rmsnorm_empty_kernel() {}
@@ -238,5 +321,40 @@ extern "C" int rmsnorm_fwd(const void* x, const void* scale, void* out, int rows
     return (int)dispatch<float, __nv_bfloat16>(x, scale, out, rows, D, eps, st);
   if (x_dtype == 0 && scale_dtype == 0)
     return (int)dispatch<float, float>(x, scale, out, rows, D, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split mode's first launch. x: (rows, D) contiguous, this rank's
+// columns of each row; sumsq: (rows,) float32, written with each row's sum
+// of x^2 in float32. Returns the CUDA error code of the launch.
+extern "C" int rmsnorm_sumsq(const void* x, void* sumsq, int rows, int D, int x_dtype,
+                             void* stream) {
+  if (rows <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(sumsq);
+  if (x_dtype == 1) return (int)dispatch_sumsq<__nv_bfloat16>(x, out, rows, D, st);
+  if (x_dtype == 0) return (int)dispatch_sumsq<float>(x, out, rows, D, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split mode's second launch. x, out: (rows, D) contiguous, one dtype;
+// sumsq: (rows,) float32, each row's sum of squares over all its columns
+// (every rank's); scale: (D,), the scale of this rank's columns; width: the
+// whole row's number of columns. Returns the CUDA error code of the launch.
+extern "C" int rmsnorm_scale(const void* x, const void* sumsq, const void* scale, void* out,
+                             int rows, int D, int width, float eps, int x_dtype,
+                             int scale_dtype, void* stream) {
+  if (rows <= 0 || D <= 0 || width < D) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ss = static_cast<const float*>(sumsq);
+  const float w = (float)width;
+  if (x_dtype == 1 && scale_dtype == 1)
+    return (int)dispatch_split<__nv_bfloat16, __nv_bfloat16>(x, scale, ss, out, rows, D, w, eps, st);
+  if (x_dtype == 1 && scale_dtype == 0)
+    return (int)dispatch_split<__nv_bfloat16, float>(x, scale, ss, out, rows, D, w, eps, st);
+  if (x_dtype == 0 && scale_dtype == 1)
+    return (int)dispatch_split<float, __nv_bfloat16>(x, scale, ss, out, rows, D, w, eps, st);
+  if (x_dtype == 0 && scale_dtype == 0)
+    return (int)dispatch_split<float, float>(x, scale, ss, out, rows, D, w, eps, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,6 +18,7 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels.rmsnorm import Split  # noqa: F401  (ops.rmsnorm's split)
 
 
 def flash_attention(q, k, v, *, window=None, logit_cap: float = 0.0,
@@ -49,11 +50,18 @@ def decode_attention(q, k_cache, v_cache, pos: int, *, window=None,
                                 logit_cap=logit_cap, scale=scale)
 
 
-def rmsnorm(x, scale, eps: float = 1e-6, use_kernel: bool = True):
+def rmsnorm(x, scale, eps: float = 1e-6, use_kernel: bool = True, split=None):
     """Gemma-style RMSNorm over the last axis; differentiable either way.
     The kernel goes through ``RMSNormFn`` only when a backward can be taken
     (grad enabled and an input that requires it); otherwise, as in serving,
-    ``rmsnorm_fwd`` is called directly, without the autograd node."""
+    ``rmsnorm_fwd`` is called directly, without the autograd node. With
+    ``split`` (an ``rmsnorm.Split``), ``x`` holds this rank's columns of each
+    row and ``scale`` their scale: the split mode (its two launches, or
+    their plain halves without ``use_kernel``)."""
+    if split is not None:
+        if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+            return _rmsnorm.RMSNormFn.apply(x, scale, eps, split, use_kernel)
+        return _rmsnorm.rmsnorm_split_fwd(x, scale, eps, split, use_kernel)[0]
     if not use_kernel:
         return ref.rmsnorm(x, scale, eps)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
@@ -68,6 +76,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Every count to 0, the RMSNorm split mode's (``rmsnorm.split_launches``,
+    read on its own) included."""
     _flash.launches = 0
     _decode.launches = 0
     _rmsnorm.launches = 0
+    _rmsnorm.split_launches = 0

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention kernels and RMSNorm.
+"""Plain PyTorch versions of the attention kernels and RMSNorm (and its split
+mode, for rows whose columns lie on several ranks).
 
 Port of ``repro.kernels.ref``: dense O(S^2) formulations in float32, with the
 same finite ``NEG_INF`` mask value. They are the CPU path of ``kernels.ops``
@@ -197,6 +198,40 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def rmsnorm_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """The split mode's first half: each row's float32 sum of squares over
+    the columns ``x`` holds, (...,) float32."""
+    return x.float().square().sum(dim=-1)
+
+
+def rmsnorm_scale(x: torch.Tensor, sumsq: torch.Tensor, scale: torch.Tensor, width: int,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """The split mode's second half: ``x``'s columns scaled by
+    rsqrt(sumsq / width + eps) * (1 + scale), ``sumsq`` (...,) the rows' sums
+    of squares over all ``width`` columns (every shard's), in x's dtype."""
+    r = torch.rsqrt(sumsq.float()[..., None] / width + eps)
+    return (x.float() * r * (1.0 + scale.float())).to(x.dtype)
+
+
+def rmsnorm_split(shards, scales, eps: float = 1e-6):
+    """``rmsnorm`` of rows cut into column ``shards`` (scales the shards'
+    scales), as the split mode computes it: the shards' sums of squares
+    added, then each shard scaled. Returns the shards' outputs."""
+    total = sum(rmsnorm_sumsq(x) for x in shards)
+    width = sum(x.shape[-1] for x in shards)
+    return [rmsnorm_scale(x, total, s, width, eps) for x, s in zip(shards, scales)]
+
+
+RMSNORM_SPLIT_FAULT = "a shard normalised by its own columns only"
+
+
+def rmsnorm_split_fault(shards, scales, eps: float = 1e-6):
+    """The plain version of a split mode that skips the sum over shards:
+    each shard normalised by its own columns (``RMSNORM_SPLIT_FAULT``)."""
+    return [rmsnorm_scale(x, rmsnorm_sumsq(x), s, x.shape[-1], eps)
+            for x, s in zip(shards, scales)]
 
 
 RMSNORM_FAULTS = {

@@ -50,9 +50,12 @@ ranks costs nothing. A device does what the port does:
     columns, the experts or the vocab divide by the ``model`` size, and whole
     on every ``model`` rank where they do not (attention where ``n_heads``
     does not divide: gemma2-2b's 8, smollm-135m's 9, musicgen-medium's 24,
-    yi-34b's and arctic-480b's 56 at 16) and in every recurrent cell (Mamba2,
-    mLSTM, sLSTM: their in-projections' ``model`` split does not fall on whole
-    heads), whose weights are then gathered over ``model`` too;
+    yi-34b's and arctic-480b's 56 at 16; a recurrent cell whose heads do not
+    divide: xlstm-125m's 4 at 16), whose weights are then gathered over
+    ``model`` too. A recurrent cell whose heads divide (zamba2-7b's 112
+    Mamba2 heads) computes on the rank's heads (``models/ssm.py``): its
+    projections' columns moved by all-to-alls over ``model``, its norm's
+    row sums and its output all-reduced over ``model``;
   * ``memory.argument_bytes`` is the state stored under the JAX package's
     placements: ``param_specs`` with its ``attn_zero`` rule (tp = the mesh's
     ``model`` size) and ``moe_zero``; the optimizer state under

@@ -35,15 +35,22 @@ def truncated_normal(shape, std: float, dtype, device, generator: torch.Generato
 class RMSNorm(nn.Module):
     """Gemma-style ``(1 + scale)`` over the last axis; the scale starts at
     zero. Goes through ``kernels.ops.rmsnorm``: the CUDA kernel on the card
-    when ``use_kernel`` is set."""
+    when ``use_kernel`` is set. ``split``: the model's ``TensorParallel``
+    where ``x`` holds this rank's ``1/model`` chunk of each row's columns (a
+    recurrent cell on this rank's heads): the kernel's split mode, the rows'
+    sums of squares summed over ``model`` and the scale's chunk applied (its
+    gradient gathered, so each rank's is the whole scale's)."""
 
     def __init__(self, d: int, eps: float, dtype, device):
         super().__init__()
         self.eps = eps
         self.scale = nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
 
-    def forward(self, x, use_kernel: bool = True):
-        return kops.rmsnorm(x, self.scale, self.eps, use_kernel=use_kernel)
+    def forward(self, x, use_kernel: bool = True, split=None):
+        if split is None:
+            return kops.rmsnorm(x, self.scale, self.eps, use_kernel=use_kernel)
+        return kops.rmsnorm(x, split.chunk(self.scale, 0), self.eps, use_kernel=use_kernel,
+                            split=kops.Split(self.scale.shape[0], split.row_sum))
 
 
 # ---------------------------------------------------------------------------

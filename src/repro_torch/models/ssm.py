@@ -26,10 +26,27 @@ writes the final state back into the cache (``transformer.py``).
 ``A_log``, ``dt_bias`` and ``D`` (Mamba2), ``if_bias`` (mLSTM) and ``b``
 (sLSTM) are float32 in a bf16 model, as the JAX init draws them. The gated
 norms go through ``kernels.ops.rmsnorm``.
+
+On a mesh whose ``model`` size divides a cell's heads (``heads_split``), the
+cell computes on this rank's heads, from the shards the rules store
+(``parallel.tensor``): each projection on the rank's contiguous column
+block, its output's columns moved to the heads that read them
+(``tp.to_heads``, one all-to-all; the columns every head reads, Mamba2's B
+and C and mLSTM's xi, to every rank), the weights the rules place on the
+heads (``A_log``, ``dt_bias``, ``D``, mLSTM's q/k/v columns, sLSTM's ``r``)
+as they are, a weight the rules leave whole cut to the rank's heads
+(``tp.chunk``), the norm over every head in the RMSNorm kernel's split mode,
+and the output projection row-parallel on the heads, summed over ``model``
+(``tp.reduce_out``). sLSTM's ``out`` is stored column-split with its rows
+over ``data``; its rows are moved to the heads (``tp.rows_of``, an
+all-to-all of d^2 / model weights) rather than the normed input gathered
+whole (an all-gather of every token's d columns, larger in training and
+prefill), so its input stays on the heads and its norm in the split mode.
+The body of each cell is one for both: a ``_View`` holds what differs.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +57,24 @@ from repro_torch.models.layers import RMSNorm, truncated_normal
 
 MLSTM_CHUNK = 256           # mlstm_forward's chunk in the JAX package
 NEG_INIT = -1e9             # the stabilisers' initial value, as the JAX package's
+
+
+class _View(NamedTuple):
+    """What a cell's body reads on this rank: its number of heads, its
+    input projection(s) of x (``proj``), the weights by name, the norm of
+    a (..., this rank's heads' columns) tensor and the output projection."""
+    heads: int
+    proj: Callable
+    w: dict
+    norm: Callable
+    out: Callable
+
+
+def _heads_cols(tp, x: torch.Tensor, w: torch.Tensor, ex) -> torch.Tensor:
+    """``x @ w`` on this rank's stored column block of ``w``, its columns
+    moved to this rank's heads by ``ex`` (``tp.to_heads``)."""
+    y = tp.copy_in(x) @ tp.gather_batch(w).to(x.dtype)
+    return tp.to_heads(y, ex, y.dim() - 1)
 
 
 def _init_linear(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -158,56 +193,116 @@ class Mamba2(nn.Module):
                           torch.zeros(batch, h, s.head_dim, s.state_dim, dtype=torch.float32,
                                       device=dev))
 
-    def _split(self, zxbcdt):
+    tp = None
+
+    def heads_split(self) -> bool:
+        """The cell computes on this rank's heads: a mesh whose ``model``
+        divides the heads, and the rules' placements (columns of
+        ``in_proj``/``conv_w``/``conv_b``, heads of ``A_log``/``dt_bias``/
+        ``D``, rows of ``out_proj`` over ``model``)."""
+        tp = self.tp
+        return (tp is not None and tp.heads_over_model(mamba_dims(self.cfg)[1])
+                and tp.split_on((self.in_proj, 1), (self.conv_w, 1), (self.conv_b, 0),
+                                (self.A_log, 0), (self.dt_bias, 0), (self.D, 0),
+                                (self.out_proj, 0)))
+
+    def exchanges(self):
+        """The ``ColumnExchange`` of in_proj's columns (z | x | B | C | dt: a
+        rank reads its heads' z, x and dt and every B and C column) and of
+        the conv channels (x | B | C)."""
+        s, tp = self.cfg.ssm, self.tp
         d_inner, h, conv_dim = mamba_dims(self.cfg)
+        bc = 2 * s.state_dim
+        return (tp.exchange(2 * d_inner + bc + h, ((0, d_inner, False), (d_inner, d_inner, False),
+                                                   (2 * d_inner, bc, True),
+                                                   (2 * d_inner + bc, h, False))),
+                tp.exchange(conv_dim, ((0, d_inner, False), (d_inner, bc, True))))
+
+    def _view(self, use_kernel: bool) -> _View:
+        names = ("conv_w", "conv_b", "A_log", "dt_bias", "D")
+        if not self.heads_split():
+            return _View(mamba_dims(self.cfg)[1], lambda x: x @ self.in_proj.to(x.dtype),
+                         {n: getattr(self, n) for n in names},
+                         lambda y: self.norm(y, use_kernel),
+                         lambda y: y @ self.out_proj.to(y.dtype))
+        tp = self.tp
+        ex_in, ex_conv = self.exchanges()
+        w = {n: tp.to_heads(getattr(self, n), ex_conv, getattr(self, n).dim() - 1)
+             for n in ("conv_w", "conv_b")}
+        w.update({n: getattr(self, n) for n in ("A_log", "dt_bias", "D")})
+        return _View(mamba_dims(self.cfg)[1] // tp.size,
+                     lambda x: _heads_cols(tp, x, self.in_proj, ex_in), w,
+                     lambda y: self.norm(y, use_kernel, tp),
+                     lambda y: tp.reduce_out(y @ tp.gather_batch(self.out_proj).to(y.dtype)))
+
+    def _split(self, zxbcdt, h: int):
+        """z, xBC and dt of ``h`` heads' columns (this rank's)."""
+        s = self.cfg.ssm
+        d_inner = h * s.head_dim
+        conv_dim = d_inner + 2 * s.state_dim
         return (zxbcdt[..., :d_inner], zxbcdt[..., d_inner:d_inner + conv_dim],
                 zxbcdt[..., zxbcdt.shape[-1] - h:])
 
-    def _out(self, y, z, use_kernel: bool):
-        y = self.norm(y * F.silu(z), use_kernel)
-        return y @ self.out_proj.to(y.dtype)
-
     def forward(self, x, state: Optional[MambaCache] = None, use_kernel: bool = True):
         """Full sequence (``mamba2_forward``). x: (B, L, D). Returns (out,
-        MambaCache of the final conv inputs, in x's dtype, and SSM state)."""
+        MambaCache of the final conv inputs, in x's dtype, and SSM state);
+        on this rank's heads (and their conv channels) where ``heads_split``."""
         s = self.cfg.ssm
-        d_inner, h, _ = mamba_dims(self.cfg)
+        v = self._view(use_kernel)
+        h = v.heads
+        d_inner = h * s.head_dim
         b, l, _ = x.shape
-        z, xbc, dt_raw = self._split(x @ self.in_proj.to(x.dtype))
-        xbc, conv_state = causal_depthwise_conv(xbc, self.conv_w, self.conv_b,
+        z, xbc, dt_raw = self._split(v.proj(x), h)
+        xbc, conv_state = causal_depthwise_conv(xbc, v.w["conv_w"], v.w["conv_b"],
                                                 None if state is None else state.conv)
         xin = xbc[..., :d_inner].reshape(b, l, h, s.head_dim)
         Bm = xbc[..., d_inner:d_inner + s.state_dim]
         Cm = xbc[..., d_inner + s.state_dim:]
-        dt = F.softplus(dt_raw.float() + self.dt_bias)
-        a_log = dt * -torch.exp(self.A_log)
+        dt = F.softplus(dt_raw.float() + v.w["dt_bias"])
+        a_log = dt * -torch.exp(v.w["A_log"])
         s0 = (state.ssm if state is not None else
               x.new_zeros((b, h, s.head_dim, s.state_dim), dtype=torch.float32))
         y, s_final = ssd_chunk_scan(xin, dt, a_log, Bm, Cm, s0, s.chunk_size)
-        y = y + self.D[None, None, :, None] * xin.float()
+        y = y + v.w["D"][None, None, :, None] * xin.float()
         y = y.reshape(b, l, d_inner).to(x.dtype)
-        return self._out(y, z, use_kernel), MambaCache(conv_state.to(x.dtype), s_final)
+        return v.out(v.norm(y * F.silu(z))), MambaCache(conv_state.to(x.dtype), s_final)
 
     def decode(self, x, state: MambaCache, use_kernel: bool = True):
         """One token (``mamba2_decode``). x: (B, 1, D)."""
         s = self.cfg.ssm
-        d_inner, h, _ = mamba_dims(self.cfg)
+        v = self._view(use_kernel)
+        h = v.heads
+        d_inner = h * s.head_dim
         b = x.shape[0]
-        z, xbc_t, dt_raw = self._split(x[:, 0] @ self.in_proj.to(x.dtype))
+        z, xbc_t, dt_raw = self._split(v.proj(x[:, 0]), h)
         window = torch.cat([state.conv.to(x.dtype), xbc_t[:, None]], dim=1)    # (B, W, C)
-        xbc = F.silu(torch.einsum("bwc,wc->bc", window, self.conv_w.to(x.dtype))
-                     + self.conv_b.to(x.dtype))
+        xbc = F.silu(torch.einsum("bwc,wc->bc", window, v.w["conv_w"].to(x.dtype))
+                     + v.w["conv_b"].to(x.dtype))
         xin = xbc[..., :d_inner].reshape(b, h, s.head_dim)
         Bm = xbc[..., d_inner:d_inner + s.state_dim]
         Cm = xbc[..., d_inner + s.state_dim:]
-        dt = F.softplus(dt_raw.float() + self.dt_bias)                         # (B, H)
-        a = torch.exp(dt * -torch.exp(self.A_log))
+        dt = F.softplus(dt_raw.float() + v.w["dt_bias"])                         # (B, H)
+        a = torch.exp(dt * -torch.exp(v.w["A_log"]))
         s_new = (a[:, :, None, None] * state.ssm
                  + torch.einsum("bh,bn,bhp->bhpn", dt, Bm.float(), xin.float()))
         y = torch.einsum("bn,bhpn->bhp", Cm.float(), s_new)
-        y = y + self.D[None, :, None] * xin.float()
+        y = y + v.w["D"][None, :, None] * xin.float()
         y = y.reshape(b, 1, d_inner).to(x.dtype)
-        return self._out(y, z[:, None], use_kernel), MambaCache(window[:, 1:], s_new)
+        return v.out(v.norm(y * F.silu(z[:, None]))), MambaCache(window[:, 1:], s_new)
+
+    def state_to_heads(self, cache: MambaCache) -> MambaCache:
+        """A cache of the rules' shards -> this rank's conv channels and heads
+        (``cache_spec`` puts ``model`` on the conv channels, which it divides
+        where it divides the heads)."""
+        tp = self.tp
+        return MambaCache(self.exchanges()[1].move(cache.conv, tp.model, 2),
+                          tp.cache_to_heads(cache.ssm, 1))
+
+    def keep_state(self, cache: MambaCache, state: MambaCache) -> None:
+        """This rank's new conv channels and heads written into its shards."""
+        tp = self.tp
+        cache.conv.copy_(self.exchanges()[1].restore(state.conv, tp.model, 2))
+        tp.keep_heads(cache.ssm, state.ssm, 1)
 
 
 # ===========================================================================
@@ -313,34 +408,81 @@ class MLSTM(nn.Module):
             _init_linear(w, generator)
         self.if_bias.zero_()
 
+    tp = None
+
+    def heads_split(self) -> bool:
+        """The cell computes on this rank's heads: ``model`` divides the heads
+        and the rules' placements hold (columns of ``up`` and ``wq``/``wk``/
+        ``wv``, rows of ``down`` over ``model``; ``wif`` whole over it)."""
+        tp = self.tp
+        return (tp is not None and tp.heads_over_model(self.cfg.n_heads)
+                and tp.split_on((self.up, 1), (self.wq, 1), (self.wk, 1), (self.wv, 1),
+                                (self.down, 0))
+                and tp.split_dim(self.wif) is None)
+
+    def _view(self, use_kernel: bool) -> _View:
+        names = ("wq", "wk", "wv", "wif", "if_bias")
+        if not self.heads_split():
+            return _View(self.cfg.n_heads, lambda x: x @ self.up.to(x.dtype),
+                         {n: getattr(self, n) for n in names},
+                         lambda y: self.norm(y, use_kernel),
+                         lambda y: y @ self.down.to(y.dtype))
+        tp = self.tp
+        d_inner, h, _ = mlstm_dims(self.cfg)
+        hl = h // tp.size
+        # up's columns xi | z: every head reads all of xi, a rank its heads' z
+        ex = tp.exchange(2 * d_inner, ((0, d_inner, True), (d_inner, d_inner, False)))
+        w = {n: tp.gather_batch(getattr(self, n)) for n in ("wq", "wk", "wv")}
+        w["wif"] = tp.chunk(tp.gather_batch(self.wif).reshape(d_inner, 2, h), 2).reshape(
+            d_inner, 2 * hl)
+        w["if_bias"] = tp.chunk(self.if_bias.reshape(2, h), 1).reshape(2 * hl)
+        return _View(hl, lambda x: _heads_cols(tp, x, self.up, ex), w,
+                     lambda y: self.norm(y, use_kernel, tp),
+                     lambda y: tp.reduce_out(y @ tp.gather_batch(self.down).to(y.dtype)))
+
+    def _zero_state(self, batch: int, heads: int) -> MLSTMCache:
+        p = mlstm_dims(self.cfg)[2]
+        kw = dict(dtype=torch.float32, device=self.up.device)
+        return MLSTMCache(torch.zeros(batch, heads, p, p, **kw), torch.zeros(batch, heads, p, **kw),
+                          torch.full((batch, heads), NEG_INIT, **kw))
+
     def init_cache(self, batch: int, dtype=None) -> MLSTMCache:
         """The zero state, float32 whatever the model's dtype."""
-        _, h, p = mlstm_dims(self.cfg)
-        kw = dict(dtype=torch.float32, device=self.up.device)
-        return MLSTMCache(torch.zeros(batch, h, p, p, **kw), torch.zeros(batch, h, p, **kw),
-                          torch.full((batch, h), NEG_INIT, **kw))
+        return self._zero_state(batch, self.cfg.n_heads)
 
     def forward(self, x, state: Optional[MLSTMCache] = None, use_kernel: bool = True):
-        """``mlstm_forward``: one step for L = 1, else the chunked form."""
-        d_inner, h, p = mlstm_dims(self.cfg)
+        """``mlstm_forward``: one step for L = 1, else the chunked form; on
+        this rank's heads where ``heads_split``."""
+        d_inner, _, p = mlstm_dims(self.cfg)
+        v = self._view(use_kernel)
+        h = v.heads
         b, l, _ = x.shape
-        up = x @ self.up.to(x.dtype)
+        up = v.proj(x)
         xi, z = up[..., :d_inner], up[..., d_inner:]
-        q, k, v = ((xi @ w.to(x.dtype)).reshape(b, l, h, p).float()
-                   for w in (self.wq, self.wk, self.wv))
-        if_raw = (xi @ self.wif.to(x.dtype)).float() + self.if_bias
+        q, k, vv = ((xi @ v.w[n].to(x.dtype)).reshape(b, l, h, p).float()
+                    for n in ("wq", "wk", "wv"))
+        if_raw = (xi @ v.w["wif"].to(x.dtype)).float() + v.w["if_bias"]
         i_raw, f_raw = if_raw[..., :h], if_raw[..., h:]
         if state is None:
-            state = self.init_cache(b)
+            state = self._zero_state(b, h)
         if l == 1:
-            state, hs = mlstm_step(state, q[:, 0], k[:, 0], v[:, 0], i_raw[:, 0], f_raw[:, 0])
+            state, hs = mlstm_step(state, q[:, 0], k[:, 0], vv[:, 0], i_raw[:, 0], f_raw[:, 0])
             hs = hs[:, None]
         else:
-            hs, state = mlstm_chunk_scan(q, k, v, i_raw, f_raw, state, MLSTM_CHUNK)
-        hs = self.norm(hs.reshape(b, l, d_inner).to(x.dtype), use_kernel) * F.silu(z)
-        return hs @ self.down.to(x.dtype), state
+            hs, state = mlstm_chunk_scan(q, k, vv, i_raw, f_raw, state, MLSTM_CHUNK)
+        hs = v.norm(hs.reshape(b, l, h * p).to(x.dtype)) * F.silu(z)
+        return v.out(hs), state
 
     decode = forward
+
+    def state_to_heads(self, cache: MLSTMCache) -> MLSTMCache:
+        """A cache of the rules' shards -> this rank's heads (C on its P
+        columns, as ``cache_spec`` puts it, moved to the heads)."""
+        return MLSTMCache(*(self.tp.cache_to_heads(t, 1) for t in cache))
+
+    def keep_state(self, cache: MLSTMCache, state: MLSTMCache) -> None:
+        for dst, src in zip(cache, state):
+            self.tp.keep_heads(dst, src, 1)
 
 
 # ===========================================================================
@@ -396,28 +538,68 @@ class SLSTM(nn.Module):
                                       self.r.device, generator))
         self.b.zero_()
 
-    def init_cache(self, batch: int, dtype=None) -> SLSTMCache:
-        """The zero state (m at -1e9), float32."""
-        h = self.cfg.n_heads
-        shape = (batch, h, self.cfg.d_model // h)
+    tp = None
+
+    def heads_split(self) -> bool:
+        """The cell computes on this rank's heads: ``model`` divides the heads
+        and the rules' placements hold (columns of ``w`` and ``out``, the
+        heads of ``r``, over ``model``)."""
+        tp = self.tp
+        return (tp is not None and tp.heads_over_model(self.cfg.n_heads)
+                and tp.split_on((self.w, 1), (self.r, 1), (self.out, 1)))
+
+    def _view(self, use_kernel: bool) -> _View:
+        if not self.heads_split():
+            return _View(self.cfg.n_heads, lambda x: x @ self.w.to(x.dtype),
+                         {"b": self.b, "r": self.r},
+                         lambda y: self.norm(y, use_kernel),
+                         lambda y: y @ self.out.to(y.dtype))
+        tp = self.tp
+        d, h = self.cfg.d_model, self.cfg.n_heads
+        hl = h // tp.size
+        # w's columns are the gates i | f | z | o: a rank reads its heads' of each
+        ex = tp.exchange(4 * d, tuple((g * d, d, False) for g in range(4)))
+        w = {"b": tp.chunk(self.b.reshape(4, h, d // h), 1).reshape(4 * hl * (d // h)),
+             "r": tp.gather_batch(self.r)}
+        return _View(hl, lambda x: _heads_cols(tp, x, self.w, ex), w,
+                     lambda y: self.norm(y, use_kernel, tp),
+                     lambda y: tp.reduce_out(y @ tp.rows_of(tp.gather_batch(self.out)).to(y.dtype)))
+
+    def _zero_state(self, batch: int, heads: int) -> SLSTMCache:
+        shape = (batch, heads, self.cfg.d_model // self.cfg.n_heads)
         kw = dict(dtype=torch.float32, device=self.w.device)
         return SLSTMCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw),
                           torch.zeros(shape, **kw), torch.full(shape, NEG_INIT, **kw))
 
+    def init_cache(self, batch: int, dtype=None) -> SLSTMCache:
+        """The zero state (m at -1e9), float32."""
+        return self._zero_state(batch, self.cfg.n_heads)
+
     def forward(self, x, state: Optional[SLSTMCache] = None, use_kernel: bool = True):
-        """``slstm_forward``: the time-step loop from ``state`` (or zeros)."""
-        d, h = self.cfg.d_model, self.cfg.n_heads
-        dh = d // h
+        """``slstm_forward``: the time-step loop from ``state`` (or zeros); on
+        this rank's heads where ``heads_split``."""
+        dh = self.cfg.d_model // self.cfg.n_heads
+        v = self._view(use_kernel)
+        h = v.heads
         b, l, _ = x.shape
-        wx = ((x @ self.w.to(x.dtype)).float() + self.b).reshape(b, l, 4, h, dh)
-        r_cat = self.r.float().permute(1, 2, 0, 3).reshape(h, dh, 4 * dh)
+        wx = (v.proj(x).float() + v.w["b"]).reshape(b, l, 4, h, dh)
+        r_cat = v.w["r"].float().permute(1, 2, 0, 3).reshape(h, dh, 4 * dh)
         if state is None:
-            state = self.init_cache(b)
+            state = self._zero_state(b, h)
         hs = []
         for t in range(l):
             state = slstm_step(r_cat, state, wx[:, t])
             hs.append(state.h)
-        hs = torch.stack(hs, dim=1).reshape(b, l, d).to(x.dtype)
-        return self.norm(hs, use_kernel) @ self.out.to(x.dtype), state
+        hs = torch.stack(hs, dim=1).reshape(b, l, h * dh).to(x.dtype)
+        return v.out(v.norm(hs)), state
 
     decode = forward
+
+    def state_to_heads(self, cache: SLSTMCache) -> SLSTMCache:
+        """A cache of the rules' shards (on Dh, as ``cache_spec`` puts it) ->
+        this rank's heads."""
+        return SLSTMCache(*(self.tp.cache_to_heads(t, 1) for t in cache))
+
+    def keep_state(self, cache: SLSTMCache, state: SLSTMCache) -> None:
+        for dst, src in zip(cache, state):
+            self.tp.keep_heads(dst, src, 1)

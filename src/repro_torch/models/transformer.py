@@ -226,11 +226,18 @@ class CrossBlock(nn.Module):
 class RecurrentBlock(nn.Module):
     """``ln1`` + a recurrent cell (``cell``) + the residual; no FFN. Prefill
     starts from the state in the cache and decode steps from it; both write
-    the final state back into the cache in place. On a mesh the cell's
-    weights are gathered whole and every rank runs the whole cell: its heads
-    and channels are not split over ``model`` yet. Serving keeps this rank's
-    shard of each state tensor (``sharding.cache_spec``), gathers the state
-    whole over ``model`` for a step and keeps its shard of the new one."""
+    the final state back into the cache in place.
+
+    On a mesh whose ``model`` size divides the cell's heads
+    (``cell.heads_split``), the cell computes on this rank's heads from the
+    shards the rules store (``models/ssm.py``), in every mode; serving keeps
+    this rank's shard of each state tensor (``sharding.cache_spec``), moves
+    it to the rank's heads (and Mamba2's conv channels) for a step and the
+    new state back (``cell.state_to_heads``/``keep_state``). Where ``model``
+    does not divide the heads (xlstm-125m's 4 at 8 or 16), the cell's
+    weights are gathered whole and every rank runs the whole cell, serving
+    gathering the state whole over ``model`` for a step and keeping its
+    shard of the new one."""
 
     cell_type = None
     tp = None
@@ -255,24 +262,29 @@ class RecurrentBlock(nn.Module):
     def forward_aux(self, x, *, mode: str, cache=None, pos: Optional[int] = None,
                     use_kernel: bool = True, vision_embed=None) -> Tuple[torch.Tensor, Aux]:
         h = self.ln1(x, use_kernel)
+        tp = self.tp
+        on_heads = tp is not None and self.cell.heads_split()
         if mode == "train":
-            if self.tp is None:
+            if tp is None or on_heads:
                 out, _ = self.cell(h, None, use_kernel)
             else:
                 # the cell computes whole on every rank of a mesh, from its
                 # weights gathered whole (see parallel.tensor)
-                whole = {n: self.tp.whole(p) for n, p in self.cell.named_parameters()}
+                whole = {n: tp.whole(p) for n, p in self.cell.named_parameters()}
                 out, _ = functional_call(self.cell, whole, (h, None, use_kernel))
             return x + out, {}
         if mode not in ("prefill", "decode"):
             raise ValueError(f"mode {mode!r}: expected 'train', 'prefill' or 'decode'")
-        if self.tp is None:
+        if tp is None or on_heads:
             step = self.cell if mode == "prefill" else self.cell.decode
-            out, state = step(h, cache, use_kernel)
-            for dst, src in zip(cache, state):
-                dst.copy_(src)
+            out, state = step(h, cache if tp is None else self.cell.state_to_heads(cache),
+                              use_kernel)
+            if tp is None:
+                for dst, src in zip(cache, state):
+                    dst.copy_(src)
+            else:
+                self.cell.keep_state(cache, state)
             return x + out, {}
-        tp = self.tp
         whole = {f"cell.{n}": tp.whole(p) for n, p in self.cell.named_parameters()}
         state = type(cache)(*(tp.gather_cache(t) for t in cache))
         out, state = functional_call(_CellStep(self.cell), whole,

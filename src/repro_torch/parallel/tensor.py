@@ -39,8 +39,19 @@ this rank's shard, ``model`` on the sequence (a recurrent state's on any of
 its dims; ``cache_dim``) and the rows over the batch axes. A layer writes its whole new keys into its shard (``write_cache``: the
 rank that holds a position writes it), attends over its shard of the
 sequence and merges the ranks' outputs by their log-sum-exp
-(``merge_over_model``); a recurrent cell gathers its state whole
-(``gather_cache``), steps it and keeps its shard.
+(``merge_over_model``); a recurrent cell whose heads ``model`` does not
+divide gathers its state whole (``gather_cache``), steps it and keeps its
+shard.
+
+A recurrent cell whose heads ``model`` divides computes on this rank's heads
+(``models/ssm.py``). The rules cut its projections' columns into contiguous
+blocks that fall on no head boundary, so a ``ColumnExchange`` moves the
+columns each rank's heads read to it (one all-to-all over ``model``, its
+backward the reverse one), the columns every head reads (Mamba2's B and C,
+mLSTM's xi) to every rank (their gradients summed over ``model``); a norm
+over every head sums its rows' squares over ``model`` (``row_sum``, the
+RMSNorm kernel's split mode), and a state moves from its ``cache_spec`` dim
+to the heads for a step and back (``cache_to_heads``/``keep_heads``).
 
 Every collective is a ``torch.ops._c10d_functional`` op followed by its
 ``wait_tensor``: the dispatcher sees it (the dry run counts it, under a fake
@@ -49,6 +60,7 @@ included). A collective over a group of one rank is skipped.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -194,6 +206,21 @@ class _Split(torch.autograd.Function):
         return all_gather(g, ctx.group, ctx.dim), None, None
 
 
+class _Exchange(torch.autograd.Function):
+    """``ColumnExchange.move`` of ``dim``; backward the gradient moved
+    back, the shared columns' summed over the ranks that read them."""
+
+    @staticmethod
+    def forward(ctx, x, ex, group, dim):
+        ctx.args = ex, group, dim
+        return ex.move(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        ex, group, dim = ctx.args
+        return ex.move_back(g, group, dim), None, None, None
+
+
 class _Gather(torch.autograd.Function):
     """All-gather over ``steps`` ((dim, group), minor axis first); backward a
     reduce-scatter over them (``sum``) or this rank's slice."""
@@ -210,6 +237,97 @@ class _Gather(torch.autograd.Function):
         for dim, gr in reversed(ctx.steps):
             g = reduce_scatter(g, gr, dim) if ctx.sum_grad else local_chunk(g, gr, dim)
         return g, None, None
+
+
+# ---------------------------------------------------------------------------
+# Head-aligned columns out of contiguous shards
+# ---------------------------------------------------------------------------
+
+class ColumnExchange:
+    """A dim of ``n`` columns held in contiguous blocks of ``n / size``, one a
+    rank in rank order (the rules' shard of a weight, of a projection's
+    output or of a cache), and the columns this rank's heads read:
+    ``segments`` ((start, length, shared), ...), each read in its ``1/size``
+    chunk a rank, or whole by every rank where ``shared``. A rank's columns
+    are the union over segments, in column order (z_r | x_r | B | C | dt_r of
+    Mamba2's in_proj). Built by ``exchange`` (cached); its index tensors are
+    kept by device."""
+
+    def __init__(self, n: int, segments: Tuple[Tuple[int, int, bool], ...], size: int,
+                 rank: int):
+        if n % size:
+            raise ValueError(f"{n} columns do not split over {size} ranks")
+        self.block = n // size
+        self.wanted = [self._wanted(segments, size, j) for j in range(size)]
+        lo, hi = rank * self.block, (rank + 1) * self.block
+        mine = [[c - lo for c in w if lo <= c < hi] for w in self.wanted]
+        self.in_splits = [len(m) for m in mine]                 # sent to rank j
+        self.send = [c for m in mine for c in m]                # in my block, by rank
+        self.out_splits = [sum(1 for c in self.wanted[rank] if j * self.block <= c
+                               < (j + 1) * self.block) for j in range(size)]
+        # the inverse: each column of my block from its owner's columns (a
+        # shared column from my own)
+        shared = {c for a, l, sh in segments if sh for c in range(a, a + l)}
+        owner = {c: j for j, w in enumerate(self.wanted) for c in w if c not in shared}
+        pos = [{c: i for i, c in enumerate(w)} for w in self.wanted]
+        src = lambda c, me: me if c in shared else owner[c]  # noqa: E731
+        self.back_send, self.back_in = [], []
+        for j in range(size):
+            cols = [c for c in range(j * self.block, (j + 1) * self.block) if src(c, j) == rank]
+            self.back_send += [pos[rank][c] for c in cols]
+            self.back_in.append(len(cols))
+        got = [[c - lo for c in range(lo, hi) if src(c, rank) == i] for i in range(size)]
+        self.back_out = [len(g) for g in got]
+        self.back_place = [c for g in got for c in g]
+        if sorted(self.back_place) != list(range(self.block)):
+            raise ValueError(f"segments {segments} do not cover the {n} columns")
+        self._idx: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+    @staticmethod
+    def _wanted(segments, size: int, j: int) -> List[int]:
+        cols = []
+        for a, length, shared in segments:
+            if shared:
+                cols += range(a, a + length)
+            else:
+                k = length // size
+                cols += range(a + j * k, a + (j + 1) * k)
+        return sorted(cols)
+
+    def index(self, name: str, device) -> torch.Tensor:
+        key = (name, torch.device(device))
+        if key not in self._idx:
+            self._idx[key] = torch.tensor(getattr(self, name), dtype=torch.long, device=device)
+        return self._idx[key]
+
+    def _a2a(self, x: torch.Tensor, group: Group, dim: int, pick: str, out_splits, in_splits
+             ) -> torch.Tensor:
+        t = x.movedim(dim, 0).index_select(0, self.index(pick, x.device))
+        return all_to_all(t, group, out_splits, in_splits).movedim(0, dim)
+
+    def move(self, x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+        """This rank's block of ``dim`` -> the columns its heads read."""
+        return self._a2a(x, group, dim, "send", self.out_splits, self.in_splits)
+
+    def move_back(self, g: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+        """``move``'s backward: the read columns' gradients sent to their
+        blocks' ranks and summed into the block (a shared column's from
+        every rank)."""
+        t = all_to_all(g.movedim(dim, 0), group, self.in_splits, self.out_splits)
+        out = t.new_zeros((self.block, *t.shape[1:]))
+        return out.index_add_(0, self.index("send", g.device), t).movedim(0, dim)
+
+    def restore(self, x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+        """``move``'s inverse (no autograd): the read columns of every rank
+        -> this rank's block, a shared column taken from this rank's own."""
+        t = self._a2a(x, group, dim, "back_send", self.back_out, self.back_in)
+        return torch.empty_like(t).index_copy_(dim, self.index("back_place", x.device), t)
+
+
+@functools.lru_cache(maxsize=None)
+def exchange(n: int, segments: Tuple[Tuple[int, int, bool], ...], size: int,
+             rank: int) -> ColumnExchange:
+    return ColumnExchange(n, segments, size, rank)
 
 
 # ---------------------------------------------------------------------------
@@ -370,6 +488,52 @@ class TensorParallel:
 
     def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
         return _ReduceOut.apply(x, self.model) if self.size > 1 else x
+
+    # --- a recurrent cell on this rank's heads --------------------------------
+    def heads_over_model(self, heads: int) -> bool:
+        """A cell of ``heads`` heads can compute on this rank's: ``model``
+        (above 1) divides them."""
+        return self.size > 1 and heads % self.size == 0
+
+    def exchange(self, n: int, segments) -> ColumnExchange:
+        """The ``ColumnExchange`` of ``n`` columns over ``model`` for this rank."""
+        return exchange(n, tuple(segments), self.size, self.rank)
+
+    def to_heads(self, x: torch.Tensor, ex: ColumnExchange, dim: int) -> torch.Tensor:
+        """``x``'s block of ``dim`` (this rank's contiguous shard, of a weight
+        or of a projection's output) -> the columns this rank's heads read:
+        one all-to-all over ``model``; backward the reverse one, a shared
+        column's gradient summed over ``model``."""
+        return _Exchange.apply(x, ex, self.model, dim)
+
+    def chunk(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's ``1/model`` of ``dim`` of ``x``, which every ``model``
+        rank holds whole (a weight the rules leave whole): the backward
+        gathers the chunks' gradients, so each rank's is the whole's."""
+        return _Split.apply(x, self.model, dim) if self.size > 1 else x
+
+    def rows_of(self, w: torch.Tensor) -> torch.Tensor:
+        """A weight's ``model`` block of columns (its rows whole) -> this
+        rank's ``1/model`` of its rows (its columns whole): an all-to-all
+        over ``model`` (``swap_dims``), its inverse backward."""
+        return _Swap.apply(w, self.model, 0, 1) if self.size > 1 else w
+
+    def row_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Per-row float32 values summed over ``model`` (no autograd): the
+        RMSNorm split mode's ``reduce``."""
+        return all_reduce(t, self.model)
+
+    def cache_to_heads(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """A cache shard (``tp_dim`` its ``model`` dim: ``cache_spec`` puts
+        ``model`` on some dim of a state whose heads it divides) as this
+        rank's ``1/model`` of ``dim`` (its heads), every other dim whole: an
+        all-to-all where ``model`` is on another dim."""
+        return t if t.tp_dim == dim else swap_dims(t, self.model, dim, t.tp_dim)
+
+    def keep_heads(self, dst: torch.Tensor, t: torch.Tensor, dim: int) -> None:
+        """Write this rank's heads ``t`` of a new state (``cache_to_heads``'
+        layout) into the cache shard ``dst``."""
+        dst.copy_(t if dst.tp_dim == dim else swap_dims(t, self.model, dst.tp_dim, dim))
 
     def max_over_model(self, x: torch.Tensor) -> torch.Tensor:
         return all_reduce(x.detach(), self.model, "max")

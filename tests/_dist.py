@@ -14,17 +14,45 @@ the suite into its own limit. 240, not less: under the suite's six parallel
 workers the mesh tests' JAX child (a GSPMD step compiled for several
 configs, 70 s alone) has taken more than 120 s. Returns ``out_dir``, where
 the ranks write what the test reads.
+
+At most ``SLOTS`` spawns (a ``run_world``'s ranks, or a ``JaxChild``) run at
+once across the suite's workers: each takes a slot, a lock file under
+``SLOTS_DIR`` in the temporary directory, before it starts, and its time
+limit counts from then. The spawned processes hold the lock (its file
+descriptor passed to them), so a slot frees itself when they exit. Under six
+workers with every spawn at once, the mesh tests' JAX children ran past the
+limit.
 """
 from __future__ import annotations
 
+import fcntl
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAX_TIMEOUT = 240
+SLOTS = 3
+SLOTS_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_spawn_slots")
+
+
+def take_slot() -> int:
+    """An open file descriptor holding one of the ``SLOTS`` locks (waiting
+    until one is free). Pass it to the spawned processes and close it."""
+    os.makedirs(SLOTS_DIR, exist_ok=True)
+    while True:
+        for i in range(SLOTS):
+            fd = os.open(os.path.join(SLOTS_DIR, f"slot{i}"), os.O_RDWR | os.O_CREAT, 0o644)
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                return fd
+            except OSError:
+                os.close(fd)
+        time.sleep(0.2)
+
 
 _CHILD = r"""
 import importlib.util, json, os, sys
@@ -47,7 +75,8 @@ dist.destroy_process_group()
 """
 
 
-def run_world(target: str, world: int, tmp_path, timeout: float = MAX_TIMEOUT, **kwargs) -> str:
+def run_world(target: str, world: int, tmp_path, timeout: float = MAX_TIMEOUT,
+              **kwargs) -> str:
     timeout = min(timeout, MAX_TIMEOUT)
     tmp = str(tmp_path)
     out = os.path.join(tmp, "out")
@@ -56,9 +85,12 @@ def run_world(target: str, world: int, tmp_path, timeout: float = MAX_TIMEOUT, *
                          target=target, out=out, kwargs=json.dumps(kwargs))
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.path.join(ROOT, "src"))
     logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(world)]
+    slot = take_slot()
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world)], cwd=ROOT,
-                              env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+                              env=env, stdout=logs[r], stderr=subprocess.STDOUT,
+                              pass_fds=(slot,))
              for r in range(world)]
+    os.close(slot)
     deadline = time.monotonic() + timeout
     try:
         while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
@@ -92,13 +124,14 @@ class JaxChild:
     """A Python child that computes the JAX package's side of a test, with
     ``n_devices`` forced host devices and ``repro.common.jax_compat``
     imported under a supported version string (it refuses this jax; the
-    string is put back once it is imported). It runs beside the spawned
-    ranks; ``result()`` waits for it (``timeout`` seconds at most, then it is
+    string is put back once it is imported), ``xla_flags`` added to its
+    ``XLA_FLAGS``. It starts once it has a slot (module docstring) and runs
+    beside the spawned ranks; ``result()`` waits for it (``timeout`` seconds at most, then it is
     killed and the test fails) and returns its output directory."""
 
     PRELUDE = r'''
 import os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={n}"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={n} {flags}"
 os.environ["JAX_PLATFORMS"] = "cpu"
 sys.path.insert(0, os.path.join({root!r}, "src"))
 sys.path.insert(0, os.path.join({root!r}, "tests"))
@@ -110,16 +143,21 @@ from repro.common import jax_compat as jc
 jax.__version__ = _real
 '''
 
-    def __init__(self, code: str, tmp_path, n_devices: int = 4, timeout: float = MAX_TIMEOUT):
+    def __init__(self, code: str, tmp_path, n_devices: int = 4, timeout: float = MAX_TIMEOUT,
+                 xla_flags: str = ""):
         import textwrap
         self.out = os.path.join(str(tmp_path), "jax")
         os.makedirs(self.out, exist_ok=True)
         self.timeout = min(timeout, MAX_TIMEOUT)
         self.log = open(os.path.join(str(tmp_path), "jax.log"), "w+")
-        src = self.PRELUDE.format(n=n_devices, root=ROOT, out=self.out) + textwrap.dedent(code)
+        src = self.PRELUDE.format(n=n_devices, flags=xla_flags, root=ROOT,
+                                  out=self.out) + textwrap.dedent(code)
         env = dict(os.environ, OMP_NUM_THREADS="1")
+        slot = take_slot()
         self.proc = subprocess.Popen([sys.executable, "-c", src], cwd=ROOT, env=env,
-                                     stdout=self.log, stderr=subprocess.STDOUT)
+                                     stdout=self.log, stderr=subprocess.STDOUT,
+                                     pass_fds=(slot,))
+        os.close(slot)
         self.started = time.monotonic()
 
     def result(self) -> str:

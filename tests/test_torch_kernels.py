@@ -283,6 +283,109 @@ def test_rmsnorm_fn_gradients_equal_autograd_of_plain_version():
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
+SPLIT_CASES = [((4, 37, 96), "float32"), ((2, 3, 5, 256), "float32"), ((64, 512), "bfloat16")]
+
+
+def _split_inputs(shape, dtype, seed=11):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, shape).astype(np.float32)
+    scale = rng.normal(0, 0.3, shape[-1:]).astype(np.float32)
+    return _pair(x, dtype), _pair(scale, dtype)
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("shape,dtype", SPLIT_CASES)
+def test_rmsnorm_split_mode_matches_jax_apply_rmsnorm_on_whole_rows(shape, dtype, shards):
+    """The split mode's plain version over column shards (each shard's sum
+    of squares, their sum, each shard scaled by the whole row's factor),
+    through the wrappers' CPU path, against the JAX package's
+    ``apply_rmsnorm`` of the whole rows: 2e-5 fp32, 2e-2 bf16."""
+    from repro.models.layers import apply_rmsnorm
+    (xj, xt), (sj, st) = _split_inputs(shape, dtype)
+    xs, ss = [c.contiguous() for c in xt.chunk(shards, -1)], list(st.chunk(shards))
+    total = sum(rmsnorm_mod.rmsnorm_sumsq(x) for x in xs)
+    got = torch.cat([rmsnorm_mod.rmsnorm_scale(x, total, s, shape[-1], 1e-6)
+                     for x, s in zip(xs, ss)], dim=-1)
+    assert got.dtype == TORCH[dtype] and got.shape == shape
+    _close(got, apply_rmsnorm({"scale": sj}, xj, 1e-6), dtype)
+    plain = torch.cat(tref.rmsnorm_split(xs, ss), dim=-1)
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("shape", [(4, 37, 96), (2, 3, 5, 256)])
+def test_rmsnorm_split_backward_matches_jax_vjp(shape, shards):
+    """``rmsnorm_split_bwd`` of each shard, its row sums summed over the
+    shards, against ``jax.vjp`` of ``apply_rmsnorm`` on the whole rows:
+    dx by columns and the scale's gradient, 1e-5."""
+    from repro.models.layers import apply_rmsnorm
+    rng = np.random.default_rng(12)
+    x, dy = (rng.normal(0, 1, shape).astype(np.float32) for _ in range(2))
+    scale = rng.normal(0, 0.3, shape[-1:]).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: apply_rmsnorm({"scale": b}, a, 1e-6), jnp.asarray(x),
+                     jnp.asarray(scale))
+    want_dx, want_ds = vjp(jnp.asarray(dy))
+    xs, dys = (torch.from_numpy(a).chunk(shards, -1) for a in (x, dy))
+    ss = torch.from_numpy(scale).chunk(shards)
+    total = sum(tref.rmsnorm_sumsq(a) for a in xs)
+    # the backward's all-reduce, over the shards in one process: each
+    # shard's row sums of g * x_hat, summed, handed to every shard's call
+    parts = []
+    probe = rmsnorm_mod.Split(shape[-1], lambda t: parts.append(t) or t)
+    for a, s, g in zip(xs, ss, dys):
+        rmsnorm_mod.rmsnorm_split_bwd(a, s, g, total, probe, 1e-6)
+    whole = rmsnorm_mod.Split(shape[-1], lambda t: sum(parts))
+    got = [rmsnorm_mod.rmsnorm_split_bwd(a, s, g, total, whole, 1e-6)
+           for a, s, g in zip(xs, ss, dys)]
+    np.testing.assert_allclose(torch.cat([d for d, _ in got], -1).numpy(), np.asarray(want_dx),
+                               atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(torch.cat([d for _, d in got]).numpy(), np.asarray(want_ds),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_rmsnorm_fn_split_of_one_shard_equals_autograd_of_the_whole_row():
+    """``RMSNormFn`` with a ``Split`` whose reduce is the identity (one
+    rank holds the whole row), through ``ops.rmsnorm``: output and
+    gradients against autograd of the plain whole-row version, 1e-5; its
+    forward without grad takes no autograd node."""
+    rng = np.random.default_rng(13)
+    x0 = torch.from_numpy(rng.normal(0, 1, (3, 5, 64)).astype(np.float32))
+    s0 = torch.from_numpy(rng.normal(0, 0.3, (64,)).astype(np.float32))
+    dy = torch.from_numpy(rng.normal(0, 1, (3, 5, 64)).astype(np.float32))
+    split = ops.Split(64, lambda t: t)
+    outs, grads = [], []
+    for fn in (lambda x, s: ops.rmsnorm(x, s, 1e-6, split=split),
+               lambda x, s: ops.rmsnorm(x, s, 1e-6, use_kernel=False, split=split),
+               lambda x, s: tref.rmsnorm(x, s, 1e-6)):
+        x, s = x0.clone().requires_grad_(), s0.clone().requires_grad_()
+        out = fn(x, s)
+        out.backward(dy)
+        outs.append(out.detach())
+        grads.append((x.grad, s.grad))
+    for got in range(2):
+        torch.testing.assert_close(outs[got], outs[2], atol=1e-5, rtol=1e-5)
+        for a, b in zip(grads[got], grads[2]):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    with torch.no_grad():
+        assert ops.rmsnorm(x0, s0, 1e-6, split=split).grad_fn is None
+
+
+def test_split_limit_sees_the_planted_split_fault():
+    """A split mode that normalises each shard by its own columns reads
+    above ROW_REL_TOL at zamba2-7b's gated-norm width cut into 8 shards in
+    bf16, while the sound split mode reads within it."""
+    rng = np.random.default_rng(14)
+    x = torch.from_numpy(rng.normal(0, 1, (4, 64, 7168)).astype(np.float32))
+    x[..., :896] *= 3.0          # shards of unequal size, as a rank's heads can be
+    x = x.bfloat16()
+    scale = torch.from_numpy(rng.normal(0, 0.1, (7168,)).astype(np.float32)).bfloat16()
+    xs, ss = [c.contiguous() for c in x.chunk(8, -1)], list(scale.chunk(8))
+    want = tref.rmsnorm(x, scale)
+    tol = tref.ROW_REL_TOL[torch.bfloat16]
+    assert tref.max_row_rel_err(torch.cat(tref.rmsnorm_split(xs, ss), -1), want) <= tol
+    assert tref.max_row_rel_err(torch.cat(tref.rmsnorm_split_fault(xs, ss), -1), want) > tol
+
+
 @pytest.mark.parametrize("how", ["no_grad", "no input requires grad"])
 def test_ops_rmsnorm_without_a_backward_skips_the_autograd_node(how):
     """Where no backward can be taken, ``ops.rmsnorm`` calls ``rmsnorm_fwd``
@@ -884,6 +987,49 @@ def test_cuda_rmsnorm_matches_plain_version(cuda, shape, dtype, scale_dtype):
         xx, ss = x.clone().requires_grad_(), s.clone().requires_grad_()
         fn(xx, ss).backward(dy)
         grads.append((xx.grad, ss.grad))
+    (dx, ds), (want_dx, want_ds) = grads
+    assert tref.max_row_rel_err(dx, want_dx) <= tol
+    assert tref.max_row_rel_err(ds.float()[None], want_ds.float()[None]) <= 1e-2
+
+
+GPU_SPLIT_CASES = [  # zamba2-7b's gated norm in 8 shards, decode rows, shards not whole
+    ((2, 4352, 7168), "bfloat16", "bfloat16", 8),  # 16-byte pieces, mixed dtypes, narrow
+    ((2, 1, 7168), "bfloat16", "bfloat16", 8),
+    ((4, 37, 96), "float32", "float32", 4),
+    ((3, 37, 100), "float32", "float32", 4),
+    ((5, 102), "bfloat16", "bfloat16", 2),
+    ((7, 64), "bfloat16", "float32", 2),
+    ((3, 8192), "float32", "bfloat16", 8),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,scale_dtype,shards", GPU_SPLIT_CASES)
+def test_cuda_rmsnorm_split_mode_matches_plain_version(cuda, shape, dtype, scale_dtype, shards):
+    """The split mode's two launches over column shards, their sums added,
+    against the plain whole row (``ROW_REL_TOL``) and the whole-row launch;
+    the backward through ``RMSNormFn`` with a ``Split`` of one shard
+    against the plain version's autograd."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(shape, generator=gen, device=cuda).to(TORCH[dtype])
+    s = (0.1 * torch.randn(shape[-1:], generator=gen, device=cuda)).to(TORCH[scale_dtype])
+    xs, ss = [c.contiguous() for c in x.chunk(shards, -1)], list(s.chunk(shards))
+    before = rmsnorm_mod.split_launches
+    total = sum(rmsnorm_mod.rmsnorm_sumsq(a) for a in xs)
+    got = torch.cat([rmsnorm_mod.rmsnorm_scale(a, total, b, shape[-1]) for a, b in zip(xs, ss)],
+                    -1)
+    torch.cuda.synchronize()
+    assert rmsnorm_mod.split_launches == before + 2 * shards
+    tol = tref.ROW_REL_TOL[TORCH[dtype]]
+    assert tref.max_row_rel_err(got, tref.rmsnorm(x, s)) <= tol
+    assert tref.max_row_rel_err(got, rmsnorm_fwd(x, s)) <= tol
+    dy = torch.randn(shape, generator=gen, device=cuda).to(TORCH[dtype])
+    grads = []
+    for fn in (lambda a, b: RMSNormFn.apply(a, b, 1e-6, rmsnorm_mod.Split(shape[-1], lambda t: t)),
+               tref.rmsnorm):
+        xx, sc = x.clone().requires_grad_(), s.clone().requires_grad_()
+        fn(xx, sc).backward(dy)
+        grads.append((xx.grad, sc.grad))
     (dx, ds), (want_dx, want_ds) = grads
     assert tref.max_row_rel_err(dx, want_dx) <= tol
     assert tref.max_row_rel_err(ds.float()[None], want_ds.float()[None]) <= 1e-2
