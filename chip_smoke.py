@@ -37,12 +37,14 @@ Phases, each fatal on failure:
     d_model, stablelm-12b's qk-norm rows (2 x 4352 x 32 of 160),
     deepseek-v2-236b's MLA norms (2 x 4352 of 512 and of 1536) and
     xlstm-125m's (768 and, the mLSTM's, 1536). RMSNorm's split mode
-    (``rmsnorm_split_phase``): zamba2-7b's gated norm (2 x 4352 x 7168,
-    bf16) cut into 8 column shards, each shard's sum-of-squares launch, the
+    (``rmsnorm_split_phase``, ``SPLIT_CASES``): zamba2-7b's gated norm
+    (2 x 4352 x 7168, bf16) cut into 8 column shards, and xlstm-125m's mLSTM
+    (1536 wide) and sLSTM (768) norms in 16 shards of 96 and of 48 columns,
+    as a rank of model 16 holds them; each shard's sum-of-squares launch, the
     sums added (the all-reduce over ``model`` on a mesh), each shard's
     scale launch, every row within ``ROW_REL_TOL`` of the plain whole row
     and of the whole-row launch, a planted fault (each shard normalised by
-    its own columns) above the limit, the 16 launches' device ms beside the
+    its own columns) above the limit, the launches' device ms beside the
     whole-row launch's and the bound. The decode kernel's shard
     mode (``k0``, ``return_lse``; ``SHARD_CASES``): gemma2-2b's,
     stablelm-12b's (32 heads on 8, 160) and yi-34b's (56 on 8, 128) decode
@@ -286,6 +288,21 @@ Phases, each fatal on failure:
     mode, flash and decode launched. The fake group's all-to-all leaves its
     output unwritten on the card, so the check fills each received piece as
     the fake group does on the CPU (the rank's own first rows).
+    Then one rank of xlstm-125m on a (data 1, model 16) mesh, the grid's
+    model size, at full width and one unit (3 mLSTM cells and an sLSTM
+    cell; ``tp_xlstm_phase``): its 4 heads do not divide 16, so every cell
+    computes a quarter of one head, its scores, q and k and sLSTM's hidden
+    state summed or gathered over the head's 4 ranks (a subgroup of the fake
+    group). A train step at seq 4096, batch 2, then a prefill of the
+    4352-token prompt and 4 decode steps, each peak (from the end of the
+    weights' draw) against the dry run's within ``TP_PEAK_TOL``; the grad
+    norm finite, every cell on a head part, the split mode launched, the
+    head groups' collectives counted. The fake group's all-gathers and
+    reduce-scatters leave their outputs unwritten on the card too, so they
+    are filled as well (``filled_collectives``). The rank's dry runs trace
+    the sLSTM a step at a time (~60 s of host time), so a child process
+    makes them beside ``[fabric]`` and ``[drills]``, which are held to no
+    roofline, and is done before the timed phases (``xlstm_dry_runs``).
  12. dryrun: ``repro_torch.launch.dryrun`` traces the two gemma2-2b cells of
     3 and 4 (the prefill at 2 x 4352; the train step at seq 4096, batch 2, 2
     microbatches, remat full, adamw) on the meta device for one device and
@@ -1175,28 +1192,46 @@ def rmsnorm_phase(iters: int):
     return tuple(max(e[i] for e in errs) for i in range(2)), rows, extra
 
 
-SPLIT_SHAPE = (2, 4352, 7168)   # zamba2-7b's gated norm over d_inner, a prefill
-SPLIT_SHARDS = 8                 # model 8: 14 of 112 heads a rank
+# (shape, shards, whose norm): the gated norms over d_inner that the split
+# mode runs on a mesh, at a prefill of 4352 tokens; the first is timed into
+# the JSON's row, each case's times go beside it under "cases"
+SPLIT_CASES = [
+    ((2, 4352, 7168), 8, "zamba2-7b Mamba2, model 8"),    # 14 of 112 heads a rank
+    ((2, 4352, 1536), 16, "xlstm-125m mLSTM, model 16"),  # a quarter of a head: 96 columns
+    ((2, 4352, 768), 16, "xlstm-125m sLSTM, model 16"),   # a quarter of a head: 48 columns
+]
 
 
 def rmsnorm_split_phase(iters: int, card: str):
-    """RMSNorm's split mode at ``SPLIT_SHAPE`` in ``SPLIT_SHARDS`` column
-    shards (module docstring). Returns ((max_abs_err, max_row_rel_err), the
-    timed row as ``time_rmsnorm``'s)."""
+    """RMSNorm's split mode at each of ``SPLIT_CASES`` (module docstring).
+    Returns ((max_abs_err, max_row_rel_err) over the cases, one timed row a
+    case as ``time_rmsnorm``'s with the whole-row launch's device ms)."""
+    errs, rows = [], []
+    for i, (shape, shards, label) in enumerate(SPLIT_CASES):
+        err, row = split_case(iters, card, shape, shards, label, 17 + i)
+        errs.append(err)
+        rows.append(row)
+    return tuple(max(e[i] for e in errs) for i in range(2)), rows
+
+
+def split_case(iters: int, card: str, shape, shards: int, label: str, seed: int):
+    """One case of ``rmsnorm_split_phase``: bf16 rows of ``shape`` cut into
+    ``shards`` column shards, against the plain whole row, the planted fault
+    and the whole-row launch, then timed."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as norm
 
-    gen = torch.Generator(device="cuda").manual_seed(17)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     eps, dtype = 1e-6, torch.bfloat16
-    width = SPLIT_SHAPE[-1]
+    width = shape[-1]
 
     def inputs():
-        x = randn(SPLIT_SHAPE, dtype, gen)
+        x = randn(shape, dtype, gen)
         scale = randn((width,), dtype, gen, 0.1)
-        return (x, scale, [c.contiguous() for c in x.chunk(SPLIT_SHARDS, -1)],
-                list(scale.chunk(SPLIT_SHARDS)))
+        return (x, scale, [c.contiguous() for c in x.chunk(shards, -1)],
+                list(scale.chunk(shards)))
 
     def split(xs, ss, total=None):
         if total is None:
@@ -1205,7 +1240,8 @@ def rmsnorm_split_phase(iters: int, card: str):
                          -1)
 
     x, scale, xs, ss = inputs()
-    name = f"rmsnorm split mode bfloat16 x={SPLIT_SHAPE} in {SPLIT_SHARDS} shards"
+    name = (f"rmsnorm split mode bfloat16 {label} x={shape} in {shards} shards of "
+            f"{width // shards}")
     got = split(xs, ss)
     err = compare(name, got, ref.rmsnorm(x, scale, eps),
                   [(ref.RMSNORM_SPLIT_FAULT,
@@ -1241,10 +1277,9 @@ def rmsnorm_split_phase(iters: int, card: str):
     lib, lib_dev = time_ms(run_lib, iters * 4), device_ms(run_lib, iters * 4)
     n = x.numel()
     rows = n // width
-    nbytes = (2.0 * n + width) * 2 + 2.0 * rows * SPLIT_SHARDS * 4
+    nbytes = (2.0 * n + width) * 2 + 2.0 * rows * shards * 4
     b_ms, b_by = bound(4.0 * n, nbytes, "float32")
-    print(f"  time rmsnorm split mode bfloat16 x={SPLIT_SHAPE} in {SPLIT_SHARDS} shards "
-          f"({2 * SPLIT_SHARDS} launches): kernel_ms={ms:.5f} device_ms={_ms(dev)} "
+    print(f"  time {name} ({2 * shards} launches): kernel_ms={ms:.5f} device_ms={_ms(dev)} "
           f"(the whole-row launch {_ms(whole_dev)}) plain_ms={plain:.5f} library_ms={lib:.5f} "
           f"library_device_ms={_ms(lib_dev)} (F.rms_norm of the whole rows) "
           f"bound_ms={b_ms:.5f} ({b_by}; {nbytes:.4e} B) bound/device={_share(b_ms, dev)}; "
@@ -3085,13 +3120,22 @@ def sequence_mode_check(card: str) -> dict:
     return dict(total)
 
 
-def tp_rank(run, shape, steps: int, arch: str = TP_ARCH) -> dict:
-    """The dry run of rank 0 of ``run``'s (data 1, model 8) train step at
-    ``shape``, then that rank on the card under the fake group (module
-    docstring): drawn on its shards, its optimizer state made, ``steps``
-    steps. Returns the record's memory and costs, the card's peak over the
-    memory held before the draw, each step's losses, grad norms, seconds and
-    launch counts, the stored optimizer bytes and the parameter counts."""
+def mesh_name(sizes: dict) -> str:
+    return "_".join(f"{a}{n}" for a, n in sizes.items())
+
+
+def tp_rank(run, shape, steps: int, arch: str = TP_ARCH, mesh_sizes=TP_MESH, rec=None) -> dict:
+    """The dry run of rank 0 of ``run``'s train step at ``shape`` on a mesh
+    of ``mesh_sizes`` ((data 1, model 8) unless given), then that rank on the
+    card under the fake group (module docstring): drawn on its shards, its
+    optimizer state made, ``steps`` steps. Returns the record's memory and
+    costs, the card's peak during the steps over the memory held before the
+    draw (the draw's own temporaries left out; ``draw_peak`` is the draw's
+    peak over the same base, printed beside it), each step's
+    losses, grad norms, seconds and launch counts, the stored optimizer
+    bytes, the parameter counts and each recurrent cell's g where it
+    computes on a part of one head (else 0). ``rec``: the dry run's record,
+    made already (``xlstm_dry_runs``)."""
     import gc
     import torch
     import torch.distributed as dist
@@ -3107,9 +3151,10 @@ def tp_rank(run, shape, steps: int, arch: str = TP_ARCH) -> dict:
     from repro_torch.train.steps import init_train_state, make_train_step
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as out:
-        rec = dr.run_cell(arch, shape.name, False, False, out,
-                          mesh=("data1_model8", TP_MESH), run=run, shape=shape)
+    if rec is None:
+        with tempfile.TemporaryDirectory() as out:
+            rec = dr.run_cell(arch, shape.name, False, False, out,
+                              mesh=(mesh_name(mesh_sizes), mesh_sizes), run=run, shape=shape)
     if rec["status"] != "ok":
         fail(f"tp: the dry run of the rank failed: {rec.get('error')}")
     mem = rec["memory"]
@@ -3123,10 +3168,10 @@ def tp_rank(run, shape, steps: int, arch: str = TP_ARCH) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=math.prod(TP_MESH.values()))
+                            world_size=math.prod(mesh_sizes.values()))
     try:
-        mesh = init_device_mesh("cuda", tuple(TP_MESH.values()),
-                                mesh_dim_names=tuple(TP_MESH))
+        mesh = init_device_mesh("cuda", tuple(mesh_sizes.values()),
+                                mesh_dim_names=tuple(mesh_sizes))
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
@@ -3137,16 +3182,23 @@ def tp_rank(run, shape, steps: int, arch: str = TP_ARCH) -> dict:
         masters, state = init_train_state(model, cfg, mesh)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
+        # the steps' peak from here: the draw makes each block whole before it
+        # cuts it (xlstm-125m's whole embedding, 0.43 GiB of draw temporaries,
+        # is above its rank's step); the draw's own peak is printed beside it
+        draw_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
         held_opt = _nbytes(*(t.to_local() if hasattr(t, "to_local") else t
                              for t in _leaves(state)))
         whole = sum(math.prod(p.tp_full_shape) for p in model.parameters())
         local = sum(p.numel() for p in model.parameters())
         step = make_train_step(model, run, cfg, mesh)
+        parts = [getattr(m.head_part(), "g", 0) for m in model.modules()
+                 if hasattr(m, "head_part")]
         # token ids in this rank's vocab shard: the fake group does not add the
         # other ranks' rows of the embedding, so a token outside the shard would
         # embed as zeros here (with the whole vocab the 40-layer gradient is NaN
         # from step 1 on; with the shard's tokens it is finite)
-        shard = run.model.vocab_size // TP_MESH["model"]
+        shard = run.model.vocab_size // mesh_sizes["model"]
         batch = {k: torch.from_numpy(v % shard).cuda() for k, v in TokenPipeline(
             run.model, shape, PipelineConfig(seed=run.train.seed)).batch(0).items()}
         losses, norms, seconds, launches = [], [], [], []
@@ -3165,9 +3217,10 @@ def tp_rank(run, shape, steps: int, arch: str = TP_ARCH) -> dict:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
-    return {"mem": mem, "peak": peak, "miss": peak / mem["peak_bytes"] - 1, "losses": losses,
+    return {"mem": mem, "peak": peak, "draw_peak": draw_peak,
+            "miss": peak / mem["peak_bytes"] - 1, "losses": losses,
             "norms": norms, "seconds": seconds, "launches": launches, "held_opt": held_opt,
-            "build_s": build_s, "local": local, "whole": whole, "shard": shard}
+            "build_s": build_s, "local": local, "whole": whole, "shard": shard, "parts": parts}
 
 
 def tp_phase(card: str) -> dict:
@@ -3189,6 +3242,7 @@ def tp_phase(card: str) -> dict:
           f"{run.model.n_heads} heads on {TP_MESH['model']}): {r['local'] / 1e9:.4f} B of "
           f"{r['whole'] / 1e9:.4f} B parameters held, drawn in {r['build_s']:.2f} s; step seconds "
           f"{[round(x, 4) for x in r['seconds']]}; max_memory_allocated {peak / 2**30:.3f} GiB "
+          f"(the weights' draw {r['draw_peak'] / 2**30:.3f} GiB, not held to the dry run) "
           f"against the dry run's {predicted / 2**30:.3f} GiB ({miss:+.2%}, "
           f"{'within' if abs(miss) <= TP_PEAK_TOL else 'outside'} "
           f"{TP_PEAK_TOL:.0%}); rmsnorm launches a step {[c['rmsnorm'] for c in launches]}; "
@@ -3212,14 +3266,16 @@ def tp_phase(card: str) -> dict:
     print(f"  rank 0 under adamw_8bit: one step {q8['seconds'][0]:.4f} s, loss "
           f"{q8['losses'][0]}, grad norm {q8['norms'][0]}; stored optimizer state "
           f"{q8['held_opt'] / 2**30:.3f} GiB (dry run {q8['mem']['opt_bytes'] / 2**30:.3f}); "
-          f"max_memory_allocated {q8['peak'] / 2**30:.3f} GiB against the dry run's "
+          f"max_memory_allocated {q8['peak'] / 2**30:.3f} GiB (the weights' draw "
+          f"{q8['draw_peak'] / 2**30:.3f} GiB) against the dry run's "
           f"{q8['mem']['peak_bytes'] / 2**30:.3f} GiB ({q8['miss']:+.2%}; gathered "
           f"{q8['mem']['gathered_bytes'] / 2**30:.3f} GiB); {card}", flush=True)
     if not all(map(math.isfinite, q8["losses"] + q8["norms"])) \
             or q8["held_opt"] != q8["mem"]["opt_bytes"]:
         fail(f"tp 8-bit: losses {q8['losses']}, grad norms {q8['norms']}, stored optimizer "
              f"bytes {q8['held_opt']} against the dry run's {q8['mem']['opt_bytes']}")
-    return dict(launches[-1], peak_bytes=peak, predicted_peak_bytes=predicted,
+    return dict(launches[-1], peak_bytes=peak, draw_peak_bytes=r["draw_peak"],
+                predicted_peak_bytes=predicted,
                 step_s=r["seconds"], adamw_8bit=dict(peak_bytes=q8["peak"],
                                                       predicted_peak_bytes=q8["mem"]["peak_bytes"]))
 
@@ -3229,7 +3285,7 @@ TP_SERVE_ARCH = "yi-34b"
 
 
 def tp_serve_phase(card: str, arch: str = TP_SERVE_ARCH, run=None, steps: int = STEPS,
-                   split: bool = False) -> dict:
+                   split: bool = False, mesh_sizes=TP_MESH, rec=None, rank: int = 0) -> dict:
     """One rank (rank 0) of yi-34b's sharded serve on a (data 1, model 8)
     mesh under the fake group, at its 60 layers and published widths:
     ``serve(..., sharded=True)`` with batch B, the PROMPT-token prompt and
@@ -3243,8 +3299,11 @@ def tp_serve_phase(card: str, arch: str = TP_SERVE_ARCH, run=None, steps: int = 
     logits, tokens in range, each kernel launched (the counts reset just
     before the serve). The outputs are not a model's: the fake group sums
     nothing. Returns the launch counts. ``arch``, ``run`` and ``steps``: another
-    config's rank at ``steps`` decode steps; ``split``: its recurrent cells
-    on the rank's heads, RMSNorm's split mode launched too."""
+    config's rank at ``steps`` decode steps (a kernel it has no layer for
+    need not launch); ``split``: its recurrent cells on the rank's heads,
+    RMSNorm's split mode launched too; ``mesh_sizes``: another mesh;
+    ``rec``: the dry run's record, made already; ``rank``: the rank the card
+    runs (the dry run traces the last: ``dryrun.traced_rank``)."""
     import gc
     import torch
     import torch.distributed as dist
@@ -3260,9 +3319,10 @@ def tp_serve_phase(card: str, arch: str = TP_SERVE_ARCH, run=None, steps: int = 
     run = get_config(arch) if run is None else run
     shape = ShapeSpec("prefill_tp_card", PROMPT, B, "prefill")
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as out:
-        rec = dr.run_cell(arch, shape.name, False, False, out,
-                          mesh=("data1_model8", TP_MESH), run=run, shape=shape)
+    if rec is None:
+        with tempfile.TemporaryDirectory() as out:
+            rec = dr.run_cell(arch, shape.name, False, False, out,
+                              mesh=(mesh_name(mesh_sizes), mesh_sizes), run=run, shape=shape)
     if rec["status"] != "ok":
         fail(f"tp serve: the dry run of the rank failed: {rec.get('error')}")
     mem = rec["memory"]
@@ -3283,11 +3343,12 @@ def tp_serve_phase(card: str, arch: str = TP_SERVE_ARCH, run=None, steps: int = 
         torch.cuda.reset_peak_memory_stats()
         return tp
 
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=math.prod(TP_MESH.values()))
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=math.prod(mesh_sizes.values()))
     serve_mod.tensor.build_sharded = drawn
     try:
-        mesh = init_device_mesh("cuda", tuple(TP_MESH.values()), mesh_dim_names=tuple(TP_MESH))
+        mesh = init_device_mesh("cuda", tuple(mesh_sizes.values()),
+                                mesh_dim_names=tuple(mesh_sizes))
         base = torch.cuda.memory_allocated()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3306,9 +3367,11 @@ def tp_serve_phase(card: str, arch: str = TP_SERVE_ARCH, run=None, steps: int = 
     apps = attention_applications(run.model)
     want = {"flash_attention": apps, "decode_attention": apps * steps}
     timed = res["kernel_launches"]
-    print(f"  tp serve: rank 0 of {TP_MESH} {arch} ({n_layers} layers, "
-          f"{run.model.n_heads} heads on {run.model.n_kv_heads} on {TP_MESH['model']}), batch {B}, "
-          f"prompt {PROMPT}, {steps} steps, cache {CACHE} ({CACHE // TP_MESH['model']} a rank): "
+    m = mesh_sizes["model"]
+    print(f"  tp serve: rank {rank} of {mesh_sizes} {arch} ({n_layers} layers, "
+          f"{run.model.n_heads} heads on {run.model.n_kv_heads} on {m}), batch {B}, "
+          f"prompt {PROMPT}, {steps} steps, cache {-(-CACHE // m) * m} ({-(-CACHE // m)} a "
+          "rank): "
           f"{res['weight_bytes'] / 2**30:.3f} GiB of weights held; serve {seconds:.2f} s with the "
           f"draw; prefill_s {res['prefill_s']:.4f}, decode_tok_per_s "
           f"{res['decode_tok_per_s']:.2f}; max_memory_allocated {peak / 2**30:.3f} GiB against "
@@ -3317,7 +3380,7 @@ def tp_serve_phase(card: str, arch: str = TP_SERVE_ARCH, run=None, steps: int = 
           f"launches timed {timed}, in all {counts}; {card}", flush=True)
     if not torch.isfinite(logits).all() or toks.min() < 0 or toks.max() >= run.model.vocab_size:
         fail("tp serve: prefill logits not finite or tokens out of range")
-    if not all(v for k, v in counts.items() if k != "rmsnorm_split" or split) \
+    if not all(v for k, v in counts.items() if (k != "rmsnorm_split" or split) and want.get(k, 1)) \
             or any(timed[k] != v for k, v in want.items()):
         fail(f"tp serve: launches {timed} timed, {counts} in all; expected {want} timed")
     if abs(miss) > TP_PEAK_TOL:
@@ -3344,18 +3407,30 @@ def tp_ssm_run():
 
 
 @contextlib.contextmanager
-def filled_all_to_all():
-    """The fake group's all-to-all leaves its output unwritten on the card
-    (uninitialised memory, NaN at times), where on the CPU it fills each
-    received piece with the first rows of the rank's input. Under
-    this context every all-to-all of ``parallel.tensor`` is issued to the
-    group as before and its output then filled as on the CPU, in place, so
-    that a rank's values stay finite (they are not a model's either way)."""
+def filled_collectives():
+    """The fake group's all-to-all, all-gather and reduce-scatter leave their
+    outputs unwritten on the card (uninitialised memory, NaN at times),
+    where on the CPU the all-to-all fills each received piece with the first
+    rows of the rank's input. Under this context every such collective of
+    ``parallel.tensor`` is issued to the group as before and its output then
+    filled in place, so that a rank's values stay finite (they are not a
+    model's either way): an all-to-all as on the CPU, an all-gather with the
+    rank's input in every rank's place, a reduce-scatter with the rank's own
+    chunk of its input (one copy kernel each). Yields a dict counting each
+    collective issued on the card by (kind, group size), the all-reduces
+    included (a dry run's trace on the meta device is not counted)."""
     from repro_torch.parallel import tensor
-    real = tensor.all_to_all
+    real = {n: getattr(tensor, n) for n in ("all_to_all", "all_gather", "reduce_scatter",
+                                            "all_reduce")}
+    calls = {}
 
-    def filled(t, group, out_splits, in_splits):
-        out = real(t, group, out_splits, in_splits)
+    def count(kind, group, t):
+        if group.size > 1 and not t.is_meta:
+            calls[kind, group.size] = calls.get((kind, group.size), 0) + 1
+
+    def all_to_all(t, group, out_splits, in_splits):
+        count("all_to_all", group, t)
+        out = real["all_to_all"](t, group, out_splits, in_splits)
         if group.size > 1:
             start = 0
             for n in out_splits:
@@ -3363,11 +3438,34 @@ def filled_all_to_all():
                 start += n
         return out
 
-    tensor.all_to_all = filled
+    def all_gather(t, group, dim):
+        count("all_gather", group, t)
+        out = real["all_gather"](t, group, dim)
+        if group.size > 1:
+            d = dim % t.dim()
+            out.unflatten(d, (group.size, t.shape[d])).copy_(t.unsqueeze(d))
+        return out
+
+    def reduce_scatter(t, group, dim):
+        count("reduce_scatter", group, t)
+        out = real["reduce_scatter"](t, group, dim)
+        if group.size > 1:
+            n = out.shape[dim]
+            out.copy_(t.narrow(dim, group.rank * n, n))
+        return out
+
+    def all_reduce(t, group, op="sum"):
+        count("all_reduce", group, t)
+        return real["all_reduce"](t, group, op)
+
+    for n, f in (("all_to_all", all_to_all), ("all_gather", all_gather),
+                 ("reduce_scatter", reduce_scatter), ("all_reduce", all_reduce)):
+        setattr(tensor, n, f)
     try:
-        yield
+        yield calls
     finally:
-        tensor.all_to_all = real
+        for n, f in real.items():
+            setattr(tensor, n, f)
 
 
 def tp_ssm_phase(card: str) -> dict:
@@ -3376,9 +3474,9 @@ def tp_ssm_phase(card: str) -> dict:
     step (``tp_rank``) and a sharded serve (``tp_serve_phase``), each peak
     within ``TP_PEAK_TOL`` of the dry run's; the split mode launched in
     both. The all-to-alls are filled as the fake group fills them on the
-    CPU (``filled_all_to_all``). Returns the launch counts: ``train`` and
+    CPU (``filled_collectives``). Returns the launch counts: ``train`` and
     ``serve`` apart, and their sums."""
-    with filled_all_to_all():
+    with filled_collectives():
         return _tp_ssm(card)
 
 
@@ -3396,7 +3494,8 @@ def _tp_ssm(card: str) -> dict:
     print(f"  zamba2-7b rank 0 of {TP_MESH} ({run.model.n_layers} Mamba2 layers and the shared "
           f"block, {heads // TP_MESH['model']} of {heads} heads a rank): {r['local'] / 1e9:.4f} B "
           f"of {r['whole'] / 1e9:.4f} B parameters held; step {r['seconds'][0]:.4f} s; "
-          f"max_memory_allocated {r['peak'] / 2**30:.3f} GiB against the dry run's "
+          f"max_memory_allocated {r['peak'] / 2**30:.3f} GiB (the weights' draw "
+          f"{r['draw_peak'] / 2**30:.3f} GiB, not held to the dry run) against the dry run's "
           f"{r['mem']['peak_bytes'] / 2**30:.3f} GiB ({r['miss']:+.2%}, "
           f"{'within' if abs(r['miss']) <= TP_PEAK_TOL else 'outside'} {TP_PEAK_TOL:.0%}); "
           f"launches {launches}; loss {r['losses'][0]}, grad norm {r['norms'][0]} (not a "
@@ -3411,9 +3510,114 @@ def _tp_ssm(card: str) -> dict:
     serve_counts = {k: v for k, v in serve.items() if k in launches}
     return dict({k: launches[k] + serve_counts[k] for k in launches},
                 train=launches, serve=serve_counts, train_peak_bytes=r["peak"],
+                train_draw_peak_bytes=r["draw_peak"],
                 train_predicted_peak_bytes=r["mem"]["peak_bytes"],
                 serve_peak_bytes=serve["peak_bytes"],
                 serve_predicted_peak_bytes=serve["predicted_peak_bytes"])
+
+
+TP_XLSTM_ARCH = "xlstm-125m"
+TP_XLSTM_MESH = {"data": 1, "model": 16}   # the grid's model size: 4 ranks a head
+TP_XLSTM_LAYERS = 4        # one unit: 3 mLSTM cells and an sLSTM cell
+
+
+def tp_xlstm_run():
+    """xlstm-125m at full width cut to one unit, one microbatch of batch 2 at
+    seq 4096 (``[tp]``'s size)."""
+    from repro_torch.configs import get_config
+    run = get_config(TP_XLSTM_ARCH)
+    return run.replace(model=dataclasses.replace(run.model, n_layers=TP_XLSTM_LAYERS),
+                       parallel=dataclasses.replace(run.parallel, microbatches=1),
+                       train=dataclasses.replace(run.train, seq_len=TP_SEQ,
+                                                 global_batch=TP_BATCH))
+
+
+def xlstm_dry_runs() -> dict:
+    """The dry run's records of the xlstm-125m rank of ``tp_xlstm_phase``, its
+    train step and its prefill (``train``, ``prefill``). Its sLSTM is traced
+    a step at a time at two lengths (``dryrun.LENGTHS``), ~40-60 s of host
+    time, so ``main`` runs this in a child process beside ``[fabric]`` and
+    ``[drills]`` (no card time there is held to a bound) and waits for it
+    before ``[campaigns]``; the child touches no card."""
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.launch import dryrun as dr
+    run, recs = tp_xlstm_run(), {}
+    with tempfile.TemporaryDirectory() as out:
+        for shape in (ShapeSpec("train_tp_xlstm_card", TP_SEQ, TP_BATCH, "train"),
+                      ShapeSpec("prefill_tp_card", PROMPT, B, "prefill")):
+            recs[shape.kind] = dr.run_cell(TP_XLSTM_ARCH, shape.name, False, False, out,
+                                           mesh=(mesh_name(TP_XLSTM_MESH), TP_XLSTM_MESH),
+                                           run=run, shape=shape)
+    return recs
+
+
+def tp_xlstm_phase(card: str, recs=None) -> dict:
+    """One rank of xlstm-125m on a (data 1, model 16) mesh under the fake
+    group (module docstring): its 4 heads do not divide 16, so every cell
+    computes a quarter of one head (``models/ssm.py``), its scores, q and k
+    and sLSTM's hidden state summed or gathered over the head's 4 ranks. A
+    train step (``tp_rank``) and a sharded serve (``tp_serve_phase``), each
+    peak within ``TP_PEAK_TOL`` of the dry run's, the grad norm finite, the
+    split mode launched in both and the head groups' collectives issued
+    (``filled_collectives``, which also fills the fake group's all-gathers
+    and reduce-scatters). ``recs``: ``xlstm_dry_runs``' records, made
+    already. Returns the launch counts as ``tp_ssm_phase``."""
+    with filled_collectives() as calls:
+        return _tp_xlstm(card, calls, recs or {})
+
+
+def _tp_xlstm(card: str, calls: dict, recs: dict) -> dict:
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.launch import dryrun as dr
+
+    run = tp_xlstm_run()
+    heads, m = run.model.n_heads, TP_XLSTM_MESH["model"]
+    g = m // heads
+    shape = ShapeSpec("train_tp_xlstm_card", TP_SEQ, TP_BATCH, "train")
+    calls.clear()
+    r = tp_rank(run, shape, 1, arch=TP_XLSTM_ARCH, mesh_sizes=TP_XLSTM_MESH,
+                rec=recs.get("train"))
+    train_calls = {k: v for k, v in calls.items() if k[1] == g}
+    (launches,) = r["launches"]
+    print(f"  xlstm-125m rank 0 of {TP_XLSTM_MESH} ({run.model.n_layers} layers: 3 mLSTM cells "
+          f"and an sLSTM cell, a quarter of one of {heads} heads a rank, g {r['parts']}): "
+          f"{r['local'] / 1e9:.4f} B of {r['whole'] / 1e9:.4f} B parameters held; step "
+          f"{r['seconds'][0]:.4f} s; max_memory_allocated {r['peak'] / 2**30:.3f} GiB (the "
+          f"weights' draw {r['draw_peak'] / 2**30:.3f} GiB, not held to the dry run) against "
+          f"the dry run's {r['mem']['peak_bytes'] / 2**30:.3f} GiB ({r['miss']:+.2%}, "
+          f"{'within' if abs(r['miss']) <= TP_PEAK_TOL else 'outside'} {TP_PEAK_TOL:.0%}); "
+          f"launches {launches} (split mode {launches['rmsnorm_split']}); head-group "
+          f"collectives {train_calls}; loss {r['losses'][0]}, grad norm {r['norms'][0]} (not a "
+          f"model's: the fake group sums nothing); {card}", flush=True)
+    if r["parts"] != [g] * TP_XLSTM_LAYERS or not train_calls:
+        fail(f"tp xlstm: cells on head parts {r['parts']}, head-group collectives {train_calls}")
+    if launches["rmsnorm_split"] == 0 or not all(map(math.isfinite, r["losses"] + r["norms"])):
+        fail(f"tp xlstm: launches {launches}, losses {r['losses']}, grad norms {r['norms']}")
+    if abs(r["miss"]) > TP_PEAK_TOL:
+        fail(f"tp xlstm: max_memory_allocated {r['peak'] / 2**30:.3f} GiB misses the dry "
+             f"run's {r['mem']['peak_bytes'] / 2**30:.3f} GiB by {r['miss']:+.2%}")
+    calls.clear()
+    # the rank the dry run traces for a serve step: the last, which holds the
+    # decoded position (rank 0 holds xi's columns of up and sends each to
+    # every rank: a send buffer 16 times the last rank's)
+    prefill = ShapeSpec("prefill_tp_card", PROMPT, B, "prefill")
+    serve = tp_serve_phase(card, arch=TP_XLSTM_ARCH, run=run, steps=TP_SSM_STEPS, split=True,
+                           mesh_sizes=TP_XLSTM_MESH, rec=recs.get("prefill"),
+                           rank=dr.traced_rank(run, prefill, TP_XLSTM_MESH)[0])
+    serve_calls = {k: v for k, v in calls.items() if k[1] == g}
+    print(f"  xlstm-125m serve: split mode {serve['rmsnorm_split']}, head-group collectives "
+          f"{serve_calls}", flush=True)
+    if not serve_calls:
+        fail(f"tp xlstm serve: no collective over a head's {g} ranks")
+    serve_counts = {k: v for k, v in serve.items() if k in launches}
+    return dict({k: launches[k] + serve_counts[k] for k in launches},
+                train=launches, serve=serve_counts, train_peak_bytes=r["peak"],
+                train_draw_peak_bytes=r["draw_peak"],
+                train_predicted_peak_bytes=r["mem"]["peak_bytes"], train_s=r["seconds"][0],
+                serve_peak_bytes=serve["peak_bytes"],
+                serve_predicted_peak_bytes=serve["predicted_peak_bytes"],
+                head_collectives={"train": {f"{k}/{n}": v for (k, n), v in train_calls.items()},
+                                  "serve": {f"{k}/{n}": v for (k, n), v in serve_calls.items()}})
 
 
 def fault_check(trainer, report, per_ingest, spent, det_counts, ckpt_bytes) -> None:
@@ -5209,7 +5413,7 @@ def main(argv=None) -> int:
     shard_err, shard_rows = shard_decode_phase(ITERS, card)
     wide_attention_phase()
     norm_err, norm_rows, norm_extra = rmsnorm_phase(ITERS)
-    split_err, split_row = rmsnorm_split_phase(ITERS, card)
+    split_err, split_rows = rmsnorm_split_phase(ITERS, card)
     model_err, model_rows = model_kernel_phase(ITERS)
     print(f"[kernels] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -5220,6 +5424,12 @@ def main(argv=None) -> int:
     det_err, det_rows, det_counts = detect_phase(DETECT_ITERS)
     print(f"[detect] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # the [tp] xlstm-125m rank's dry runs, in a child process beside [fabric]
+    # and [drills] (host time only; the child touches no card)
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    xlstm_dry = pool.submit(xlstm_dry_runs)
     t0 = time.perf_counter()
     print("[fabric]", flush=True)
     wf_launches, wf_err, wf_rows, (ew_launches, ew_err, ew_row) = fabric_phase(ITERS)
@@ -5229,6 +5439,11 @@ def main(argv=None) -> int:
     print("[drills]", flush=True)
     drill_counts = drills_phase()
     print(f"[drills] done in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    xlstm_recs = xlstm_dry.result()
+    pool.shutdown()
+    print(f"[tp] xlstm-125m rank's dry runs waited for {time.perf_counter() - t0:.1f} s "
+          "after [drills]", flush=True)
 
     t0 = time.perf_counter()
     print("[campaigns]", flush=True)
@@ -5268,6 +5483,9 @@ def main(argv=None) -> int:
     tp_counts = tp_phase(card)
     tp_serve_counts = tp_serve_phase(card)
     tp_ssm_counts = tp_ssm_phase(card)
+    t1 = time.perf_counter()
+    tp_xlstm_counts = tp_xlstm_phase(card, xlstm_recs)
+    print(f"[tp] xlstm-125m rank {time.perf_counter() - t1:.1f} s", flush=True)
     print(f"[tp] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
@@ -5287,6 +5505,7 @@ def main(argv=None) -> int:
           f"train fault {train_fault_counts}, train int8 {int8_counts}, mesh {mesh_counts}, "
           f"tp {tp_counts}, tp serve {tp_serve_counts}, tp batch mode {batch_mode_counts}, "
           f"tp sequence mode {seq_mode_counts}, tp zamba2 {tp_ssm_counts}, "
+          f"tp xlstm {tp_xlstm_counts}, "
           f"live {live_counts}, campaigns {campaign_counts}, models {model_launches}",
           flush=True)
 
@@ -5359,17 +5578,27 @@ def main(argv=None) -> int:
              prefill=times(norm_rows[1]), decode=dict(times(norm_rows[2]), **norm_extra),
              live=live_counts["rmsnorm"], train_int8=int8_counts["rmsnorm"],
              mesh=mesh_counts["rmsnorm"], tp=tp_counts["rmsnorm"], **sharded("rmsnorm"),
-             tp_zamba2=tp_ssm_counts["rmsnorm"], split_mode="rmsnorm_split"),
-        # the split mode at zamba2-7b's gated norm in 8 shards; its launches in
-        # [tp]'s zamba2-7b rank (a train step, a prefill and 4 decode steps)
+             tp_zamba2=tp_ssm_counts["rmsnorm"], tp_xlstm=tp_xlstm_counts["rmsnorm"],
+             split_mode="rmsnorm_split"),
+        # the split mode at zamba2-7b's gated norm in 8 shards (xlstm-125m's
+        # two in 16 under "cases", its max errors over all three); its launches in
+        # [tp]'s zamba2-7b rank and xlstm-125m rank (each a train step, a
+        # prefill and 4 decode steps)
         {"name": "rmsnorm_split", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
          "replaces": "src/repro/kernels/rmsnorm.py:27",
-         "launches": tp_ssm_counts["rmsnorm_split"], "max_abs_err": split_err[0],
-         "max_row_rel_err": split_err[1], **times(split_row[:7]),
-         "whole_row_device_ms": split_row[7], "shape": list(SPLIT_SHAPE),
-         "shards": SPLIT_SHARDS, "train": tp_ssm_counts["train"]["rmsnorm_split"],
-         "serve": tp_ssm_counts["serve"]["rmsnorm_split"]},
+         "launches": tp_ssm_counts["rmsnorm_split"] + tp_xlstm_counts["rmsnorm_split"],
+         "max_abs_err": split_err[0],
+         "max_row_rel_err": split_err[1], **times(split_rows[0][:7]),
+         "whole_row_device_ms": split_rows[0][7], "shape": list(SPLIT_CASES[0][0]),
+         "shards": SPLIT_CASES[0][1],
+         "cases": [dict(times(row[:7]), whole_row_device_ms=row[7], shape=list(shape),
+                        shards=shards, norm=label)
+                   for row, (shape, shards, label) in zip(split_rows[1:], SPLIT_CASES[1:])],
+         "train": tp_ssm_counts["train"]["rmsnorm_split"],
+         "serve": tp_ssm_counts["serve"]["rmsnorm_split"],
+         "xlstm_train": tp_xlstm_counts["train"]["rmsnorm_split"],
+         "xlstm_serve": tp_xlstm_counts["serve"]["rmsnorm_split"]},
         *(detect_entry(name, src, rep, det_counts[name], det_err[name], det_rows[name])
           for name, src, rep in DETECT_KERNELS),
         # the balancer's last call of the C4P main path; launches there, in the

@@ -54,19 +54,21 @@ def rmsnorm(x, scale, eps: float = 1e-6, use_kernel: bool = True, split=None):
     """Gemma-style RMSNorm over the last axis; differentiable either way.
     The kernel goes through ``RMSNormFn`` only when a backward can be taken
     (grad enabled and an input that requires it); otherwise, as in serving,
-    ``rmsnorm_fwd`` is called directly, without the autograd node. With
-    ``split`` (an ``rmsnorm.Split``), ``x`` holds this rank's columns of each
-    row and ``scale`` their scale: the split mode (its two launches, or
-    their plain halves without ``use_kernel``)."""
+    ``rmsnorm_fwd`` is called directly, without the autograd node. Without
+    ``use_kernel`` the gradient is autograd's over ``ref.rmsnorm``, a
+    backward of its own that the kernel path's is held to; on the meta
+    device (the dry run's trace) it goes through ``RMSNormFn`` with the
+    plain forward, so the trace saves and computes what the kernel path does
+    on the card. With ``split`` (an ``rmsnorm.Split``), ``x`` holds this
+    rank's columns of each row and ``scale`` their scale: the split mode
+    (its two launches, or their plain halves without ``use_kernel``), always
+    through ``RMSNormFn`` for a backward."""
+    backward = torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad)
+    if backward and (use_kernel or split is not None or x.is_meta):
+        return _rmsnorm.RMSNormFn.apply(x, scale, eps, split, use_kernel)
     if split is not None:
-        if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
-            return _rmsnorm.RMSNormFn.apply(x, scale, eps, split, use_kernel)
         return _rmsnorm.rmsnorm_split_fwd(x, scale, eps, split, use_kernel)[0]
-    if not use_kernel:
-        return ref.rmsnorm(x, scale, eps)
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
-        return _rmsnorm.RMSNormFn.apply(x, scale, eps)
-    return _rmsnorm.rmsnorm_fwd(x, scale, eps)
+    return _rmsnorm.rmsnorm_fwd(x, scale, eps) if use_kernel else ref.rmsnorm(x, scale, eps)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -202,8 +202,18 @@ def rmsnorm_split_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     g = dyf * (1.0 + scale.float())
     dot = split.reduce((g * x_hat).sum(dim=-1)) / split.width
     dx = r * (g - x_hat * dot[..., None])
-    dscale = (dyf * x_hat).reshape(-1, x.shape[-1]).sum(dim=0)
+    dscale = column_sum(dyf * x_hat)
     return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def column_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum over every row of a (..., D) float32 tensor, as a
+    matrix-vector product with ones: cuBLAS needs no buffer for it, where
+    the CUDA reduction over the rows allocates a staging buffer of up to
+    twice its input (132 MiB at (8704, 3584) on the H100), which the dry
+    run's trace of a step cannot count."""
+    t = t.reshape(-1, t.shape[-1])
+    return torch.mv(t.t(), t.new_ones(t.shape[0]))
 
 
 def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
@@ -218,21 +228,24 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     dyf = dy.float()
     g = dyf * (1.0 + scale.float())
     dx = r * (g - x_hat * (g * x_hat).mean(dim=-1, keepdim=True))
-    dscale = (dyf * x_hat).reshape(-1, x.shape[-1]).sum(dim=0)
+    dscale = column_sum(dyf * x_hat)
     return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
 class RMSNormFn(torch.autograd.Function):
-    """``rmsnorm_fwd`` with ``rmsnorm_bwd`` as its gradient; with a
-    ``Split``, the split mode (``rmsnorm_split_fwd``, through the kernels or,
-    with ``use_kernel`` False, the plain halves) with ``rmsnorm_split_bwd``."""
+    """``rmsnorm_fwd`` (with ``use_kernel`` False, the plain version) with
+    ``rmsnorm_bwd`` as its gradient; with a ``Split``, the split mode
+    (``rmsnorm_split_fwd``, through the kernels or, with ``use_kernel``
+    False, the plain halves) with ``rmsnorm_split_bwd``. The plain forward
+    serves the dry run's trace on the meta device (``ops.rmsnorm``), which
+    saves and computes in the backward what the kernel path does."""
 
     @staticmethod
     def forward(ctx, x, scale, eps: float, split: Split = None, use_kernel: bool = True):
         ctx.eps, ctx.split = eps, split
         if split is None:
             ctx.save_for_backward(x, scale)
-            return rmsnorm_fwd(x, scale, eps)
+            return rmsnorm_fwd(x, scale, eps) if use_kernel else ref.rmsnorm(x, scale, eps)
         out, total = rmsnorm_split_fwd(x, scale, eps, split, use_kernel)
         ctx.save_for_backward(x, scale, total)
         return out

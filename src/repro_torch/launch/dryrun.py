@@ -50,12 +50,14 @@ ranks costs nothing. A device does what the port does:
     columns, the experts or the vocab divide by the ``model`` size, and whole
     on every ``model`` rank where they do not (attention where ``n_heads``
     does not divide: gemma2-2b's 8, smollm-135m's 9, musicgen-medium's 24,
-    yi-34b's and arctic-480b's 56 at 16; a recurrent cell whose heads do not
-    divide: xlstm-125m's 4 at 16), whose weights are then gathered over
-    ``model`` too. A recurrent cell whose heads divide (zamba2-7b's 112
+    yi-34b's and arctic-480b's 56 at 16), whose weights are then gathered
+    over ``model`` too. A recurrent cell whose heads divide (zamba2-7b's 112
     Mamba2 heads) computes on the rank's heads (``models/ssm.py``): its
     projections' columns moved by all-to-alls over ``model``, its norm's
-    row sums and its output all-reduced over ``model``;
+    row sums and its output all-reduced over ``model``; an xLSTM cell whose
+    4 heads ``model`` 16 does not divide (xlstm-125m) on a part of one head,
+    1/4 of its width, its scores, normaliser, q and k and sLSTM's hidden
+    state summed or gathered over the head's 4 ranks;
   * ``memory.argument_bytes`` is the state stored under the JAX package's
     placements: ``param_specs`` with its ``attn_zero`` rule (tp = the mesh's
     ``model`` size) and ``moe_zero``; the optimizer state under
@@ -106,8 +108,8 @@ added unit repeats a later one, hence 2 and 3 (``UNITS``). A model of
 recurrent blocks only (xlstm-125m) steps its sLSTM one token at a time in
 Python, so its prefill and train cells are traced at two sequence lengths
 (``LENGTHS``) and extrapolated in the length too: mLSTM chunks, sLSTM steps
-and the loss's chunks are linear in S, so the traces give the full cell
-exactly. Eager counting counts every step of a loop, so the JAX package's
+and the loss's chunks are linear in S, and so are the collectives of a cell
+on a part of a head, so the traces give the full cell exactly. Eager counting counts every step of a loop, so the JAX package's
 ``scan_utils`` (XLA counts a ``scan`` body once) has no counterpart. The
 record's ``extrapolation`` says what was traced and how the peak was
 extrapolated, and gives the affine peak's temporaries beside it
@@ -822,9 +824,9 @@ def cell_costs(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int]) -> 
     total, arg, affine = totals[0], args[0], peaks[0]
     if lengths:
         (l0, l1), s = lengths, shape.seq_len
-        total = rl.CostTerms(_affine(totals[0].flops, totals[1].flops, l0, l1, s),
-                             _affine(totals[0].hbm_bytes, totals[1].hbm_bytes, l0, l1, s),
-                             totals[0].coll)
+        # FLOPs, bytes and the collectives (a cell on a part of a head sums
+        # and gathers activations: every chunk, every sLSTM step) affine in S
+        total = totals[0].extrapolate(totals[1].diff(totals[0]), (s - l0) / (l1 - l0))
         arg = _affine(args[0], args[1], l0, l1, s)
         affine = _affine(peaks[0], peaks[1], l0, l1, s)
         pairs = counterparts(names[0], names[1]) if aligned else None

@@ -43,6 +43,40 @@ all-to-all of d^2 / model weights) rather than the normed input gathered
 whole (an all-gather of every token's d columns, larger in training and
 prefill), so its input stays on the heads and its norm in the split mode.
 The body of each cell is one for both: a ``_View`` holds what differs.
+
+Where ``model`` is a multiple g·H of an xLSTM cell's H heads (xlstm-125m's 4
+at 8 and 16; ``tp.parts_over_model``), the cell computes one head's 1/g: rank
+r takes head r // g and part r % g of its width (``tp.head_part``). The rules'
+column blocks of ``up``, ``wq``/``wk``/``wv``, ``w``, ``down``'s rows and
+``out`` are then each exactly the rank's part, so the exchanges, the norm's
+split mode and the output projections run as on whole heads; a weight the
+rules leave whole (``wif``, ``if_bias``, sLSTM's ``r``) is cut to the rank's
+head (and part), its gradient gathered; the gates are computed by each of a
+head's g ranks. What a head's ranks share goes over the head's group
+(``HeadPart``), as XLA's GSPMD places the reference's cells:
+
+- mLSTM (``mlstm_chunk_scan``/``mlstm_step`` with ``part``): q, k and v are
+  the rank's P/g columns of its head; C holds its P/g value rows against
+  every key column and n its P/g key columns. The scores q·k and the
+  normaliser n·q are partial sums over the rank's columns, summed over the
+  head's ranks (one all-reduce a chunk, both together); C·q and C's update
+  read the chunk's q and k across the head's width, gathered over its ranks
+  (one all-gather of both a chunk). Gathering the head's ``wq``/``wk``
+  columns instead (q and k computed whole by each of its ranks) would move
+  d_inner × P weights a call and compute g times the q and k projections:
+  a rank's share of the cell at g = 4 about 0.5, not 0.25. The compiled
+  reference does the same in its chunk loop: it gathers k and q and
+  all-reduces the two partial sums together. A chunk's collectives stay in
+  its own backward, so a longer sequence only repeats chunks (what the dry
+  run's extrapolation in the length reads).
+- sLSTM (``slstm_step`` with ``part``): the rank holds its head's Dh/g units
+  of every gate (``w``'s blocks moved to it, as on whole heads) and of the
+  state; each step gathers the head's hidden state over its ranks (B, Dh)
+  and multiplies it by ``r[:, head, :, part]``. The compiled reference also
+  issues one collective a step over the head's ranks, but of the gates'
+  input projections (it holds a gate of a head a rank and the head's state
+  whole on each of its ranks): four times the bytes, and each rank runs the
+  head's whole recurrence.
 """
 from __future__ import annotations
 
@@ -62,12 +96,14 @@ NEG_INIT = -1e9             # the stabilisers' initial value, as the JAX package
 class _View(NamedTuple):
     """What a cell's body reads on this rank: its number of heads, its
     input projection(s) of x (``proj``), the weights by name, the norm of
-    a (..., this rank's heads' columns) tensor and the output projection."""
+    a (..., this rank's heads' columns) tensor and the output projection;
+    ``part`` (``tensor.HeadPart``) where it holds a part of one head."""
     heads: int
     proj: Callable
     w: dict
     norm: Callable
     out: Callable
+    part: Optional[object] = None
 
 
 def _heads_cols(tp, x: torch.Tensor, w: torch.Tensor, ex) -> torch.Tensor:
@@ -75,6 +111,15 @@ def _heads_cols(tp, x: torch.Tensor, w: torch.Tensor, ex) -> torch.Tensor:
     moved to this rank's heads by ``ex`` (``tp.to_heads``)."""
     y = tp.copy_in(x) @ tp.gather_batch(w).to(x.dtype)
     return tp.to_heads(y, ex, y.dim() - 1)
+
+
+def _head_cols(tp, x: torch.Tensor, heads: int, dim: int) -> torch.Tensor:
+    """This rank's heads of ``dim`` of ``x``, which the rules leave whole:
+    its ``1/model`` of them, or the one head it holds a part of (each head
+    repeated for its g ranks). The backward gathers the ranks' gradients
+    (a head's g summed), so each rank's is the whole's."""
+    g = tp.size // heads
+    return tp.chunk(x.repeat_interleave(g, dim) if g > 1 else x, dim)
 
 
 def _init_linear(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -321,29 +366,44 @@ def mlstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
     return d_inner, cfg.n_heads, d_inner // cfg.n_heads
 
 
-def mlstm_step(state: MLSTMCache, q, k, v, i_raw, f_raw):
+def _whole_qk(q, k, part):
+    """q and k across the head's width: themselves, or on a part of a head
+    gathered over its ranks (one all-gather of both)."""
+    if part is None:
+        return q, k
+    return part.gather(torch.stack([q, k]), -1).unbind(0)
+
+
+def mlstm_step(state: MLSTMCache, q, k, v, i_raw, f_raw, part=None):
     """One time step. q/k/v: (B, H, P); i_raw/f_raw: (B, H). Stabilised
     exponential gating: the stored state is C~ = C e^{-m};
-    h = C~ q / max(|n~ . q|, e^{-m})."""
+    h = C~ q / max(|n~ . q|, e^{-m}). On a part of a head (``part``): q/k/v
+    its P/g columns, C (B, 1, P/g, P), n its P/g key columns (module
+    docstring)."""
     C, n, m = state
     f_log = F.logsigmoid(f_raw)
     m_new = torch.maximum(f_log + m, i_raw)
     i_g = torch.exp(i_raw - m_new)
     f_g = torch.exp(f_log + m - m_new)
-    k_s = k / (q.shape[-1] ** 0.5)
+    k_s = k / (q.shape[-1] * (part.g if part else 1)) ** 0.5
+    q_all, k_all = _whole_qk(q, k_s, part)
     C_new = f_g[..., None, None] * C + i_g[..., None, None] * torch.einsum("bhp,bhq->bhpq",
-                                                                          v, k_s)
+                                                                          v, k_all)
     n_new = f_g[..., None] * n + i_g[..., None] * k_s
-    num = torch.einsum("bhpq,bhq->bhp", C_new, q)
-    den = torch.maximum(torch.einsum("bhp,bhp->bh", n_new, q).abs(), torch.exp(-m_new))
+    num = torch.einsum("bhpq,bhq->bhp", C_new, q_all)
+    nq = torch.einsum("bhp,bhp->bh", n_new, q)
+    den = torch.maximum((nq if part is None else part.sum(nq)).abs(), torch.exp(-m_new))
     return MLSTMCache(C_new, n_new, m_new), num / den[..., None]
 
 
-def mlstm_chunk_scan(q, k, v, i_raw, f_raw, state: MLSTMCache, chunk: int):
+def mlstm_chunk_scan(q, k, v, i_raw, f_raw, state: MLSTMCache, chunk: int, part=None):
     """Chunkwise-parallel mLSTM: attention-like within a chunk, the state
     carried across chunks. q/k/v: (B, L, H, P) float32; i_raw/f_raw: (B, L, H)
     float32. Padded steps are the identity (i = -1e9: no input; f = +1e9:
-    log sigmoid 0, no decay). Returns (B, L, H, P) and the final state."""
+    log sigmoid 0, no decay). Returns (B, L, H, P) and the final state. On a
+    part of a head (``part``) as ``mlstm_step``: each chunk's q and k
+    gathered over the head's ranks in one all-gather, its scores and
+    normaliser summed over them in one all-reduce."""
     b, l, h, p = q.shape
     qn = min(chunk, l)
     nc = -(-l // qn)
@@ -352,31 +412,37 @@ def mlstm_chunk_scan(q, k, v, i_raw, f_raw, state: MLSTMCache, chunk: int):
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
         i_raw = F.pad(i_raw, (0, 0, 0, pad), value=-1e9)
         f_raw = F.pad(f_raw, (0, 0, 0, pad), value=1e9)
-    k = k / (p ** 0.5)
+    k = k / (p * (part.g if part else 1)) ** 0.5
     mask = torch.ones(qn, qn, dtype=torch.bool, device=q.device).tril()[None, :, :, None]
     C, n, m0 = (t.float() for t in state)
     ys = []
     for c in range(nc):
         sl = slice(c * qn, (c + 1) * qn)
         qc, kc, vc, ic, fc = q[:, sl], k[:, sl], v[:, sl], i_raw[:, sl], f_raw[:, sl]
+        qa, ka = _whole_qk(qc, kc, part)
         ell = torch.cumsum(F.logsigmoid(fc), dim=1)                  # (B, q, H)
         # log-weights D[i, j] = ell_i - ell_j + i_j for j <= i
         D = torch.where(mask, ell[:, :, None, :] - ell[:, None, :, :] + ic[:, None, :, :],
                         float("-inf"))
         g = ell + m0[:, None, :]                                      # the state's path
         m_i = torch.maximum(D.amax(dim=2), g)                         # (B, q, H)
-        s = torch.exp(D - m_i[:, :, None, :]) * torch.einsum("bihp,bjhp->bijh", qc, kc)
+        qk = torch.einsum("bihp,bjhp->bijh", qc, kc)
+        nq = torch.einsum("bhp,bihp->bih", n, qc)
+        if part is not None:
+            both = part.sum(torch.cat([qk.flatten(1), nq.flatten(1)], dim=1))
+            qk, nq = both[:, :qk[0].numel()].view_as(qk), both[:, qk[0].numel():].view_as(nq)
+        s = torch.exp(D - m_i[:, :, None, :]) * qk
         u = torch.exp(g - m_i)
         num = (torch.einsum("bijh,bjhp->bihp", s, vc)
-               + u[..., None] * torch.einsum("bhpq,bihq->bihp", C, qc))
-        den_dot = s.sum(dim=2) + u * torch.einsum("bhp,bihp->bih", n, qc)
+               + u[..., None] * torch.einsum("bhpq,bihq->bihp", C, qa))
+        den_dot = s.sum(dim=2) + u * nq
         ys.append(num / torch.maximum(den_dot.abs(), torch.exp(-m_i))[..., None])
         # the state at the chunk's end
         lq = ell[:, -1:, :]
         m_state = torch.maximum(lq[:, 0] + m0, (lq - ell + ic).amax(dim=1))
         wS = torch.exp(lq - ell + ic - m_state[:, None, :])           # (B, q, H)
         carry = torch.exp(lq[:, 0] + m0 - m_state)
-        C = carry[:, :, None, None] * C + torch.einsum("bjh,bjhp,bjhq->bhpq", wS, vc, kc)
+        C = carry[:, :, None, None] * C + torch.einsum("bjh,bjhp,bjhq->bhpq", wS, vc, ka)
         n = carry[:, :, None] * n + torch.einsum("bjh,bjhp->bhp", wS, kc)
         m0 = m_state
     ys[-1] = ys[-1][:, :qn - pad]            # the padded steps' outputs
@@ -411,14 +477,25 @@ class MLSTM(nn.Module):
     tp = None
 
     def heads_split(self) -> bool:
-        """The cell computes on this rank's heads: ``model`` divides the heads
+        """The cell computes on a share of its heads on this rank: ``model``
+        divides the heads (the rank's heads) or is a multiple of them whose
+        factor divides the head width (a part of one head, ``head_part``),
         and the rules' placements hold (columns of ``up`` and ``wq``/``wk``/
         ``wv``, rows of ``down`` over ``model``; ``wif`` whole over it)."""
         tp = self.tp
-        return (tp is not None and tp.heads_over_model(self.cfg.n_heads)
+        _, h, p = mlstm_dims(self.cfg)
+        return (tp is not None
+                and (tp.heads_over_model(h) or tp.parts_over_model(h, p))
                 and tp.split_on((self.up, 1), (self.wq, 1), (self.wk, 1), (self.wv, 1),
                                 (self.down, 0))
                 and tp.split_dim(self.wif) is None)
+
+    def head_part(self):
+        """This rank's head and part (``tensor.HeadPart``) where the cell
+        computes on a part of one head, else None."""
+        _, h, p = mlstm_dims(self.cfg)
+        split = self.heads_split() and self.tp.parts_over_model(h, p)
+        return self.tp.head_part(h) if split else None
 
     def _view(self, use_kernel: bool) -> _View:
         names = ("wq", "wk", "wv", "wif", "if_bias")
@@ -427,23 +504,26 @@ class MLSTM(nn.Module):
                          {n: getattr(self, n) for n in names},
                          lambda y: self.norm(y, use_kernel),
                          lambda y: y @ self.down.to(y.dtype))
-        tp = self.tp
+        tp, part = self.tp, self.head_part()
         d_inner, h, _ = mlstm_dims(self.cfg)
-        hl = h // tp.size
+        hl = 1 if part else h // tp.size
         # up's columns xi | z: every head reads all of xi, a rank its heads' z
+        # (or its part of its head's)
         ex = tp.exchange(2 * d_inner, ((0, d_inner, True), (d_inner, d_inner, False)))
         w = {n: tp.gather_batch(getattr(self, n)) for n in ("wq", "wk", "wv")}
-        w["wif"] = tp.chunk(tp.gather_batch(self.wif).reshape(d_inner, 2, h), 2).reshape(
-            d_inner, 2 * hl)
-        w["if_bias"] = tp.chunk(self.if_bias.reshape(2, h), 1).reshape(2 * hl)
+        w["wif"] = _head_cols(tp, tp.gather_batch(self.wif).reshape(d_inner, 2, h), h,
+                              2).reshape(d_inner, 2 * hl)
+        w["if_bias"] = _head_cols(tp, self.if_bias.reshape(2, h), h, 1).reshape(2 * hl)
         return _View(hl, lambda x: _heads_cols(tp, x, self.up, ex), w,
                      lambda y: self.norm(y, use_kernel, tp),
-                     lambda y: tp.reduce_out(y @ tp.gather_batch(self.down).to(y.dtype)))
+                     lambda y: tp.reduce_out(y @ tp.gather_batch(self.down).to(y.dtype)), part)
 
-    def _zero_state(self, batch: int, heads: int) -> MLSTMCache:
+    def _zero_state(self, batch: int, heads: int, g: int = 1) -> MLSTMCache:
+        """Zeros (m at -1e9) for ``heads`` heads, or a head's 1/``g``."""
         p = mlstm_dims(self.cfg)[2]
         kw = dict(dtype=torch.float32, device=self.up.device)
-        return MLSTMCache(torch.zeros(batch, heads, p, p, **kw), torch.zeros(batch, heads, p, **kw),
+        return MLSTMCache(torch.zeros(batch, heads, p // g, p, **kw),
+                          torch.zeros(batch, heads, p // g, **kw),
                           torch.full((batch, heads), NEG_INIT, **kw))
 
     def init_cache(self, batch: int, dtype=None) -> MLSTMCache:
@@ -452,37 +532,47 @@ class MLSTM(nn.Module):
 
     def forward(self, x, state: Optional[MLSTMCache] = None, use_kernel: bool = True):
         """``mlstm_forward``: one step for L = 1, else the chunked form; on
-        this rank's heads where ``heads_split``."""
+        this rank's heads, or its part of one, where ``heads_split``."""
         d_inner, _, p = mlstm_dims(self.cfg)
         v = self._view(use_kernel)
-        h = v.heads
+        h, part = v.heads, v.part
+        g = part.g if part else 1
         b, l, _ = x.shape
         up = v.proj(x)
         xi, z = up[..., :d_inner], up[..., d_inner:]
-        q, k, vv = ((xi @ v.w[n].to(x.dtype)).reshape(b, l, h, p).float()
+        q, k, vv = ((xi @ v.w[n].to(x.dtype)).reshape(b, l, h, p // g).float()
                     for n in ("wq", "wk", "wv"))
         if_raw = (xi @ v.w["wif"].to(x.dtype)).float() + v.w["if_bias"]
         i_raw, f_raw = if_raw[..., :h], if_raw[..., h:]
         if state is None:
-            state = self._zero_state(b, h)
+            state = self._zero_state(b, h, g)
         if l == 1:
-            state, hs = mlstm_step(state, q[:, 0], k[:, 0], vv[:, 0], i_raw[:, 0], f_raw[:, 0])
+            state, hs = mlstm_step(state, q[:, 0], k[:, 0], vv[:, 0], i_raw[:, 0], f_raw[:, 0],
+                                   part)
             hs = hs[:, None]
         else:
-            hs, state = mlstm_chunk_scan(q, k, vv, i_raw, f_raw, state, MLSTM_CHUNK)
-        hs = v.norm(hs.reshape(b, l, h * p).to(x.dtype)) * F.silu(z)
+            hs, state = mlstm_chunk_scan(q, k, vv, i_raw, f_raw, state, MLSTM_CHUNK, part)
+        hs = v.norm(hs.reshape(b, l, h * p // g).to(x.dtype)) * F.silu(z)
         return v.out(hs), state
 
     decode = forward
 
     def state_to_heads(self, cache: MLSTMCache) -> MLSTMCache:
         """A cache of the rules' shards -> this rank's heads (C on its P
-        columns, as ``cache_spec`` puts it, moved to the heads)."""
-        return MLSTMCache(*(self.tp.cache_to_heads(t, 1) for t in cache))
+        columns, as ``cache_spec`` puts it, moved to the heads), or its part
+        of one (C's value rows, n's key columns, the head's m)."""
+        tp, part = self.tp, self.head_part()
+        if part is None:
+            return MLSTMCache(*(tp.cache_to_heads(t, 1) for t in cache))
+        return MLSTMCache(*(tp.cache_to_part(t, part, d) for t, d in zip(cache, (2, 2, None))))
 
     def keep_state(self, cache: MLSTMCache, state: MLSTMCache) -> None:
-        for dst, src in zip(cache, state):
-            self.tp.keep_heads(dst, src, 1)
+        tp, part = self.tp, self.head_part()
+        for dst, src, d in zip(cache, state, (2, 2, None)):
+            if part is None:
+                tp.keep_heads(dst, src, 1)
+            else:
+                tp.keep_part(dst, src, part, d)
 
 
 # ===========================================================================
@@ -496,13 +586,16 @@ class SLSTMCache(NamedTuple):
     m: torch.Tensor  # (B, H, Dh)
 
 
-def slstm_step(r_cat, state: SLSTMCache, wx_t):
+def slstm_step(r_cat, state: SLSTMCache, wx_t, part=None):
     """One time step. r_cat: (H, Dh, 4 Dh), the recurrence with the four
     gates' columns side by side; wx_t: (B, 4, H, Dh) input projections for
-    the gates i, f, z, o."""
+    the gates i, f, z, o. On a part of a head (``part``): the state and wx_t
+    on the rank's Dh/g units, r_cat (1, Dh, 4 Dh/g) its units' columns, and
+    the head's hidden state gathered over its ranks first."""
     c, n, h_prev, m = state
+    h_in = h_prev if part is None else part.gather(h_prev, 2)
     b, hh, dh = h_prev.shape
-    rec = torch.bmm(h_prev.transpose(0, 1), r_cat).reshape(hh, b, 4, dh).permute(1, 2, 0, 3)
+    rec = torch.bmm(h_in.transpose(0, 1), r_cat).reshape(hh, b, 4, dh).permute(1, 2, 0, 3)
     i_raw, f_raw, z_raw, o_raw = (wx_t + rec).unbind(1)
     f_log_m = F.logsigmoid(f_raw) + m
     m_new = torch.maximum(f_log_m, i_raw)
@@ -541,12 +634,24 @@ class SLSTM(nn.Module):
     tp = None
 
     def heads_split(self) -> bool:
-        """The cell computes on this rank's heads: ``model`` divides the heads
-        and the rules' placements hold (columns of ``w`` and ``out``, the
-        heads of ``r``, over ``model``)."""
+        """The cell computes on a share of its heads on this rank: ``model``
+        divides the heads and the rules put ``r``'s heads over it (the
+        rank's heads), or it is a multiple of them whose factor divides the
+        head width and ``r`` is whole (a part of one head, ``head_part``);
+        and the rules' columns of ``w`` and ``out`` over ``model``."""
         tp = self.tp
-        return (tp is not None and tp.heads_over_model(self.cfg.n_heads)
-                and tp.split_on((self.w, 1), (self.r, 1), (self.out, 1)))
+        h = self.cfg.n_heads
+        return (tp is not None and tp.split_on((self.w, 1), (self.out, 1))
+                and (tp.heads_over_model(h) and tp.split_on((self.r, 1))
+                     or tp.parts_over_model(h, self.cfg.d_model // h)
+                     and tp.split_dim(self.r) is None))
+
+    def head_part(self):
+        """This rank's head and part (``tensor.HeadPart``) where the cell
+        computes on a part of one head, else None."""
+        h = self.cfg.n_heads
+        split = self.heads_split() and self.tp.parts_over_model(h, self.cfg.d_model // h)
+        return self.tp.head_part(h) if split else None
 
     def _view(self, use_kernel: bool) -> _View:
         if not self.heads_split():
@@ -554,19 +659,26 @@ class SLSTM(nn.Module):
                          {"b": self.b, "r": self.r},
                          lambda y: self.norm(y, use_kernel),
                          lambda y: y @ self.out.to(y.dtype))
-        tp = self.tp
+        tp, part = self.tp, self.head_part()
         d, h = self.cfg.d_model, self.cfg.n_heads
-        hl = h // tp.size
-        # w's columns are the gates i | f | z | o: a rank reads its heads' of each
+        dh = d // h
+        # w's columns are the gates i | f | z | o: a rank reads its units' of
+        # each (its heads', or its part of its head's)
         ex = tp.exchange(4 * d, tuple((g * d, d, False) for g in range(4)))
-        w = {"b": tp.chunk(self.b.reshape(4, h, d // h), 1).reshape(4 * hl * (d // h)),
-             "r": tp.gather_batch(self.r)}
-        return _View(hl, lambda x: _heads_cols(tp, x, self.w, ex), w,
+        w = {"b": tp.chunk(self.b.reshape(4, d), 1).reshape(-1)}
+        if part is None:
+            w["r"] = tp.gather_batch(self.r)
+        else:       # r[:, head, :, part]: (4, 1, Dh, Dh/g)
+            cols = tp.gather_batch(self.r).permute(0, 2, 1, 3).reshape(4, dh, d)
+            w["r"] = tp.chunk(cols, 2)[:, None]
+        return _View(1 if part else h // tp.size, lambda x: _heads_cols(tp, x, self.w, ex), w,
                      lambda y: self.norm(y, use_kernel, tp),
-                     lambda y: tp.reduce_out(y @ tp.rows_of(tp.gather_batch(self.out)).to(y.dtype)))
+                     lambda y: tp.reduce_out(y @ tp.rows_of(tp.gather_batch(self.out)).to(y.dtype)),
+                     part)
 
-    def _zero_state(self, batch: int, heads: int) -> SLSTMCache:
-        shape = (batch, heads, self.cfg.d_model // self.cfg.n_heads)
+    def _zero_state(self, batch: int, heads: int, g: int = 1) -> SLSTMCache:
+        """Zeros (m at -1e9) for ``heads`` heads, or a head's 1/``g``."""
+        shape = (batch, heads, self.cfg.d_model // self.cfg.n_heads // g)
         kw = dict(dtype=torch.float32, device=self.w.device)
         return SLSTMCache(torch.zeros(shape, **kw), torch.zeros(shape, **kw),
                           torch.zeros(shape, **kw), torch.full(shape, NEG_INIT, **kw))
@@ -578,28 +690,36 @@ class SLSTM(nn.Module):
     def forward(self, x, state: Optional[SLSTMCache] = None, use_kernel: bool = True):
         """``slstm_forward``: the time-step loop from ``state`` (or zeros); on
         this rank's heads where ``heads_split``."""
-        dh = self.cfg.d_model // self.cfg.n_heads
         v = self._view(use_kernel)
-        h = v.heads
+        h, part = v.heads, v.part
+        g = part.g if part else 1
+        dh = self.cfg.d_model // self.cfg.n_heads
         b, l, _ = x.shape
-        wx = (v.proj(x).float() + v.w["b"]).reshape(b, l, 4, h, dh)
-        r_cat = v.w["r"].float().permute(1, 2, 0, 3).reshape(h, dh, 4 * dh)
+        wx = (v.proj(x).float() + v.w["b"]).reshape(b, l, 4, h, dh // g)
+        r_cat = v.w["r"].float().permute(1, 2, 0, 3).reshape(h, dh, 4 * dh // g)
         if state is None:
-            state = self._zero_state(b, h)
+            state = self._zero_state(b, h, g)
         hs = []
-        for t in range(l):
-            state = slstm_step(r_cat, state, wx[:, t])
+        for wx_t in wx.unbind(1):      # one backward node for every step's slice
+            state = slstm_step(r_cat, state, wx_t, part)
             hs.append(state.h)
-        hs = torch.stack(hs, dim=1).reshape(b, l, h * dh).to(x.dtype)
+        hs = torch.stack(hs, dim=1).reshape(b, l, h * dh // g).to(x.dtype)
         return v.out(v.norm(hs)), state
 
     decode = forward
 
     def state_to_heads(self, cache: SLSTMCache) -> SLSTMCache:
         """A cache of the rules' shards (on Dh, as ``cache_spec`` puts it) ->
-        this rank's heads."""
-        return SLSTMCache(*(self.tp.cache_to_heads(t, 1) for t in cache))
+        this rank's heads, or its units of one."""
+        tp, part = self.tp, self.head_part()
+        if part is None:
+            return SLSTMCache(*(tp.cache_to_heads(t, 1) for t in cache))
+        return SLSTMCache(*(tp.cache_to_part(t, part, 2) for t in cache))
 
     def keep_state(self, cache: SLSTMCache, state: SLSTMCache) -> None:
+        tp, part = self.tp, self.head_part()
         for dst, src in zip(cache, state):
-            self.tp.keep_heads(dst, src, 1)
+            if part is None:
+                tp.keep_heads(dst, src, 1)
+            else:
+                tp.keep_part(dst, src, part, 2)

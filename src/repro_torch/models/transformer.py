@@ -228,16 +228,17 @@ class RecurrentBlock(nn.Module):
     starts from the state in the cache and decode steps from it; both write
     the final state back into the cache in place.
 
-    On a mesh whose ``model`` size divides the cell's heads
-    (``cell.heads_split``), the cell computes on this rank's heads from the
-    shards the rules store (``models/ssm.py``), in every mode; serving keeps
-    this rank's shard of each state tensor (``sharding.cache_spec``), moves
-    it to the rank's heads (and Mamba2's conv channels) for a step and the
-    new state back (``cell.state_to_heads``/``keep_state``). Where ``model``
-    does not divide the heads (xlstm-125m's 4 at 8 or 16), the cell's
-    weights are gathered whole and every rank runs the whole cell, serving
-    gathering the state whole over ``model`` for a step and keeping its
-    shard of the new one."""
+    On a mesh whose ``model`` size divides the cell's heads, or is a
+    multiple g·H of an xLSTM cell's H heads (xlstm-125m's 4 at 8 or 16: a
+    head's 1/g a rank; ``cell.heads_split``), the cell computes on this
+    rank's share from the shards the rules store (``models/ssm.py``), in
+    every mode; serving keeps this rank's shard of each state tensor
+    (``sharding.cache_spec``), moves it to the rank's heads (and Mamba2's
+    conv channels), or its part of one, for a step and the new state back
+    (``cell.state_to_heads``/``keep_state``: one all-to-all each way).
+    Where neither placement applies, the cell's weights are gathered whole
+    and every rank runs the whole cell, serving gathering the state whole
+    over ``model`` for a step and keeping its shard of the new one."""
 
     cell_type = None
     tp = None

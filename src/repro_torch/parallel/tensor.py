@@ -53,6 +53,23 @@ over every head sums its rows' squares over ``model`` (``row_sum``, the
 RMSNorm kernel's split mode), and a state moves from its ``cache_spec`` dim
 to the heads for a step and back (``cache_to_heads``/``keep_heads``).
 
+A recurrent cell whose H heads ``model`` does not divide, where ``model`` is
+a multiple g·H of them (xlstm-125m's 4 heads at 8 and 16), computes one
+head's 1/g on each rank (``parts_over_model``, ``HeadPart``): rank r takes
+head r // g and part r % g of its width. The rules' column blocks are then
+each exactly one head's part, so the exchanges above serve unchanged; what
+a head's g ranks share (its scores and normaliser, q and k across its
+width, sLSTM's hidden state) is summed or gathered over a subgroup of
+``model``: the g ranks of the head, made once by every rank when the model
+is placed (``attach``; ``torch.distributed.new_subgroups_by_enumeration``
+over every batch coordinate's ``model`` ranks). A collective over the whole
+of ``model`` whose other ranks add zeros would move H times the bytes. Its
+gather's backward is a reduce-scatter over the head's ranks, its sum's an
+all-reduce: each rank uses the sum with its own part of the head, so each
+holds only its part of the sum's gradient. A state moves between its
+``cache_spec`` shard and the rank's (head, part) by one all-to-all over
+``model`` each way (``cache_to_part``/``keep_part``).
+
 Every collective is a ``torch.ops._c10d_functional`` op followed by its
 ``wait_tensor``: the dispatcher sees it (the dry run counts it, under a fake
 process group, on the meta device), and gloo runs it (its reduce-scatter
@@ -239,6 +256,30 @@ class _Gather(torch.autograd.Function):
         return g, None, None
 
 
+class HeadPart(NamedTuple):
+    """This rank's share of a cell of ``heads`` heads on a ``model`` of
+    g·heads ranks: head ``head`` (``model`` rank // g), part ``group.rank``
+    (``model`` rank % g) of its width, and ``group``, the head's g ranks."""
+    g: int
+    head: int
+    group: Group
+
+    @property
+    def part(self) -> int:
+        return self.group.rank
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The head's g parts of ``dim`` of ``x`` concatenated in part
+        order; the backward sums each rank's gradient of the whole over the
+        head's ranks onto this rank's part (a reduce-scatter)."""
+        return _Gather.apply(x, [(dim % x.dim(), self.group)], True)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, a part's partial sum, summed over the head's ranks; the
+        backward sums the gradient over them too."""
+        return _SumBoth.apply(x, [self.group])
+
+
 # ---------------------------------------------------------------------------
 # Head-aligned columns out of contiguous shards
 # ---------------------------------------------------------------------------
@@ -354,6 +395,7 @@ class TensorParallel:
         # the step's batch is held whole on every batch rank (rows that the
         # batch axes do not divide: ``steps.local_batch``); set by the caller
         self.batch_replicated = False
+        self._parts: Dict[int, Group] = {}      # g -> this rank's group of a head's g ranks
 
     # --- specs ----------------------------------------------------------
     @staticmethod
@@ -495,6 +537,28 @@ class TensorParallel:
         (above 1) divides them."""
         return self.size > 1 and heads % self.size == 0
 
+    def parts_over_model(self, heads: int, width: int) -> bool:
+        """A cell of ``heads`` heads of ``width`` columns can compute on a
+        part of one head: ``model`` is a multiple g·heads with g > 1, and g
+        divides the head's width (the rules' column blocks of the heads are
+        then each one head's part)."""
+        return (self.size > heads and self.size % heads == 0
+                and width % (self.size // heads) == 0)
+
+    def head_part(self, heads: int) -> HeadPart:
+        """This rank's head and part where ``parts_over_model``. Every rank
+        makes the head groups of a g together the first time one asks (all
+        of them, in the same order: ``attach``)."""
+        g = self.size // heads
+        if g not in self._parts:
+            import torch.distributed as dist
+            axis = list(self.sizes).index("model")
+            rows = self.mesh.mesh.movedim(axis, -1).reshape(-1, self.size).tolist()
+            pg, _ = dist.new_subgroups_by_enumeration(
+                [row[i:i + g] for row in rows for i in range(0, self.size, g)])
+            self._parts[g] = Group(pg.group_name, g, self.rank % g)
+        return HeadPart(g, self.rank // g, self._parts[g])
+
     def exchange(self, n: int, segments) -> ColumnExchange:
         """The ``ColumnExchange`` of ``n`` columns over ``model`` for this rank."""
         return exchange(n, tuple(segments), self.size, self.rank)
@@ -534,6 +598,52 @@ class TensorParallel:
         """Write this rank's heads ``t`` of a new state (``cache_to_heads``'
         layout) into the cache shard ``dst``."""
         dst.copy_(t if dst.tp_dim == dim else swap_dims(t, self.model, dst.tp_dim, dim))
+
+    def cache_to_part(self, t: torch.Tensor, hp: HeadPart, dim: Optional[int]) -> torch.Tensor:
+        """A cache shard (B, heads, ...) as this rank's head (a dim of one)
+        and part ``hp`` of ``dim`` (None: a state of no width, m), every
+        other dim whole. ``cache_spec`` leaves a state whole (sliced here),
+        puts ``model`` on ``dim`` (an all-to-all: this rank's block of ``dim``
+        of every head to the ranks of each head's part that holds it), or on
+        a later dim (an all-to-all of (heads·``dim``) in ``model`` chunks, one
+        a rank, the later dim's blocks concatenated: mLSTM's C, its value
+        rows against every key column)."""
+        src = t.tp_dim
+        if src is None:
+            t = t.narrow(1, hp.head, 1)
+            return t if dim is None else t.narrow(dim, hp.part * (t.shape[dim] // hp.g),
+                                                  t.shape[dim] // hp.g)
+        heads = self.size // hp.g
+        if src == dim:
+            p = self.rank // heads          # the part this rank's block lies in
+            out = all_to_all(t.movedim(1, 0), self.model,
+                             [int(i // heads == hp.part) for i in range(self.size)],
+                             [int(r % hp.g == p) for r in range(self.size)])
+            return torch.cat(out.unbind(0), dim=dim - 1).unsqueeze(1)
+        if dim == 2 and src > dim:
+            return swap_dims(t.flatten(1, 2), self.model, 1, src - 1).unsqueeze(1)
+        raise ValueError(f"cache {tuple(t.shape)}: model on dim {src}, parts of dim {dim}")
+
+    def keep_part(self, dst: torch.Tensor, t: torch.Tensor, hp: HeadPart,
+                  dim: Optional[int]) -> None:
+        """Write this rank's head and part ``t`` of a new state
+        (``cache_to_part``'s layout) into the cache shard ``dst``: the
+        inverse all-to-all, or for a state left whole every rank's part
+        gathered over ``model`` (a head's g copies of m are equal)."""
+        src = dst.tp_dim
+        heads = self.size // hp.g
+        if src is None:
+            x = all_gather(t, self.model, 1).unflatten(1, (heads, hp.g))
+            dst.copy_(x[:, :, 0] if dim is None else x.movedim(2, dim).flatten(dim, dim + 1))
+        elif src == dim:
+            p = self.rank // heads
+            x = torch.stack(t.squeeze(1).chunk(heads, dim=dim - 1))
+            out = all_to_all(x, self.model, [int(r % hp.g == p) for r in range(self.size)],
+                             [int(i // heads == hp.part) for i in range(self.size)])
+            dst.copy_(out.movedim(0, 1))
+        else:
+            x = swap_dims(t.squeeze(1), self.model, src - 1, 1)
+            dst.copy_(x.unflatten(1, (heads, x.shape[1] // heads)))
 
     def max_over_model(self, x: torch.Tensor) -> torch.Tensor:
         return all_reduce(x.detach(), self.model, "max")
@@ -636,9 +746,14 @@ def param_specs(model, mesh, **rules) -> Dict[str, tuple]:
 
 
 def attach(model, tp: TensorParallel) -> TensorParallel:
-    """Every module of ``model`` computes over ``tp``."""
+    """Every module of ``model`` computes over ``tp``; the head groups of a
+    cell that computes on a part of one head are made (every rank makes
+    them together, here, outside any step)."""
     for m in model.modules():
         m.tp = tp
+    for m in model.modules():
+        if hasattr(m, "head_part"):
+            m.head_part()
     return tp
 
 

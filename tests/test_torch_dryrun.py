@@ -471,6 +471,26 @@ def test_extrapolation_equals_the_full_depth_trace(arch, kind):
     assert affine == pytest.approx(full.peak_bytes, rel=1e-2)
 
 
+def test_a_head_part_cells_collectives_are_extrapolated_in_the_length():
+    """xlstm's smoke config at 2 heads on (1, 4), every cell on half of one
+    head: its prefill's collectives (each mLSTM chunk's sums, each sLSTM
+    step's gather) grow with the length, and the two lengths' traces
+    extrapolate to the full length's counts and wire bytes, as the FLOPs."""
+    from repro_torch.common.config import ShapeSpec
+    from repro_torch.launch import dryrun as dr
+    run = _smoke("xlstm-125m")
+    run = run.replace(model=dataclasses.replace(run.model, n_layers=4, n_heads=2))
+    shape, sizes = ShapeSpec("prefill", 1024, 2, "prefill"), {"data": 1, "model": 4}
+    costs = dr.cell_costs(run, shape, sizes)
+    assert costs["extrapolation"]["seq_len"] == list(dr.LENGTHS["prefill"])
+    short = dr.trace_cell(run, shape, sizes, seq_len=dr.LENGTHS["prefill"][0])
+    full = dr.trace_cell(run, shape, sizes)
+    assert full.coll.counts["all-gather"] > short.coll.counts["all-gather"]
+    assert costs["cost"].coll.counts == full.coll.counts
+    assert costs["cost"].coll.wire_bytes == pytest.approx(full.coll.wire_bytes, rel=1e-9)
+    assert costs["cost"].flops == full.flops
+
+
 def test_the_peak_needs_the_aligned_timelines():
     """gemma2 at 24 layers with a small vocabulary: at 2 and 3 units the
     peak is the loss's, at 12 it is the backward pass's, so the affine peak

@@ -1000,6 +1000,10 @@ GPU_SPLIT_CASES = [  # zamba2-7b's gated norm in 8 shards, decode rows, shards n
     ((5, 102), "bfloat16", "bfloat16", 2),
     ((7, 64), "bfloat16", "float32", 2),
     ((3, 8192), "float32", "bfloat16", 8),
+    ((2, 4352, 1536), "bfloat16", "bfloat16", 16),  # xlstm-125m's mLSTM norm at model 16
+    ((2, 4352, 768), "bfloat16", "bfloat16", 16),   # its sLSTM norm: 48 columns a shard
+    ((2, 1, 1536), "bfloat16", "bfloat16", 16),
+    ((2, 1, 768), "bfloat16", "bfloat16", 16),
 ]
 
 
