@@ -106,7 +106,13 @@ Phases, each fatal on failure:
     ``ef`` residual of one fp32 a parameter) of the same model: a finite
     loss, the first quantised leaves of the step, copied to the CPU, bit-equal
     to the CPU's quantisation of the same gradient leaf at the same amax,
-    its time beside a plain step's;
+    its time beside a plain step's. Then the stacked optimizer updates
+    (``stacked_update_check``): two ``adamw_factored`` and two ``adamw_8bit``
+    updates of yi-34b's stacked norm scales (60 x 7168) and of zamba2-7b's
+    per-head vectors and conv bias (81 layers in 7 stacks) through
+    ``adamw.apply_updates`` on the card and on the CPU from the same seeded
+    values: parameters and fp32 statistics within 1e-6, bf16 first moments,
+    8-bit codes and scales equal;
  5. detect: the C4D detection loop (``repro_torch.core``) at 100,000 ranks
     (``RingJobTelemetry``, seed 3: 3M transports in 300k pair groups, 1M
     heartbeats). Each detection kernel (``window_score``, its prefilter
@@ -2185,7 +2191,7 @@ def model_train(arch: str, card: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
-    from repro_torch.train.steps import make_grad_fn, make_train_step
+    from repro_torch.train.steps import jax_leaves, make_grad_fn, make_train_step
 
     run = model_train_run(arch)
     cfg, pcfg = run.model, run.parallel
@@ -2200,7 +2206,7 @@ def model_train(arch: str, card: str) -> dict:
     params = dict(model.named_parameters())
     opt_cfg = adamw.OptimizerConfig(kind=pcfg.optimizer_state,
                                     weight_decay=run.train.weight_decay)
-    opt_state = adamw.init_state(opt_cfg, params)
+    opt_state = adamw.init_state(opt_cfg, params, jax_leaves(model))
     pipeline = TokenPipeline(cfg, shape, PipelineConfig(seed=run.train.seed))
 
     def batch_of(step):
@@ -2266,7 +2272,7 @@ def dots_check(arch: str, card: str) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
-    from repro_torch.train.steps import make_train_step
+    from repro_torch.train.steps import jax_leaves, make_train_step
 
     run = model_train_run(arch)
     torch.cuda.empty_cache()
@@ -2285,7 +2291,7 @@ def dots_check(arch: str, card: str) -> dict:
         with torch.no_grad():
             for n, p in params.items():
                 p.copy_(start[n])
-        opt_state = adamw.init_state(opt_cfg, params)
+        opt_state = adamw.init_state(opt_cfg, params, jax_leaves(model))
         step_fn = make_train_step(model, run, opt_cfg)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2778,6 +2784,84 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+# the stacked leaves the optimizer check updates: (arch, parameter paths)
+STACK_CHECKS = (("yi-34b", ("ln1.scale", "ln2.scale")),
+                ("zamba2-7b", ("cell.A_log", "cell.dt_bias", "cell.D", "cell.conv_b")))
+STACK_TOL = 1e-6
+
+
+def stacked_update_check(card: str) -> None:
+    """``STACK_CHECKS``' stacked leaves (every layer of the full config,
+    fp32) updated twice by ``adamw.apply_updates`` under ``adamw_factored``
+    and ``adamw_8bit`` on the card and on the CPU, from the same seeded
+    parameters and gradients: the stacks that the optimizer updates as one
+    (``adamw.stacks``: a factored (units, d) leaf; 8-bit blocks that span
+    layers) and those it slices a layer at a time. Parameters (relative to
+    max(1, |p|): a second 8-bit moment decoded as 0 moves an element by lr *
+    mu / eps) and fp32 statistics within ``STACK_TOL`` (their row and column
+    means are sums in another order), bf16 first moments, 8-bit codes and
+    scales equal (all elementwise but the scale's maximum). Fails otherwise."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train.steps import jax_leaves
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(35)
+    lines = []
+    for arch, paths in STACK_CHECKS:
+        model = build_model(get_config(arch), device="meta")
+        leaves = {n: leaf for n, leaf in jax_leaves(model).items()
+                  if n.split(".", 2)[2] in paths}
+        shapes = {n: tuple(p.shape) for n, p in model.named_parameters() if n in leaves}
+        del model
+        p0 = {n: 0.1 * torch.randn(shape, generator=gen) for n, shape in shapes.items()}
+        grads = [{n: 1e-2 * torch.randn(shape, generator=gen) for n, shape in shapes.items()}
+                 for _ in range(2)]
+        for kind in ("adamw_factored", "adamw_8bit"):
+            cfg = adamw.OptimizerConfig(kind=kind)
+            stacks = adamw.stacks(cfg, shapes, leaves)
+            out = {}
+            for dev in ("cuda", "cpu"):
+                params = {n: v.to(dev, copy=True) for n, v in p0.items()}
+                state = adamw.init_state(cfg, params, leaves)
+                for i, g in enumerate(grads):
+                    lr = adamw.warmup_cosine(state["step"], base_lr=1e-3, warmup=1, total=10)
+                    params, state = adamw.apply_updates(
+                        cfg, params, {n: v.to(dev) for n, v in g.items()}, state, lr, leaves)
+                out[dev] = ({n: v.cpu() for n, v in params.items()},
+                            {n: {k: v.cpu() for k, v in st.items()}
+                             for n, st in state["m"].items()})
+            (p_gpu, m_gpu), (p_cpu, m_cpu) = out["cuda"], out["cpu"]
+            p_err = max(((p_gpu[n] - p_cpu[n]).abs() / p_cpu[n].abs().clamp(min=1.0))
+                        .max().item() for n in shapes)
+            moved = max((p_cpu[n] - p0[n]).abs().max().item() for n in shapes)
+            s_err, unequal, tensors = 0.0, [], 0
+            for n in shapes:
+                if m_gpu[n].keys() != m_cpu[n].keys():
+                    fail(f"stacked update {arch} {kind}: {n}'s state keys differ")
+                for k, v in m_gpu[n].items():
+                    tensors += 1
+                    want = m_cpu[n][k]
+                    if v.dtype == torch.float32 and not k.endswith("_s"):
+                        s_err = max(s_err, ((v - want).abs() / (want.abs() + 1e-30)).max().item()
+                                    if k.startswith("nu") else (v - want).abs().max().item())
+                    elif not torch.equal(v, want):
+                        unequal.append(f"{n}/{k}")
+            joint = sum(len(ms) for ms in stacks.values())
+            lines.append(f"{arch} {kind}: {len(shapes)} tensors, {len(stacks)} stacks updated as "
+                         f"one ({joint} layers), max param diff {p_err:.3e} (moved "
+                         f"{moved:.3e}), max state diff {s_err:.3e}, {tensors} state tensors, "
+                         f"{len(unequal)} unequal")
+            if p_err > STACK_TOL or s_err > STACK_TOL or unequal or not moved > 10 * STACK_TOL \
+                    or (kind == "adamw_factored" and not stacks):
+                fail(f"stacked update {arch} {kind}: param diff {p_err}, state diff {s_err}, "
+                     f"unequal {unequal[:4]}, moved {moved}, stacks {len(stacks)}")
+    print(f"  stacked optimizer updates on the card against the CPU ({time.perf_counter() - t0:.1f}"
+          f" s; {card}): " + "; ".join(lines), flush=True)
+
+
 def mesh_phase() -> dict:
     """One full-width gemma2-2b step through the sharded step on a world-1
     NCCL (1, 1) mesh and one through the one-device step, from the same
@@ -2796,7 +2880,7 @@ def mesh_phase() -> dict:
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
     from repro_torch.parallel import sharding as shd
-    from repro_torch.train.steps import gather, make_train_step, shard_train_state
+    from repro_torch.train.steps import gather, jax_leaves, make_train_step, shard_train_state
 
     gc.collect()        # what the train phase left in reference cycles
     torch.cuda.empty_cache()
@@ -2820,7 +2904,7 @@ def mesh_phase() -> dict:
             with torch.no_grad():
                 for n, p in params.items():
                     p.copy_(w0[n])
-            state = adamw.init_state(cfg, params)
+            state = adamw.init_state(cfg, params, jax_leaves(model))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, state, met = make_train_step(model, run, cfg)(params, state, batch)
@@ -2861,8 +2945,8 @@ def mesh_phase() -> dict:
             for n, p in params.items():
                 p.copy_(w0[n])
         placements = shd.param_placements(params, mesh)
-        masters, state = shard_train_state(params, adamw.init_state(cfg, params), cfg, mesh,
-                                           placements)
+        masters, state = shard_train_state(params, adamw.init_state(cfg, params, jax_leaves(model)),
+                                           cfg, mesh, placements)
         step = make_train_step(model, run, cfg, mesh)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -2891,8 +2975,8 @@ def mesh_phase() -> dict:
         with torch.no_grad():
             for n, p in params.items():
                 p.copy_(w0[n])
-        masters, state = shard_train_state(params, adamw.init_state(fcfg, params), fcfg, mesh,
-                                           placements)
+        masters, state = shard_train_state(params, adamw.init_state(fcfg, params, jax_leaves(model)),
+                                           fcfg, mesh, placements)
         step = make_train_step(model, run, fcfg, mesh)
         t0 = time.perf_counter()
         masters, state, met = step(masters, state, batch)
@@ -5464,6 +5548,7 @@ def main(argv=None) -> int:
     train_fault_counts = train_counts.pop("detect")
     int8_counts = train_counts.pop("int8")
     train_facts = train_counts.pop("dryrun")
+    stacked_update_check(card)
     print(f"[train] done in {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()

@@ -162,9 +162,25 @@ class CheckpointManager:
 
     def restore(self, template: Any, step: Optional[int] = None) -> Tuple[int, Any]:
         """Restore into ``template``'s structure (nested dicts and lists);
-        the leaves are CPU tensors."""
+        the leaves are CPU tensors. A checkpoint whose leaves are not the
+        template's (a leaf missing or extra, or of another shape or, against
+        a tensor, another dtype: the optimizer state of another layout) is
+        refused with a ``ValueError`` that names the first such leaf."""
         s, flat = self.restore_flat(step)
-        it = iter(flat[k] for k, _ in _leaves(template))
+        keys = dict(_leaves(template))
+        for k, t in keys.items():
+            got = flat.get(k)
+            if got is None:
+                raise ValueError(f"checkpoint of step {s}: no leaf {k}")
+            want = (tuple(t.shape), t.dtype) if isinstance(t, torch.Tensor) else None
+            if want is not None and (tuple(got.shape), got.dtype) != want:
+                raise ValueError(f"checkpoint of step {s}: leaf {k} is {tuple(got.shape)} "
+                                 f"{got.dtype}, expected {want[0]} {want[1]}")
+        extra = sorted(set(flat) - set(keys))
+        if extra:
+            raise ValueError(f"checkpoint of step {s}: leaf {extra[0]} is not in the template "
+                             f"({len(extra)} such)")
+        it = iter(flat[k] for k in keys)
 
         def build(t):
             if isinstance(t, dict):

@@ -13,9 +13,17 @@ training (1, 4096), prefill (2, 4352), decode (2, 1)), 4 input sets cycled
 so that the 50 MB L2 does not hold the rows a launch reads, by device time
 from torch.profiler, in turns: kernel as it is, each ablation, kernel as it
 is. Then the kernel and the warp-a-row design over a sweep of row counts at
-D = 2304, and the empty kernel's device time, the floor of a launch. Prints
-one line a build or row count and a JSON object last. Needs a CUDA card;
-used nowhere by the port.
+D = 2304, and the empty kernel's device time, the floor of a launch.
+
+Last, the split mode's pair (``rmsnorm_sumsq``, ``rmsnorm_scale``) against
+its first design, a CTA a row (the ``split_cta`` ablation, which puts
+``csrc/earlier/rmsnorm_split_cta.cu`` in place of the pair), at
+``SPLIT_CASES``: every shard's sum of squares, then every shard's scale, as
+``chip_smoke.py`` times them, in turns kernel, first design, kernel, first
+design; the two launches' device times apart and together, each shard held
+against ``ref.rmsnorm_scale`` within ``ROW_REL_TOL``. Prints one line a
+build or row count and a JSON object last. Needs a CUDA card; used nowhere
+by the port.
 """
 from __future__ import annotations
 
@@ -35,6 +43,10 @@ EARLIER = _build.CSRC / "earlier"
 OUT = _build.BUILD_DIR / "ablate"
 SHAPES = {"train": (1, 4096, 2304), "prefill": (2, 4352, 2304), "decode": (2, 1, 2304)}
 SWEEP = (1, 2, 8, 32, 128, 256, 512, 1024, 2048, 4096, 8704)   # rows at D = 2304
+# the split mode's cases (chip_smoke.py's SPLIT_CASES): (rows, width, shards, whose norm)
+SPLIT_CASES = ((8704, 7168, 8, "zamba2-7b Mamba2, model 8"),
+               (8704, 1536, 16, "xlstm-125m mLSTM, model 16"),
+               (8704, 768, 16, "xlstm-125m sLSTM, model 16"))
 
 
 def _warp_rows(rows_per_warp: int):
@@ -68,6 +80,19 @@ _two_barriers = _sub(
     "  const float total = row_sum;\n")
 
 
+# the split mode's kernels and dispatch: from the first line after the comment
+# they share to the empty kernel
+_SPLIT_FROM = "// rsqrt(sum / width + eps) * (1 + scale), width the whole row's."
+_SPLIT_TO = "// A launch that does nothing"
+
+
+def _split_cta(src: str) -> str:
+    """The split mode's pair and dispatch replaced by its first design's."""
+    assert src.count(_SPLIT_FROM) == 1 and src.count(_SPLIT_TO) == 1
+    start = src.index("\n", src.index(_SPLIT_FROM)) + 1
+    return src[:start] + (EARLIER / "rmsnorm_split_cta.cu").read_text() + src[src.index(_SPLIT_TO):]
+
+
 # name -> (what is undone, edit of the source)
 ABLATIONS = {
     "warp_rows": ("a warp a row, not a CTA a row (csrc/earlier/rmsnorm_warp_rows.cu: up to 16 "
@@ -79,6 +104,7 @@ ABLATIONS = {
     "first_design": ("the first design whole (csrc/earlier/rmsnorm.cu: two barriers, scale read "
                      "element by element after the reduction)",
                      lambda src: (EARLIER / "rmsnorm.cu").read_text()),
+    "split_cta": ("the split pair a CTA a row (csrc/earlier/rmsnorm_split_cta.cu)", _split_cta),
 }
 
 
@@ -111,6 +137,75 @@ def _lib(so: Path):
     return lib
 
 
+def _split_lib(so: Path):
+    lib = ctypes.CDLL(str(so))
+    lib.rmsnorm_sumsq.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.rmsnorm_scale.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.rmsnorm_sumsq.restype = lib.rmsnorm_scale.restype = ctypes.c_int
+    return lib
+
+
+def split_pairs(libs, iters: int):
+    """The split pair of the kernel and of its first design at each of
+    ``SPLIT_CASES`` (module docstring); returns one row a case and build."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    eps, tol = 1e-6, ref.ROW_REL_TOL[torch.bfloat16]
+    stream = torch.cuda.current_stream().cuda_stream
+    rows_out = []
+    for rows, width, shards, label in SPLIT_CASES:
+        d = width // shards
+        sets = []
+        for _ in range(4):
+            xs = [torch.randn((rows, d), generator=gen, device="cuda").bfloat16()
+                  for _ in range(shards)]
+            ss = [(0.1 * torch.randn((d,), generator=gen, device="cuda")).bfloat16()
+                  for _ in range(shards)]
+            sums = [torch.empty(rows, device="cuda") for _ in range(shards)]
+            total = sum(ref.rmsnorm_sumsq(x) for x in xs)
+            sets.append((xs, ss, sums, total, [torch.empty_like(x) for x in xs]))
+        for name in ("kernel", "split_cta", "kernel", "split_cta"):
+            lib = _split_lib(libs[name])
+
+            def sumsq(i, lib=lib):
+                xs, _, sums, _, _ = sets[i]
+                for x, out in zip(xs, sums):
+                    if lib.rmsnorm_sumsq(x.data_ptr(), out.data_ptr(), rows, d, 1, stream):
+                        raise RuntimeError(f"{name}: rmsnorm_sumsq failed")
+
+            def scale(i, lib=lib):
+                xs, ss, _, total, outs = sets[i]
+                for x, s, out in zip(xs, ss, outs):
+                    if lib.rmsnorm_scale(x.data_ptr(), total.data_ptr(), s.data_ptr(),
+                                         out.data_ptr(), rows, d, width, eps, 1, 1, stream):
+                        raise RuntimeError(f"{name}: rmsnorm_scale failed")
+            sumsq(0)
+            scale(0)
+            torch.cuda.synchronize()
+            xs, ss, sums, total, outs = sets[0]
+            rel = max(ref.max_row_rel_err(o, ref.rmsnorm_scale(x, total, s, width, eps))
+                      for x, s, o in zip(xs, ss, outs))
+            sum_rel = max(((a - ref.rmsnorm_sumsq(x)).abs() / ref.rmsnorm_sumsq(x)).max().item()
+                          for x, a in zip(xs, sums))
+            if not (rel <= tol and sum_rel <= 1e-5):
+                raise RuntimeError(f"{name} {label}: max_row_rel_err {rel}, sums {sum_rel}")
+
+            def cycled(fn):
+                turn = iter(range(1 << 30))
+                return lambda: fn(next(turn) % 4)
+            row = {"case": label, "build": name, "shards": shards, "columns": d,
+                   "sumsq_ms": device_ms(cycled(sumsq), iters),
+                   "scale_ms": device_ms(cycled(scale), iters),
+                   "pair_ms": device_ms(cycled(lambda i: (sumsq(i), scale(i))), iters),
+                   "max_row_rel_err": rel}
+            rows_out.append(row)
+            print(f"  split {label}, {shards} shards of {d}: {name:9s} device_ms sums "
+                  f"{row['sumsq_ms']:.5f} + scales {row['scale_ms']:.5f}, pair "
+                  f"{row['pair_ms']:.5f} ({2 * shards} launches)", flush=True)
+    return rows_out
+
+
 def main(argv=None) -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -119,8 +214,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: the ablation runs on the card only", file=sys.stderr)
         return 1
-    order = ["kernel", *ABLATIONS, "kernel"]
-    libs = build(dict.fromkeys(order))
+    # split_cta changes only the split pair: timed by split_pairs, not per row
+    order = ["kernel", *(a for a in ABLATIONS if a != "split_cta"), "kernel"]
+    libs = build(dict.fromkeys([*order, "split_cta"]))
     gen = torch.Generator(device="cuda").manual_seed(14)
     eps = 1e-6
     stream = torch.cuda.current_stream().cuda_stream
@@ -191,7 +287,9 @@ def main(argv=None) -> int:
     lib.rmsnorm_empty.restype = ctypes.c_int
     floor = device_ms(lambda: lib.rmsnorm_empty(stream), args.iters)
     print(f"  empty kernel: device_ms {floor:.5f}", flush=True)
-    print(json.dumps({"ablations": rows_out, "sweep": sweep, "empty_kernel_ms": floor}))
+    split = split_pairs(libs, args.iters)
+    print(json.dumps({"ablations": rows_out, "sweep": sweep, "empty_kernel_ms": floor,
+                      "split": split}))
     return 0
 
 

@@ -213,52 +213,129 @@ cudaError_t dispatch(const void* xp, const void* sp, void* op, int rows, int D, 
 // writes each row's float32 sum of squares over the rank's columns, the
 // caller sums the rows' sums over the ranks (one all-reduce of (rows,)
 // float32), and a second launch scales the rank's columns by
-// rsqrt(sum / width + eps) * (1 + scale), width the whole row's. A CTA a
-// row, its threads striding over the row's 16-byte pieces (one element a
-// piece where D or the pointers do not allow it).
-template <typename TX, int VEC>
-__global__ void rmsnorm_sumsq_kernel(const TX* __restrict__ x, float* __restrict__ sumsq,
-                                     int D) {
-  __shared__ float warp_sums[MAX_THREADS / 32];
-  const TX* row = x + (long long)blockIdx.x * D;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  float ss = 0.f;
-  for (int piece = tid; piece < D / VEC; piece += blockDim.x) {
-    float v[VEC];
-    load_piece<TX, VEC>(row + (long long)piece * VEC, v);
+// rsqrt(sum / width + eps) * (1 + scale), width the whole row's.
+//
+// A rank's share of a row is narrow (xlstm-125m's 48 and 96 columns at
+// model 16, 6 and 12 16-byte pieces of bf16; zamba2-7b's 896 at model 8, 112
+// pieces) and there are many rows (8,704 at a prefill of 4,352 tokens), so
+// both launches pack rows into warps, in CTAs of 256 threads with no shared
+// memory and no barrier, one CTA for each 256 threads' share of the work
+// (the block scheduler fills an SM's slots as CTAs end; a grid capped at the
+// SMs' resident CTAs, each warp walking several rows, measured slower at
+// zamba2's shape while this was designed). The sum of squares takes LANES
+// consecutive lanes a row, LANES the power of two at or above the row's
+// pieces, up to 32, so a warp holds 32 / LANES rows; a row wider than 32
+// pieces is a warp's, each lane loading its pieces 4 at a time before it
+// sums them. A row's lanes fold their partial sums by xor shuffles among
+// themselves, always in the same order. The scale is elementwise given the
+// row's sum: a thread a 16-byte piece, the pieces of consecutive rows laid
+// end to end over the lanes, so no lane idles at any width. (One CTA a row,
+// with D / VEC threads, left most lanes of a 32-thread CTA idle at 48 and 96
+// columns and took ~6.8 us a launch; lanes of a row in the scale too left a
+// quarter of them idle at 48 and 96 columns.)
+constexpr int SPLIT_THREADS = 256;
+
+template <int LANES>
+__device__ __forceinline__ float lanes_sum(float x) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) ss += v[e] * v[e];
+  for (int o = LANES / 2; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+  return x;
+}
+
+template <typename TX, int VEC, int LANES>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+rmsnorm_sumsq_kernel(const TX* __restrict__ x, float* __restrict__ sumsq, long long rows,
+                     int D) {
+  constexpr int NP = LANES == 32 ? 4 : 1;   // a lane's pieces a pass, loaded first
+  const int lane = (int)(threadIdx.x & 31);
+  const long long first =
+      ((long long)blockIdx.x * (SPLIT_THREADS / 32) + (threadIdx.x >> 5)) * (32 / LANES);
+  if (first >= rows) return;   // the whole warp: its shuffles need every lane
+  const long long row = first + lane / LANES;
+  const int sub = lane % LANES, npieces = D / VEC;
+  float ss = 0.f;
+  if (row < rows) {
+    const TX* p = x + row * D;
+    for (int p0 = sub; p0 < npieces; p0 += NP * LANES) {
+      float v[NP][VEC];
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        if (p0 + j * LANES < npieces)
+          load_piece<TX, VEC>(p + (long long)(p0 + j * LANES) * VEC, v[j]);
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        if (p0 + j * LANES < npieces) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) ss += v[j][e] * v[j][e];
+        }
+      }
+    }
   }
-  ss = warp_sum(ss);
-  if (lane == 0) warp_sums[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    const float row_sum = warp_sum(lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0.f);
-    if (lane == 0) sumsq[blockIdx.x] = row_sum;
+  ss = lanes_sum<LANES>(ss);
+  if (row < rows && sub == 0) sumsq[row] = ss;
+}
+
+// Piece i of the (rows, D / VEC) pieces: row i / (D / VEC). Index: unsigned
+// where the pieces number under 2^32 (a 32-bit division), else 64-bit.
+template <typename TX, typename TS, int VEC, typename Index>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+rmsnorm_scale_kernel(const TX* __restrict__ x, const float* __restrict__ sumsq,
+                     const TS* __restrict__ scale, TX* __restrict__ out, Index total, int D,
+                     float width, float eps) {
+  const Index i = (Index)blockIdx.x * SPLIT_THREADS + threadIdx.x;
+  if (i >= total) return;
+  const Index npieces = (Index)(D / VEC);
+  const Index row = i / npieces;
+  const int piece = (int)(i - row * npieces);
+  float v[VEC], s[VEC];
+  load_piece<TX, VEC>(x + (long long)i * VEC, v);
+  load_scale<TS, VEC>(scale + piece * VEC, s);
+  const float r = rsqrtf(sumsq[row] / width + eps);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) v[e] = (v[e] * r) * (1.f + s[e]);
+  store_piece<TX, VEC>(out + (long long)i * VEC, v);
+}
+
+// The lanes a row takes: the power of two at or above its pieces, at most 32.
+inline int split_lanes(int npieces) {
+  int lanes = 1;
+  while (lanes < 32 && lanes < npieces) lanes *= 2;
+  return lanes;
+}
+
+template <typename TX, int VEC>
+cudaError_t launch_sumsq(const TX* x, float* sumsq, long long rows, int D, cudaStream_t stream) {
+  const int lanes = split_lanes(D / VEC);
+  const long long per_cta = (long long)(SPLIT_THREADS / 32) * (32 / lanes);
+  const int grid = (int)((rows + per_cta - 1) / per_cta);
+  switch (lanes) {
+    case 1: rmsnorm_sumsq_kernel<TX, VEC, 1><<<grid, SPLIT_THREADS, 0, stream>>>(x, sumsq, rows, D); break;
+    case 2: rmsnorm_sumsq_kernel<TX, VEC, 2><<<grid, SPLIT_THREADS, 0, stream>>>(x, sumsq, rows, D); break;
+    case 4: rmsnorm_sumsq_kernel<TX, VEC, 4><<<grid, SPLIT_THREADS, 0, stream>>>(x, sumsq, rows, D); break;
+    case 8: rmsnorm_sumsq_kernel<TX, VEC, 8><<<grid, SPLIT_THREADS, 0, stream>>>(x, sumsq, rows, D); break;
+    case 16: rmsnorm_sumsq_kernel<TX, VEC, 16><<<grid, SPLIT_THREADS, 0, stream>>>(x, sumsq, rows, D); break;
+    default: rmsnorm_sumsq_kernel<TX, VEC, 32><<<grid, SPLIT_THREADS, 0, stream>>>(x, sumsq, rows, D);
   }
+  return cudaGetLastError();
 }
 
 template <typename TX, typename TS, int VEC>
-__global__ void rmsnorm_scale_kernel(const TX* __restrict__ x, const float* __restrict__ sumsq,
-                                     const TS* __restrict__ scale, TX* __restrict__ out, int D,
-                                     float width, float eps) {
-  const long long base = (long long)blockIdx.x * D;
-  const float r = rsqrtf(sumsq[blockIdx.x] / width + eps);
-  for (int piece = threadIdx.x; piece < D / VEC; piece += blockDim.x) {
-    float v[VEC], s[VEC];
-    load_piece<TX, VEC>(x + base + (long long)piece * VEC, v);
-    load_scale<TS, VEC>(scale + piece * VEC, s);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) v[e] = (v[e] * r) * (1.f + s[e]);
-    store_piece<TX, VEC>(out + base + (long long)piece * VEC, v);
-  }
+cudaError_t launch_scale(const TX* x, const float* sumsq, const TS* scale, TX* out,
+                         long long rows, int D, float width, float eps, cudaStream_t stream) {
+  const unsigned long long total = (unsigned long long)rows * (unsigned long long)(D / VEC);
+  const unsigned long long grid = (total + SPLIT_THREADS - 1) / SPLIT_THREADS;
+  if (grid > 0x7fffffffull) return cudaErrorInvalidValue;
+  if (total <= 0xffffffffull)
+    rmsnorm_scale_kernel<TX, TS, VEC, unsigned><<<(int)grid, SPLIT_THREADS, 0, stream>>>(
+        x, sumsq, scale, out, (unsigned)total, D, width, eps);
+  else
+    rmsnorm_scale_kernel<TX, TS, VEC, unsigned long long><<<(int)grid, SPLIT_THREADS, 0, stream>>>(
+        x, sumsq, scale, out, total, D, width, eps);
+  return cudaGetLastError();
 }
 
-inline int split_threads(int npieces) {
-  const int t = ((npieces + 31) / 32) * 32;
-  return t < MAX_THREADS ? t : MAX_THREADS;
-}
-
+// 16-byte pieces where D and the pointers allow them, one element a piece
+// otherwise.
 template <typename TX, typename TS>
 cudaError_t dispatch_split(const void* xp, const void* sp, const float* sumsq, void* op,
                            int rows, int D, float width, float eps, cudaStream_t stream) {
@@ -271,13 +348,8 @@ cudaError_t dispatch_split(const void* xp, const void* sp, const float* sumsq, v
                        reinterpret_cast<std::uintptr_t>(out) % 16 == 0 &&
                        reinterpret_cast<std::uintptr_t>(scale) % (SBYTES < 16 ? SBYTES : 16) == 0 &&
                        D % VEC == 0;
-  if (aligned)
-    rmsnorm_scale_kernel<TX, TS, VEC><<<rows, split_threads(D / VEC), 0, stream>>>(
-        x, sumsq, scale, out, D, width, eps);
-  else
-    rmsnorm_scale_kernel<TX, TS, 1><<<rows, split_threads(D), 0, stream>>>(
-        x, sumsq, scale, out, D, width, eps);
-  return cudaGetLastError();
+  if (aligned) return launch_scale<TX, TS, VEC>(x, sumsq, scale, out, rows, D, width, eps, stream);
+  return launch_scale<TX, TS, 1>(x, sumsq, scale, out, rows, D, width, eps, stream);
 }
 
 template <typename TX>
@@ -285,10 +357,8 @@ cudaError_t dispatch_sumsq(const void* xp, float* sumsq, int rows, int D, cudaSt
   constexpr int VEC = 16 / sizeof(TX);
   const TX* x = static_cast<const TX*>(xp);
   if (reinterpret_cast<std::uintptr_t>(x) % 16 == 0 && D % VEC == 0)
-    rmsnorm_sumsq_kernel<TX, VEC><<<rows, split_threads(D / VEC), 0, stream>>>(x, sumsq, D);
-  else
-    rmsnorm_sumsq_kernel<TX, 1><<<rows, split_threads(D), 0, stream>>>(x, sumsq, D);
-  return cudaGetLastError();
+    return launch_sumsq<TX, VEC>(x, sumsq, rows, D, stream);
+  return launch_sumsq<TX, 1>(x, sumsq, rows, D, stream);
 }
 
 // A launch that does nothing: its device time is the floor under a launch

@@ -64,8 +64,9 @@ ranks costs nothing. A device does what the port does:
     ``opt_state_shardings`` (``sharding.opt_state_specs``, as
     ``shard_train_state`` places it: the ``adamw`` moments and the factored
     first moment like their parameter, the factored row and column
-    statistics whole, the 8-bit blocks like their parameter only for the
-    unstacked 2-D leaves) and the int8 residual like its parameter;
+    statistics whole, the 8-bit blocks like the JAX leaf where it is 2-D;
+    a stacked leaf's state as ``adamw.tree_layout`` holds it) and the int8
+    residual like its parameter;
     ``cache_specs`` at ``kv_cache_dtype`` and ``batch_spec``;
   * ``memory.gathered_bytes`` is what a device holds beyond its shards: in a
     train step the most bytes of all-gather outputs alive at once in the
@@ -158,7 +159,7 @@ from repro_torch.launch import mesh as meshmod
 from repro_torch.launch import roofline as rl
 from repro_torch.models.model import (attn_activation_mode, build_model,
                                       count_params_analytic, input_specs)
-from repro_torch.models.transformer import RECURRENT_BLOCKS, layer_plan
+from repro_torch.models.transformer import RECURRENT_BLOCKS, layer_plan, stacked_leaves
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor
@@ -487,7 +488,8 @@ def init_opt_state(run: RunConfig, params: Dict[str, torch.Tensor], mesh=None):
     parameters cut to a rank's shards, this rank's share: each state tensor
     made on its shard under ``steps.state_specs`` and ``ef`` on the
     parameter's (``steps.init_train_state``)."""
-    state = local_opt_state(optimizer_config(run), params, {} if mesh is None else mesh)[0]
+    state = local_opt_state(optimizer_config(run), params, {} if mesh is None else mesh,
+                            stacked_leaves(run.model, params))[0]
     if run.parallel.grad_compression == "int8":
         state["ef"] = ErrorFeedback.init(params)
     return state
@@ -644,7 +646,8 @@ def state_bytes(run: RunConfig, shape: ShapeSpec, mesh_sizes: Dict[str, int]) ->
     if shape.kind == "train":
         state = init_opt_state(run, params)
         ospecs = state_specs(optimizer_config(run), specs,
-                             {n: tuple(p.shape) for n, p in params.items()}, sizes)
+                             {n: tuple(p.shape) for n, p in params.items()}, sizes,
+                             stacked_leaves(run.model, params))
         opt = float(_nbytes(state["step"]))
         for name, leaf in state["m"].items():
             for key, t in leaf.items():

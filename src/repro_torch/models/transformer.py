@@ -370,6 +370,22 @@ def stack_positions(cfg: ModelConfig) -> List[Tuple[int, int]]:
     return [(0, 0)] * n
 
 
+def stacked_leaves(cfg: ModelConfig, names) -> Dict[str, str]:
+    """The stacked JAX leaf of each of ``names`` that the JAX package stacks:
+    ``blocks.<layer>.<path>`` of every layer at one (segment, position)
+    (``stack_positions``) share the leaf ``segment<s>.unit<p>.<path>``, whose
+    rows are those layers in order. Other names (the embedding, the final
+    norm, zamba2's shared block) are absent: their JAX leaf is their own."""
+    where = stack_positions(cfg)
+    out = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            seg, pos = where[int(parts[1])]
+            out[name] = f"segment{seg}.unit{pos}." + ".".join(parts[2:])
+    return out
+
+
 def _make_block(cfg: ModelConfig, kind: str, layer_idx: int, dtype, device,
                 sp_attn: str = "") -> nn.Module:
     if kind in RECURRENT_BLOCKS:

@@ -13,18 +13,26 @@ is fp32, step for step that of the JAX package:
 the state); the state dict is returned anew. On a mesh the same body updates
 a shard (``Shards``: the sharded step sums the factored statistics over the
 mesh, and moves an 8-bit state between its placement and the shard's layout;
-everything else is elementwise on the shard). The JAX package stacks a
-segment's layers on a leading axis and the port keeps one tensor per layer:
-``adamw`` is elementwise and the same either way, while ``adamw_factored`` and
-``adamw_8bit`` factor or quantise each layer's tensor on its own, where a
-stacked JAX leaf mixes layers (a stacked (L, d) norm scale is factored over L
-and d, and an 8-bit block may span two layers).
+everything else is elementwise on the shard).
+
+The JAX package stacks a segment's layers on a leading units axis, and the
+port keeps one tensor a layer; ``leaves`` (``transformer.stacked_leaves``)
+names each layer's stacked JAX leaf. ``adamw`` is elementwise and the same
+either way, and so is a leaf of 2+ dims a layer, whose two trailing dims
+both packages factor a layer at a time. Two stacked leaves mix their layers
+(``stacks``): a (units, d) leaf of per-layer vectors, which
+``adamw_factored`` factors over units and d, and a leaf whose layer's numel
+the 8-bit block does not divide, whose blocks span two layers. Those are
+updated as the JAX leaf (``update_stack``), and their state is the JAX
+leaf's (``tree_layout``): each member holds its row of ``mu`` and its entry
+of ``nu_row``, the first also ``nu_col``; or the first holds the blocks of
+the layers laid end to end, the others nothing.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -79,7 +87,9 @@ def _q8_encode(x: torch.Tensor, block: int):
     flat = x.reshape(-1)
     pad = (-flat.shape[0]) % block
     flat = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, block)
-    scale = torch.clamp(flat.abs().amax(dim=1, keepdim=True) / 127.0, min=1e-12)
+    amax = flat.abs().amax(dim=1, keepdim=True)
+    # a tensor, not a number: CUDA multiplies by a number's reciprocal, an ulp off
+    scale = torch.clamp(amax / amax.new_tensor(127.0), min=1e-12)
     # torch.round rounds half to even, as jnp.round does
     q = torch.clamp(torch.round(flat / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)
@@ -121,14 +131,65 @@ def state_layout(cfg: OptimizerConfig, shape) -> Dict[str, Tuple[tuple, torch.dt
     raise ValueError(cfg.kind)
 
 
-def init_state(cfg: OptimizerConfig, params: Dict[str, torch.Tensor]):
-    def leaf(p):
-        return {k: torch.full(shape, fill, dtype=dt, device=p.device)
-                for k, (shape, dt, fill) in state_layout(cfg, p.shape).items()}
+def _layer(name: str) -> int:
+    return int(name.split(".")[1])
 
+
+def stacks(cfg: OptimizerConfig, shapes: Dict[str, tuple],
+           leaves: Dict[str, str]) -> Dict[str, List[str]]:
+    """The stacked JAX leaves that ``cfg``'s optimizer updates as one:
+    {JAX leaf: its members, in layer order}. ``shapes``: each parameter's
+    whole shape; ``leaves``: the stacked JAX leaf of each parameter the JAX
+    package stacks. ``adamw_factored`` takes the leaves of per-layer vectors
+    ((units, d) in JAX, factored over both dims; a one-layer leaf too), and
+    ``adamw_8bit`` the leaves whose layer's numel the block does not divide
+    (a layer's blocks are otherwise a slice of the leaf's)."""
+    if cfg.kind == "adamw_factored":
+        def joint(shape):
+            return len(shape) == 1
+    elif cfg.kind == "adamw_8bit":
+        def joint(shape):
+            return math.prod(shape) % cfg.block != 0
+    else:
+        return {}
+    out: Dict[str, List[str]] = {}
+    for name, leaf in leaves.items():
+        if joint(tuple(shapes[name])):
+            out.setdefault(leaf, []).append(name)
+    return {leaf: sorted(members, key=_layer) for leaf, members in out.items()}
+
+
+def tree_layout(cfg: OptimizerConfig, shapes: Dict[str, tuple],
+                leaves: Dict[str, str]) -> Dict[str, Dict[str, Tuple[tuple, torch.dtype, float]]]:
+    """``state_layout`` of each parameter of whole ``shapes``, where the
+    members of a stacked leaf updated as one (``stacks``) hold the JAX
+    leaf's state: a factored member its bf16 row of ``mu`` and its float32
+    entry of ``nu_row``, the first also the leaf's ``nu_col``; an 8-bit
+    leaf's first member the blocks of its layers laid end to end, the
+    others nothing."""
+    out = {n: state_layout(cfg, s) for n, s in shapes.items()}
+    for members in stacks(cfg, shapes, leaves).values():
+        shape = tuple(shapes[members[0]])
+        whole = state_layout(cfg, (len(members),) + shape)
+        if cfg.kind == "adamw_factored":
+            for n in members:
+                out[n] = {"mu": (shape, whole["mu"][1], 0.0), "nu_row": ((), torch.float32, 0.0)}
+            out[members[0]]["nu_col"] = whole["nu_col"]
+        else:
+            for n in members:
+                out[n] = {}
+            out[members[0]] = whole
+    return out
+
+
+def init_state(cfg: OptimizerConfig, params: Dict[str, torch.Tensor], leaves: Dict[str, str]):
+    """The zero state of ``params`` (whole tensors) under ``tree_layout``."""
+    layout = tree_layout(cfg, {n: tuple(p.shape) for n, p in params.items()}, leaves)
     device = next(iter(params.values())).device if params else None
     return {"step": torch.zeros((), dtype=torch.int32, device=device),
-            "m": {name: leaf(p) for name, p in params.items()}}
+            "m": {name: {k: torch.full(shape, fill, dtype=dt, device=params[name].device)
+                         for k, (shape, dt, fill) in layout[name].items()}
+                  for name in params}}
 
 
 # ---------------------------------------------------------------------------
@@ -259,21 +320,63 @@ def update_leaf(cfg: OptimizerConfig, p, g, st, lr, step, shards: Optional[Shard
 
 
 @torch.no_grad()
+def update_stack(cfg: OptimizerConfig, params, grads, states, lr, step,
+                 shards: Optional[Shards] = None):
+    """One stacked JAX leaf's step (``stacks``), its members' ``params``,
+    ``grads`` and ``states`` in layer order: writes each member's new value
+    in place and returns their new states. The factored update runs on the
+    members stacked into the (units, d) leaf, ``shards`` as ``update_leaf``
+    takes it for that stack; the 8-bit one on their values laid end to end,
+    whole (a leaf of one member on its own flattened view). The 8-bit update
+    pops the old moments out of ``states[0]`` as ``update_leaf`` does."""
+    if cfg.kind == "adamw_factored":
+        p, g = torch.stack(params), torch.stack(grads)
+        st = {"mu": torch.stack([s["mu"] for s in states]),
+              "nu_row": torch.stack([s["nu_row"] for s in states]),
+              "nu_col": states[0]["nu_col"]}
+        new = update_leaf(cfg, p, g, st, lr, step, shards)
+        out = [{"mu": new["mu"][i].clone(), "nu_row": new["nu_row"][i].clone()}
+               for i in range(len(params))]
+        out[0]["nu_col"] = new["nu_col"]
+        rows = p.unbind()
+    else:
+        def flat(ts):
+            return ts[0].reshape(-1) if len(ts) == 1 else torch.cat([t.reshape(-1) for t in ts])
+        p = flat(params)
+        out = [{} for _ in params]
+        out[0] = update_leaf(cfg, p, flat(grads), states[0], lr, step)
+        rows = p.split([x.numel() for x in params])
+    for x, row in zip(params, rows):
+        if row.data_ptr() != x.data_ptr():     # not a view of the member itself
+            x.copy_(row.view(x.shape))
+    return out
+
+
+@torch.no_grad()
 def apply_updates(cfg: OptimizerConfig, params: Dict[str, torch.Tensor],
-                  grads: Dict[str, torch.Tensor], state, lr,
+                  grads: Dict[str, torch.Tensor], state, lr, leaves: Dict[str, str],
                   shards: Optional[Dict[str, Shards]] = None):
     """One AdamW step. Writes the new values into ``params`` in place and
     returns (params, new state); ``state["step"]`` counts the updates. A leaf
     of three or more dims with float moments (the MoE expert tensors) is
-    updated a leading index at a time. ``shards``: on a mesh, each factored
-    or 8-bit leaf's ``Shards`` (``params`` then hold shards); absent, every
-    leaf is whole."""
+    updated a leading index at a time; the members of a stacked leaf that
+    the optimizer updates as one (``stacks`` of ``leaves``) together
+    (``update_stack``). ``shards``: on a mesh, each factored or 8-bit leaf's
+    ``Shards``, by parameter name or, for a stack, by its JAX leaf
+    (``params`` then hold shards); absent, every leaf is whole."""
     step = state["step"]
+    shards = shards or {}
     new_m = {}
+    groups = stacks(cfg, {n: tuple(p.shape) for n, p in params.items()}, leaves)
+    for leaf, members in groups.items():
+        new_m.update(zip(members, update_stack(
+            cfg, [params[n] for n in members], [grads[n] for n in members],
+            [dict(state["m"][n]) for n in members], lr, step, shards.get(leaf))))
     for name, p in params.items():
-        sh = shards.get(name) if shards else None
-        new_m[name] = update_leaf(cfg, p, grads[name], dict(state["m"][name]), lr, step, sh)
-    return params, {"step": step + 1, "m": new_m}
+        if name not in new_m:
+            new_m[name] = update_leaf(cfg, p, grads[name], dict(state["m"][name]), lr, step,
+                                      shards.get(name))
+    return params, {"step": step + 1, "m": {n: new_m[n] for n in params}}
 
 
 def state_bytes_per_param(kind: str) -> float:

@@ -28,7 +28,9 @@ def quantize_int8(x: torch.Tensor, amax: Optional[torch.Tensor] = None
     sharded leaf passes the max over all its shards."""
     if amax is None:
         amax = x.abs().max()
-    scale = torch.clamp(amax.to(torch.float32) / 127.0, min=1e-12)
+    amax = amax.to(torch.float32)
+    # a tensor, not a number: CUDA multiplies by a number's reciprocal, an ulp off
+    scale = torch.clamp(amax / amax.new_tensor(127.0), min=1e-12)
     q = torch.clamp(torch.round(x.to(torch.float32) / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -188,11 +188,13 @@ def param_specs(shapes: Dict[str, Sequence[int]], mesh, fsdp_over_pod: bool = Fa
 
 
 BLOCK_KEYS = ("mu_q", "mu_s", "nu_q", "nu_s")
+FACTORED_KEYS = ("nu_row", "nu_col")
 
 
 def stacked(name: str) -> bool:
     """The JAX package stacks every block's parameter with its segment's
-    other units on a leading units dim; the port keeps one tensor a layer."""
+    other units on a leading units dim; the port keeps one tensor a layer
+    (``transformer.stacked_leaves`` names the stack)."""
     return name.startswith("blocks.")
 
 
@@ -200,29 +202,36 @@ def opt_state_specs(specs: Dict[str, Spec], state: Dict[str, Dict]) -> Dict[str,
     """The spec of each optimizer state tensor: the JAX package's
     ``opt_state_shardings``, which gives a state leaf its parameter's spec
     where the leaf has the parameter's rank and replicates the rest, read
-    against the JAX leaf (``stacked``: one rank more than the port's).
-    ``specs``: each parameter's spec; ``state``: ``adamw.init_state(...)["m"]``
-    (tensors or shapes).
+    against the JAX leaf (``stacked``: one rank more than the port's, its
+    spec the port's after a units dim). ``specs``: each parameter's spec;
+    ``state``: ``adamw.init_state(...)["m"]`` (tensors or shapes), in the
+    port's layout (``adamw.tree_layout``).
 
-    So a moment of the parameter's shape (``adamw``'s two, the factored
-    ``mu``, and a 1-D leaf's ``mu`` and ``nu``) takes the spec, and the
-    factored ``nu_row`` and ``nu_col`` are whole. The 8-bit blocks (n, block)
-    of the flattened leaf take it only where the JAX leaf is itself 2-D and
-    unstacked (the embedding, an untied read-out): a stacked leaf's blocks
-    span its layers, so a layer's blocks have no counterpart there and stay
-    whole. The spec is the JAX package's even where its axes do not divide a
-    block tensor's dim (an (n, 1) scale); ``fit_spec`` places it."""
+    So a moment of the parameter's shape, or a layer's row of the stacked
+    leaf's (``adamw``'s two, the factored ``mu``, a per-layer scalar's
+    ``mu`` and ``nu``), takes the spec. The factored ``nu_row`` and
+    ``nu_col`` are whole: they have one rank less than their leaf in the JAX
+    package, whether a layer holds its rows or the first layer of a stack of
+    vectors holds the leaf's ``nu_col``. The 8-bit blocks (n, block) are
+    2-D, and take the JAX leaf's spec where that leaf is 2-D: an unstacked
+    matrix (the embedding, an untied read-out), or a stack of per-layer
+    vectors, (None,) then the vector's spec, whether its first layer holds
+    the blocks of every layer or each layer a slice of them. The spec is
+    the JAX package's even where its axes do not divide a block tensor's dim
+    (an (n, 1) scale); ``fit_spec`` places it."""
     out = {}
     for name, leaf in state.items():
         spec = tuple(specs[name])
+        jax_spec = ((None,) + spec) if stacked(name) else spec
         out[name] = {}
         for key, t in leaf.items():
             shape = tuple(t.shape) if isinstance(t, torch.Tensor) else tuple(t)
             if key in BLOCK_KEYS:
-                inherits = len(spec) == 2 and not stacked(name)
+                out[name][key] = jax_spec if len(jax_spec) == 2 else (None,) * len(shape)
+            elif key in FACTORED_KEYS or len(shape) != len(spec):
+                out[name][key] = (None,) * len(shape)
             else:
-                inherits = len(shape) == len(spec)
-            out[name][key] = spec if inherits else (None,) * len(shape)
+                out[name][key] = spec
     return out
 
 

@@ -15,7 +15,10 @@ its ``ef`` residual are DTensors placed by ``parallel.sharding.param_specs``
 the JAX package's ``opt_state_shardings`` places it
 (``sharding.opt_state_specs``): the ``adamw`` moments and the factored first
 moment like their parameter, the factored row and column statistics whole,
-the 8-bit blocks like their parameter only for the unstacked 2-D leaves. The
+the 8-bit blocks like the JAX leaf where it is 2-D. A stack of per-layer
+tensors that the optimizer updates as its JAX leaf (``adamw.stacks``) is
+updated together: a factored stack of vectors on the shards as one (units,
+d) leaf, an 8-bit stack whose blocks span its layers gathered whole. The
 model holds this rank's shards (``parallel.tensor.shard_model``): each step
 binds the model's parameters to the masters' local tensors, so no rank holds
 a whole master. Each rank takes its share of every global microbatch
@@ -45,7 +48,7 @@ import torch
 from repro_torch.common.config import RunConfig
 from repro_torch.models import moe
 from repro_torch.models.model import DTYPES, lm_loss, model_inputs
-from repro_torch.models.transformer import stack_positions
+from repro_torch.models.transformer import stacked_leaves
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tensor
@@ -99,21 +102,19 @@ def make_grad_fn(model, run: RunConfig):
     return accumulate
 
 
+def jax_leaves(model) -> Dict[str, str]:
+    """``transformer.stacked_leaves`` of ``model``'s parameters: the stacked
+    JAX leaf of each ``blocks.*`` parameter, which the optimizer takes."""
+    return stacked_leaves(model.cfg, (n for n, _ in model.named_parameters()))
+
+
 def int8_groups(model) -> Dict[str, str]:
     """The JAX leaf of each parameter: the JAX package quantises a leaf with
     one scale, and it stacks the layers of a segment's unit position on one
     leaf, so ``blocks.<layer>.<path>`` of every layer at one (segment,
     position) share a group; any other parameter is a group of its own."""
-    where = stack_positions(model.cfg)
-    groups = {}
-    for name, _ in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "blocks":
-            seg, pos = where[int(parts[1])]
-            groups[name] = f"segment{seg}.unit{pos}." + ".".join(parts[2:])
-        else:
-            groups[name] = name
-    return groups
+    leaves = jax_leaves(model)
+    return {name: leaves.get(name, name) for name, _ in model.named_parameters()}
 
 
 def _group_max(amax: Dict[str, torch.Tensor], groups: Dict[str, str]) -> Dict[str, torch.Tensor]:
@@ -162,6 +163,7 @@ def make_train_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, mesh=
     tcfg = run.train
     accumulate = make_grad_fn(model, run)
     groups = int8_groups(model)
+    leaves = jax_leaves(model)
 
     def step(params, opt_state, batch):
         _, metrics, grads = accumulate(params, batch)
@@ -172,7 +174,7 @@ def make_train_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, mesh=
         grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip_norm)
         lr = adamw.warmup_cosine(opt_state["step"], base_lr=tcfg.learning_rate,
                                  warmup=tcfg.warmup_steps, total=tcfg.total_steps)
-        params, opt_state = adamw.apply_updates(opt_cfg, params, grads, opt_state, lr)
+        params, opt_state = adamw.apply_updates(opt_cfg, params, grads, opt_state, lr, leaves)
         if ef is not None:
             opt_state["ef"] = ef
         return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
@@ -216,16 +218,24 @@ def mark_batch(tp, rows: int, k: int, n: int) -> None:
     tp.batch_replicated = n > 1 and rows % (k * n) != 0
 
 
-def state_specs(opt_cfg: adamw.OptimizerConfig, specs: Dict[str, tuple],
-                shapes: Dict[str, tuple], mesh) -> Dict[str, Dict[str, tuple]]:
-    """Each optimizer state tensor's spec as placed on ``mesh``:
-    ``sharding.opt_state_specs`` of the leaves of whole ``shapes`` whose
-    parameters have ``specs``, each fitted to its tensor (``fit_spec``)."""
-    layout = {n: adamw.state_layout(opt_cfg, shape) for n, shape in shapes.items()}
-    raw = shd.opt_state_specs(specs, {n: {k: v[0] for k, v in lay.items()}
-                                      for n, lay in layout.items()})
-    return {n: {k: shd.fit_spec(spec, layout[n][k][0], mesh) for k, spec in leaf.items()}
+def _fitted_specs(specs: Dict[str, tuple], state: Dict[str, Dict[str, tuple]],
+                  mesh) -> Dict[str, Dict[str, tuple]]:
+    """``sharding.opt_state_specs`` of the state tensors of whole shapes
+    ``state`` ({parameter: {key: shape}}) whose parameters have ``specs``,
+    each fitted to its tensor (``fit_spec``)."""
+    raw = shd.opt_state_specs(specs, state)
+    return {n: {k: shd.fit_spec(spec, state[n][k], mesh) for k, spec in leaf.items()}
             for n, leaf in raw.items()}
+
+
+def state_specs(opt_cfg: adamw.OptimizerConfig, specs: Dict[str, tuple],
+                shapes: Dict[str, tuple], mesh, leaves: Dict[str, str]) -> Dict[str, Dict[str, tuple]]:
+    """Each optimizer state tensor's spec as placed on ``mesh``: that of the
+    state (``adamw.tree_layout`` under ``leaves``) of the leaves of whole
+    ``shapes`` whose parameters have ``specs``."""
+    layout = adamw.tree_layout(opt_cfg, shapes, leaves)
+    return _fitted_specs(specs, {n: {k: v[0] for k, v in lay.items()}
+                                 for n, lay in layout.items()}, mesh)
 
 
 def _spec_placements(specs: Dict[str, Dict[str, tuple]], mesh) -> Dict[str, Dict[str, list]]:
@@ -240,8 +250,8 @@ def shard_train_state(params: Dict[str, torch.Tensor], opt_state, opt_cfg: adamw
     DTensor under ``state_specs`` (Replicate where it is whole)."""
     masters = {n: shd.shard_tensor(p.detach(), mesh, placements[n]) for n, p in params.items()}
     specs = {n: shd.spec_of(placements[n], mesh, p.dim()) for n, p in params.items()}
-    pl = _spec_placements(state_specs(opt_cfg, specs, {n: tuple(p.shape) for n, p in
-                                                       params.items()}, mesh), mesh)
+    pl = _spec_placements(_fitted_specs(specs, {n: {k: tuple(v.shape) for k, v in st.items()}
+                                                for n, st in opt_state["m"].items()}, mesh), mesh)
     state = dict(opt_state)
     state["m"] = {n: {k: shd.shard_tensor(v, mesh, pl[n][k]) for k, v in st.items()}
                   for n, st in opt_state["m"].items()}
@@ -260,18 +270,20 @@ def gather(tree):
     return tree.full_tensor() if isinstance(tree, DTensor) else tree
 
 
-def local_opt_state(opt_cfg: adamw.OptimizerConfig, params: Dict[str, torch.Tensor], mesh):
+def local_opt_state(opt_cfg: adamw.OptimizerConfig, params: Dict[str, torch.Tensor], mesh,
+                    leaves: Dict[str, str]):
     """``adamw.init_state`` of the whole leaves of ``params`` (a model's
     parameters on their shards: ``tp_spec``, ``tp_full_shape``; whole where
-    they have none), each tensor made on this rank's shard under
-    ``state_specs``: a factored ``mu`` is never whole. Returns (state of
-    local tensors, the specs)."""
+    they have none) under ``leaves``, each tensor made on this rank's shard
+    under ``state_specs``: a factored ``mu`` is never whole. Returns (state
+    of local tensors, the specs)."""
     whole = {n: tuple(getattr(p, "tp_full_shape", p.shape)) for n, p in params.items()}
     specs = state_specs(opt_cfg, {n: tensor.TensorParallel.spec(p) for n, p in params.items()},
-                        whole, mesh)
+                        whole, mesh, leaves)
+    layout = adamw.tree_layout(opt_cfg, whole, leaves)
     m = {n: {k: torch.full(shd.local_shape(shape, specs[n][k], mesh), fill, dtype=dt,
                            device=p.device)
-             for k, (shape, dt, fill) in adamw.state_layout(opt_cfg, whole[n]).items()}
+             for k, (shape, dt, fill) in layout[n].items()}
          for n, p in params.items()}
     device = next(iter(params.values())).device if params else None
     return {"step": torch.zeros((), dtype=torch.int32, device=device), "m": m}, specs
@@ -287,7 +299,7 @@ def init_train_state(model, opt_cfg: adamw.OptimizerConfig, mesh, int8: bool = F
     pl = tensor.placements(model, mesh)
     local = dict(model.named_parameters())
     masters = {n: DTensor.from_local(p.detach(), mesh, pl[n]) for n, p in local.items()}
-    state, specs = local_opt_state(opt_cfg, local, mesh)
+    state, specs = local_opt_state(opt_cfg, local, mesh, jax_leaves(model))
     spl = _spec_placements(specs, mesh)
     state["m"] = {n: {k: DTensor.from_local(v, mesh, spl[n][k]) for k, v in st.items()}
                   for n, st in state["m"].items()}
@@ -390,7 +402,8 @@ class BlockShards(adamw.Shards):
         x = x.reshape(self.periods, -1)
         amax = torch.zeros(self.periods, self.blocks, dtype=torch.float32, device=x.device)
         amax.scatter_reduce_(1, self.block_of.expand(self.periods, -1), x.abs(), "amax")
-        scale = torch.clamp(tensor.all_reduce(amax, self.group, "max") / 127.0, min=1e-12)
+        amax = tensor.all_reduce(amax, self.group, "max")
+        scale = torch.clamp(amax / amax.new_tensor(127.0), min=1e-12)   # as _q8_encode
         q = torch.clamp(torch.round(x / self._scales(scale)), -127, 127).to(torch.int8)
         return (self._move(q, self.to_state).reshape(-1, self.width),
                 scale.reshape(-1, 1))
@@ -425,14 +438,25 @@ def make_local_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, tp):
     sharded_by = {n: {a for e in tp.spec(p) for a in shd._axes_of(e)}
                   for n, p in model.named_parameters()}
     whole = {n: tuple(getattr(p, "tp_full_shape", p.shape)) for n, p in model.named_parameters()}
+    leaves = jax_leaves(model)
     specs = state_specs(opt_cfg, {n: tp.spec(p) for n, p in model.named_parameters()}, whole,
-                        tp.mesh)
+                        tp.mesh, leaves)
+    stacks = adamw.stacks(opt_cfg, whole, leaves)
+    stacked = {n for members in stacks.values() for n in members}
     shards = {n: LeafShards(tp, tp.spec(p), whole[n]) for n, p in model.named_parameters()
-              if "nu_row" in specs[n]}
+              if "nu_row" in specs[n] and n not in stacked}
+    if opt_cfg.kind == "adamw_factored":
+        # a stack of per-layer vectors: the (units, d) leaf, units whole
+        params_now = dict(model.named_parameters())
+        shards.update({leaf: LeafShards(tp, (None,) + tuple(tp.spec(params_now[ms[0]])),
+                                        (len(ms),) + whole[ms[0]])
+                       for leaf, ms in stacks.items()})
     if opt_cfg.kind == "adamw_8bit":
         blocks = {n: block_shards(tp, tp.spec(p), whole[n], specs[n], opt_cfg.block, p.device)
-                  for n, p in model.named_parameters()}
+                  for n, p in model.named_parameters() if n not in stacked}
         shards = {n: b for n, b in blocks.items() if b is not None}
+        # every other leaf gathered whole: a stack, or a leaf as a stack of one
+        gathered = list(stacks.values()) + [[n] for n in blocks if blocks[n] is None]
 
     def cut(t, spec):
         """This rank's shard of a whole ``t``, in storage of its own."""
@@ -443,24 +467,25 @@ def make_local_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, tp):
         """The 8-bit blocks span the flattened leaf. A leaf whose state sits
         like the parameter is updated on its shard (``BlockShards``); any
         other leaf, its gradient and its state are gathered whole in turn,
-        updated, and cut back. The gathered old state is the update's alone,
-        so it is freed as it is decoded, before the new one is encoded."""
+        updated, and cut back, a stack whose blocks span its layers
+        (``adamw.stacks``) with its members together, as one stack. The
+        gathered old state is the update's alone, so it is freed as it is
+        decoded, before the new one is encoded."""
         step, new_m = opt_state["step"], {}
-        for name, p in params.items():
-            if name in shards:
-                new_m[name] = adamw.update_leaf(opt_cfg, p, grads.pop(name),
-                                                dict(opt_state["m"][name]), lr, step,
-                                                shards[name])
-                continue
-            spec, st_specs = tp.spec(p), specs[name]
-            leaf = tp.full(p.detach(), spec)
-            new = adamw.update_leaf(
-                opt_cfg, leaf, tp.full(grads.pop(name), spec),
-                {k: tp.full(v, st_specs[k]) for k, v in opt_state["m"][name].items()}, lr, step)
-            new_m[name] = {k: cut(v, st_specs[k]) for k, v in new.items()}
-            p.copy_(tp.shard(leaf, spec))
-            del leaf, new
-        return {"step": step + 1, "m": new_m}
+        for members in gathered:
+            whole_p = [tp.full(params[n].detach(), tp.spec(params[n])) for n in members]
+            new = adamw.update_stack(
+                opt_cfg, whole_p, [tp.full(grads.pop(n), tp.spec(params[n])) for n in members],
+                [{k: tp.full(v, specs[n][k]) for k, v in opt_state["m"][n].items()}
+                 for n in members], lr, step)
+            for n, leaf, st in zip(members, whole_p, new):
+                new_m[n] = {k: cut(v, specs[n][k]) for k, v in st.items()}
+                params[n].copy_(tp.shard(leaf, tp.spec(params[n])))
+            del whole_p, new
+        for name in shards:
+            new_m[name] = adamw.update_leaf(opt_cfg, params[name], grads.pop(name),
+                                            dict(opt_state["m"][name]), lr, step, shards[name])
+        return {"step": step + 1, "m": {n: new_m[n] for n in params}}
 
     def global_norm(grads):
         """Each leaf's sum of squares summed over the mesh axes that shard
@@ -513,7 +538,7 @@ def make_local_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, tp):
             opt_state = update_8bit(params, grads, opt_state, lr)
         else:
             params, opt_state = adamw.apply_updates(opt_cfg, params, grads, opt_state, lr,
-                                                    shards)
+                                                    leaves, shards)
         if resid is not None:
             opt_state["ef"] = resid
         return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
@@ -530,7 +555,8 @@ def _make_sharded_step(model, run: RunConfig, opt_cfg: adamw.OptimizerConfig, me
     placements = tensor.placements(model, mesh)
     state_pl = _spec_placements(state_specs(
         opt_cfg, {n: tp.spec(p) for n, p in model_params.items()},
-        {n: tuple(p.tp_full_shape) for n, p in model_params.items()}, mesh), mesh)
+        {n: tuple(p.tp_full_shape) for n, p in model_params.items()}, mesh,
+        jax_leaves(model)), mesh)
     rank, n_batch = batch_coordinate(mesh)
     local_step = make_local_step(model, run, opt_cfg, tp)
 

@@ -46,7 +46,8 @@ from repro_torch.optim import adamw
 from repro_torch.parallel import tensor
 from repro_torch.parallel.compression import ErrorFeedback
 from repro_torch.train.hooks import StepMonitor
-from repro_torch.train.steps import gather, init_train_state, make_train_step, shard_train_state
+from repro_torch.train.steps import (gather, init_train_state, jax_leaves, make_train_step,
+                                     shard_train_state)
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -114,7 +115,7 @@ class Trainer:
             self.model = build_model(run, device=self.device, use_kernel=use_kernel)
             self.model.init_weights(generator)
             self.params = dict(self.model.named_parameters())
-            self.opt_state = adamw.init_state(self.opt_cfg, self.params)
+            self.opt_state = adamw.init_state(self.opt_cfg, self.params, jax_leaves(self.model))
             if int8:
                 self.opt_state["ef"] = ErrorFeedback.init(self.params)
         else:

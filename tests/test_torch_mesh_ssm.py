@@ -303,7 +303,7 @@ def _gathers_and_all_to_alls(run, mesh, p0):
     from repro_torch.models.model import build_model
     from repro_torch.optim import adamw
     from repro_torch.parallel import sharding as shd
-    from repro_torch.train.steps import make_train_step, shard_train_state
+    from repro_torch.train.steps import jax_leaves, make_train_step, shard_train_state
     model_group = mesh.get_group("model").group_name
 
     class Mode(TorchDispatchMode):
@@ -329,8 +329,8 @@ def _gathers_and_all_to_alls(run, mesh, p0):
     model = build_model(run, device="cpu")
     model.load_state_dict(p0)
     params = dict(model.named_parameters())
-    masters, state = shard_train_state(params, adamw.init_state(cfg, params), cfg, mesh,
-                                       shd.param_placements(params, mesh))
+    masters, state = shard_train_state(params, adamw.init_state(cfg, params, jax_leaves(model)),
+                                       cfg, mesh, shd.param_placements(params, mesh))
     step = make_train_step(model, run, cfg, mesh)
     parts = [m.head_part() for m in model.modules() if hasattr(m, "head_part")]
     mode = Mode({p.group.name for p in parts if p is not None})

@@ -21,8 +21,8 @@ product and the sum apart, so about one element in seven differs by an ulp
 step. The plain hierarchical reduction sums two values an axis, so it is
 bit-equal. The pipeline 1e-6 (fp32 matmuls in two libraries). Specs equal,
 entry for entry, with the JAX leaf's units dim dropped; the optimizer
-state's too, but for the 8-bit blocks of a stacked leaf (whole here, see the
-test).
+state's too, each state tensor against the JAX one it is a layer's row of or
+holds whole.
 """
 import json
 import os
@@ -46,10 +46,11 @@ RING_SHAPE = (5, 67)           # 335 elements: padded at every world size
 STAGES = [2, 4]
 N_MICRO, MB, D = 6, 2, 8
 OPT_KINDS = ("adamw_factored", "adamw_8bit")
-# the parameters whose 8-bit blocks take their spec: the JAX package's 2-D
-# leaves that are not stacked on a units dim (the embedding, an untied head,
-# zamba2's shared attention block, applied every 6 layers); every other
-# leaf's blocks span layers or are not 2-D, and stay whole
+# the unstacked parameters whose 8-bit blocks take their spec: the JAX
+# package's 2-D leaves that are not stacked on a units dim (the embedding, an
+# untied head, zamba2's shared attention block, applied every 6 layers); of
+# the stacked ones, a stack of vectors is 2-D and its blocks take its spec
+# where an axis splits it (zamba2's per-head vectors and conv bias)
 BLOCKS_SHARDED = {"embed.table", "head", *(f"shared_attn.attn.w{x}" for x in "qkvo"),
                   *(f"shared_attn.mlp.{w}" for w in ("wi_gate", "wi_up", "wo"))}
 
@@ -439,19 +440,25 @@ def test_param_specs_equal_jax_without_the_units_dim(arch, world_outputs, monkey
 def test_opt_state_specs_equal_jax_without_the_units_dim(arch, kind, world_outputs, monkeypatch):
     """``sharding.opt_state_specs`` against the JAX package's
     ``opt_state_shardings`` over ``adamw.init_state``'s tree, on every mesh
-    and variant of the parameter specs' test, leaf for leaf: each state
-    tensor the two share (a per-layer 1-D leaf has ``mu`` and ``nu`` here,
-    ``mu``, ``nu_row`` and ``nu_col`` in its stacked JAX leaf) with the units
-    dim dropped where the JAX leaf is stacked. The 8-bit blocks of a stacked
-    leaf span its layers in the JAX package; the port's blocks of one layer
-    are whole, and exactly ``BLOCKS_SHARDED`` take a spec."""
+    and variant of the parameter specs' test, every state tensor: a layer's
+    row of a stacked JAX state tensor (its moments, a factored member's
+    ``mu`` and ``nu_row`` entry) with the units dim dropped, and a JAX state
+    tensor the port holds whole (a stack of vectors' ``nu_col``, the 8-bit
+    blocks of a stack whose blocks span its layers, a layer's slice of a
+    stack's blocks, an unstacked leaf's state) entry for entry. Exactly the
+    2-D JAX leaves (``BLOCKS_SHARDED`` and the stacks of vectors split over
+    an axis) give their blocks a spec."""
     from repro_torch.optim import adamw
     from repro_torch.parallel import sharding as shd
+    from repro_torch.train.steps import jax_leaves
     _, _, specs = world_outputs
     want = specs[arch]["params"]
-    shapes = {n: tuple(p.shape) for n, p in _port_model(arch, monkeypatch).named_parameters()}
+    model = _port_model(arch, monkeypatch)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     cfg = adamw.OptimizerConfig(kind=kind)
-    state = {n: {k: v[0] for k, v in adamw.state_layout(cfg, s).items()} for n, s in shapes.items()}
+    leaves = jax_leaves(model)
+    layout = adamw.tree_layout(cfg, shapes, leaves)
+    state = {n: {k: v[0] for k, v in lay.items()} for n, lay in layout.items()}
     tables = {m: shd.param_specs(shapes, mesh) for m, mesh in MESHES.items()}
     tables.update({v: shd.param_specs(shapes, MESHES["2pod"], **kw) for v, kw in VARIANTS.items()})
     compared, sharded_blocks = 0, set()
@@ -460,25 +467,23 @@ def test_opt_state_specs_equal_jax_without_the_units_dim(arch, kind, world_outpu
         for name, leaf in got.items():
             ref, stacked = want[name]["opt"][kind][m], want[name]["stacked"]
             assert shd.stacked(name) == stacked, name
+            assert set(leaf) <= set(ref), (name, set(leaf), set(ref))
             for key, spec in leaf.items():
                 assert len(spec) == len(state[name][key]), (m, name, key)
-                if key in shd.BLOCK_KEYS and stacked:
-                    assert not any(spec), (m, name, key, spec)
-                    continue
-                if key not in ref:
-                    assert key == "nu" and len(shapes[name]) == 1, (name, key)
-                    assert spec == table[name], (m, name)
-                    continue
-                r = ref[key][1:] if stacked and key not in shd.BLOCK_KEYS else ref[key]
+                # the JAX tensor held whole by this layer, or a layer's row of it
+                held_whole = (not stacked or key in shd.BLOCK_KEYS
+                              or (key == "nu_col" and len(ref[key]) == 1))
+                r = ref[key] if held_whole else ref[key][1:]
                 assert _as_lists(spec) == r, (m, name, key, spec, ref[key])
                 compared += 1
                 if key in shd.BLOCK_KEYS and any(spec):
                     sharded_blocks.add(name)
-    # every factored leaf's mu on every mesh; the unstacked leaves' blocks
-    unstacked = sum(not want[n]["stacked"] for n in shapes)
-    assert compared >= len(tables) * (len(shapes) if kind == "adamw_factored" else 4 * unstacked)
+    # every state tensor of every parameter on every mesh
+    assert compared == len(tables) * sum(len(lay) for lay in state.values())
     if kind == "adamw_8bit":
-        assert sharded_blocks == BLOCKS_SHARDED & set(shapes), sharded_blocks
+        split_stacks = {n for n, shape in shapes.items() if shd.stacked(n) and len(shape) == 1
+                        and state[n] and any(s for t in tables.values() for s in t[n])}
+        assert sharded_blocks == (BLOCKS_SHARDED & set(shapes)) | split_stacks, sharded_blocks
     else:
         mu = shd.opt_state_specs(tables["1pod"], state)
         assert all(mu[n]["mu"] == tables["1pod"][n] for n in shapes)

@@ -17,6 +17,7 @@ first run's losses exactly.
 """
 import collections
 import dataclasses
+import functools
 import json
 import os
 
@@ -45,7 +46,7 @@ from repro_torch.launch import train as train_cli
 from repro_torch.models import model as torch_model
 from repro_torch.models.model import _chunked_ce, build_model, lm_loss
 from repro_torch.optim import adamw
-from repro_torch.train.steps import make_train_step
+from repro_torch.train.steps import jax_leaves, make_train_step
 from repro_torch.core.faults import Fault
 from repro_torch.train.trainer import FaultInjector, Trainer
 
@@ -285,33 +286,71 @@ def test_warmup_cosine_matches_jax(step):
 
 @pytest.mark.parametrize("kind", ["adamw", "adamw_factored", "adamw_8bit"])
 def test_adamw_three_updates_match_jax(kind):
+    """Three updates of a tree against the JAX package's, 1e-6: unstacked
+    leaves of 1, 2 and 3 dims, and two stacked leaves held one tensor a layer
+    by the port (``blocks.<layer>.norm`` of 3 layers of 100, whose 8-bit
+    blocks span layers, and ``blocks.<layer>.vec`` of 2 layers of 512, whose
+    blocks are a layer's slice): each stack's update and state are the JAX
+    leaf's, every state tensor compared in the JAX layout."""
+    from repro_torch.convert import _to_numpy
     rng = np.random.default_rng(6)
-    shapes = {"w": (64, 32), "b": (32,), "stack": (3, 8, 100)}
+    shapes = {"w": (64, 32), "b": (32,), "stack": (3, 8, 100), "norm": (3, 100),
+              "vec": (2, 512)}
+    stacked = ("norm", "vec")
     p0 = {n: rng.normal(0, 1, s).astype(np.float32) for n, s in shapes.items()}
     cfg, jcfg = adamw.OptimizerConfig(kind=kind), jax_adamw.OptimizerConfig(kind=kind)
-    params = {n: torch.from_numpy(a.copy()) for n, a in p0.items()}
+
+    def port(tree):     # a JAX tree -> the port's names, a stacked leaf a tensor a layer
+        out = {}
+        for n, a in tree.items():
+            if n in stacked:
+                out.update({f"blocks.{i}.{n}": torch.from_numpy(np.array(a[i]))
+                            for i in range(a.shape[0])})
+            else:
+                out[n] = torch.from_numpy(np.array(a))
+        return out
+
+    def members(n):
+        return [f"blocks.{i}.{n}" for i in range(shapes[n][0])]
+
+    leaves = {m: n for n in stacked for m in members(n)}
+    params = port(p0)
     jparams = {n: jnp.asarray(a) for n, a in p0.items()}
-    state, jstate = adamw.init_state(cfg, params), jax_adamw.init_state(jcfg, jparams)
+    state, jstate = adamw.init_state(cfg, params, leaves), jax_adamw.init_state(jcfg, jparams)
+    assert set(adamw.stacks(cfg, {n: tuple(p.shape) for n, p in params.items()}, leaves)) == (
+        {"norm", "vec"} if kind == "adamw_factored" else {"norm"} if kind == "adamw_8bit"
+        else set())
     for i in range(3):
         g = {n: rng.normal(0, 1e-2, s).astype(np.float32) for n, s in shapes.items()}
-        tg, jg = {n: torch.from_numpy(a) for n, a in g.items()}, {
-            n: jnp.asarray(a) for n, a in g.items()}
+        tg, jg = port(g), {n: jnp.asarray(a) for n, a in g.items()}
         tg, norm = adamw.clip_by_global_norm(tg, 0.5)
         jg, jnorm = jax_adamw.clip_by_global_norm(jg, 0.5)
         np.testing.assert_allclose(norm.item(), float(jnorm), rtol=1e-6)
         kw = dict(base_lr=1e-2, warmup=2, total=10)
         lr, jlr = adamw.warmup_cosine(state["step"], **kw), jax_adamw.warmup_cosine(
             jstate["step"], **kw)
-        params, state = adamw.apply_updates(cfg, params, tg, state, lr)
+        params, state = adamw.apply_updates(cfg, params, tg, state, lr, leaves)
         jparams, jstate = jax_adamw.apply_updates(jcfg, jparams, jg, jstate, jlr)
         assert int(state["step"]) == int(jstate["step"]) == i + 1
-        for n in shapes:
-            np.testing.assert_allclose(params[n].numpy(), np.asarray(jparams[n]),
+        want_p = port(jax.tree.map(np.asarray, jparams))
+        for n in params:
+            np.testing.assert_allclose(params[n].numpy(), want_p[n].numpy(),
                                        atol=1e-6, rtol=1e-6, err_msg=f"{kind} {n} update {i}")
-            for key, val in state["m"][n].items():
-                np.testing.assert_allclose(val.float().numpy(),
-                                           np.asarray(jstate["m"][n][key], np.float32),
-                                           atol=1e-6, rtol=1e-6, err_msg=f"{n}/{key}")
+        for n in shapes:
+            sts = [state["m"][m] for m in (members(n) if n in stacked else [n])]
+            for key, want in jstate["m"][n].items():
+                if n not in stacked:
+                    got = _to_numpy(sts[0][key])
+                elif key in ("mu_q", "mu_s", "nu_q", "nu_s") and not all(sts):
+                    got = _to_numpy(sts[0][key])          # the first layer holds them all
+                elif key in ("mu_q", "mu_s", "nu_q", "nu_s"):
+                    got = np.concatenate([_to_numpy(st[key]) for st in sts])
+                elif key == "nu_col" and np.ndim(want) == 1:
+                    got = _to_numpy(sts[0][key])
+                else:
+                    got = np.stack([_to_numpy(st[key]) for st in sts])
+                np.testing.assert_allclose(got, np.asarray(want, np.float32), atol=1e-6,
+                                           rtol=1e-6, err_msg=f"{n}/{key}")
     assert adamw.state_bytes_per_param(kind) == jax_adamw.state_bytes_per_param(kind)
 
 
@@ -364,7 +403,7 @@ def test_two_train_steps_match_a_jax_step(no_shard):
     jstep, step = _jax_train_step(jm, jrun, jcfg), make_train_step(model, run, cfg)
     jstate = jax_adamw.init_state(jcfg, params)
     tparams = dict(model.named_parameters())
-    state = adamw.init_state(cfg, tparams)
+    state = adamw.init_state(cfg, tparams, jax_leaves(model))
     p0 = {n: p.detach().clone() for n, p in tparams.items()}
     for i in range(2):
         jb, tb = _batch(jrun.model, seed=10 + i)
@@ -379,6 +418,181 @@ def test_two_train_steps_match_a_jax_step(no_shard):
                                    err_msg=n)
     moved = max((tparams[n] - p0[n]).abs().max().item() for n in p0)
     assert moved > 1e-4          # the updates are above the tolerance
+
+
+# --- the factored and 8-bit optimizers over the stacked JAX leaves -------------------
+
+# a one-unit tail segment and Mamba2's per-head vectors (zamba2-7b); norm scales
+# of 72, which the 8-bit block does not divide, and 2-D layers of 72 x 72
+# (smollm-135m); the single dense layer and MLA's norms (deepseek-v2-236b)
+STACK_ARCHS = ["zamba2-7b", "smollm-135m", "deepseek-v2-236b"]
+STACK_KINDS = ["adamw_factored", "adamw_8bit"]
+STACK_TRAIN = dict(warmup_steps=1, learning_rate=1e-4)
+
+
+@functools.lru_cache(maxsize=None)
+def _stack_reference(arch):
+    """The JAX LM of ``arch`` (fp32, one microbatch), its init (jitted; the
+    cross gates drawn) and its loss's gradient jitted: one compile an arch,
+    for both optimizers."""
+    jrun = jax_configs.get_smoke_config(arch)
+    jrun = jrun.replace(parallel=dataclasses.replace(jrun.parallel, param_dtype="float32",
+                                                     microbatches=1),
+                        train=dataclasses.replace(jrun.train, **STACK_TRAIN))
+    jm = jax_model.build_model(jrun, use_kernel=False)
+    grad = jax.jit(jax.value_and_grad(lambda p, b: jax_model.lm_loss(jm, p, b), has_aux=True))
+    return jrun, _gated(jax.jit(jm.init)(jax.random.key(0))), grad
+
+
+def _jax_update(jrun, jcfg):
+    """repro/train/steps.py's update after the gradient, jitted: clip,
+    schedule, ``apply_updates`` on the stacked tree (eager, a smoke tree's
+    update takes seconds of op dispatch)."""
+    def update(params, g, state):
+        g, _ = jax_adamw.clip_by_global_norm(g, jrun.train.grad_clip_norm)
+        lr = jax_adamw.warmup_cosine(state["step"], base_lr=jrun.train.learning_rate,
+                                     warmup=jrun.train.warmup_steps, total=jrun.train.total_steps)
+        return jax_adamw.apply_updates(jcfg, params, g, state, lr)
+    return jax.jit(update)
+
+
+def _flips(got: torch.Tensor, want: torch.Tensor):
+    """(elements off 1e-5, their number): an 8-bit code or a bf16 moment may
+    differ by one step (a code, a bf16 ulp) where its fp32 value sat on a
+    rounding tie, which the order of the sums decides (the int8 test above
+    counts them so)."""
+    step = 1.0 if want.dtype == torch.int8 else want.float().abs() * 2.0 ** -7
+    diff = (got.float() - want.float()).abs()
+    off = diff > 1e-5 + 1e-5 * want.float().abs()
+    assert bool((diff <= step + 1e-30)[off].all()), "a flip of more than one step"
+    return int(off.sum()), want.numel()
+
+
+def _hold_state(state, want, kind):
+    """Every state tensor of the port's layout against the JAX state carried
+    across (``convert.opt_state_from_jax``): the same keys and shapes; fp32
+    statistics and 8-bit scales 1e-5; int8 codes and bf16 moments equal but
+    for flips at ties, at most 1 in 2,000."""
+    assert {n: {k: (tuple(v.shape), v.dtype) for k, v in st.items()}
+            for n, st in state["m"].items()} == {
+        n: {k: (tuple(v.shape), v.dtype) for k, v in st.items()} for n, st in want["m"].items()}
+    assert int(state["step"]) == int(want["step"])
+    flips = total = 0
+    for n, st in state["m"].items():
+        for k, v in st.items():
+            if v.dtype in (torch.int8, torch.bfloat16):
+                f, t = _flips(v, want["m"][n][k])
+                flips, total = flips + f, total + t
+            else:
+                np.testing.assert_allclose(v.numpy(), want["m"][n][k].numpy(), rtol=1e-5,
+                                           atol=1e-12 if k.endswith("_s") else 1e-5,
+                                           err_msg=f"{kind} {n}/{k}")
+    assert flips <= total / 2000, f"{kind}: {flips} of {total} codes or moments flipped"
+
+
+@pytest.mark.parametrize("kind", STACK_KINDS)
+@pytest.mark.parametrize("arch", STACK_ARCHS)
+def test_stacked_optimizer_steps_match_the_jax_step(arch, kind, no_shard):
+    """Two steps of ``make_train_step`` under ``adamw_factored`` and
+    ``adamw_8bit`` against the JAX step on the stacked tree (fp32, one
+    microbatch, a learning rate of 1e-4 from the first step): the loss
+    1e-5; every parameter 1e-5 after the first step (1-D stacked leaves, a
+    one-layer stack and the layers whose 8-bit blocks span two layers
+    included) and the state as ``_hold_state`` holds it; after the second
+    step every parameter 1e-5 again but for an 8-bit element whose moment's
+    code after the first step differs from the JAX code (a tie) or whose
+    second moment's code is 0 (its update then turns a small gradient's
+    rounding into up to lr), found element by element
+    (``_ties.unsettled``), and the state as before. Then the JAX state
+    after its first step carried into the port
+    (``convert.opt_state_from_jax``, whose inverse gives it back exactly):
+    the port's step from it is the JAX second step, held likewise (no code
+    differs there)."""
+    from _ties import unsettled
+    from repro_torch.convert import opt_state_from_jax, opt_state_to_jax
+    jrun, p0, grad = _stack_reference(arch)
+    jcfg, cfg = jax_adamw.OptimizerConfig(kind=kind), adamw.OptimizerConfig(kind=kind)
+    run = _run(arch, microbatches=1)
+    run = run.replace(train=dataclasses.replace(run.train, **STACK_TRAIN))
+
+    def np_tree(t):
+        return jax.tree.map(np.asarray, t)
+
+    def port_model(jparams):
+        model = build_model(run, device="cpu")
+        model.load_state_dict(params_from_jax(np_tree(jparams), run.model))
+        return model
+
+    model = port_model(p0)
+    leaves = jax_leaves(model)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    stacks = adamw.stacks(cfg, shapes, leaves)
+    assert stacks, "no stacked leaf is updated as one"
+    step = make_train_step(model, run, cfg)
+    params = dict(model.named_parameters())
+    state = adamw.init_state(cfg, params, leaves)
+    update = _jax_update(jrun, jcfg)
+    jstate = jax.jit(lambda p: jax_adamw.init_state(jcfg, p))(p0)   # eager, 8-bit compiles a leaf
+    jparams, batches, history = p0, [], []
+
+    def hold(params, jparams, label, loose=None):
+        """Every parameter 1e-5 against the JAX tree's, but for the elements
+        ``loose`` names."""
+        want = params_from_jax(np_tree(jparams), run.model)
+        for n, p in params.items():
+            got, w = p.detach(), want[n]
+            off = (got - w).abs() > 1e-5 + 1e-5 * w.abs()
+            if loose is not None:
+                off &= ~torch.from_numpy(loose[n])
+            assert not bool(off.any()), \
+                f"{label} {n}: {int(off.sum())} elements off 1e-5, max {float((got - w).abs().max())}"
+
+    for i in range(2):
+        jb, tb = _batch(jrun.model, seed=10 + i)
+        batches.append(tb)
+        history.append((jparams, jstate))
+        (jloss, _), g = grad(jparams, jb)
+        jparams, jstate = update(jparams, g, jstate)
+        params, state, met = step(params, state, tb)
+        np.testing.assert_allclose(met["loss"].item(), float(jloss), rtol=1e-5,
+                                   err_msg=f"step {i} loss")
+        want_state = opt_state_from_jax(np_tree(jstate), run.model)
+        _hold_state(state, want_state, kind)
+        if i == 0:
+            hold(params, jparams, "step 1")
+            state1, want1 = state, want_state   # the next step returns a new state
+    hold(params, jparams, "step 2",
+         unsettled(state1["m"], want1["m"], shapes, stacks) if kind == "adamw_8bit" else None)
+    jstate1 = np_tree(history[1][1])
+    # the reference's state after its first step, carried across
+    back = opt_state_to_jax(opt_state_from_jax(jstate1, run.model), run.model, jstate1)
+    jax.tree.map(lambda a, b: np.testing.assert_array_equal(a, np.asarray(b, a.dtype)),
+                 back, jax.tree.map(lambda a: a.astype(np.float32) if a.dtype == jnp.bfloat16
+                                    else a, jstate1))
+    model = port_model(history[1][0])
+    params = dict(model.named_parameters())
+    params, _, _ = make_train_step(model, run, cfg)(
+        params, opt_state_from_jax(jstate1, run.model), batches[1])
+    hold(params, jparams, "from the JAX state",
+         unsettled(want1["m"], want1["m"], shapes, stacks) if kind == "adamw_8bit" else None)
+
+
+def test_a_checkpoint_of_the_per_layer_state_is_refused(tmp_path):
+    """A checkpoint whose factored state is the per-layer layout (each norm
+    scale's own dense moments) does not restore into a Trainer whose state
+    is the stacked leaf's: the restore raises and names the leaf."""
+    run = get_smoke_config("gemma2-2b")
+    run = run.replace(parallel=dataclasses.replace(run.parallel, optimizer_state="adamw_factored"),
+                      train=dataclasses.replace(run.train, checkpoint_every=100))
+    shape = ShapeSpec("train", run.train.seq_len, run.train.global_batch, "train")
+    tr = Trainer(run, shape, str(tmp_path), device="cpu", checkpoint_async=False)
+    old = {n: {k: torch.full(s, f, dtype=d) for k, (s, d, f) in
+               adamw.state_layout(tr.opt_cfg, p.shape).items()} for n, p in tr.params.items()}
+    assert "nu" in old["blocks.0.ln1.scale"] and "nu_row" in tr.opt_state["m"]["blocks.0.ln1.scale"]
+    tr.ckpt.save(0, {"params": tr.params, "opt": {"step": tr.opt_state["step"], "m": old},
+                     "step": np.asarray(0)}, blocking=True)
+    with pytest.raises(ValueError, match=r"opt/m/blocks\.\d+\.\w+"):
+        tr.restore(0)
 
 
 # --- int8 gradient compression ----------------------------------------------------
@@ -477,7 +691,7 @@ def test_two_int8_train_steps_match_the_jax_step(arch, int8_reference):
     cfg = adamw.OptimizerConfig()
     step = make_train_step(model, run, cfg)
     params = dict(model.named_parameters())
-    state = adamw.init_state(cfg, params)
+    state = adamw.init_state(cfg, params, jax_leaves(model))
     for i in range(2):
         batch = torch_model.synthetic_batch(run.model, ShapeSpec("t", SEQ, INT8_BATCH, "train"),
                                             seed=10 + i, device="cpu")
@@ -523,7 +737,7 @@ def test_int8_gradients_reach_the_clip_in_fp32_from_bf16_params(monkeypatch):
     params = dict(model.named_parameters())
     cfg = adamw.OptimizerConfig()
     _, state, met = make_train_step(model, run, cfg)(
-        params, adamw.init_state(cfg, params),
+        params, adamw.init_state(cfg, params, jax_leaves(model)),
         torch_model.synthetic_batch(run.model, ShapeSpec("t", SEQ, 2, "train"), device="cpu"))
     assert {p.dtype for p in params.values()} == {torch.bfloat16}
     assert set(seen.values()) == {torch.float32} and set(seen) == set(params)
